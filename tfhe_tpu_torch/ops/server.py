@@ -1,0 +1,204 @@
+"""Server-side operations of the KS -> PBS main path, in torch.
+
+Torch counterpart of the main-path subset of ``tfhe_tpu/ops/server.py``:
+
+- keyswitch: ``core_crypto/algorithms/lwe_keyswitch.rs:137-230``, computed
+  as ONE int8 GEMM of the gadget digits against the KSK in signed base-256
+  limbs (``torch._int_mm``; the JAX package leaves the same product to
+  XLA's ``jnp.dot``);
+- modulus switch to 2N with the centered-binary body correction
+  (``algorithms/modulus_switch.rs:35-104``);
+- sample extraction (``algorithms/glwe_sample_extraction.rs:89``);
+- the v6/v6b programmable bootstrap: K2 body rotation, K1 blind rotation
+  (``ops/pbs_kernel.py``), sample extraction.
+
+Tensors are int64 torus values (see ``_torus.py``), batched over leading
+dims.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .._torus import srl
+from . import bnf2 as bnf2_mod
+from . import pbs_kernel as pk
+from .decomp import decompose
+
+# ---------------------------------------------------------------------------
+# keyswitch (int8 GEMM)
+# ---------------------------------------------------------------------------
+
+
+def ksk_to_i8_limbs(ksk: np.ndarray, base_log: int) -> np.ndarray:
+    """The KSK in signed base-256 limb form: every u64 entry rewritten as
+    sum(limb_k * 256^k) mod 2^64 with limb_k in [-128, 127] (the 9th carry
+    limb contributes 2^64 == 0 and is dropped).
+    u64[n_in, l, n_out+1] -> int8[n_in * l, (n_out+1) * 8] (numpy, host)."""
+    # base_log == 8 would admit a +128 balanced digit, which wraps in int8
+    assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
+    v = np.asarray(ksk, dtype=np.uint64).copy()
+    limbs = np.empty(v.shape + (8,), dtype=np.int8)
+    for k in range(8):
+        r = (v & np.uint64(0xFF)).astype(np.int64)
+        r = np.where(r > 127, r - 256, r)
+        limbs[..., k] = r.astype(np.int8)
+        v = (v - r.astype(np.uint64)) >> np.uint64(8)
+    n_in, l, o = ksk.shape
+    return limbs.reshape(n_in * l, o * 8)
+
+
+def keyswitch_mxu(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
+                  levels: int) -> torch.Tensor:
+    """LWE keyswitch as one int8 x int8 -> int32 GEMM.
+
+    out = [0 | b] - sum_{i,l} digit_{i,l} * KSK[i, l], with the digits
+    ``[B, n_in*l]`` multiplied against the limbs ``[n_in*l, (n_out+1)*8]``
+    and the 8 limb sums recombined as sum_k s_k * 2^(8k) mod 2^64. Exact:
+    |digit| <= 2^(base_log-1) <= 64 and |limb| <= 128, so a row sum stays
+    below K * 2^13 < 2^31 for K up to 2^18.
+
+    ``ct``: int64[..., n_in+1]; ``ksk_i8``: int8[n_in*l, (n_out+1)*8]."""
+    K, O8 = ksk_i8.shape
+    n_in = K // levels
+    n_out = O8 // 8 - 1
+    a = ct[..., :n_in]
+    b = ct[..., n_in]
+    batch = ct.shape[:-1]
+    d8 = decompose(a, base_log, levels).to(torch.int8).reshape(-1, K)
+    B = d8.shape[0]
+    # torch._int_mm on CUDA wants m > 16 and m % 8 == 0
+    pad = max(24, -(-B // 8) * 8) - B
+    if pad:
+        d8 = torch.cat([d8, d8.new_zeros((pad, K))])
+    sums = torch._int_mm(d8, ksk_i8)[:B]
+    sums = sums.reshape(batch + (n_out + 1, 8)).to(torch.int64)
+    w = torch.tensor([1 << (8 * k) for k in range(8)], dtype=torch.int64,
+                     device=ct.device)
+    total = (sums * w).sum(dim=-1)
+    out = -total
+    out[..., n_out] += b
+    return out
+
+
+# ---------------------------------------------------------------------------
+# modulus switch
+# ---------------------------------------------------------------------------
+
+def modulus_switch(x: torch.Tensor, log_modulus: int) -> torch.Tensor:
+    """Round to the nearest multiple of 2^64 / 2^log_modulus; the switched
+    value in [0, 2^log_modulus) (fft_impl/common.rs:10)."""
+    half = 1 << (64 - log_modulus - 1)
+    return srl(x + half, 64 - log_modulus)
+
+
+def _trunc_div2(x: torch.Tensor) -> torch.Tensor:
+    """Rust-style truncated (toward zero) division by two."""
+    return torch.div(x, 2, rounding_mode="trunc")
+
+
+def centered_binary_ms_body_correction(mask: torch.Tensor,
+                                       log_modulus: int) -> torch.Tensor:
+    """Correction added to the body before a centered-binary modulus switch
+    (CenteredMeanNoiseReduction, algorithms/modulus_switch.rs:57).
+    ``mask``: int64[..., n] -> int64[...]."""
+    rounded = modulus_switch(mask, log_modulus) << (64 - log_modulus)
+    err = rounded - mask  # signed rounding error (wrapping difference)
+    half_err = _trunc_div2(err)
+    halving_err_doubled = 2 * half_err - err  # in {-1, 0, 1}
+    sum_half = half_err.sum(dim=-1)
+    sum_halving = halving_err_doubled.sum(dim=-1)
+    sum_half = sum_half - _trunc_div2(sum_halving)
+    return sum_half - (1 << (64 - log_modulus - 1))
+
+
+def lwe_centered_binary_modulus_switch(ct: torch.Tensor, log_modulus: int):
+    """(switched_mask, switched_body) in [0, 2^log_modulus), with the
+    centered-binary body correction applied before the switch."""
+    n = ct.shape[-1] - 1
+    mask = ct[..., :n]
+    corr = centered_binary_ms_body_correction(mask, log_modulus)
+    return (modulus_switch(mask, log_modulus),
+            modulus_switch(ct[..., n] + corr, log_modulus))
+
+
+def lwe_standard_modulus_switch(ct: torch.Tensor, log_modulus: int):
+    n = ct.shape[-1] - 1
+    return (modulus_switch(ct[..., :n], log_modulus),
+            modulus_switch(ct[..., n], log_modulus))
+
+
+# ---------------------------------------------------------------------------
+# sample extraction
+# ---------------------------------------------------------------------------
+
+def sample_extract(glwe: torch.Tensor, nth: int = 0) -> torch.Tensor:
+    """GLWE -> LWE of the nth coefficient (glwe_sample_extraction.rs:89).
+    ``glwe``: int64[..., k+1, N] -> int64[..., k*N + 1]."""
+    k = glwe.shape[-2] - 1
+    N = glwe.shape[-1]
+    body = glwe[..., k, nth]
+    rev = glwe[..., :k, :].flip(-1)
+    opp = N - nth - 1
+    idx = torch.arange(N, device=glwe.device)
+    neg = torch.where(idx < opp, -rev, rev)
+    out_mask = torch.roll(neg, -opp, dims=-1).reshape(glwe.shape[:-2]
+                                                      + (k * N,))
+    return torch.cat([out_mask, body[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# programmable bootstrap (v6 / v6b)
+# ---------------------------------------------------------------------------
+
+def acc_mode() -> str:
+    """The accumulator mode the v6 path runs in (``TFHE_V4_ACC``, default
+    32, the mode the JAX package ships)."""
+    return os.environ.get("TFHE_V4_ACC", "32")
+
+
+def programmable_bootstrap_bnf2(
+    ct_in: torch.Tensor,
+    lut: torch.Tensor,
+    bsk_scan2: torch.Tensor,
+    base_log: int,
+    levels: int,
+    centered_ms: bool = True,
+    extract_nth: int = 0,
+    flavor=None,
+) -> torch.Tensor:
+    """Classic PBS on the 2-prime BNF path: modulus switch -> K2 body
+    rotation -> K1 blind rotation (acc32) -> sample extraction.
+
+    ``ct_in``: int64[..., n+1] under the small key; ``lut``: int64[R, N]
+    (shared) or [..., R, N]; ``bsk_scan2``: int32[n, 2, 2, l*R, R, N] from
+    ``bnf2.bootstrap_key_to_bnf2``. CUDA tensors run the kernels, CPU
+    tensors their plain versions. Returns int64[..., k*N + 1]."""
+    if acc_mode() != "32":
+        raise NotImplementedError(
+            "TFHE_V4_ACC=64 (the two-plane BNF accumulator) is not ported "
+            "yet: ROADMAP Queue B, B1-two-plane")
+    fl = flavor or bnf2_mod.DEFAULT
+    N = bsk_scan2.shape[5]
+    log_modulus = N.bit_length()
+    if centered_ms:
+        ms_mask, ms_body = lwe_centered_binary_modulus_switch(ct_in,
+                                                              log_modulus)
+    else:
+        ms_mask, ms_body = lwe_standard_modulus_switch(ct_in, log_modulus)
+    batch = ct_in.shape[:-1]
+    n_small = ct_in.shape[-1] - 1
+    ms_mask = ms_mask.reshape(-1, n_small)
+    ms_body = ms_body.reshape(-1)
+    if lut.ndim > 2:
+        lut = lut.expand(batch + lut.shape[-2:]).reshape(
+            (-1,) + lut.shape[-2:]).contiguous()
+    hi = pk.body_rotate_acc32(lut, ms_body)
+    hi = pk.blind_rotate_bnf2_acc32(hi, ms_mask, bsk_scan2, base_log, levels,
+                                    fl)
+    rotated = hi.to(torch.int64) << 32
+    out = sample_extract(rotated, extract_nth)
+    return out.reshape(batch + (out.shape[-1],))
