@@ -1,37 +1,50 @@
 #!/usr/bin/env python3
-"""Drive tfhe_tpu_torch's main path on one NVIDIA GPU and check it.
+"""Drive tfhe_tpu_torch's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 
-1. build every CUDA kernel of the path from ``tfhe_tpu_torch/csrc`` (one
-   nvcc per source, all at once) and print the build time and ptxas'
-   register / shared-memory report;
-2. ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` keygen (seeded), encryption of a batch
-   of 2048 covering all 16 message+carry values;
-3. each kernel against its plain PyTorch version on the same inputs, exact
-   equality required (integer arithmetic): at the main path's own shapes
-   (the KS -> modulus-switch outputs of this batch, the full 866-step
-   key), plus a 32-step DEFAULT-flavor case and a 1_1-geometry case;
-4. the main path through the user entry point
-   ``ServerKey.apply_lookup_table`` with every launch count zeroed just
-   before and read just after; the batch must decrypt to the clear
-   function and both kernels must have launched;
-5. timing with CUDA events: each kernel, its plain version, the int8
-   keyswitch GEMM and the whole KS -> PBS step (PBS/s);
-6. the card's name and power limit, a ``{"kernels": [...]}`` line, and
-   last the ``{"ok": true, "device": {...}}`` line.
+1. build every CUDA kernel from ``tfhe_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and print the build time and ptxas' register,
+   spill and shared-memory report;
+2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
+   a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
+   against their plain versions (exact) on the path's own inputs (the
+   whole batch, all 866 steps) and at three 32-step cases;
+   ``ServerKey.apply_lookup_table`` with the launch counts zeroed just
+   before and read just after; timings;
+3. boolean gates at ``BOOLEAN_DEFAULT_PARAMETERS`` (exact CRT, P = 3):
+   seeded keygen, 4096 random pairs, every gate (``not_`` and ``mux``
+   included) against its truth table; K2 u64 and K3 against their plain
+   versions at the path's shapes (K3's on 64 ciphertexts, all 805 steps);
+   launch counts around one gate call; gates/s for ``and_`` and ``mux``;
+4. FHE Trivium at ``BOOLEAN_DEFAULT_PARAMETERS``: encrypted key, the full
+   1152-round FHE warm-up, 256 keystream bits against the clear cipher, 64
+   bits transciphered; warm-up seconds and keystream bits/s;
+5. shortint ``TFHE_NTT_VARIANT=crt`` at 2_2 (K2 u64, K3 with P = 4) and
+6. shortint ``TFHE_V4_ACC=64`` at 2_2 (v6b, two-plane: K2 u64, K3-bnf2):
+   each a batch of 512 through ``apply_lookup_table`` with the launch
+   counts around it, decrypting to 3x mod 16, PBS/s; K2 u64 and the K3
+   entry against their plain versions on that batch's own keyswitched
+   inputs (K3's on its first 64 ciphertexts, all 866 steps), and K3 on
+   random u64 accumulators over 32 steps; K3 timed at B = 512;
+7. the card's name and power limit, a ``{"kernels": [...]}`` line, and last
+   the ``{"ok": true, "device": {...}}`` line.
 
-Bounds: ``bound_ms`` is the larger of the bytes the kernel must move over
-the card's HBM rate (3.35 TB/s, H100 SXM data sheet) and its int32
-operations over the INT32 instruction rate (64 lanes per SM x SMs x max SM
-clock); the operation count model is ``k1_int32_ops`` below.
+Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
+the mean of 200 back-to-back launches between one pair of events). Bounds:
+``bound_ms`` is the larger of the bytes the kernel must move over the
+card's HBM rate (3.35 TB/s, H100 SXM data sheet) and its int32 operations
+over the INT32 instruction rate (64 lanes per SM x SMs x max SM clock); the
+operation count models are ``step_int32_ops`` below.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -40,9 +53,16 @@ import time
 import numpy as np
 
 SEED = 0x5EED
-BATCH = 2048
+BATCH = 2048  # shortint 2_2 main path
+BOOL_BATCH = 4096  # boolean gates
+SIDE_BATCH = 512  # shortint crt and two-plane phases
+PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units per SM
+K2_LAUNCHES = 200  # back-to-back launches per K2 timing
+TRIVIUM_KEY = [(i * 7 + 3) % 2 for i in range(80)]
+TRIVIUM_IV = [(i * 5 + 1) % 2 for i in range(80)]
+DEVICE = "cuda"
 
 
 def nvidia_smi(query: str) -> str:
@@ -71,9 +91,31 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return statistics.median(times)
 
 
-def max_abs_err_u32(a, b) -> int:
-    m = (1 << 32) - 1
-    return int(((a.long() & m) - (b.long() & m)).abs().max().item())
+def cuda_ms_loop(fn, launches: int) -> float:
+    """Mean device time of ``fn`` in ms over ``launches`` back-to-back runs
+    between one pair of CUDA events (for kernels of tens of µs)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| of two integer tensors: u32 values in int32 storage,
+    or u64 torus values in int64 storage (the wrapped, centered distance)."""
+    import torch
+
+    if a.dtype == torch.int32:
+        m = (1 << 32) - 1
+        return float(((a.long() & m) - (b.long() & m)).abs().max().item())
+    return float((a - b).double().abs().max().item())
 
 
 def int32_rate() -> float:
@@ -85,68 +127,154 @@ def int32_rate() -> float:
     return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
-def k1_int32_ops(B: int, n: int, R: int, levels: int, N: int) -> float:
-    """int32 operations K1 needs: per step and ciphertext, 2*l*R forward
-    and 2*R inverse transforms of N/2*log2(N) butterflies (10 ops each: a
-    Shoup multiply of 6 and two modular add/subs), the twist of 2*l*R*N
-    digits and the untwist of 2*R*N residues (6 each) and 2*R*l*R*N Shoup
-    MACs (8 each)."""
+def garner_ops(P: int) -> int:
+    """int32 operations of the Garner tail per coefficient: for digit i,
+    i-1 Horner Shoup multiply-adds (7) and the difference plus its Shoup
+    multiply (8); P-1 u64 multiply-adds (5); the sign select (4)."""
+    return sum(7 * (i - 1) + 8 for i in range(1, P)) + 5 * (P - 1) + 4
+
+
+BNF2_C32_OPS = 12  # qp_to_torus32: Shoup multiply, widening multiply, adds
+BNF2_C_OPS = 30  # crt2_merge + qp_to_torus on u32 pairs
+
+
+def step_int32_ops(B: int, n: int, R: int, levels: int, N: int, P: int,
+                   tail_ops: int) -> float:
+    """int32 operations of a blind-rotation kernel: per step and
+    ciphertext, P*l*R forward and P*R inverse transforms of N/2*log2(N)
+    butterflies (10 ops each: a Shoup multiply of 6 and two modular
+    add/subs), the twist of P*l*R*N digits and the untwist of P*R*N
+    residues (6 each), P*R*l*R*N Shoup MACs (8 each) and the tail on R*N
+    coefficients."""
     lR = levels * R
     log_n = N.bit_length() - 1
-    per = ((2 * lR + 2 * R) * (N // 2) * log_n * 10
-           + (2 * lR * N + 2 * R * N) * 6 + 2 * R * lR * N * 8)
+    per = ((P * lR + P * R) * (N // 2) * log_n * 10
+           + (P * lR * N + P * R * N) * 6 + P * R * lR * N * 8
+           + R * N * tail_ops)
     return float(B) * n * per
 
 
-def k1_bytes(B: int, n: int, R: int, levels: int, N: int) -> float:
-    key = n * 2 * 2 * levels * R * R * N * 4
-    return key + 2 * B * R * N * 4 + B * n * 4 + 2 * 8 * N * 4
+def step_bytes(B: int, n: int, R: int, levels: int, N: int, P: int,
+               acc_bytes: int) -> float:
+    """Bytes a blind-rotation kernel must move: the key once, the
+    accumulator in and out, the mask, the constant tables."""
+    key = n * 2 * P * levels * R * R * N * 4
+    return key + 2 * B * R * N * acc_bytes + B * n * 4 + P * 8 * N * 4
 
 
-def k2_bytes(B: int, R: int, N: int, shared_lut: bool) -> float:
+def k2_bytes(B: int, R: int, N: int, shared_lut: bool, out_bytes: int):
     lut = R * N * 8 * (1 if shared_lut else B)
-    return lut + B * 4 + B * R * N * 4
+    return lut + B * 4 + B * R * N * out_bytes
 
 
-def check_kernel_case(name, kernel, plain, args, reps):
-    """Kernel vs plain version on the same inputs; returns the row of
-    numbers (kernel: median ms of ``reps`` runs; plain: one run, after the
-    comparison run warmed it up)."""
-    import torch
+def bound(ops: float, nbytes: float, rate: float):
+    ops_ms = ops / rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
 
+
+def check_equal(name, kernel, plain, args, plain_reps: int = 3):
+    """Kernel vs plain version on the same inputs, exact; returns the
+    max_abs_err (0) and the plain version's time (ms), the median of
+    ``plain_reps`` more runs after the comparison run warmed it up."""
     got = kernel(*args)
     want = plain(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err_u32(got, want)
+    err = max_abs_err(got, want)
     if tuple(got.shape) != tuple(want.shape) or err != 0:
         raise AssertionError(f"{name}: kernel != plain version "
                              f"(max_abs_diff {err})")
-    ms = cuda_ms(lambda: kernel(*args), reps, warmup=False)
-    plain_ms = cuda_ms(lambda: plain(*args), 1, warmup=False)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return err, cuda_ms(lambda: plain(*args), plain_reps, warmup=False)
 
 
-def random_k1_case(rng, B, n, R, levels, N, flavor, device="cuda"):
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def random_k1_case(rng, B, n, R, levels, N, flavor):
     import torch
 
     from tfhe_tpu_torch._torus import from_u32, from_u64
     from tfhe_tpu_torch.ops import bnf2 as b2
 
     std = rng.integers(0, 1 << 64, size=(n, levels, R, R, N), dtype=np.uint64)
-    bsk = b2.bootstrap_key_to_bnf2(from_u64(std, device), flavor)
+    bsk = b2.bootstrap_key_to_bnf2(from_u64(std, DEVICE), flavor)
     acc = from_u32(rng.integers(0, 1 << 32, size=(B, R, N), dtype=np.uint32),
-                   device)
-    mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, n))).to(device)
+                   DEVICE)
+    mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, n))).to(DEVICE)
     return acc, mask, bsk
 
 
-def main() -> int:
+def switched(sk, ct):
+    """The keyswitched, modulus-switched (mask [B, n], body [B]) that
+    ``sk.apply_lookup_table(ct, ...)`` hands its step kernels."""
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.utils.params import ModulusSwitchType
+
+    p = sk.params
+    small = server_ops.keyswitch_mxu(ct.ct, sk.ksk_i8, p.ks_base_log,
+                                     p.ks_level)
+    if p.modulus_switch_type == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION:
+        switch = server_ops.lwe_centered_binary_modulus_switch
+    else:
+        switch = server_ops.lwe_standard_modulus_switch
+    return switch(small, p.polynomial_size.bit_length())
+
+
+def launches_of(*names) -> dict:
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    return {n: getattr(pk, n).launches for n in names}
+
+
+def require_launched(label: str, counts: dict):
+    print(f"{label} launches: {counts}")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"{label}: a kernel of the path did not launch: "
+                             f"{counts}")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from tfhe_tpu_torch import _build
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    secs = _build.build_cuda()
+    print(f"build: {secs:.1f} s for {list(_build.CUDA_SOURCES)}")
+    for name in _build.CUDA_SOURCES:
+        with open(_build.ptxas_report_path(name)) as f:
+            for line in f:
+                if ("entry function" in line or "registers" in line
+                        or "spill" in line):
+                    print(f"  ptxas {name}: {line.strip()}")
+    for label, args in (
+            ("K1 2_2", ("blind_rotate_bnf2_acc32", 2, 2, 1, 2048)),
+            ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
+            ("K3 2_2 crt (P=4)", ("blind_rotate_crt", 4, 2, 1, 2048)),
+            ("K3-bnf2 2_2 two-plane", ("blind_rotate_bnf2_u64", 2, 2, 1,
+                                       2048))):
+        print(f"  dynamic shared memory per block, {label}: "
+              f"{pk.step_smem_bytes(*args) / 1024:.0f} KiB")
+    return secs
+
+
+def phase_shortint_v6b(card, rate, rows):
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from tfhe_tpu_torch import _build
     from tfhe_tpu_torch._torus import from_u64
     from tfhe_tpu_torch.ops import bnf2 as b2
     from tfhe_tpu_torch.ops import pbs_kernel as pk
@@ -156,20 +284,6 @@ def main() -> int:
     from tfhe_tpu_torch.utils.params import (PARAM_MESSAGE_1_CARRY_1_KS_PBS,
                                              PARAM_MESSAGE_2_CARRY_2_KS_PBS)
 
-    t_start = time.perf_counter()
-    card = nvidia_smi("name,power.limit")
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    # 1. build
-    secs = _build.build_cuda()
-    print(f"build: {secs:.1f} s for {list(_build.CUDA_SOURCES)}")
-    for name in _build.CUDA_SOURCES:
-        with open(_build.ptxas_report_path(name)) as f:
-            for line in f:
-                if "registers" in line or "smem" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
-
-    # 2. keygen + encryption, 2_2
     p = PARAM_MESSAGE_2_CARRY_2_KS_PBS
     t0 = time.perf_counter()
     ck = ClientKey.generate(p, seed=SEED)
@@ -185,103 +299,394 @@ def main() -> int:
     lut = sk.generate_lookup_table(f)
     want_clear = np.array([f(int(v)) for v in vals], dtype=np.uint64)
     fl = sk.flavor
-    log_mod = p.polynomial_size.bit_length()
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
 
-    # 3. kernels vs plain versions at the main path's shapes
-    small = server_ops.keyswitch_mxu(ct.ct, sk.ksk_i8, p.ks_base_log,
-                                     p.ks_level)
-    ms_mask, ms_body = server_ops.lwe_centered_binary_modulus_switch(
-        small, log_mod)
-    k2 = check_kernel_case("body_rotate_acc32", pk.body_rotate_acc32,
-                           pk.body_rotate_acc32_plain, (lut.acc, ms_body), 20)
+    # kernels vs plain versions at the main path's shapes
+    ms_mask, ms_body = switched(sk, ct)
+    k2_err, k2_plain = check_equal("body_rotate_acc32", pk.body_rotate_acc32,
+                                   pk.body_rotate_acc32_plain,
+                                   (lut.acc, ms_body))
     acc_hi = pk.body_rotate_acc32(lut.acc, ms_body)
-    k1_args = (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl)
-    k1 = check_kernel_case("blind_rotate_bnf2_acc32",
-                           pk.blind_rotate_bnf2_acc32,
-                           pk.blind_rotate_bnf2_acc32_plain, k1_args, 3)
-    print(f"K2 main-path shape B={BATCH}: {k2}")
-    print(f"K1 main-path shape B={BATCH}, n={p.lwe_dimension}: {k1}")
-
+    k1_err, k1_plain = check_equal(
+        "blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
+        pk.blind_rotate_bnf2_acc32_plain,
+        (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl),
+        plain_reps=1)
+    print(f"K2 acc32 and K1 == plain at B={BATCH}, n={n}")
     rng = np.random.default_rng(SEED)
-    extra = [("2_2 geometry, DEFAULT flavor, 32 steps", 64, 32, 2, 1,
-              2048, b2.DEFAULT),
-             ("2_2 geometry, FAST28 flavor, 32 steps", 64, 32, 2, 1,
-              2048, b2.FAST28)]
     p11 = PARAM_MESSAGE_1_CARRY_1_KS_PBS
-    extra.append(("1_1 geometry, FAST28 flavor, 32 steps", 64, 32,
-                  p11.glwe_size, p11.pbs_level, p11.polynomial_size,
-                  b2.FAST28))
-    for label, B, n, R, levels, N, flavor in extra:
-        acc, mask, bsk = random_k1_case(rng, B, n, R, levels, N, flavor)
-        row = check_kernel_case(
-            "blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
-            pk.blind_rotate_bnf2_acc32_plain,
-            (acc, mask, bsk, 23, levels, flavor), 3)
-        print(f"K1 {label}, B={B}: max_abs_diff {row['max_abs_err']}")
-        lut_r = from_u64(rng.integers(0, 1 << 64, size=(B, R, N),
-                                      dtype=np.uint64), "cuda")
-        body = torch.from_numpy(rng.integers(0, 2 * N, size=B)).cuda()
-        row = check_kernel_case("body_rotate_acc32", pk.body_rotate_acc32,
-                                pk.body_rotate_acc32_plain, (lut_r, body), 3)
-        print(f"K2 {label}, B={B}: max_abs_diff {row['max_abs_err']}")
+    for label, B, steps, R_, levels, N_, flavor in (
+            ("2_2 geometry, DEFAULT flavor", 64, 32, 2, 1, 2048, b2.DEFAULT),
+            ("2_2 geometry, FAST28 flavor", 64, 32, 2, 1, 2048, b2.FAST28),
+            ("1_1 geometry, FAST28 flavor", 64, 32, p11.glwe_size,
+             p11.pbs_level, p11.polynomial_size, b2.FAST28)):
+        acc, mask, bsk = random_k1_case(rng, B, steps, R_, levels, N_, flavor)
+        check_equal("blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
+                    pk.blind_rotate_bnf2_acc32_plain,
+                    (acc, mask, bsk, 23, levels, flavor))
+        lut_r = from_u64(rng.integers(0, 1 << 64, size=(B, R_, N_),
+                                      dtype=np.uint64), DEVICE)
+        body = torch.from_numpy(rng.integers(0, 2 * N_, size=B)).to(DEVICE)
+        check_equal("body_rotate_acc32", pk.body_rotate_acc32,
+                    pk.body_rotate_acc32_plain, (lut_r, body))
+        print(f"K1, K2 acc32 == plain: {label}, B={B}, {steps} steps")
 
-    # 4. the main path through the entry point
+    # the main path through the entry point
     pk.reset_launches()
     out = sk.apply_lookup_table(ct, lut)
     torch.cuda.synchronize()
-    launches = {"body_rotate_acc32": pk.body_rotate_acc32.launches,
-                "blind_rotate_bnf2_acc32": pk.blind_rotate_bnf2_acc32.launches}
-    print(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path did not launch: {launches}")
+    launches = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32")
+    require_launched("2_2 v6b main path", launches)
     if tuple(out.ct.shape) != (BATCH, p.big_lwe_dimension + 1):
         raise AssertionError(f"output shape {tuple(out.ct.shape)}")
     got_clear = ck.decrypt_message_and_carry(out)
     if not np.array_equal(got_clear, want_clear):
         bad = int((got_clear != want_clear).sum())
         raise AssertionError(f"{bad} of {BATCH} PBS outputs decrypt wrong")
-    print(f"main path: {BATCH} ciphertexts decrypt to 3x mod 16")
+    print(f"2_2 v6b: {BATCH} ciphertexts decrypt to 3x mod 16")
 
-    # 5. timing
+    # timing
+    k2_ms = cuda_ms_loop(lambda: pk.body_rotate_acc32(lut.acc, ms_body),
+                         K2_LAUNCHES)
+    k1_ms = cuda_ms(lambda: pk.blind_rotate_bnf2_acc32(
+        acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl), 3)
     ks_ms = cuda_ms(lambda: server_ops.keyswitch_mxu(
         ct.ct, sk.ksk_i8, p.ks_base_log, p.ks_level), 5)
     step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 5)
     print(f"keyswitch (torch._int_mm int8 GEMM) B={BATCH}: {ks_ms:.3f} ms")
     print(f"KS->PBS step B={BATCH}: {step_ms:.3f} ms = "
           f"{BATCH / step_ms * 1e3:.1f} PBS/s on {card}")
+    k1_bound = bound(step_int32_ops(BATCH, n, R, p.pbs_level, N, 2,
+                                    BNF2_C32_OPS),
+                     step_bytes(BATCH, n, R, p.pbs_level, N, 2, 4), rate)
+    k2_bound = bound(BATCH * R * N * 8, k2_bytes(BATCH, R, N, True, 4), rate)
+    rows["body_rotate_acc32"] = dict(
+        source="tfhe_tpu_torch/csrc/body_rotate.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1930",
+        launches=launches["body_rotate_acc32"], max_abs_err=k2_err,
+        ms=k2_ms, plain_ms=k2_plain, bound=k2_bound,
+        shape=f"2_2 B={BATCH}", plain_shape=f"2_2 B={BATCH}")
+    rows["blind_rotate_bnf2_acc32"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_bnf2.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1848",
+        launches=launches["blind_rotate_bnf2_acc32"], max_abs_err=k1_err,
+        ms=k1_ms, plain_ms=k1_plain, bound=k1_bound,
+        shape=f"2_2 B={BATCH} n={n}", plain_shape=f"2_2 B={BATCH} n={n}")
+    return ck, {"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
+                "pbs_per_s": BATCH / step_ms * 1e3}
 
-    rate = int32_rate()
+
+def phase_boolean(card, rate, rows):
+    import torch
+
+    from tfhe_tpu_torch import boolean
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.utils.params import BOOLEAN_DEFAULT_PARAMETERS as p
+
+    t0 = time.perf_counter()
+    ck, sk = boolean.gen_keys(p, seed=SEED)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    print(f"keygen boolean default: {keygen_s:.1f} s, bsk_scan "
+          f"{tuple(sk.bsk_scan.shape)} (P={sk.num_primes}), ksk_i8 "
+          f"{tuple(sk.ksk_i8.shape)}")
+    rng = np.random.default_rng(SEED + 1)
+    a = rng.integers(0, 2, BOOL_BATCH).astype(bool)
+    b = rng.integers(0, 2, BOOL_BATCH).astype(bool)
+    c = rng.integers(0, 2, BOOL_BATCH).astype(bool)
+    l, r, cond = ck.encrypt(a), ck.encrypt(b), ck.encrypt(c)
     R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
-    k1_ops_ms = k1_int32_ops(BATCH, n, R, p.pbs_level, N) / rate * 1e3
-    k1_bytes_ms = k1_bytes(BATCH, n, R, p.pbs_level, N) / HBM_BYTES_PER_S * 1e3
-    k2_bytes_ms = k2_bytes(BATCH, R, N, True) / HBM_BYTES_PER_S * 1e3
-    k2_ops_ms = BATCH * R * N * 8 / rate * 1e3
-    print(f"INT32 rate {rate / 1e12:.2f} Tops/s; K1 bound: ops "
-          f"{k1_ops_ms:.3f} ms, bytes {k1_bytes_ms:.3f} ms")
-    kernels = [
-        {"name": "body_rotate_acc32", "route": "cuda",
-         "source": "tfhe_tpu_torch/csrc/body_rotate.cu",
-         "replaces": "tfhe_tpu/ops/pbs_kernel.py:1930",
-         "launches": launches["body_rotate_acc32"],
-         "max_abs_err": k2["max_abs_err"], "max_abs_diff": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": max(k2_bytes_ms, k2_ops_ms),
-         "bound_by": "bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
-         "library_ms": None},
-        {"name": "blind_rotate_bnf2_acc32", "route": "cuda",
-         "source": "tfhe_tpu_torch/csrc/blind_rotate_bnf2.cu",
-         "replaces": "tfhe_tpu/ops/pbs_kernel.py:1848",
-         "launches": launches["blind_rotate_bnf2_acc32"],
-         "max_abs_err": k1["max_abs_err"], "max_abs_diff": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": max(k1_ops_ms, k1_bytes_ms),
-         "bound_by": "operations" if k1_ops_ms >= k1_bytes_ms else "bytes",
-         "library_ms": None},
-    ]
-    print(json.dumps({"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
-                      "pbs_per_s": BATCH / step_ms * 1e3, "batch": BATCH,
-                      "params": p.name, "card": card}))
-    print(f"total: {time.perf_counter() - t_start:.1f} s")
+
+    # K2 u64 and K3 against their plain versions at the gate's shapes
+    combo = l.ct + r.ct
+    combo[..., -1] += boolean.PLAINTEXT_FALSE  # the and_ gate's input
+    ms_mask, ms_body = server_ops.lwe_standard_modulus_switch(
+        combo, N.bit_length())
+    lut = sk._true_lut()
+    k2_err, k2_plain = check_equal("body_rotate_u64", pk.body_rotate_u64,
+                                   pk.body_rotate_u64_plain, (lut, ms_body))
+    acc = pk.body_rotate_u64(lut, ms_body)
+    k3_err, k3_plain = check_equal(
+        "blind_rotate_crt", pk.blind_rotate_crt, pk.blind_rotate_crt_plain,
+        (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_scan,
+         p.pbs_base_log, p.pbs_level))
+    print(f"K2 u64 == plain at B={BOOL_BATCH}; K3 (Garner, P=3) == plain at "
+          f"B={PLAIN_BATCH}, n={n}, N={N}, R={R}, l={p.pbs_level}")
+
+    # one gate call through the entry point, launch counts around it
+    pk.reset_launches()
+    out = sk.and_(l, r)
+    torch.cuda.synchronize()
+    launches = launches_of("body_rotate_u64", "blind_rotate_crt")
+    require_launched("boolean and_", launches)
+    if tuple(out.ct.shape) != (BOOL_BATCH, n + 1):
+        raise AssertionError(f"gate output shape {tuple(out.ct.shape)}")
+    truth = {"and_": a & b, "or_": a | b, "nand": ~(a & b), "nor": ~(a | b),
+             "xor": a ^ b, "xnor": ~(a ^ b)}
+    outs = {"and_": out}
+    for g in ("or_", "nand", "nor", "xor", "xnor"):
+        outs[g] = getattr(sk, g)(l, r)
+    outs["not_"], truth["not_"] = sk.not_(l), ~a
+    pk.reset_launches()
+    outs["mux"], truth["mux"] = sk.mux(cond, l, r), np.where(c, a, b)
+    mux_launches = launches_of("body_rotate_u64", "blind_rotate_crt")
+    for g, want in truth.items():
+        got = ck.decrypt(outs[g])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"boolean {g}: {int((got != want).sum())} "
+                                 f"of {BOOL_BATCH} decrypt wrong")
+    print(f"boolean: all 8 gates decrypt to their truth tables on "
+          f"{BOOL_BATCH} random inputs; mux launches {mux_launches}")
+
+    # timing
+    k2_ms = cuda_ms_loop(lambda: pk.body_rotate_u64(lut, ms_body),
+                         K2_LAUNCHES)
+    k3_ms = cuda_ms(lambda: pk.blind_rotate_crt(
+        acc, ms_mask, sk.bsk_scan, p.pbs_base_log, p.pbs_level), 2)
+    k3_small_ms = cuda_ms(lambda: pk.blind_rotate_crt(
+        acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_scan,
+        p.pbs_base_log, p.pbs_level), 2)
+    big = sk._bootstrap(combo)
+    ks_ms = cuda_ms(lambda: sk._keyswitch(big), 5)
+    gate_ms = cuda_ms(lambda: sk.and_(l, r), 3)
+    mux_ms = cuda_ms(lambda: sk.mux(cond, l, r), 2, warmup=False)
+    print(f"boolean B={BOOL_BATCH}: and_ {gate_ms:.3f} ms = "
+          f"{BOOL_BATCH / gate_ms * 1e3:.1f} gates/s; mux {mux_ms:.3f} ms = "
+          f"{BOOL_BATCH / mux_ms * 1e3:.1f} mux/s on {card}")
+    print(f"boolean and_ breakdown B={BOOL_BATCH}: K3 {k3_ms:.3f} ms, "
+          f"K2 u64 {k2_ms:.4f} ms, keyswitch {ks_ms:.3f} ms, rest "
+          f"{gate_ms - k3_ms - k2_ms - ks_ms:.3f} ms; K3 at B={PLAIN_BATCH}: "
+          f"{k3_small_ms:.3f} ms")
+    k3_bound = bound(step_int32_ops(BOOL_BATCH, n, R, p.pbs_level, N, 3,
+                                    garner_ops(3)),
+                     step_bytes(BOOL_BATCH, n, R, p.pbs_level, N, 3, 8), rate)
+    k2_bound = bound(BOOL_BATCH * R * N * 6,
+                     k2_bytes(BOOL_BATCH, R, N, True, 8), rate)
+    rows["body_rotate_u64"] = dict(
+        source="tfhe_tpu_torch/csrc/body_rotate.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1930",
+        launches=launches["body_rotate_u64"], max_abs_err=k2_err, ms=k2_ms,
+        plain_ms=k2_plain, bound=k2_bound,
+        shape=f"boolean B={BOOL_BATCH}", plain_shape=f"boolean B={BOOL_BATCH}")
+    rows["blind_rotate_crt"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        launches=launches["blind_rotate_crt"], max_abs_err=k3_err, ms=k3_ms,
+        plain_ms=k3_plain, bound=k3_bound, small_ms=k3_small_ms,
+        shape=f"boolean B={BOOL_BATCH} n={n} P=3",
+        plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
+    return ck, sk, {"bool_keygen_s": keygen_s, "and_ms": gate_ms,
+                    "gates_per_s": BOOL_BATCH / gate_ms * 1e3,
+                    "mux_ms": mux_ms, "mux_per_s": BOOL_BATCH / mux_ms * 1e3,
+                    "bool_ks_ms": ks_ms}
+
+
+def phase_trivium(ck, sk):
+    import torch
+
+    from tfhe_tpu_torch.apps.trivium import (ClearTrivium, TriviumStream,
+                                             transcipher_decrypt)
+
+    clear = ClearTrivium(TRIVIUM_KEY, TRIVIUM_IV)
+    key_ct = ck.encrypt(np.array(TRIVIUM_KEY, dtype=bool))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = TriviumStream.new(sk, key_ct, TRIVIUM_IV)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ks = stream.next_bits(256)
+    torch.cuda.synchronize()
+    ks_s = time.perf_counter() - t0
+    got = [int(x) for x in ck.decrypt(ks)]
+    if got != clear.next_bits(256):
+        raise AssertionError("FHE Trivium keystream != clear Trivium")
+    msg = [int(x) for x in np.random.default_rng(SEED + 2).integers(0, 2, 64)]
+    sym = [m ^ z for m, z in zip(msg, clear.next_bits(64))]
+    t0 = time.perf_counter()
+    fhe_msg = transcipher_decrypt(stream, sym)
+    torch.cuda.synchronize()
+    tc_s = time.perf_counter() - t0
+    if [int(x) for x in ck.decrypt(fhe_msg)] != msg:
+        raise AssertionError("transciphered bits decrypt wrong")
+    print(f"trivium: 1152-round FHE warm-up {warm_s:.2f} s; 256 keystream "
+          f"bits == clear in {ks_s:.3f} s = {256 / ks_s:.1f} bits/s; 64 bits "
+          f"transciphered in {tc_s:.3f} s")
+    return {"trivium_warmup_s": warm_s, "trivium_bits_per_s": 256 / ks_s,
+            "transcipher_64_s": tc_s}
+
+
+def _side_batch(ck, sk, label, launch_names):
+    """A 2_2 batch of SIDE_BATCH through apply_lookup_table with the launch
+    counts zeroed around it; checks 3x mod 16. Returns the launches, the
+    KS -> PBS ms and the step kernels' inputs on this batch: (LUT, mask,
+    body)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    p = ck.params
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (3 * x) % mod
+    vals = np.arange(SIDE_BATCH, dtype=np.uint64) % mod
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    pk.reset_launches()
+    out = sk.apply_lookup_table(ct, lut)
+    torch.cuda.synchronize()
+    launches = launches_of(*launch_names)
+    require_launched(label, launches)
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError(f"{label}: batch decrypts wrong")
+    ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2)
+    print(f"{label}: {SIDE_BATCH} ciphertexts decrypt to 3x mod 16; KS->PBS "
+          f"{ms:.3f} ms = {SIDE_BATCH / ms * 1e3:.1f} PBS/s")
+    return launches, ms, (lut.acc, *switched(sk, ct))
+
+
+def _random_acc_mask(rng, B, n, R, N):
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+
+    acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
+                   DEVICE)
+    mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, n))).to(DEVICE)
+    return acc, mask
+
+
+def _side_kernels(label, kernel, plain, key, tail_args, inputs, seed):
+    """K2 u64 and one K3 entry against their plain versions on a side
+    phase's own batch (K3's on its first PLAIN_BATCH ciphertexts, all n
+    steps, the whole key), then K3 on random u64 accumulators over 32 steps
+    (the lo words borrow); K3 timed on the whole batch. Returns
+    (max_abs_err, ms, plain_ms)."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    lut_acc, ms_mask, ms_body = inputs
+    check_equal(f"body_rotate_u64 {label}", pk.body_rotate_u64,
+                pk.body_rotate_u64_plain, (lut_acc, ms_body))
+    acc = pk.body_rotate_u64(lut_acc, ms_body)
+    B, R, N = acc.shape
+    name = kernel.__name__
+    err, plain_ms = check_equal(
+        f"{name} {label}", kernel, plain,
+        (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], key,
+         *tail_args), plain_reps=1)
+    steps = min(32, key.shape[0])
+    racc, rmask = _random_acc_mask(np.random.default_rng(seed), PLAIN_BATCH,
+                                   steps, R, N)
+    check_equal(f"{name} {label}, random acc", kernel, plain,
+                (racc, rmask, key[:steps].contiguous(), *tail_args),
+                plain_reps=1)
+    ms = cuda_ms(lambda: kernel(acc, ms_mask, key, *tail_args), 2)
+    print(f"{label}: K2 u64 == plain at B={B}; {name} == plain at "
+          f"B={PLAIN_BATCH}, n={key.shape[0]} (plain {plain_ms:.3f} ms) and "
+          f"on random accumulators, 32 steps; {name} at B={B}: {ms:.3f} ms")
+    return err, ms, plain_ms
+
+
+def phase_shortint_crt(ck, rate, rows):
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+
+    p = ck.params
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    with env(TFHE_NTT_VARIANT="crt"):
+        sk = ServerKey.generate(ck)
+        if sk.variant != "crt" or sk.num_primes != 4:
+            raise AssertionError(f"crt key: {sk.variant}, P={sk.num_primes}")
+        launches, step_ms, inputs = _side_batch(
+            ck, sk, "2_2 crt (P=4)", ("body_rotate_u64", "blind_rotate_crt"))
+        err, ms, plain_ms = _side_kernels(
+            "2_2 crt (P=4)", pk.blind_rotate_crt, pk.blind_rotate_crt_plain,
+            sk.bsk_scan, (p.pbs_base_log, p.pbs_level), inputs, SEED + 3)
+    rows["blind_rotate_crt_p4"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        launches=launches["blind_rotate_crt"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms,
+        bound=bound(step_int32_ops(SIDE_BATCH, n, R, p.pbs_level, N, 4,
+                                   garner_ops(4)),
+                    step_bytes(SIDE_BATCH, n, R, p.pbs_level, N, 4, 8), rate),
+        shape=f"2_2 crt B={SIDE_BATCH} n={n} P=4",
+        plain_shape=f"2_2 crt B={PLAIN_BATCH} n={n} P=4")
+    return {"crt_pbs_ms": step_ms, "crt_pbs_per_s": SIDE_BATCH / step_ms * 1e3}
+
+
+def phase_two_plane(ck, rate, rows):
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+
+    p = ck.params
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    with env(TFHE_V4_ACC="64"):
+        sk = ServerKey.generate(ck)
+        if sk.variant != "v6b":
+            raise AssertionError(f"two-plane key variant {sk.variant}")
+        launches, step_ms, inputs = _side_batch(
+            ck, sk, "2_2 v6b two-plane",
+            ("body_rotate_u64", "blind_rotate_bnf2_u64"))
+        err, ms, plain_ms = _side_kernels(
+            "2_2 v6b two-plane", pk.blind_rotate_bnf2_u64,
+            pk.blind_rotate_bnf2_u64_plain, sk.bsk_b,
+            (p.pbs_base_log, p.pbs_level, sk.flavor), inputs, SEED + 4)
+    rows["blind_rotate_bnf2_u64"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        launches=launches["blind_rotate_bnf2_u64"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms,
+        bound=bound(step_int32_ops(SIDE_BATCH, n, R, p.pbs_level, N, 2,
+                                   BNF2_C_OPS),
+                    step_bytes(SIDE_BATCH, n, R, p.pbs_level, N, 2, 8), rate),
+        shape=f"2_2 B={SIDE_BATCH} n={n}",
+        plain_shape=f"2_2 B={PLAIN_BATCH} n={n}")
+    return {"two_plane_pbs_ms": step_ms,
+            "two_plane_pbs_per_s": SIDE_BATCH / step_ms * 1e3}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import tfhe_tpu_torch  # noqa: F401  (raises outside a checkout of the repo)
+
+    t_start = time.perf_counter()
+    card = nvidia_smi("name,power.limit")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    rate = int32_rate()
+    print(f"INT32 rate {rate / 1e12:.2f} Tops/s")
+
+    rows: dict = {}
+    summary = {"build_s": phase_build(), "card": card}
+    ck22, s = phase_shortint_v6b(card, rate, rows)
+    summary.update(s)
+    bck, bsk, s = phase_boolean(card, rate, rows)
+    summary.update(s)
+    summary.update(phase_trivium(bck, bsk))
+    summary.update(phase_shortint_crt(ck22, rate, rows))
+    summary.update(phase_two_plane(ck22, rate, rows))
+
+    order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
+             "blind_rotate_crt", "blind_rotate_crt_p4",
+             "blind_rotate_bnf2_u64")
+    kernels = []
+    for name in order:
+        r = rows[name]
+        bound_ms, bound_by = r.pop("bound")
+        kernels.append(dict(
+            name=name, route="cuda", source=r.pop("source"),
+            replaces=r.pop("replaces"), launches=r.pop("launches"),
+            max_abs_err=r["max_abs_err"], max_abs_diff=r.pop("max_abs_err"),
+            ms=r.pop("ms"), plain_ms=r.pop("plain_ms"), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, **r))
+    summary["total_s"] = time.perf_counter() - t_start
+    print(json.dumps(summary))
+    print(f"total: {summary['total_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

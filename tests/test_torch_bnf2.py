@@ -150,7 +150,7 @@ def test_kernel_tables_layout():
     source reads (stage s twiddles at N - (N >> s))."""
     n = 256
     plan = b2.FAST28.plan(n)
-    t = pk.kernel_tables(n, b2.FAST28)
+    t = pk.plan_tables(plan)
     assert t.shape == (2, 8, n) and t.dtype == np.uint32
     for pi in range(2):
         np.testing.assert_array_equal(t[pi, 0], plan.twist[pi])

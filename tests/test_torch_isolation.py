@@ -84,6 +84,10 @@ def test_entry_points_without_device_need_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.client_key_from_arrays(P.name, np.zeros((1, 256), np.uint64),
                                        np.zeros(16, np.uint64))
+    from tfhe_tpu_torch import boolean
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        boolean.ClientKey.generate(pm.BOOLEAN_TEST_TOY, seed=1)
 
 
 def test_cpu_tensors_take_plain_versions():
@@ -95,8 +99,10 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    assert pk.body_rotate_acc32.launches == 0
-    assert pk.blind_rotate_bnf2_acc32.launches == 0
+    for fn in (pk.body_rotate_acc32, pk.body_rotate_u64,
+               pk.blind_rotate_bnf2_acc32, pk.blind_rotate_crt,
+               pk.blind_rotate_bnf2_u64):
+        assert fn.launches == 0, fn.__name__
 
 
 @pytest.mark.parametrize("kind", ["multi-bit", "ks32", "pbs_ks", "drift"])
@@ -120,10 +126,20 @@ def test_unported_parameter_sets_raise(kind):
 
 @pytest.mark.parametrize("variant", ["crt", "v5"])
 def test_unported_variants_raise(variant, monkeypatch):
+    """v5 is not ported and raises; crt is ported and runs its own path
+    (the exact CRT kernels, never the BNF2 ones)."""
     monkeypatch.setenv("TFHE_NTT_VARIANT", variant)
     ck = ClientKey.generate(P, seed=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServerKey.generate(ck)
+    if variant == "v5":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServerKey.generate(ck)
+        return
+    sk = ServerKey.generate(ck)
+    assert sk.ntt_variant == "crt" and sk.bsk_b is None
+    assert tuple(sk.bsk_scan.shape[:3]) == (P.lwe_dimension, 2, 4)
+    out = sk.apply_lookup_table(ck.encrypt([3, 6]),
+                                sk.generate_lookup_table(lambda x: x + 2))
+    np.testing.assert_array_equal(ck.decrypt_message_and_carry(out), [5, 8])
 
 
 def test_v6_variant_runs_default_pair(monkeypatch):

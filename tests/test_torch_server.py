@@ -112,11 +112,28 @@ def test_programmable_bootstrap_bnf2_matches_jax(flavor, centered,
 
 
 def test_two_plane_accumulator_is_not_substituted(monkeypatch):
-    """TFHE_V4_ACC=64 selects a mode this slice lacks: it raises rather
-    than running the acc32 kernels."""
+    """TFHE_V4_ACC=64 runs the two-plane accumulator (K2 u64, K3 with the
+    BNF2 tail), not the acc32 kernels: bit-equal to the JAX package's
+    two-plane oracle (the shipped FAST28 pair), and different from the
+    acc32 result."""
     monkeypatch.setenv("TFHE_V4_ACC", "64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        server.programmable_bootstrap_bnf2(
-            torch.zeros((1, 9), dtype=torch.int64),
-            torch.zeros((2, 256), dtype=torch.int64),
-            torch.zeros((8, 2, 2, 2, 2, 256), dtype=torch.int32), 23, 1)
+    fl, jfl = b2.FAST28, jb2.FAST28
+    rng = np.random.default_rng(8)
+    n_small, R, N = 8, 2, 256
+    ct = rng.integers(0, 1 << 64, size=(5, n_small + 1), dtype=np.uint64)
+    lut = rng.integers(0, 1 << 64, size=(R, N), dtype=np.uint64)
+    std = rng.integers(0, 1 << 64, size=(n_small, 1, R, R, N),
+                       dtype=np.uint64)
+    bsk2 = np.asarray(jb2.bootstrap_key_to_bnf2(std, flavor=jfl))
+    jfn = jax.jit(functools.partial(
+        jserver.programmable_bootstrap_bnf2, base_log=23, levels=1,
+        use_pallas=False, flavor=jfl))
+    want = np.asarray(jfn(jnp.asarray(ct), jnp.asarray(lut),
+                          jnp.asarray(bsk2)))
+    args = (from_u64(ct, "cpu"), from_u64(lut, "cpu"), from_u32(bsk2, "cpu"),
+            23, 1)
+    got = server.programmable_bootstrap_bnf2(*args, flavor=fl)
+    np.testing.assert_array_equal(to_u64(got), want)
+    monkeypatch.setenv("TFHE_V4_ACC", "32")
+    acc32 = server.programmable_bootstrap_bnf2(*args, flavor=fl)
+    assert not np.array_equal(to_u64(acc32), want)

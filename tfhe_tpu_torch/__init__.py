@@ -16,11 +16,15 @@ Conventions:
   (``csrc/*.cu``, built with nvcc at first use by :mod:`._build`); a tensor
   on the CPU takes each kernel's plain PyTorch version instead.
 
-Layer map (this slice: the shortint KS -> PBS main path):
-    ops/       — polynomial, decomposition, NTT, BNF2 spec, kernel wrappers,
-                 server-side keyswitch / modulus switch / PBS
-    core/      — secret keys, LWE/GLWE encryption, KSK and BSK generation
+Layer map (the shortint KS -> PBS main path, the boolean gates, Trivium):
+    ops/       — polynomial, decomposition, NTT, BNF2 spec, exact CRT spec,
+                 kernel wrappers, server-side keyswitch / modulus switch /
+                 PBS (BNF2 and exact CRT)
+    core/      — secret keys, LWE/GLWE encryption, KSK and BSK generation,
+                 the BSK's CRT transform
     shortint/  — ClientKey, ServerKey, LUTs, ciphertexts
+    boolean/   — boolean ClientKey, ServerKey, gates
+    apps/      — FHE Trivium and transciphering
     utils/     — parameter sets, encoding, AES-CTR CSPRNG
     convert.py — carries tfhe_tpu key arrays into the port
 """

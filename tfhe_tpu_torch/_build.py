@@ -11,7 +11,8 @@ Two kinds of source live in ``csrc/``:
 
 Outputs go to ``tfhe_tpu_torch/_build/`` (git-ignored), each written to a
 temporary name and renamed into place, so concurrent processes never load
-a half-written library. A library is rebuilt when its source is newer.
+a half-written library. A library is rebuilt when its source is newer, a
+CUDA library also when any ``.cuh`` header under ``csrc/`` is.
 """
 
 from __future__ import annotations
@@ -31,9 +32,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def _stale(src: str, so: str) -> bool:
-    return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src))
+def _cuda_headers() -> list:
+    """Every CUDA header under ``csrc/`` (any ``.cu`` may include any)."""
+    return [os.path.join(CSRC, f) for f in sorted(os.listdir(CSRC))
+            if f.endswith(".cuh")]
+
+
+def _stale(so: str, *deps: str) -> bool:
+    """True when ``so`` is missing or older than any of ``deps``."""
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(built < os.path.getmtime(f) for f in deps)
 
 
 def _so_path(name: str) -> str:
@@ -56,7 +66,7 @@ def aes_lib():
     CSPRNG then uses its numpy AES, which gives the same bytes)."""
     src = os.path.join(CSRC, "aes_ctr.c")
     so = _so_path("aes_ctr")
-    if _stale(src, so):
+    if _stale(so, src):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp.{os.getpid()}"
         try:
@@ -81,7 +91,7 @@ def aes_lib():
 # ---------------------------------------------------------------------------
 
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
-CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2")
+CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt")
 
 
 def _nvcc() -> str:
@@ -100,8 +110,9 @@ def build_cuda(names=CUDA_SOURCES) -> float:
     source, all started together). Returns the wall seconds; raises with
     nvcc's output when a build fails."""
     t0 = time.perf_counter()
+    headers = _cuda_headers()
     todo = [n for n in names
-            if _stale(os.path.join(CSRC, f"{n}.cu"), _so_path(n))]
+            if _stale(_so_path(n), os.path.join(CSRC, f"{n}.cu"), *headers)]
     if not todo:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)

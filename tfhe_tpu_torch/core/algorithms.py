@@ -1,8 +1,9 @@
 """Core-crypto algorithms of the main path: secret keys, LWE/GLWE
-encryption, keyswitch and bootstrap key generation.
+encryption, keyswitch and bootstrap key generation, and the bootstrap key's
+exact CRT transform.
 
 Torch counterpart of the subset of ``tfhe_tpu/core/algorithms.py`` the
-shortint KS -> PBS path needs. Random draws come from the host CSPRNG
+shortint KS -> PBS path and the boolean layer need. Random draws come from the host CSPRNG
 (``utils/csprng.py``) in the JAX package's documented order, so the same
 seed gives byte-equal keys and ciphertexts; the arithmetic (dot products,
 the negacyclic key products through the port's NTT) runs on the device of
@@ -20,11 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._torus import from_u64
+from .._torus import from_u64, i64_to_u32
 from ..ops import ntt as ntt_mod
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..utils.params import DynamicDistribution
-from .entities import GlweSecretKey, LweBootstrapKey, LweKeyswitchKey, LweSecretKey
+from .entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
+                       LweSecretKey, NttLweBootstrapKey)
 
 
 # ---------------------------------------------------------------------------
@@ -179,3 +181,21 @@ def gen_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,
     rows = glwe_encrypt(glwe_sk, msgs.reshape(-1, N), noise, gen)
     return LweBootstrapKey(rows.reshape(n, levels, k + 1, k + 1, N),
                            base_log, levels)
+
+
+def bootstrap_key_to_ntt(bsk: LweBootstrapKey,
+                         num_primes: int) -> NttLweBootstrapKey:
+    """Forward-transform every BSK polynomial over the first ``num_primes``
+    PRIMES32 (the analog of ``fill_with_forward_fourier``,
+    fft64/crypto/bootstrap.rs:199), on the key's device, with the Shoup dual
+    floor(res * 2^32 / p) of every residue: one int64 division per entry,
+    at keygen only (res < 2^30, so res << 32 stays below 2^62)."""
+    N = bsk.data.shape[-1]
+    plan = ntt_mod.get_plan(N, num_primes)
+    res = plan.fwd(bsk.data)  # [P, n, l, k+1, k+1, N]
+    p = plan.tables(res.device)["p"].reshape(
+        (num_primes,) + (1,) * (res.ndim - 1))
+    shoup = torch.div(res << 32, p, rounding_mode="floor")
+    return NttLweBootstrapKey(
+        residues=i64_to_u32(torch.stack([res, shoup])).contiguous(),
+        base_log=bsk.base_log, levels=bsk.levels, num_primes=num_primes)

@@ -7,7 +7,9 @@ shortint KS -> PBS path needs. Shapes (q = 2^64, int64 torus values):
 - GLWE secret key:    int64[k, N] in {0, 1}
 - LWE keyswitch key:  int64[n_in, l_ks, n_out+1]
 - LWE bootstrap key:  int64[n, l_pbs, k+1, k+1, N] (standard domain; the
-                      server key keeps only its BNF2 transform)
+                      server keys keep only its transform)
+- NTT bootstrap key:  int32 (u32) [2, P, n, l_pbs, k+1, k+1, N], residues
+                      and Shoup duals over the first P PRIMES32
 """
 
 from __future__ import annotations
@@ -55,3 +57,15 @@ class LweBootstrapKey:
     data: torch.Tensor  # int64[n, l, k+1, k+1, N]
     base_log: int
     levels: int
+
+
+@dataclass
+class NttLweBootstrapKey:
+    """Transform-domain BSK of the exact CRT path: per-prime NTT residues
+    and their Shoup duals floor(res * 2^32 / p), u32 values in int32
+    storage (the duals exceed 2^31: read them masked)."""
+
+    residues: torch.Tensor  # int32[2, P, n, l, k+1, k+1, N]
+    base_log: int
+    levels: int
+    num_primes: int

@@ -1,12 +1,13 @@
 """Shortint server key: LUTs and the KS -> PBS atomic pattern on the
-v6/v6b BNF2 path.
+v6/v6b BNF2 path and the exact CRT path.
 
 Torch counterpart of the main-path subset of
 ``tfhe_tpu/shortint/server_key.py`` (reference
 ``tfhe/src/shortint/server_key/mod.rs``: generate_lookup_table:805,
 apply_lookup_table:935; ``atomic_pattern/standard.rs:155``). The key holds
-device tensors: the KSK (canonical and int8-limb form) and the BNF2
-bootstrap key of the resolved transform variant.
+device tensors: the KSK (canonical and int8-limb form) and the bootstrap
+key of the resolved transform variant (BNF2 for v6/v6b, the P-prime NTT
+key in scan layout for crt).
 
 What this slice does not carry raises ``NotImplementedError`` naming the
 ROADMAP item; no other path is substituted.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -24,7 +25,10 @@ import torch
 from .._torus import from_u64, to_u64
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
+from ..core.entities import LweBootstrapKey
 from ..ops import bnf2 as b2
+from ..ops import ntt as ntt_mod
+from ..ops import pbs_kernel as pk
 from ..ops import server as server_ops
 from ..utils.encoding import ShortintEncoding
 from ..utils.params import (ClassicPBSParameters, EncryptionKeyChoice,
@@ -34,13 +38,9 @@ from .client_key import ClientKey
 
 #: default transform variant of the classic-PBS path, as in tfhe_tpu:
 #: "v6b" = the 2-prime BNF kernel over the FAST28 pair, "v6" = the same
-#: over the ~30-bit DEFAULT pair. Override with TFHE_NTT_VARIANT.
+#: over the ~30-bit DEFAULT pair, "crt" = the exact P-prime CRT path.
+#: Override with TFHE_NTT_VARIANT.
 _DEFAULT_VARIANT = "v6b"
-
-_NOT_PORTED = {
-    "crt": "the exact 4-prime CRT PBS (ROADMAP Queue A item 8, kernel B3)",
-    "v5": "the Goldilocks v5 PBS (ROADMAP Queue A item 10, kernel B5)",
-}
 
 
 def variant_noise_margin_ok(p, variant: str, margin: float = 0.05) -> bool:
@@ -67,8 +67,10 @@ def variant_noise_margin_ok(p, variant: str, margin: float = 0.05) -> bool:
 def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
                     params=None) -> str:
     """'v6b', 'v6', 'v5' or 'crt' for the given PBS shape, honoring
-    TFHE_NTT_VARIANT; with ``params``, approximate variants must also pass
-    :func:`variant_noise_margin_ok` (v6b degrades to v6, then to crt)."""
+    TFHE_NTT_VARIANT (every value other than v5, v6 and v6b selects crt, as
+    in the JAX package); with ``params``, approximate variants must also
+    pass :func:`variant_noise_margin_ok` (v6b degrades to v6, then to
+    crt)."""
     v = os.environ.get("TFHE_NTT_VARIANT", _DEFAULT_VARIANT)
     if v in ("v6", "v6b") and b2.eligible(poly_size, pbs_base_log,
                                           pbs_levels):
@@ -102,15 +104,33 @@ def check_supported(p) -> None:
             "Queue A item 4)")
 
 
-def flavor_for(variant: str) -> b2.Bnf2Flavor:
-    """The BNF2 prime pair of a transform variant."""
-    if variant == "v6b":
-        return b2.FAST28
-    if variant == "v6":
-        return b2.DEFAULT
-    raise NotImplementedError(
-        f"variant {variant!r}: {_NOT_PORTED.get(variant, 'unknown')} is not "
-        "ported yet")
+def flavor_for(variant: str) -> Optional[b2.Bnf2Flavor]:
+    """The BNF2 prime pair of a transform variant (None for crt); raises
+    for the unported v5."""
+    if variant == "v5":
+        raise NotImplementedError(
+            "variant 'v5': the Goldilocks v5 PBS (ROADMAP Queue A item 10, "
+            "kernel B5) is not ported yet")
+    return {"v6b": b2.FAST28, "v6": b2.DEFAULT, "crt": None}[variant]
+
+
+def num_primes_for(p) -> int:
+    """Primes of the exact CRT transform for a PBS shape: enough for the
+    external product's bound base_log + 64 + log2 N + log2(l (k+1)) bits
+    (JAX ``ServerKey._num_primes_for``; 4 at 2_2, 3 for the boolean sets)."""
+    bound = ntt_mod.polymul_bound_bits(
+        p.pbs_base_log, p.polynomial_size,
+        num_sums=p.pbs_level * p.glwe_size)
+    return ntt_mod.min_primes_for_bound(bound)
+
+
+def prepare_crt_key(bsk_std: torch.Tensor, p) -> torch.Tensor:
+    """Standard-domain BSK int64[n, l, R, R, N] -> the exact CRT key in scan
+    layout int32 (u32) [n, 2, P, l*R, R, N], P = :func:`num_primes_for`."""
+    ntt_key = algo.bootstrap_key_to_ntt(
+        LweBootstrapKey(bsk_std, p.pbs_base_log, p.pbs_level),
+        num_primes_for(p))
+    return pk.bsk_to_scan_layout(ntt_key.residues)
 
 
 @dataclass
@@ -118,9 +138,11 @@ class ServerKey:
     params: ClassicPBSParameters
     ksk: torch.Tensor  # int64[n_big, l_ks, n_small+1]
     ksk_i8: torch.Tensor  # int8[n_big*l_ks, (n_small+1)*8]
-    bsk_b: torch.Tensor  # int32 (u32) [n_small, 2, 2, l*R, R, N]
+    bsk_b: Optional[torch.Tensor]  # int32 (u32) [n_small, 2, 2, l*R, R, N]
     variant: str
     max_degree: int = 0
+    #: the crt variant's key, int32 (u32) [n_small, 2, P, l*R, R, N]
+    bsk_scan: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -132,8 +154,14 @@ class ServerKey:
         return self.variant
 
     @property
-    def flavor(self) -> b2.Bnf2Flavor:
+    def flavor(self) -> Optional[b2.Bnf2Flavor]:
         return flavor_for(self.variant)
+
+    @property
+    def num_primes(self) -> int:
+        """Primes of the bootstrap key's transform."""
+        key = self.bsk_scan if self.variant == "crt" else self.bsk_b
+        return key.shape[2]
 
     # ------------------------------------------------------------------
     @classmethod
@@ -141,8 +169,9 @@ class ServerKey:
         """BSK (GGSW of each small-key bit under the GLWE key) then KSK
         (big -> small), drawn from the client key's keygen stream in the
         JAX package's order; computed on the client key's device. The
-        standard-domain BSK goes straight to the BNF2 form (the JAX package
-        goes through the exact 4-prime form and back, with equal bits)."""
+        standard-domain BSK goes straight to the variant's form (the JAX
+        package goes through the exact 4-prime form and back to BNF2, with
+        equal bits)."""
         p = client_key.params
         check_supported(p)
         variant = resolve_variant(p.polynomial_size, p.pbs_base_log,
@@ -161,14 +190,17 @@ class ServerKey:
     def from_standard_keys(cls, p: ClassicPBSParameters, ksk: torch.Tensor,
                            bsk_std: torch.Tensor,
                            variant: str) -> "ServerKey":
-        """Key preparation: the KSK's int8 limbs and the BNF2 transform of
-        the standard-domain BSK int64[n, l, R, R, N]."""
+        """Key preparation: the KSK's int8 limbs and the variant's transform
+        of the standard-domain BSK int64[n, l, R, R, N]."""
         ksk_i8 = server_ops.ksk_to_i8_limbs(to_u64(ksk), p.ks_base_log)
+        flavor = flavor_for(variant)
+        crt = variant == "crt"
         return cls(
             params=p,
             ksk=ksk,
             ksk_i8=torch.from_numpy(ksk_i8).to(ksk.device),
-            bsk_b=b2.bootstrap_key_to_bnf2(bsk_std, flavor_for(variant)),
+            bsk_b=None if crt else b2.bootstrap_key_to_bnf2(bsk_std, flavor),
+            bsk_scan=prepare_crt_key(bsk_std, p) if crt else None,
             variant=variant,
             max_degree=p.message_modulus * p.carry_modulus - 1,
         )
@@ -214,11 +246,15 @@ class ServerKey:
         p = self.params
         small = server_ops.keyswitch_mxu(ct, self.ksk_i8, p.ks_base_log,
                                          p.ks_level)
+        centered = (p.modulus_switch_type
+                    == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION)
+        if self.variant == "crt":
+            return server_ops.programmable_bootstrap_crt(
+                small, lut_acc, self.bsk_scan, p.pbs_base_log, p.pbs_level,
+                centered_ms=centered)
         return server_ops.programmable_bootstrap_bnf2(
             small, lut_acc, self.bsk_b, p.pbs_base_log, p.pbs_level,
-            centered_ms=(p.modulus_switch_type
-                         == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION),
-            flavor=self.flavor)
+            centered_ms=centered, flavor=self.flavor)
 
     def apply_lookup_table(self, ct: ShortintCiphertext,
                            lut: LookupTable) -> ShortintCiphertext:

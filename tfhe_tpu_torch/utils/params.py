@@ -1,10 +1,11 @@
 """Cryptographic parameter sets (the port's own copy).
 
 A field-for-field copy of the classes of ``tfhe_tpu/utils/params.py`` that
-the shortint main path reads, and of three of its named sets: the 2_2
-default, 1_1 and the insecure CI toy set. Values are the reference's
-constants (``tfhe/src/shortint/parameters/v1_4/classic/gaussian/
-p_fail_2_minus_128/ks_pbs.rs``).
+the shortint main path and the boolean layer read, and of seven of its
+named sets: the shortint 2_2 default, 1_1 and the insecure CI toy set
+(values from ``tfhe/src/shortint/parameters/v1_4/classic/gaussian/
+p_fail_2_minus_128/ks_pbs.rs``), and the four boolean sets (``tfhe/src/
+boolean/parameters/``).
 """
 
 from __future__ import annotations
@@ -192,5 +193,103 @@ PARAMS_BY_NAME = {
         PARAM_MESSAGE_2_CARRY_2_KS_PBS,
         PARAM_MESSAGE_1_CARRY_1_KS_PBS,
         PARAM_TEST_TOY,
+    )
+}
+
+
+@dataclass(frozen=True)
+class BooleanParameters:
+    """Boolean-layer parameters (reference ``tfhe/src/boolean/parameters/``)."""
+
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_noise_distribution: DynamicDistribution
+    glwe_noise_distribution: DynamicDistribution
+    pbs_base_log: int
+    pbs_level: int
+    ks_base_log: int
+    ks_level: int
+    encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.SMALL
+    ciphertext_modulus: CiphertextModulus = NATIVE_U64
+    name: str = ""
+
+    @property
+    def glwe_size(self) -> int:
+        return self.glwe_dimension + 1
+
+    @property
+    def big_lwe_dimension(self) -> int:
+        return self.glwe_dimension * self.polynomial_size
+
+
+# Reference: boolean/parameters/params.rs DEFAULT_PARAMETERS
+BOOLEAN_DEFAULT_PARAMETERS = BooleanParameters(
+    lwe_dimension=805,
+    glwe_dimension=3,
+    polynomial_size=512,
+    lwe_noise_distribution=_G(5.8615896642671336e-06),
+    glwe_noise_distribution=_G(9.315272083503367e-10),
+    pbs_base_log=10,
+    pbs_level=2,
+    ks_base_log=3,
+    ks_level=5,
+    encryption_key_choice=EncryptionKeyChoice.SMALL,
+    name="BOOLEAN_DEFAULT_PARAMETERS",
+)
+
+# Reference: boolean/parameters/params.rs DEFAULT_PARAMETERS_KS_PBS
+BOOLEAN_DEFAULT_PARAMETERS_KS_PBS = BooleanParameters(
+    lwe_dimension=739,
+    glwe_dimension=3,
+    polynomial_size=512,
+    lwe_noise_distribution=_G(1.8304520733507305e-05),
+    glwe_noise_distribution=_G(9.315272083503367e-10),
+    pbs_base_log=10,
+    pbs_level=2,
+    ks_base_log=3,
+    ks_level=4,
+    encryption_key_choice=EncryptionKeyChoice.BIG,
+    name="BOOLEAN_DEFAULT_PARAMETERS_KS_PBS",
+)
+
+# Reference: boolean/parameters/mod.rs:131 TFHE_LIB_PARAMETERS, the original
+# TFHE-lib legacy set
+BOOLEAN_TFHE_LIB_PARAMETERS = BooleanParameters(
+    lwe_dimension=630,
+    glwe_dimension=1,
+    polynomial_size=1024,
+    lwe_noise_distribution=_G(0.000030517578125),
+    glwe_noise_distribution=_G(0.00000002980232238769531),
+    pbs_base_log=7,
+    pbs_level=3,
+    ks_base_log=2,
+    ks_level=8,
+    encryption_key_choice=EncryptionKeyChoice.SMALL,
+    name="BOOLEAN_TFHE_LIB_PARAMETERS",
+)
+
+# Small, *insecure* boolean parameters for fast CI tests.
+BOOLEAN_TEST_TOY = BooleanParameters(
+    lwe_dimension=16,
+    glwe_dimension=2,
+    polynomial_size=256,
+    lwe_noise_distribution=_G(2.0 ** -40),
+    glwe_noise_distribution=_G(2.0 ** -40),
+    pbs_base_log=10,
+    pbs_level=2,
+    ks_base_log=3,
+    ks_level=4,
+    encryption_key_choice=EncryptionKeyChoice.SMALL,
+    name="BOOLEAN_TEST_TOY",
+)
+
+BOOLEAN_PARAMS_BY_NAME = {
+    p.name: p
+    for p in (
+        BOOLEAN_DEFAULT_PARAMETERS,
+        BOOLEAN_DEFAULT_PARAMETERS_KS_PBS,
+        BOOLEAN_TFHE_LIB_PARAMETERS,
+        BOOLEAN_TEST_TOY,
     )
 }
