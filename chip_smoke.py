@@ -29,20 +29,31 @@ Phases (any failure raises and exits non-zero):
    entry against their plain versions on that batch's own keyswitched
    inputs (K3's on its first 64 ciphertexts, all 866 steps), and K3 on
    random u64 accumulators over 32 steps; K3 timed at B = 512;
-7. the card's name and power limit, a ``{"kernels": [...]}`` line, and last
+7. shortint ``TFHE_NTT_VARIANT=v5`` at 2_2 (K2 u64, K4 over the Goldilocks
+   prime): a batch of 2048 through ``apply_lookup_table`` with the launch
+   counts around it (K2 u64 and K4 once each, K1 and K3 never), decrypting
+   to 3x mod 16; K2 u64 and K4 against their plain versions on that
+   batch's own keyswitched inputs (K4's on its first 64 ciphertexts, all
+   866 steps, the whole key), K4 on random u64 accumulators over 32 steps
+   and at 1_1 geometry (R = 5, N = 512); KS -> PBS and K4 timed at
+   B = 2048;
+8. the card's name and power limit, a ``{"kernels": [...]}`` line, and last
    the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
 the mean of 200 back-to-back launches between one pair of events). Bounds:
 ``bound_ms`` is the larger of the bytes the kernel must move over the
-card's HBM rate (3.35 TB/s, H100 SXM data sheet) and its int32 operations
-over the INT32 instruction rate (64 lanes per SM x SMs x max SM clock); the
-operation count models are ``step_int32_ops`` below.
+card's HBM rate (3.35 TB/s, H100 SXM data sheet) and its integer
+operations over the rate of one 64-lane-per-SM integer pipe (64 lanes x
+SMs x max SM clock): K1-K3 by ``step_int32_ops`` (32-bit operations
+counted from the source), K4 by ``goldilocks_step_int32_ops``
+(instructions per pipe counted from the SASS of the build).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -154,6 +165,46 @@ def step_int32_ops(B: int, n: int, R: int, levels: int, N: int, P: int,
     return float(B) * n * per
 
 
+#: K4's instructions per unit of work as sm_90a runs them, (ALU pipe,
+#: FMA pipe): the instructions of each loop body of
+#: ``csrc/blind_rotate_goldilocks.cu`` that read the loaded data or a value
+#: computed from it (index arithmetic, loads, stores and branches left
+#: out), read from the SASS the build leaves in
+#: ``tfhe_tpu_torch/_build/libblind_rotate_goldilocks.sass`` (the nvcc
+#: that phase 1 prints, -O3). IMAD in all its forms (.WIDE, .X, .MOV,
+#: .IADD) runs on the FMA pipe; IADD3, ISETP, SEL, LOP3, SHF and the
+#: rest on the ALU pipe. A 64 x 64 -> 128-bit product is 7-11
+#: instructions (IMAD.WIDE.U32 fuses a 32 x 32 product with a 64-bit add
+#: and its carry); the reduction mod p and the canonical select take ~22
+#: more, mostly 64-bit compares and selects on the ALU pipe.
+K4_SASS_OPS = {
+    "element": (14, 3),  # per R*N: rotate, negate, rot - acc, digit state
+    "digit": (34, 10),  # per l*R*N: next digit, lift into Z_p, twist
+    "fwd_butterfly": (39, 12),  # g_add, g_sub, g_mul
+    "mac": (32, 15),  # per R*l*R*N: g_mul, g_add into the sum
+    "inv_butterfly": (39, 16),  # g_mul, g_add, g_sub
+    "untwist": (23, 12),  # per R*N: g_mul, x + (x >> 32), acc +=
+}
+
+
+def goldilocks_step_int32_ops(B: int, n: int, R: int, levels: int,
+                              N: int) -> float:
+    """K4's operations in units of one 64-lane-per-SM pipe: per step and
+    ciphertext, R*N elements, l*R*N digits, l*R forward and R inverse
+    transforms of N/2*log2(N) butterflies, R*l*R*N MAC products and R*N
+    untwists, each at :data:`K4_SASS_OPS`. The ALU and FMA pipes each
+    have 64 lanes per SM and run side by side, at most 128 instructions
+    per SM and clock in all, so the count is the busier pipe's, or half
+    the total when that is more."""
+    lR, half_log = levels * R, (N // 2) * (N.bit_length() - 1)
+    units = {"element": R * N, "digit": lR * N,
+             "fwd_butterfly": lR * half_log, "mac": R * lR * N,
+             "inv_butterfly": R * half_log, "untwist": R * N}
+    alu = sum(units[k] * K4_SASS_OPS[k][0] for k in units)
+    fma = sum(units[k] * K4_SASS_OPS[k][1] for k in units)
+    return float(B) * n * max(alu, fma, (alu + fma) / 2)
+
+
 def step_bytes(B: int, n: int, R: int, levels: int, N: int, P: int,
                acc_bytes: int) -> float:
     """Bytes a blind-rotation kernel must move: the key once, the
@@ -254,7 +305,8 @@ def phase_build():
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     secs = _build.build_cuda()
-    print(f"build: {secs:.1f} s for {list(_build.CUDA_SOURCES)}")
+    print(f"build: {secs:.1f} s for {list(_build.CUDA_SOURCES)}, "
+          f"{_build.nvcc_version()}")
     for name in _build.CUDA_SOURCES:
         with open(_build.ptxas_report_path(name)) as f:
             for line in f:
@@ -266,7 +318,9 @@ def phase_build():
             ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
             ("K3 2_2 crt (P=4)", ("blind_rotate_crt", 4, 2, 1, 2048)),
             ("K3-bnf2 2_2 two-plane", ("blind_rotate_bnf2_u64", 2, 2, 1,
-                                       2048))):
+                                       2048)),
+            ("K4 2_2 v5", ("blind_rotate_goldilocks", 1, 2, 1, 2048)),
+            ("K4 1_1 v5", ("blind_rotate_goldilocks", 1, 5, 1, 512))):
         print(f"  dynamic shared memory per block, {label}: "
               f"{pk.step_smem_bytes(*args) / 1024:.0f} KiB")
     return secs
@@ -647,6 +701,106 @@ def phase_two_plane(ck, rate, rows):
             "two_plane_pbs_per_s": SIDE_BATCH / step_ms * 1e3}
 
 
+def phase_shortint_v5(ck, rate, rows):
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+    from tfhe_tpu_torch.ops import goldilocks as gl
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAM_MESSAGE_1_CARRY_1_KS_PBS
+
+    p = ck.params
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    bl, lv = p.pbs_base_log, p.pbs_level
+    k4, k4_plain = pk.blind_rotate_goldilocks, pk.blind_rotate_goldilocks_plain
+    with env(TFHE_NTT_VARIANT="v5"):
+        t0 = time.perf_counter()
+        sk = ServerKey.generate(ck)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+    want_shape = (n, 2, lv * R, R, N // 128, 128)
+    if sk.variant != "v5" or tuple(sk.bsk_g.shape) != want_shape:
+        raise AssertionError(f"v5 key: {sk.variant}, bsk_g "
+                             f"{tuple(sk.bsk_g.shape)} != {want_shape}")
+    print(f"keygen 2_2 v5: {keygen_s:.1f} s, bsk_g "
+          f"{tuple(sk.bsk_g.shape)}, K4 key {tuple(sk.bsk_g_k.shape)}")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (3 * x) % mod
+    vals = np.arange(BATCH, dtype=np.uint64) % mod
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+
+    # the path through the entry point, every kernel's count around it
+    pk.reset_launches()
+    out = sk.apply_lookup_table(ct, lut)
+    torch.cuda.synchronize()
+    launches = launches_of("body_rotate_u64", "blind_rotate_goldilocks")
+    others = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32",
+                         "blind_rotate_crt", "blind_rotate_bnf2_u64")
+    print(f"2_2 v5 other kernels' launches: {others}")
+    require_launched("2_2 v5 main path", launches)
+    if set(launches.values()) != {1} or any(others.values()):
+        raise AssertionError(f"2_2 v5: launches {launches}, {others}")
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("2_2 v5: batch decrypts wrong")
+    print(f"2_2 v5: {BATCH} ciphertexts decrypt to 3x mod 16")
+
+    # K2 u64 and K4 against their plain versions on this batch's inputs
+    ms_mask, ms_body = switched(sk, ct)
+    check_equal("body_rotate_u64 2_2 v5", pk.body_rotate_u64,
+                pk.body_rotate_u64_plain, (lut.acc, ms_body))
+    acc = pk.body_rotate_u64(lut.acc, ms_body)
+    # K4 reads the key in its own order, prepared once per key: the
+    # ServerKey's cached bsk_g_k on the path's check, one made from each
+    # extra check's own key otherwise
+    err, plain_ms = check_equal(
+        "blind_rotate_goldilocks 2_2 v5",
+        functools.partial(k4, bsk_k=sk.bsk_g_k), k4_plain,
+        (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_g, bl,
+         lv), plain_reps=1)
+    rng = np.random.default_rng(SEED + 5)
+    steps = min(32, n)
+    racc, rmask = _random_acc_mask(rng, PLAIN_BATCH, steps, R, N)
+    g = sk.bsk_g[:steps].contiguous()
+    check_equal("blind_rotate_goldilocks 2_2 v5, random acc",
+                functools.partial(k4, bsk_k=pk.goldilocks_kernel_key(g)),
+                k4_plain, (racc, rmask, g, bl, lv), plain_reps=1)
+    p11 = PARAM_MESSAGE_1_CARRY_1_KS_PBS
+    R11, N11 = p11.glwe_size, p11.polynomial_size
+    std = rng.integers(0, 1 << 64, size=(32, p11.pbs_level, R11, R11, N11),
+                       dtype=np.uint64)
+    racc, rmask = _random_acc_mask(rng, PLAIN_BATCH, 32, R11, N11)
+    g = gl.bootstrap_key_to_goldilocks(from_u64(std, DEVICE))
+    check_equal("blind_rotate_goldilocks 1_1 geometry",
+                functools.partial(k4, bsk_k=pk.goldilocks_kernel_key(g)),
+                k4_plain, (racc, rmask, g, p11.pbs_base_log, p11.pbs_level),
+                plain_reps=1)
+    print(f"2_2 v5: K2 u64 == plain at B={BATCH}; K4 == plain at "
+          f"B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms), on random "
+          f"accumulators ({steps} steps) and at 1_1 geometry (R={R11}, "
+          f"N={N11}, 32 steps)")
+
+    # timing
+    k4_ms = cuda_ms(lambda: k4(acc, ms_mask, sk.bsk_g, bl, lv, sk.bsk_g_k), 3)
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+    print(f"2_2 v5 KS->PBS B={BATCH}: {step_ms:.3f} ms = "
+          f"{BATCH / step_ms * 1e3:.1f} PBS/s; K4 {k4_ms:.3f} ms "
+          f"({100 * k4_ms / step_ms:.1f} %)")
+    rows["blind_rotate_goldilocks"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_goldilocks.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel_g.py:667",
+        launches=launches["blind_rotate_goldilocks"], max_abs_err=err,
+        ms=k4_ms, plain_ms=plain_ms,
+        bound=bound(goldilocks_step_int32_ops(BATCH, n, R, lv, N),
+                    step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
+        shape=f"2_2 v5 B={BATCH} n={n}",
+        plain_shape=f"2_2 v5 B={PLAIN_BATCH} n={n}")
+    return {"v5_keygen_s": keygen_s, "v5_pbs_ms": step_ms,
+            "v5_pbs_per_s": BATCH / step_ms * 1e3, "v5_k4_ms": k4_ms}
+
+
 def main() -> int:
     import torch
 
@@ -670,10 +824,11 @@ def main() -> int:
     summary.update(phase_trivium(bck, bsk))
     summary.update(phase_shortint_crt(ck22, rate, rows))
     summary.update(phase_two_plane(ck22, rate, rows))
+    summary.update(phase_shortint_v5(ck22, rate, rows))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
-             "blind_rotate_bnf2_u64")
+             "blind_rotate_bnf2_u64", "blind_rotate_goldilocks")
     kernels = []
     for name in order:
         r = rows[name]

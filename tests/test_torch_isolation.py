@@ -2,8 +2,9 @@
 imports jax, jaxlib or tfhe_tpu; a TOY apply_lookup_table runs in a fresh
 interpreter without either being loaded; entry points without a device ask
 for the GPU and raise when there is none; CPU tensors take the plain
-versions of the kernels, whose launch counts stay 0; unported variants and
-parameter sets raise instead of running another path."""
+versions of the kernels, whose launch counts stay 0; each variant runs its
+own path, and unported parameter sets raise instead of running another
+path."""
 
 import ast
 import dataclasses
@@ -101,7 +102,7 @@ def test_cpu_tensors_take_plain_versions():
     assert out.ct.device.type == "cpu"
     for fn in (pk.body_rotate_acc32, pk.body_rotate_u64,
                pk.blind_rotate_bnf2_acc32, pk.blind_rotate_crt,
-               pk.blind_rotate_bnf2_u64):
+               pk.blind_rotate_bnf2_u64, pk.blind_rotate_goldilocks):
         assert fn.launches == 0, fn.__name__
 
 
@@ -125,18 +126,20 @@ def test_unported_parameter_sets_raise(kind):
 
 
 @pytest.mark.parametrize("variant", ["crt", "v5"])
-def test_unported_variants_raise(variant, monkeypatch):
-    """v5 is not ported and raises; crt is ported and runs its own path
-    (the exact CRT kernels, never the BNF2 ones)."""
+def test_each_variant_runs_its_own_path(variant, monkeypatch):
+    """crt and v5 each run their own path: the exact CRT key and kernels,
+    or the Goldilocks key and kernels, never the BNF2 ones."""
     monkeypatch.setenv("TFHE_NTT_VARIANT", variant)
     ck = ClientKey.generate(P, seed=5, device="cpu")
-    if variant == "v5":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServerKey.generate(ck)
-        return
     sk = ServerKey.generate(ck)
-    assert sk.ntt_variant == "crt" and sk.bsk_b is None
-    assert tuple(sk.bsk_scan.shape[:3]) == (P.lwe_dimension, 2, 4)
+    assert sk.ntt_variant == variant and sk.bsk_b is None
+    if variant == "v5":
+        assert sk.bsk_scan is None and sk.num_primes == 1
+        assert tuple(sk.bsk_g.shape) == (P.lwe_dimension, 2, P.pbs_level * 2,
+                                         2, P.polynomial_size // 128, 128)
+    else:
+        assert sk.bsk_g is None
+        assert tuple(sk.bsk_scan.shape[:3]) == (P.lwe_dimension, 2, 4)
     out = sk.apply_lookup_table(ck.encrypt([3, 6]),
                                 sk.generate_lookup_table(lambda x: x + 2))
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out), [5, 8])

@@ -12,7 +12,8 @@ Two kinds of source live in ``csrc/``:
 Outputs go to ``tfhe_tpu_torch/_build/`` (git-ignored), each written to a
 temporary name and renamed into place, so concurrent processes never load
 a half-written library. A library is rebuilt when its source is newer, a
-CUDA library also when any ``.cuh`` header under ``csrc/`` is.
+CUDA library also when any ``.cuh`` header under ``csrc/`` is. Beside each
+CUDA library the build leaves ptxas' report and the kernels' SASS.
 """
 
 from __future__ import annotations
@@ -91,7 +92,8 @@ def aes_lib():
 # ---------------------------------------------------------------------------
 
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
-CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt")
+CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
+                "blind_rotate_goldilocks")
 
 
 def _nvcc() -> str:
@@ -103,6 +105,27 @@ def _nvcc() -> str:
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels of tfhe_tpu_torch "
                        "are built from csrc/*.cu on the machine with the GPU")
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its release and build)."""
+    out = subprocess.run([_nvcc(), "--version"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def _dump_sass(nvcc: str, name: str) -> None:
+    """Write the SASS of ``lib<name>.so`` to ``lib<name>.sass`` beside it
+    with the toolkit's cuobjdump (next to nvcc); skipped when it is
+    missing."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return
+    out = subprocess.run([cuobjdump, "-sass", _so_path(name)],
+                         capture_output=True, text=True)
+    if out.returncode == 0:
+        with open(os.path.join(BUILD_DIR, f"lib{name}.sass"), "w") as f:
+            f.write(out.stdout)
 
 
 def build_cuda(names=CUDA_SOURCES) -> float:
@@ -135,6 +158,7 @@ def build_cuda(names=CUDA_SOURCES) -> float:
                 os.unlink(tmp)
         else:
             os.replace(tmp, _so_path(n))
+            _dump_sass(nvcc, n)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

@@ -16,8 +16,7 @@ from ._torus import from_u32, from_u64
 from .core.entities import GlweSecretKey, LweSecretKey
 from .ops import ntt as ntt_mod
 from .shortint.client_key import ClientKey
-from .shortint.server_key import (ServerKey, check_supported, flavor_for,
-                                  resolve_variant)
+from .shortint.server_key import ServerKey, check_supported, resolve_variant
 from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
 
 
@@ -41,13 +40,13 @@ def server_key_from_arrays(params_name: str, ksk_u64,
     ``num_primes`` PRIMES32. The standard-domain BSK is rebuilt exactly with
     the port's inverse NTT + Garner reconstruction (as
     ``tfhe_tpu.shortint.server_key`` does before deriving its BNF2 key),
-    then prepared for the resolved variant."""
+    then prepared for the resolved variant (under v5, ``bsk_g`` equals
+    ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``)."""
     p = PARAMS_BY_NAME[params_name]
     check_supported(p)
     dev = resolve_device(device)
     variant = resolve_variant(p.polynomial_size, p.pbs_base_log, p.pbs_level,
                               params=p)
-    flavor_for(variant)
     scan = np.asarray(bsk_scan_residues_u32, dtype=np.uint32)
     nlwe, two, P, lR, R, N = scan.shape
     if P != num_primes or two != 2:

@@ -1,8 +1,8 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Five wrappers, each replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py``:
+Six wrappers, each replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``:
 
 - K2 ``body_rotate_acc32`` and ``body_rotate_u64`` (``csrc/body_rotate.cu``)
   replace ``_build_body_rot_fn_v4`` in its two modes: lut * X^{-body} on
@@ -16,6 +16,9 @@ Five wrappers, each replacing a Pallas kernel of
   mode with the ``garner_c`` tail (exact P-prime CRT; also the legacy
   ``_build_step_fn``, the same function in another TPU layout) and with the
   ``bnf2_c`` tail: all n CMUX steps on the u64 accumulator in one launch.
+- K4 ``blind_rotate_goldilocks`` (``csrc/blind_rotate_goldilocks.cu``)
+  replaces ``pbs_kernel_g.py::_build_step_fn_g`` (the v5 step over the
+  Goldilocks prime): all n CMUX steps on the u64 accumulator in one launch.
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -37,6 +40,7 @@ import torch
 
 from .._torus import M32, i64_to_u32, srl, u32_to_i64
 from . import bnf2 as bnf2_mod
+from . import goldilocks as gl
 from . import ntt as ntt_mod
 from .polynomial import monomial_div
 
@@ -77,7 +81,8 @@ def _declare_smem(entry):
 def reset_launches():
     """Zero the launch counts of every kernel wrapper."""
     for fn in (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
-               blind_rotate_crt, blind_rotate_bnf2_u64):
+               blind_rotate_crt, blind_rotate_bnf2_u64,
+               blind_rotate_goldilocks):
         fn.launches = 0
 
 
@@ -234,29 +239,44 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
 
 def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     """Dynamic shared memory of one block of the blind-rotation kernel
-    ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt`` or
-    ``blind_rotate_bnf2_u64``) at P primes, as its CUDA source lays it out
-    (``<entry>_smem``, from ``ntt_common.cuh::blind_rotate_smem``); 0 for a
-    prime count the entry does not take. Needs the built library."""
-    lib = _k1_lib() if entry == "blind_rotate_bnf2_acc32" else _k3_lib()
+    ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
+    ``blind_rotate_bnf2_u64`` or ``blind_rotate_goldilocks``, P = 1) at P
+    primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
+    for a prime count the entry does not take. Needs the built library."""
+    lib = {"blind_rotate_bnf2_acc32": _k1_lib,
+           "blind_rotate_goldilocks": _k4_lib}.get(entry, _k3_lib)()
     return getattr(lib, f"{entry}_smem")(P, R, levels, N.bit_length() - 1)
 
 
 def _step_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
                  bsk: torch.Tensor, P: int, base_log: int, levels: int,
                  acc_dtype):
-    """Check a blind-rotation kernel's operands; returns (B, n, R, N) and
-    the mask as contiguous int32 on the accumulator's device."""
+    """Check a P-prime blind-rotation kernel's operands (K1, K3: the key is
+    int32 [n, 2, P, l*R, R, N]); returns (B, n, R, N) and the mask as
+    contiguous int32 on the accumulator's device."""
+    shapes, a32 = _acc_mask_shapes(name, acc, msed_mask, bsk.shape[0], P,
+                                   base_log, levels, acc_dtype)
+    _, _, R, N = shapes
+    want = (2, P, levels * R, R, N)
+    _check(bsk, "bsk", torch.int32, len(want) + 1, acc.device)
+    if tuple(bsk.shape[1:]) != want:
+        raise ValueError(f"bsk shape {tuple(bsk.shape)} does not match "
+                         f"P={P}, R={R}, levels={levels}, N={N}")
+    return shapes, a32
+
+
+def _acc_mask_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+                     n_steps: int, P: int, base_log: int, levels: int,
+                     acc_dtype):
+    """Check a blind-rotation kernel's accumulator, mask and geometry (P:
+    the prime count its ``<entry>_smem`` export takes); returns
+    (B, n, R, N) and the mask as contiguous int32 on the accumulator's
+    device. The caller checks its own key."""
     dev = acc.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     _check(acc, "acc", acc_dtype, 3, dev)
-    _check(bsk, "bsk", torch.int32, 6, dev)
     B, R, N = acc.shape
-    n_steps = bsk.shape[0]
-    if tuple(bsk.shape[1:]) != (2, P, levels * R, R, N):
-        raise ValueError(f"bsk shape {tuple(bsk.shape)} does not match "
-                         f"P={P}, R={R}, levels={levels}, N={N}")
     if tuple(msed_mask.shape) != (B, n_steps):
         raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
                          f"{(B, n_steps)}")
@@ -444,3 +464,93 @@ def blind_rotate_bnf2_u64(acc: torch.Tensor, msed_mask: torch.Tensor,
 
 blind_rotate_crt.launches = 0
 blind_rotate_bnf2_u64.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the n CMUX steps of the v5 blind rotation over the Goldilocks prime
+# ---------------------------------------------------------------------------
+
+def blind_rotate_goldilocks_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
+                                  bsk_g: torch.Tensor, base_log: int,
+                                  levels: int) -> torch.Tensor:
+    """The n CMUX steps of the v5 blind rotation on the u64 accumulator
+    after its body rotation (spec of K4: ``goldilocks.cmux_steps``, the
+    loop of ``tfhe_tpu``'s ``goldilocks.blind_rotate_goldilocks``).
+    ``acc``: int64[B, R, N]; ``msed_mask``: [B, n] in [0, 2N); ``bsk_g``:
+    int32[n, 2, l*R, R, G, 128], the JAX layout. Returns int64[B, R, N]."""
+    return gl.cmux_steps(acc, msed_mask, bsk_g, base_log, levels)
+
+
+def goldilocks_kernel_key(bsk_g: torch.Tensor) -> torch.Tensor:
+    """The v5 key as K4 reads it: the (hi, lo) planes merged into canonical
+    u64 values and permuted from the (group, lane) order into the DIF order
+    of K4's transform, int64 [n, l*R, R, N] (contiguous). A permutation of
+    the key, so the MAC is the same sum."""
+    nlwe, _, lR, R, G, _ = bsk_g.shape
+    plan = gl.get_plan_g(G * 128)
+    merged = gl.bsk_g_merge(bsk_g).reshape(nlwe, lR, R, G * 128)
+    return merged[..., plan.tables(bsk_g.device)["from_kernel"]].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_lib():
+    from .._build import cuda_lib
+
+    lib = cuda_lib("blind_rotate_goldilocks")
+    i, v = ctypes.c_int, ctypes.c_void_p
+    lib.blind_rotate_goldilocks.argtypes = [v, v, v, v, v, i, i, i, i, i, i,
+                                            v]
+    lib.blind_rotate_goldilocks.restype = ctypes.c_int
+    _declare_smem(lib.blind_rotate_goldilocks_smem)
+    return lib
+
+
+def goldilocks_tables(plan: gl.GoldilocksPlan) -> np.ndarray:
+    """K4's constant table u64[4, N]: twist, untwist, the forward stage
+    twiddles (stage s at offset N - (N >> s)), the inverse ones."""
+    n = plan.n
+    out = np.zeros((4, n), dtype=np.uint64)
+    out[0], out[1] = plan.twist, plan.untwist
+    out[2, : n - 1] = np.concatenate(plan.tw_fwd)
+    out[3, : n - 1] = np.concatenate(plan.tw_inv)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _goldilocks_tables_dev(N: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(
+        goldilocks_tables(gl.get_plan_g(N)).view(np.int64)).to(device)
+
+
+def blind_rotate_goldilocks(acc: torch.Tensor, msed_mask: torch.Tensor,
+                            bsk_g: torch.Tensor, base_log: int, levels: int,
+                            bsk_k: torch.Tensor) -> torch.Tensor:
+    """K4 wrapper: see :func:`blind_rotate_goldilocks_plain`. ``bsk_k``:
+    the key K4 reads, :func:`goldilocks_kernel_key` of ``bsk_g``, prepared
+    once by the caller (the plain version on the CPU reads ``bsk_g``)."""
+    if acc.device.type == "cpu":
+        return blind_rotate_goldilocks_plain(acc, msed_mask, bsk_g, base_log,
+                                             levels)
+    if not gl.eligible(acc.shape[-1], base_log, levels):
+        raise ValueError(f"N={acc.shape[-1]}, base_log={base_log}, "
+                         f"levels={levels} outside the kernel envelope "
+                         "(goldilocks.eligible)")
+    (B, n_steps, R, N), a32 = _acc_mask_shapes(
+        "blind_rotate_goldilocks", acc, msed_mask, bsk_k.shape[0], 1,
+        base_log, levels, torch.int64)
+    _check(bsk_k, "bsk_k", torch.int64, 4, acc.device)
+    if tuple(bsk_k.shape[1:]) != (levels * R, R, N):
+        raise ValueError(f"bsk_k shape {tuple(bsk_k.shape)} != "
+                         f"[n, {levels * R}, {R}, {N}]")
+    dev = acc.device
+    tables = _goldilocks_tables_dev(N, str(dev))
+    out = torch.empty_like(acc)
+    rc = _k4_lib().blind_rotate_goldilocks(
+        _ptr(acc), _ptr(a32), _ptr(bsk_k), _ptr(tables), _ptr(out), B,
+        n_steps, R, levels, base_log, N.bit_length() - 1, _stream(dev))
+    _raise_on(rc, "blind_rotate_goldilocks")
+    blind_rotate_goldilocks.launches += 1
+    return out
+
+
+blind_rotate_goldilocks.launches = 0

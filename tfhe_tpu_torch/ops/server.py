@@ -12,8 +12,9 @@ Torch counterpart of the main-path subset of ``tfhe_tpu/ops/server.py``:
 - the exact CRT spec: external product, cmux, blind rotation and the
   portable PBS over P NTT primes with Garner reconstruction;
 - the programmable bootstraps that run the kernels (``ops/pbs_kernel.py``):
-  the exact CRT PBS (K2 u64, K3) and the v6/v6b BNF PBS (K2, K1 in acc32
-  mode; K2 u64, K3-bnf2 in two-plane mode).
+  the exact CRT PBS (K2 u64, K3), the v6/v6b BNF PBS (K2, K1 in acc32
+  mode; K2 u64, K3-bnf2 in two-plane mode) and the v5 Goldilocks PBS (K2
+  u64, K4).
 
 Tensors are int64 torus values (see ``_torus.py``), batched over leading
 dims.
@@ -340,4 +341,36 @@ def programmable_bootstrap_bnf2(
         rotated = pk.blind_rotate_bnf2_u64(acc, ms_mask, bsk_scan2, base_log,
                                            levels, fl)
     out = sample_extract(rotated, extract_nth)
+    return out.reshape(batch + (out.shape[-1],))
+
+
+def programmable_bootstrap_goldilocks(
+    ct_in: torch.Tensor,
+    lut: torch.Tensor,
+    bsk_g: torch.Tensor,
+    base_log: int,
+    levels: int,
+    centered_ms: bool = True,
+    extract_nth: int = 0,
+    *,
+    bsk_k: torch.Tensor,
+) -> torch.Tensor:
+    """Classic PBS on the single-prime Goldilocks (BNF) path, the v5
+    variant: the counterpart of ``tfhe_tpu``'s
+    ``ops/server.py::programmable_bootstrap_goldilocks`` (``:596-653``,
+    without its TPU batch padding): modulus switch -> K2 body rotation
+    (u64, the ``monomial_div`` of ``pbs_kernel_g.py:726``) -> K4 blind
+    rotation -> sample extraction.
+
+    ``bsk_g``: int32 (u32) [n, 2, l*R, R, G, 128] from
+    ``goldilocks.bootstrap_key_to_goldilocks``; ``bsk_k``: the same key in
+    K4's order (``pbs_kernel.goldilocks_kernel_key``), prepared once. CUDA
+    tensors run the kernels, CPU tensors their plain versions. Returns
+    int64[..., k*N + 1]."""
+    batch, ms_mask, ms_body, lut = _switch_and_flatten(
+        ct_in, lut, bsk_g.shape[4] * 128, centered_ms)
+    acc = pk.body_rotate_u64(lut, ms_body)
+    acc = pk.blind_rotate_goldilocks(acc, ms_mask, bsk_g, base_log, levels,
+                                     bsk_k)
+    out = sample_extract(acc, extract_nth)
     return out.reshape(batch + (out.shape[-1],))

@@ -1,13 +1,13 @@
 """Shortint server key: LUTs and the KS -> PBS atomic pattern on the
-v6/v6b BNF2 path and the exact CRT path.
+v6/v6b BNF2 path, the v5 Goldilocks path and the exact CRT path.
 
 Torch counterpart of the main-path subset of
 ``tfhe_tpu/shortint/server_key.py`` (reference
 ``tfhe/src/shortint/server_key/mod.rs``: generate_lookup_table:805,
 apply_lookup_table:935; ``atomic_pattern/standard.rs:155``). The key holds
 device tensors: the KSK (canonical and int8-limb form) and the bootstrap
-key of the resolved transform variant (BNF2 for v6/v6b, the P-prime NTT
-key in scan layout for crt).
+key of the resolved transform variant (BNF2 for v6/v6b, the Goldilocks key
+for v5, the P-prime NTT key in scan layout for crt).
 
 What this slice does not carry raises ``NotImplementedError`` naming the
 ROADMAP item; no other path is substituted.
@@ -27,6 +27,7 @@ from ..core import algorithms as algo
 from ..core import noise_formulas as nf
 from ..core.entities import LweBootstrapKey
 from ..ops import bnf2 as b2
+from ..ops import goldilocks as gl
 from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
 from ..ops import server as server_ops
@@ -38,16 +39,17 @@ from .client_key import ClientKey
 
 #: default transform variant of the classic-PBS path, as in tfhe_tpu:
 #: "v6b" = the 2-prime BNF kernel over the FAST28 pair, "v6" = the same
-#: over the ~30-bit DEFAULT pair, "crt" = the exact P-prime CRT path.
+#: over the ~30-bit DEFAULT pair, "v5" = the single-prime Goldilocks
+#: path, "crt" = the exact P-prime CRT path.
 #: Override with TFHE_NTT_VARIANT.
 _DEFAULT_VARIANT = "v6b"
 
 
 def variant_noise_margin_ok(p, variant: str, margin: float = 0.05) -> bool:
-    """Noise-budget gate of the approximate BNF variants (v6, v6b): the
-    variant's extra transform variance must be <= ``margin`` x the exact
-    path's own blind-rotation variance at this parameter set. True for
-    'crt'."""
+    """Noise-budget gate of the approximate BNF variants (v6, v6b, v5):
+    the variant's extra transform variance must be <= ``margin`` x the
+    exact path's own blind-rotation variance at this parameter set. True
+    for 'crt'."""
     if variant == "crt":
         return True
     q = 2.0 ** 64
@@ -55,7 +57,8 @@ def variant_noise_margin_ok(p, variant: str, margin: float = 0.05) -> bool:
     exact = nf.blind_rotate_additive_variance_exact(
         p.lwe_dimension, p.glwe_dimension, p.polynomial_size,
         p.pbs_base_log, p.pbs_level, bsk_var_torus)
-    mod = {"v6": float(b2.DEFAULT.qp), "v6b": float(b2.FAST28.qp)}[variant]
+    mod = {"v6": float(b2.DEFAULT.qp), "v6b": float(b2.FAST28.qp),
+           "v5": float(gl.P)}[variant]
     extra = nf.bnf_blind_rotate_extra_variance(
         p.lwe_dimension, p.glwe_dimension, p.polynomial_size,
         p.pbs_base_log, p.pbs_level,
@@ -67,10 +70,12 @@ def variant_noise_margin_ok(p, variant: str, margin: float = 0.05) -> bool:
 def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
                     params=None) -> str:
     """'v6b', 'v6', 'v5' or 'crt' for the given PBS shape, honoring
-    TFHE_NTT_VARIANT (every value other than v5, v6 and v6b selects crt, as
-    in the JAX package); with ``params``, approximate variants must also
-    pass :func:`variant_noise_margin_ok` (v6b degrades to v6, then to
-    crt)."""
+    TFHE_NTT_VARIANT as the JAX package does (``server_key.py:86-110``):
+    every value other than v5, v6 and v6b selects crt, and so does a shape
+    outside the variant's kernel envelope (``bnf2.eligible``,
+    ``goldilocks.eligible``); with ``params``, approximate variants must
+    also pass :func:`variant_noise_margin_ok` (v6b degrades to v6, then to
+    crt; v5 to crt)."""
     v = os.environ.get("TFHE_NTT_VARIANT", _DEFAULT_VARIANT)
     if v in ("v6", "v6b") and b2.eligible(poly_size, pbs_base_log,
                                           pbs_levels):
@@ -79,7 +84,10 @@ def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
         if (v == "v6b" and params is not None
                 and variant_noise_margin_ok(params, "v6")):
             return "v6"
-    return "v5" if v == "v5" else "crt"
+    if (v == "v5" and gl.eligible(poly_size, pbs_base_log, pbs_levels)
+            and (params is None or variant_noise_margin_ok(params, "v5"))):
+        return "v5"
+    return "crt"
 
 
 def check_supported(p) -> None:
@@ -105,13 +113,9 @@ def check_supported(p) -> None:
 
 
 def flavor_for(variant: str) -> Optional[b2.Bnf2Flavor]:
-    """The BNF2 prime pair of a transform variant (None for crt); raises
-    for the unported v5."""
-    if variant == "v5":
-        raise NotImplementedError(
-            "variant 'v5': the Goldilocks v5 PBS (ROADMAP Queue A item 10, "
-            "kernel B5) is not ported yet")
-    return {"v6b": b2.FAST28, "v6": b2.DEFAULT, "crt": None}[variant]
+    """The BNF2 prime pair of a transform variant (None for v5 and crt)."""
+    return {"v6b": b2.FAST28, "v6": b2.DEFAULT, "v5": None,
+            "crt": None}[variant]
 
 
 def num_primes_for(p) -> int:
@@ -143,6 +147,11 @@ class ServerKey:
     max_degree: int = 0
     #: the crt variant's key, int32 (u32) [n_small, 2, P, l*R, R, N]
     bsk_scan: Optional[torch.Tensor] = None
+    #: the v5 variant's key, int32 (u32) [n_small, 2 (hi, lo), l*R, R, G,
+    #: 128] (``tfhe_tpu``'s ``bsk_scan_g`` layout), and the same key in
+    #: K4's order, int64 [n_small, l*R, R, N] (prepared once)
+    bsk_g: Optional[torch.Tensor] = None
+    bsk_g_k: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -159,7 +168,10 @@ class ServerKey:
 
     @property
     def num_primes(self) -> int:
-        """Primes of the bootstrap key's transform."""
+        """Primes of the bootstrap key's transform: P for crt, 2 for v6 and
+        v6b, 1 for v5 (the Goldilocks prime)."""
+        if self.variant == "v5":
+            return 1
         key = self.bsk_scan if self.variant == "crt" else self.bsk_b
         return key.shape[2]
 
@@ -176,7 +188,6 @@ class ServerKey:
         check_supported(p)
         variant = resolve_variant(p.polynomial_size, p.pbs_base_log,
                                   p.pbs_level, params=p)
-        flavor_for(variant)
         gen = client_key._keygen_gen
         bsk = algo.gen_bootstrap_key(
             client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
@@ -194,13 +205,18 @@ class ServerKey:
         of the standard-domain BSK int64[n, l, R, R, N]."""
         ksk_i8 = server_ops.ksk_to_i8_limbs(to_u64(ksk), p.ks_base_log)
         flavor = flavor_for(variant)
-        crt = variant == "crt"
+        bsk_g = (gl.bootstrap_key_to_goldilocks(bsk_std) if variant == "v5"
+                 else None)
         return cls(
             params=p,
             ksk=ksk,
             ksk_i8=torch.from_numpy(ksk_i8).to(ksk.device),
-            bsk_b=None if crt else b2.bootstrap_key_to_bnf2(bsk_std, flavor),
-            bsk_scan=prepare_crt_key(bsk_std, p) if crt else None,
+            bsk_b=(b2.bootstrap_key_to_bnf2(bsk_std, flavor) if flavor
+                   else None),
+            bsk_scan=prepare_crt_key(bsk_std, p) if variant == "crt" else None,
+            bsk_g=bsk_g,
+            bsk_g_k=(pk.goldilocks_kernel_key(bsk_g) if bsk_g is not None
+                     else None),
             variant=variant,
             max_degree=p.message_modulus * p.carry_modulus - 1,
         )
@@ -252,6 +268,10 @@ class ServerKey:
             return server_ops.programmable_bootstrap_crt(
                 small, lut_acc, self.bsk_scan, p.pbs_base_log, p.pbs_level,
                 centered_ms=centered)
+        if self.variant == "v5":
+            return server_ops.programmable_bootstrap_goldilocks(
+                small, lut_acc, self.bsk_g, p.pbs_base_log, p.pbs_level,
+                centered_ms=centered, bsk_k=self.bsk_g_k)
         return server_ops.programmable_bootstrap_bnf2(
             small, lut_acc, self.bsk_b, p.pbs_base_log, p.pbs_level,
             centered_ms=centered, flavor=self.flavor)
