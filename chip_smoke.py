@@ -6,8 +6,9 @@
 Phases (any failure raises and exits non-zero):
 
 1. build every CUDA kernel from ``tfhe_tpu_torch/csrc`` (one nvcc per
-   source, all at once) and print the build time and ptxas' register,
-   spill and shared-memory report;
+   source, all at once), print the build time and ptxas' register, spill
+   and shared-memory report, and hold the loops of the build's SASS to the
+   counts the bounds were read from (``kernel_bench.sass_drift``);
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
    against their plain versions (exact) on the path's own inputs (the
@@ -37,17 +38,40 @@ Phases (any failure raises and exits non-zero):
    866 steps, the whole key), K4 on random u64 accumulators over 32 steps
    and at 1_1 geometry (R = 5, N = 512); KS -> PBS and K4 timed at
    B = 2048;
-8. the card's name and power limit, a ``{"kernels": [...]}`` line, and last
-   the ``{"ok": true, "device": {...}}`` line.
+8. boolean gates under ``TFHE_V4_ACC=32`` with phase 3's keys (K2 acc32,
+   K3-acc32: the exact CRT step on the u32 hi plane, every increment
+   rounded to 2^32): every gate on the 4096 pairs against its truth table,
+   the launch counts around one ``and_`` (K2 acc32 and K3-acc32 once, K2
+   u64 and K3 never), K2 acc32 against its plain version on the whole
+   batch and K3-acc32 on the gate's first 64 inputs over all 805 steps;
+   ``and_`` gates/s and K3-acc32 at B = 4096 beside the exact ``and_``;
+9. 2_2 under ``TFHE_NTT_VARIANT=v4 TFHE_V4_ACC=32`` with phase 5's 4-prime
+   key: a batch of 512 through ``apply_lookup_table`` (K2 acc32,
+   K3-acc32) with the launch counts around it; K2 acc32 and K3-acc32
+   against their plain versions on that batch's own inputs (K3-acc32's on
+   its first 64 ciphertexts, all 866 steps, the whole key) and K3-acc32 on
+   random accumulators over 32 steps;
+10. ``TFHE_V6_STACKED=1`` (a TPU layout of K1's function, read by nothing
+    in the port; its parity with K1 is a CPU test): phase 2's batch takes
+    the same kernels with it set and gives phase 2's ciphertext bit for
+    bit;
+11. the kernel bench: each micro-kernel of ``csrc/kernel_bench.cu`` held
+    exactly against its plain version and timed at a small trip count,
+    then ``kernel_bench.run_all(quick=True)`` with the launch counts
+    around it, one JSON row per micro-benchmark;
+12. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+    last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
-the mean of 200 back-to-back launches between one pair of events). Bounds:
-``bound_ms`` is the larger of the bytes the kernel must move over the
-card's HBM rate (3.35 TB/s, H100 SXM data sheet) and its integer
-operations over the rate of one 64-lane-per-SM integer pipe (64 lanes x
-SMs x max SM clock): K1-K3 by ``step_int32_ops`` (32-bit operations
-counted from the source), K4 by ``goldilocks_step_int32_ops``
-(instructions per pipe counted from the SASS of the build).
+the mean of 200 back-to-back launches between one pair of events); a plain
+version's ``plain_ms`` is its comparison run. Bounds: ``bound_ms`` is the
+larger of the bytes the kernel must move over the card's HBM rate (3.35
+TB/s, H100 SXM data sheet) and its instructions over the rate of one
+64-lane-per-SM integer pipe (64 lanes x SMs x max SM clock), counted per
+pipe from the SASS of the build (K1, K3, K3-acc32, K3-bnf2, K4 and the
+micro-kernels, ``kernel_bench.SASS_OPS``); the
+bound of K1-K3 by 32-bit operations counted from the source stays beside
+it as ``source_bound_ms`` for one more release.
 """
 
 from __future__ import annotations
@@ -69,8 +93,8 @@ BOOL_BATCH = 4096  # boolean gates
 SIDE_BATCH = 512  # shortint crt and two-plane phases
 PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 units per SM
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
+KB_CHECK_LOOPS = 16  # micro-kernel passes of the exactness check
 TRIVIUM_KEY = [(i * 7 + 3) % 2 for i in range(80)]
 TRIVIUM_IV = [(i * 5 + 1) % 2 for i in range(80)]
 DEVICE = "cuda"
@@ -129,15 +153,6 @@ def max_abs_err(a, b) -> float:
     return float((a - b).double().abs().max().item())
 
 
-def int32_rate() -> float:
-    """INT32 operations per second of card 0 at its max SM clock."""
-    import torch
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
-
-
 def garner_ops(P: int) -> int:
     """int32 operations of the Garner tail per coefficient: for digit i,
     i-1 Horner Shoup multiply-adds (7) and the difference plus its Shoup
@@ -165,46 +180,6 @@ def step_int32_ops(B: int, n: int, R: int, levels: int, N: int, P: int,
     return float(B) * n * per
 
 
-#: K4's instructions per unit of work as sm_90a runs them, (ALU pipe,
-#: FMA pipe): the instructions of each loop body of
-#: ``csrc/blind_rotate_goldilocks.cu`` that read the loaded data or a value
-#: computed from it (index arithmetic, loads, stores and branches left
-#: out), read from the SASS the build leaves in
-#: ``tfhe_tpu_torch/_build/libblind_rotate_goldilocks.sass`` (the nvcc
-#: that phase 1 prints, -O3). IMAD in all its forms (.WIDE, .X, .MOV,
-#: .IADD) runs on the FMA pipe; IADD3, ISETP, SEL, LOP3, SHF and the
-#: rest on the ALU pipe. A 64 x 64 -> 128-bit product is 7-11
-#: instructions (IMAD.WIDE.U32 fuses a 32 x 32 product with a 64-bit add
-#: and its carry); the reduction mod p and the canonical select take ~22
-#: more, mostly 64-bit compares and selects on the ALU pipe.
-K4_SASS_OPS = {
-    "element": (14, 3),  # per R*N: rotate, negate, rot - acc, digit state
-    "digit": (34, 10),  # per l*R*N: next digit, lift into Z_p, twist
-    "fwd_butterfly": (39, 12),  # g_add, g_sub, g_mul
-    "mac": (32, 15),  # per R*l*R*N: g_mul, g_add into the sum
-    "inv_butterfly": (39, 16),  # g_mul, g_add, g_sub
-    "untwist": (23, 12),  # per R*N: g_mul, x + (x >> 32), acc +=
-}
-
-
-def goldilocks_step_int32_ops(B: int, n: int, R: int, levels: int,
-                              N: int) -> float:
-    """K4's operations in units of one 64-lane-per-SM pipe: per step and
-    ciphertext, R*N elements, l*R*N digits, l*R forward and R inverse
-    transforms of N/2*log2(N) butterflies, R*l*R*N MAC products and R*N
-    untwists, each at :data:`K4_SASS_OPS`. The ALU and FMA pipes each
-    have 64 lanes per SM and run side by side, at most 128 instructions
-    per SM and clock in all, so the count is the busier pipe's, or half
-    the total when that is more."""
-    lR, half_log = levels * R, (N // 2) * (N.bit_length() - 1)
-    units = {"element": R * N, "digit": lR * N,
-             "fwd_butterfly": lR * half_log, "mac": R * lR * N,
-             "inv_butterfly": R * half_log, "untwist": R * N}
-    alu = sum(units[k] * K4_SASS_OPS[k][0] for k in units)
-    fma = sum(units[k] * K4_SASS_OPS[k][1] for k in units)
-    return float(B) * n * max(alu, fma, (alu + fma) / 2)
-
-
 def step_bytes(B: int, n: int, R: int, levels: int, N: int, P: int,
                acc_bytes: int) -> float:
     """Bytes a blind-rotation kernel must move: the key once, the
@@ -225,17 +200,40 @@ def bound(ops: float, nbytes: float, rate: float):
                                    else "bytes")
 
 
-def check_equal(name, kernel, plain, args, plain_reps: int = 3):
+def step_bound(entry: str, B: int, n: int, R: int, levels: int, N: int,
+               P: int, tail_ops: int, acc_bytes: int, rate: float) -> dict:
+    """A step kernel's row keys ``bound``, on the SASS per-pipe rule ((ms,
+    "bytes" or "operations"), ``kernel_bench.step_pipe_instructions``), and
+    ``source_bound_ms``, the earlier one by 32-bit operations counted from
+    the source (:func:`step_int32_ops`)."""
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    nbytes = step_bytes(B, n, R, levels, N, P, acc_bytes)
+    sass = bound(kb.step_pipe_instructions(entry, B, n, R, levels, N, P),
+                 nbytes, rate)
+    source = bound(step_int32_ops(B, n, R, levels, N, P, tail_ops), nbytes,
+                   rate)[0]
+    return {"bound": sass, "source_bound_ms": source}
+
+
+def check_equal(name, kernel, plain, args):
     """Kernel vs plain version on the same inputs, exact; returns the
-    max_abs_err (0) and the plain version's time (ms), the median of
-    ``plain_reps`` more runs after the comparison run warmed it up."""
+    max_abs_err (0) and the plain version's time (ms): its comparison run,
+    between CUDA events."""
+    import torch
+
     got = kernel(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain(*args)
+    end.record()
+    end.synchronize()
     err = max_abs_err(got, want)
     if tuple(got.shape) != tuple(want.shape) or err != 0:
         raise AssertionError(f"{name}: kernel != plain version "
                              f"(max_abs_diff {err})")
-    return err, cuda_ms(lambda: plain(*args), plain_reps, warmup=False)
+    return err, start.elapsed_time(end)
 
 
 @contextlib.contextmanager
@@ -300,8 +298,16 @@ def require_launched(label: str, counts: dict):
 # phases
 # ---------------------------------------------------------------------------
 
+def _read_sass(lib: str) -> str:
+    from tfhe_tpu_torch import _build
+
+    with open(_build.sass_path(lib)) as f:
+        return f.read()
+
+
 def phase_build():
     from tfhe_tpu_torch import _build
+    from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     secs = _build.build_cuda()
@@ -313,10 +319,23 @@ def phase_build():
                 if ("entry function" in line or "registers" in line
                         or "spill" in line):
                     print(f"  ptxas {name}: {line.strip()}")
+    # every bound rests on kernel_bench.SASS_OPS: hold its source, the
+    # loops of this build, to the counts it was read from
+    drift = kb.sass_drift(_read_sass)
+    if drift:
+        raise AssertionError(
+            f"SASS loops differ from kernel_bench.SASS_LOOP_TOTALS (read "
+            f"from {kb.SASS_TOOLKIT}) as (kernel, (ALU, FMA) then, now): "
+            f"{drift}; recount kernel_bench.SASS_OPS")
+    print(f"SASS loops of all {len(kb.SASS_LOOP_TOTALS)} bounded kernels == "
+          f"kernel_bench.SASS_LOOP_TOTALS (read from {kb.SASS_TOOLKIT})")
     for label, args in (
             ("K1 2_2", ("blind_rotate_bnf2_acc32", 2, 2, 1, 2048)),
             ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
             ("K3 2_2 crt (P=4)", ("blind_rotate_crt", 4, 2, 1, 2048)),
+            ("K3-acc32 boolean default (P=3)",
+             ("blind_rotate_crt_acc32", 3, 4, 2, 512)),
+            ("K3-acc32 2_2 (P=4)", ("blind_rotate_crt_acc32", 4, 2, 1, 2048)),
             ("K3-bnf2 2_2 two-plane", ("blind_rotate_bnf2_u64", 2, 2, 1,
                                        2048)),
             ("K4 2_2 v5", ("blind_rotate_goldilocks", 1, 2, 1, 2048)),
@@ -357,6 +376,10 @@ def phase_shortint_v6b(card, rate, rows):
 
     # kernels vs plain versions at the main path's shapes
     ms_mask, ms_body = switched(sk, ct)
+    # the script's first plain run pays the one-time start-up of torch's
+    # CUDA ops (4.7 s against about 1 ms after it, on an H100): keep that
+    # out of the timed comparison runs
+    pk.body_rotate_acc32_plain(lut.acc, ms_body)
     k2_err, k2_plain = check_equal("body_rotate_acc32", pk.body_rotate_acc32,
                                    pk.body_rotate_acc32_plain,
                                    (lut.acc, ms_body))
@@ -364,8 +387,7 @@ def phase_shortint_v6b(card, rate, rows):
     k1_err, k1_plain = check_equal(
         "blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
         pk.blind_rotate_bnf2_acc32_plain,
-        (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl),
-        plain_reps=1)
+        (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl))
     print(f"K2 acc32 and K1 == plain at B={BATCH}, n={n}")
     rng = np.random.default_rng(SEED)
     p11 = PARAM_MESSAGE_1_CARRY_1_KS_PBS
@@ -410,9 +432,6 @@ def phase_shortint_v6b(card, rate, rows):
     print(f"keyswitch (torch._int_mm int8 GEMM) B={BATCH}: {ks_ms:.3f} ms")
     print(f"KS->PBS step B={BATCH}: {step_ms:.3f} ms = "
           f"{BATCH / step_ms * 1e3:.1f} PBS/s on {card}")
-    k1_bound = bound(step_int32_ops(BATCH, n, R, p.pbs_level, N, 2,
-                                    BNF2_C32_OPS),
-                     step_bytes(BATCH, n, R, p.pbs_level, N, 2, 4), rate)
     k2_bound = bound(BATCH * R * N * 8, k2_bytes(BATCH, R, N, True, 4), rate)
     rows["body_rotate_acc32"] = dict(
         source="tfhe_tpu_torch/csrc/body_rotate.cu",
@@ -424,10 +443,12 @@ def phase_shortint_v6b(card, rate, rows):
         source="tfhe_tpu_torch/csrc/blind_rotate_bnf2.cu",
         replaces="tfhe_tpu/ops/pbs_kernel.py:1848",
         launches=launches["blind_rotate_bnf2_acc32"], max_abs_err=k1_err,
-        ms=k1_ms, plain_ms=k1_plain, bound=k1_bound,
+        ms=k1_ms, plain_ms=k1_plain,
+        **step_bound("blind_rotate_bnf2_acc32", BATCH, n, R, p.pbs_level, N,
+                     2, BNF2_C32_OPS, 4, rate),
         shape=f"2_2 B={BATCH} n={n}", plain_shape=f"2_2 B={BATCH} n={n}")
-    return ck, {"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
-                "pbs_per_s": BATCH / step_ms * 1e3}
+    return ck, sk, (ct, lut, out.ct), {"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
+                               "pbs_per_s": BATCH / step_ms * 1e3}
 
 
 def phase_boolean(card, rate, rows):
@@ -512,9 +533,6 @@ def phase_boolean(card, rate, rows):
           f"K2 u64 {k2_ms:.4f} ms, keyswitch {ks_ms:.3f} ms, rest "
           f"{gate_ms - k3_ms - k2_ms - ks_ms:.3f} ms; K3 at B={PLAIN_BATCH}: "
           f"{k3_small_ms:.3f} ms")
-    k3_bound = bound(step_int32_ops(BOOL_BATCH, n, R, p.pbs_level, N, 3,
-                                    garner_ops(3)),
-                     step_bytes(BOOL_BATCH, n, R, p.pbs_level, N, 3, 8), rate)
     k2_bound = bound(BOOL_BATCH * R * N * 6,
                      k2_bytes(BOOL_BATCH, R, N, True, 8), rate)
     rows["body_rotate_u64"] = dict(
@@ -527,7 +545,10 @@ def phase_boolean(card, rate, rows):
         source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt"], max_abs_err=k3_err, ms=k3_ms,
-        plain_ms=k3_plain, bound=k3_bound, small_ms=k3_small_ms,
+        plain_ms=k3_plain,
+        **step_bound("blind_rotate_crt", BOOL_BATCH, n, R, p.pbs_level, N, 3,
+                     garner_ops(3), 8, rate),
+        small_ms=k3_small_ms,
         shape=f"boolean B={BOOL_BATCH} n={n} P=3",
         plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
     return ck, sk, {"bool_keygen_s": keygen_s, "and_ms": gate_ms,
@@ -628,13 +649,12 @@ def _side_kernels(label, kernel, plain, key, tail_args, inputs, seed):
     err, plain_ms = check_equal(
         f"{name} {label}", kernel, plain,
         (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], key,
-         *tail_args), plain_reps=1)
+         *tail_args))
     steps = min(32, key.shape[0])
     racc, rmask = _random_acc_mask(np.random.default_rng(seed), PLAIN_BATCH,
                                    steps, R, N)
     check_equal(f"{name} {label}, random acc", kernel, plain,
-                (racc, rmask, key[:steps].contiguous(), *tail_args),
-                plain_reps=1)
+                (racc, rmask, key[:steps].contiguous(), *tail_args))
     ms = cuda_ms(lambda: kernel(acc, ms_mask, key, *tail_args), 2)
     print(f"{label}: K2 u64 == plain at B={B}; {name} == plain at "
           f"B={PLAIN_BATCH}, n={key.shape[0]} (plain {plain_ms:.3f} ms) and "
@@ -662,12 +682,12 @@ def phase_shortint_crt(ck, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        bound=bound(step_int32_ops(SIDE_BATCH, n, R, p.pbs_level, N, 4,
-                                   garner_ops(4)),
-                    step_bytes(SIDE_BATCH, n, R, p.pbs_level, N, 4, 8), rate),
+        **step_bound("blind_rotate_crt", SIDE_BATCH, n, R, p.pbs_level, N, 4,
+                     garner_ops(4), 8, rate),
         shape=f"2_2 crt B={SIDE_BATCH} n={n} P=4",
         plain_shape=f"2_2 crt B={PLAIN_BATCH} n={n} P=4")
-    return {"crt_pbs_ms": step_ms, "crt_pbs_per_s": SIDE_BATCH / step_ms * 1e3}
+    return sk, {"crt_pbs_ms": step_ms,
+                "crt_pbs_per_s": SIDE_BATCH / step_ms * 1e3}
 
 
 def phase_two_plane(ck, rate, rows):
@@ -692,9 +712,8 @@ def phase_two_plane(ck, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_bnf2_u64"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        bound=bound(step_int32_ops(SIDE_BATCH, n, R, p.pbs_level, N, 2,
-                                   BNF2_C_OPS),
-                    step_bytes(SIDE_BATCH, n, R, p.pbs_level, N, 2, 8), rate),
+        **step_bound("blind_rotate_bnf2_u64", SIDE_BATCH, n, R, p.pbs_level,
+                     N, 2, BNF2_C_OPS, 8, rate),
         shape=f"2_2 B={SIDE_BATCH} n={n}",
         plain_shape=f"2_2 B={PLAIN_BATCH} n={n}")
     return {"two_plane_pbs_ms": step_ms,
@@ -706,6 +725,7 @@ def phase_shortint_v5(ck, rate, rows):
 
     from tfhe_tpu_torch._torus import from_u64
     from tfhe_tpu_torch.ops import goldilocks as gl
+    from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
     from tfhe_tpu_torch.shortint.server_key import ServerKey
     from tfhe_tpu_torch.utils.params import PARAM_MESSAGE_1_CARRY_1_KS_PBS
@@ -759,14 +779,14 @@ def phase_shortint_v5(ck, rate, rows):
         "blind_rotate_goldilocks 2_2 v5",
         functools.partial(k4, bsk_k=sk.bsk_g_k), k4_plain,
         (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_g, bl,
-         lv), plain_reps=1)
+         lv))
     rng = np.random.default_rng(SEED + 5)
     steps = min(32, n)
     racc, rmask = _random_acc_mask(rng, PLAIN_BATCH, steps, R, N)
     g = sk.bsk_g[:steps].contiguous()
     check_equal("blind_rotate_goldilocks 2_2 v5, random acc",
                 functools.partial(k4, bsk_k=pk.goldilocks_kernel_key(g)),
-                k4_plain, (racc, rmask, g, bl, lv), plain_reps=1)
+                k4_plain, (racc, rmask, g, bl, lv))
     p11 = PARAM_MESSAGE_1_CARRY_1_KS_PBS
     R11, N11 = p11.glwe_size, p11.polynomial_size
     std = rng.integers(0, 1 << 64, size=(32, p11.pbs_level, R11, R11, N11),
@@ -775,8 +795,7 @@ def phase_shortint_v5(ck, rate, rows):
     g = gl.bootstrap_key_to_goldilocks(from_u64(std, DEVICE))
     check_equal("blind_rotate_goldilocks 1_1 geometry",
                 functools.partial(k4, bsk_k=pk.goldilocks_kernel_key(g)),
-                k4_plain, (racc, rmask, g, p11.pbs_base_log, p11.pbs_level),
-                plain_reps=1)
+                k4_plain, (racc, rmask, g, p11.pbs_base_log, p11.pbs_level))
     print(f"2_2 v5: K2 u64 == plain at B={BATCH}; K4 == plain at "
           f"B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms), on random "
           f"accumulators ({steps} steps) and at 1_1 geometry (R={R11}, "
@@ -793,12 +812,221 @@ def phase_shortint_v5(ck, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel_g.py:667",
         launches=launches["blind_rotate_goldilocks"], max_abs_err=err,
         ms=k4_ms, plain_ms=plain_ms,
-        bound=bound(goldilocks_step_int32_ops(BATCH, n, R, lv, N),
-                    step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
+        bound=bound(kb.step_pipe_instructions(
+            "blind_rotate_goldilocks", BATCH, n, R, lv, N, 1),
+            step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
         shape=f"2_2 v5 B={BATCH} n={n}",
         plain_shape=f"2_2 v5 B={PLAIN_BATCH} n={n}")
     return {"v5_keygen_s": keygen_s, "v5_pbs_ms": step_ms,
             "v5_pbs_per_s": BATCH / step_ms * 1e3, "v5_k4_ms": k4_ms}
+
+
+def phase_boolean_acc32(ck, sk, card, rate, rows, exact_and_ms):
+    """Phase 3's keys and gates under TFHE_V4_ACC=32: the same bootstrap
+    key, run through K2 acc32 and K3-acc32."""
+    import torch
+
+    from tfhe_tpu_torch import boolean
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import server as server_ops
+
+    p = sk.params
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    rng = np.random.default_rng(SEED + 6)
+    a, b, c = (rng.integers(0, 2, BOOL_BATCH).astype(bool) for _ in range(3))
+    l, r, cond = ck.encrypt(a), ck.encrypt(b), ck.encrypt(c)
+    combo = l.ct + r.ct
+    combo[..., -1] += boolean.PLAINTEXT_FALSE  # the and_ gate's input
+    ms_mask, ms_body = server_ops.lwe_standard_modulus_switch(
+        combo, N.bit_length())
+    lut = sk._true_lut()
+    with env(TFHE_V4_ACC="32"):
+        if not server_ops.crt_acc32_requested(N, p.pbs_base_log, p.pbs_level):
+            raise AssertionError("TFHE_V4_ACC=32 does not select acc32")
+        pk.reset_launches()
+        out = sk.and_(l, r)
+        torch.cuda.synchronize()
+        launches = launches_of("body_rotate_acc32", "blind_rotate_crt_acc32")
+        others = launches_of("body_rotate_u64", "blind_rotate_crt")
+        print(f"boolean acc32 and_ launches {launches}, exact kernels "
+              f"{others}")
+        if set(launches.values()) != {1} or any(others.values()):
+            raise AssertionError(f"boolean acc32: launches {launches}, "
+                                 f"{others}")
+        truth = {"and_": a & b, "or_": a | b, "nand": ~(a & b),
+                 "nor": ~(a | b), "xor": a ^ b, "xnor": ~(a ^ b)}
+        outs = {"and_": out}
+        for g in ("or_", "nand", "nor", "xor", "xnor"):
+            outs[g] = getattr(sk, g)(l, r)
+        outs["not_"], truth["not_"] = sk.not_(l), ~a
+        outs["mux"], truth["mux"] = sk.mux(cond, l, r), np.where(c, a, b)
+        for g, want in truth.items():
+            got = ck.decrypt(outs[g])
+            if not np.array_equal(got, want):
+                raise AssertionError(f"boolean acc32 {g}: "
+                                     f"{int((got != want).sum())} of "
+                                     f"{BOOL_BATCH} decrypt wrong")
+        print(f"boolean acc32: all 8 gates decrypt to their truth tables on "
+              f"{BOOL_BATCH} random inputs")
+
+        # K2 acc32 and K3-acc32 against their plain versions
+        k2_err, k2_plain = check_equal(
+            "body_rotate_acc32 boolean", pk.body_rotate_acc32,
+            pk.body_rotate_acc32_plain, (lut, ms_body))
+        hi = pk.body_rotate_acc32(lut, ms_body)
+        err, plain_ms = check_equal(
+            "blind_rotate_crt_acc32 boolean", pk.blind_rotate_crt_acc32,
+            pk.blind_rotate_crt_acc32_plain,
+            (hi[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH],
+             sk.bsk_scan, p.pbs_base_log, p.pbs_level))
+        print(f"K2 acc32 == plain at B={BOOL_BATCH}; K3-acc32 == plain at "
+              f"B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms)")
+
+        # timing
+        ms = cuda_ms(lambda: pk.blind_rotate_crt_acc32(
+            hi, ms_mask, sk.bsk_scan, p.pbs_base_log, p.pbs_level), 2)
+        gate_ms = cuda_ms(lambda: sk.and_(l, r), 3)
+    print(f"boolean acc32 B={BOOL_BATCH}: and_ {gate_ms:.3f} ms = "
+          f"{BOOL_BATCH / gate_ms * 1e3:.1f} gates/s (exact: "
+          f"{exact_and_ms:.3f} ms); K3-acc32 {ms:.3f} ms on {card}")
+    rows["blind_rotate_crt_acc32"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        launches=launches["blind_rotate_crt_acc32"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms,
+        **step_bound("blind_rotate_crt_acc32", BOOL_BATCH, n, R, p.pbs_level,
+                     N, 3, garner_ops(3) + 2, 4, rate),
+        shape=f"boolean B={BOOL_BATCH} n={n} P=3",
+        plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
+    return {"acc32_and_ms": gate_ms,
+            "acc32_gates_per_s": BOOL_BATCH / gate_ms * 1e3,
+            "acc32_k3_ms": ms, "acc32_k2_plain_ms": k2_plain}
+
+
+def phase_shortint_v4_acc32(ck, sk, rate, rows):
+    """Phase 5's 4-prime CRT key under TFHE_NTT_VARIANT=v4 TFHE_V4_ACC=32:
+    the exact CRT path's acc32 mode (K2 acc32, K3-acc32)."""
+    from tfhe_tpu_torch._torus import from_u32
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    p = ck.params
+    R, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    bl, lv = p.pbs_base_log, p.pbs_level
+    k3, k3_plain = pk.blind_rotate_crt_acc32, pk.blind_rotate_crt_acc32_plain
+    label = "2_2 v4 acc32 (P=4)"
+    with env(TFHE_NTT_VARIANT="v4", TFHE_V4_ACC="32"):
+        launches, step_ms, (lut_acc, ms_mask, ms_body) = _side_batch(
+            ck, sk, label, ("body_rotate_acc32", "blind_rotate_crt_acc32"))
+        others = launches_of("body_rotate_u64", "blind_rotate_crt")
+        if set(launches.values()) != {1} or any(others.values()):
+            raise AssertionError(f"{label}: launches {launches}, {others}")
+        # K2 acc32 and K3-acc32 against their plain versions on this
+        # batch's own inputs (K3-acc32's on its first PLAIN_BATCH
+        # ciphertexts, all n steps, the whole key)
+        check_equal(f"body_rotate_acc32 {label}", pk.body_rotate_acc32,
+                    pk.body_rotate_acc32_plain, (lut_acc, ms_body))
+        hi = pk.body_rotate_acc32(lut_acc, ms_body)
+        err, plain_ms = check_equal(
+            f"blind_rotate_crt_acc32 {label}", k3, k3_plain,
+            (hi[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH],
+             sk.bsk_scan, bl, lv))
+        # and on random accumulators over 32 steps
+        rng = np.random.default_rng(SEED + 7)
+        steps = 32
+        racc = from_u32(rng.integers(0, 1 << 32, size=(PLAIN_BATCH, R, N),
+                                     dtype=np.uint32), DEVICE)
+        _, rmask = _random_acc_mask(rng, PLAIN_BATCH, steps, R, N)
+        check_equal(f"blind_rotate_crt_acc32 {label}, random acc", k3,
+                    k3_plain,
+                    (racc, rmask, sk.bsk_scan[:steps].contiguous(), bl, lv))
+        ms = cuda_ms(lambda: k3(hi, ms_mask, sk.bsk_scan, bl, lv), 2)
+    print(f"{label}: K2 acc32 == plain at B={SIDE_BATCH}; K3-acc32 == plain "
+          f"at B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms) and on "
+          f"random accumulators, {steps} steps; K3-acc32 at B={SIDE_BATCH}: "
+          f"{ms:.3f} ms")
+    rows["blind_rotate_crt_acc32_p4"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        launches=launches["blind_rotate_crt_acc32"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms,
+        **step_bound("blind_rotate_crt_acc32", SIDE_BATCH, n, R, lv, N, 4,
+                     garner_ops(4) + 2, 4, rate),
+        shape=f"2_2 v4 acc32 B={SIDE_BATCH} n={n} P=4",
+        plain_shape=f"2_2 v4 acc32 B={PLAIN_BATCH} n={n} P=4")
+    return {"v4_acc32_pbs_ms": step_ms,
+            "v4_acc32_pbs_per_s": SIDE_BATCH / step_ms * 1e3,
+            "v4_acc32_k3_ms": ms}
+
+
+def phase_stacked_env(sk, ct, lut, want):
+    """TFHE_V6_STACKED=1 selects a TPU layout of K1's function; nothing in
+    the port reads it, and the layout's parity with K1 is the CPU test
+    ``test_stacked_step_equals_plain_k1``. This checks what the variable
+    could change on the card: with it set, phase 2's batch takes the same
+    kernels (K2 acc32 and K1 once, no other) and gives phase 2's ciphertext
+    ``want`` bit for bit (so K1 also repeats its bits)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    with env(TFHE_V6_STACKED="1"):
+        pk.reset_launches()
+        got = sk.apply_lookup_table(ct, lut)
+        torch.cuda.synchronize()
+    launches = launches_of(*(fn.__name__ for fn in pk.KERNELS))
+    want_launches = {k: int(k in ("body_rotate_acc32",
+                                  "blind_rotate_bnf2_acc32"))
+                     for k in launches}
+    if launches != want_launches:
+        raise AssertionError(f"TFHE_V6_STACKED=1 launches {launches}")
+    if not torch.equal(got.ct, want):
+        raise AssertionError("TFHE_V6_STACKED=1: the ciphertext differs from "
+                             "phase 2's")
+    print(f"TFHE_V6_STACKED=1: 2_2 batch of {ct.ct.shape[0]} bit-equal to "
+          f"phase 2's run; launches {launches}")
+
+
+def phase_kernel_bench(rate, rows):
+    """The micro-kernels held exactly against their plain versions at
+    KB_CHECK_LOOPS passes over the bench's own rows and timed there, then
+    kernel_bench.run_all(quick=True) with the launch counts around it."""
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    t0 = time.perf_counter()
+    inputs = kb.micro_inputs(DEVICE)
+    checked = {}
+    for fn in kb.MICRO_KERNELS:
+        name = fn.__name__
+        args = inputs[name] + (KB_CHECK_LOOPS,)
+        err, plain_ms = check_equal(name, fn, getattr(kb, f"{name}_plain"),
+                                    args)
+        ms = cuda_ms(lambda: fn(*args), 5)
+        rows_n, N = args[0].shape
+        nbytes = 2 * args[0].numel() * args[0].element_size()
+        checked[name] = dict(
+            source="tfhe_tpu_torch/csrc/kernel_bench.cu",
+            replaces="tfhe_tpu/ops/kernel_bench.py:91", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms,
+            bound=bound(kb.micro_pipe_instructions(name, rows_n, N,
+                                                   KB_CHECK_LOOPS),
+                        nbytes, rate),
+            shape=f"{rows_n} rows x N={N}, {KB_CHECK_LOOPS} passes",
+            plain_shape=f"{rows_n} rows x N={N}, {KB_CHECK_LOOPS} passes")
+        print(f"{name} == plain at {rows_n} rows, {KB_CHECK_LOOPS} passes: "
+              f"{ms:.4f} ms (plain {plain_ms:.3f} ms)")
+    kb.reset_launches()
+    bench_rows = kb.run_all(quick=True)
+    for row in bench_rows:
+        print(f"kernel bench: {json.dumps(row)}")
+    for fn in kb.MICRO_KERNELS:
+        if fn.launches < 1:
+            raise AssertionError(f"kernel bench: {fn.__name__} did not "
+                                 "launch")
+        rows[fn.__name__] = dict(launches=fn.launches, **checked[fn.__name__])
+    secs = time.perf_counter() - t0
+    print(f"kernel bench phase: {secs:.1f} s")
+    return {"kernel_bench_s": secs,
+            "kernel_bench": {r["metric"]: r["value"] for r in bench_rows}}
 
 
 def main() -> int:
@@ -812,23 +1040,33 @@ def main() -> int:
     t_start = time.perf_counter()
     card = nvidia_smi("name,power.limit")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    rate = int32_rate()
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    rate = kb.card_rates()["int32"]
     print(f"INT32 rate {rate / 1e12:.2f} Tops/s")
 
     rows: dict = {}
     summary = {"build_s": phase_build(), "card": card}
-    ck22, s = phase_shortint_v6b(card, rate, rows)
+    ck22, sk22, batch22, s = phase_shortint_v6b(card, rate, rows)
     summary.update(s)
     bck, bsk, s = phase_boolean(card, rate, rows)
     summary.update(s)
     summary.update(phase_trivium(bck, bsk))
-    summary.update(phase_shortint_crt(ck22, rate, rows))
+    sk_crt, s = phase_shortint_crt(ck22, rate, rows)
+    summary.update(s)
     summary.update(phase_two_plane(ck22, rate, rows))
     summary.update(phase_shortint_v5(ck22, rate, rows))
+    summary.update(phase_boolean_acc32(bck, bsk, card, rate, rows,
+                                       summary["and_ms"]))
+    summary.update(phase_shortint_v4_acc32(ck22, sk_crt, rate, rows))
+    phase_stacked_env(sk22, *batch22)
+    summary.update(phase_kernel_bench(rate, rows))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
-             "blind_rotate_bnf2_u64", "blind_rotate_goldilocks")
+             "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
+             "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
+             "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose")
     kernels = []
     for name in order:
         r = rows[name]

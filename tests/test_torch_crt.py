@@ -26,6 +26,7 @@ from tfhe_tpu.ops import bnf2 as jb2
 from tfhe_tpu.ops import ntt as jntt
 from tfhe_tpu.ops import pbs_kernel as jpk
 from tfhe_tpu.ops import server as jserver
+from tfhe_tpu.shortint import server_key as jserver_key
 from tfhe_tpu.shortint.client_key import ClientKey as JClientKey
 from tfhe_tpu.shortint.server_key import ServerKey as JServerKey
 from tfhe_tpu.utils.params import PARAM_TEST_TOY as JP
@@ -103,10 +104,14 @@ def test_blind_rotate_and_pbs_match_jax():
                               from_u64(body, "cpu"), from_u32(hat, "cpu"),
                               BL, L, plan)
     np.testing.assert_array_equal(to_u64(got), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        server.blind_rotate(from_u64(lut, "cpu"), from_u64(mask, "cpu"),
-                            from_u64(body, "cpu"), from_u32(hat, "cpu"),
-                            BL, L, plan, acc_round32=True)
+    # acc32 mode: the accumulator and each increment rounded to 2^32
+    want32 = np.asarray(jserver.blind_rotate(
+        jnp.asarray(lut), jnp.asarray(mask), jnp.asarray(body),
+        jnp.asarray(hat), BL, L, jplan, acc_round32=True))
+    got32 = server.blind_rotate(from_u64(lut, "cpu"), from_u64(mask, "cpu"),
+                                from_u64(body, "cpu"), from_u32(hat, "cpu"),
+                                BL, L, plan, acc_round32=True)
+    np.testing.assert_array_equal(to_u64(got32), want32)
     # the portable PBS, and the kernel path through the plain versions
     ct = rng.integers(0, 1 << 64, size=(B, n_steps + 1), dtype=np.uint64)
     want = np.asarray(jserver.programmable_bootstrap(
@@ -229,6 +234,10 @@ SEED = 424242
 def _shortint_case(monkeypatch, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    # tfhe_tpu caches its jitted KS -> PBS by key shape and variant, not by
+    # TFHE_V4_ACC: a fresh cache for the test keeps what it jits under
+    # ``env`` from answering a later test of the same worker
+    monkeypatch.setattr(jserver_key, "_jitted_ks_pbs_cache", {})
     jck = JClientKey.generate(JP, seed=SEED)
     jsk = JServerKey.generate(jck)
     ck = ClientKey.generate(P, seed=SEED, device="cpu")
@@ -263,14 +272,29 @@ def test_shortint_two_plane_v6b_bit_equal(monkeypatch):
     assert sk.ntt_variant == jsk.ntt_variant == "v6b"
 
 
-def test_crt_acc32_is_not_substituted(monkeypatch):
-    """TFHE_V4_ACC=32 asks the exact CRT path for the rounded accumulator,
-    which this port lacks: it raises rather than running the exact one."""
+def test_crt_acc32_rounds_like_the_tpu_kernel(monkeypatch):
+    """TFHE_V4_ACC=32 asks the exact CRT path for the rounded accumulator of
+    the TPU kernel: programmable_bootstrap_crt then equals the acc_round32
+    oracle of tfhe_tpu (switch -> blind_rotate(acc_round32=True) ->
+    extract); under TFHE_NTT_VARIANT=crt the path stays exact."""
+    rng = np.random.default_rng(11)
+    n_steps, B = 3, 2
+    _, hat = _ntt_key(rng, n_steps)
+    lut = rng.integers(0, 1 << 64, size=(R, N), dtype=np.uint64)
+    ct = rng.integers(0, 1 << 64, size=(B, n_steps + 1), dtype=np.uint64)
+    jplan = jntt.get_plan(N, NP)
+    ms_mask, ms_body = jserver.lwe_standard_modulus_switch(
+        jnp.asarray(ct), N.bit_length())
+    run = lambda: to_u64(server.programmable_bootstrap_crt(
+        from_u64(ct, "cpu"), from_u64(lut, "cpu"),
+        pk.bsk_to_scan_layout(from_u32(hat, "cpu")), BL, L,
+        centered_ms=False))
     monkeypatch.setenv("TFHE_V4_ACC", "32")
     monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        server.programmable_bootstrap_crt(
-            from_u64(np.zeros((1, 9), np.uint64), "cpu"),
-            from_u64(np.zeros((R, N), np.uint64), "cpu"),
-            from_u32(np.zeros((8, 2, NP, L * R, R, N), np.uint32), "cpu"),
-            BL, L)
+    for exact in (False, True):
+        want = np.asarray(jserver.sample_extract(jserver.blind_rotate(
+            jnp.broadcast_to(jnp.asarray(lut), (B, R, N)), ms_mask, ms_body,
+            jnp.asarray(hat), BL, L, jplan, acc_round32=not exact)))
+        np.testing.assert_array_equal(run(), want)
+        assert ((want & np.uint64(0xFFFFFFFF)) == 0).all() != exact
+        monkeypatch.setenv("TFHE_NTT_VARIANT", "crt")

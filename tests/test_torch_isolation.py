@@ -1,6 +1,7 @@
 """The port stands alone: no module of tfhe_tpu_torch (nor chip_smoke.py)
-imports jax, jaxlib or tfhe_tpu; a TOY apply_lookup_table runs in a fresh
-interpreter without either being loaded; entry points without a device ask
+imports jax, jaxlib or tfhe_tpu; a TOY apply_lookup_table runs, and the
+kernel bench and the SASS counter import, in a fresh interpreter without
+either being loaded; entry points without a device ask
 for the GPU and raise when there is none; CPU tensors take the plain
 versions of the kernels, whose launch counts stay 0; each variant runs its
 own path, and unported parameter sets raise instead of running another
@@ -49,6 +50,9 @@ def _imported_roots(path):
 def test_no_jax_or_tfhe_tpu_imports():
     sources = list(_port_sources())
     assert len(sources) > 15
+    names = {os.path.relpath(p, ROOT) for p in sources}
+    assert {"chip_smoke.py", "tfhe_tpu_torch/ops/kernel_bench.py",
+            "tfhe_tpu_torch/sass_loops.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -60,6 +64,8 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.shortint.client_key import ClientKey\n"
         "from tfhe_tpu_torch.shortint.server_key import ServerKey\n"
         "from tfhe_tpu_torch.utils.params import PARAM_TEST_TOY as P\n"
+        "from tfhe_tpu_torch.ops import kernel_bench\n"
+        "from tfhe_tpu_torch import sass_loops\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
         "sk = ServerKey.generate(ck)\n"
         "out = sk.apply_lookup_table(ck.encrypt([1, 2]),\n"
@@ -100,9 +106,8 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    for fn in (pk.body_rotate_acc32, pk.body_rotate_u64,
-               pk.blind_rotate_bnf2_acc32, pk.blind_rotate_crt,
-               pk.blind_rotate_bnf2_u64, pk.blind_rotate_goldilocks):
+    assert len(pk.KERNELS) == 7
+    for fn in pk.KERNELS:
         assert fn.launches == 0, fn.__name__
 
 

@@ -57,6 +57,11 @@ def ptxas_report_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.ptxas.txt")
 
 
+def sass_path(name: str) -> str:
+    """Where the nvcc build of ``name`` left the SASS of its kernels."""
+    return os.path.join(BUILD_DIR, f"lib{name}.sass")
+
+
 # ---------------------------------------------------------------------------
 # host AES (cc)
 # ---------------------------------------------------------------------------
@@ -93,7 +98,7 @@ def aes_lib():
 
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
 CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
-                "blind_rotate_goldilocks")
+                "blind_rotate_goldilocks", "kernel_bench")
 
 
 def _nvcc() -> str:
@@ -124,7 +129,7 @@ def _dump_sass(nvcc: str, name: str) -> None:
     out = subprocess.run([cuobjdump, "-sass", _so_path(name)],
                          capture_output=True, text=True)
     if out.returncode == 0:
-        with open(os.path.join(BUILD_DIR, f"lib{name}.sass"), "w") as f:
+        with open(sass_path(name), "w") as f:
             f.write(out.stdout)
 
 

@@ -14,8 +14,9 @@ boolean/engine/mod.rs:558-800, all wrapping mod 2^64):
 
 Each bootstrap is the sign bootstrap: a PBS with the standard modulus
 switch and the constant-TRUE accumulator (bootstrapping.rs:64) on the exact
-CRT path (``server.programmable_bootstrap_crt``: K2 u64 then K3), small key
--> big key, followed by the int8-GEMM keyswitch big -> small. ``mux`` runs
+CRT path (``server.programmable_bootstrap_crt``: K2 u64 then K3; under
+``TFHE_V4_ACC=32`` K2 acc32 then K3-acc32, the rounded accumulator of the
+TPU kernel), small key -> big key, followed by the int8-GEMM keyswitch big -> small. ``mux`` runs
 its two bootstraps as one batch (one launch of each kernel); the results
 are the same bits as two separate calls.
 """

@@ -46,8 +46,8 @@
 // for it would not stay readable, so this loop stands beside it and shares
 // its decomposer and block size.
 //
-// Bound: integer instructions per pipe (chip_smoke.py::
-// goldilocks_step_int32_ops counts them from this kernel's SASS). The key
+// Bound: integer instructions per pipe (ops/kernel_bench.py::SASS_OPS
+// holds them, counted from this kernel's SASS). The key
 // is read once per ciphertext-step from L2, but counted once in the byte
 // bound.
 

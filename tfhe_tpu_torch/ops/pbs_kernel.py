@@ -1,7 +1,7 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Six wrappers, each replacing a Pallas kernel of
+Seven wrappers, each replacing a Pallas kernel of
 ``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``:
 
 - K2 ``body_rotate_acc32`` and ``body_rotate_u64`` (``csrc/body_rotate.cu``)
@@ -16,6 +16,10 @@ Six wrappers, each replacing a Pallas kernel of
   mode with the ``garner_c`` tail (exact P-prime CRT; also the legacy
   ``_build_step_fn``, the same function in another TPU layout) and with the
   ``bnf2_c`` tail: all n CMUX steps on the u64 accumulator in one launch.
+- K3-acc32 ``blind_rotate_crt_acc32`` (``csrc/blind_rotate_crt.cu``)
+  replaces ``_build_step_fn_v4`` in acc32 mode on the exact CRT path
+  (``TFHE_V4_ACC=32``): the ``garner_c`` tail with every increment rounded
+  to a multiple of 2^32, on the u32 hi-plane accumulator.
 - K4 ``blind_rotate_goldilocks`` (``csrc/blind_rotate_goldilocks.cu``)
   replaces ``pbs_kernel_g.py::_build_step_fn_g`` (the v5 step over the
   Goldilocks prime): all n CMUX steps on the u64 accumulator in one launch.
@@ -25,8 +29,8 @@ function, written with torch ops); given CUDA tensors it launches the kernel
 or raises. Each wrapper counts its launches in its ``launches`` attribute;
 :func:`reset_launches` zeroes them.
 
-The acc32 accumulator crosses between K2 and K1 as u32 values in int32
-storage, [B, R, N] (torus value = acc * 2^32); the two-plane accumulator as
+The acc32 accumulator crosses between K2 and K1 (or K3-acc32) as u32 values
+in int32 storage, [B, R, N] (torus value = acc * 2^32); the two-plane accumulator as
 int64 [B, R, N] (the u64 bits).
 """
 
@@ -80,9 +84,7 @@ def _declare_smem(entry):
 
 def reset_launches():
     """Zero the launch counts of every kernel wrapper."""
-    for fn in (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
-               blind_rotate_crt, blind_rotate_bnf2_u64,
-               blind_rotate_goldilocks):
+    for fn in KERNELS:
         fn.launches = 0
 
 
@@ -240,7 +242,8 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
 def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     """Dynamic shared memory of one block of the blind-rotation kernel
     ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
-    ``blind_rotate_bnf2_u64`` or ``blind_rotate_goldilocks``, P = 1) at P
+    ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64`` or
+    ``blind_rotate_goldilocks``, P = 1) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
     for a prime count the entry does not take. Needs the built library."""
     lib = {"blind_rotate_bnf2_acc32": _k1_lib,
@@ -359,7 +362,8 @@ blind_rotate_bnf2_acc32.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: the n CMUX steps on the u64 accumulator, Garner or BNF2 tail
+# K3: the n CMUX steps on the u64 accumulator, Garner or BNF2 tail, and
+# K3-acc32 on the u32 hi plane, Garner tail rounded
 # ---------------------------------------------------------------------------
 
 def blind_rotate_crt_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
@@ -378,6 +382,25 @@ def blind_rotate_crt_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
                                  base_log, levels, ntt_mod.get_plan(N, P))
 
 
+def blind_rotate_crt_acc32_plain(acc_hi: torch.Tensor,
+                                 msed_mask: torch.Tensor,
+                                 bsk_scan: torch.Tensor, base_log: int,
+                                 levels: int) -> torch.Tensor:
+    """The n CMUX steps of the CRT blind rotation in acc32 mode (spec of
+    K3-acc32: ``server.blind_rotate(acc_round32=True)`` after its body
+    rotation, every Garner increment rounded to a multiple of 2^32).
+    ``acc_hi``: the hi plane, u32 in int32 storage [B, R, N]; the mask and
+    key as :func:`blind_rotate_crt_plain`'s. Returns the new hi plane."""
+    from . import server  # server imports this module
+
+    P, N = bsk_scan.shape[2], bsk_scan.shape[-1]
+    acc = server.cmux_steps_crt(u32_to_i64(acc_hi) << 32, msed_mask,
+                                scan_to_legacy_layout(bsk_scan, levels),
+                                base_log, levels, ntt_mod.get_plan(N, P),
+                                acc_round32=True)
+    return i64_to_u32(srl(acc, 32))
+
+
 def blind_rotate_bnf2_u64_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
                                 bsk_scan2: torch.Tensor, base_log: int,
                                 levels: int, flavor=None) -> torch.Tensor:
@@ -394,14 +417,16 @@ def _k3_lib():
 
     lib = cuda_lib("blind_rotate_crt")
     u, i, v = ctypes.c_uint, ctypes.c_int, ctypes.c_void_p
-    lib.blind_rotate_crt.argtypes = [
-        v, v, v, v, v, i, i, i, i, i, i, i, v, ctypes.c_ulonglong, v]
-    lib.blind_rotate_crt.restype = ctypes.c_int
+    for entry in (lib.blind_rotate_crt, lib.blind_rotate_crt_acc32):
+        entry.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v,
+                          ctypes.c_ulonglong, v]
+        entry.restype = ctypes.c_int
     lib.blind_rotate_bnf2_u64.argtypes = [
         v, v, v, v, v, i, i, i, i, i, i, u, u, u, u, u, u, i, i, v]
     lib.blind_rotate_bnf2_u64.restype = ctypes.c_int
-    _declare_smem(lib.blind_rotate_crt_smem)
-    _declare_smem(lib.blind_rotate_bnf2_u64_smem)
+    for entry in (lib.blind_rotate_crt_smem, lib.blind_rotate_crt_acc32_smem,
+                  lib.blind_rotate_bnf2_u64_smem):
+        _declare_smem(entry)
     return lib
 
 
@@ -412,6 +437,31 @@ def _garner_host(plan: ntt_mod.NegacyclicNtt):
     return (ctypes.c_uint * consts.size)(*[int(x) for x in consts])
 
 
+def _launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+                bsk_scan: torch.Tensor, base_log: int,
+                levels: int) -> torch.Tensor:
+    """Check the operands and launch one Garner-tail entry of K3 on the GPU
+    (``blind_rotate_crt``: int64 accumulator; ``blind_rotate_crt_acc32``:
+    int32)."""
+    P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
+    if not 2 <= P <= MAX_CRT_PRIMES:
+        raise ValueError(f"bsk_scan {tuple(bsk_scan.shape)}: the kernel "
+                         f"takes 2..{MAX_CRT_PRIMES} primes")
+    acc_dtype = torch.int32 if entry.endswith("acc32") else torch.int64
+    (B, n_steps, R, N), a32 = _step_shapes(
+        entry, acc, msed_mask, bsk_scan, P, base_log, levels, acc_dtype)
+    dev = acc.device
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    out = torch.empty_like(acc)
+    rc = getattr(_k3_lib(), entry)(
+        _ptr(acc), _ptr(a32), _ptr(bsk_scan), _ptr(tables), _ptr(out),
+        B, n_steps, R, levels, base_log, N.bit_length() - 1, P,
+        _garner_host(plan), plan.full_prod_mod64, _stream(dev))
+    _raise_on(rc, entry)
+    return out
+
+
 def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
                      bsk_scan: torch.Tensor, base_log: int,
                      levels: int) -> torch.Tensor:
@@ -419,23 +469,22 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
-    P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
-    if not 2 <= P <= MAX_CRT_PRIMES:
-        raise ValueError(f"bsk_scan {tuple(bsk_scan.shape)}: the kernel "
-                         f"takes 2..{MAX_CRT_PRIMES} primes")
-    (B, n_steps, R, N), a32 = _step_shapes(
-        "blind_rotate_crt", acc, msed_mask, bsk_scan, P, base_log, levels,
-        torch.int64)
-    dev = acc.device
-    plan = ntt_mod.get_plan(N, P)
-    tables = _plan_tables_dev(plan, str(dev))
-    out = torch.empty_like(acc)
-    rc = _k3_lib().blind_rotate_crt(
-        _ptr(acc), _ptr(a32), _ptr(bsk_scan), _ptr(tables), _ptr(out),
-        B, n_steps, R, levels, base_log, N.bit_length() - 1, P,
-        _garner_host(plan), plan.full_prod_mod64, _stream(dev))
-    _raise_on(rc, "blind_rotate_crt")
+    out = _launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
+                      levels)
     blind_rotate_crt.launches += 1
+    return out
+
+
+def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
+                           bsk_scan: torch.Tensor, base_log: int,
+                           levels: int) -> torch.Tensor:
+    """K3-acc32 wrapper: see :func:`blind_rotate_crt_acc32_plain`."""
+    if acc_hi.device.type == "cpu":
+        return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
+                                            base_log, levels)
+    out = _launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
+                      base_log, levels)
+    blind_rotate_crt_acc32.launches += 1
     return out
 
 
@@ -463,6 +512,7 @@ def blind_rotate_bnf2_u64(acc: torch.Tensor, msed_mask: torch.Tensor,
 
 
 blind_rotate_crt.launches = 0
+blind_rotate_crt_acc32.launches = 0
 blind_rotate_bnf2_u64.launches = 0
 
 
@@ -554,3 +604,9 @@ def blind_rotate_goldilocks(acc: torch.Tensor, msed_mask: torch.Tensor,
 
 
 blind_rotate_goldilocks.launches = 0
+
+
+#: every kernel wrapper of this module, each with its ``launches`` count
+KERNELS = (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
+           blind_rotate_crt, blind_rotate_crt_acc32, blind_rotate_bnf2_u64,
+           blind_rotate_goldilocks)

@@ -9,10 +9,12 @@ Torch counterpart of the main-path subset of ``tfhe_tpu/ops/server.py``:
 - modulus switch to 2N with the centered-binary body correction
   (``algorithms/modulus_switch.rs:35-104``);
 - sample extraction (``algorithms/glwe_sample_extraction.rs:89``);
-- the exact CRT spec: external product, cmux, blind rotation and the
-  portable PBS over P NTT primes with Garner reconstruction;
+- the exact CRT spec: external product, the cmux steps, blind rotation
+  (exact, or in acc32 mode) and the portable PBS over P NTT primes with
+  Garner reconstruction;
 - the programmable bootstraps that run the kernels (``ops/pbs_kernel.py``):
-  the exact CRT PBS (K2 u64, K3), the v6/v6b BNF PBS (K2, K1 in acc32
+  the exact CRT PBS (K2 u64, K3; under ``TFHE_V4_ACC=32`` K2 acc32,
+  K3-acc32), the v6/v6b BNF PBS (K2, K1 in acc32
   mode; K2 u64, K3-bnf2 in two-plane mode) and the v5 Goldilocks PBS (K2
   u64, K4).
 
@@ -183,26 +185,28 @@ def external_product_ntt(ggsw_hat: torch.Tensor, glwe: torch.Tensor,
     return plan.reconstruct_u64(plan.inv(acc_hat))
 
 
-def cmux_ntt(ggsw_hat: torch.Tensor, ct0: torch.Tensor, ct1: torch.Tensor,
-             base_log: int, levels: int,
-             plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
-    """ct0 + GGSW x (ct1 - ct0): selects ct1 when the GGSW encrypts 1
-    (fft_impl/fft64/crypto/ggsw.rs:510 cmux)."""
-    return ct0 + external_product_ntt(ggsw_hat, ct1 - ct0, base_log, levels,
-                                      plan)
+def round32(x: torch.Tensor) -> torch.Tensor:
+    """Torus values rounded to the nearest multiple of 2^32 (ties up), mod
+    2^64: the acc32 rounding of ``tfhe_tpu``'s ``blind_rotate`` (``r32``)."""
+    return srl(x + (1 << 31), 32) << 32
 
 
 def cmux_steps_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
                    bsk_hat: torch.Tensor, base_log: int, levels: int,
-                   plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+                   plan: ntt_mod.NegacyclicNtt,
+                   acc_round32: bool = False) -> torch.Tensor:
     """The n CMUX steps of :func:`blind_rotate` on an accumulator whose body
-    rotation is applied: acc <- cmux(bsk_i, acc, acc * X^{a_i}).
+    rotation is applied: acc <- acc + GGSW_i x (acc * X^{a_i} - acc), the
+    cmux of ``fft_impl/fft64/crypto/ggsw.rs:510``; with ``acc_round32``
+    each increment is rounded by :func:`round32`.
     ``acc``: int64[..., R, N]; ``msed_mask``: [..., n];
     ``bsk_hat``: int32[2, P, n, l, R, R, N]."""
     mask = msed_mask.to(torch.int64)
     for i in range(bsk_hat.shape[2]):
         rotated = monomial_mul(acc, mask[..., i, None])
-        acc = cmux_ntt(bsk_hat[:, :, i], acc, rotated, base_log, levels, plan)
+        inc = external_product_ntt(bsk_hat[:, :, i], rotated - acc, base_log,
+                                   levels, plan)
+        acc = acc + (round32(inc) if acc_round32 else inc)
     return acc
 
 
@@ -211,16 +215,18 @@ def blind_rotate(lut: torch.Tensor, msed_mask: torch.Tensor,
                  base_log: int, levels: int, plan: ntt_mod.NegacyclicNtt,
                  acc_round32: bool = False) -> torch.Tensor:
     """Blind rotation of ``lut`` by the mod-switched LWE, exact mod 2^64
-    (the two-plane accumulator of the JAX package's Pallas kernel).
+    (the two-plane accumulator of the JAX package's Pallas kernel); with
+    ``acc_round32`` the body-rotated accumulator and every CMUX increment
+    are rounded to multiples of 2^32 (the acc32 mode, ``tfhe_tpu``'s
+    ``server.py:492-505``).
 
     ``lut``: int64[..., R, N]; ``msed_mask``: [..., n] in [0, 2N);
     ``msed_body``: [...]; ``bsk_hat``: int32[2, P, n, l, R, R, N]."""
-    if acc_round32:
-        raise NotImplementedError(
-            "the exact CRT path's acc32 mode is not ported yet (ROADMAP "
-            "Queue B, B3-acc32)")
     acc = monomial_div(lut, msed_body.to(torch.int64)[..., None])
-    return cmux_steps_crt(acc, msed_mask, bsk_hat, base_log, levels, plan)
+    if acc_round32:
+        acc = round32(acc)
+    return cmux_steps_crt(acc, msed_mask, bsk_hat, base_log, levels, plan,
+                          acc_round32)
 
 
 # ---------------------------------------------------------------------------
@@ -291,20 +297,25 @@ def programmable_bootstrap_crt(
     """Classic PBS on the exact CRT path, the counterpart of ``tfhe_tpu``'s
     ``programmable_bootstrap_pallas`` (``ops/server.py:540``): modulus
     switch -> K2 body rotation (u64) -> K3 blind rotation (P-prime Garner
-    tail, two-plane accumulator) -> sample extraction.
+    tail, two-plane accumulator) -> sample extraction. When
+    :func:`crt_acc32_requested` (``TFHE_V4_ACC=32``), the accumulator is
+    the u32 hi plane as on the TPU: K2 acc32 -> K3-acc32, every increment
+    rounded to a multiple of 2^32.
 
     ``bsk_scan``: int32[n, 2, P, l*R, R, N] (``pbs_kernel.
     bsk_to_scan_layout`` of the NTT key). CUDA tensors run the kernels, CPU
     tensors their plain versions. Returns int64[..., k*N + 1]."""
     N = bsk_scan.shape[-1]
-    if crt_acc32_requested(N, base_log, levels):
-        raise NotImplementedError(
-            "TFHE_V4_ACC=32 on the exact CRT path (increments rounded to "
-            "2^32) is not ported yet: ROADMAP Queue B, B3-acc32")
     batch, ms_mask, ms_body, lut = _switch_and_flatten(ct_in, lut, N,
                                                        centered_ms)
-    acc = pk.body_rotate_u64(lut, ms_body)
-    acc = pk.blind_rotate_crt(acc, ms_mask, bsk_scan, base_log, levels)
+    if crt_acc32_requested(N, base_log, levels):
+        hi = pk.body_rotate_acc32(lut, ms_body)
+        hi = pk.blind_rotate_crt_acc32(hi, ms_mask, bsk_scan, base_log,
+                                       levels)
+        acc = hi.to(torch.int64) << 32
+    else:
+        acc = pk.body_rotate_u64(lut, ms_body)
+        acc = pk.blind_rotate_crt(acc, ms_mask, bsk_scan, base_log, levels)
     out = sample_extract(acc, extract_nth)
     return out.reshape(batch + (out.shape[-1],))
 
@@ -323,6 +334,9 @@ def programmable_bootstrap_bnf2(
     -> blind rotation -> sample extraction. Under ``TFHE_V4_ACC=32`` (the
     default) the kernels are K2 acc32 and K1; otherwise the accumulator is
     the exact u64 of two planes: K2 u64 and K3 with the ``bnf2_c`` tail.
+    ``TFHE_V6_STACKED=1`` selects ``tfhe_tpu``'s sublane-stacked step
+    (``one_step_stacked``), a TPU layout of the same function, so the port
+    runs K1 under it as well.
 
     ``ct_in``: int64[..., n+1] under the small key; ``lut``: int64[R, N]
     (shared) or [..., R, N]; ``bsk_scan2``: int32[n, 2, 2, l*R, R, N] from
