@@ -7,8 +7,10 @@ Phases (any failure raises and exits non-zero):
 
 1. build every CUDA kernel from ``tfhe_tpu_torch/csrc`` (one nvcc per
    source, all at once), print the build time and ptxas' register, spill
-   and shared-memory report, and hold the loops of the build's SASS to the
-   counts the bounds were read from (``kernel_bench.sass_drift``);
+   and shared-memory report, hold the loops of the build's SASS to the
+   counts the bounds were read from (``kernel_bench.sass_drift``, the
+   probes' tables too), and require each probe's loops to hold the op its
+   case names;
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
    against their plain versions (exact) on the path's own inputs (the
@@ -59,7 +61,13 @@ Phases (any failure raises and exits non-zero):
     exactly against its plain version and timed at a small trip count,
     then ``kernel_bench.run_all(quick=True)`` with the launch counts
     around it, one JSON row per micro-benchmark;
-12. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+12. the TPU design probes (``tfhe_tpu_torch/tools``: ``vpu_primitives``,
+    ``ntt_variants``, ``v4_probe``): each case's kernel held exactly
+    against its plain version at its check trip count and timed there,
+    then each probe's ``run_all(quick=True)`` with the launch counts
+    around it, one JSON row per case, the IMAD.WIDE verdict and the split
+    of K1's and K3's time per ciphertext-step (against phase 11's rows);
+13. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -69,9 +77,10 @@ larger of the bytes the kernel must move over the card's HBM rate (3.35
 TB/s, H100 SXM data sheet) and its instructions over the rate of one
 64-lane-per-SM integer pipe (64 lanes x SMs x max SM clock), counted per
 pipe from the SASS of the build (K1, K3, K3-acc32, K3-bnf2, K4 and the
-micro-kernels, ``kernel_bench.SASS_OPS``); the
-bound of K1-K3 by 32-bit operations counted from the source stays beside
-it as ``source_bound_ms`` for one more release.
+micro-kernels, ``kernel_bench.SASS_OPS``; each probe's own loops, or the
+radix-2 code's counts for the transform variants). ``library_ms`` is the
+time of one PyTorch call computing a probe trip's function on the same
+tile, where there is one, else null.
 """
 
 from __future__ import annotations
@@ -153,33 +162,6 @@ def max_abs_err(a, b) -> float:
     return float((a - b).double().abs().max().item())
 
 
-def garner_ops(P: int) -> int:
-    """int32 operations of the Garner tail per coefficient: for digit i,
-    i-1 Horner Shoup multiply-adds (7) and the difference plus its Shoup
-    multiply (8); P-1 u64 multiply-adds (5); the sign select (4)."""
-    return sum(7 * (i - 1) + 8 for i in range(1, P)) + 5 * (P - 1) + 4
-
-
-BNF2_C32_OPS = 12  # qp_to_torus32: Shoup multiply, widening multiply, adds
-BNF2_C_OPS = 30  # crt2_merge + qp_to_torus on u32 pairs
-
-
-def step_int32_ops(B: int, n: int, R: int, levels: int, N: int, P: int,
-                   tail_ops: int) -> float:
-    """int32 operations of a blind-rotation kernel: per step and
-    ciphertext, P*l*R forward and P*R inverse transforms of N/2*log2(N)
-    butterflies (10 ops each: a Shoup multiply of 6 and two modular
-    add/subs), the twist of P*l*R*N digits and the untwist of P*R*N
-    residues (6 each), P*R*l*R*N Shoup MACs (8 each) and the tail on R*N
-    coefficients."""
-    lR = levels * R
-    log_n = N.bit_length() - 1
-    per = ((P * lR + P * R) * (N // 2) * log_n * 10
-           + (P * lR * N + P * R * N) * 6 + P * R * lR * N * 8
-           + R * N * tail_ops)
-    return float(B) * n * per
-
-
 def step_bytes(B: int, n: int, R: int, levels: int, N: int, P: int,
                acc_bytes: int) -> float:
     """Bytes a blind-rotation kernel must move: the key once, the
@@ -201,19 +183,13 @@ def bound(ops: float, nbytes: float, rate: float):
 
 
 def step_bound(entry: str, B: int, n: int, R: int, levels: int, N: int,
-               P: int, tail_ops: int, acc_bytes: int, rate: float) -> dict:
-    """A step kernel's row keys ``bound``, on the SASS per-pipe rule ((ms,
-    "bytes" or "operations"), ``kernel_bench.step_pipe_instructions``), and
-    ``source_bound_ms``, the earlier one by 32-bit operations counted from
-    the source (:func:`step_int32_ops`)."""
+               P: int, acc_bytes: int, rate: float):
+    """A step kernel's bound on the SASS per-pipe rule: (ms, "bytes" or
+    "operations"), ``kernel_bench.step_pipe_instructions``."""
     from tfhe_tpu_torch.ops import kernel_bench as kb
 
-    nbytes = step_bytes(B, n, R, levels, N, P, acc_bytes)
-    sass = bound(kb.step_pipe_instructions(entry, B, n, R, levels, N, P),
-                 nbytes, rate)
-    source = bound(step_int32_ops(B, n, R, levels, N, P, tail_ops), nbytes,
-                   rate)[0]
-    return {"bound": sass, "source_bound_ms": source}
+    return bound(kb.step_pipe_instructions(entry, B, n, R, levels, N, P),
+                 step_bytes(B, n, R, levels, N, P, acc_bytes), rate)
 
 
 def check_equal(name, kernel, plain, args):
@@ -329,6 +305,20 @@ def phase_build():
             f"{drift}; recount kernel_bench.SASS_OPS")
     print(f"SASS loops of all {len(kb.SASS_LOOP_TOTALS)} bounded kernels == "
           f"kernel_bench.SASS_LOOP_TOTALS (read from {kb.SASS_TOOLKIT})")
+    # the probes: their loop counts, and the op each case names in them
+    from tfhe_tpu_torch.tools import _harness as h
+
+    for mod in probe_modules().values():
+        drift = kb.sass_drift(_read_sass, mod.SASS_LOOP_TOTALS)
+        missing = h.missing_ops(mod.CASES, mod.SASS_LOOP_TOTALS)
+        if drift or missing:
+            raise AssertionError(
+                f"{mod.__name__}: SASS loops differ from SASS_LOOP_TOTALS as "
+                f"(kernel, then, now): {drift}; loops without the op their "
+                f"case names: {missing}")
+        print(f"SASS loops of {len(mod.SASS_LOOP_TOTALS)} kernels of "
+              f"{mod.__name__} == its SASS_LOOP_TOTALS; every case's loop "
+              "holds its op")
     for label, args in (
             ("K1 2_2", ("blind_rotate_bnf2_acc32", 2, 2, 1, 2048)),
             ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
@@ -444,8 +434,8 @@ def phase_shortint_v6b(card, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1848",
         launches=launches["blind_rotate_bnf2_acc32"], max_abs_err=k1_err,
         ms=k1_ms, plain_ms=k1_plain,
-        **step_bound("blind_rotate_bnf2_acc32", BATCH, n, R, p.pbs_level, N,
-                     2, BNF2_C32_OPS, 4, rate),
+        bound=step_bound("blind_rotate_bnf2_acc32", BATCH, n, R,
+                         p.pbs_level, N, 2, 4, rate),
         shape=f"2_2 B={BATCH} n={n}", plain_shape=f"2_2 B={BATCH} n={n}")
     return ck, sk, (ct, lut, out.ct), {"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
                                "pbs_per_s": BATCH / step_ms * 1e3}
@@ -546,8 +536,8 @@ def phase_boolean(card, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt"], max_abs_err=k3_err, ms=k3_ms,
         plain_ms=k3_plain,
-        **step_bound("blind_rotate_crt", BOOL_BATCH, n, R, p.pbs_level, N, 3,
-                     garner_ops(3), 8, rate),
+        bound=step_bound("blind_rotate_crt", BOOL_BATCH, n, R, p.pbs_level,
+                         N, 3, 8, rate),
         small_ms=k3_small_ms,
         shape=f"boolean B={BOOL_BATCH} n={n} P=3",
         plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
@@ -682,8 +672,8 @@ def phase_shortint_crt(ck, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        **step_bound("blind_rotate_crt", SIDE_BATCH, n, R, p.pbs_level, N, 4,
-                     garner_ops(4), 8, rate),
+        bound=step_bound("blind_rotate_crt", SIDE_BATCH, n, R, p.pbs_level,
+                         N, 4, 8, rate),
         shape=f"2_2 crt B={SIDE_BATCH} n={n} P=4",
         plain_shape=f"2_2 crt B={PLAIN_BATCH} n={n} P=4")
     return sk, {"crt_pbs_ms": step_ms,
@@ -712,8 +702,8 @@ def phase_two_plane(ck, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_bnf2_u64"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        **step_bound("blind_rotate_bnf2_u64", SIDE_BATCH, n, R, p.pbs_level,
-                     N, 2, BNF2_C_OPS, 8, rate),
+        bound=step_bound("blind_rotate_bnf2_u64", SIDE_BATCH, n, R,
+                         p.pbs_level, N, 2, 8, rate),
         shape=f"2_2 B={SIDE_BATCH} n={n}",
         plain_shape=f"2_2 B={PLAIN_BATCH} n={n}")
     return {"two_plane_pbs_ms": step_ms,
@@ -894,8 +884,8 @@ def phase_boolean_acc32(ck, sk, card, rate, rows, exact_and_ms):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt_acc32"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        **step_bound("blind_rotate_crt_acc32", BOOL_BATCH, n, R, p.pbs_level,
-                     N, 3, garner_ops(3) + 2, 4, rate),
+        bound=step_bound("blind_rotate_crt_acc32", BOOL_BATCH, n, R,
+                         p.pbs_level, N, 3, 4, rate),
         shape=f"boolean B={BOOL_BATCH} n={n} P=3",
         plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
     return {"acc32_and_ms": gate_ms,
@@ -949,8 +939,8 @@ def phase_shortint_v4_acc32(ck, sk, rate, rows):
         replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
         launches=launches["blind_rotate_crt_acc32"], max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        **step_bound("blind_rotate_crt_acc32", SIDE_BATCH, n, R, lv, N, 4,
-                     garner_ops(4) + 2, 4, rate),
+        bound=step_bound("blind_rotate_crt_acc32", SIDE_BATCH, n, R, lv, N,
+                         4, 4, rate),
         shape=f"2_2 v4 acc32 B={SIDE_BATCH} n={n} P=4",
         plain_shape=f"2_2 v4 acc32 B={PLAIN_BATCH} n={n} P=4")
     return {"v4_acc32_pbs_ms": step_ms,
@@ -1029,6 +1019,68 @@ def phase_kernel_bench(rate, rows):
             "kernel_bench": {r["metric"]: r["value"] for r in bench_rows}}
 
 
+def probe_modules() -> dict:
+    from tfhe_tpu_torch.tools import ntt_variants, v4_probe, vpu_primitives
+
+    return {"vpu": vpu_primitives, "ntt": ntt_variants, "step": v4_probe}
+
+
+def phase_probes(rate, rows, bench):
+    """The TPU design probes: every case's kernel held exactly against its
+    plain version at its check trip count on its check inputs, and timed at
+    its high trip count (beside ``library_ms``: that many calls of the one
+    PyTorch call that computes a trip, where there is one, timed back to
+    back); then each
+    probe's run_all(quick=True) with the launch counts around it. ``bench``: phase 11's rows, whose step times the split of
+    K1's and K3's ciphertext-step is held to."""
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.tools import _harness as h
+
+    t0 = time.perf_counter()
+    checked = {}
+    for short, mod in probe_modules().items():
+        src = f"tfhe_tpu_torch/csrc/{mod.__name__.rsplit('.', 1)[1]}.cu"
+        for c in mod.CASES:
+            args, check_args = c.inputs(DEVICE), c.check_inputs(DEVICE)
+            err, plain_ms = h.check(c, check_args)
+            trips = c.trips[1]
+            ms = cuda_ms(lambda: c(*args, trips), 3)
+            pipes = c.pipes(h.kernel_loops(mod.SASS_LOOP_TOTALS, c.kernel),
+                            args)
+            nbytes = (sum(a.numel() * a.element_size() for a in args)
+                      + args[0].numel() * args[0].element_size())
+            checked[f"{short}.{c.name}"] = dict(
+                source=src, replaces=c.replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms,
+                bound=bound(kb.busier_pipe(*pipes) * trips, nbytes, rate),
+                library_ms=(trips * cuda_ms_loop(lambda: c.library(*args),
+                                                 64)
+                            if c.library else None),
+                shape=f"{tuple(args[0].shape)}, {trips} trips",
+                plain_shape=f"{tuple(check_args[0].shape)}, {c.check} trips")
+    print(f"probes: {len(checked)} kernels == plain at their check trips")
+    measured = {k: 1.0 / bench[metric]
+                for k, (_, _, metric) in probe_modules()["step"].STEPS.items()}
+    out = {}
+    for short, mod in probe_modules().items():
+        mod.reset_launches()
+        kw = {"measured": measured} if short == "step" else {}
+        for r in mod.run_all(quick=True, device=DEVICE, **kw):
+            print(f"probe {short}: {json.dumps(r)}")
+            if r["metric"] in ("imad_wide_verdict", "step_split_K1",
+                               "step_split_K3_P4"):
+                out[r["metric"]] = r
+        for c in mod.CASES:
+            if c.launches < 1:
+                raise AssertionError(f"probe {short}: {c.name} did not "
+                                     "launch")
+            rows[f"{short}.{c.name}"] = dict(launches=c.launches,
+                                             **checked[f"{short}.{c.name}"])
+    secs = time.perf_counter() - t0
+    print(f"probes phase: {secs:.1f} s")
+    return {"probes_s": secs, **out}
+
+
 def main() -> int:
     import torch
 
@@ -1061,12 +1113,15 @@ def main() -> int:
     summary.update(phase_shortint_v4_acc32(ck22, sk_crt, rate, rows))
     phase_stacked_env(sk22, *batch22)
     summary.update(phase_kernel_bench(rate, rows))
+    summary.update(phase_probes(rate, rows, summary["kernel_bench"]))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose")
+    order += tuple(f"{short}.{c.name}" for short, mod in
+                   probe_modules().items() for c in mod.CASES)
     kernels = []
     for name in order:
         r = rows[name]
@@ -1076,7 +1131,7 @@ def main() -> int:
             replaces=r.pop("replaces"), launches=r.pop("launches"),
             max_abs_err=r["max_abs_err"], max_abs_diff=r.pop("max_abs_err"),
             ms=r.pop("ms"), plain_ms=r.pop("plain_ms"), bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, **r))
+            bound_by=bound_by, library_ms=r.pop("library_ms", None), **r))
     summary["total_s"] = time.perf_counter() - t_start
     print(json.dumps(summary))
     print(f"total: {summary['total_s']:.1f} s")

@@ -52,7 +52,10 @@ def test_no_jax_or_tfhe_tpu_imports():
     assert len(sources) > 15
     names = {os.path.relpath(p, ROOT) for p in sources}
     assert {"chip_smoke.py", "tfhe_tpu_torch/ops/kernel_bench.py",
-            "tfhe_tpu_torch/sass_loops.py"} <= names
+            "tfhe_tpu_torch/sass_loops.py",
+            "tfhe_tpu_torch/tools/vpu_primitives.py",
+            "tfhe_tpu_torch/tools/ntt_variants.py",
+            "tfhe_tpu_torch/tools/v4_probe.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad

@@ -19,26 +19,9 @@
 // MAC results stay in shared memory (80 KiB at 2_2) for all n steps.
 
 #include "ntt_common.cuh"
+#include "tails.cuh"
 
-namespace {
-
-struct Bnf2Tail32 {
-    using Acc = uint32_t;
-    static constexpr int P = 2;
-    uint32_t p[2];
-    uint32_t inv01, inv01_sh, c1t, t32_bias;
-    int s2;
-
-    __device__ uint32_t operator()(const uint32_t* m) const {
-        const uint32_t diff = p[1] + p[1] + m[1] - m[0];  // < 3 p1
-        const uint32_t v1 = brk::shoup_mul(diff, inv01, inv01_sh, p[1]);
-        const uint32_t t1 =
-            (uint32_t)(((uint64_t)v1 * c1t) >> 28);  // < 2^32
-        return t1 + (m[0] >> s2) + t32_bias;
-    }
-};
-
-}  // namespace
+using brk::Bnf2Tail32;
 
 // acc_in/acc_out: u32 [B, R, N]; a_ms: i32 [B, n] in [0, 2N);
 // bsk: u32 [n, 2, 2, levels*R, R, N]; tables: u32 [2, 8, N].

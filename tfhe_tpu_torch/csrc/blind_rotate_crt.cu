@@ -33,109 +33,21 @@
 // one block per SM at 2_2.
 
 #include "ntt_common.cuh"
+#include "tails.cuh"
+
+using brk::Bnf2Tail;
+using brk::GarnerTail;
+using brk::GarnerTail32;
 
 namespace {
-
-constexpr int kMaxPrimes = 5;
-
-// garner_c: Garner digits of the canonical residues, then the mixed-radix
-// value v0 + p0 (v1 + p1 (v2 + ...)) mod 2^64, minus the full prime product
-// when the top digit says the centered value is negative. Bit-identical to
-// NegacyclicNtt.reconstruct_u64 (another exact formula for the same v_i).
-// The constants and the value, shared by both Garner tails.
-template <int NP>
-struct GarnerDigits {
-    static constexpr int P = NP;
-    uint32_t p[NP];
-    uint32_t inv[NP], inv_sh[NP];          // (p0...p_{i-1})^-1 mod p_i
-    uint32_t pj[NP][NP], pj_sh[NP][NP];    // p_j mod p_i
-    uint64_t full_prod;                    // p0 ... p_{P-1} mod 2^64
-
-    __device__ uint64_t value(const uint32_t* m) const {
-        uint32_t v[NP];
-        v[0] = m[0];
-        #pragma unroll
-        for (int i = 1; i < NP; ++i) {
-            // (v0 + p0 (v1 + ... + p_{i-2} v_{i-1})) mod p_i, lazily < 2 p_i
-            uint32_t acc_g = v[i - 1];
-            #pragma unroll
-            for (int j = i - 2; j >= 0; --j)
-                acc_g = v[j] + brk::shoup_mul(acc_g, pj[i][j], pj_sh[i][j],
-                                              p[i]);
-            const uint32_t diff = 3u * p[i] + m[i] - acc_g;  // < 4 p_i
-            v[i] = brk::shoup_mul(diff, inv[i], inv_sh[i], p[i]);
-        }
-        uint64_t pos = v[NP - 1];
-        #pragma unroll
-        for (int i = NP - 2; i >= 0; --i) pos = pos * p[i] + v[i];
-        return v[NP - 1] > (p[NP - 1] >> 1) ? pos - full_prod : pos;
-    }
-};
-
-// The exact tail: the Garner value is the u64 increment.
-template <int NP>
-struct GarnerTail : GarnerDigits<NP> {
-    using Acc = uint64_t;
-    __device__ uint64_t operator()(const uint32_t* m) const {
-        return this->value(m);
-    }
-};
-
-// The acc32 tail (pbs_kernel.py:1635-1640): the Garner value rounded to the
-// nearest multiple of 2^32, as its hi word, (v + 2^31) >> 32 mod 2^32 --
-// the same as ehi + (elo >> 31).
-template <int NP>
-struct GarnerTail32 : GarnerDigits<NP> {
-    using Acc = uint32_t;
-    __device__ uint32_t operator()(const uint32_t* m) const {
-        return (uint32_t)((this->value(m) + 0x80000000ull) >> 32);
-    }
-};
-
-// bnf2_c: the 2-term CRT merge to x in [0, q'), then the fixed-point switch
-// back to the 2^64 torus, t = (x << S1) + ((x0 G1 + x1 G0) >> S2)
-// + ((x1 G1) << S1) with x = x1 2^32 + x0 (ops/bnf2.py crt2_merge +
-// qp_to_torus).
-struct Bnf2Tail {
-    using Acc = uint64_t;
-    static constexpr int P = 2;
-    uint32_t p[2];
-    uint32_t inv01, inv01_sh;
-    uint64_t g0, g1;
-    int s1, s2;
-
-    __device__ uint64_t operator()(const uint32_t* m) const {
-        const uint32_t diff = p[1] + p[1] + m[1] - m[0];  // < 3 p1
-        const uint32_t v1 = brk::shoup_mul(diff, inv01, inv01_sh, p[1]);
-        const uint64_t x = (uint64_t)m[0] + (uint64_t)p[0] * v1;  // < q'
-        const uint64_t x0 = x & 0xFFFFFFFFull;
-        const uint64_t x1 = x >> 32;
-        const uint64_t s = x0 * g1 + x1 * g0;  // < 2^61
-        const uint64_t d = x1 * g1;
-        return (x << s1) + (s >> s2) + (d << s1);
-    }
-};
 
 template <class Tail>
 int launch_crt(const void* acc_in, const void* a_ms, const void* bsk,
                const void* tables, void* acc_out, int B, int n_steps, int R,
                int levels, int base_log, int log_n, const unsigned* c,
                unsigned long long full_prod, void* stream) {
-    // c: p[5], inv[5], inv_sh[5], pj[5][5], pj_sh[5][5]
-    // (ops/pbs_kernel.py::garner_constants)
-    constexpr int NP = Tail::P;
     Tail tail;
-    for (int i = 0; i < NP; ++i) {
-        tail.p[i] = c[i];
-        tail.inv[i] = c[kMaxPrimes + i];
-        tail.inv_sh[i] = c[2 * kMaxPrimes + i];
-        for (int j = 0; j < NP; ++j) {
-            tail.pj[i][j] = c[3 * kMaxPrimes + i * kMaxPrimes + j];
-            tail.pj_sh[i][j] =
-                c[3 * kMaxPrimes + kMaxPrimes * kMaxPrimes + i * kMaxPrimes + j];
-        }
-    }
-    tail.full_prod = full_prod;
+    brk::fill_garner(tail, c, full_prod);
     return brk::launch_blind_rotate(acc_in, a_ms, bsk, tables, acc_out, B,
                                     n_steps, R, levels, base_log, log_n,
                                     tail, stream);

@@ -68,7 +68,7 @@ DECOMP_BASE_LOG, DECOMP_LEVELS = 23, 1
 LOOPS = (256, 4096)  # low and high trip counts of the two-point method
 
 #: data instructions per unit of work as sm_90a runs them, (ALU pipe, FMA
-#: pipe), per kernel (a step kernel's Garner tail at P primes as
+#: pipe, flex), per kernel (a step kernel's Garner tail at P primes as
 #: "<entry>/<P>"): the instructions of each loop body that read the loaded
 #: data or a value computed from it (index arithmetic, loads, stores,
 #: branches and barriers left out), as ``python -m
@@ -76,9 +76,16 @@ LOOPS = (256, 4096)  # low and high trip counts of the two-point method
 #: beside each library (``_build/lib<name>.sass``; -O3, sm_90a, the
 #: toolkit :data:`SASS_TOOLKIT`).
 #: An unrolled body is divided by its copies; a step kernel's element loop
-#: holds one copy of the level loop, which is taken out. IMAD in all its
-#: forms runs on the FMA pipe; IADD3, ISETP, SEL, LOP3, SHF, LEA, VIADD and
-#: the rest on the ALU pipe. Units, per step and ciphertext of a step
+#: holds the remainder copies of the level loop (K1, K3: one; K4: three;
+#: kb_decompose: three of the digit loop, one of which runs), which are
+#: taken out. IMAD in all its forms runs on the FMA pipe; IADD3, ISETP,
+#: SEL, LOP3, SHF, LEA, VIADD and the rest on the ALU pipe. The FMA column
+#: counts issue slots (``fma_slots``): IMAD.HI and IMAD.WIDE count 1.5
+#: (``sass_loops.DOUBLE_SLOTS``, a floor chosen to fit the
+#: ``tools.vpu_primitives`` rows on an H100, not a measured slot cost).
+#: ``flex``: the VIADDs among the ALU column, which may issue on either
+#: pipe (:func:`busier_pipe`); one rule bounds the step kernels, the
+#: micro-kernels and the probes. Units, per step and ciphertext of a step
 #: kernel: element (rotate, rot - acc, digit state) per R*N; level (the
 #: next digit, its lift into each Z_p and the twist) per l*R*N; forward
 #: and inverse butterflies; mac (one Shoup product and its add_mod) per
@@ -87,40 +94,44 @@ LOOPS = (256, 4096)  # low and high trip counts of the two-point method
 #: finds a change.
 SASS_OPS = {
     "blind_rotate_bnf2_acc32": {  # K1, bnf2_c32
-        "element": (14.5, 4.5), "level": (15.5, 10.5),
-        "fwd_butterfly": (5, 6), "mac": (5, 4), "inv_butterfly": (8, 6),
-        "untwist_tail": (12, 14)},
+        "element": (14.5, 4.5, 2), "level": (15.5, 11.5, 1),
+        "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (8, 6.5, 0), "untwist_tail": (12, 16, 1)},
     "blind_rotate_crt/3": {  # K3, garner_c
-        "element": (21, 3), "level": (17, 17), "fwd_butterfly": (5, 6),
-        "mac": (5, 4), "inv_butterfly": (7, 7), "untwist_tail": (21, 27)},
+        "element": (21, 3, 2), "level": (17, 18.5, 1),
+        "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (7, 7.5, 0), "untwist_tail": (21, 31, 1)},
     "blind_rotate_crt/4": {
-        "element": (20, 5), "level": (20, 21), "fwd_butterfly": (5, 6),
-        "mac": (5, 4), "inv_butterfly": (7, 7), "untwist_tail": (32, 44)},
+        "element": (20, 5, 2), "level": (20, 23, 1),
+        "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (7, 7.5, 0), "untwist_tail": (32, 50.5, 1)},
     "blind_rotate_crt_acc32/3": {  # K3-acc32, garner_c rounded
-        "element": (15.5, 4.5), "level": (18.5, 15.5),
-        "fwd_butterfly": (6, 5), "mac": (5, 4), "inv_butterfly": (7, 7),
-        "untwist_tail": (22, 27)},
+        "element": (15.5, 4.5, 2), "level": (18.5, 17, 1),
+        "fwd_butterfly": (6, 5.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (7, 7.5, 0), "untwist_tail": (22, 31, 1)},
     "blind_rotate_crt_acc32/4": {
-        "element": (16, 5), "level": (19, 22), "fwd_butterfly": (6, 5),
-        "mac": (5, 4), "inv_butterfly": (8, 6), "untwist_tail": (33, 44)},
+        "element": (16, 5, 2), "level": (19, 24, 0),
+        "fwd_butterfly": (6, 5.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (8, 6.5, 0), "untwist_tail": (33, 50.5, 1)},
     "blind_rotate_bnf2_u64": {  # K3-bnf2, bnf2_c
-        "element": (20, 3), "level": (14, 12), "fwd_butterfly": (5, 6),
-        "mac": (5.25, 3.75), "inv_butterfly": (8, 6),
-        "untwist_tail": (16, 21)},
+        "element": (20, 3, 2.5), "level": (14, 13, 0.5),
+        "fwd_butterfly": (5, 6.5, 0), "mac": (5.25, 4.25, 0),
+        "inv_butterfly": (8, 6.5, 0), "untwist_tail": (16, 24.5, 0)},
     # K4 (P = 1, u64 Goldilocks arithmetic: a 64 x 64 -> 128-bit product is
     # 7-11 instructions, IMAD.WIDE.U32 fusing a 32 x 32 product with a
     # 64-bit add; the reduction mod p and the canonical select take ~22
     # more, mostly 64-bit compares and selects on the ALU pipe);
     # untwist_tail is the untwist with x + (x >> 32) and acc +=
     "blind_rotate_goldilocks": {
-        "element": (14, 3), "level": (34, 10), "fwd_butterfly": (39, 12),
-        "mac": (32, 15), "inv_butterfly": (39, 16), "untwist_tail": (23, 12)},
+        "element": (14, 3, 2), "level": (34, 12, 1),
+        "fwd_butterfly": (39, 14, 0), "mac": (32, 17.5, 0),
+        "inv_butterfly": (39, 18.5, 0), "untwist_tail": (23, 14.5, 0)},
     # the micro-kernels, per unit of their loop
-    "kb_ntt_fwd": {"twist": (2, 4), "fwd_butterfly": (5, 6)},
-    "kb_ntt_inv": {"inv_butterfly": (7, 7), "twist": (2, 4)},
-    "kb_mac": {"mac": (5, 4)},  # per element and term
-    "kb_rotate": {"element": (7, 5)},
-    "kb_decompose": {"element": (18, 3)},  # state, one digit, the add
+    "kb_ntt_fwd": {"twist": (2, 4.5, 0), "fwd_butterfly": (5, 6.5, 0)},
+    "kb_ntt_inv": {"inv_butterfly": (7, 7.5, 0), "twist": (2, 4.5, 0)},
+    "kb_mac": {"mac": (5, 4.5, 0)},  # per element and term
+    "kb_rotate": {"element": (7, 5, 0)},
+    "kb_decompose": {"element": (18, 3, 3)},  # state, one digit, the add
 }
 
 #: the toolkit whose SASS :data:`SASS_OPS` was read from
@@ -152,19 +163,29 @@ SASS_LOOP_TOTALS = {
 }
 
 
-def sass_drift(read_sass) -> list:
+def name_matches(name: str, part) -> bool:
+    """Whether a mangled kernel name holds ``part`` (a string, or a tuple
+    of strings that must all occur)."""
+    parts = (part,) if isinstance(part, str) else part
+    return all(p in name for p in parts)
+
+
+def sass_drift(read_sass, totals: dict = None) -> list:
     """The kernels whose loops in the SASS of a build differ from
-    :data:`SASS_LOOP_TOTALS`: [(kernel, recorded (ALU, FMA), counted)],
-    empty when :data:`SASS_OPS` still holds. ``read_sass(library)`` gives
-    the SASS text of ``lib<library>.so``. A kernel found in no function, or
-    in more than one, raises."""
+    ``totals`` (default :data:`SASS_LOOP_TOTALS`; {kernel: (library, part
+    of its mangled name, (ALU, FMA))}): [(kernel, recorded (ALU, FMA),
+    counted)], empty when the counts the bounds were read from still hold.
+    ``read_sass(library)`` gives the SASS text of ``lib<library>.so``. A
+    kernel found in no function, or in more than one, raises."""
     from .. import sass_loops
 
     funcs, out = {}, []
-    for kernel, (lib, part, want) in SASS_LOOP_TOTALS.items():
+    for kernel, (lib, part, want) in (SASS_LOOP_TOTALS if totals is None
+                                     else totals).items():
         if lib not in funcs:
             funcs[lib] = sass_loops.parse(read_sass(lib))
-        found = [ins for name, ins in funcs[lib].items() if part in name]
+        found = [ins for name, ins in funcs[lib].items()
+                 if name_matches(name, part)]
         if len(found) != 1:
             raise ValueError(f"{kernel}: {len(found)} functions of lib{lib} "
                              f"match {part!r}")
@@ -175,17 +196,18 @@ def sass_drift(read_sass) -> list:
     return out
 
 
-def busier_pipe(alu: float, fma: float) -> float:
+def busier_pipe(alu: float, fma: float, flex: float = 0) -> float:
     """Instructions on one 64-lane pipe: the ALU and FMA pipes run side
     by side, at most 128 instructions per SM and clock in all, so the time
-    is the busier pipe's, or half the total when that is more."""
-    return max(alu, fma, (alu + fma) / 2)
+    is the busier pipe's, or half the total when that is more. ``flex`` of
+    the ALU instructions may issue on either pipe."""
+    return max(alu - flex, fma, (alu + fma) / 2)
 
 
 def _pipes(kernel: str, units: dict) -> float:
     ops = SASS_OPS[kernel]
-    return busier_pipe(sum(u * ops[k][0] for k, u in units.items()),
-                       sum(u * ops[k][1] for k, u in units.items()))
+    return busier_pipe(*(sum(u * ops[k][i] for k, u in units.items())
+                         for i in range(3)))
 
 
 def step_pipe_instructions(kernel: str, B: int, n: int, R: int,

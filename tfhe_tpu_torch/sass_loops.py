@@ -16,8 +16,17 @@ its sources (registers or a guard predicate) is tainted, and clears them
 otherwise (a constant load clears them). Index arithmetic, loads, stores,
 branches and barriers are left out. IMAD in all its forms runs on the FMA pipe; every other integer
 instruction (IADD3, ISETP, SEL, LOP3, SHF, LEA, VIADD, ...) on the ALU
-pipe. The per-unit counts of ``ops/kernel_bench.py::SASS_OPS`` are read
-from this output (an unrolled body divided by its copies).
+pipe. IMAD.HI and IMAD.WIDE take more than one issue slot of the FMA pipe
+(``FMA_DOUBLE``): on an H100 a stream of them issues at 0.43-0.47 of
+IMAD's rate, 2.2-2.3 slots each (``tools.vpu_primitives``' ``mul_hi`` and
+``mul_wide`` rows), but beside plain IMADs (``shoup``) at most 1.93. Each
+counts ``DOUBLE_SLOTS`` = 1.5 slots: not a measured cost but a floor chosen
+so that a bound stays below every time measured. Each loop gives
+``fma_slots``, and ``flex``: the ALU instructions that may issue on the FMA
+pipe instead (VIADD). The per-unit counts of
+``ops/kernel_bench.py::SASS_OPS`` are read from this output (an unrolled
+body divided by its copies), their FMA column in issue slots, their third
+column the flex instructions.
 """
 
 from __future__ import annotations
@@ -34,6 +43,14 @@ _SKIP = ("STS", "STG", "ST", "ATOMS", "RED", "BRA", "BSSY", "BSYNC", "BAR",
          "EXIT", "NOP", "WARPSYNC", "CALL", "RET", "DEPBAR")
 #: results that are not integer-pipe work: constants, special registers
 _NO_PIPE = ("LDC", "ULDC", "S2R", "S2UR", "CS2R")
+#: FMA-pipe instructions that take more than one of its issue slots, and
+#: the slots each counts (a floor that fits the probes, see above)
+FMA_DOUBLE = ("IMAD.HI", "IMAD.WIDE")
+DOUBLE_SLOTS = 1.5
+#: ALU-pipe instructions that also issue elsewhere (``flex``: an H100 ran
+#: ``add_mod``'s VIADD, ISETP and SEL at 81.7 per SM and clock, more than
+#: one 64-lane pipe)
+FLEX = ("VIADD",)
 
 
 def parse(text: str) -> dict:
@@ -106,8 +123,13 @@ def loops(ins: list) -> list:
         count = lambda pre: sum(1 for x in body if x[2].startswith(pre))
         fma = sum(1 for x in body if data[x[0]] and x[2].startswith("IMAD"))
         alu = sum(1 for x in body if data[x[0]]) - fma
+        double = sum(1 for x in body
+                     if data[x[0]] and x[2].startswith(FMA_DOUBLE))
+        flex = sum(1 for x in body if data[x[0]] and x[2].startswith(FLEX))
         out.append({"loop": f"{lo:#x}-{hi:#x}", "nested": len(nested),
                     "instructions": len(body), "alu": alu, "fma": fma,
+                    "fma_slots": fma + (DOUBLE_SLOTS - 1) * double,
+                    "flex": flex,
                     "lds": count("LDS"), "sts": count("STS"),
                     "ldg": count("LDG")})
     return out
@@ -125,8 +147,8 @@ def main(argv=None) -> int:
         for r in loops(ins):
             if r["alu"] or r["fma"]:
                 print("  loop {loop} (nested {nested}): {instructions} "
-                      "instructions, ALU {alu}, FMA {fma}, LDS {lds}, "
-                      "STS {sts}, LDG {ldg}".format(**r))
+                      "instructions, ALU {alu}, FMA {fma} ({fma_slots} "
+                      "slots), LDS {lds}, STS {sts}, LDG {ldg}".format(**r))
     return 0
 
 
