@@ -62,11 +62,15 @@ Phases (any failure raises and exits non-zero):
     then ``kernel_bench.run_all(quick=True)`` with the launch counts
     around it, one JSON row per micro-benchmark;
 12. the TPU design probes (``tfhe_tpu_torch/tools``: ``vpu_primitives``,
-    ``ntt_variants``, ``v4_probe``): each case's kernel held exactly
+    ``ntt_variants``, ``v4_probe``, and on the int8 tensor cores
+    ``mxu_probe``, ``kernel_experiments``, ``ntt_v3c_experiments`` and the
+    MXU cases of the second and third): each case's kernel held exactly
     against its plain version at its check trip count and timed there,
     then each probe's ``run_all(quick=True)`` with the launch counts
-    around it, one JSON row per case, the IMAD.WIDE verdict and the split
-    of K1's and K3's time per ciphertext-step (against phase 11's rows);
+    around it, one JSON row per case, the IMAD.WIDE verdict, the split
+    of K1's and K3's time per ciphertext-step (against phase 11's rows)
+    and the tensor-core verdict (``mxu_verdict``: the int8 small-DFT
+    transforms against the INT32 radix-2 and radix-4 ones);
 13. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -78,7 +82,9 @@ TB/s, H100 SXM data sheet) and its instructions over the rate of one
 64-lane-per-SM integer pipe (64 lanes x SMs x max SM clock), counted per
 pipe from the SASS of the build (K1, K3, K3-acc32, K3-bnf2, K4 and the
 micro-kernels, ``kernel_bench.SASS_OPS``; each probe's own loops, or the
-radix-2 code's counts for the transform variants). ``library_ms`` is the
+radix-2 code's counts for the transform variants); a probe's bound is the
+largest of that, its int8 MACs at the dense tensor-core peak, and its
+bytes, and ``bound_term`` names which. ``library_ms`` is the
 time of one PyTorch call computing a probe trip's function on the same
 tile, where there is one, else null.
 """
@@ -180,6 +186,19 @@ def bound(ops: float, nbytes: float, rate: float):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def probe_bound(int32_ops: float, macs: float, nbytes: float, rates: dict):
+    """A probe's bound, the largest of three times: its busier INT32 pipe's
+    instructions at ``rates["int32"]``, its int8 MACs at the dense
+    tensor-core peak ``rates["int8_mac"]``, its bytes at the HBM rate:
+    (ms, "operations" or "bytes", the binding term)."""
+    terms = {"int32_pipe": int32_ops / rates["int32"] * 1e3,
+             "int8_tensor": macs / rates["int8_mac"] * 1e3,
+             "hbm_bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], ("bytes" if term == "hbm_bytes" else "operations"), \
+        term
 
 
 def step_bound(entry: str, B: int, n: int, R: int, levels: int, N: int,
@@ -311,14 +330,17 @@ def phase_build():
     for mod in probe_modules().values():
         drift = kb.sass_drift(_read_sass, mod.SASS_LOOP_TOTALS)
         missing = h.missing_ops(mod.CASES, mod.SASS_LOOP_TOTALS)
-        if drift or missing:
+        unissued = h.mma_drift(mod.CASES, mod.SASS_LOOP_TOTALS, DEVICE)
+        if drift or missing or unissued:
             raise AssertionError(
                 f"{mod.__name__}: SASS loops differ from SASS_LOOP_TOTALS as "
                 f"(kernel, then, now): {drift}; loops without the op their "
-                f"case names: {missing}")
+                f"case names: {missing}; int8 cases whose SASS does not "
+                f"issue the MACs they count (case, issued, counted): "
+                f"{unissued}")
         print(f"SASS loops of {len(mod.SASS_LOOP_TOTALS)} kernels of "
               f"{mod.__name__} == its SASS_LOOP_TOTALS; every case's loop "
-              "holds its op")
+              "holds its op; every int8 case's mma loops issue its MACs")
     for label, args in (
             ("K1 2_2", ("blind_rotate_bnf2_acc32", 2, 2, 1, 2048)),
             ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
@@ -1020,27 +1042,35 @@ def phase_kernel_bench(rate, rows):
 
 
 def probe_modules() -> dict:
-    from tfhe_tpu_torch.tools import ntt_variants, v4_probe, vpu_primitives
+    from tfhe_tpu_torch.tools import (kernel_experiments, mxu_probe,
+                                      ntt_v3c_experiments, ntt_variants,
+                                      v4_probe, vpu_primitives)
 
-    return {"vpu": vpu_primitives, "ntt": ntt_variants, "step": v4_probe}
+    return {"vpu": vpu_primitives, "ntt": ntt_variants, "step": v4_probe,
+            "mxu": mxu_probe, "e": kernel_experiments,
+            "v3c": ntt_v3c_experiments}
 
 
-def phase_probes(rate, rows, bench):
+def phase_probes(rows, bench):
     """The TPU design probes: every case's kernel held exactly against its
     plain version at its check trip count on its check inputs, and timed at
     its high trip count (beside ``library_ms``: that many calls of the one
     PyTorch call that computes a trip, where there is one, timed back to
     back); then each
     probe's run_all(quick=True) with the launch counts around it. ``bench``: phase 11's rows, whose step times the split of
-    K1's and K3's ciphertext-step is held to."""
+    K1's and K3's ciphertext-step is held to. The tensor-core verdict is
+    read from the rows of that run."""
     from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.tools import _harness as h
+    from tfhe_tpu_torch.tools import ntt_mxu
 
     t0 = time.perf_counter()
+    rates = kb.card_rates()
     checked = {}
     for short, mod in probe_modules().items():
-        src = f"tfhe_tpu_torch/csrc/{mod.__name__.rsplit('.', 1)[1]}.cu"
         for c in mod.CASES:
+            lib = mod.SASS_LOOP_TOTALS[c.kernel][0]
+            src = f"tfhe_tpu_torch/csrc/{lib}.cu"
             args, check_args = c.inputs(DEVICE), c.check_inputs(DEVICE)
             err, plain_ms = h.check(c, check_args)
             trips = c.trips[1]
@@ -1049,10 +1079,11 @@ def phase_probes(rate, rows, bench):
                             args)
             nbytes = (sum(a.numel() * a.element_size() for a in args)
                       + args[0].numel() * args[0].element_size())
+            *bnd, term = probe_bound(kb.busier_pipe(*pipes) * trips,
+                                     c.macs(args) * trips, nbytes, rates)
             checked[f"{short}.{c.name}"] = dict(
                 source=src, replaces=c.replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms,
-                bound=bound(kb.busier_pipe(*pipes) * trips, nbytes, rate),
+                plain_ms=plain_ms, bound=tuple(bnd), bound_term=term,
                 library_ms=(trips * cuda_ms_loop(lambda: c.library(*args),
                                                  64)
                             if c.library else None),
@@ -1061,12 +1092,13 @@ def phase_probes(rate, rows, bench):
     print(f"probes: {len(checked)} kernels == plain at their check trips")
     measured = {k: 1.0 / bench[metric]
                 for k, (_, _, metric) in probe_modules()["step"].STEPS.items()}
-    out = {}
+    out, by_metric = {}, {}
     for short, mod in probe_modules().items():
         mod.reset_launches()
         kw = {"measured": measured} if short == "step" else {}
         for r in mod.run_all(quick=True, device=DEVICE, **kw):
             print(f"probe {short}: {json.dumps(r)}")
+            by_metric.setdefault(r["metric"], r)
             if r["metric"] in ("imad_wide_verdict", "step_split_K1",
                                "step_split_K3_P4"):
                 out[r["metric"]] = r
@@ -1076,6 +1108,8 @@ def phase_probes(rate, rows, bench):
                                      "launch")
             rows[f"{short}.{c.name}"] = dict(launches=c.launches,
                                              **checked[f"{short}.{c.name}"])
+    out["mxu_verdict"] = ntt_mxu.verdict(by_metric)
+    print(f"mxu_verdict: {json.dumps(out['mxu_verdict'])}")
     secs = time.perf_counter() - t0
     print(f"probes phase: {secs:.1f} s")
     return {"probes_s": secs, **out}
@@ -1113,7 +1147,7 @@ def main() -> int:
     summary.update(phase_shortint_v4_acc32(ck22, sk_crt, rate, rows))
     phase_stacked_env(sk22, *batch22)
     summary.update(phase_kernel_bench(rate, rows))
-    summary.update(phase_probes(rate, rows, summary["kernel_bench"]))
+    summary.update(phase_probes(rows, summary["kernel_bench"]))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",

@@ -55,7 +55,12 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/sass_loops.py",
             "tfhe_tpu_torch/tools/vpu_primitives.py",
             "tfhe_tpu_torch/tools/ntt_variants.py",
-            "tfhe_tpu_torch/tools/v4_probe.py"} <= names
+            "tfhe_tpu_torch/tools/v4_probe.py",
+            "tfhe_tpu_torch/tools/mxu_probe.py",
+            "tfhe_tpu_torch/tools/kernel_experiments.py",
+            "tfhe_tpu_torch/tools/ntt_v3c_experiments.py",
+            "tfhe_tpu_torch/tools/ntt_mxu.py",
+            "tfhe_tpu_torch/ops/mxu_tables.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad

@@ -99,7 +99,7 @@ def aes_lib():
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
 CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
                 "blind_rotate_goldilocks", "kernel_bench", "vpu_primitives",
-                "ntt_variants", "v4_probe")
+                "ntt_variants", "v4_probe", "mxu_probe", "ntt_mxu")
 
 
 def _nvcc() -> str:

@@ -173,8 +173,9 @@ def name_matches(name: str, part) -> bool:
 def sass_drift(read_sass, totals: dict = None) -> list:
     """The kernels whose loops in the SASS of a build differ from
     ``totals`` (default :data:`SASS_LOOP_TOTALS`; {kernel: (library, part
-    of its mangled name, (ALU, FMA))}): [(kernel, recorded (ALU, FMA),
-    counted)], empty when the counts the bounds were read from still hold.
+    of its mangled name, (ALU, FMA) or (ALU, FMA, tensor))}): [(kernel,
+    recorded totals, counted)], empty when the counts the bounds were read
+    from still hold.
     ``read_sass(library)`` gives the SASS text of ``lib<library>.so``. A
     kernel found in no function, or in more than one, raises."""
     from .. import sass_loops
@@ -190,7 +191,8 @@ def sass_drift(read_sass, totals: dict = None) -> list:
             raise ValueError(f"{kernel}: {len(found)} functions of lib{lib} "
                              f"match {part!r}")
         loops = sass_loops.loops(found[0])
-        got = (sum(r["alu"] for r in loops), sum(r["fma"] for r in loops))
+        got = tuple(sum(r[k] for r in loops)
+                    for k in ("alu", "fma", "tensor")[:len(want)])
         if got != want:
             out.append((kernel, want, got))
     return out

@@ -16,7 +16,9 @@ its sources (registers or a guard predicate) is tainted, and clears them
 otherwise (a constant load clears them). Index arithmetic, loads, stores,
 branches and barriers are left out. IMAD in all its forms runs on the FMA pipe; every other integer
 instruction (IADD3, ISETP, SEL, LOP3, SHF, LEA, VIADD, ...) on the ALU
-pipe. IMAD.HI and IMAD.WIDE take more than one issue slot of the FMA pipe
+pipe, but the tensor-core instructions (``TENSOR``: IMMA, HMMA, HGMMA,
+IGMMA), which each loop counts apart as ``tensor``, data or not.
+IMAD.HI and IMAD.WIDE take more than one issue slot of the FMA pipe
 (``FMA_DOUBLE``): on an H100 a stream of them issues at 0.43-0.47 of
 IMAD's rate, 2.2-2.3 slots each (``tools.vpu_primitives``' ``mul_hi`` and
 ``mul_wide`` rows), but beside plain IMADs (``shoup``) at most 1.93. Each
@@ -51,6 +53,8 @@ DOUBLE_SLOTS = 1.5
 #: ``add_mod``'s VIADD, ISETP and SEL at 81.7 per SM and clock, more than
 #: one 64-lane pipe)
 FLEX = ("VIADD",)
+#: tensor-core instructions: on neither INT32 pipe
+TENSOR = ("IMMA", "HMMA", "HGMMA", "IGMMA")
 
 
 def parse(text: str) -> dict:
@@ -121,15 +125,17 @@ def loops(ins: list) -> list:
         body = [x for x in ins if lo <= x[0] <= hi
                 and not any(a <= x[0] <= b for a, b in nested)]
         count = lambda pre: sum(1 for x in body if x[2].startswith(pre))
+        tensor = sum(1 for x in body if x[2].startswith(TENSOR))
         fma = sum(1 for x in body if data[x[0]] and x[2].startswith("IMAD"))
-        alu = sum(1 for x in body if data[x[0]]) - fma
+        alu = sum(1 for x in body if data[x[0]]
+                  and not x[2].startswith(TENSOR)) - fma
         double = sum(1 for x in body
                      if data[x[0]] and x[2].startswith(FMA_DOUBLE))
         flex = sum(1 for x in body if data[x[0]] and x[2].startswith(FLEX))
         out.append({"loop": f"{lo:#x}-{hi:#x}", "nested": len(nested),
                     "instructions": len(body), "alu": alu, "fma": fma,
                     "fma_slots": fma + (DOUBLE_SLOTS - 1) * double,
-                    "flex": flex,
+                    "flex": flex, "tensor": tensor,
                     "lds": count("LDS"), "sts": count("STS"),
                     "ldg": count("LDG")})
     return out
@@ -145,10 +151,11 @@ def main(argv=None) -> int:
             continue
         print(f"{name}: {len(ins)} instructions")
         for r in loops(ins):
-            if r["alu"] or r["fma"]:
+            if r["alu"] or r["fma"] or r["tensor"]:
                 print("  loop {loop} (nested {nested}): {instructions} "
                       "instructions, ALU {alu}, FMA {fma} ({fma_slots} "
-                      "slots), LDS {lds}, STS {sts}, LDG {ldg}".format(**r))
+                      "slots), tensor {tensor}, LDS {lds}, STS {sts}, "
+                      "LDG {ldg}".format(**r))
     return 0
 
 

@@ -46,12 +46,20 @@ class Case:
     the comparison can fail: a body that is the identity or zero on the
     timed tile (where_ge, shift) is checked on values where it is not;
     ``extra(case, args, row)``: more keys of the row, measured after the
-    timing (keyword arguments of the launch reach ``launch``)."""
+    timing (keyword arguments of the launch reach ``launch``);
+    ``macs(args)``: the int8 multiply-adds per trip over all inputs (None:
+    an INT32 case), ``mma_trips(args)``: the runs per trip of the loop
+    bodies that hold the kernel's ``mma`` instructions, over all blocks and
+    warps (every such body holds as many), ``l2_bytes(args)``: the bytes a
+    trip reads through L2 (a table streamed by every block);
+    ``more_checks``: more (inputs(device), trips) comparisons, on values the
+    first cannot fail on (an accumulator that must wrap)."""
 
     def __init__(self, name, *, replaces, mirrors, kernel, launch, plain,
                  inputs, units, unit, required, trips, check=3,
                  check_inputs=None, divisor=1, pipes=None, library=None,
-                 extra=None, note=""):
+                 extra=None, note="", macs=None, mma_trips=None,
+                 l2_bytes=None, more_checks=()):
         self.name, self.replaces, self.mirrors = name, replaces, mirrors
         self.kernel, self._launch, self.plain = kernel, launch, plain
         self.inputs, self.units, self.unit = inputs, units, unit
@@ -59,6 +67,9 @@ class Case:
         self._check_inputs = check_inputs
         self.divisor, self._pipes, self.library = divisor, pipes, library
         self.extra, self.note = extra, note
+        self.macs = macs or (lambda args: 0)
+        self.mma_trips, self.l2_bytes = mma_trips, l2_bytes
+        self.more_checks = more_checks
         self.launches = 0
 
     def __call__(self, *args, **kw):
@@ -82,6 +93,19 @@ class Case:
         n = self.units(args) / self.divisor
         return tuple(n * sum(r[k] for r in inner)
                      for k in ("alu", key, "flex"))
+
+
+def glue_pipes(elements):
+    """A ``Case.pipes`` of an int8 case: (ALU, FMA, flex) of the innermost
+    loops that hold no mma, each body run once per element
+    (``elements(args)`` a trip): the elementwise glue, a lower bound of the
+    INT32 work (an epilogue inside a product's loop is not counted)."""
+    def pipes(loops, args):
+        inner = [r for r in loops if r["nested"] == 0 and not r["tensor"]
+                 and (r["alu"] + r["fma"])]
+        return tuple(elements(args) * sum(r[k] for r in inner)
+                     for k in ("alu", "fma_slots", "flex"))
+    return pipes
 
 
 def reset(cases):
@@ -166,10 +190,37 @@ def missing_ops(cases, table: dict, funcs_of=_funcs) -> list:
         data = sass_loops.data_instructions(ins)
         spans = [tuple(int(a, 16) for a in r["loop"].split("-"))
                  for r in sass_loops.loops(ins)]
-        ops = {op for addr, _, op, _ in ins if data[addr]
+        ops = {op for addr, _, op, _ in ins
+               if (data[addr] or op.startswith(sass_loops.TENSOR))
                and any(lo <= addr <= hi for lo, hi in spans)}
         if not any(o.startswith(req) for o in ops for req in c.required):
             out.append((c.name, c.required))
+    return out
+
+
+#: int8 multiply-adds of one ``mma.sync.m16n8k32`` (one IMMA.16832)
+MACS_PER_MMA = 16 * 8 * 32
+
+
+def mma_drift(cases, table: dict, device="cpu", funcs_of=_funcs) -> list:
+    """The int8 cases whose SASS does not issue every MAC the case counts:
+    the tensor-core instructions of each loop body that holds them, times
+    ``mma_trips``, times :data:`MACS_PER_MMA`, against ``macs`` (a body
+    the compiler cut short, or bodies of unequal size): [(case, MACs the
+    SASS issues a trip or None, MACs counted)]."""
+    from .. import sass_loops
+
+    out = []
+    for c in cases:
+        if c.mma_trips is None:
+            continue
+        args = c.inputs(device)
+        loops = sass_loops.loops(kernel_function(table, c.kernel, funcs_of))
+        per_body = {r["tensor"] for r in loops if r["tensor"]}
+        issued = (per_body.pop() * c.mma_trips(args) * MACS_PER_MMA
+                  if len(per_body) == 1 else None)
+        if issued != c.macs(args):
+            out.append((c.name, issued, c.macs(args)))
     return out
 
 
@@ -179,8 +230,12 @@ def missing_ops(cases, table: dict, funcs_of=_funcs) -> list:
 
 def check(case, args) -> tuple:
     """The kernel against its plain version on ``args`` (its check inputs)
-    at ``case.check`` trips, exactly: (max_abs_err, plain ms between CUDA
-    events). Raises on any difference."""
+    at ``case.check`` trips, exactly, after ``case.more_checks``:
+    (max_abs_err, plain ms between CUDA events). Raises on any
+    difference."""
+    for inputs, trips in case.more_checks:
+        more = inputs(args[0].device)
+        _compare(case, case(*more, trips), case.plain(*more, trips))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     got = case(*args, case.check)
@@ -188,11 +243,15 @@ def check(case, args) -> tuple:
     want = case.plain(*args, case.check)
     end.record()
     end.synchronize()
+    return _compare(case, got, want), start.elapsed_time(end)
+
+
+def _compare(case, got, want) -> float:
     err = (u32(got) - u32(want)).abs().max().item()
     if tuple(got.shape) != tuple(want.shape) or err != 0:
         raise AssertionError(f"{case.name}: kernel != plain version "
                              f"(max_abs_diff {err})")
-    return float(err), start.elapsed_time(end)
+    return float(err)
 
 
 def row(case, args, table: dict, iters: int = 3) -> dict:
@@ -220,6 +279,14 @@ def row(case, args, table: dict, iters: int = 3) -> dict:
            "alu_per_sm_clock": alu / clocks, "fma_per_sm_clock": fma / clocks,
            "int32_fraction": kb.busier_pipe(alu, slots, flex) / units / per
            / rates["int32"], "card": rates["card"]}
+    macs = case.macs(args)
+    if macs:
+        out.update(int8_macs_per_loop=macs, int8_mac_per_s=macs / units / per,
+                   int8_tensor_fraction=macs / units / per / rates["int8_mac"],
+                   mma="mma.sync.m16n8k32.s8")
+    if case.l2_bytes is not None:
+        out["l2_bytes_per_loop"] = case.l2_bytes(args)
+        out["l2_bytes_per_s"] = case.l2_bytes(args) / units / per
     if case.note:
         out["note"] = case.note
     if case.extra is not None:

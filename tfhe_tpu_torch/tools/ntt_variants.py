@@ -29,10 +29,19 @@ transform exactly and could take its place in K1 and K3:
 - ``fwd4_primes``: the four primes' forward transforms of one row, XOR-ed
   (``fwd4_primes_v1``/``_v2``), on ``forward_stages<4>``.
 
-The MXU cases (``fwd_v3_mxu``, ``inv_v3_mxu``, ``inv_v3b_block_stages``,
-``split4_only``, ``:171-191``) need int8 tensor-core kernels and are not
-here. Each row's bound counts the radix-2 code's SASS instructions per
+Each of these rows' bound counts the radix-2 code's SASS instructions per
 butterfly (``kernel_bench.SASS_OPS``), which every variant needs at least.
+
+The MXU cases (``:171-191``) run on the int8 tensor cores
+(``csrc/ntt_mxu.cu``, ``tools/ntt_mxu.py``), one polynomial a block:
+
+- ``v3_fwd_mxu``: ``_fwd_ntt_v3`` (the twist, four stages, the merged
+  [16, 512] @ [512, 512] small DFT and its recombination, < 2p in the
+  block layout); ``v3_inv_mxu``: ``_inv_ntt_v3b``. The JAX cases
+  ``fwd_v3_mxu``, ``inv_v3_mxu`` and ``inv_v3b_block_stages`` are stale
+  (they pass the old 4-tuple constants and raise ``KeyError``), so these
+  rows mirror the functions as ``tools/v4_probe.py:159-178`` calls them;
+- ``split4_only``: the balanced limb split, x <- limb 0 + limb 1 + x.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from ..ops import kernel_bench as kb
 from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
 from . import _harness as h
+from . import ntt_mxu as nm
 
 N = 2048
 LOG_N = 11
@@ -316,6 +326,25 @@ CASES = (
                             ("kb_ntt_fwd", "fwd_butterfly", 4 * _BF))),
 )
 
+_STALE = ("the JAX case is stale (KeyError: the old 4-tuple constants); "
+          "mirrors {} on the merged tables as tools/v4_probe.py:159-178 "
+          "calls it")
+MXU_CASES = (
+    nm.case("v3_fwd_mxu", "v3_fwd", replaces=f"{SRC}:171",
+            mirrors=["fwd_v3_mxu", "ntt_v3c_experiments fwd_v3_base",
+                     "ntt_v3c_experiments fwd_v3c", "v4_probe v3_fwd"],
+            note=_STALE.format("_fwd_ntt_v3")),
+    nm.case("v3_inv_mxu", "v3_inv", replaces=f"{SRC}:172",
+            mirrors=["inv_v3_mxu", "inv_v3b_block_stages",
+                     "ntt_v3c_experiments inv_v3b_base",
+                     "ntt_v3c_experiments inv_v3c",
+                     "ntt_v3c_experiments inv_v3c_rolls", "v4_probe v3_inv"],
+            note=_STALE.format("_inv_ntt_v3b")),
+    nm.case("split4_only", "split4", replaces=f"{SRC}:191",
+            mirrors=["split4_only"]),
+)
+CASES += MXU_CASES
+
 #: per kernel: library, parts of the mangled name, (ALU, FMA) loop totals
 #: (see ``vpu_primitives.SASS_LOOP_TOTALS``)
 SASS_LOOP_TOTALS = {
@@ -330,6 +359,10 @@ SASS_LOOP_TOTALS = {
     "transpose_0": ("ntt_variants", ("12nv_transposeILb0E",), (32, 0)),
     "transpose_1": ("ntt_variants", ("12nv_transposeILb1E",), (32, 0)),
     "fwd4": ("ntt_variants", ("7nv_fwd4",), (9, 10)),
+    # (ALU, FMA, tensor)
+    "v3_fwd": (*nm.sass_entry("v3_fwd"), (76, 62, 4)),
+    "v3_inv": (*nm.sass_entry("v3_inv"), (92, 70, 4)),
+    "split4": (*nm.sass_entry("split4"), (7, 1, 0)),
 }
 
 

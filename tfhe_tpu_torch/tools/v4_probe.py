@@ -26,9 +26,21 @@ first four stages, the groups-only cases), ``mac2`` (P*R*N: two Shoup terms,
 ``v4_mac2``), ``inv_untwist`` (P*R transforms: ``inverse_stages`` and the
 untwist, ``v4_inv``/``v4_tw_recombine``/``g_tw_recombine``) and the tails
 (R*N: ``garner3``/``garner4``, ``g_garner_crt_1c``; ``garner32_*``,
-``bnf2_c``, ``bnf2_c32``). The MXU pieces (``v4_matmul_fold``,
-``v4_split4``, ``v4_inv_matmul_recombine``, ``g_matmul_fold``) need int8
-tensor-core kernels and are not here.
+``bnf2_c``, ``bnf2_c32``). ``fwd`` and ``inv_untwist`` are INT32
+stand-ins of the same size for ``v4_fwd_*`` and ``v4_inv``.
+
+The MXU pieces run on the int8 tensor cores (``csrc/ntt_mxu.cu``,
+``tools/ntt_mxu.py``), one ciphertext's [G, 128] a block, at
+``_get_tables_v4(2048, 4, 23)``'s prime 0: ``v4_matmul_fold`` (x as int8,
+x3, @ fwd_w8 [384, 512], the pair fold, V0 ^ V1; also ``g_matmul_fold``,
+which differs only in the rows' order), ``v4_split4``,
+``v4_inv_matmul_recombine`` (the exact ``_mul_hi`` for q0, the approx
+``_shoup`` for r1, as the case writes them), and the transforms the JAX
+harness cannot run (its [Bt, G, 128] loop carry refuses their [G, Bt, 128]
+output): ``v4_fwd_mxu`` / ``v4_fwd_mxu_nosplit`` (``_fwd_ntt_v4``,
+lazy=False, on ``v4_fwd``'s digit limbs or ``v4_fwd_nosplit``'s int8 of
+x: the lane DFT, the twiddle scale, the group stages) and ``v4_inv_mxu``
+(``_inv_ntt_v4``, lazy=False, the approx Barrett fold).
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from ..ops import pbs_kernel as pk
 from ..ops.decomp import decompose
 from ..ops.polynomial import monomial_mul
 from . import _harness as h
+from . import ntt_mxu as nm
 from .ntt_variants import fwd_stage_range
 
 N, LOG_N = 2048, 11
@@ -315,11 +328,13 @@ _MIRRORS = {
     "rot": (["v4_rot", "g_rot"], 155),
     "decomp": (["g_decomp"], 445),
     "lift_twist": (["v4_fwd_with_split - v4_fwd_nosplit"], 152),
-    "fwd": (["v4_fwd_nosplit", "v3_fwd"], 153),
+    "fwd": (["v4_fwd_nosplit, v3_fwd: an INT32 stand-in of the same size "
+             "(forward_stages<4>)"], 153),
     "fwd_first4": (["v4_groups4_fwd", "g_groups4_fwd",
                     "g_groups4_fwd_lanerep"], 254),
     "mac2": (["v4_mac2"], 156),
-    "inv_untwist": (["v4_inv", "v3_inv", "v4_tw_recombine",
+    "inv_untwist": (["v4_inv, v3_inv: an INT32 stand-in of the same size "
+                     "(inverse_stages<4> and the untwist)", "v4_tw_recombine",
                      "g_tw_recombine"], 154),
     "garner3": (["g_garner_crt_1c"], 444),
     "garner4": (["g_garner_crt_1c"], 444),
@@ -392,7 +407,25 @@ def _case(piece: str, layout: str) -> h.Case:
 
 PIECES = ("rot", "decomp", "lift_twist", "fwd", "fwd_first4", "mac2",
           "inv_untwist") + TAILS
-CASES = tuple(_case(p, lay) for p in PIECES for lay in layouts_of(p))
+_V4_STALE = ("the JAX case cannot run (its [Bt, G, 128] loop carry "
+             "refuses the [G, Bt, 128] output): mirrors {} on that layout")
+MXU_CASES = (
+    nm.case("v4_matmul_fold", "v4_fold", replaces=f"{SRC}:255",
+            mirrors=["v4_matmul_fold", "g_matmul_fold"]),
+    nm.case("v4_split4", "v4_split4", replaces=f"{SRC}:257",
+            mirrors=["v4_split4"]),
+    nm.case("v4_inv_matmul_recombine", "v4_inv_mmr", replaces=f"{SRC}:258",
+            mirrors=["v4_inv_matmul_recombine"]),
+    nm.case("v4_fwd_mxu", "v4_fwd", replaces=f"{SRC}:152",
+            mirrors=["v4_fwd_with_split"],
+            note=_V4_STALE.format("_fwd_ntt_v4")),
+    nm.case("v4_fwd_mxu_nosplit", "v4_fwd_nosplit", replaces=f"{SRC}:153",
+            mirrors=["v4_fwd_nosplit"], note=_V4_STALE.format("_fwd_ntt_v4")),
+    nm.case("v4_inv_mxu", "v4_inv", replaces=f"{SRC}:154",
+            mirrors=["v4_inv"], note=_V4_STALE.format("_inv_ntt_v4")),
+)
+CASES = tuple(_case(p, lay) for p in PIECES
+              for lay in layouts_of(p)) + MXU_CASES
 
 #: per kernel: library, parts of the mangled name, (ALU, FMA) loop totals
 #: (see ``vpu_primitives.SASS_LOOP_TOTALS``)
@@ -435,6 +468,12 @@ def _parts(piece: str, layout: str) -> tuple:
 SASS_LOOP_TOTALS = {
     f"{p}_{lay}": ("v4_probe", _parts(p, lay), _TOTALS[f"{p}_{lay}"])
     for p in _KERNEL_PARTS for lay in layouts_of(p)}
+#: the MXU kernels' (ALU, FMA, tensor)
+SASS_LOOP_TOTALS.update({
+    op: (*nm.sass_entry(op), totals) for op, totals in (
+        ("v4_fold", (1, 2, 4)), ("v4_split4", (4, 2, 0)),
+        ("v4_inv_mmr", (62, 38, 4)), ("v4_fwd", (138, 97, 4)),
+        ("v4_fwd_nosplit", (128, 96, 4)), ("v4_inv", (143, 102, 4)))})
 
 #: units of each piece per ciphertext-step at 2_2 (R = 2, l = 1, N = 2048):
 #: K1 with P = 2 primes and the bnf2_c32 tail, K3 with P = 4 and garner4
