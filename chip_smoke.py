@@ -341,20 +341,83 @@ def phase_build():
         print(f"SASS loops of {len(mod.SASS_LOOP_TOTALS)} kernels of "
               f"{mod.__name__} == its SASS_LOOP_TOTALS; every case's loop "
               "holds its op; every int8 case's mma loops issue its MACs")
-    for label, args in (
-            ("K1 2_2", ("blind_rotate_bnf2_acc32", 2, 2, 1, 2048)),
-            ("K3 boolean default (P=3)", ("blind_rotate_crt", 3, 4, 2, 512)),
-            ("K3 2_2 crt (P=4)", ("blind_rotate_crt", 4, 2, 1, 2048)),
-            ("K3-acc32 boolean default (P=3)",
-             ("blind_rotate_crt_acc32", 3, 4, 2, 512)),
-            ("K3-acc32 2_2 (P=4)", ("blind_rotate_crt_acc32", 4, 2, 1, 2048)),
-            ("K3-bnf2 2_2 two-plane", ("blind_rotate_bnf2_u64", 2, 2, 1,
-                                       2048)),
-            ("K4 2_2 v5", ("blind_rotate_goldilocks", 1, 2, 1, 2048)),
-            ("K4 1_1 v5", ("blind_rotate_goldilocks", 1, 5, 1, 512))):
-        print(f"  dynamic shared memory per block, {label}: "
-              f"{pk.step_smem_bytes(*args) / 1024:.0f} KiB")
+    step_kernel_report()
     return secs
+
+
+#: the step kernels' shapes on the paths: (label, entry, P, R, levels, N,
+#: accumulator bytes)
+STEP_SHAPES = (
+    ("K1 2_2", "blind_rotate_bnf2_acc32", 2, 2, 1, 2048, 4),
+    ("K3 boolean default (P=3)", "blind_rotate_crt", 3, 4, 2, 512, 8),
+    ("K3 2_2 crt (P=4)", "blind_rotate_crt", 4, 2, 1, 2048, 8),
+    ("K3-acc32 boolean default (P=3)", "blind_rotate_crt_acc32", 3, 4, 2,
+     512, 4),
+    ("K3-acc32 2_2 (P=4)", "blind_rotate_crt_acc32", 4, 2, 1, 2048, 4),
+    ("K3-bnf2 2_2 two-plane", "blind_rotate_bnf2_u64", 2, 2, 1, 2048, 8))
+
+
+def _ptxas_spills(lib: str) -> dict:
+    """{mangled entry: spill store + load bytes} from ptxas' report of
+    lib<lib>.so."""
+    import re
+
+    from tfhe_tpu_torch import _build
+
+    out, entry = {}, None
+    with open(_build.ptxas_report_path(lib)) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry is not None:
+                out[entry] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
+def step_kernel_report():
+    """Per step kernel at each path's shape: its dynamic shared memory (the
+    <entry>_smem export, held to ops/step_passes.step_smem_bytes: acc and
+    digits, no MAC buffer), registers, spill bytes and resident blocks per
+    SM; fails on a spill in any instantiation of K1's or K3's step kernel,
+    or on an export that differs from the formula."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import step_passes as sp
+
+    spills = {lib: _ptxas_spills(lib)
+              for lib in ("blind_rotate_bnf2", "blind_rotate_crt")}
+    spilled = {name: b for lib in spills.values() for name, b in lib.items()
+               if "blind_rotate_kernel" in name and b}
+    for label, entry, P, R, levels, N, acc_bytes in STEP_SHAPES:
+        smem = pk.step_smem_bytes(entry, P, R, levels, N)
+        want = sp.step_smem_bytes(P, R, levels, N, acc_bytes)
+        occ = pk.step_occupancy(entry, P, R, levels, N)
+        print(f"  {label}: {smem / 1024:.0f} KiB dynamic shared memory a "
+              f"block, {occ['registers']} registers, {occ['local_bytes']} "
+              f"local bytes a thread, {occ['blocks_per_sm']} blocks per SM")
+        if smem != want:
+            raise AssertionError(f"{entry}_smem {smem} != the formula's "
+                                 f"{want} (acc + digits) at {label}")
+        if occ["local_bytes"]:
+            spilled[f"{entry} at {label}"] = occ["local_bytes"]
+    for entry, P, radix2_of in (("kb_step_bnf2_acc32_r2", 2, 4),
+                                ("kb_step_crt_r2", 4, 8)):
+        smem = pk.step_smem_bytes(entry, P, 2, 1, 2048)
+        if smem != sp.step_smem_bytes(P, 2, 1, 2048, radix2_of, radix2=True):
+            raise AssertionError(f"{entry}_smem {smem} != the radix-2 "
+                                 "loop's layout")
+        print(f"  {entry} (the radix-2 loop, the bench's reference) 2_2: "
+              f"{smem / 1024:.0f} KiB")
+    for label, args in (("K4 2_2 v5", ("blind_rotate_goldilocks", 1, 2, 1,
+                                       2048)),
+                        ("K4 1_1 v5", ("blind_rotate_goldilocks", 1, 5, 1,
+                                       512))):
+        print(f"  {label}: {pk.step_smem_bytes(*args) / 1024:.0f} KiB "
+              "dynamic shared memory a block")
+    if spilled:
+        raise AssertionError(f"K1/K3 step kernels spill: {spilled}")
+    print("K1 and K3: no spills; shared memory == acc + digits")
 
 
 def phase_shortint_v6b(card, rate, rows):
@@ -1026,11 +1089,12 @@ def phase_kernel_bench(rate, rows):
             plain_shape=f"{rows_n} rows x N={N}, {KB_CHECK_LOOPS} passes")
         print(f"{name} == plain at {rows_n} rows, {KB_CHECK_LOOPS} passes: "
               f"{ms:.4f} ms (plain {plain_ms:.3f} ms)")
+    checked.update(step_references(rate))
     kb.reset_launches()
     bench_rows = kb.run_all(quick=True)
     for row in bench_rows:
         print(f"kernel bench: {json.dumps(row)}")
-    for fn in kb.MICRO_KERNELS:
+    for fn in kb.MICRO_KERNELS + kb.STEP_REFERENCES:
         if fn.launches < 1:
             raise AssertionError(f"kernel bench: {fn.__name__} did not "
                                  "launch")
@@ -1039,6 +1103,53 @@ def phase_kernel_bench(rate, rows):
     print(f"kernel bench phase: {secs:.1f} s")
     return {"kernel_bench_s": secs,
             "kernel_bench": {r["metric"]: r["value"] for r in bench_rows}}
+
+
+def step_references(rate) -> dict:
+    """The kernel bench's reference loops (K1's and K3 P = 4's function on
+    the radix-2 step loop) held exactly against their plain versions on
+    random 2_2 accumulators over 32 steps of a random key, and timed on
+    that case."""
+    from tfhe_tpu_torch._torus import from_u64
+    from tfhe_tpu_torch.core import algorithms as algo
+    from tfhe_tpu_torch.core.entities import LweBootstrapKey
+    from tfhe_tpu_torch.ops import bnf2 as b2
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.utils.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS
+
+    p = PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    R, N, l, n = p.glwe_size, p.polynomial_size, p.pbs_level, 32
+    rng = np.random.default_rng(SEED + 8)
+    acc32, mask, bsk2 = random_k1_case(rng, PLAIN_BATCH, n, R, l, N,
+                                       b2.DEFAULT)
+    acc64, mask64 = _random_acc_mask(rng, PLAIN_BATCH, n, R, N)
+    std = from_u64(rng.integers(0, 1 << 64, size=(n, l, R, R, N),
+                                dtype=np.uint64), DEVICE)
+    key4 = pk.bsk_to_scan_layout(algo.bootstrap_key_to_ntt(
+        LweBootstrapKey(std, p.pbs_base_log, l), 4).residues)
+    out = {}
+    for fn, plain, args, entry, P, acc_bytes, site in (
+            (kb.kb_step_bnf2_acc32_r2, pk.blind_rotate_bnf2_acc32_plain,
+             (acc32, mask, bsk2, p.pbs_base_log, l),
+             "blind_rotate_bnf2_acc32", 2, 4,
+             "tfhe_tpu/ops/pbs_kernel.py:1848"),
+            (kb.kb_step_crt_r2, pk.blind_rotate_crt_plain,
+             (acc64, mask64, key4, p.pbs_base_log, l), "blind_rotate_crt", 4,
+             8, "tfhe_tpu/ops/pbs_kernel.py:1867")):
+        name = fn.__name__
+        err, plain_ms = check_equal(name, fn, plain, args)
+        ms = cuda_ms(lambda: fn(*args), 3)
+        out[name] = dict(
+            source="tfhe_tpu_torch/csrc/kernel_bench.cu", replaces=site,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound=step_bound(entry, PLAIN_BATCH, n, R, l, N, P, acc_bytes,
+                             rate),
+            shape=f"2_2, B={PLAIN_BATCH}, n={n} (the radix-2 step loop)",
+            plain_shape=f"2_2, B={PLAIN_BATCH}, n={n}")
+        print(f"{name} == plain at 2_2, B={PLAIN_BATCH}, n={n}: {ms:.3f} ms "
+              f"(plain {plain_ms:.3f} ms)")
+    return out
 
 
 def probe_modules() -> dict:
@@ -1090,8 +1201,10 @@ def phase_probes(rows, bench):
                 shape=f"{tuple(args[0].shape)}, {trips} trips",
                 plain_shape=f"{tuple(check_args[0].shape)}, {c.check} trips")
     print(f"probes: {len(checked)} kernels == plain at their check trips")
-    measured = {k: 1.0 / bench[metric]
-                for k, (_, _, metric) in probe_modules()["step"].STEPS.items()}
+    measured = {}
+    for k, (_, _, metric) in probe_modules()["step"].STEPS.items():
+        measured[k] = 1.0 / bench[metric]
+        measured[f"{k}_r2"] = 1.0 / bench[f"{metric}_r2"]
     out, by_metric = {}, {}
     for short, mod in probe_modules().items():
         mod.reset_launches()
@@ -1100,7 +1213,8 @@ def phase_probes(rows, bench):
             print(f"probe {short}: {json.dumps(r)}")
             by_metric.setdefault(r["metric"], r)
             if r["metric"] in ("imad_wide_verdict", "step_split_K1",
-                               "step_split_K3_P4"):
+                               "step_split_K3_P4", "pass_split_K1",
+                               "pass_split_K3_P4"):
                 out[r["metric"]] = r
         for c in mod.CASES:
             if c.launches < 1:
@@ -1153,7 +1267,8 @@ def main() -> int:
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
-             "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose")
+             "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
+             "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in
                    probe_modules().items() for c in mod.CASES)
     kernels = []

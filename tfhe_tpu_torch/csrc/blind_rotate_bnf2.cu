@@ -15,8 +15,13 @@
 // 2 (l*R) forward and 2 R inverse transforms of N/2 * log2(N) butterflies
 // each, against ~128 KiB of key (2_2) that all ciphertexts share; the key
 // stream is served from L2 when blocks walk the steps together, so the
-// INT32 pipe is the roofline. The accumulator, the digit transforms and the
-// MAC results stay in shared memory (80 KiB at 2_2) for all n steps.
+// INT32 pipe is the roofline. The design against it (ntt_common.cuh's
+// StepPasses): up to three stages a shared-memory pass in registers, the
+// lift, the MAC and the tail fused into the passes beside them, eight
+// block barriers a step (the radix-2 loop: 25), two blocks of 512 threads a SM
+// at 64 registers. The accumulator and the digit transforms stay in shared
+// memory (48 KiB at 2_2; the MAC rows overwrite digit rows) for all n
+// steps.
 
 #include "ntt_common.cuh"
 #include "tails.cuh"
@@ -51,4 +56,15 @@ extern "C" unsigned long long blind_rotate_bnf2_acc32_smem(
         int num_primes, int R, int levels, int log_n) {
     if (num_primes != 2) return 0;
     return brk::blind_rotate_smem<Bnf2Tail32>(R, levels, log_n);
+}
+
+// Resident blocks per SM of blind_rotate_bnf2_acc32's kernel at this shape,
+// with its registers and local (spill) bytes per thread; negative: a CUDA
+// error, 0 when num_primes is not 2.
+extern "C" int blind_rotate_bnf2_acc32_occupancy(
+        int num_primes, int R, int levels, int log_n, int* regs,
+        int* local_bytes) {
+    if (num_primes != 2) return 0;
+    return brk::blind_rotate_occupancy<Bnf2Tail32>(R, levels, log_n, regs,
+                                                   local_bytes);
 }

@@ -27,10 +27,11 @@
 // P R inverse transforms of N/2 * log2(N) butterflies, P R l*R Shoup MACs
 // and the tail, against a step key of 2 P l R R N u32 (393 KB for the
 // boolean default set) that all ciphertexts share and read from L2. The
-// whole key is never staged in shared memory; the accumulator, the digit
-// transforms and the MAC results are: 88 KiB at the boolean default set
-// (80 KiB with the u32 accumulator), 160 KiB at 2_2 with P = 4 (144 KiB),
-// one block per SM at 2_2.
+// whole key is never staged in shared memory; the accumulator and the
+// digit transforms are (the MAC rows overwrite digit rows,
+// ntt_common.cuh's StepPasses, which also runs up to three transform stages
+// a pass in registers): 64 KiB at the boolean default set (56 KiB with the
+// u32 accumulator), 96 KiB at 2_2 with P = 4 (80 KiB), two blocks per SM.
 
 #include "ntt_common.cuh"
 #include "tails.cuh"
@@ -85,6 +86,15 @@ unsigned long long crt_smem(int num_primes, int R, int levels, int log_n) {
     return for_primes<Tail>(num_primes, 0ull, [&](auto t) {
         return (unsigned long long)brk::blind_rotate_smem<decltype(t)>(
             R, levels, log_n);
+    });
+}
+
+template <template <int> class Tail>
+int crt_occupancy(int num_primes, int R, int levels, int log_n, int* regs,
+                  int* local_bytes) {
+    return for_primes<Tail>(num_primes, 0, [&](auto t) {
+        return brk::blind_rotate_occupancy<decltype(t)>(R, levels, log_n,
+                                                        regs, local_bytes);
     });
 }
 
@@ -161,4 +171,29 @@ extern "C" unsigned long long blind_rotate_bnf2_u64_smem(
         int num_primes, int R, int levels, int log_n) {
     if (num_primes != 2) return 0;
     return brk::blind_rotate_smem<Bnf2Tail>(R, levels, log_n);
+}
+
+// Resident blocks per SM of each entry's kernel at num_primes primes and
+// this shape, with its registers and local (spill) bytes per thread;
+// negative: a CUDA error, 0 for a prime count the entry does not take.
+extern "C" int blind_rotate_crt_occupancy(int num_primes, int R, int levels,
+                                          int log_n, int* regs,
+                                          int* local_bytes) {
+    return crt_occupancy<GarnerTail>(num_primes, R, levels, log_n, regs,
+                                     local_bytes);
+}
+
+extern "C" int blind_rotate_crt_acc32_occupancy(int num_primes, int R,
+                                                int levels, int log_n,
+                                                int* regs, int* local_bytes) {
+    return crt_occupancy<GarnerTail32>(num_primes, R, levels, log_n, regs,
+                                       local_bytes);
+}
+
+extern "C" int blind_rotate_bnf2_u64_occupancy(int num_primes, int R,
+                                               int levels, int log_n,
+                                               int* regs, int* local_bytes) {
+    if (num_primes != 2) return 0;
+    return brk::blind_rotate_occupancy<Bnf2Tail>(R, levels, log_n, regs,
+                                                 local_bytes);
 }

@@ -16,6 +16,11 @@
 //     :183-192;
 //   - kb_decompose: hi <- hi + the sum of the balanced digits of (hi, lo)
 //     (HiDecomposer), lo kept; bench_decompose, :211-222.
+// And the reference step kernels of the bench's step rows: K1 and K3 at
+// P = 4 on the radix-2 step loop (blind_rotate_kernel<Tail, true>: one
+// stage a pass, the MAC in a pass and buffer of its own), timed in turns
+// with the step kernels themselves (fused_step_v6_r2, fused_step_r2). No
+// entry point of the package runs them.
 //
 // One block of brk::kThreads threads per row, as the step kernels run one
 // ciphertext per block. The trip count is a kernel argument, so nvcc cannot
@@ -26,6 +31,7 @@
 // read once and written once.
 
 #include "ntt_common.cuh"
+#include "tails.cuh"
 
 namespace {
 
@@ -190,4 +196,53 @@ extern "C" int kb_decompose(const void* x_in, void* x_out, int rows,
                             void* stream) {
     return launch(kb_decompose_kernel, rows, sizeof(uint32_t) << log_n,
                   stream, x_in, x_out, base_log, levels, log_n, loops);
+}
+
+// The reference step loops. Arguments and result as the entries
+// blind_rotate_bnf2_acc32 (blind_rotate_bnf2.cu) and blind_rotate_crt
+// (blind_rotate_crt.cu; here num_primes must be 4); *_smem: their bytes of
+// dynamic shared memory (0 for another prime count).
+extern "C" int kb_step_bnf2_acc32_r2(
+        const void* acc_in, const void* a_ms, const void* bsk,
+        const void* tables, void* acc_out, int B, int n_steps, int R,
+        int levels, int base_log, int log_n, unsigned p0, unsigned p1,
+        unsigned inv01, unsigned inv01_sh, unsigned c1t, int s2,
+        unsigned t32_bias, void* stream) {
+    brk::Bnf2Tail32 tail;
+    tail.p[0] = p0;
+    tail.p[1] = p1;
+    tail.inv01 = inv01;
+    tail.inv01_sh = inv01_sh;
+    tail.c1t = c1t;
+    tail.t32_bias = t32_bias;
+    tail.s2 = s2;
+    return brk::launch_blind_rotate<brk::Bnf2Tail32, true>(
+        acc_in, a_ms, bsk, tables, acc_out, B, n_steps, R, levels, base_log,
+        log_n, tail, stream);
+}
+
+extern "C" unsigned long long kb_step_bnf2_acc32_r2_smem(
+        int num_primes, int R, int levels, int log_n) {
+    if (num_primes != 2) return 0;
+    return brk::blind_rotate_smem<brk::Bnf2Tail32, true>(R, levels, log_n);
+}
+
+extern "C" int kb_step_crt_r2(
+        const void* acc_in, const void* a_ms, const void* bsk,
+        const void* tables, void* acc_out, int B, int n_steps, int R,
+        int levels, int base_log, int log_n, int num_primes,
+        const unsigned* garner, unsigned long long full_prod, void* stream) {
+    if (num_primes != 4) return (int)cudaErrorInvalidValue;
+    brk::GarnerTail<4> tail;
+    brk::fill_garner(tail, garner, full_prod);
+    return brk::launch_blind_rotate<brk::GarnerTail<4>, true>(
+        acc_in, a_ms, bsk, tables, acc_out, B, n_steps, R, levels, base_log,
+        log_n, tail, stream);
+}
+
+extern "C" unsigned long long kb_step_crt_r2_smem(int num_primes, int R,
+                                                  int levels, int log_n) {
+    if (num_primes != 4) return 0;
+    return brk::blind_rotate_smem<brk::GarnerTail<4>, true>(R, levels,
+                                                            log_n);
 }

@@ -21,6 +21,15 @@
 //     m_i = (x ^ i) & mask (canonical residues), x <- the tail's value
 //     (hi ^ lo for a u64 one): GarnerTail<3, 4> (g_garner_crt_1c),
 //     GarnerTail32<3, 4>, Bnf2Tail, Bnf2Tail32.
+//   - pass_piece: one piece of the step K1 and K3 run
+//     (ntt_common.cuh's StepPasses) on the step kernels' own shared-memory
+//     state (acc and the swizzled digits, loaded and stored as they lie
+//     there): the lift with the first forward pass, the other forward
+//     passes, the fused pass (the key streamed from global memory as in the
+//     step), the inverse passes, the last inverse pass with the untwist and
+//     the tail; K1's Bnf2Tail32 (P = 2) or K3's GarnerTail<4>. No JAX case
+//     has them: they split the step as the pieces above split the radix-2
+//     reference loop's.
 // Layouts: C = 1 is K1's and K3's, one ciphertext per block with its
 // polynomials contiguous (the counterpart of [Bt, G, 128]); C = 2
 // interleaves two ciphertexts per block coefficient-major, element
@@ -263,6 +272,66 @@ tail_kernel(const uint32_t* __restrict__ x_in, uint32_t* __restrict__ x_out,
     store<C>(x_out, x, N);
 }
 
+enum PassPiece { PC_LIFT = 0, PC_FWD, PC_FUSED, PC_INV, PC_TAIL };
+
+// x_in/x_out: per block the words of the step's shared-memory state,
+// acc [R][N] (Acc) then the swizzled digits [l R][P][N]; key: one step's
+// u32 [2, P, l R, R, N]; a: i32 [B] in [0, 2N)
+template <class Tail, int Pc>
+__global__ void __launch_bounds__(kThreads, brk::kMinBlocks)
+pass_piece_kernel(const uint32_t* __restrict__ x_in,
+                  uint32_t* __restrict__ x_out,
+                  const uint32_t* __restrict__ key,
+                  const uint32_t* __restrict__ tables,
+                  const int32_t* __restrict__ a_in, int R, int levels,
+                  int base_log, int log_n,
+                  const __grid_constant__ brk::PassPlan pl,
+                  const __grid_constant__ Tail tail, int loops) {
+    using SP = brk::StepPasses<Tail>;
+    using Acc = typename Tail::Acc;
+    constexpr int P = Tail::P;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int N = 1 << log_n;
+    const int lR = levels * R;
+    const int words = R * N * (int)(sizeof(Acc) / 4) + P * lR * N;
+    uint32_t* img = reinterpret_cast<uint32_t*>(smem_raw);
+    Acc* acc = reinterpret_cast<Acc*>(smem_raw);
+    uint32_t* dig = reinterpret_cast<uint32_t*>(acc + R * N);
+    __shared__ uint32_t s_p[P];
+    if (threadIdx.x == 0) {
+        #pragma unroll
+        for (int pi = 0; pi < P; ++pi) s_p[pi] = tail.p[pi];
+    }
+    const long long row = (long long)blockIdx.x * words;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) img[i] = x_in[row + i];
+    const int a = a_in[blockIdx.x];
+    __syncthreads();
+    #pragma unroll 1
+    for (int k = 0; k < loops; ++k) {
+        if constexpr (Pc == PC_LIFT) {
+            SP::lift_pass_k(pl.fwd_k[0], acc, dig, a, R, levels, base_log,
+                            log_n, tables, s_p);
+        } else if constexpr (Pc == PC_FWD) {
+            #pragma unroll 1
+            for (int i = 1; i < pl.n_fwd; ++i)
+                SP::template pass_k<false>(pl.fwd_k[i], dig, P * lR, log_n,
+                                           pl.fwd_s0[i], tables, s_p);
+        } else if constexpr (Pc == PC_FUSED) {
+            SP::fused_pass_f(pl.fused, dig, key, R, lR, log_n, tables, s_p);
+        } else if constexpr (Pc == PC_INV) {
+            #pragma unroll 1
+            for (int i = 0; i + 1 < pl.n_inv; ++i)
+                SP::template pass_k<true>(pl.inv_k[i], dig, P * R, log_n,
+                                          pl.inv_s0[i], tables, s_p);
+        } else {
+            SP::tail_pass_k(pl.inv_k[pl.n_inv - 1], acc, dig, R, log_n,
+                            tables, s_p, tail);
+        }
+    }
+    for (int i = threadIdx.x; i < words; i += blockDim.x)
+        x_out[row + i] = img[i];
+}
+
 template <class K, class... Args>
 int launch(K kernel, int blocks, size_t smem, void* stream, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -418,6 +487,68 @@ extern "C" int v4_tail(const void* x_in, void* x_out, int B, int C,
         t.t32_bias = bnf[9];
         t.s2 = (int)bnf[7];
         return launch_tail(x_in, x_out, nb, C, log_n, mask, t, loops, stream);
+    }
+    return BAD;
+}
+
+template <class Tail, int Pc>
+static int launch_piece(const void* x_in, void* x_out, const void* key,
+                        const void* tables, const void* a, int B, int R,
+                        int levels, int base_log, int log_n, const Tail& tail,
+                        int loops, void* stream) {
+    const size_t smem = brk::blind_rotate_smem<Tail>(R, levels, log_n);
+    return launch(pass_piece_kernel<Tail, Pc>, B, smem, stream,
+                  (const uint32_t*)x_in, (uint32_t*)x_out,
+                  (const uint32_t*)key, (const uint32_t*)tables,
+                  (const int32_t*)a, R, levels, base_log, log_n,
+                  brk::make_pass_plan(log_n, R), tail, loops);
+}
+
+template <class Tail>
+static int launch_piece_of(int piece, const void* x_in, void* x_out,
+                           const void* key, const void* tables, const void* a,
+                           int B, int R, int levels, int base_log, int log_n,
+                           const Tail& tail, int loops, void* stream) {
+    switch (piece) {
+        case PC_LIFT: return launch_piece<Tail, PC_LIFT>(x_in, x_out, key, tables, a, B, R, levels, base_log, log_n, tail, loops, stream);
+        case PC_FWD: return launch_piece<Tail, PC_FWD>(x_in, x_out, key, tables, a, B, R, levels, base_log, log_n, tail, loops, stream);
+        case PC_FUSED: return launch_piece<Tail, PC_FUSED>(x_in, x_out, key, tables, a, B, R, levels, base_log, log_n, tail, loops, stream);
+        case PC_INV: return launch_piece<Tail, PC_INV>(x_in, x_out, key, tables, a, B, R, levels, base_log, log_n, tail, loops, stream);
+        case PC_TAIL: return launch_piece<Tail, PC_TAIL>(x_in, x_out, key, tables, a, B, R, levels, base_log, log_n, tail, loops, stream);
+        default: return BAD;
+    }
+}
+
+// One piece of the step (piece: 0 the lift with the first forward pass,
+// 1 the other forward passes, 2 the fused pass, 3 the inverse passes but
+// the last, 4 the last with the untwist and the tail) on B blocks' states
+// (x_in/x_out: u32 [B, words], see pass_piece_kernel), `loops` trips.
+// kind 0: K1's Bnf2Tail32 (P = 2, bnf as v4_tail's), 1: K3's
+// GarnerTail<4> (garner, full_prod as v4_tail's); tables u32 [P, 8, N].
+extern "C" int v4_pass_piece(const void* x_in, void* x_out, const void* key,
+                             const void* tables, const void* a, int B, int R,
+                             int levels, int base_log, int log_n, int piece,
+                             int kind, const unsigned* garner,
+                             unsigned long long full_prod,
+                             const unsigned* bnf, int loops, void* stream) {
+    if (B <= 0 || !brk::pass_plan_fits(R, levels, log_n)) return BAD;
+    if (kind == 0) {
+        brk::Bnf2Tail32 t;
+        t.p[0] = bnf[0];
+        t.p[1] = bnf[1];
+        t.inv01 = bnf[2];
+        t.inv01_sh = bnf[3];
+        t.c1t = bnf[8];
+        t.t32_bias = bnf[9];
+        t.s2 = (int)bnf[7];
+        return launch_piece_of(piece, x_in, x_out, key, tables, a, B, R,
+                               levels, base_log, log_n, t, loops, stream);
+    }
+    if (kind == 1) {
+        brk::GarnerTail<4> t;
+        brk::fill_garner(t, garner, full_prod);
+        return launch_piece_of(piece, x_in, x_out, key, tables, a, B, R,
+                               levels, base_log, log_n, t, loops, stream);
     }
     return BAD;
 }

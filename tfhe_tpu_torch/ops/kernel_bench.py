@@ -22,7 +22,11 @@ launches the kernel or raises, and counts its launches in ``launches``.
 The step rows time the step kernels themselves: ``bench_step`` K3 (the
 exact 4-prime CRT step at 2_2, the counterpart of the legacy step of
 ``bench_step``), ``bench_step_v6`` K1 (the v6 BNF2 step), each per
-ciphertext-step by two step counts; ``bench_keyswitch`` the keyswitch GEMM
+ciphertext-step by two step counts, in turns with the same function on
+the radix-2 step loop (``fused_step_r2``, ``fused_step_v6_r2``: the
+reference kernels ``kb_step_crt_r2`` and ``kb_step_bnf2_acc32_r2`` of
+``csrc/kernel_bench.cu``, which no entry point runs; their plain versions
+are K3's and K1's); ``bench_keyswitch`` the keyswitch GEMM
 (``torch._int_mm``, outside any kernel of the port, as the JAX package
 leaves it to XLA); ``bench_ntt_plan`` the port's ``NegacyclicNtt`` at
 N = 16384.
@@ -90,8 +94,19 @@ LOOPS = (256, 4096)  # low and high trip counts of the two-point method
 #: next digit, its lift into each Z_p and the twist) per l*R*N; forward
 #: and inverse butterflies; mac (one Shoup product and its add_mod) per
 #: P*R*l*R*N; untwist_tail (the P untwists, the tail, acc +=) per R*N.
-#: Recount, and update :data:`SASS_LOOP_TOTALS`, when :func:`sass_drift`
-#: finds a change.
+#: The step kernels' units are a work floor, read from the radix-2 loop,
+#: which ran each unit in a loop of its own: one add_mod and one Shoup
+#: product a butterfly or MAC term, and the rotation, digit, lift, twist,
+#: untwist and tail each unit needs, as ``csrc/ntt_variants.cu`` bounds its
+#: transform variants. K1 and K3 now run several stages a pass with
+#: the lift, the MAC and the tail fused into the passes beside them
+#: (``ntt_common.cuh``'s StepPasses; the lift recomputes a coefficient's
+#: digit once per prime), so their loops no longer split into these units:
+#: the bound counts the same work whatever implements it, and only
+#: :data:`SASS_LOOP_TOTALS` follows the new loops. The kernel bench's
+#: reference loops (``kb_step_*_r2``) are bounded by their step kernel's
+#: row (:data:`BOUND_ENTRY`). Recount, and update
+#: :data:`SASS_LOOP_TOTALS`, when :func:`sass_drift` finds a change.
 SASS_OPS = {
     "blind_rotate_bnf2_acc32": {  # K1, bnf2_c32
         "element": (14.5, 4.5, 2), "level": (15.5, 11.5, 1),
@@ -140,19 +155,26 @@ SASS_TOOLKIT = "Build cuda_12.9.r12.9/compiler.36037853_0"
 #: per :data:`SASS_OPS` kernel: its library, a part of its mangled name, and
 #: (ALU, FMA) data instructions summed over every loop of that kernel, as
 #: ``sass_loops.loops`` counted them in the SASS that :data:`SASS_OPS` was
-#: read from. :func:`sass_drift` recounts them in a fresh build: a change
-#: there means the table is stale.
+#: read from (the step kernels' rows: in the build of their pass loops,
+#: every pass variant of each instantiation; their SASS_OPS units are the
+#: work floor above). :func:`sass_drift` recounts them in a fresh build: a
+#: change there means the table is stale.
 SASS_LOOP_TOTALS = {
-    "blind_rotate_bnf2_acc32": ("blind_rotate_bnf2", "Bnf2Tail32E", (121, 90)),
+    "blind_rotate_bnf2_acc32": ("blind_rotate_bnf2", "Bnf2Tail32E",
+                                (2392, 2370)),
     "blind_rotate_crt/3": ("blind_rotate_crt", "10GarnerTailILi3E",
-                           (140, 122)),
+                           (2932, 2848)),
     "blind_rotate_crt/4": ("blind_rotate_crt", "10GarnerTailILi4E",
-                           (123, 111)),
+                           (3437, 3533)),
     "blind_rotate_crt_acc32/3": ("blind_rotate_crt", "12GarnerTail32ILi3E",
-                                 (141, 118)),
+                                 (2868, 2889)),
     "blind_rotate_crt_acc32/4": ("blind_rotate_crt", "12GarnerTail32ILi4E",
-                                 (120, 109)),
-    "blind_rotate_bnf2_u64": ("blind_rotate_crt", "8Bnf2TailE", (127, 99)),
+                                 (3375, 3569)),
+    "blind_rotate_bnf2_u64": ("blind_rotate_crt", "8Bnf2TailE", (2606, 2522)),
+    # the bench's reference loops (the radix-2 step loop, bounded by their
+    # step kernel's SASS_OPS row, BOUND_ENTRY)
+    "kb_step_bnf2_acc32_r2": ("kernel_bench", "Bnf2Tail32ELb1E", (119, 92)),
+    "kb_step_crt_r2": ("kernel_bench", "10GarnerTailILi4EEELb1E", (119, 110)),
     "blind_rotate_goldilocks": ("blind_rotate_goldilocks",
                                 "blind_rotate_goldilocks_kernel", (582, 221)),
     "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
@@ -206,6 +228,11 @@ def busier_pipe(alu: float, fma: float, flex: float = 0) -> float:
     return max(alu - flex, fma, (alu + fma) / 2)
 
 
+#: the SASS_OPS row that bounds each reference step loop of the bench
+BOUND_ENTRY = {"kb_step_bnf2_acc32_r2": "blind_rotate_bnf2_acc32",
+               "kb_step_crt_r2": "blind_rotate_crt"}
+
+
 def _pipes(kernel: str, units: dict) -> float:
     ops = SASS_OPS[kernel]
     return busier_pipe(*(sum(u * ops[k][i] for k, u in units.items())
@@ -220,6 +247,7 @@ def step_pipe_instructions(kernel: str, B: int, n: int, R: int,
     ciphertext R*N elements, l*R*N levels, P*l*R forward and P*R inverse
     transforms of N/2*log2(N) butterflies, P*R*l*R*N MAC products and R*N
     untwists with the tail."""
+    kernel = BOUND_ENTRY.get(kernel, kernel)
     key = kernel if kernel in SASS_OPS else f"{kernel}/{P}"
     lR, half_log = levels * R, (N // 2) * (N.bit_length() - 1)
     return float(B) * n * _pipes(key, {
@@ -356,7 +384,13 @@ def _kb_lib():
     lib.kb_mac.argtypes = [v, v, v, i, i, i, ctypes.c_uint, i, v]
     lib.kb_rotate.argtypes = [v, v, v, i, i, i, v]
     lib.kb_decompose.argtypes = [v, v, i, i, i, i, i, v]
-    for entry in (lib.kb_ntt, lib.kb_mac, lib.kb_rotate, lib.kb_decompose):
+    u = ctypes.c_uint
+    lib.kb_step_bnf2_acc32_r2.argtypes = [
+        v, v, v, v, v, i, i, i, i, i, i, u, u, u, u, u, i, u, v]
+    lib.kb_step_crt_r2.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v,
+                                   ctypes.c_ulonglong, v]
+    for entry in (lib.kb_ntt, lib.kb_mac, lib.kb_rotate, lib.kb_decompose,
+                  lib.kb_step_bnf2_acc32_r2, lib.kb_step_crt_r2):
         entry.restype = ctypes.c_int
     return lib
 
@@ -453,15 +487,49 @@ def kb_decompose(x: torch.Tensor, base_log: int, levels: int,
     return out
 
 
+def kb_step_bnf2_acc32_r2(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
+                          bsk_scan2: torch.Tensor, base_log: int,
+                          levels: int, flavor=None) -> torch.Tensor:
+    """The reference step loop of K1's function (the radix-2 loop, the
+    bench's ``fused_step_v6_r2``); plain version
+    ``pbs_kernel.blind_rotate_bnf2_acc32_plain``."""
+    fl = flavor or bnf2_mod.DEFAULT
+    if acc_hi.device.type == "cpu":
+        return pk.blind_rotate_bnf2_acc32_plain(acc_hi, msed_mask, bsk_scan2,
+                                                base_log, levels, fl)
+    out = pk.launch_bnf2_acc32(_kb_lib(), "kb_step_bnf2_acc32_r2", acc_hi,
+                               msed_mask, bsk_scan2, base_log, levels, fl)
+    kb_step_bnf2_acc32_r2.launches += 1
+    return out
+
+
+def kb_step_crt_r2(acc: torch.Tensor, msed_mask: torch.Tensor,
+                   bsk_scan: torch.Tensor, base_log: int,
+                   levels: int) -> torch.Tensor:
+    """The reference step loop of K3's function at P = 4 (the radix-2
+    loop, the bench's ``fused_step_r2``); plain version
+    ``pbs_kernel.blind_rotate_crt_plain``."""
+    if acc.device.type == "cpu":
+        return pk.blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
+                                         levels)
+    out = pk.launch_crt("kb_step_crt_r2", acc, msed_mask, bsk_scan, base_log,
+                        levels, lib=_kb_lib())
+    kb_step_crt_r2.launches += 1
+    return out
+
+
 #: the micro-kernel wrappers, each with its ``launches`` count
 MICRO_KERNELS = (kb_ntt_fwd, kb_ntt_inv, kb_mac, kb_rotate, kb_decompose)
-for _fn in MICRO_KERNELS:
+#: the reference step loops, each with its ``launches`` count
+STEP_REFERENCES = (kb_step_bnf2_acc32_r2, kb_step_crt_r2)
+for _fn in MICRO_KERNELS + STEP_REFERENCES:
     _fn.launches = 0
 
 
 def reset_launches():
-    """Zero the launch counts of the micro-kernel wrappers."""
-    for fn in MICRO_KERNELS:
+    """Zero the launch counts of the micro-kernel wrappers and of the
+    reference step loops."""
+    for fn in MICRO_KERNELS + STEP_REFERENCES:
         fn.launches = 0
 
 
@@ -598,37 +666,57 @@ def _repeat_steps(key: torch.Tensor, n_steps: int) -> torch.Tensor:
     return key.repeat((reps,) + (1,) * (key.ndim - 1))[:n_steps].contiguous()
 
 
-def _step_row(metric: str, kernel, key, acc, mask, p, lo_steps: int,
-              hi_steps: int, P: int, iters: int, extra: dict):
-    """Time a step kernel per ciphertext-step by two step counts (``key``
-    and ``mask`` have ``hi_steps`` steps; their first ``lo_steps`` make the
-    low point)."""
+def _step_rows(metric: str, kernel, reference, key, acc, mask, p,
+               lo_steps: int, hi_steps: int, P: int, iters: int,
+               extra: dict) -> tuple:
+    """Time a step kernel and its reference loop per ciphertext-step by two
+    step counts (``key`` and ``mask`` have ``hi_steps`` steps; their first
+    ``lo_steps`` make the low point), in turns on the same inputs:
+    reference, kernel, kernel, reference. Returns the kernel's row
+    (``metric``) and the reference's (``metric``_r2), each at the mean of
+    its two timings."""
     B, R, N = acc.shape
     runs = {k: (mask[:, :k].contiguous(), key[:k].contiguous())
             for k in (lo_steps, hi_steps)}
-    fn = lambda k: kernel(acc, *runs[k], p.pbs_base_log, p.pbs_level,
-                          **extra)
+
+    def fn(kern):
+        return lambda k: kern(acc, *runs[k], p.pbs_base_log, p.pbs_level,
+                              **extra)
+
     if acc.device.type == "cpu":
-        fn(lo_steps)
-        return _cpu_row(metric, "ct-steps/s", B)
-    per = _time_delta(fn, lo_steps, hi_steps, B, metric, 1e-9, 1e-4, iters)
+        fn(kernel)(lo_steps)
+        fn(reference)(lo_steps)
+        return (_cpu_row(metric, "ct-steps/s", B),
+                _cpu_row(f"{metric}_r2", "ct-steps/s", B))
+    times = {kernel: [], reference: []}
+    for kern in (reference, kernel, kernel, reference):
+        times[kern].append(_time_delta(fn(kern), lo_steps, hi_steps, B,
+                                       metric, 1e-9, 1e-4, iters))
     rates = card_rates(acc.device.index or 0)
-    instr = step_pipe_instructions(kernel.__name__, 1, 1, R, p.pbs_level, N,
-                                   P)
-    return {"metric": metric, "value": 1.0 / per, "unit": "ct-steps/s",
+    rows = []
+    for kern, name in ((kernel, metric), (reference, f"{metric}_r2")):
+        per = statistics.mean(times[kern])
+        instr = step_pipe_instructions(kern.__name__, 1, 1, R, p.pbs_level,
+                                       N, P)
+        rows.append({
+            "metric": name, "value": 1.0 / per, "unit": "ct-steps/s",
             "seconds_per_ct_step": per,
+            "seconds_per_ct_step_runs": times[kern],
             "implied_blind_rotate_pbs_per_s": 1.0 / (per * p.lwe_dimension),
             "int32_fraction": instr / per / rates["int32"],
-            "batch": B, "card": rates["card"]}
+            "kernel": kern.__name__, "batch": B, "card": rates["card"]})
+    return tuple(rows)
 
 
 def bench_step(params=None, batch: int = 256, lo_steps: int = 16,
-               hi_steps: int = 600, device=None, iters: int = 5) -> dict:
+               hi_steps: int = 600, device=None, iters: int = 5) -> tuple:
     """K3, the exact 4-prime CRT step (the function of the JAX package's
-    legacy ``_build_step_fn``, JAX ``bench_step``), at the 2_2 shape: per
-    ciphertext-step seconds by two step counts. The key is a valid CRT key
-    (canonical residues per prime, true Shoup duals: the transform of a
-    random standard key over 2 steps, repeated along the step axis)."""
+    legacy ``_build_step_fn``, JAX ``bench_step``), at the 2_2 shape, in
+    turns with its reference loop ``kb_step_crt_r2``: the rows
+    ``fused_step`` and ``fused_step_r2``, per ciphertext-step seconds by two
+    step counts. The key is a valid CRT key (canonical residues per prime,
+    true Shoup duals: the transform of a random standard key over 2 steps,
+    repeated along the step axis)."""
     from ..core import algorithms as algo
     from ..core.entities import LweBootstrapKey
 
@@ -645,17 +733,19 @@ def bench_step(params=None, batch: int = 256, lo_steps: int = 16,
     acc = from_u64(rng.integers(0, 1 << 64, size=(batch, R, N),
                                 dtype=np.uint64), dev)
     mask = torch.from_numpy(rng.integers(0, 2 * N, size=(batch, hi_steps)))
-    return _step_row("fused_step", pk.blind_rotate_crt,
-                     _repeat_steps(scan, hi_steps), acc, mask.to(dev), p,
-                     lo_steps, hi_steps, 4, iters, {})
+    return _step_rows("fused_step", pk.blind_rotate_crt, kb_step_crt_r2,
+                      _repeat_steps(scan, hi_steps), acc, mask.to(dev), p,
+                      lo_steps, hi_steps, 4, iters, {})
 
 
 def bench_step_v6(params=None, batch: int = 1024, lo_steps: int = 32,
-                  hi_steps: int = 1484, device=None, iters: int = 5) -> dict:
+                  hi_steps: int = 1484, device=None, iters: int = 5) -> tuple:
     """K1, the v6 BNF2 step in acc32 mode (JAX ``bench_step_v6``), at the
     2_2 shape on a DEFAULT-flavor key from a random standard key (true
-    Shoup duals), over 2 steps repeated: per ciphertext-step seconds by two
-    step counts."""
+    Shoup duals), over 2 steps repeated, in turns with its reference loop
+    ``kb_step_bnf2_acc32_r2``: the rows ``fused_step_v6`` and
+    ``fused_step_v6_r2``, per ciphertext-step seconds by two step
+    counts."""
     p = params or PARAM_MESSAGE_2_CARRY_2_KS_PBS
     dev = resolve_device(device)
     R, N, l = p.glwe_size, p.polynomial_size, p.pbs_level
@@ -668,10 +758,10 @@ def bench_step_v6(params=None, batch: int = 1024, lo_steps: int = 32,
     hi = from_u32(rng.integers(0, 1 << 32, size=(batch, R, N),
                                dtype=np.uint32), dev)
     mask = torch.from_numpy(rng.integers(0, 2 * N, size=(batch, hi_steps)))
-    return _step_row("fused_step_v6", pk.blind_rotate_bnf2_acc32,
-                     _repeat_steps(bsk2, hi_steps), hi, mask.to(dev), p,
-                     lo_steps, hi_steps, 2, iters,
-                     {"flavor": bnf2_mod.DEFAULT})
+    return _step_rows("fused_step_v6", pk.blind_rotate_bnf2_acc32,
+                      kb_step_bnf2_acc32_r2, _repeat_steps(bsk2, hi_steps),
+                      hi, mask.to(dev), p, lo_steps, hi_steps, 2, iters,
+                      {"flavor": bnf2_mod.DEFAULT})
 
 
 def bench_keyswitch(params=None, batch: int = 4096, lo: int = 2,
@@ -759,8 +849,8 @@ def iter_rows(quick: bool = False, device=None):
     yield bench_pointwise_mac(dev, it)
     yield bench_rotate(dev, it)
     yield bench_decompose(dev, it)
-    yield bench_step(device=dev, iters=it)
-    yield bench_step_v6(device=dev, iters=it)
+    yield from bench_step(device=dev, iters=it)
+    yield from bench_step_v6(device=dev, iters=it)
     yield bench_keyswitch(device=dev, iters=it)
     if not quick:
         yield bench_ntt_plan(device=dev, iters=it)

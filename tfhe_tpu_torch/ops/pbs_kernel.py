@@ -239,16 +239,48 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
     return out.astype(np.uint32)
 
 
+#: the library of each step-kernel entry other than K3's
+_STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
+              "blind_rotate_goldilocks": "blind_rotate_goldilocks",
+              "kb_step_bnf2_acc32_r2": "kernel_bench",
+              "kb_step_crt_r2": "kernel_bench"}
+
+
+def _step_lib(entry: str):
+    from .._build import cuda_lib
+
+    return cuda_lib(_STEP_LIBS.get(entry, "blind_rotate_crt"))
+
+
 def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     """Dynamic shared memory of one block of the blind-rotation kernel
     ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
-    ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64`` or
-    ``blind_rotate_goldilocks``, P = 1) at P
+    ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64``,
+    ``blind_rotate_goldilocks`` at P = 1, or the kernel bench's references
+    ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
     for a prime count the entry does not take. Needs the built library."""
-    lib = {"blind_rotate_bnf2_acc32": _k1_lib,
-           "blind_rotate_goldilocks": _k4_lib}.get(entry, _k3_lib)()
-    return getattr(lib, f"{entry}_smem")(P, R, levels, N.bit_length() - 1)
+    fn = getattr(_step_lib(entry), f"{entry}_smem")
+    _declare_smem(fn)
+    return fn(P, R, levels, N.bit_length() - 1)
+
+
+def step_occupancy(entry: str, P: int, R: int, levels: int, N: int) -> dict:
+    """Resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at the entry's shared memory), registers and local (spill) bytes per
+    thread of K1 or K3 entry ``entry`` at P primes (its ``<entry>_occupancy``
+    export). Needs the built library and a GPU."""
+    fn = getattr(_step_lib(entry), f"{entry}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    blocks = fn(P, R, levels, N.bit_length() - 1, ctypes.byref(regs),
+                ctypes.byref(local))
+    if blocks <= 0:
+        raise RuntimeError(f"{entry}_occupancy: {blocks} (P={P}, R={R}, "
+                           f"levels={levels}, N={N})")
+    return {"blocks_per_sm": blocks, "registers": regs.value,
+            "local_bytes": local.value}
 
 
 def _step_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
@@ -327,8 +359,30 @@ def _k1_lib():
     lib.blind_rotate_bnf2_acc32.argtypes = [
         v, v, v, v, v, i, i, i, i, i, i, u, u, u, u, u, i, u, v]
     lib.blind_rotate_bnf2_acc32.restype = ctypes.c_int
-    _declare_smem(lib.blind_rotate_bnf2_acc32_smem)
     return lib
+
+
+def launch_bnf2_acc32(lib, entry: str, acc_hi: torch.Tensor,
+                      msed_mask: torch.Tensor, bsk_scan2: torch.Tensor,
+                      base_log: int, levels: int, fl) -> torch.Tensor:
+    """Check the operands and launch ``lib.<entry>``, K1's function on the
+    GPU (K1 itself, or the kernel bench's reference loop)."""
+    if not bnf2_mod.eligible(acc_hi.shape[-1], base_log, levels):
+        raise ValueError(f"N={acc_hi.shape[-1]}, base_log={base_log}, "
+                         f"levels={levels} outside the kernel envelope "
+                         "(bnf2.eligible)")
+    (B, n_steps, R, N), a32 = _step_shapes(
+        entry, acc_hi, msed_mask, bsk_scan2, 2, base_log, levels,
+        torch.int32)
+    dev = acc_hi.device
+    tables = _plan_tables_dev(fl.plan(N), str(dev))
+    out = torch.empty_like(acc_hi)
+    rc = getattr(lib, entry)(
+        _ptr(acc_hi), _ptr(a32), _ptr(bsk_scan2), _ptr(tables), _ptr(out),
+        B, n_steps, R, levels, base_log, N.bit_length() - 1, fl.p0, fl.p1,
+        fl.inv01, fl.inv01_sh, fl.c1t, fl.s2, fl.t32_bias, _stream(dev))
+    _raise_on(rc, entry)
+    return out
 
 
 def blind_rotate_bnf2_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
@@ -339,21 +393,8 @@ def blind_rotate_bnf2_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
     if acc_hi.device.type == "cpu":
         return blind_rotate_bnf2_acc32_plain(acc_hi, msed_mask, bsk_scan2,
                                              base_log, levels, fl)
-    if not bnf2_mod.eligible(acc_hi.shape[-1], base_log, levels):
-        raise ValueError(f"N={acc_hi.shape[-1]}, base_log={base_log}, "
-                         f"levels={levels} outside the kernel envelope "
-                         "(bnf2.eligible)")
-    (B, n_steps, R, N), a32 = _step_shapes(
-        "blind_rotate_bnf2_acc32", acc_hi, msed_mask, bsk_scan2, 2, base_log,
-        levels, torch.int32)
-    dev = acc_hi.device
-    tables = _plan_tables_dev(fl.plan(N), str(dev))
-    out = torch.empty_like(acc_hi)
-    rc = _k1_lib().blind_rotate_bnf2_acc32(
-        _ptr(acc_hi), _ptr(a32), _ptr(bsk_scan2), _ptr(tables), _ptr(out),
-        B, n_steps, R, levels, base_log, N.bit_length() - 1, fl.p0, fl.p1,
-        fl.inv01, fl.inv01_sh, fl.c1t, fl.s2, fl.t32_bias, _stream(dev))
-    _raise_on(rc, "blind_rotate_bnf2_acc32")
+    out = launch_bnf2_acc32(_k1_lib(), "blind_rotate_bnf2_acc32", acc_hi,
+                            msed_mask, bsk_scan2, base_log, levels, fl)
     blind_rotate_bnf2_acc32.launches += 1
     return out
 
@@ -424,9 +465,6 @@ def _k3_lib():
     lib.blind_rotate_bnf2_u64.argtypes = [
         v, v, v, v, v, i, i, i, i, i, i, u, u, u, u, u, u, i, i, v]
     lib.blind_rotate_bnf2_u64.restype = ctypes.c_int
-    for entry in (lib.blind_rotate_crt_smem, lib.blind_rotate_crt_acc32_smem,
-                  lib.blind_rotate_bnf2_u64_smem):
-        _declare_smem(entry)
     return lib
 
 
@@ -437,12 +475,12 @@ def _garner_host(plan: ntt_mod.NegacyclicNtt):
     return (ctypes.c_uint * consts.size)(*[int(x) for x in consts])
 
 
-def _launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
-                bsk_scan: torch.Tensor, base_log: int,
-                levels: int) -> torch.Tensor:
+def launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+               bsk_scan: torch.Tensor, base_log: int, levels: int,
+               lib=None) -> torch.Tensor:
     """Check the operands and launch one Garner-tail entry of K3 on the GPU
     (``blind_rotate_crt``: int64 accumulator; ``blind_rotate_crt_acc32``:
-    int32)."""
+    int32), or of ``lib`` (the kernel bench's reference loop)."""
     P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
     if not 2 <= P <= MAX_CRT_PRIMES:
         raise ValueError(f"bsk_scan {tuple(bsk_scan.shape)}: the kernel "
@@ -454,7 +492,7 @@ def _launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
     plan = ntt_mod.get_plan(N, P)
     tables = _plan_tables_dev(plan, str(dev))
     out = torch.empty_like(acc)
-    rc = getattr(_k3_lib(), entry)(
+    rc = getattr(lib or _k3_lib(), entry)(
         _ptr(acc), _ptr(a32), _ptr(bsk_scan), _ptr(tables), _ptr(out),
         B, n_steps, R, levels, base_log, N.bit_length() - 1, P,
         _garner_host(plan), plan.full_prod_mod64, _stream(dev))
@@ -469,7 +507,7 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
-    out = _launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
+    out = launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
                       levels)
     blind_rotate_crt.launches += 1
     return out
@@ -482,7 +520,7 @@ def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
     if acc_hi.device.type == "cpu":
         return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
                                             base_log, levels)
-    out = _launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
+    out = launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
                       base_log, levels)
     blind_rotate_crt_acc32.launches += 1
     return out
@@ -551,7 +589,6 @@ def _k4_lib():
     lib.blind_rotate_goldilocks.argtypes = [v, v, v, v, v, i, i, i, i, i, i,
                                             v]
     lib.blind_rotate_goldilocks.restype = ctypes.c_int
-    _declare_smem(lib.blind_rotate_goldilocks_smem)
     return lib
 
 

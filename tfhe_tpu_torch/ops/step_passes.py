@@ -1,0 +1,484 @@
+"""The CPU mirror of the step kernels' pass schedule (``csrc/ntt_common.cuh``,
+``brk::StepPasses``): one CMUX step of K1 and K3 pass by pass, with the
+kernels' own index formulas vectorised over the items their threads own.
+
+The step kernels run each CMUX step as a few shared-memory passes of up to
+three NTT stages each, in registers (see the header of ``ntt_common.cuh``):
+
+1. the lift (rotate, subtract, balanced digit, mod p, twist) fused into the
+   first forward pass;
+2. forward passes of <= 3 stages;
+3. the fused pass: the last F forward stages of every digit row, the MAC
+   against the GGSW row and the first F inverse stages of each MAC row,
+   which is written over digit row c (no MAC buffer);
+4. inverse passes of <= 3 stages;
+5. the last inverse pass (<= 2 stages) with the untwist (its residues
+   stored back over the row), the tail and ``acc +=``.
+
+The digit area is stored swizzled (:func:`swz`). Here the same items, the
+same positions, twiddle offsets, in-place writes and swizzled indices are
+computed for every item at once, so a wrong offset in the CUDA design
+shows on the CPU. This module is a rehearsal of the kernels' schedule and a
+plain version of the step probes' pieces (``tools/v4_probe.py``); the plain
+versions of K1 and K3 on the main path stay ``bnf2.cmux_steps`` and
+``server.cmux_steps_crt``.
+
+State: ``acc`` int64 [B, R, N] (u64 values, or u32 values for the hi-plane
+accumulators); ``dig`` int64 [B, l*R*P*N], the swizzled digit area (word
+``swz(i)`` holds logical word i of [l*R][P][N]). Tables: the kernels'
+``pbs_kernel.plan_tables`` u32 [P, 8, N].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .._torus import M32, i64_to_u32, srl, u32_to_i64
+from . import bnf2 as bnf2_mod
+from . import ntt as ntt_mod
+from . import pbs_kernel as pk
+
+T_TW, T_TW_SH, T_UTW, T_UTW_SH, T_FWD, T_FWD_SH, T_INV, T_INV_SH = range(8)
+MAX_STAGES_PER_PASS = 3
+
+
+def swz(i):
+    """The swizzled shared-memory word of logical word ``i`` of the digit
+    area (``brk::swz``): bits 2-4 XOR bits 5-7."""
+    return i ^ (((i >> 5) & 7) << 2)
+
+
+def fused_stages(R: int) -> int:
+    """F, the stages of the fused pass: 16 / 2^F MAC rows fit an item's
+    registers (``brk::fused_stages``)."""
+    return 2 if R <= 4 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PassPlan:
+    """The passes of one step (``brk::make_pass_plan``): ``fwd`` and ``inv``
+    are (first stage, stage count) per pass, the inverse ones run from their
+    last stage down; ``fwd[0]`` lifts, ``inv[-1]`` untwists and runs the
+    tail."""
+    fused: int
+    fwd: tuple
+    inv: tuple
+
+
+def _split(lo: int, hi: int, down: bool) -> list:
+    """Stages [lo, hi) in ceil((hi - lo) / 3) passes of near-equal size,
+    in increasing (or, ``down``, decreasing) stage order."""
+    n = hi - lo
+    if n <= 0:
+        return []
+    cnt = -(-n // MAX_STAGES_PER_PASS)
+    sizes = [n // cnt + (i < n % cnt) for i in range(cnt)]
+    out, s = [], hi if down else lo
+    for sz in sizes:
+        if down:
+            s -= sz
+        out.append((s, sz))
+        if not down:
+            s += sz
+    return out
+
+
+def make_pass_plan(log_n: int, R: int) -> PassPlan:
+    """The kernels' schedule at N = 2^log_n and R rows: forward stages
+    [0, a) in passes of <= 3, then the mid pass [a, L - F) of
+    min(3, L - F - 1) stages, then the fused pass of F; inverse: the mid
+    pass, [min(a, 2), a) in passes of <= 3, and last [0, min(a, 2))."""
+    F = fused_stages(R)
+    rest = log_n - F
+    if rest < 1:
+        raise ValueError(f"log_n={log_n} leaves no forward pass beside the "
+                         f"fused pass of {F} stages")
+    mid = min(MAX_STAGES_PER_PASS, rest - 1)
+    a = rest - mid
+    t = min(a, 2)
+    return PassPlan(F, tuple(_split(0, a, False) + _split(a, rest, False)),
+                    tuple(_split(a, rest, True) + _split(t, a, True)
+                          + _split(0, t, True)))
+
+
+def step_smem_bytes(P: int, R: int, levels: int, N: int, acc_bytes: int,
+                    radix2: bool = False) -> int:
+    """Dynamic shared memory of one step-kernel block (``blind_rotate_smem``):
+    the accumulator [R][N] and the digits [l R][P][N] u32 (``radix2``: the
+    radix-2 reference loop, with the MAC buffer [R][P][N] u32 too)."""
+    return R * N * acc_bytes + 4 * P * (levels * R + (R if radix2 else 0)) * N
+
+
+# ---------------------------------------------------------------------------
+# items, stages and the arithmetic of one pass
+# ---------------------------------------------------------------------------
+
+def pass_items(log_n: int, s0: int, K: int):
+    """Per item g < N >> K of a pass over stages s0 .. s0+K-1: its 2^K
+    positions within the polynomial ([G, 2^K]: i0 + m hl, hl = N >> (s0 +
+    K), i0 = (g >> log_hl << (log_hl + K)) + j), its j = g mod hl ([G])
+    and log2(hl)."""
+    log_hl = log_n - s0 - K
+    g = torch.arange(1 << (log_n - K))
+    j = g & ((1 << log_hl) - 1)
+    i0 = ((g >> log_hl) << (log_hl + K)) + j
+    return i0[:, None] + (torch.arange(1 << K) << log_hl), j, log_hl
+
+
+def _add_mod(a, b, p):
+    s = a + b
+    return torch.where(s >= p, s - p, s)
+
+
+def _pairs(K: int, t: int):
+    """Stage t of a K-stage pass: the lower registers m (bit K-1-t clear),
+    their partners and their twiddle index offsets in units of hl."""
+    half = 1 << (K - 1 - t)
+    lower = torch.tensor([m for m in range(1 << K) if not m & half])
+    return lower, lower + half, lower & (half - 1)
+
+
+def fwd_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+    """Forward stages s0 .. s0+K-1 on the registers v [..., G, 2^K] of the
+    items (``brk::fwd_regs``); tb: the prime's int64 [8, N] table, j: [G]."""
+    v = v.clone()
+    for t in range(K):
+        lower, upper, k = _pairs(K, t)
+        jj = (N - (N >> (s0 + t))) + j[:, None] + (k << log_hl)
+        u0, u1 = v[..., lower], v[..., upper]
+        v[..., lower] = _add_mod(u0, u1, p)
+        v[..., upper] = ntt_mod.shoup_mul(u0 - u1 + p, tb[T_FWD][jj],
+                                          tb[T_FWD_SH][jj], p)
+    return v
+
+
+def inv_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+    """Inverse stages s0+K-1 .. s0 on the registers of the items
+    (``brk::inv_regs``)."""
+    v = v.clone()
+    for t in reversed(range(K)):
+        lower, upper, k = _pairs(K, t)
+        jj = (N - (N >> (s0 + t))) + j[:, None] + (k << log_hl)
+        u = v[..., lower]
+        bw = ntt_mod.shoup_mul(v[..., upper], tb[T_INV][jj], tb[T_INV_SH][jj],
+                               p)
+        v[..., lower] = _add_mod(u, bw, p)
+        v[..., upper] = _add_mod(u, p - bw, p)
+    return v
+
+
+def _phys(polys, N: int, pos):
+    """Swizzled words of positions pos [G, E] of polynomials ``polys``:
+    [len(polys), G, E]."""
+    return swz(torch.as_tensor(polys)[:, None, None] * N + pos)
+
+
+def hi_digits(hi, base_log: int, levels: int) -> list:
+    """The balanced digits of the hi words ``hi`` (int64 in [0, 2^32)),
+    level 0 first, formula for formula as ``brk::HiDecomposer``'s ``init``
+    and ``next`` compute them in int32 (base_log * levels <= 31)."""
+    rep = base_log * levels
+    res = hi >> (31 - rep)
+    rounding = res & 1
+    res = ((res + 1) >> 1) & ((1 << rep) - 1)
+    need_bal = (((res - 1) | (rounding << (rep - 1))) & res) >> (rep - 1)
+    state = res - (need_bal << rep)
+    out = []
+    for _ in range(levels):
+        d = state & ((1 << base_log) - 1)
+        state = state >> base_log
+        carry = (((d - 1) | state) & d) >> (base_log - 1)
+        state = state + carry
+        out.append(d - (carry << base_log))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tails (the specs each CUDA tail reproduces)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Tail:
+    """A recombination tail: ``kind`` garner (u64 acc), garner32 (u32 hi
+    plane, rounded), bnf2 (u64) or bnf2_32 (u32), over ``plan``'s primes;
+    ``flavor`` for the BNF2 tails."""
+    kind: str
+    plan: ntt_mod.NegacyclicNtt
+    flavor: bnf2_mod.Bnf2Flavor = None
+
+    @property
+    def acc32(self) -> bool:
+        return self.kind in ("garner32", "bnf2_32")
+
+    def __call__(self, res):
+        """The increment of the canonical residues res [P, ...]."""
+        if self.kind == "garner":
+            return self.plan.reconstruct_u64(res)
+        if self.kind == "garner32":
+            return srl(self.plan.reconstruct_u64(res) + (1 << 31), 32)
+        if self.kind == "bnf2":
+            return bnf2_mod.qp_to_torus(
+                bnf2_mod.crt2_merge(res[0], res[1], self.flavor), self.flavor)
+        return bnf2_mod.qp_to_torus32(res[0], res[1], self.flavor)
+
+
+def tail_of(entry: str, P: int, N: int, flavor=None) -> Tail:
+    """The tail of step-kernel entry ``entry`` at P primes."""
+    fl = flavor or bnf2_mod.DEFAULT
+    if entry == "blind_rotate_bnf2_acc32":
+        return Tail("bnf2_32", fl.plan(N), fl)
+    if entry == "blind_rotate_bnf2_u64":
+        return Tail("bnf2", fl.plan(N), fl)
+    kind = "garner32" if entry == "blind_rotate_crt_acc32" else "garner"
+    return Tail(kind, ntt_mod.get_plan(N, P))
+
+
+def tables_of(tail: Tail) -> torch.Tensor:
+    """The kernels' table of the tail's plan as int64 [P, 8, N]."""
+    return u32_to_i64(torch.from_numpy(pk.plan_tables(tail.plan).view(
+        "int32")))
+
+
+# ---------------------------------------------------------------------------
+# the passes
+# ---------------------------------------------------------------------------
+
+def lift_pass(acc, dig, a, K: int, R: int, levels: int, base_log: int,
+              tail: Tail, tables):
+    """The first forward pass (stages 0 .. K-1) fused with the lift
+    (``StepPasses::lift_pass``): digit row j = lev R + r, prime pi, at each
+    position t of each item: the balanced digit ``lev`` of the hi word of
+    acc[r] X^a - acc[r] at t, lifted mod p and twisted, then the K stages.
+    ``a``: [B] in [0, 2N). Returns the new digit area."""
+    B, _, N = acc.shape
+    log_n = N.bit_length() - 1
+    P = tail.plan.num_primes
+    pos, j, log_hl = pass_items(log_n, 0, K)
+    s = pos[None] - a.to(torch.int64)[:, None, None]           # [B, G, E]
+    s = torch.where(s < 0, s + 2 * N, s)
+    neg = s >= N
+    s = torch.where(neg, s - N, s)
+    dig = dig.clone()
+    for r in range(R):
+        row = acc[:, r]
+        x = torch.gather(row, 1, s.reshape(B, -1)).reshape(s.shape)
+        x = torch.where(neg, -x, x)
+        diff = x - row[:, pos]
+        hi = diff & M32 if tail.acc32 else srl(diff, 32)
+        for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+            for pi, p in enumerate(tail.plan.primes):
+                tb = tables[pi]
+                m = torch.where(d < 0, d + p, d)
+                v = ntt_mod.shoup_mul(m, tb[T_TW][pos], tb[T_TW_SH][pos], p)
+                v = fwd_regs(v, tb, N, 0, K, j, log_hl, p)
+                dig[:, _phys([(lev * R + r) * P + pi], N, pos)[0]] = v
+    return dig
+
+
+def pass_(dig, n_rows: int, P: int, N: int, s0: int, K: int, inverse: bool,
+          tables, primes):
+    """Forward or inverse stages s0 .. s0+K-1 of rows 0 .. n_rows-1 of the
+    digit area (``StepPasses::pass``). Returns the new digit area."""
+    log_n = N.bit_length() - 1
+    pos, j, log_hl = pass_items(log_n, s0, K)
+    run = inv_regs if inverse else fwd_regs
+    dig = dig.clone()
+    for pi, p in enumerate(primes):
+        ph = _phys([row * P + pi for row in range(n_rows)], N, pos)
+        dig[:, ph] = run(dig[:, ph], tables[pi], N, s0, K, j, log_hl, p)
+    return dig
+
+
+def fused_pass(dig, key, F: int, R: int, lR: int, P: int, N: int, tables,
+               primes):
+    """The fused pass (``StepPasses::fused_pass``): item (pi, g) holds
+    positions g 2^F .. g 2^F + 2^F - 1; per digit row j the last F forward
+    stages, mac[c] += dig[j] key[j][c] mod p (Shoup, j in order), then the
+    first F inverse stages of each mac[c], written over digit row c.
+    ``key``: the step's int64 [2, P, l R, R, N] (residues, duals)."""
+    log_n = N.bit_length() - 1
+    s0, E = log_n - F, 1 << F
+    pos = (torch.arange(N >> F) << F)[:, None] + torch.arange(E)
+    zero = torch.zeros(N >> F, dtype=torch.int64)
+    out = dig.clone()
+    for pi, p in enumerate(primes):
+        tb = tables[pi]
+        mac = [torch.zeros(dig.shape[0], N >> F, E, dtype=torch.int64)
+               for _ in range(R)]
+        for jrow in range(lR):
+            d = fwd_regs(dig[:, _phys([jrow * P + pi], N, pos)[0]], tb, N, s0,
+                         F, zero, 0, p)
+            for c in range(R):
+                prod = ntt_mod.shoup_mul(d, key[0, pi, jrow, c][pos],
+                                         key[1, pi, jrow, c][pos], p)
+                mac[c] = _add_mod(mac[c], prod, p)
+        for c in range(R):
+            out[:, _phys([c * P + pi], N, pos)[0]] = inv_regs(
+                mac[c], tb, N, s0, F, zero, 0, p)
+    return out
+
+
+def tail_pass(acc, dig, K: int, tail: Tail, tables):
+    """The last inverse pass (stages K-1 .. 0) with the untwist, the tail
+    and acc += (``StepPasses::tail_pass``): item (c, g) holds positions
+    g + m (N >> K) of row c for every prime and adds the tail of each
+    position's P canonical residues to acc; with five primes or more the
+    residues are stored back over the row first. Returns the new (acc,
+    dig)."""
+    B, R, N = acc.shape
+    log_n = N.bit_length() - 1
+    P = tail.plan.num_primes
+    pos, j, log_hl = pass_items(log_n, 0, K)
+    acc, dig = acc.clone(), dig.clone()
+    for c in range(R):
+        res = []
+        for pi, p in enumerate(tail.plan.primes):
+            tb = tables[pi]
+            ph = _phys([c * P + pi], N, pos)[0]
+            v = inv_regs(dig[:, ph], tb, N, 0, K, j, log_hl, p)
+            res.append(ntt_mod.shoup_mul(v, tb[T_UTW][pos],
+                                         tb[T_UTW_SH][pos], p))
+            if P >= 5:
+                dig[:, ph] = res[-1]
+        new = acc[:, c, pos] + tail(torch.stack(res))
+        acc[:, c, pos] = new & M32 if tail.acc32 else new
+    return acc, dig
+
+
+def step(acc, a, key, base_log: int, levels: int, tail: Tail, tables=None,
+         plan: PassPlan = None):
+    """One CMUX step pass by pass (``StepPasses::step``): acc int64
+    [B, R, N], a [B] in [0, 2N), key int64 [2, P, l R, R, N]. Returns the
+    new acc."""
+    B, R, N = acc.shape
+    P, primes = tail.plan.num_primes, tail.plan.primes
+    tables = tables_of(tail) if tables is None else tables
+    plan = plan or make_pass_plan(N.bit_length() - 1, R)
+    lR = levels * R
+    dig = torch.zeros(B, lR * P * N, dtype=torch.int64)
+    dig = lift_pass(acc, dig, a, plan.fwd[0][1], R, levels, base_log, tail,
+                    tables)
+    for s0, k in plan.fwd[1:]:
+        dig = pass_(dig, lR, P, N, s0, k, False, tables, primes)
+    dig = fused_pass(dig, key, plan.fused, R, lR, P, N, tables, primes)
+    for s0, k in plan.inv[:-1]:
+        dig = pass_(dig, R, P, N, s0, k, True, tables, primes)
+    return tail_pass(acc, dig, plan.inv[-1][1], tail, tables)[0]
+
+
+def cmux_steps_passes(entry: str, acc, msed_mask, bsk_scan, base_log: int,
+                      levels: int, flavor=None):
+    """All n steps of step-kernel ``entry`` (``blind_rotate_bnf2_acc32``,
+    ``blind_rotate_crt``, ``blind_rotate_crt_acc32`` or
+    ``blind_rotate_bnf2_u64``) on the pass schedule, with the operands of
+    its wrapper in ``pbs_kernel``: acc int64 (u64) or int32 (u32 hi plane)
+    [B, R, N], msed_mask [B, n], bsk_scan int32 [n, 2, P, l R, R, N].
+    Returns the accumulator in the operand's dtype."""
+    P, N = bsk_scan.shape[2], acc.shape[-1]
+    tail = tail_of(entry, P, N, flavor)
+    tables = tables_of(tail)
+    plan = make_pass_plan(N.bit_length() - 1, acc.shape[1])
+    x = u32_to_i64(acc) if tail.acc32 else acc
+    key = u32_to_i64(bsk_scan)
+    for i in range(bsk_scan.shape[0]):
+        x = step(x, msed_mask[:, i], key[i], base_log, levels, tail, tables,
+                 plan)
+    return i64_to_u32(x) if tail.acc32 else x
+
+
+# ---------------------------------------------------------------------------
+# the transforms alone, on the same passes
+# ---------------------------------------------------------------------------
+
+def fwd_transform(res, plan: ntt_mod.NegacyclicNtt):
+    """The forward negacyclic transform of canonical residues res
+    [P, M, N] on the kernels' passes: the twist, the forward passes and the
+    forward stages of the fused pass, through the swizzled area. Returns
+    [P, M, N] in DIF order (``NegacyclicNtt.fwd``'s)."""
+    P, M, N = res.shape
+    tables = u32_to_i64(torch.from_numpy(pk.plan_tables(plan).view("int32")))
+    sched = make_pass_plan(N.bit_length() - 1, 2)
+    tw = torch.stack([ntt_mod.shoup_mul(res[pi], tables[pi][T_TW],
+                                        tables[pi][T_TW_SH], plan.primes[pi])
+                      for pi in range(P)])
+    dig = torch.zeros(1, M * P * N, dtype=torch.int64)
+    dig[0, swz(torch.arange(M * P * N))] = tw.permute(1, 0, 2).reshape(-1)
+    s_fused = N.bit_length() - 1 - sched.fused
+    for s0, k in sched.fwd + ((s_fused, sched.fused),):
+        dig = pass_(dig, M, P, N, s0, k, False, tables, plan.primes)
+    return dig[0, swz(torch.arange(M * P * N))].reshape(M, P, N).permute(
+        1, 0, 2)
+
+
+def inv_transform(xhat, plan: ntt_mod.NegacyclicNtt):
+    """The inverse transform and untwist of DIF-order residues xhat
+    [P, M, N] on the kernels' passes (the inverse stages of the fused pass,
+    the inverse passes, the last one's untwist). Returns canonical residues
+    [P, M, N] (``NegacyclicNtt.inv``'s)."""
+    P, M, N = xhat.shape
+    tables = u32_to_i64(torch.from_numpy(pk.plan_tables(plan).view("int32")))
+    sched = make_pass_plan(N.bit_length() - 1, 2)
+    dig = torch.zeros(1, M * P * N, dtype=torch.int64)
+    dig[0, swz(torch.arange(M * P * N))] = xhat.permute(1, 0, 2).reshape(-1)
+    s_fused = N.bit_length() - 1 - sched.fused
+    for s0, k in ((s_fused, sched.fused),) + sched.inv:
+        dig = pass_(dig, M, P, N, s0, k, True, tables, plan.primes)
+    r = dig[0, swz(torch.arange(M * P * N))].reshape(M, P, N).permute(1, 0, 2)
+    return torch.stack([ntt_mod.shoup_mul(r[pi], tables[pi][T_UTW],
+                                          tables[pi][T_UTW_SH],
+                                          plan.primes[pi])
+                        for pi in range(P)])
+
+
+# ---------------------------------------------------------------------------
+# the step's pieces on the kernels' shared-memory image (the step probes)
+# ---------------------------------------------------------------------------
+
+#: the pieces of one step, in order: the lift with the first forward pass,
+#: the other forward passes, the fused pass, the inverse passes but the
+#: last, the last with the untwist and the tail (``v4_pass_piece``)
+PIECES = ("lift", "fwd", "fused", "inv", "tail")
+
+
+def from_image(x, P: int, R: int, levels: int, N: int, acc32: bool):
+    """A block image int32 [B, words] (u32 storage, acc's u64 words lo
+    first) -> (acc int64 [B, R, N], dig int64 [B, l R P N])."""
+    w = u32_to_i64(x)
+    n_acc = R * N * (1 if acc32 else 2)
+    acc = w[:, :n_acc]
+    if not acc32:
+        acc = acc[:, 0::2] | (acc[:, 1::2] << 32)
+    return acc.reshape(-1, R, N), w[:, n_acc:]
+
+
+def to_image(acc, dig, acc32: bool):
+    """The inverse of :func:`from_image`."""
+    a = acc.reshape(acc.shape[0], -1)
+    if not acc32:
+        a = torch.stack([a & M32, srl(a, 32)], dim=-1).reshape(a.shape[0], -1)
+    return i64_to_u32(torch.cat([a, dig], dim=1))
+
+
+def run_piece(piece: str, acc, dig, a, key, base_log: int, levels: int,
+              tail: Tail, tables, plan: PassPlan):
+    """One piece of :func:`step` on the state (acc, dig); returns the new
+    (acc, dig). ``key`` int64 [2, P, l R, R, N]."""
+    R, N = acc.shape[1], acc.shape[2]
+    P, primes = tail.plan.num_primes, tail.plan.primes
+    if piece == "lift":
+        return acc, lift_pass(acc, dig, a, plan.fwd[0][1], R, levels,
+                              base_log, tail, tables)
+    if piece == "fwd":
+        for s0, k in plan.fwd[1:]:
+            dig = pass_(dig, levels * R, P, N, s0, k, False, tables, primes)
+        return acc, dig
+    if piece == "fused":
+        return acc, fused_pass(dig, key, plan.fused, R, levels * R, P, N,
+                               tables, primes)
+    if piece == "inv":
+        for s0, k in plan.inv[:-1]:
+            dig = pass_(dig, R, P, N, s0, k, True, tables, primes)
+        return acc, dig
+    return tail_pass(acc, dig, plan.inv[-1][1], tail, tables)

@@ -29,6 +29,19 @@ untwist, ``v4_inv``/``v4_tw_recombine``/``g_tw_recombine``) and the tails
 ``bnf2_c``, ``bnf2_c32``). ``fwd`` and ``inv_untwist`` are INT32
 stand-ins of the same size for ``v4_fwd_*`` and ``v4_inv``.
 
+The pass pieces time the step K1 and K3 run (``ntt_common.cuh``'s
+StepPasses, on the step's own shared-memory state, one ciphertext a
+block), at 2_2 for K1 (P = 2, ``bnf2_c32``) and K3 (P = 4, ``garner4``), one
+ciphertext-step a unit: ``pass_lift`` (the lift with the first forward
+pass), ``pass_fwd`` (the other forward passes), ``pass_fused`` (the last
+forward stages, the MAC against a step key streamed from global memory, the
+first inverse stages), ``pass_inv`` (the inverse passes but the last),
+``pass_tail`` (the last inverse pass, the untwist, the tail, acc +=). Their
+plain versions are ``ops/step_passes.py``, the CPU mirror of the passes;
+:func:`pass_split` sums them against ``fused_step_v6`` / ``fused_step``, as
+:func:`step_split` sums the pieces above against the radix-2 loop
+(``fused_step_v6_r2`` / ``fused_step_r2``).
+
 The MXU pieces run on the int8 tensor cores (``csrc/ntt_mxu.cu``,
 ``tools/ntt_mxu.py``), one ciphertext's [G, 128] a block, at
 ``_get_tables_v4(2048, 4, 23)``'s prime 0: ``v4_matmul_fold`` (x as int8,
@@ -52,11 +65,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._torus import M32, from_u32, srl
+from .._torus import M32, from_u32, from_u64, srl
 from ..ops import bnf2 as bnf2_mod
 from ..ops import kernel_bench as kb
 from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
+from ..ops import step_passes as sp
 from ..ops.decomp import decompose
 from ..ops.polynomial import monomial_mul
 from . import _harness as h
@@ -211,8 +225,11 @@ def _lib():
     lib.v4_mac2.argtypes = [v, v, v, i, i, i, u, i, v]
     lib.v4_tail.argtypes = [v, v, i, i, i, i, i, u, v, ctypes.c_ulonglong,
                             v, i, v]
+    lib.v4_pass_piece.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v,
+                                  ctypes.c_ulonglong, v, i, v]
     for e in (lib.v4_rot, lib.v4_decomp, lib.v4_lift_twist, lib.v4_fwd,
-              lib.v4_inv_untwist, lib.v4_mac2, lib.v4_tail):
+              lib.v4_inv_untwist, lib.v4_mac2, lib.v4_tail,
+              lib.v4_pass_piece):
         e.restype = ctypes.c_int
     return lib
 
@@ -407,6 +424,141 @@ def _case(piece: str, layout: str) -> h.Case:
 
 PIECES = ("rot", "decomp", "lift_twist", "fwd", "fwd_first4", "mac2",
           "inv_untwist") + TAILS
+
+# ---------------------------------------------------------------------------
+# the pass pieces of the new step
+# ---------------------------------------------------------------------------
+
+#: per step kernel: its entry (for the tail and the bound) and its primes
+PASS_KERNELS = {"K1": ("blind_rotate_bnf2_acc32", 2),
+                "K3_P4": ("blind_rotate_crt", 4)}
+_R2, _L2 = 2, 1                     # 2_2: R, l
+_PASS_TRIPS = {"tail": (16, 400)}
+
+
+def _pass_tail(kernel: str):
+    entry, P_ = PASS_KERNELS[kernel]
+    return sp.tail_of(entry, P_, N, FLAVOR)
+
+
+def _pass_inputs(kernel: str, batch_of=None):
+    """Seeded operands of a pass piece: the block images (acc random, the
+    digit area canonical residues below the smallest prime), one step of a
+    valid key (true Shoup duals) and the rotations."""
+    entry, P_ = PASS_KERNELS[kernel]
+    tail = _pass_tail(kernel)
+
+    def inputs(device):
+        dev = torch.device(device)
+        B = (batch_of or batch)(dev)
+        rng = np.random.default_rng(11 + P_)
+        acc_bits = 32 if tail.acc32 else 64
+        acc = rng.integers(0, 1 << acc_bits, size=(B, _R2 * N),
+                           dtype=np.uint64)
+        dig = rng.integers(0, min(tail.plan.primes),
+                           size=(B, _L2 * _R2 * P_ * N), dtype=np.uint64)
+        acc_t = torch.from_numpy(acc.view(np.int64)).reshape(B, _R2, N)
+        img = sp.to_image(acc_t, torch.from_numpy(dig.view(np.int64)),
+                          tail.acc32)
+        std = from_u64(rng.integers(0, 1 << 64, size=(1, _L2, _R2, _R2, N),
+                                    dtype=np.uint64), "cpu")
+        if entry == "blind_rotate_bnf2_acc32":
+            key = bnf2_mod.bootstrap_key_to_bnf2(std, FLAVOR)[0]
+        else:
+            from ..core import algorithms as algo
+            from ..core.entities import LweBootstrapKey
+
+            key = pk.bsk_to_scan_layout(algo.bootstrap_key_to_ntt(
+                LweBootstrapKey(std, BASE_LOG, _L2), P_).residues)[0]
+        a = torch.from_numpy(rng.integers(0, 2 * N, size=B)).to(torch.int32)
+        return (img.to(dev), key.contiguous().to(dev), a.to(dev))
+    return inputs
+
+
+def pass_piece_plain(x, key, a, loops, *, piece: str, kernel: str):
+    """``loops`` trips of one pass piece on the block images (the CPU
+    mirror, ``ops/step_passes.py``)."""
+    _, P_ = PASS_KERNELS[kernel]
+    tail = _pass_tail(kernel)
+    tables = sp.tables_of(tail)
+    plan = sp.make_pass_plan(LOG_N, _R2)
+    acc, dig = sp.from_image(x.cpu(), P_, _R2, _L2, N, tail.acc32)
+    k64, a64 = h.u32(key.cpu()), a.cpu().to(torch.int64)
+    for _ in range(loops):
+        acc, dig = sp.run_piece(piece, acc, dig, a64, k64, BASE_LOG, _L2,
+                                tail, tables, plan)
+        if tail.acc32:
+            acc = acc & M32
+    return sp.to_image(acc, dig, tail.acc32).to(x.device)
+
+
+def _pass_launch(name: str, piece: str, kernel: str):
+    entry, P_ = PASS_KERNELS[kernel]
+
+    def launch(x, key, a, loops):
+        h.cuda_operand(name, x, 2)
+        h.cuda_operand(name, key, 5)
+        plan = _pass_tail(kernel).plan
+        out = torch.empty_like(x)
+        rc = _lib().v4_pass_piece(
+            pk._ptr(x), pk._ptr(out), pk._ptr(key),
+            pk._ptr(pk._plan_tables_dev(plan, str(x.device))), pk._ptr(a),
+            x.shape[0], _R2, _L2, BASE_LOG, LOG_N, sp.PIECES.index(piece),
+            0 if P_ == 2 else 1, pk._garner_host(plan), plan.full_prod_mod64,
+            _BNF, loops, pk._stream(x.device))
+        pk._raise_on(rc, name)
+        return out
+    return launch
+
+
+def pass_units(kernel: str) -> dict:
+    """The work-floor units of each pass piece per ciphertext-step (as
+    ``kernel_bench.step_pipe_instructions`` counts the whole step)."""
+    _, P_ = PASS_KERNELS[kernel]
+    plan = sp.make_pass_plan(LOG_N, _R2)
+    lR, half, F = _L2 * _R2, N // 2, plan.fused
+    return {
+        "lift": {"element": _R2 * N, "level": lR * N,
+                 "fwd_butterfly": P_ * lR * half * plan.fwd[0][1]},
+        "fwd": {"fwd_butterfly": P_ * lR * half
+                * sum(k for _, k in plan.fwd[1:])},
+        "fused": {"fwd_butterfly": P_ * lR * half * F,
+                  "mac": P_ * _R2 * lR * N,
+                  "inv_butterfly": P_ * _R2 * half * F},
+        "inv": {"inv_butterfly": P_ * _R2 * half
+                * sum(k for _, k in plan.inv[:-1])},
+        "tail": {"inv_butterfly": P_ * _R2 * half * plan.inv[-1][1],
+                 "untwist_tail": _R2 * N}}
+
+
+def _pass_pipes(piece: str, kernel: str):
+    entry, P_ = PASS_KERNELS[kernel]
+    key = entry if entry in kb.SASS_OPS else f"{entry}/{P_}"
+    ops, units = kb.SASS_OPS[key], pass_units(kernel)[piece]
+    return lambda loops, args: tuple(
+        args[0].shape[0] * sum(u * ops[k][i] for k, u in units.items())
+        for i in range(3))
+
+
+def _pass_case(piece: str, kernel: str) -> h.Case:
+    name = f"pass_{piece}_{kernel}"
+    return h.Case(
+        name, replaces=f"{SRC}:80", mirrors=[
+            f"none: the {piece} piece of the step K1 and K3 run "
+            "(ntt_common.cuh StepPasses)"],
+        kernel=name, launch=_pass_launch(name, piece, kernel),
+        plain=functools.partial(pass_piece_plain, piece=piece,
+                                kernel=kernel),
+        inputs=_pass_inputs(kernel), units=lambda args: args[0].shape[0],
+        unit="ct-step", required=("IMAD.HI",),
+        trips=_PASS_TRIPS.get(piece, (4, 36)),
+        check_inputs=_pass_inputs(kernel, lambda dev: 8),
+        pipes=_pass_pipes(piece, kernel))
+
+
+PASS_CASES = tuple(_pass_case(pc, k) for k in PASS_KERNELS
+                   for pc in sp.PIECES)
+
 _V4_STALE = ("the JAX case cannot run (its [Bt, G, 128] loop carry "
              "refuses the [G, Bt, 128] output): mirrors {} on that layout")
 MXU_CASES = (
@@ -425,7 +577,7 @@ MXU_CASES = (
             mirrors=["v4_inv"], note=_V4_STALE.format("_inv_ntt_v4")),
 )
 CASES = tuple(_case(p, lay) for p in PIECES
-              for lay in layouts_of(p)) + MXU_CASES
+              for lay in layouts_of(p)) + MXU_CASES + PASS_CASES
 
 #: per kernel: library, parts of the mangled name, (ALU, FMA) loop totals
 #: (see ``vpu_primitives.SASS_LOOP_TOTALS``)
@@ -475,6 +627,20 @@ SASS_LOOP_TOTALS.update({
         ("v4_inv_mmr", (62, 38, 4)), ("v4_fwd", (138, 97, 4)),
         ("v4_fwd_nosplit", (128, 96, 4)), ("v4_inv", (143, 102, 4)))})
 
+#: the pass pieces' kernels: Tail and piece in the mangled name
+_PASS_TAIL_PART = {"K1": "10Bnf2Tail32E", "K3_P4": "10GarnerTailILi4EEE"}
+_PASS_TOTALS = {
+    "pass_lift_K1": (546, 302), "pass_fwd_K1": (182, 136),
+    "pass_fused_K1": (353, 325), "pass_inv_K1": (119, 119),
+    "pass_tail_K1": (124, 166), "pass_lift_K3_P4": (602, 302),
+    "pass_fwd_K3_P4": (85, 102), "pass_fused_K3_P4": (353, 325),
+    "pass_inv_K3_P4": (206, 156), "pass_tail_K3_P4": (326, 404)}
+SASS_LOOP_TOTALS.update({
+    f"pass_{pc}_{k}": ("v4_probe", ("17pass_piece_kernel",
+                                    f"{_PASS_TAIL_PART[k]}Li{i}E"),
+                       _PASS_TOTALS[f"pass_{pc}_{k}"])
+    for k in PASS_KERNELS for i, pc in enumerate(sp.PIECES)})
+
 #: units of each piece per ciphertext-step at 2_2 (R = 2, l = 1, N = 2048):
 #: K1 with P = 2 primes and the bnf2_c32 tail, K3 with P = 4 and garner4
 _R, _L, _BF = 2, 1, (N // 2) * LOG_N
@@ -502,8 +668,9 @@ def step_split(rows, measured: dict) -> list:
     """The pieces' seconds per ciphertext-step of K1 and K3 (P = 4) at
     2_2, in the ct layout: the units of :func:`step_units` times each
     piece's seconds per unit, their sum, and the remainder against
-    ``measured`` ({"K1": s, "K3_P4": s} per ciphertext-step), with the
-    pieces timed on a stand-in (:data:`STAND_INS`)."""
+    ``measured`` ({"K1": s, "K3_P4": s} per ciphertext-step: the radix-2
+    loop, whose pieces these are, ``fused_step_v6_r2`` / ``fused_step_r2``),
+    with the pieces timed on a stand-in (:data:`STAND_INS`)."""
     per = {r["metric"][:-3]: r["ps_per_unit"] * 1e-12 for r in rows
            if r["metric"].endswith("_ct")}
     out = []
@@ -520,17 +687,38 @@ def step_split(rows, measured: dict) -> list:
     return out
 
 
+def pass_split(rows, measured: dict) -> list:
+    """The pass pieces' seconds per ciphertext-step of K1 and K3 (P = 4)
+    at 2_2 (each piece's row is per ciphertext-step), their sum, and the
+    remainder against ``measured`` ({"K1": s, "K3_P4": s}: the step
+    kernels' own per ciphertext-step)."""
+    per = {r["metric"]: r["ps_per_unit"] * 1e-12 for r in rows
+           if r["metric"].startswith("pass_")}
+    out = []
+    for kernel in PASS_KERNELS:
+        pieces = {pc: per[f"pass_{pc}_{kernel}"] for pc in sp.PIECES}
+        total = sum(pieces.values())
+        out.append({"metric": f"pass_split_{kernel}",
+                    "pieces_us": {k: v * 1e6 for k, v in pieces.items()},
+                    "sum_us": total * 1e6,
+                    "measured_us": measured[kernel] * 1e6,
+                    "remainder_us": (measured[kernel] - total) * 1e6,
+                    "card": rows[0]["card"]})
+    return out
+
+
 def reset_launches():
     h.reset(CASES)
 
 
 def iter_rows(quick: bool = False, device=None, measured: dict = None):
     """Every case's row (held against its plain version first on the GPU;
-    ``quick``: 3 timed runs a point instead of 5), then the split of K1's
-    and K3's time per ciphertext-step against ``measured`` ({"K1": s,
-    "K3_P4": s}; default: ``kernel_bench.bench_step_v6`` and
-    ``bench_step`` timed here). On the CPU the plain versions run and
-    nothing is timed."""
+    ``quick``: 3 timed runs a point instead of 5), then the split of the
+    radix-2 step into its pieces against the reference loops and of the
+    new step into its passes against K1 and K3 (``measured``: {"K1": s,
+    "K3_P4": s, "K1_r2": s, "K3_P4_r2": s} per ciphertext-step; default:
+    ``kernel_bench.bench_step_v6`` and ``bench_step`` timed here). On the
+    CPU the plain versions run and nothing is timed."""
     dev = resolve_device(device)
     rows = []
     for r in h.iter_rows(CASES, SASS_LOOP_TOTALS, dev, 3 if quick else 5):
@@ -540,10 +728,14 @@ def iter_rows(quick: bool = False, device=None, measured: dict = None):
         return
     if measured is None:
         it = 3 if quick else 5
-        measured = {
-            "K1": kb.bench_step_v6(device=dev, iters=it)["seconds_per_ct_step"],
-            "K3_P4": kb.bench_step(device=dev, iters=it)["seconds_per_ct_step"]}
-    yield from step_split(rows, measured)
+        measured = {}
+        for k, bench_fn in (("K1", kb.bench_step_v6),
+                            ("K3_P4", kb.bench_step)):
+            new, ref = bench_fn(device=dev, iters=it)
+            measured[k] = new["seconds_per_ct_step"]
+            measured[f"{k}_r2"] = ref["seconds_per_ct_step"]
+    yield from step_split(rows, {k: measured[f"{k}_r2"] for k in STEPS})
+    yield from pass_split(rows, measured)
 
 
 def run_all(quick: bool = False, device=None, measured: dict = None) -> list:
