@@ -9,8 +9,10 @@ Phases (any failure raises and exits non-zero):
    source, all at once), print the build time and ptxas' register, spill
    and shared-memory report, hold the loops of the build's SASS to the
    counts the bounds were read from (``kernel_bench.sass_drift``, the
-   probes' tables too), and require each probe's loops to hold the op its
-   case names;
+   probes' tables too), require each probe's loops to hold the op its
+   case names (``IGMMA`` for the wgmma cases) and issue every MAC it
+   counts, and print each wgmma kernel's registers, spills, shared
+   memory, cluster size and blocks per SM (a spill fails);
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
    against their plain versions (exact) on the path's own inputs (the
@@ -64,13 +66,18 @@ Phases (any failure raises and exits non-zero):
 12. the TPU design probes (``tfhe_tpu_torch/tools``: ``vpu_primitives``,
     ``ntt_variants``, ``v4_probe``, and on the int8 tensor cores
     ``mxu_probe``, ``kernel_experiments``, ``ntt_v3c_experiments`` and the
-    MXU cases of the second and third): each case's kernel held exactly
-    against its plain version at its check trip count and timed there,
+    MXU cases of the second and third): each case's kernel, and each
+    ``_sync`` reference of a wgmma case (the first, mma.sync kernel), held
+    exactly against its plain version at its check trip count and timed
+    there (a wgmma case and its reference in turns: ref, new, new, ref),
     then each probe's ``run_all(quick=True)`` with the launch counts
-    around it, one JSON row per case, the IMAD.WIDE verdict, the split
-    of K1's and K3's time per ciphertext-step (against phase 11's rows)
-    and the tensor-core verdict (``mxu_verdict``: the int8 small-DFT
-    transforms against the INT32 radix-2 and radix-4 ones);
+    around it, one JSON row per case (the wgmma rows with their
+    reference's time from the same turns), the IMAD.WIDE verdict, the
+    split of K1's and K3's time per ciphertext-step (against phase 11's
+    rows), ``mix_overlap`` (do the tensor cores run beside the INT32
+    pipes?) and the tensor-core verdict (``mxu_verdict``: the int8
+    small-DFT transforms, wgmma and mma.sync, against the INT32 radix-2
+    and radix-4 ones);
 13. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -328,9 +335,10 @@ def phase_build():
     from tfhe_tpu_torch.tools import _harness as h
 
     for mod in probe_modules().values():
+        cases = mod.CASES + getattr(mod, "SYNC_CASES", ())
         drift = kb.sass_drift(_read_sass, mod.SASS_LOOP_TOTALS)
-        missing = h.missing_ops(mod.CASES, mod.SASS_LOOP_TOTALS)
-        unissued = h.mma_drift(mod.CASES, mod.SASS_LOOP_TOTALS, DEVICE)
+        missing = h.missing_ops(cases, mod.SASS_LOOP_TOTALS)
+        unissued = h.mma_drift(cases, mod.SASS_LOOP_TOTALS, DEVICE)
         if drift or missing or unissued:
             raise AssertionError(
                 f"{mod.__name__}: SASS loops differ from SASS_LOOP_TOTALS as "
@@ -342,6 +350,7 @@ def phase_build():
               f"{mod.__name__} == its SASS_LOOP_TOTALS; every case's loop "
               "holds its op; every int8 case's mma loops issue its MACs")
     step_kernel_report()
+    wgmma_kernel_report()
     return secs
 
 
@@ -418,6 +427,53 @@ def step_kernel_report():
     if spilled:
         raise AssertionError(f"K1/K3 step kernels spill: {spilled}")
     print("K1 and K3: no spills; shared memory == acc + digits")
+
+
+#: the wgmma kernels' instantiations: (library, op, copies)
+WGMMA_KERNELS = tuple(
+    [("mxu_probe", op, 1) for op in (
+        "matmul_512x512", "matmul_384x512", "matmul_256r_384x512",
+        "mix_matmul512_shoupx8", "mix_2matmul_shoupx16")]
+    + [("ntt_mxu", op, c) for op, c in (
+        ("v3_fwd", 1), ("v3_inv", 1), ("mm4", 1), ("mm1", 1), ("mm1", 2),
+        ("mm1", 4), ("v4_fold", 1), ("v4_inv_mmr", 1), ("v4_fwd", 1),
+        ("v4_fwd_nosplit", 1), ("v4_inv", 1))])
+
+
+def wgmma_kernel_report():
+    """Per wgmma kernel (mxu_probe_kernel, ntt_mxu_kernel): registers,
+    ptxas' spill bytes, local bytes a thread, dynamic shared memory,
+    cluster size, resident blocks per SM and clusters on the card; fails
+    on a spill."""
+    from tfhe_tpu_torch.tools import mxu_probe, ntt_mxu
+
+    spills = {lib: _ptxas_spills(lib) for lib in ("mxu_probe", "ntt_mxu")}
+    spilled = {name: b for lib, part in (("mxu_probe", "16mxu_probe_kernelI"),
+                                         ("ntt_mxu", "14ntt_mxu_kernelI"))
+               for name, b in spills[lib].items() if part in name and b}
+    for lib, op, copies in WGMMA_KERNELS:
+        occ = (mxu_probe.occupancy(op) if lib == "mxu_probe"
+               else ntt_mxu.occupancy(op, copies))
+        print(f"  wgmma {lib} {op}{f' x{copies}' if copies > 1 else ''}: "
+              f"{occ['registers']} registers, {occ['local_bytes']} local "
+              f"bytes a thread, {occ['smem_bytes'] / 1024:.1f} KiB dynamic "
+              f"shared memory, cluster of {occ['cluster']}, "
+              f"{occ['blocks_per_sm']} block(s) per SM, {occ['clusters']} "
+              "clusters on the card")
+        if occ["local_bytes"]:
+            spilled[f"{lib} {op} x{copies}"] = occ["local_bytes"]
+    if spilled:
+        raise AssertionError(f"wgmma kernels spill: {spilled}")
+    print(f"wgmma kernels: no spills ({len(WGMMA_KERNELS)} instantiations)")
+
+
+def in_turns(new, ref, reps: int = 2) -> tuple:
+    """CUDA-event ms of ``new()`` and ``ref()`` timed ref, new, new, ref
+    (each turn the median of ``reps`` runs, a function warmed up before its
+    first turn only): (new ms, ref ms), each the mean of its two turns."""
+    r1, n1 = cuda_ms(ref, reps), cuda_ms(new, reps)
+    n2, r2 = cuda_ms(new, reps, False), cuda_ms(ref, reps, False)
+    return (n1 + n2) / 2, (r1 + r2) / 2
 
 
 def phase_shortint_v6b(card, rate, rows):
@@ -1178,14 +1234,21 @@ def phase_probes(rows, bench):
     t0 = time.perf_counter()
     rates = kb.card_rates()
     checked = {}
+    turns = {}
     for short, mod in probe_modules().items():
-        for c in mod.CASES:
+        for c in mod.CASES + getattr(mod, "SYNC_CASES", ()):
             lib = mod.SASS_LOOP_TOTALS[c.kernel][0]
             src = f"tfhe_tpu_torch/csrc/{lib}.cu"
             args, check_args = c.inputs(DEVICE), c.check_inputs(DEVICE)
             err, plain_ms = h.check(c, check_args)
             trips = c.trips[1]
-            ms = cuda_ms(lambda: c(*args, trips), 3)
+            if c.reference is not None:  # ref, new, new, ref
+                ref = c.reference
+                ms, turns[f"{short}.{ref.name}"] = in_turns(
+                    lambda: c(*args, trips), lambda: ref(*args, trips))
+            else:
+                ms = turns.pop(f"{short}.{c.name}", None) or cuda_ms(
+                    lambda: c(*args, trips), 3)
             pipes = c.pipes(h.kernel_loops(mod.SASS_LOOP_TOTALS, c.kernel),
                             args)
             nbytes = (sum(a.numel() * a.element_size() for a in args)
@@ -1214,9 +1277,9 @@ def phase_probes(rows, bench):
             by_metric.setdefault(r["metric"], r)
             if r["metric"] in ("imad_wide_verdict", "step_split_K1",
                                "step_split_K3_P4", "pass_split_K1",
-                               "pass_split_K3_P4"):
+                               "pass_split_K3_P4", "mix_overlap"):
                 out[r["metric"]] = r
-        for c in mod.CASES:
+        for c in mod.CASES + getattr(mod, "SYNC_CASES", ()):
             if c.launches < 1:
                 raise AssertionError(f"probe {short}: {c.name} did not "
                                      "launch")
@@ -1270,7 +1333,8 @@ def main() -> int:
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in
-                   probe_modules().items() for c in mod.CASES)
+                   probe_modules().items()
+                   for c in mod.CASES + getattr(mod, "SYNC_CASES", ()))
     kernels = []
     for name in order:
         r = rows[name]

@@ -174,16 +174,27 @@ def test_e_rows_run_ntt_variants_cases():
 
 
 def test_macs_and_mma_trips():
-    """Every MAC the JAX case counts: 8192 mma a tile-trip for
-    matmul_512x512 (128 * 512 * 512 / (16 * 8 * 32)), in 8-mma bodies."""
+    """Every MAC the JAX case counts: on the wgmma kernel, 128 m64n128k32 a
+    tile-trip for matmul_512x512 (128 * 512 * 512 / (64 * 128 * 32)), in
+    4-wgmma bodies; on its mma.sync reference 8192 mma in 8-mma bodies.
+    The tables are read once a launch, not once a pass: at most 1/8 of the
+    reference's L2 bytes a tile-trip."""
     args = mp.tiles("cpu")
     c = CASES["matmul_512x512"]
     assert c.macs(args) == 2 * 128 * 512 * 512  # two tiles on the CPU
-    assert c.mma_trips(args) * 4 * mp.MT == 2 * 8192
-    assert c.mma_trips(args) * 4 * mp.MT * h.MACS_PER_MMA == c.macs(args)
+    assert c.mma_trips(args) * 4 == 2 * 128
+    assert c.mma_trips(args) * 4 * 64 * 128 * 32 == c.macs(args)
+    ref = c.reference
+    assert ref.macs(args) == c.macs(args)
+    assert ref.mma_trips(args) * 4 * mp.MT == 2 * 8192
+    assert ref.mma_trips(args) * 4 * mp.MT * h.MACS_PER_MMA == c.macs(args)
     mix2 = CASES["mix_2matmul_shoupx16"]
     assert mix2.macs(args) == 2 * 128 * (512 + 384) * 512
-    assert mix2.l2_bytes(args) == 2 * 4 * (512 + 384) * 512
+    assert mix2.reference.l2_bytes(args) == 2 * 4 * (512 + 384) * 512
+    for case in mp.SYNC_CASES:
+        new = CASES[case.name[:-len("_sync")]]
+        assert new.reference is case
+        assert new.l2_bytes(args) * 8 <= case.l2_bytes(args)
     assert CASES["shoup_x8"].macs(args) == 0
     L, W_ = ke.e2_inputs("cpu")
     assert ke.E2.macs((L, W_)) == 2 * 128 * 512 * 128
@@ -222,18 +233,18 @@ def test_sass_loops_counts_imma_under_tensor():
 
 
 def test_missing_ops_and_mma_drift_find_a_lost_imma():
-    case = CASES["matmul_512x512"]
+    case = CASES["matmul_512x512"].reference  # the mma.sync kernel
     table = {case.kernel: ("mxu_probe", ("16mxu_probe_kernelILi0E",), None)}
     funcs = {"mxu_probe": sass_loops.parse(SASS)}
     assert h.missing_ops([case], table, funcs.__getitem__) == []
     gone = {"mxu_probe": sass_loops.parse(
         SASS.replace("IMMA.16832.S8.S8", "MOV"))}
     assert h.missing_ops([case], table, gone.__getitem__) == [
-        ("matmul_512x512", ("IMMA",))]
+        ("matmul_512x512_sync", ("IMMA",))]
     # the listing's body holds 2 mma, the kernel's 8: a quarter issued
     args = mp.tiles("cpu")
     assert h.mma_drift([case], table, "cpu", funcs.__getitem__) == [
-        ("matmul_512x512", case.macs(args) // 4, case.macs(args))]
+        ("matmul_512x512_sync", case.macs(args) // 4, case.macs(args))]
     eight = SASS.replace(
         "        /*0050*/", "".join(
             f"        /*004{i}*/                   IMMA.16832.S8.S8 R{20 + i},"
@@ -260,3 +271,65 @@ def test_entry_point_needs_a_gpu(mod, monkeypatch):
         mod.run_all(quick=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main([])
+
+
+WG_SASS = """
+        Function : _ZN12_GLOBAL__N_116mxu_probe_kernelILi0EEEvNS_9ProbeArgsE
+        /*0000*/                   MOV R0, RZ ;
+        /*0010*/                   LDS R2, [R0] ;
+        /*0020*/                   WARPGROUP.ARRIVE ;
+        /*0030*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24, gsb0 ;
+        /*0040*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR8], R24, gsb0 ;
+        /*0050*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR12], R24, gsb0 ;
+        /*0060*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR16], R24, gsb0 ;
+        /*0070*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0080*/                   ISETP.GE.AND P0, PT, R0, R7, PT ;
+        /*0090*/              @!P0 BRA 0x20 ;
+        /*00a0*/                   HGMMA.64x8x16.F16 RZ, gdesc[URZ], RZ, !UPT, gsb0 ;
+        /*00b0*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*00c0*/                   LOP3.LUT R20, R24, R25, RZ, 0x3c, !PT ;
+        /*00d0*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*00e0*/                   ISETP.GE.AND P1, PT, R1, R6, PT ;
+        /*00f0*/              @!P1 BRA 0x10 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_sass_loops_counts_igmma_under_tensor():
+    """A wgmma (IGMMA, its shape in the opcode) is counted in the loop's
+    ``tensor`` column, not on the ALU pipe, with the MACs of its shape;
+    an mma.sync keeps 16 * 8 * 32; the commit's HGMMA into RZ counts no
+    MAC."""
+    (name, ins), = sass_loops.parse(WG_SASS).items()
+    inner, outer = sorted(sass_loops.loops(ins), key=lambda r: r["nested"])
+    assert (inner["alu"], inner["fma"], inner["tensor"]) == (0, 0, 4)
+    assert inner["tensor_ops"] == ["IGMMA.64x128x32.S8.S8"] * 4
+    # the commit (an HGMMA into RZ) is a tensor instruction of no product
+    assert outer["tensor"] == 1 and outer["tensor_ops"] == []
+    assert h.macs_of("IGMMA.64x128x32.S8.S8") == 64 * 128 * 32
+    assert h.macs_of("IGMMA.64x256x32.S8.S8") == 64 * 256 * 32
+    assert h.macs_of("IMMA.16832.S8.S8") == h.MACS_PER_MMA == 16 * 8 * 32
+
+
+def test_missing_ops_and_mma_drift_find_a_lost_igmma():
+    """The wgmma case names IGMMA; a listing whose loop lost it is found
+    by ``missing_ops``, and one whose body issues 3 of its 4 wgmma by
+    ``mma_drift`` (two tiles on the CPU: 64 bodies a trip)."""
+    case = CASES["matmul_512x512"]
+    assert case.required == ("IGMMA",)
+    table = {case.kernel: ("mxu_probe", ("16mxu_probe_kernelILi0E",), None)}
+    funcs = {"mxu_probe": sass_loops.parse(WG_SASS)}
+    args = mp.tiles("cpu")
+    assert h.missing_ops([case], table, funcs.__getitem__) == []
+    assert h.mma_drift([case], table, "cpu", funcs.__getitem__) == []
+    gone = {"mxu_probe": sass_loops.parse(WG_SASS.replace("IGMMA", "MOV"))}
+    assert h.missing_ops([case], table, gone.__getitem__) == [
+        ("matmul_512x512", ("IGMMA",))]
+    three = {"mxu_probe": sass_loops.parse(WG_SASS.replace(
+        "IGMMA.64x128x32.S8.S8 R24, gdesc[UR16], R24, gsb0", "NOP"))}
+    assert h.mma_drift([case], table, "cpu", three.__getitem__) == [
+        ("matmul_512x512", case.macs(args) * 3 // 4, case.macs(args))]
+    # an IMMA listing does not stand for the wgmma case
+    imma = {"mxu_probe": sass_loops.parse(SASS)}
+    assert h.missing_ops([case], table, imma.__getitem__) == [
+        ("matmul_512x512", ("IGMMA",))]

@@ -244,15 +244,29 @@ def test_cpu_tensors_take_plain_versions():
 
 def test_units_and_macs():
     """mm1_rows256/512 count 2 and 4 transforms a polynomial, and issue
-    their MACs; every product reads its table once a polynomial."""
+    their MACs (the wgmma kernel in 4-wgmma m64n256k32 bodies); the
+    mma.sync references read their table once a polynomial-trip, the
+    wgmma kernel once a launch: at most 1/8 of that."""
     (x,) = nm.residues("cpu")
     by = CASES
     assert by["mm1_rows512"].units((x,)) == 4 * x.shape[0]
     assert by["mm1_rows512"].macs((x,)) == 4 * by["mm1_only"].macs((x,))
     assert by["v3_fwd_mxu"].macs((x,)) == x.shape[0] * 16 * 512 * 512
     assert by["v4_fwd_mxu"].macs((x,)) == x.shape[0] * 16 * 384 * 512
-    assert by["v4_fwd_mxu"].l2_bytes((x,)) == x.shape[0] * 384 * 512
+    assert by["v4_fwd_mxu"].reference.l2_bytes((x,)) == \
+        x.shape[0] * 384 * 512
     assert by["split4_only"].macs((x,)) == 0
+    polys = 4 * x.shape[0]  # the kernel takes a multiple of its 4
+    y = x.repeat(4, 1)
+    for c in by.values():
+        if c.reference is None:
+            continue
+        assert c.mma_trips((y,)) * 4 * 64 * 256 * 32 == c.macs((y,))
+        assert c.reference.macs((y,)) == c.macs((y,))
+        assert c.l2_bytes((y,)) * 8 <= c.reference.l2_bytes((y,))
+        assert c.l2_bytes((y,)) == polys * (
+            nm.K[c.kernel.split("_")[0] if c.kernel.startswith("mm")
+                 else c.kernel] * 128 + 2 * 2048 * 4) / 256
 
 
 def test_entry_point_needs_a_gpu(monkeypatch):

@@ -43,18 +43,40 @@
 // Every reduction is the JAX formula (approx _shoup, _condsub_wide,
 // _mul_hi as __umulhi), so each equals its plain version exactly.
 //
-// Design: the int8 table (192 or 256 KiB) does not fit beside the data in
-// the share of shared memory a block gets, so its B fragments are read
-// from the wrapper's column-major copy through L2: the whole table a
-// polynomial-trip (the row's l2_bytes). Each of the 16 warps owns lanes
-// 8w .. 8w + 7 of the four column blocks, so a thread holds U_0 .. U_3 of
-// one (row, lane) and the pair fold and recombination run in registers.
-// Bound: the int8 tensor cores, or L2 (one table read a polynomial), or
-// the INT32 glue (the stages, splits and reductions).
+// Design (every op with a product: ntt_mxu_kernel, on wgmma; wgmma_int8.cuh):
+// the int8 table (192 or 256 KiB) does not fit beside the data in a
+// block's 227 KB, so a cluster of two CTAs holds it: rank h keeps the
+// K-major slice of column blocks 2h and 2h + 1 (96 or 128 KiB), the pair
+// the pair fold joins, laid out swizzled by the wrapper and copied once per
+// launch by the TMA under an mbarrier: the table is read from device
+// memory once per CTA, not once per polynomial-trip (the kept design, not
+// the fallback ring). Each CTA owns two
+// polynomials (8 KiB each in shared memory); the cluster's four are one
+// m64 row tile: rows 16 (2h + p) + r. Per trip each CTA runs its stages,
+// splits its polynomials into int8 limbs and writes those rows of A (one
+// K-block per limb) into both CTAs (distributed shared memory); a cluster
+// barrier; one warpgroup multiplies the tile by the CTA's slice (m64n256k32
+// s8 -> s32: U_2h and U_2h+1 of a (row, lane) in one thread) and folds the
+// pair into this CTA's term of the recombination (r0 or r1, the twiddled
+// half, V0 or V1, or MM's partial sum); a polynomial's owner keeps its
+// term, the other CTA sends its own to the owner's receive buffer (only
+// folded values cross); a second cluster barrier, the owner combines the
+// two terms and runs the remaining stages. Within a trip every stage
+// waits on the product before or after it, so the INT32 work does not run
+// beside the tensor cores here (the other CTAs of the card do). Bound: the
+// int8 tensor cores or the INT32 glue (the stages, splits and reductions).
+// ntt_mxu_kernel_sync is the first, mma.sync design, kept for the two ops
+// without a product (SPLIT4, V4_SPLIT4) and as every other op's reference
+// (ntt_mxu_sync): one polynomial a block, B fragments read from the
+// wrapper's column-major copy through L2, the whole table a
+// polynomial-trip. Each of the 16 warps owns lanes 8w .. 8w + 7 of the
+// four column blocks, so a thread holds U_0 .. U_3 of one (row, lane) and
+// the pair fold and recombination run in registers.
 
 #include "mma_int8.cuh"
 #include "ntt_common.cuh"
 #include "probe_stages.cuh"
+#include "wgmma_int8.cuh"
 
 namespace {
 
@@ -229,7 +251,7 @@ __device__ void product(uint32_t* x, const int8_t* A, const MxuArgs& a,
 // accumulators a thread)
 template <int Op, int MT>
 __global__ void __launch_bounds__(kThreads, MT > 2 ? 1 : 2)
-ntt_mxu_kernel(MxuArgs a) {
+ntt_mxu_kernel_sync(MxuArgs a) {
     __shared__ __align__(16) uint32_t x[kN];
     __shared__ __align__(16) int8_t A[kRows * kLda];
     const long long base = (long long)blockIdx.x * kN;
@@ -281,17 +303,292 @@ ntt_mxu_kernel(MxuArgs a) {
 
 template <int Op, int MT = 1>
 int launch(int blocks, void* stream, const MxuArgs& a) {
-    ntt_mxu_kernel<Op, MT><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
+    ntt_mxu_kernel_sync<Op, MT><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the wgmma design (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kCluster = 2;    // CTAs a cluster: one pair of column blocks each
+constexpr int kWgThreads = 256;
+constexpr int kPolys = 2;      // polynomials a CTA
+constexpr int kMRows = kCluster * kPolys * kRows;  // 64: the cluster's m64 tile
+constexpr int kNp = 256;       // columns of U a CTA (its pair)
+
+// int8 limbs (K-blocks of A) the split writes; the x-as-int8 products
+// read their one K-block 3 times along k
+__host__ __device__ constexpr int limbs_of(int op) {
+    return op == V4_FOLD || op == V4_FWD_NOSPLIT ? 1 : op == V4_FWD ? 3 : 4;
+}
+__host__ __device__ constexpr bool is_mm(int op) {
+    return op == MM4 || op == MM1;
+}
+
+// dynamic shared memory of ntt_mxu_kernel<op>: A (the cluster's 64 rows),
+// the CTA's table slice, its polynomials and the receive buffer, the
+// mbarrier, room to align to 1024 bytes
+__host__ __device__ constexpr int wg_smem(int op) {
+    return limbs_of(op) * kMRows * 128 + k_of(op) * kNp
+           + 2 * kPolys * kN * 4 + 16 + 1024;
+}
+
+// MM1's sums over (copy, column block) (ntt_v3c_experiments.py:283-302;
+// copies 1: every block of the one copy)
+__device__ __forceinline__ bool picked(int copies, int copy, int j) {
+    if (copies == 2)
+        return (copy == 0 && j < 2) || (copy == 1 && (j == 0 || j == 3));
+    if (copies == 4)
+        return (j == 0 && copy < 2) || (copy == 2 && j == 1)
+               || (copy == 3 && j == 3);
+    return true;
+}
+
+// this CTA's term of element (row r, lane c) from its pair's U_lo, U_hi
+// (rank 0: column blocks 0, 1; rank 1: 2, 3)
+template <int Op>
+__device__ __forceinline__ uint32_t term(int lo, int hi, uint32_t rank,
+                                         int r, int c, const MxuArgs& a) {
+    const uint32_t v = mma8::pair_fold(lo, hi);
+    if (Op == V4_FOLD) return v;
+    if (Op == V4_FWD || Op == V4_FWD_NOSPLIT) {
+        const uint32_t* tw = a.tw + r * 128 + c + 2 * rank * kN;
+        return shoup_approx(v, __ldg(tw), __ldg(tw + kN), a.p);
+    }
+    if (rank == 1) return shoup_approx(v, a.c16, a.c16_sh, a.p);
+    if (Op == V4_INV)  // _inv_ntt_v4's approx Barrett fold
+        return mma8::condsub_wide(v - mma8::mulhi_approx(v, a.one_sh) * a.p,
+                                  2 * a.p);
+    return v - __umulhi(v, a.one_sh) * a.p;  // the exact _mul_hi
+}
+
+// element (r, c)'s output from the two CTAs' terms (for MM: t0 + t1 + x)
+template <int Op>
+__device__ __forceinline__ uint32_t combine(uint32_t t0, uint32_t t1, int r,
+                                            int c, const MxuArgs& a) {
+    const uint32_t p2 = 2 * a.p;
+    if (is_mm(Op)) return t0 + t1;
+    if (Op == V4_FOLD) return t0 ^ t1;
+    uint32_t s = condsub(t0 + t1, p2);
+    if (Op == V4_FWD || Op == V4_FWD_NOSPLIT)
+        return condsub(s + __ldg(a.tw + 4 * kN + r * 128 + c), p2);
+    if (Op == V3_FWD || Op == V3_INV) {
+        s = condsub(s + __ldg(a.bias + c), p2);
+        return Op == V3_INV ? condsub(s, a.p) : s;
+    }
+    s = condsub(s + __ldg(a.bias + c), p2);
+    return condsub(s, a.p);
+}
+
+template <int Op, int Copies>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(kWgThreads, 1) ntt_mxu_kernel(MxuArgs a) {
+    extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+    constexpr int K = k_of(Op), NL = limbs_of(Op);
+    const uint32_t raw = wg::smem_u32(wg_smem_raw);
+    const uint32_t A = (raw + 1023) & ~1023u;
+    const uint32_t Wt = A + NL * kMRows * 128;
+    const uint32_t Xa = Wt + K * kNp, Ra = Xa + kPolys * kN * 4;
+    const uint32_t bar = Ra + kPolys * kN * 4;
+    uint32_t* x = reinterpret_cast<uint32_t*>(wg_smem_raw + (Xa - raw));
+    const uint32_t* R = x + kPolys * kN;
+    const uint32_t rank = wg::cluster_rank(), peer = rank ^ 1;
+    const probe::OnePrime prime{a.p};
+    wg::load_init(bar);
+    if (threadIdx.x == 0) {
+        wg::load_expect(bar, K * kNp);
+        wg::load_copy(Wt, a.bt + rank * K * kNp, K * kNp, bar);
+    }
+    const long long base = (long long)blockIdx.x * kPolys * kN;
+    for (int i = threadIdx.x; i < kPolys * kN; i += blockDim.x)
+        x[i] = a.x_in[base + i];
+    int acc[128];
+    #pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    uint32_t junk = 0;
+    wg::load_wait(bar);
+    wg::cluster_sync<false>();  // x whole; every CTA of the cluster runs before any DSMEM access
+    #pragma unroll 1
+    for (int t = 0; t < a.loops; ++t) {
+        if (Op == V3_FWD) {
+            probe::twist<1, 1>(x, kPolys, kLogN, a.plan, brk::T_TW, prime);
+            probe::fwd_stages<1, 1>(x, kPolys, kLogN, 0, kLogN - 7, a.plan,
+                                    prime);
+        } else if (Op == V4_INV) {
+            for (int p = 0; p < kPolys; ++p) group_stages<true>(x + p * kN, a);
+            #pragma unroll 1
+            for (int i = threadIdx.x; i < kPolys * kN; i += blockDim.x) {
+                const int e = i & (kN - 1);
+                x[i] = condsub(shoup_approx(x[i], __ldg(a.tw + e),
+                                            __ldg(a.tw + kN + e), a.p), a.p);
+            }
+            __syncthreads();
+        }
+        // A: this CTA's rows 16 (2 rank + p) + r, K-block j = limb j, in
+        // both CTAs; thread: (polynomial p, row r, 16 lanes from 16 cc)
+        {
+            const int p = threadIdx.x >> 7, r = (threadIdx.x >> 3) & 15;
+            const int cc = threadIdx.x & 7;
+            const uint32_t* src = x + p * kN + r * 128 + 16 * cc;
+            uint32_t w[NL][4];
+            #pragma unroll
+            for (int j = 0; j < NL; ++j)
+                #pragma unroll
+                for (int q = 0; q < 4; ++q) w[j][q] = 0;
+            #pragma unroll
+            for (int e = 0; e < 16; ++e) {
+                const uint32_t v = src[e];
+                int8_t d[4];
+                if (Op == V4_FOLD || Op == V4_FWD_NOSPLIT) {
+                    d[0] = (int8_t)(v & 0xFF);
+                } else if (Op == V4_FWD) {
+                    // v4_fwd: (x & 0x3FFFFF) - 2^21 + in_offset (2^22)
+                    const int u = (int)(v & 0x3FFFFFu) - (1 << 21) + (1 << 22);
+                    #pragma unroll
+                    for (int j = 0; j < 3; ++j) d[j] = mma8::offset_limb(u, j);
+                } else if (Op == MM4) {
+                    mma8::split4_balanced((int)condsub(v, a.p), d);
+                } else {
+                    const int u = (int)condsub(v, a.p);
+                    #pragma unroll
+                    for (int j = 0; j < 4; ++j) d[j] = mma8::offset_limb(u, j);
+                }
+                #pragma unroll
+                for (int j = 0; j < NL; ++j)
+                    w[j][e >> 2] |= (uint32_t)(uint8_t)d[j] << (8 * (e & 3));
+            }
+            const int row = kRows * (kPolys * rank + p) + r;
+            const uint32_t off = wg::swz(row * 128 + 16 * cc);
+            #pragma unroll
+            for (int j = 0; j < NL; ++j)
+                #pragma unroll
+                for (int dst = 0; dst < kCluster; ++dst)
+                    wg::st_cluster(wg::mapa(A + j * kMRows * 128 + off, dst),
+                                   make_uint4(w[j][0], w[j][1], w[j][2],
+                                              w[j][3]));
+        }
+        wg::cluster_sync<true>();
+        // the first warpgroup: A [64, K] @ this CTA's [K, 256] (Copies
+        // times: MM1's repeated rows, every MAC issued), then per (row,
+        // lane) this CTA's term; warp w holds polynomial w of the tile
+        if (threadIdx.x < 128) {
+            const int slot = threadIdx.x >> 5, pl = slot & 1;
+            const bool own = (slot >> 1) == (int)rank;
+            uint32_t part[64];
+            #pragma unroll
+            for (int i = 0; i < 64; ++i) part[i] = 0;
+            #pragma unroll 1
+            for (int copy = 0; copy < Copies; ++copy) {
+                wg::fence();
+                #pragma unroll 1
+                for (int kb = 0; kb < K / 128; ++kb) {
+                    const uint32_t akb = NL == 1 ? 0 : kb;
+                    #pragma unroll
+                    for (int k = 0; k < 4; ++k)
+                        wg::mma_n256(acc,
+                                     wg::desc(A + akb * kMRows * 128 + 32 * k),
+                                     wg::desc(Wt + kb * kNp * 128 + 32 * k),
+                                     kb | k);
+                }
+                wg::commit();
+                wg::wait_all();
+                wg::fence_acc(acc);
+                if (is_mm(Op)) {
+                    const bool pl_ = picked(Copies, copy, 2 * rank);
+                    const bool ph_ = picked(Copies, copy, 2 * rank + 1);
+                    #pragma unroll
+                    for (int i = 0; i < 64; ++i) {
+                        const uint32_t lo = acc[i], hi = acc[i + 64];
+                        part[i] += (pl_ ? lo : 0u) + (ph_ ? hi : 0u);
+                        junk ^= (pl_ ? 0u : lo) ^ (ph_ ? 0u : hi);
+                    }
+                }
+            }
+            const uint32_t dst = wg::mapa(Ra + 4 * pl * kN, peer);
+            #pragma unroll
+            for (int i = 0; i < 64; i += 2) {
+                const int r = wg::acc_row(i) & 15, c = wg::acc_col(i);
+                uint32_t v0, v1;
+                if (is_mm(Op)) {
+                    v0 = part[i];
+                    v1 = part[i + 1];
+                } else {
+                    v0 = term<Op>(acc[i], acc[i + 64], rank, r, c, a);
+                    v1 = term<Op>(acc[i + 1], acc[i + 65], rank, r, c + 1, a);
+                }
+                uint32_t* o = x + pl * kN + r * 128 + c;
+                if (own) {
+                    o[0] = is_mm(Op) ? v0 + o[0] : v0;
+                    o[1] = is_mm(Op) ? v1 + o[1] : v1;
+                } else {
+                    wg::st_cluster(dst + 4 * (r * 128 + c), v0, v1);
+                }
+            }
+        }
+        wg::cluster_sync<false>();
+        #pragma unroll 1
+        for (int i = threadIdx.x; i < kPolys * kN; i += blockDim.x) {
+            const int r = (i >> 7) & 15, c = i & 127;
+            x[i] = rank == 0 ? combine<Op>(x[i], R[i], r, c, a)
+                             : combine<Op>(R[i], x[i], r, c, a);
+        }
+        __syncthreads();
+        if (Op == V3_INV) {
+            probe::inv_stages<1, 1>(x, kPolys, kLogN, 0, kLogN - 7, a.plan,
+                                    prime);
+            probe::twist<1, 1>(x, kPolys, kLogN, a.plan, brk::T_UTW, prime);
+        } else if (Op == V4_FWD || Op == V4_FWD_NOSPLIT) {
+            for (int p = 0; p < kPolys; ++p) group_stages<false>(x + p * kN, a);
+        }
+    }
+    for (int i = threadIdx.x; i < kPolys * kN; i += blockDim.x)
+        a.x_out[base + i] = x[i];
+    if (a.sink) a.x_out[base + threadIdx.x] = junk;
+}
+
+template <int Op, int Copies = 1>
+int launch_wg(int blocks, void* stream, const MxuArgs& a) {
+    const auto kernel = ntt_mxu_kernel<Op, Copies>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem(Op));
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kWgThreads, wg_smem(Op), (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int Op, int Copies = 1>
+int occupancy(int* out) {
+    const auto kernel = ntt_mxu_kernel<Op, Copies>;
+    const int smem = wg_smem(Op);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes fa;
+    if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess)
+        return (int)err;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.localSizeBytes;
+    out[2] = smem;
+    out[3] = kCluster;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &out[4], kernel, kWgThreads, smem)) != cudaSuccess)
+        return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(264);
+    cfg.blockDim = dim3(kWgThreads);
+    cfg.dynamicSmemBytes = smem;
+    return (int)cudaOccupancyMaxActiveClusters(&out[5], kernel, &cfg);
 }
 
 }  // namespace
 
-// x_in/x_out: u32 [polys, 2048]; bt: int8 [512][K] (the table transposed:
+// ntt_mxu_sync (every op, the mma.sync kernel): x_in/x_out: u32 [polys, 2048];
+// bt: int8 [512][K] (the table transposed:
 // K = 384 for the v4 forward products, else 512); bias: u32 [128]; plan:
 // u32 [8][2048] (v3 ops); tw, gw: the v4 twiddles (v4 ops); copies: the
 // rows' copies of MM1 (1, 2 or 4); sink must be 0.
-extern "C" int ntt_mxu(const void* x_in, void* x_out, const void* bt,
+extern "C" int ntt_mxu_sync(const void* x_in, void* x_out, const void* bt,
                        const void* bias, const void* plan, const void* tw,
                        const void* gw, int polys, int op, int copies,
                        unsigned p, unsigned one_sh, unsigned c16,
@@ -318,6 +615,62 @@ extern "C" int ntt_mxu(const void* x_in, void* x_out, const void* bt,
         case V4_FWD: return launch<V4_FWD>(polys, stream, a);
         case V4_FWD_NOSPLIT: return launch<V4_FWD_NOSPLIT>(polys, stream, a);
         case V4_INV: return launch<V4_INV>(polys, stream, a);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// ntt_mxu (the ops with a product, on wgmma, ntt_mxu_kernel): the
+// arguments of ntt_mxu_sync, but bt is the table's cluster image, int8
+// [2][K][256], rank h's slice the K-major swizzled columns 256 h .. 256 h
+// + 255 (tools/_wgmma.py), and polys a multiple of 4 (two CTAs of two).
+extern "C" int ntt_mxu(const void* x_in, void* x_out, const void* bt,
+                       const void* bias, const void* plan, const void* tw,
+                       const void* gw, int polys, int op, int copies,
+                       unsigned p, unsigned one_sh, unsigned c16,
+                       unsigned c16_sh, int loops, int sink, void* stream) {
+    const MxuArgs a{(const uint32_t*)x_in, (uint32_t*)x_out,
+                    (const int8_t*)bt, (const uint32_t*)bias,
+                    (const uint32_t*)plan, (const uint32_t*)tw,
+                    (const uint32_t*)gw, (uint32_t)p, (uint32_t)one_sh,
+                    (uint32_t)c16, (uint32_t)c16_sh, loops, sink};
+    if (polys % (kCluster * kPolys) || (copies != 1 && op != MM1))
+        return (int)cudaErrorInvalidValue;
+    const int blocks = polys / kPolys;
+    switch (op) {
+        case V3_FWD: return launch_wg<V3_FWD>(blocks, stream, a);
+        case V3_INV: return launch_wg<V3_INV>(blocks, stream, a);
+        case MM4: return launch_wg<MM4>(blocks, stream, a);
+        case MM1:
+            if (copies == 2) return launch_wg<MM1, 2>(blocks, stream, a);
+            if (copies == 4) return launch_wg<MM1, 4>(blocks, stream, a);
+            if (copies == 1) return launch_wg<MM1>(blocks, stream, a);
+            break;
+        case V4_FOLD: return launch_wg<V4_FOLD>(blocks, stream, a);
+        case V4_INV_MMR: return launch_wg<V4_INV_MMR>(blocks, stream, a);
+        case V4_FWD: return launch_wg<V4_FWD>(blocks, stream, a);
+        case V4_FWD_NOSPLIT: return launch_wg<V4_FWD_NOSPLIT>(blocks, stream, a);
+        case V4_INV: return launch_wg<V4_INV>(blocks, stream, a);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// ntt_mxu_kernel<op, copies>' registers, local bytes a thread, dynamic
+// shared memory, cluster size, resident blocks per SM and clusters on the
+// card into out[0..5]; 0 or the CUDA error
+extern "C" int ntt_mxu_occupancy(int op, int copies, int* out) {
+    switch (op) {
+        case V3_FWD: return occupancy<V3_FWD>(out);
+        case V3_INV: return occupancy<V3_INV>(out);
+        case MM4: return occupancy<MM4>(out);
+        case MM1:
+            if (copies == 2) return occupancy<MM1, 2>(out);
+            if (copies == 4) return occupancy<MM1, 4>(out);
+            return occupancy<MM1>(out);
+        case V4_FOLD: return occupancy<V4_FOLD>(out);
+        case V4_INV_MMR: return occupancy<V4_INV_MMR>(out);
+        case V4_FWD: return occupancy<V4_FWD>(out);
+        case V4_FWD_NOSPLIT: return occupancy<V4_FWD_NOSPLIT>(out);
+        case V4_INV: return occupancy<V4_INV>(out);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,9 @@ otherwise (a constant load clears them). Index arithmetic, loads, stores,
 branches and barriers are left out. IMAD in all its forms runs on the FMA pipe; every other integer
 instruction (IADD3, ISETP, SEL, LOP3, SHF, LEA, VIADD, ...) on the ALU
 pipe, but the tensor-core instructions (``TENSOR``: IMMA, HMMA, HGMMA,
-IGMMA), which each loop counts apart as ``tensor``, data or not.
+IGMMA), which each loop counts apart as ``tensor``, data or not, and
+lists in ``tensor_ops`` when they write a register (a ``wgmma``
+commit compiles to an HGMMA into RZ, which issues no product).
 IMAD.HI and IMAD.WIDE take more than one issue slot of the FMA pipe
 (``FMA_DOUBLE``): on an H100 a stream of them issues at 0.43-0.47 of
 IMAD's rate, 2.2-2.3 slots each (``tools.vpu_primitives``' ``mul_hi`` and
@@ -36,7 +38,7 @@ from __future__ import annotations
 import re
 import sys
 
-_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)"
                   r"\s*(.*?)\s*;")
 _REG = re.compile(r"\b(U?R\d+|U?P\d+)\b")
 _LOADS = ("LDS", "LDG", "LD", "LDSM")
@@ -136,6 +138,9 @@ def loops(ins: list) -> list:
                     "instructions": len(body), "alu": alu, "fma": fma,
                     "fma_slots": fma + (DOUBLE_SLOTS - 1) * double,
                     "flex": flex, "tensor": tensor,
+                    "tensor_ops": [x[2] for x in body
+                                   if x[2].startswith(TENSOR)
+                                   and not x[3].startswith("RZ")],
                     "lds": count("LDS"), "sts": count("STS"),
                     "ldg": count("LDG")})
     return out

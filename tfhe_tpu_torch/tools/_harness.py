@@ -50,16 +50,21 @@ class Case:
     ``macs(args)``: the int8 multiply-adds per trip over all inputs (None:
     an INT32 case), ``mma_trips(args)``: the runs per trip of the loop
     bodies that hold the kernel's ``mma`` instructions, over all blocks and
-    warps (every such body holds as many), ``l2_bytes(args)``: the bytes a
+    warps (``mma.sync``) or warpgroups (``wgmma``; every such body holds
+    as many), ``l2_bytes(args)``: the bytes a
     trip reads through L2 (a table streamed by every block);
     ``more_checks``: more (inputs(device), trips) comparisons, on values the
-    first cannot fail on (an accumulator that must wrap)."""
+    first cannot fail on (an accumulator that must wrap); ``mma``: the
+    tensor-core instruction the row names; ``reference``: the case of the
+    same function on an earlier kernel (a ``_sync`` reference), checked
+    before the row and timed with it in turns (ref, case, case, ref)."""
 
     def __init__(self, name, *, replaces, mirrors, kernel, launch, plain,
                  inputs, units, unit, required, trips, check=3,
                  check_inputs=None, divisor=1, pipes=None, library=None,
                  extra=None, note="", macs=None, mma_trips=None,
-                 l2_bytes=None, more_checks=()):
+                 l2_bytes=None, more_checks=(),
+                 mma="mma.sync.m16n8k32.s8", reference=None):
         self.name, self.replaces, self.mirrors = name, replaces, mirrors
         self.kernel, self._launch, self.plain = kernel, launch, plain
         self.inputs, self.units, self.unit = inputs, units, unit
@@ -70,6 +75,7 @@ class Case:
         self.macs = macs or (lambda args: 0)
         self.mma_trips, self.l2_bytes = mma_trips, l2_bytes
         self.more_checks = more_checks
+        self.mma, self.reference = mma, reference
         self.launches = 0
 
     def __call__(self, *args, **kw):
@@ -104,6 +110,18 @@ def glue_pipes(elements):
         inner = [r for r in loops if r["nested"] == 0 and not r["tensor"]
                  and (r["alu"] + r["fma"])]
         return tuple(elements(args) * sum(r[k] for r in inner)
+                     for k in ("alu", "fma_slots", "flex"))
+    return pipes
+
+
+def thread_pipes(threads):
+    """A ``Case.pipes`` of a kernel whose trip runs the body of each of its
+    loops once in every thread (``threads(args)`` a trip; the loops that
+    hold its products run per warpgroup and carry no INT32 data
+    instructions): (ALU, FMA, flex) summed over its loops, times the
+    threads."""
+    def pipes(loops, args):
+        return tuple(threads(args) * sum(r[k] for r in loops)
                      for k in ("alu", "fma_slots", "flex"))
     return pipes
 
@@ -202,12 +220,28 @@ def missing_ops(cases, table: dict, funcs_of=_funcs) -> list:
 MACS_PER_MMA = 16 * 8 * 32
 
 
+def macs_of(opcode: str) -> int:
+    """The multiply-adds of one tensor-core instruction, from the shape in
+    its SASS opcode: ``IGMMA.64x128x32...`` (wgmma: M x N x K), or
+    ``IMMA.16832...`` / ``HMMA.1688...`` (mma.sync: m16, n8, then K)."""
+    import re
+
+    m = re.search(r"\.(\d+)x(\d+)x(\d+)", opcode)
+    if m:
+        return int(m.group(1)) * int(m.group(2)) * int(m.group(3))
+    m = re.search(r"\.16(8)(\d+)", opcode)
+    if m:
+        return 16 * 8 * int(m.group(2))
+    raise ValueError(f"no shape in tensor-core opcode {opcode!r}")
+
+
 def mma_drift(cases, table: dict, device="cpu", funcs_of=_funcs) -> list:
     """The int8 cases whose SASS does not issue every MAC the case counts:
-    the tensor-core instructions of each loop body that holds them, times
-    ``mma_trips``, times :data:`MACS_PER_MMA`, against ``macs`` (a body
-    the compiler cut short, or bodies of unequal size): [(case, MACs the
-    SASS issues a trip or None, MACs counted)]."""
+    the MACs of the tensor-core instructions of each loop body that holds
+    them (each instruction's from its shape, :func:`macs_of`), times
+    ``mma_trips``, against ``macs`` (a body the compiler cut short, or
+    bodies of unequal MACs): [(case, MACs the SASS issues a trip or None,
+    MACs counted)]."""
     from .. import sass_loops
 
     out = []
@@ -216,8 +250,9 @@ def mma_drift(cases, table: dict, device="cpu", funcs_of=_funcs) -> list:
             continue
         args = c.inputs(device)
         loops = sass_loops.loops(kernel_function(table, c.kernel, funcs_of))
-        per_body = {r["tensor"] for r in loops if r["tensor"]}
-        issued = (per_body.pop() * c.mma_trips(args) * MACS_PER_MMA
+        per_body = {sum(macs_of(op) for op in r["tensor_ops"])
+                    for r in loops if r["tensor_ops"]}
+        issued = (per_body.pop() * c.mma_trips(args)
                   if len(per_body) == 1 else None)
         if issued != c.macs(args):
             out.append((c.name, issued, c.macs(args)))
@@ -263,8 +298,17 @@ def row(case, args, table: dict, iters: int = 3) -> dict:
     bound (in issue slots) over the time (``int32_fraction``)."""
     lo, hi = case.trips
     units = case.units(args)
-    per = kb._time_delta(lambda k: case(*args, k), lo, hi, units, case.name,
-                         1e-16, 1e-6, iters)
+
+    def per_unit(c):
+        return kb._time_delta(lambda k: c(*args, k), lo, hi, units, c.name,
+                              1e-16, 1e-6, iters)
+
+    ref = case.reference
+    if ref is None:
+        per = per_unit(case)
+    else:  # in turns: ref, case, case, ref
+        turns = [per_unit(c) for c in (ref, case, case, ref)]
+        per = (turns[1] + turns[2]) / 2
     rates = kb.card_rates(args[0].device.index or 0)
     loops = kernel_loops(table, case.kernel)
     alu, slots, flex = case.pipes(loops, args)
@@ -283,7 +327,13 @@ def row(case, args, table: dict, iters: int = 3) -> dict:
     if macs:
         out.update(int8_macs_per_loop=macs, int8_mac_per_s=macs / units / per,
                    int8_tensor_fraction=macs / units / per / rates["int8_mac"],
-                   mma="mma.sync.m16n8k32.s8")
+                   mma=case.mma)
+    if ref is not None:
+        out.update(ps_per_unit_turns=[turns[1] * 1e12, turns[2] * 1e12],
+                   sync_ps_per_unit=(turns[0] + turns[3]) / 2 * 1e12,
+                   sync_ps_per_unit_turns=[turns[0] * 1e12, turns[3] * 1e12],
+                   sync_mma=ref.mma,
+                   speedup_over_sync=(turns[0] + turns[3]) / 2 / per)
     if case.l2_bytes is not None:
         out["l2_bytes_per_loop"] = case.l2_bytes(args)
         out["l2_bytes_per_s"] = case.l2_bytes(args) / units / per
@@ -304,9 +354,9 @@ def cpu_row(case, args) -> dict:
 
 
 def iter_rows(cases, table: dict, device=None, iters: int = 3):
-    """Every case's row on its seeded inputs; on the GPU each case is held
-    against its plain version on its check inputs first. Nothing is
-    caught."""
+    """Every case's row on its seeded inputs; on the GPU each case (and its
+    reference) is held against its plain version on its check inputs
+    first. Nothing is caught."""
     dev = resolve_device(device)
     for c in cases:
         args = c.inputs(dev)
@@ -314,6 +364,8 @@ def iter_rows(cases, table: dict, device=None, iters: int = 3):
             yield cpu_row(c, args)
             continue
         check(c, c.check_inputs(dev))
+        if c.reference is not None:
+            check(c.reference, c.check_inputs(dev))
         yield row(c, args, table, iters)
 
 

@@ -1,6 +1,14 @@
 """The tensor-core transform cases of the probes (``csrc/ntt_mxu.cu``):
-their plain versions, the kernel's wrapper and the ``Case`` builders that
+their plain versions, the kernels' wrappers and the ``Case`` builders that
 ``ntt_variants``, ``ntt_v3c_experiments`` and ``v4_probe`` list.
+
+The ops with a product run ``ntt_mxu_kernel`` on ``wgmma``: a cluster of
+two CTAs of two polynomials each, CTA h holding column blocks 2h and
+2h + 1 of the table, copied once per launch (``tools/_wgmma.py`` mirrors
+the layout, the split and the exchange). Each is timed in turns with its
+``_sync`` reference, the first, ``mma.sync`` kernel (one polynomial a block,
+the table through L2; bench-only), which the two ops without a product
+(``split4``, ``v4_split4``) keep.
 
 Rows of N = 2048 at prime 0 of the 4-prime plan, one polynomial per block,
 seen as [16, 128] (the JAX block layout of one polynomial, and the
@@ -29,12 +37,14 @@ from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
 from . import _harness as h
 from . import _int8 as q
+from . import _wgmma as wgm
 
 N, LOG_N, ROWS = 2048, 11, 16
 PRIME = ntt_mod.PRIMES32[0]
 P2 = 2 * PRIME
 BASE_LOG = 23
-THREADS = 512
+THREADS = 512  # the _sync kernel's block
+CLUSTER, POLYS_PER_CTA = wgm.NTT_CLUSTER, wgm.NTT_POLYS
 OPS = {"v3_fwd": 0, "v3_inv": 1, "split4": 2, "mm4": 3, "mm1": 4,
        "v4_fold": 5, "v4_split4": 6, "v4_inv_mmr": 7, "v4_fwd": 8,
        "v4_fwd_nosplit": 9, "v4_inv": 10}
@@ -232,9 +242,22 @@ def _lib():
 
     lib = cuda_lib("ntt_mxu")
     i, u, v = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
-    lib.ntt_mxu.argtypes = [v] * 7 + [i, i, i, u, u, u, u, i, i, v]
-    lib.ntt_mxu.restype = ctypes.c_int
+    for e in (lib.ntt_mxu, lib.ntt_mxu_sync):
+        e.argtypes = [v] * 7 + [i, i, i, u, u, u, u, i, i, v]
+        e.restype = ctypes.c_int
+    lib.ntt_mxu_occupancy.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.ntt_mxu_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(op: str, copies: int = 1) -> dict:
+    """``ntt_mxu_kernel``'s resources for ``op``: registers, local (spill)
+    bytes a thread, dynamic shared memory, cluster size, resident blocks
+    per SM, clusters on the card."""
+    out = (ctypes.c_int * 6)()
+    pk._raise_on(_lib().ntt_mxu_occupancy(OPS[op], copies, out), op)
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "cluster",
+                     "blocks_per_sm", "clusters"), out))
 
 
 def _dev_u32(a, device) -> torch.Tensor:
@@ -245,13 +268,17 @@ def _dev_u32(a, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def device_tables(device: str) -> dict:
     """Per op family, on ``device``: the product's table transposed (the
-    column-major copy the kernel reads B from, made once), the bias row,
-    the plan tables, the v4 twiddles."""
+    column-major copy the ``_sync`` kernel reads B from) and as the
+    cluster image ``ntt_mxu_kernel`` copies its slice of (``*_img``), the
+    bias row, the plan tables, the v4 twiddles; made once."""
     t3, t4 = v3(), v4()
     bt = lambda w: torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
+    img = lambda w: wgm.cluster_image(w, CLUSTER).to(device)
     return {
         "v3_fwd": bt(t3.fwd_w8m[0]), "v3_inv": bt(t3.inv_w8m[0]),
         "v4_fwd": bt(t4.fwd_w8[0]), "v4_inv": bt(t4.inv_w8[0]),
+        "v3_fwd_img": img(t3.fwd_w8m[0]), "v3_inv_img": img(t3.inv_w8m[0]),
+        "v4_fwd_img": img(t4.fwd_w8[0]), "v4_inv_img": img(t4.inv_w8[0]),
         "bias_fwd": _dev_u32(t3.fwd_bias_row[0], device),
         "bias_inv": _dev_u32(t3.inv_bias_row[0], device),
         "bias_v4": _dev_u32(t4.inv_bias[0], device),
@@ -276,23 +303,29 @@ _OPERANDS = {
     "v4_inv": ("v4_inv", "bias_v4", "tw_inv", "gw_inv")}
 
 
-def _launch(name: str, op: str, copies: int = 1):
+def _launch(name: str, op: str, copies: int = 1, sync: bool = False):
     def launch(x, loops):
         h.cuda_operand(name, x, 2)
         if x.shape[1] != N:
             raise ValueError(f"{name}: rows of {x.shape[1]}, the kernel "
                              f"takes N = {N}")
+        if not sync and x.shape[0] % (CLUSTER * POLYS_PER_CTA):
+            raise ValueError(f"{name}: {x.shape[0]} polynomials, the kernel "
+                             f"takes a multiple of "
+                             f"{CLUSTER * POLYS_PER_CTA}")
         out = torch.empty_like(x)
         tabs = device_tables(str(x.device))
         ptr = lambda k: pk._ptr(tabs[k]) if k else ctypes.c_void_p(None)
+        table, bias, tw, gw = _OPERANDS[op]
+        if table and not sync:
+            table += "_img"
         t3 = v3()
-        rc = _lib().ntt_mxu(
-            pk._ptr(x), pk._ptr(out), *(ptr(k) for k in _OPERANDS[op]
-                                        [:2]),
-            ptr("plan" if op.startswith("v3") else None),
-            *(ptr(k) for k in _OPERANDS[op][2:]), x.shape[0], OPS[op],
-            copies, PRIME, int(t3.one_sh[0]), int(t3.c16[0]),
-            int(t3.c16_sh[0]), loops, 0, pk._stream(x.device))
+        entry = _lib().ntt_mxu_sync if sync else _lib().ntt_mxu
+        rc = entry(
+            pk._ptr(x), pk._ptr(out), ptr(table), ptr(bias),
+            ptr("plan" if op.startswith("v3") else None), ptr(tw), ptr(gw),
+            x.shape[0], OPS[op], copies, PRIME, int(t3.one_sh[0]),
+            int(t3.c16[0]), int(t3.c16_sh[0]), loops, 0, pk._stream(x.device))
         pk._raise_on(rc, name)
         return out
     return launch
@@ -311,39 +344,99 @@ def residues(device, seed: int = 0):
     return (from_u32(x, dev),)
 
 
-def mma_trips(op: str):
-    """Runs of the k loop's body a trip: 16 warps, K / 32 steps, one pass
-    a polynomial (its body holds 4 copies mma)."""
+def mma_trips(op: str, copies: int = 1):
+    """Runs of the K-block loop's body (4 m64n256k32 wgmma) a trip: per
+    cluster of 4 polynomials, 2 CTAs, ``copies`` row tiles, K / 128
+    K-blocks."""
+    return lambda args: (args[0].shape[0] // (CLUSTER * POLYS_PER_CTA)
+                         * CLUSTER * copies * K[op] // 128)
+
+
+def mma_trips_sync(op: str):
+    """The ``_sync`` kernel's runs of the k loop's body a trip: 16 warps,
+    K / 32 steps, one pass a polynomial (its body holds 4 copies mma)."""
     return lambda args: args[0].shape[0] * (THREADS // 32) * K[op] // 32
+
+
+#: the high trip count of the product cases' timing
+TRIPS = (16, 256)
+
+
+def l2_bytes(op: str):
+    """A trip's share of what a launch at the high trip count reads: each
+    CTA (two polynomials) its K x 256 slice of the table once, every
+    polynomial in and out once."""
+    return lambda args: args[0].shape[0] * (
+        K[op] * 256 // POLYS_PER_CTA + 2 * N * 4) / TRIPS[1]
+
+
+_MMA = "wgmma.m64n256k32.s8, the table resident in a cluster of 2"
+_MMA_SYNC = "mma.sync.m16n8k32.s8"
+
+
+def _macs(op: str, copies: int):
+    return lambda args: args[0].shape[0] * copies * ROWS * K[op] * 512
+
+
+def sync_case(name: str, op: str, *, replaces: str, mirrors: list,
+              copies: int = 1) -> h.Case:
+    """``op`` on the first, ``mma.sync`` kernel: a redesigned case's
+    reference, bench-only."""
+    return h.Case(
+        f"{name}_sync", replaces=replaces, mirrors=mirrors,
+        kernel=(f"{op}_{copies}" if copies > 1 else op) + "_sync",
+        launch=_launch(f"{name}_sync", op, copies, sync=True),
+        plain=functools.partial(mxu_plain, op=op, copies=copies),
+        inputs=residues, units=lambda args: args[0].shape[0] * copies,
+        unit="polynomial" if copies == 1 else "transform",
+        required=("IMMA",), trips=TRIPS,
+        pipes=h.glue_pipes(lambda args: args[0].numel()),
+        macs=_macs(op, copies), mma_trips=mma_trips_sync(op),
+        l2_bytes=lambda args: args[0].shape[0] * K[op] * 512, mma=_MMA_SYNC,
+        note="the reference: mma.sync m16n8k32 s8, one polynomial a block, "
+        "the table through L2")
 
 
 def case(name: str, op: str, *, replaces: str, mirrors: list,
          copies: int = 1, note: str = "") -> h.Case:
     """The ``h.Case`` of ``op`` (units: polynomials, or ``copies``
-    transforms' worth a polynomial for mm1 with repeated rows)."""
+    transforms' worth a polynomial for mm1 with repeated rows); an op with
+    a product runs ``ntt_mxu_kernel`` and has its ``_sync`` reference."""
     mm = K[op] is not None
-    macs = (lambda args: args[0].shape[0] * copies * ROWS * K[op] * 512) \
-        if mm else None
+    kernel = f"{op}_{copies}" if copies > 1 else op
     return h.Case(
-        name, replaces=replaces, mirrors=mirrors,
-        kernel=f"{op}_{copies}" if copies > 1 else op,
-        launch=_launch(name, op, copies),
+        name, replaces=replaces, mirrors=mirrors, kernel=kernel,
+        launch=_launch(name, op, copies, sync=not mm),
         plain=functools.partial(mxu_plain, op=op, copies=copies),
         inputs=residues, units=lambda args: args[0].shape[0] * copies,
         unit="polynomial" if copies == 1 else "transform",
-        required=("IMMA",) if mm else ("LOP3", "IADD3", "VIADD", "SHF"),
-        trips=(16, 256) if mm else (256, 4096),
-        pipes=h.glue_pipes(lambda args: args[0].numel()), macs=macs,
-        mma_trips=mma_trips(op) if mm else None,
-        l2_bytes=(lambda args: args[0].shape[0] * K[op] * 512) if mm
-        else None,
-        note=note or ("mma.sync m16n8k32 s8, one polynomial a block, the "
-                      "table through L2" if mm else ""))
+        required=("IGMMA",) if mm else ("LOP3", "IADD3", "VIADD", "SHF"),
+        trips=TRIPS if mm else (256, 4096),
+        pipes=h.glue_pipes(lambda args: args[0].numel()),
+        macs=_macs(op, copies) if mm else None,
+        mma_trips=mma_trips(op, copies) if mm else None,
+        l2_bytes=l2_bytes(op) if mm else None,
+        mma=_MMA if mm else _MMA_SYNC,
+        reference=sync_case(name, op, replaces=replaces, mirrors=mirrors,
+                            copies=copies) if mm else None,
+        note=note or ("wgmma m64n256k32 s8, the table resident in a cluster "
+                      "of 2 CTAs (a pair of column blocks each), only "
+                      "folded terms cross" if mm else ""))
 
 
-def sass_entry(op: str, copies: int = 1) -> tuple:
-    """(library, parts of the mangled name) of ``op``'s kernel."""
+def sass_entry(op: str, copies: int = 1, sync: bool = False) -> tuple:
+    """(library, parts of the mangled name) of ``op``'s kernel: the
+    ``_sync`` one for the ops without a product or with ``sync``."""
+    if sync or K[op] is None:
+        return ("ntt_mxu", (f"19ntt_mxu_kernel_syncILi{OPS[op]}ELi{copies}E",))
     return ("ntt_mxu", (f"14ntt_mxu_kernelILi{OPS[op]}ELi{copies}E",))
+
+
+def sync_totals(totals: dict) -> dict:
+    """A module's ``SASS_LOOP_TOTALS`` entries of its references' kernels
+    ({kernel: (op, copies, totals)})."""
+    return {f"{k}_sync": (*sass_entry(op, copies, sync=True), t)
+            for k, (op, copies, t) in totals.items()}
 
 
 #: butterflies of one transform at N = 2048
@@ -354,25 +447,44 @@ def verdict(rows: dict) -> dict:
     """Does the int8 tensor-core small DFT beat the INT32 butterflies? From
     the rows of one run ({metric: row}, as the probes print them): each
     transform's ns a polynomial at N = 2048 (the butterfly rows times
-    11,264 butterflies), the MXU transforms' speed-up over radix-2 and
-    radix-4, and E2's and ``torch._int_mm``'s shares of the dense int8
-    peak."""
-    ns = {}
+    11,264 butterflies) and, where the row has it, its ``_sync``
+    reference's from the same run (in turns), the MXU transforms'
+    speed-up over radix-2 and radix-4, the parts of the v3 transform (the
+    product: what ``mm1_rows512``'s three more products a polynomial add
+    to ``mm1_only``, a third; the rest of ``mm1_only``: the split, the
+    exchange of the terms and their sum; the rest of the transform: the
+    stages and the recombination), and E2's and
+    ``torch._int_mm``'s shares of the dense int8 peak."""
+    ns, sync_ns = {}, {}
     for m in ("fwd_r2", "fwd_r4", "inv_r2", "inv_r4"):
         ns[m] = rows[m]["ps_per_unit"] * BUTTERFLIES * 1e-3
     for m in ("v3_fwd_mxu", "v4_fwd_mxu", "v4_fwd_mxu_nosplit", "v3_inv_mxu",
               "v4_inv_mxu"):
         ns[m] = rows[m]["ps_per_unit"] * 1e-3
+        if "sync_ps_per_unit" in rows[m]:
+            sync_ns[m] = rows[m]["sync_ps_per_unit"] * 1e-3
     best = {d: min(ns[f"{d}_r2"], ns[f"{d}_r4"]) for d in ("fwd", "inv")}
     mxu = {"fwd": min(ns["v3_fwd_mxu"], ns["v4_fwd_mxu"]),
            "inv": min(ns["v3_inv_mxu"], ns["v4_inv_mxu"])}
+    parts = None
+    if "mm1_only" in rows and "mm1_rows512" in rows:
+        # mm1_rows512 issues the product of mm1_only 4 times a polynomial
+        # (its unit: a transform, a quarter polynomial)
+        one = rows["mm1_only"]["ps_per_unit"] * 1e-3
+        four = 4 * rows["mm1_rows512"]["ps_per_unit"] * 1e-3
+        prod = (four - one) / 3
+        parts = {d: {"product": prod, "split_exchange_sum": one - prod,
+                     "stages_recombination": ns[f"v3_{d}_mxu"] - one}
+                 for d in ("fwd", "inv")}
     return {
         "metric": "mxu_verdict", "ns_per_polynomial": ns,
+        "sync_ns_per_polynomial": sync_ns,
         "speedup_over_r2": {m: ns[f"{m[3:6]}_r2"] / v for m, v in ns.items()
                             if "mxu" in m},
         "speedup_over_r4": {m: ns[f"{m[3:6]}_r4"] / v for m, v in ns.items()
                             if "mxu" in m},
         "tensor_dft_wins": {d: mxu[d] < best[d] for d in ("fwd", "inv")},
+        "v3_parts_ns": parts,
         "e2_int8_tensor_fraction": rows["int8_matmul_128x512x128"][
             "int8_tensor_fraction"],
         "int_mm_int8_tensor_fraction": rows["int8_gemm_library"][
@@ -380,5 +492,5 @@ def verdict(rows: dict) -> dict:
         "l2_bytes_per_s": {m: rows[m]["l2_bytes_per_s"] for m in
                            ("v3_fwd_mxu", "v4_fwd_mxu", "v3_inv_mxu",
                             "v4_inv_mxu")},
-        "mma": "mma.sync.m16n8k32.s8 (no wgmma, no TMA)",
+        "mma": "wgmma.m64nNk32.s8 + cluster-resident tables",
         "card": rows["fwd_r2"]["card"]}

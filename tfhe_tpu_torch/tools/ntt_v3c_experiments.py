@@ -58,15 +58,20 @@ V3_ROWS = (("fwd_v3_base", "v3_fwd_mxu", 370),
 #: per kernel: library, parts of the mangled name, (ALU, FMA, tensor) loop
 #: totals (see ``vpu_primitives.SASS_LOOP_TOTALS``)
 SASS_LOOP_TOTALS = {
-    "mm4": (*nm.sass_entry("mm4"), (20, 4, 4)),
-    "mm1": (*nm.sass_entry("mm1"), (17, 1, 4)),
-    "mm1_2": (*nm.sass_entry("mm1", 2), (25, 1, 8)),
-    "mm1_4": (*nm.sass_entry("mm1", 4), (41, 1, 16)),
+    "mm4": (*nm.sass_entry("mm4"), (288, 60, 5)),
+    "mm1": (*nm.sass_entry("mm1"), (180, 16, 5)),
+    "mm1_2": (*nm.sass_entry("mm1", 2), (133, 80, 5)),
+    "mm1_4": (*nm.sass_entry("mm1", 4), (133, 80, 5)),
 }
+SASS_LOOP_TOTALS.update(nm.sync_totals({
+    "mm4": ("mm4", 1, (20, 4, 4)), "mm1": ("mm1", 1, (17, 1, 4)),
+    "mm1_2": ("mm1", 2, (25, 1, 8)), "mm1_4": ("mm1", 4, (41, 1, 16))}))
+#: the references of the redesigned cases (bench-only)
+SYNC_CASES = tuple(c.reference for c in CASES)
 
 
 def reset_launches():
-    h.reset(CASES)
+    h.reset(CASES + SYNC_CASES)
 
 
 def iter_rows(quick: bool = False, device=None):

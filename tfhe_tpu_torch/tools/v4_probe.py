@@ -578,6 +578,8 @@ MXU_CASES = (
 )
 CASES = tuple(_case(p, lay) for p in PIECES
               for lay in layouts_of(p)) + MXU_CASES + PASS_CASES
+#: the references of the redesigned cases (bench-only)
+SYNC_CASES = tuple(c.reference for c in MXU_CASES if c.reference is not None)
 
 #: per kernel: library, parts of the mangled name, (ALU, FMA) loop totals
 #: (see ``vpu_primitives.SASS_LOOP_TOTALS``)
@@ -623,9 +625,15 @@ SASS_LOOP_TOTALS = {
 #: the MXU kernels' (ALU, FMA, tensor)
 SASS_LOOP_TOTALS.update({
     op: (*nm.sass_entry(op), totals) for op, totals in (
-        ("v4_fold", (1, 2, 4)), ("v4_split4", (4, 2, 0)),
-        ("v4_inv_mmr", (62, 38, 4)), ("v4_fwd", (138, 97, 4)),
-        ("v4_fwd_nosplit", (128, 96, 4)), ("v4_inv", (143, 102, 4)))})
+        ("v4_fold", (100, 29, 5)), ("v4_split4", (4, 2, 0)),
+        ("v4_inv_mmr", (241, 222, 5)), ("v4_fwd", (544, 522, 5)),
+        ("v4_fwd_nosplit", (470, 509, 5)), ("v4_inv", (234, 87, 5)))})
+#: their references' (mma.sync)
+SASS_LOOP_TOTALS.update(nm.sync_totals({
+    op: (op, 1, totals) for op, totals in (
+        ("v4_fold", (1, 2, 4)), ("v4_inv_mmr", (62, 38, 4)),
+        ("v4_fwd", (138, 97, 4)), ("v4_fwd_nosplit", (128, 96, 4)),
+        ("v4_inv", (143, 102, 4)))}))
 
 #: the pass pieces' kernels: Tail and piece in the mangled name
 _PASS_TAIL_PART = {"K1": "10Bnf2Tail32E", "K3_P4": "10GarnerTailILi4EEE"}
@@ -708,7 +716,7 @@ def pass_split(rows, measured: dict) -> list:
 
 
 def reset_launches():
-    h.reset(CASES)
+    h.reset(CASES + SYNC_CASES)
 
 
 def iter_rows(quick: bool = False, device=None, measured: dict = None):
