@@ -78,7 +78,18 @@ Phases (any failure raises and exits non-zero):
     pipes?) and the tensor-core verdict (``mxu_verdict``: the int8
     small-DFT transforms, wgmma and mma.sync, against the INT32 radix-2
     and radix-4 ones);
-13. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+13. the integer layer (``tfhe_tpu_torch.integer``) on phase 2's 2_2 v6b
+    keys: the README example (FheUint32 ``a * b``, ``>> b`` by the
+    encrypted b, cast to FheUint8, ``min`` with c, ``& 1``) at batch 1
+    (1344, 5, 7 -> 6720, 210, 210, 7, 1) and over 32 random lanes, every
+    step decrypted against numpy, ms a step; the FheUint64 table of
+    ``bench.py --integer``: add, mul, bitand, eq at batch 1 (ms) and 32
+    (ops/s), div at batch 1, each output against its numpy oracle, one JSON
+    row each with its PBS rounds and bootstrapped ciphertexts (counted by
+    wrapping the shortint key's ``apply_lookup_table`` here); the launch
+    counts around one add (K1 and K2 acc32 once a round, K3 and K4 never)
+    and K2 acc32 and K1 against their plain versions on its first round;
+14. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -119,6 +130,11 @@ K2_LAUNCHES = 200  # back-to-back launches per K2 timing
 KB_CHECK_LOOPS = 16  # micro-kernel passes of the exactness check
 TRIVIUM_KEY = [(i * 7 + 3) % 2 for i in range(80)]
 TRIVIUM_IV = [(i * 5 + 1) % 2 for i in range(80)]
+README_BLOCKS = 16  # FheUint32 at 2_2
+README_C_BLOCKS = 4  # FheUint8
+U64_BLOCKS = 32  # FheUint64
+INT_DIV_BLOCKS = 32  # the div row's width
+INT_LANES = 32  # the integer throughput rows and the README chain's lanes
 DEVICE = "cuda"
 
 
@@ -1292,6 +1308,203 @@ def phase_probes(rows, bench):
     return {"probes_s": secs, **out}
 
 
+class CountingKey:
+    """The shortint server key as the integer layer of the integer phase
+    sees it: counts the ``apply_lookup_table`` calls (an op's PBS rounds)
+    and the ciphertexts they bootstrap, and keeps each call's arguments
+    while ``calls`` is a list."""
+
+    def __init__(self, key):
+        self._key = key
+        self.rounds = 0
+        self.pbs = 0
+        self.calls = None
+
+    def __getattr__(self, name):
+        return getattr(self._key, name)
+
+    def apply_lookup_table(self, ct, lut):
+        self.rounds += 1
+        self.pbs += ct.ct[..., 0].numel()
+        if self.calls is not None:
+            self.calls.append((ct, lut))
+        return self._key.apply_lookup_table(ct, lut)
+
+
+def _int_oracle(name, x, y, bits):
+    """The clear result of a ``bits``-bit op of the integer table."""
+    mask = np.uint64((1 << bits) - 1)
+    with np.errstate(over="ignore"):
+        return {"add": lambda: (x + y) & mask, "mul": lambda: (x * y) & mask,
+                "bitand": lambda: x & y, "eq": lambda: x == y,
+                "div": lambda: x // y}[name]()
+
+
+def phase_integer(ck, sk, card, rows):
+    """The integer layer (``tfhe_tpu_torch.integer``) on phase 2's 2_2 v6b
+    keys, every PBS through the shortint ``apply_lookup_table`` (KS, K2
+    acc32, K1): the README example at FheUint32 (16 blocks; FheUint8, 4
+    blocks, for ``c``) at batch 1 and over INT_LANES random lanes, each
+    step decrypted; the FheUint64 table of ``bench.py --integer`` (32
+    blocks: add, mul, bitand, eq at batch 1 (median of 3 runs after a
+    checked warm-up) and at INT_LANES (ops/s, median of 2 runs), div at
+    batch 1, INT_DIV_BLOCKS blocks, one run after the checked one), each
+    output against its numpy oracle, one JSON row each with the op's PBS
+    rounds and bootstrapped ciphertexts; then the launch counts around one
+    add (K1 and K2 acc32 exactly once a round, K3 and K4 never), and K2
+    acc32 and K1 against their plain versions on that add's first round.
+    Times: host clock around the op, ending in a synchronize."""
+    import torch
+
+    from tfhe_tpu_torch.integer import radix
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    t0 = time.perf_counter()
+    key = CountingKey(sk)
+    ick, isk = radix.ClientKey(ck), radix.ServerKey(key)
+    bits_per_block = int(np.log2(sk.params.message_modulus))
+    rng = np.random.default_rng(SEED)
+
+    def run(fn, *args):
+        key.rounds = key.pbs = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, key.rounds, key.pbs
+
+    def clear(out):
+        if isinstance(out, radix.BooleanBlock):
+            return isk.decrypt_bool(ick, out)
+        return ick.decrypt_radix(out)
+
+    def expect(label, out, want):
+        got = clear(out)
+        if not np.array_equal(got, np.asarray(want).astype(got.dtype)):
+            raise AssertionError(f"integer {label}: decrypts to {got}, want "
+                                 f"{want}")
+
+    # 1. the README example: FheUint32 a * b >> b, cast to FheUint8, min
+    #    with c, & 1
+    nb32, nb8 = README_BLOCKS, README_C_BLOCKS
+    steps = (("mul", lambda x, b, c: isk.mul(x, b),
+              lambda x, b, c: x * b),
+             ("right_shift", lambda x, b, c: isk.right_shift(x, b),
+              lambda x, b, c: x >> (b % np.uint64(nb32 * bits_per_block))),
+             ("cast_to_num_blocks", lambda x, b, c: isk.cast_to_num_blocks(x, nb8),
+              lambda x, b, c: x),
+             ("min", lambda x, b, c: isk.min(x, c), lambda x, b, c: np.minimum(x, c)),
+             ("scalar_bitand", lambda x, b, c: isk.scalar_bitand(x, 1),
+              lambda x, b, c: x & np.uint64(1)))
+    chain = {}
+    m32 = np.uint64((1 << (nb32 * bits_per_block)) - 1)
+    m8 = np.uint64((1 << (nb8 * bits_per_block)) - 1)
+    for lanes in (1, INT_LANES):
+        if lanes == 1:
+            va, vb, vc = (np.array([v], dtype=np.uint64) for v in (1344, 5, 7))
+        else:
+            va, vb = (rng.integers(0, int(m32) + 1, lanes, dtype=np.uint64)
+                      for _ in range(2))
+            vc = rng.integers(0, int(m8) + 1, lanes, dtype=np.uint64)
+        a, b = ick.encrypt_radix(va, nb32), ick.encrypt_radix(vb, nb32)
+        c = ick.encrypt_radix(vc, nb8)
+        x, want, row = a, va, {}
+        for i, (step, fn, oracle) in enumerate(steps):
+            x, ms, rounds, pbs = run(fn, x, b, c)
+            with np.errstate(over="ignore"):
+                want = oracle(want, vb, vc) & (m32 if i < 2 else m8)
+            expect(f"README {step}, {lanes} lanes", x, want)
+            row[step] = {"ms": ms, "rounds": rounds, "pbs": pbs}
+        if lanes == 1 and [int(v) for v in clear(x)] != [1]:
+            raise AssertionError("README example: the chain does not end in 1")
+        chain[lanes] = row
+        print(f"README chain (FheUint32 -> FheUint8), {lanes} lane(s), "
+              f"decrypted at every step: " + ", ".join(
+                  f"{k} {v['ms']:.1f} ms ({v['rounds']} rounds, {v['pbs']} PBS)"
+                  for k, v in row.items()))
+
+    # 2. the FheUint64 table of bench.py --integer
+    table = []
+    nb64 = U64_BLOCKS
+    bits64 = nb64 * bits_per_block
+
+    def row(name, kind, batch, times, rounds, pbs, bits):
+        value = (statistics.median(times) if kind == "latency"
+                 else batch / (statistics.median(times) / 1e3))
+        r = {"metric": f"fheuint{bits}_{name}_{kind}", "value": value,
+             "unit": "ms" if kind == "latency" else "ops/s", "batch": batch,
+             "rounds": rounds, "pbs": pbs, "card": card, "runs_ms": times}
+        print(json.dumps(r))
+        table.append(r)
+
+    ops = (("add", isk.add), ("mul", isk.mul), ("bitand", isk.bitand),
+           ("eq", isk.eq))
+    inputs = {}
+    for batch, kind, reps in ((1, "latency", 3), (INT_LANES, "throughput", 2)):
+        xs = rng.integers(0, 1 << bits64, batch, dtype=np.uint64)
+        ys = rng.integers(1, 1 << bits64, batch, dtype=np.uint64)
+        a, b = ick.encrypt_radix(xs, nb64), ick.encrypt_radix(ys, nb64)
+        inputs[kind] = a, b
+        for name, fn in ops:
+            want = _int_oracle(name, xs, ys, bits64)
+            if kind == "latency":  # a checked warm-up run
+                expect(f"FheUint{bits64} {name}", run(fn, a, b)[0], want)
+            times = []
+            for _ in range(reps):
+                out, ms, rounds, pbs = run(fn, a, b)
+                expect(f"FheUint{bits64} {name}, batch {batch}", out, want)
+                times.append(ms)
+            row(name, kind, batch, times, rounds, pbs, bits64)
+    div_bits = INT_DIV_BLOCKS * bits_per_block
+    xs = rng.integers(0, 1 << div_bits, 1, dtype=np.uint64)
+    ys = rng.integers(1, 1 << (div_bits // 2), 1, dtype=np.uint64)
+    a, b = (ick.encrypt_radix(v, INT_DIV_BLOCKS) for v in (xs, ys))
+    want = _int_oracle("div", xs, ys, div_bits)
+    expect(f"FheUint{div_bits} div", run(isk.div, a, b)[0], want)
+    out, ms, rounds, pbs = run(isk.div, a, b)
+    expect(f"FheUint{div_bits} div, timed", out, want)
+    row("div", "latency", 1, [ms], rounds, pbs, div_bits)
+
+    # 3. the launch counts around one add at batch 1
+    a, b = inputs["latency"]
+    names = [fn.__name__ for fn in pk.KERNELS]
+    pk.reset_launches()
+    key.calls = []
+    out, ms, rounds, pbs = run(isk.add, a, b)
+    launches = launches_of(*names)
+    calls, key.calls = key.calls, None
+    require_launched("integer add (K2 acc32, K1)",
+                     {k: launches[k] for k in ("body_rotate_acc32",
+                                               "blind_rotate_bnf2_acc32")})
+    want_launches = {k: rounds if k in ("body_rotate_acc32",
+                                        "blind_rotate_bnf2_acc32") else 0
+                     for k in names}
+    if launches != want_launches:
+        raise AssertionError(f"integer add: launches {launches}, want "
+                             f"{want_launches} ({rounds} rounds)")
+    print(f"integer add: {rounds} rounds, {pbs} PBS, launches {launches}")
+    # K2 acc32 and K1 against their plain versions on the add's first round
+    p = sk.params
+    ct, lut = calls[0]
+    ms_mask, ms_body = switched(sk, ct)  # [1, blocks, n], [1, blocks]
+    ms_mask, ms_body = ms_mask.reshape(-1, p.lwe_dimension), ms_body.reshape(-1)
+    check_equal("body_rotate_acc32", pk.body_rotate_acc32,
+                pk.body_rotate_acc32_plain, (lut.acc, ms_body))
+    acc_hi = pk.body_rotate_acc32(lut.acc, ms_body)
+    check_equal("blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
+                pk.blind_rotate_bnf2_acc32_plain,
+                (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level,
+                 sk.flavor))
+    print(f"K2 acc32 and K1 == plain on the add's first round "
+          f"(B={ms_body.shape[0]})")
+    for k in ("body_rotate_acc32", "blind_rotate_bnf2_acc32"):
+        rows[k]["integer_add_launches"] = launches[k]
+    secs = time.perf_counter() - t0
+    print(f"integer phase: {secs:.1f} s")
+    return {"integer_s": secs, "integer_add_rounds": rounds,
+            "readme_chain": chain, "fheuint_table": table}
+
+
 def main() -> int:
     import torch
 
@@ -1325,6 +1538,7 @@ def main() -> int:
     phase_stacked_env(sk22, *batch22)
     summary.update(phase_kernel_bench(rate, rows))
     summary.update(phase_probes(rows, summary["kernel_bench"]))
+    summary.update(phase_integer(ck22, sk22, card, rows))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",

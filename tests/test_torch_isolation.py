@@ -60,7 +60,11 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/tools/kernel_experiments.py",
             "tfhe_tpu_torch/tools/ntt_v3c_experiments.py",
             "tfhe_tpu_torch/tools/ntt_mxu.py",
-            "tfhe_tpu_torch/ops/mxu_tables.py"} <= names
+            "tfhe_tpu_torch/ops/mxu_tables.py",
+            "tfhe_tpu_torch/integer/radix.py",
+            "tfhe_tpu_torch/integer/ops_extra.py",
+            "tfhe_tpu_torch/integer/crt.py",
+            "tfhe_tpu_torch/integer/bigint.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -74,6 +78,7 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.utils.params import PARAM_TEST_TOY as P\n"
         "from tfhe_tpu_torch.ops import kernel_bench\n"
         "from tfhe_tpu_torch import sass_loops\n"
+        "from tfhe_tpu_torch.integer import crt, gen_keys\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
         "sk = ServerKey.generate(ck)\n"
         "out = sk.apply_lookup_table(ck.encrypt([1, 2]),\n"

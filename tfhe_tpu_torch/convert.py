@@ -1,8 +1,9 @@
-"""Carry keys made by tfhe_tpu into the port.
+"""Carry keys and ciphertexts made by tfhe_tpu into the port.
 
 Every function takes plain numpy arrays (what ``np.asarray`` of a
-``tfhe_tpu`` key gives), so the port and the JAX package can compute on
-identical keys without the port importing either JAX or ``tfhe_tpu``.
+``tfhe_tpu`` key or ciphertext gives), so the port and the JAX package can
+compute on identical keys and inputs without the port importing either JAX
+or ``tfhe_tpu``.
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import torch
 
 from . import boolean
 from ._device import resolve_device
-from ._torus import from_u32, from_u64
+from ._torus import from_u32, from_u64, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
+from .integer import radix
 from .ops import ntt as ntt_mod
 from .shortint.client_key import ClientKey
 from .shortint.server_key import ServerKey, check_supported, resolve_variant
@@ -84,3 +86,45 @@ def boolean_server_key_from_arrays(params_name: str, ksk_u64,
     return boolean.ServerKey.from_keys(
         BOOLEAN_PARAMS_BY_NAME[params_name], from_u64(ksk_u64, dev),
         from_u32(bsk_scan_u32, dev))
+
+
+def integer_keys_from_arrays(params_name: str, glwe_sk_bits, lwe_sk_bits,
+                             ksk_u64, bsk_scan_residues_u32, num_primes: int,
+                             device=None):
+    """The port's integer (ClientKey, ServerKey) over the shortint keys of
+    :func:`client_key_from_arrays` and :func:`server_key_from_arrays`, which
+    take these arrays. The client key decrypts; it does not encrypt."""
+    ck = client_key_from_arrays(params_name, glwe_sk_bits, lwe_sk_bits,
+                                device)
+    sk = server_key_from_arrays(params_name, ksk_u64, bsk_scan_residues_u32,
+                                num_primes, device)
+    return radix.ClientKey(ck), radix.ServerKey(sk)
+
+
+def radix_ciphertext_from_arrays(ct_u64, degrees, noise_levels,
+                                 message_modulus: int, carry_modulus: int,
+                                 device=None) -> radix.RadixCiphertext:
+    """A port RadixCiphertext from ``tfhe_tpu``'s: the blocks
+    u64[..., num_blocks, dim+1] and the per-block degrees and noise levels
+    int[num_blocks] (copied, so the two never share bookkeeping)."""
+    dev = resolve_device(device)
+    ct = from_u64(ct_u64, dev)
+    nb = ct.shape[-2]
+    degrees = np.array(degrees, dtype=np.int64)
+    noise_levels = np.array(noise_levels, dtype=np.int64)
+    if degrees.shape != (nb,) or noise_levels.shape != (nb,):
+        raise ValueError(f"{nb} blocks need {nb} degrees and noise levels, "
+                         f"got {degrees.shape} and {noise_levels.shape}")
+    return radix.RadixCiphertext(ct=ct, degrees=degrees,
+                                 noise_levels=noise_levels,
+                                 message_modulus=message_modulus,
+                                 carry_modulus=carry_modulus)
+
+
+def radix_ciphertext_to_arrays(ct: radix.RadixCiphertext) -> tuple:
+    """Inverse of :func:`radix_ciphertext_from_arrays`: (blocks u64[...,
+    num_blocks, dim+1], degrees, noise_levels, message_modulus,
+    carry_modulus), all numpy or int."""
+    return (to_u64(ct.ct), np.array(ct.degrees, dtype=np.int64),
+            np.array(ct.noise_levels, dtype=np.int64), ct.message_modulus,
+            ct.carry_modulus)
