@@ -89,7 +89,26 @@ Phases (any failure raises and exits non-zero):
     wrapping the shortint key's ``apply_lookup_table`` here); the launch
     counts around one add (K1 and K2 acc32 once a round, K3 and K4 never)
     and K2 acc32 and K1 against their plain versions on its first round;
-14. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+14. encrypted ASCII strings (``tfhe_tpu_torch.strings``) on phase 2's
+    keys: on ``"ab cd"`` at capacity 8 (``" ab cd "`` for ``trim``), an
+    encrypted pattern ``"cd"`` and separator ``" "``, ``eq``,
+    ``to_uppercase``, ``len``, ``contains``, ``find``, ``trim``,
+    ``split_once`` and two ``next()`` of ``split``: each one checked run,
+    then the median of 2 at batch 1, every output decrypted against
+    Python's ``str`` methods, one JSON row each with its PBS rounds, PBS
+    and ms a round; the launch counts around one ``eq`` (K2 acc32 and K1
+    once a round, K2 u64, K3 and K4 never), and K2 acc32 and K1 against
+    their plain versions on its first round (the encrypted-pattern
+    ``replace``, ~4,351 rounds, is left to the CPU tests);
+15. the typed high-level API (``tfhe_tpu_torch.high_level_api``):
+    ``generate_keys(ConfigBuilder().with_seed(SEED).build())`` (phase 2's
+    2_2 keys, on the GPU) and ``set_server_key``; the reference README
+    example through ``FheUint32`` / ``FheUint8`` operators (``a * b``,
+    ``>> b``, ``cast_into(FheUint8)``, ``min(c)``, ``& 1`` -> 1), each step
+    decrypted; a 32-lane ``FheUint8Array`` (``+``, ``&``, ``sum``); a
+    4-slot ``KVStore`` of ``FheUint8`` (``get`` hit and miss,
+    ``contains``, ``update``): ms at batch 1, PBS rounds and PBS each;
+16. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -1309,10 +1328,10 @@ def phase_probes(rows, bench):
 
 
 class CountingKey:
-    """The shortint server key as the integer layer of the integer phase
-    sees it: counts the ``apply_lookup_table`` calls (an op's PBS rounds)
-    and the ciphertexts they bootstrap, and keeps each call's arguments
-    while ``calls`` is a list."""
+    """The shortint server key as the integer layer of the integer, string
+    and HLAPI phases sees it: counts the ``apply_lookup_table`` calls (an
+    op's PBS rounds) and the ciphertexts they bootstrap, and keeps each
+    call's arguments while ``calls`` is a list."""
 
     def __init__(self, key):
         self._key = key
@@ -1354,24 +1373,13 @@ def phase_integer(ck, sk, card, rows):
     add (K1 and K2 acc32 exactly once a round, K3 and K4 never), and K2
     acc32 and K1 against their plain versions on that add's first round.
     Times: host clock around the op, ending in a synchronize."""
-    import torch
-
     from tfhe_tpu_torch.integer import radix
-    from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     t0 = time.perf_counter()
     key = CountingKey(sk)
     ick, isk = radix.ClientKey(ck), radix.ServerKey(key)
     bits_per_block = int(np.log2(sk.params.message_modulus))
     rng = np.random.default_rng(SEED)
-
-    def run(fn, *args):
-        key.rounds = key.pbs = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3, key.rounds, key.pbs
 
     def clear(out):
         if isinstance(out, radix.BooleanBlock):
@@ -1410,7 +1418,7 @@ def phase_integer(ck, sk, card, rows):
         c = ick.encrypt_radix(vc, nb8)
         x, want, row = a, va, {}
         for i, (step, fn, oracle) in enumerate(steps):
-            x, ms, rounds, pbs = run(fn, x, b, c)
+            x, ms, rounds, pbs = timed(key, fn, x, b, c)
             with np.errstate(over="ignore"):
                 want = oracle(want, vb, vc) & (m32 if i < 2 else m8)
             expect(f"README {step}, {lanes} lanes", x, want)
@@ -1448,10 +1456,11 @@ def phase_integer(ck, sk, card, rows):
         for name, fn in ops:
             want = _int_oracle(name, xs, ys, bits64)
             if kind == "latency":  # a checked warm-up run
-                expect(f"FheUint{bits64} {name}", run(fn, a, b)[0], want)
+                expect(f"FheUint{bits64} {name}", timed(key, fn, a, b)[0],
+                       want)
             times = []
             for _ in range(reps):
-                out, ms, rounds, pbs = run(fn, a, b)
+                out, ms, rounds, pbs = timed(key, fn, a, b)
                 expect(f"FheUint{bits64} {name}, batch {batch}", out, want)
                 times.append(ms)
             row(name, kind, batch, times, rounds, pbs, bits64)
@@ -1460,33 +1469,46 @@ def phase_integer(ck, sk, card, rows):
     ys = rng.integers(1, 1 << (div_bits // 2), 1, dtype=np.uint64)
     a, b = (ick.encrypt_radix(v, INT_DIV_BLOCKS) for v in (xs, ys))
     want = _int_oracle("div", xs, ys, div_bits)
-    expect(f"FheUint{div_bits} div", run(isk.div, a, b)[0], want)
-    out, ms, rounds, pbs = run(isk.div, a, b)
+    expect(f"FheUint{div_bits} div", timed(key, isk.div, a, b)[0], want)
+    out, ms, rounds, pbs = timed(key, isk.div, a, b)
     expect(f"FheUint{div_bits} div, timed", out, want)
     row("div", "latency", 1, [ms], rounds, pbs, div_bits)
 
-    # 3. the launch counts around one add at batch 1
+    # 3. the launch counts around one add at batch 1, and K2 acc32 and K1
+    #    against their plain versions on its first round
     a, b = inputs["latency"]
-    names = [fn.__name__ for fn in pk.KERNELS]
-    pk.reset_launches()
-    key.calls = []
-    out, ms, rounds, pbs = run(isk.add, a, b)
-    launches = launches_of(*names)
-    calls, key.calls = key.calls, None
-    require_launched("integer add (K2 acc32, K1)",
-                     {k: launches[k] for k in ("body_rotate_acc32",
-                                               "blind_rotate_bnf2_acc32")})
-    want_launches = {k: rounds if k in ("body_rotate_acc32",
-                                        "blind_rotate_bnf2_acc32") else 0
-                     for k in names}
-    if launches != want_launches:
-        raise AssertionError(f"integer add: launches {launches}, want "
-                             f"{want_launches} ({rounds} rounds)")
-    print(f"integer add: {rounds} rounds, {pbs} PBS, launches {launches}")
-    # K2 acc32 and K1 against their plain versions on the add's first round
+    _, launches, calls = launches_around("integer add", key, isk.add, a, b)
+    rounds = key.rounds
+    check_first_round("integer add", sk, calls)
+    for k in ("body_rotate_acc32", "blind_rotate_bnf2_acc32"):
+        rows[k]["integer_add_launches"] = launches[k]
+    secs = time.perf_counter() - t0
+    print(f"integer phase: {secs:.1f} s")
+    return {"integer_s": secs, "integer_add_rounds": rounds,
+            "readme_chain": chain, "fheuint_table": table}
+
+
+def timed(key, fn, *args):
+    """``fn(*args)`` between two synchronizes, host clock: (output, ms, PBS
+    rounds, PBS) with the rounds and PBS that ``key`` counted."""
+    import torch
+
+    key.rounds = key.pbs = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3, key.rounds, key.pbs
+
+
+def check_first_round(label, sk, calls):
+    """K2 acc32 and K1 against their plain versions on the first
+    ``apply_lookup_table`` call of an op (the calls a CountingKey kept)."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
     p = sk.params
     ct, lut = calls[0]
-    ms_mask, ms_body = switched(sk, ct)  # [1, blocks, n], [1, blocks]
+    ms_mask, ms_body = switched(sk, ct)
     ms_mask, ms_body = ms_mask.reshape(-1, p.lwe_dimension), ms_body.reshape(-1)
     check_equal("body_rotate_acc32", pk.body_rotate_acc32,
                 pk.body_rotate_acc32_plain, (lut.acc, ms_body))
@@ -1495,14 +1517,201 @@ def phase_integer(ck, sk, card, rows):
                 pk.blind_rotate_bnf2_acc32_plain,
                 (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level,
                  sk.flavor))
-    print(f"K2 acc32 and K1 == plain on the add's first round "
+    print(f"K2 acc32 and K1 == plain on the {label}'s first round "
           f"(B={ms_body.shape[0]})")
+
+
+def launches_around(label, key, fn, *args):
+    """The launch counts of every kernel around one run of ``fn``: K2 acc32
+    and K1 exactly once a PBS round, every other kernel never. Returns the
+    run's outputs, counts and the calls it made."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    names = [f.__name__ for f in pk.KERNELS]
+    path = ("body_rotate_acc32", "blind_rotate_bnf2_acc32")
+    pk.reset_launches()
+    key.calls = []
+    out, ms, rounds, pbs = timed(key, fn, *args)
+    launches = launches_of(*names)
+    calls, key.calls = key.calls, None
+    require_launched(f"{label} (K2 acc32, K1)", {k: launches[k] for k in path})
+    want = {k: rounds if k in path else 0 for k in names}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want} "
+                             f"({rounds} rounds)")
+    print(f"{label}: {rounds} rounds, {pbs} PBS, launches {launches}")
+    return out, launches, calls
+
+
+STRING_CAPACITY = 8  # the strings of phase 14
+
+
+def phase_strings(ck, sk, card, rows):
+    """Encrypted ASCII strings (``tfhe_tpu_torch.strings``) on phase 2's 2_2
+    v6b keys, every PBS through the shortint ``apply_lookup_table`` (KS, K2
+    acc32, K1): each op on ``"ab cd"`` at capacity STRING_CAPACITY
+    (``" ab cd "`` for ``trim``) with the encrypted pattern ``"cd"``
+    (capacity 2) and separator ``" "`` (capacity 1): one checked run, then
+    the median of 2 at batch 1, each output decrypted against Python's
+    ``str`` methods, one JSON row each with its PBS rounds, PBS and ms a
+    round; then the launch counts around one ``eq`` and K2 acc32 and K1
+    against their plain versions on its first round. The encrypted-pattern
+    ``replace`` (~4,351 rounds, ~95 s at batch 1) is left to the CPU tests.
+    Times: host clock around the op, ending in a synchronize."""
+    from tfhe_tpu_torch.integer import radix
+    from tfhe_tpu_torch.strings import StringClientKey, StringServerKey
+
+    t0 = time.perf_counter()
+    key = CountingKey(sk)
+    ick = radix.ClientKey(ck)
+    sck, ssk = StringClientKey(ick), StringServerKey(radix.ServerKey(key))
+    text, padded, pat, sep = "ab cd", " ab cd ", "cd", " "
+    cap = STRING_CAPACITY
+    s, t = (sck.encrypt_ascii(text, cap) for _ in range(2))
+    w = sck.encrypt_ascii(padded, cap)
+    p, q = sck.encrypt_ascii(pat, len(pat)), sck.encrypt_ascii(sep, len(sep))
+
+    def clear(out):
+        if isinstance(out, (tuple, list)):
+            return tuple(clear(o) for o in out)
+        if hasattr(out, "capacity"):
+            return sck.decrypt_ascii(out)
+        if isinstance(out, radix.BooleanBlock):
+            return bool(ssk.key.decrypt_bool(ick, out))
+        return int(ick.decrypt_radix(out))
+
+    def split2(s, q):
+        it = ssk.split(s, q)
+        return it.next(), it.next()
+
+    lo, _, hi = text.partition(sep)
+    ops = (("eq", ssk.eq, (s, t), text == text),
+           ("to_uppercase", ssk.to_uppercase, (s,), text.upper()),
+           ("len", ssk.len, (s,), len(text)),
+           ("contains", ssk.contains, (s, p), pat in text),
+           ("find", ssk.find, (s, p), (text.find(pat), True)),
+           ("trim", ssk.trim, (w,), padded.strip()),
+           ("split_once", ssk.split_once, (s, q), (lo, hi, True)),
+           ("split_next2", split2, (s, q),
+            tuple((x, True) for x in text.split(sep)[:2])))
+    table = []
+    for name, fn, args, want in ops:
+        runs = []
+        for i in range(3):  # a checked run, then two timed ones
+            out, ms, rounds, pbs = timed(key, fn, *args)
+            if clear(out) != want:
+                raise AssertionError(f"string {name}: decrypts to "
+                                     f"{clear(out)!r}, want {want!r}")
+            if i:
+                runs.append(ms)
+        ms = statistics.median(runs)
+        r = {"metric": f"string_{name}", "value": ms, "unit": "ms",
+             "batch": 1, "capacity": cap, "rounds": rounds, "pbs": pbs,
+             "ms_per_round": ms / rounds, "card": card, "runs_ms": runs}
+        print(json.dumps(r))
+        table.append(r)
+    _, launches, calls = launches_around("string eq", key, ssk.eq, s, t)
+    check_first_round("string eq", sk, calls)
     for k in ("body_rotate_acc32", "blind_rotate_bnf2_acc32"):
-        rows[k]["integer_add_launches"] = launches[k]
+        rows[k]["string_eq_launches"] = launches[k]
     secs = time.perf_counter() - t0
-    print(f"integer phase: {secs:.1f} s")
-    return {"integer_s": secs, "integer_add_rounds": rounds,
-            "readme_chain": chain, "fheuint_table": table}
+    total = sum(r["value"] for r in table)
+    rounds = sum(r["rounds"] for r in table)
+    print(f"strings phase: {secs:.1f} s; one pass of the ops {total:.1f} ms, "
+          f"{rounds} rounds, {total / rounds:.2f} ms a round")
+    return {"strings_s": secs, "string_table": table}
+
+
+KV_SLOTS = 4  # the KVStore of phase 15
+ARRAY_LANES = 32  # the FheUint8Array of phase 15
+
+
+def phase_hlapi(card, integer_chain):
+    """The typed high-level API (``tfhe_tpu_torch.high_level_api``) at 2_2:
+    ``generate_keys`` with SEED (phase 2's keys again, on the GPU),
+    ``set_server_key`` with its shortint key wrapped in a CountingKey; the
+    reference README example through FheUint32 / FheUint8 operators, each
+    step decrypted, beside phase 13's integer-layer chain
+    (``integer_chain``); an ARRAY_LANES-lane FheUint8Array (``+``, ``&``,
+    ``sum``) and a KV_SLOTS-slot KVStore (``get`` hit and miss,
+    ``contains``, ``update``), each output decrypted: ms at batch 1 (one
+    checked run each), PBS rounds and PBS."""
+    from tfhe_tpu_torch.high_level_api import (ConfigBuilder, FheUint8,
+                                               FheUint32, FheUint8Array,
+                                               generate_keys, set_server_key,
+                                               unset_server_key)
+    from tfhe_tpu_torch.high_level_api.kv_store import KVStore
+    from tfhe_tpu_torch.integer import radix
+
+    t0 = time.perf_counter()
+    ck, sk = generate_keys(ConfigBuilder().with_seed(SEED).build())
+    print(f"HLAPI generate_keys 2_2: {time.perf_counter() - t0:.1f} s, "
+          f"variant {sk.inner.key.ntt_variant}")
+    key = CountingKey(sk.inner.key)
+    sk.inner = radix.ServerKey(key)
+    set_server_key(sk)
+    rows = []
+
+    def step(label, fn, want, *args):
+        out, ms, rounds, pbs = timed(key, fn, *args)
+        got = out.decrypt(ck)
+        got = [int(v) for v in got] if isinstance(got, np.ndarray) else got
+        if got != want:
+            raise AssertionError(f"HLAPI {label}: decrypts to {got}, want "
+                                 f"{want}")
+        r = {"metric": f"hlapi_{label}", "value": ms, "unit": "ms",
+             "rounds": rounds, "pbs": pbs, "card": card}
+        print(json.dumps(r))
+        rows.append(r)
+        return out
+
+    try:
+        # the reference README example
+        a = FheUint32.encrypt(1344, ck)
+        b = FheUint32.encrypt(5, ck)
+        c = FheUint8.encrypt(7, ck)
+        x = step("readme_mul", lambda: a * b, 6720)
+        x = step("readme_shr", lambda: x >> b, 210)
+        x = step("readme_cast", lambda: x.cast_into(FheUint8), 210)
+        x = step("readme_min", lambda: x.min(c), 7)
+        x = step("readme_and1", lambda: x & 1, 1)
+        chain = rows[:5]
+        ms = sum(r["value"] for r in chain)
+        rounds = sum(r["rounds"] for r in chain)
+        int_ms = sum(v["ms"] for v in integer_chain.values())
+        int_rounds = sum(v["rounds"] for v in integer_chain.values())
+        print(f"README chain through FheUint32: {ms:.1f} ms, {rounds} rounds "
+              f"(phase 13's integer layer: {int_ms:.1f} ms, {int_rounds} "
+              "rounds)")
+        if rounds != int_rounds:
+            raise AssertionError("the HLAPI README chain takes another round "
+                                 "count than the integer layer's")
+
+        # a FheUint8Array of ARRAY_LANES lanes
+        rng = np.random.default_rng(SEED)
+        u = rng.integers(0, 256, ARRAY_LANES, dtype=np.uint64)
+        v = rng.integers(0, 256, ARRAY_LANES, dtype=np.uint64)
+        xa, ya = FheUint8Array.encrypt(u, ck), FheUint8Array.encrypt(v, ck)
+        step("array_add", lambda: xa + ya, [int(i) for i in (u + v) % 256])
+        step("array_and", lambda: xa & ya, [int(i) for i in u & v])
+        step("array_sum", xa.sum, int(u.sum()) % 256)
+
+        # a KVStore of KV_SLOTS FheUint8 slots
+        kv = KVStore()
+        slots = [(10 * (i + 1), 100 + i) for i in range(KV_SLOTS)]
+        for k, val in slots:
+            kv.insert(FheUint8.encrypt(k, ck), FheUint8.encrypt(val, ck))
+        hit, miss = FheUint8.encrypt(30, ck), FheUint8.encrypt(99, ck)
+        step("kv_get_hit", lambda: kv.get(hit), dict(slots)[30])
+        step("kv_get_miss", lambda: kv.get(miss), 0)
+        step("kv_contains", lambda: kv.contains(hit), True)
+        new = FheUint8.encrypt(42, ck)
+        step("kv_update_get", lambda: kv.update(hit, new) or kv.get(hit), 42)
+    finally:
+        unset_server_key()
+    secs = time.perf_counter() - t0
+    print(f"HLAPI phase: {secs:.1f} s")
+    return {"hlapi_s": secs, "hlapi_table": rows}
 
 
 def main() -> int:
@@ -1539,6 +1748,8 @@ def main() -> int:
     summary.update(phase_kernel_bench(rate, rows))
     summary.update(phase_probes(rows, summary["kernel_bench"]))
     summary.update(phase_integer(ck22, sk22, card, rows))
+    summary.update(phase_strings(ck22, sk22, card, rows))
+    summary.update(phase_hlapi(card, summary["readme_chain"][1]))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",

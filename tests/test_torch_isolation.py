@@ -64,7 +64,10 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/integer/radix.py",
             "tfhe_tpu_torch/integer/ops_extra.py",
             "tfhe_tpu_torch/integer/crt.py",
-            "tfhe_tpu_torch/integer/bigint.py"} <= names
+            "tfhe_tpu_torch/integer/bigint.py",
+            "tfhe_tpu_torch/strings/ascii.py",
+            "tfhe_tpu_torch/high_level_api/api.py",
+            "tfhe_tpu_torch/high_level_api/kv_store.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -79,6 +82,8 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.ops import kernel_bench\n"
         "from tfhe_tpu_torch import sass_loops\n"
         "from tfhe_tpu_torch.integer import crt, gen_keys\n"
+        "from tfhe_tpu_torch import high_level_api, strings\n"
+        "from tfhe_tpu_torch.high_level_api import kv_store\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
         "sk = ServerKey.generate(ck)\n"
         "out = sk.apply_lookup_table(ck.encrypt([1, 2]),\n"
@@ -127,7 +132,8 @@ def test_cpu_tensors_take_plain_versions():
 @pytest.mark.parametrize("kind", ["multi-bit", "ks32", "pbs_ks", "drift"])
 def test_unported_parameter_sets_raise(kind):
     """Parameters are duck-typed: a multi-bit or KS32 set (no class in the
-    port yet), or a classic set asking for an unported pattern, raises."""
+    port yet), or a classic set asking for an unported pattern, raises,
+    naming the ROADMAP item that ports it by number and title."""
     fields = {f.name: getattr(P, f.name) for f in dataclasses.fields(P)}
     fields.update({
         "multi-bit": {"grouping_factor": 2},
@@ -139,7 +145,12 @@ def test_unported_parameter_sets_raise(kind):
     }[kind])
     ck = ClientKey.generate(P, seed=5, device="cpu")
     ck.params = types.SimpleNamespace(**fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"multi-bit": "item 8: other PBS flavors",
+            "ks32": "item 5: the rest of shortint",
+            "pbs_ks": "item 5: the rest of shortint",
+            "drift": "item 5: the rest of shortint"}[kind]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue A {item}"):
         ServerKey.generate(ck)
 
 

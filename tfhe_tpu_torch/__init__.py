@@ -16,7 +16,10 @@ Conventions:
   (``csrc/*.cu``, built with nvcc at first use by :mod:`._build`); a tensor
   on the CPU takes each kernel's plain PyTorch version instead.
 
-Layer map (the shortint KS -> PBS main path, the boolean gates, Trivium):
+Layer map (the shortint KS -> PBS main path and what is built on it):
+    high_level_api/ — typed FheUint/FheInt/FheBool, arrays, KVStore
+    strings/   — encrypted ASCII strings over the integer layer
+    integer/   — radix and CRT integers over shortint blocks
     ops/       — polynomial, decomposition, NTT, BNF2 spec, exact CRT spec,
                  kernel wrappers, server-side keyswitch / modulus switch /
                  PBS (BNF2 and exact CRT)
@@ -26,7 +29,7 @@ Layer map (the shortint KS -> PBS main path, the boolean gates, Trivium):
     boolean/   — boolean ClientKey, ServerKey, gates
     apps/      — FHE Trivium and transciphering
     utils/     — parameter sets, encoding, AES-CTR CSPRNG
-    convert.py — carries tfhe_tpu key arrays into the port
+    convert.py — carries tfhe_tpu keys and ciphertexts into the port
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ from .integer import radix
 from .ops import ntt as ntt_mod
 from .shortint.client_key import ClientKey
 from .shortint.server_key import ServerKey, check_supported, resolve_variant
+from .strings.ascii import FheAsciiString
 from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
 
 
@@ -128,3 +129,25 @@ def radix_ciphertext_to_arrays(ct: radix.RadixCiphertext) -> tuple:
     return (to_u64(ct.ct), np.array(ct.degrees, dtype=np.int64),
             np.array(ct.noise_levels, dtype=np.int64), ct.message_modulus,
             ct.carry_modulus)
+
+
+def ascii_string_from_arrays(chars_u64, degrees, noise_levels,
+                             message_modulus: int, carry_modulus: int,
+                             capacity: int, device=None) -> FheAsciiString:
+    """A port FheAsciiString from ``tfhe_tpu``'s: its chars' blocks
+    u64[capacity, num_blocks, dim+1], their per-block degrees and noise
+    levels, and the capacity (see :func:`radix_ciphertext_from_arrays`)."""
+    chars = radix_ciphertext_from_arrays(chars_u64, degrees, noise_levels,
+                                         message_modulus, carry_modulus,
+                                         device)
+    if chars.ct.shape[0] != capacity:
+        raise ValueError(f"capacity {capacity} does not match the "
+                         f"{chars.ct.shape[0]} chars given")
+    return FheAsciiString(chars=chars, capacity=capacity)
+
+
+def ascii_string_to_arrays(s: FheAsciiString) -> tuple:
+    """Inverse of :func:`ascii_string_from_arrays`: (chars u64[capacity,
+    num_blocks, dim+1], degrees, noise_levels, message_modulus,
+    carry_modulus, capacity)."""
+    return radix_ciphertext_to_arrays(s.chars) + (s.capacity,)

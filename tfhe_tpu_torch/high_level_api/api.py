@@ -1,0 +1,597 @@
+"""Typed FHE API: config, key generation, FheUintN / FheIntN / FheBool with
+operator overloading dispatched through a module-global server key (the
+functional analog of the reference's thread-local ``InternalServerKey``,
+``high_level_api/global_state.rs:66-120``).
+
+Torch counterpart of the typed core of ``tfhe_tpu/high_level_api/api.py``.
+Type zoo mirrors ``high_level_api/integers/{unsigned,signed}/mod.rs``:
+FheUint2..FheUint2048 and FheInt2..FheInt2048 (extended sizes included).
+Shift/rotate amounts are taken modulo the bit width, like the reference.
+Keys live on ``device`` (the GPU unless the caller asks for another); every
+op runs through the integer ``ServerKey`` on the key's device.
+
+The parts of the JAX API that need modules the port does not carry yet
+(compression, noise squashing, compact public keys, ZK, serialization, the
+keycache) raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import integer
+from .._roadmap import not_ported
+from ..integer.radix import BooleanBlock, RadixCiphertext
+from ..utils.params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
+
+# ---------------------------------------------------------------------------
+# config + keys
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Config:
+    parameters: ClassicPBSParameters = PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    seed: Optional[int] = None
+    # optional companion parameter sets (reference Config carries the same
+    # optionals: config.rs / MetaParameters); keygen refuses them until
+    # their modules are ported
+    noise_squashing_parameters: Optional[Any] = None
+    noise_squashing_compression_parameters: Optional[Any] = None
+    compression_parameters: Optional[Any] = None
+
+
+class ConfigBuilder:
+    """Reference ``high_level_api/config.rs:41``."""
+
+    def __init__(self):
+        self._params = PARAM_MESSAGE_2_CARRY_2_KS_PBS
+        self._seed = None
+        self._compression = self._squash = self._squash_comp = None
+
+    def use_custom_parameters(self, params: ClassicPBSParameters) -> "ConfigBuilder":
+        self._params = params
+        return self
+
+    def with_seed(self, seed: int) -> "ConfigBuilder":
+        self._seed = seed
+        return self
+
+    def enable_compression(self, comp_params) -> "ConfigBuilder":
+        """config.rs enable_compression."""
+        self._compression = comp_params
+        return self
+
+    def enable_noise_squashing(self, squash_params) -> "ConfigBuilder":
+        self._squash = squash_params
+        return self
+
+    def enable_noise_squashing_compression(self, params) -> "ConfigBuilder":
+        """config.rs enable_noise_squashing_compression (requires
+        enable_noise_squashing)."""
+        self._squash_comp = params
+        return self
+
+    def build(self) -> Config:
+        if self._squash_comp is not None:
+            assert self._squash is not None, \
+                "noise squashing compression requires noise squashing"
+        return Config(
+            parameters=self._params,
+            seed=self._seed,
+            noise_squashing_parameters=self._squash,
+            noise_squashing_compression_parameters=self._squash_comp,
+            compression_parameters=self._compression,
+        )
+
+
+def _check_config(config: Config) -> None:
+    """Refuse a config asking for a key the port cannot make yet."""
+    if (config.noise_squashing_parameters is not None
+            or config.noise_squashing_compression_parameters is not None):
+        raise not_ported("noise-squashing keys", 7)
+    if config.compression_parameters is not None:
+        raise not_ported("compression keys", 6)
+
+
+class Tag:
+    """User metadata carried by keys and propagated into every ciphertext
+    produced under them (reference ``high_level_api/tag.rs:319``)."""
+
+    def __init__(self, data: bytes = b""):
+        self.data = bytes(data)
+
+    def __eq__(self, other):
+        return isinstance(other, Tag) and self.data == other.data
+
+    def __repr__(self):
+        return f"Tag({self.data!r})"
+
+
+class ClientKey:
+    def __init__(self, inner: integer.ClientKey, tag: Tag = None):
+        self.inner = inner
+        self.tag = tag or Tag()
+
+    @classmethod
+    def generate(cls, config: Config, device=None) -> "ClientKey":
+        """Seeded keygen on ``device`` (the GPU when unset; raises without
+        one)."""
+        _check_config(config)
+        seed = config.seed if config.seed is not None else 0
+        return cls(integer.ClientKey.generate(config.parameters, seed,
+                                              device=device))
+
+
+class ServerKey:
+    def __init__(self, inner: integer.ServerKey, tag: Tag = None):
+        self.inner = inner
+        self.tag = tag or Tag()
+
+
+def generate_keys(config: Config, use_keycache: bool = False, device=None):
+    """Reference ``high_level_api/keys/mod.rs:40``: (ClientKey, ServerKey)
+    on ``device`` (the GPU when unset)."""
+    if use_keycache:
+        raise not_ported("the keycache", 9)
+    ck = ClientKey.generate(config, device=device)
+    sk = ServerKey(integer.ServerKey.generate(ck.inner))
+    return ck, sk
+
+
+_SERVER_KEY: Optional[ServerKey] = None
+
+
+def set_server_key(key: ServerKey) -> None:
+    global _SERVER_KEY
+    _SERVER_KEY = key
+
+
+def unset_server_key() -> None:
+    global _SERVER_KEY
+    _SERVER_KEY = None
+
+
+def _sk() -> integer.ServerKey:
+    if _SERVER_KEY is None:
+        raise RuntimeError("no server key set; call set_server_key(server_key)")
+    return _SERVER_KEY.inner
+
+
+def _unported_class(name: str, what: str, items: tuple, constructors=()):
+    """A class of the JAX API whose module the port does not carry yet:
+    making one, or calling one of its ``constructors``, raises."""
+
+    def refuse(*args, **kwargs):
+        raise not_ported(what, *items)
+
+    ns = {"__doc__": f"Not ported yet: {what}.",
+          "__init__": lambda self, *a, **k: refuse()}
+    ns.update({c: classmethod(lambda cls, *a, **k: refuse())
+               for c in constructors})
+    return type(name, (), ns)
+
+
+CompressedServerKey = _unported_class(
+    "CompressedServerKey", "the compressed server key", (6,),
+    ("generate",))
+CompressedXofKeySet = _unported_class(
+    "CompressedXofKeySet", "the XOF key set (a compressed server key)",
+    (6,), ("generate",))
+SquashedNoiseFheUint = _unported_class(
+    "SquashedNoiseFheUint", "noise squashing", (7,))
+CompressedSquashedNoiseCiphertextList = _unported_class(
+    "CompressedSquashedNoiseCiphertextList",
+    "lists of noise-squashed ciphertexts", (7,), ("builder",))
+CompactPublicKey = _unported_class(
+    "CompactPublicKey", "the compact public key", (6, 9), ("new",))
+HlCompactCiphertextList = _unported_class(
+    "HlCompactCiphertextList", "compact ciphertext lists", (6, 9))
+CompactCiphertextListBuilder = _unported_class(
+    "CompactCiphertextListBuilder", "compact ciphertext lists", (6, 9))
+HlCompressedCiphertextList = _unported_class(
+    "HlCompressedCiphertextList", "compressed ciphertext lists", (6,))
+CompressedCiphertextListBuilder = _unported_class(
+    "CompressedCiphertextListBuilder", "compressed ciphertext lists", (6,))
+
+
+def safe_serialize(obj, serialized_size_limit: int = 1 << 30) -> bytes:
+    """Versioned, size-bounded envelope (safe_serialization.rs)."""
+    raise not_ported("safe serialization", 9)
+
+
+def safe_deserialize(data: bytes, serialized_size_limit: int = 1 << 30,
+                     conformance=None):
+    raise not_ported("safe serialization", 9)
+
+
+# ---------------------------------------------------------------------------
+# FheBool
+# ---------------------------------------------------------------------------
+
+
+class FheBool:
+    def __init__(self, block: BooleanBlock):
+        self.block = block
+
+    @classmethod
+    def encrypt(cls, value, client_key: "ClientKey") -> "FheBool":
+        ct = client_key.inner.encrypt_radix(
+            np.asarray(value).astype(np.uint64), 1
+        )
+        return cls(BooleanBlock(ct=ct.ct[..., 0, :]))
+
+    def decrypt(self, client_key: ClientKey) -> np.ndarray | bool:
+        out = _sk().decrypt_bool(client_key.inner, self.block)
+        return bool(out) if out.shape == () else out
+
+    def __and__(self, other: "FheBool") -> "FheBool":
+        return FheBool(_sk().boolean_bitand(self.block, other.block))
+
+    def __or__(self, other: "FheBool") -> "FheBool":
+        return FheBool(_sk().boolean_bitor(self.block, other.block))
+
+    def __xor__(self, other: "FheBool") -> "FheBool":
+        sk = _sk()
+        packed = self.block.ct * 2 + other.block.ct  # wraps as u64 does
+        lut = sk._lut(lambda x: (x // 2) ^ (x % 2), degree=1)
+        out = sk._pbs_blocks(packed[..., None, :], 3, 3, lut)
+        return FheBool(BooleanBlock(ct=out[..., 0, :]))
+
+    def __invert__(self) -> "FheBool":
+        return FheBool(_sk().boolean_bitnot(self.block))
+
+    def select(self, t: "_FheIntegerBase", e: "_FheIntegerBase"):
+        """cond ? t : e (reference FheBool::if_then_else)."""
+        return t._wrap(_sk().if_then_else(self.block, t.ct, e.ct))
+
+    if_then_else = select
+
+
+# ---------------------------------------------------------------------------
+# integer types
+# ---------------------------------------------------------------------------
+
+
+class _FheIntegerBase:
+    """Shared machinery of FheUintN / FheIntN (reference
+    high_level_api/integers/). N bits = N/log2(mm) radix blocks."""
+
+    NUM_BITS: int = 0
+    SIGNED: bool = False
+
+    def __init__(self, ct: RadixCiphertext):
+        self.ct = ct
+
+    # -- encryption -----------------------------------------------------------
+    @classmethod
+    def num_blocks(cls, params: ClassicPBSParameters) -> int:
+        bits_per_block = int(math.log2(params.message_modulus))
+        return max(1, cls.NUM_BITS // bits_per_block)
+
+    @classmethod
+    def encrypt(cls, value, client_key: ClientKey):
+        nb = cls.num_blocks(client_key.inner.params)
+        if cls.SIGNED:
+            return cls(client_key.inner.encrypt_signed_radix(value, nb))
+        return cls(client_key.inner.encrypt_radix(value, nb))
+
+    try_encrypt = encrypt
+
+    @classmethod
+    def encrypt_trivial(cls, value):
+        """A trivial encryption on the server key's device."""
+        sk = _sk()
+        nb = cls.num_blocks(sk.params)
+        v = int(value) % (1 << cls.NUM_BITS)
+        dim = sk.params.glwe_dimension * sk.params.polynomial_size + 1
+        like = RadixCiphertext(
+            ct=torch.zeros((nb, dim), dtype=torch.int64, device=sk.key.device),
+            degrees=np.zeros(nb, dtype=np.int64),
+            noise_levels=np.zeros(nb, dtype=np.int64),
+            message_modulus=sk.params.message_modulus,
+            carry_modulus=sk.params.carry_modulus,
+        )
+        return cls(sk._trivial_radix(v, nb, like))
+
+    def decrypt(self, client_key: ClientKey):
+        if self.SIGNED:
+            out = client_key.inner.decrypt_signed_radix(self.ct)
+        else:
+            out = client_key.inner.decrypt_radix(self.ct)
+        return int(out) if np.asarray(out).shape == () else out
+
+    # -- helpers ----------------------------------------------------------------
+    def _wrap(self, ct: RadixCiphertext):
+        return type(self)(ct)
+
+    def _scalar_mod(self, other) -> int:
+        return int(other) % (1 << self.NUM_BITS)
+
+    def _binary(self, other, enc_name: str, scalar_name: str):
+        """An op with an encrypted or a clear (mod 2^N) right operand."""
+        if isinstance(other, _FheIntegerBase):
+            return self._wrap(getattr(_sk(), enc_name)(self.ct, other.ct))
+        return self._wrap(
+            getattr(_sk(), scalar_name)(self.ct, self._scalar_mod(other)))
+
+    # -- arithmetic ---------------------------------------------------------------
+    def __add__(self, other):
+        return self._binary(other, "add", "scalar_add")
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        return self._binary(other, "sub", "scalar_sub")
+
+    def __rsub__(self, other):
+        return (-self).__add__(other)
+
+    def __mul__(self, other):
+        return self._binary(other, "mul", "scalar_mul")
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __neg__(self):
+        return self._wrap(_sk().neg(self.ct))
+
+    def __truediv__(self, other):
+        return self.div(other)
+
+    def __floordiv__(self, other):
+        return self.div(other)
+
+    def __mod__(self, other):
+        return self.rem(other)
+
+    def div(self, other):
+        return self.div_rem(other)[0]
+
+    def rem(self, other):
+        return self.div_rem(other)[1]
+
+    def div_rem(self, other):
+        fn = _sk().signed_div_rem if self.SIGNED else _sk().div_rem
+        q, r = fn(self.ct, other.ct)
+        return self._wrap(q), self._wrap(r)
+
+    def overflowing_add(self, other):
+        res, ov = _sk().add_parallelized(self.ct, other.ct, compute_overflow=True)
+        return self._wrap(res), FheBool(ov)
+
+    def overflowing_sub(self, other):
+        res, bw = _sk().sub_parallelized(self.ct, other.ct, compute_overflow=True)
+        return self._wrap(res), FheBool(bw)
+
+    # -- bitwise --------------------------------------------------------------
+    def __and__(self, other):
+        return self._binary(other, "bitand", "scalar_bitand")
+
+    def __or__(self, other):
+        return self._binary(other, "bitor", "scalar_bitor")
+
+    def __xor__(self, other):
+        return self._binary(other, "bitxor", "scalar_bitxor")
+
+    def __invert__(self):
+        return self._wrap(_sk().bitnot(self.ct))
+
+    # -- shifts / rotates -------------------------------------------------------
+    def __lshift__(self, other):
+        if isinstance(other, _FheIntegerBase):
+            return self._wrap(_sk().left_shift(self.ct, other.ct))
+        return self._wrap(_sk().scalar_left_shift(self.ct, int(other)))
+
+    def __rshift__(self, other):
+        if isinstance(other, _FheIntegerBase) and self.SIGNED:
+            return self._wrap(_sk().arithmetic_right_shift_encrypted(self.ct, other.ct))
+        if isinstance(other, _FheIntegerBase):
+            return self._wrap(_sk().right_shift(self.ct, other.ct))
+        if self.SIGNED:
+            return self._wrap(_sk().arithmetic_right_shift(self.ct, int(other)))
+        return self._wrap(_sk().scalar_right_shift(self.ct, int(other)))
+
+    def squash_noise(self):
+        """Re-encrypt with the 128-bit PBS for threshold decryption
+        (high_level_api squash_noise)."""
+        raise not_ported("noise squashing", 7)
+
+    def rotate_left(self, amount: int):
+        return self._wrap(_sk().scalar_rotate_left(self.ct, int(amount)))
+
+    def rotate_right(self, amount: int):
+        return self._wrap(_sk().scalar_rotate_right(self.ct, int(amount)))
+
+    # -- comparisons ------------------------------------------------------------
+    def _cmp(self, other, enc_name, scalar_name) -> FheBool:
+        sk = _sk()
+        if isinstance(other, _FheIntegerBase):
+            return FheBool(getattr(sk, enc_name)(self.ct, other.ct))
+        return FheBool(getattr(sk, scalar_name)(self.ct, self._scalar_mod(other)))
+
+    def _ordered(self, other, name: str) -> FheBool:
+        prefix = "signed_" if self.SIGNED else ""
+        return self._cmp(other, prefix + name, f"{prefix}scalar_{name}")
+
+    def eq(self, other) -> FheBool:
+        return self._cmp(other, "eq", "scalar_eq")
+
+    def ne(self, other) -> FheBool:
+        return self._cmp(other, "ne", "scalar_ne")
+
+    def lt(self, other) -> FheBool:
+        return self._ordered(other, "lt")
+
+    def le(self, other) -> FheBool:
+        return self._ordered(other, "le")
+
+    def gt(self, other) -> FheBool:
+        return self._ordered(other, "gt")
+
+    def ge(self, other) -> FheBool:
+        return self._ordered(other, "ge")
+
+    def min(self, other):
+        fn = _sk().signed_min if self.SIGNED else _sk().min
+        return self._wrap(fn(self.ct, other.ct))
+
+    def max(self, other):
+        fn = _sk().signed_max if self.SIGNED else _sk().max
+        return self._wrap(fn(self.ct, other.ct))
+
+    def abs(self):
+        if not self.SIGNED:
+            return self
+        return self._wrap(_sk().abs(self.ct))
+
+    def count_ones(self):
+        return self._wrap(_sk().count_ones(self.ct))
+
+    def count_zeros(self):
+        return self._wrap(_sk().count_zeros(self.ct))
+
+    def is_even(self) -> FheBool:
+        return FheBool(_sk().is_even(self.ct))
+
+    def is_odd(self) -> FheBool:
+        return FheBool(_sk().is_odd(self.ct))
+
+    def ilog2(self):
+        return self._wrap(_sk().ilog2(self.ct))
+
+    # -- casts ------------------------------------------------------------------
+    def cast_into(self, target_cls):
+        """FheUintA -> FheUintB / FheIntB (reference CastInto impls)."""
+        sk = _sk()
+        nb_out = target_cls.num_blocks(sk.params)
+        if self.SIGNED and nb_out > self.ct.num_blocks:
+            ct = sk.signed_cast_to_num_blocks(self.ct, nb_out)
+        else:
+            ct = sk.cast_to_num_blocks(self.ct, nb_out)
+        return target_cls(ct)
+
+
+# explicit signed/unsigned markers for isinstance checks
+class _FheUintMarker:
+    SIGNED = False
+
+
+class _FheIntMarker:
+    SIGNED = True
+
+
+_SIZES = (2, 4, 6, 8, 10, 12, 14, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96,
+          104, 112, 120, 128, 136, 144, 152, 160, 168, 176, 184, 192, 200,
+          208, 216, 224, 232, 240, 248, 256, 512, 1024, 2048)
+
+_UNSIGNED_TYPES = {}
+_SIGNED_TYPES = {}
+
+for _bits in _SIZES:
+    _UNSIGNED_TYPES[_bits] = type(
+        f"FheUint{_bits}", (_FheIntegerBase, _FheUintMarker),
+        {"NUM_BITS": _bits, "SIGNED": False},
+    )
+    _SIGNED_TYPES[_bits] = type(
+        f"FheInt{_bits}", (_FheIntegerBase, _FheIntMarker),
+        {"NUM_BITS": _bits, "SIGNED": True},
+    )
+
+globals().update({f"FheUint{b}": c for b, c in _UNSIGNED_TYPES.items()})
+globals().update({f"FheInt{b}": c for b, c in _SIGNED_TYPES.items()})
+
+
+def fhe_uint(bits: int):
+    """Lookup a FheUint type by bit width."""
+    return _UNSIGNED_TYPES[bits]
+
+
+def fhe_int(bits: int):
+    return _SIGNED_TYPES[bits]
+
+
+# ---------------------------------------------------------------------------
+# arrays (high_level_api/array/): elementwise ops over batched radix cts
+# ---------------------------------------------------------------------------
+
+class _FheArrayBase:
+    """A batch of same-width encrypted integers in ONE radix ciphertext with
+    a leading batch axis — elementwise ops are a single batched KS->PBS
+    pipeline, the analog of the reference's array types."""
+
+    SCALAR_TYPE = None  # FheUintN
+
+    def __init__(self, ct: RadixCiphertext):
+        self.ct = ct
+
+    @classmethod
+    def encrypt(cls, values, client_key: ClientKey):
+        nb = cls.SCALAR_TYPE.num_blocks(client_key.inner.params)
+        vals = np.asarray(values, dtype=np.uint64)
+        assert vals.ndim == 1, "FheArray encrypts a 1-D list of values"
+        return cls(client_key.inner.encrypt_radix(vals, nb))
+
+    def decrypt(self, client_key: ClientKey) -> np.ndarray:
+        return np.atleast_1d(client_key.inner.decrypt_radix(self.ct))
+
+    def __len__(self):
+        return self.ct.ct.shape[0]
+
+    def __getitem__(self, idx):
+        """An element (a FheUintN) or a slice (an array): views of this
+        array's tensor, which no op writes into."""
+        sub = self.ct.with_ct(self.ct.ct[idx])
+        if isinstance(idx, slice):
+            return type(self)(sub)
+        return self.SCALAR_TYPE(sub)
+
+    def _wrap(self, ct):
+        return type(self)(ct)
+
+    def __add__(self, other):
+        return self._wrap(_sk().add(self.ct, other.ct))
+
+    def __sub__(self, other):
+        return self._wrap(_sk().sub(self.ct, other.ct))
+
+    def __mul__(self, other):
+        return self._wrap(_sk().mul(self.ct, other.ct))
+
+    def __and__(self, other):
+        return self._wrap(_sk().bitand(self.ct, other.ct))
+
+    def __or__(self, other):
+        return self._wrap(_sk().bitor(self.ct, other.ct))
+
+    def __xor__(self, other):
+        return self._wrap(_sk().bitxor(self.ct, other.ct))
+
+    def eq(self, other):
+        return FheBool(_sk().eq(self.ct, other.ct))
+
+    def sum(self):
+        """Multi-operand parallel sum of all elements -> scalar FheUint."""
+        parts = [self[i].ct for i in range(len(self))]
+        return self.SCALAR_TYPE(_sk().sum_ciphertexts_parallelized(parts))
+
+
+_UNSIGNED_ARRAY_TYPES = {}
+for _bits in _SIZES:
+    _UNSIGNED_ARRAY_TYPES[_bits] = type(
+        f"FheUint{_bits}Array", (_FheArrayBase,),
+        {"SCALAR_TYPE": _UNSIGNED_TYPES[_bits]},
+    )
+globals().update(
+    {f"FheUint{b}Array": c for b, c in _UNSIGNED_ARRAY_TYPES.items()}
+)
+
+
+def fhe_uint_array(bits: int):
+    return _UNSIGNED_ARRAY_TYPES[bits]

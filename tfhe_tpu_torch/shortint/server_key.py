@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .._roadmap import not_ported
 from .._torus import from_u64, to_u64
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
@@ -95,21 +96,14 @@ def check_supported(p) -> None:
     (parameters are duck-typed: a multi-bit or KS32 set from elsewhere must
     not silently run the classic path)."""
     if getattr(p, "grouping_factor", 0):
-        raise NotImplementedError(
-            "multi-bit PBS is not ported yet (ROADMAP Queue A item 10)")
+        raise not_ported("multi-bit PBS", 8)
     mod = getattr(p, "post_keyswitch_ciphertext_modulus", None)
     if mod is not None and mod.bits == 32:
-        raise NotImplementedError(
-            "the KS32 atomic pattern is not ported yet (ROADMAP Queue A "
-            "item 3, keyswitch_mxu32)")
+        raise not_ported("the KS32 atomic pattern (keyswitch_mxu32)", 5)
     if p.encryption_key_choice != EncryptionKeyChoice.BIG:
-        raise NotImplementedError(
-            "the PBS -> KS order (small-key ciphertexts) is not ported yet "
-            "(ROADMAP Queue A item 4)")
+        raise not_ported("the PBS -> KS order (small-key ciphertexts)", 5)
     if p.modulus_switch_type == ModulusSwitchType.DRIFT_TECHNIQUE_NOISE_REDUCTION:
-        raise NotImplementedError(
-            "drift-technique modulus switching is not ported yet (ROADMAP "
-            "Queue A item 4)")
+        raise not_ported("drift-technique modulus switching", 5)
 
 
 def flavor_for(variant: str) -> Optional[b2.Bnf2Flavor]:
