@@ -108,7 +108,20 @@ Phases (any failure raises and exits non-zero):
     decrypted; a 32-lane ``FheUint8Array`` (``+``, ``&``, ``sum``); a
     4-slot ``KVStore`` of ``FheUint8`` (``get`` hit and miss,
     ``contains``, ``update``): ms at batch 1, PBS rounds and PBS each;
-16. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+16. the rest of shortint (``phase_shortint_rest``): many-LUT on phase 2's
+    keys (the exact CRT key, built at first use: K2 u64 and K3 P = 4 once,
+    at k = 2 and 4 on 2048 ciphertexts covering every input degree; at
+    512 under ``TFHE_V4_ACC=32``, K2 acc32 and K3-acc32, and on phase 7's
+    v5 key, K2 u64 and K4), each output decrypted, each kernel against its
+    plain version on the call's own inputs, outputs/s; the shortint OPRF
+    (1-4 bits) and the FheUint64 OPRF (one batched PBS, ms at batch 1, a
+    chi-square of 64 seeds' 2,048 blocks); the reference's v1.5 2_2 KS32,
+    KS32 + drift (v1_3) and PBS -> KS sets at full width: keygen s, a
+    2048 batch through ``apply_lookup_table`` (K2 acc32 and K1 once, K2
+    acc32 and K1 against their plain versions on its inputs), PBS/s, the
+    keyswitch, the drift choice and K1 alone; then add, smart_add, mul, a
+    bivariate LUT and unchecked_neg on phase 2's keys, each decrypted;
+17. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -983,8 +996,8 @@ def phase_shortint_v5(ck, rate, rows):
             step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
         shape=f"2_2 v5 B={BATCH} n={n}",
         plain_shape=f"2_2 v5 B={PLAIN_BATCH} n={n}")
-    return {"v5_keygen_s": keygen_s, "v5_pbs_ms": step_ms,
-            "v5_pbs_per_s": BATCH / step_ms * 1e3, "v5_k4_ms": k4_ms}
+    return sk, {"v5_keygen_s": keygen_s, "v5_pbs_ms": step_ms,
+                "v5_pbs_per_s": BATCH / step_ms * 1e3, "v5_k4_ms": k4_ms}
 
 
 def phase_boolean_acc32(ck, sk, card, rate, rows, exact_and_ms):
@@ -1714,6 +1727,327 @@ def phase_hlapi(card, integer_chain):
     return {"hlapi_s": secs, "hlapi_table": rows}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of shortint
+# ---------------------------------------------------------------------------
+
+MANY_LUT_FUNCS = {  # k -> the functions of one many-LUT (2_2: mod_sup 16)
+    2: (lambda x: x % 4, lambda x: (x * 2) % 16),
+    4: (lambda x: x, lambda x: x + 1, lambda x: (3 * x) % 4,
+        lambda x: 15 - x),
+}
+OPRF_SEEDS = 64  # the FheUint64 OPRF's chi-square sample: 64 x 32 blocks
+PATTERN_SETS = ("V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
+                "V1_3_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
+                "V1_5_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128")
+LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
+               "blind_rotate_bnf2_acc32", "blind_rotate_crt",
+               "blind_rotate_crt_acc32", "blind_rotate_bnf2_u64",
+               "blind_rotate_goldilocks")
+
+
+def launches_exactly(label, fn, want: dict):
+    """Run ``fn`` with every launch count zeroed just before and read just
+    after: the kernels of ``want`` launched exactly that often, every other
+    kernel never. Returns ``fn``'s output."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    pk.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launches_of(*LUT_KERNELS)
+    require_launched(label, {k: got[k] for k in want})
+    if got != {k: want.get(k, 0) for k in LUT_KERNELS}:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return out
+
+
+def chi2_sf_3(x: float) -> float:
+    """P[chi^2 with 3 degrees of freedom > x], in closed form."""
+    import math
+
+    return (math.erfc(math.sqrt(x / 2))
+            + math.sqrt(2 * x / math.pi) * math.exp(-x / 2))
+
+
+def pbs_inputs(sk, ct):
+    """The switched (mask [B, n], body [B]) that ``sk.apply_lookup_table``
+    hands its step kernels under any atomic pattern: the keyswitch first
+    (not under PBS -> KS), the drift technique's zero, the switch from the
+    pattern's torus."""
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.utils.params import ModulusSwitchType
+
+    p = sk.params
+    x = ct.ct if sk.order == "pbs_ks" else sk.ks_only(ct.ct)
+    bits, log_mod = (32 if sk.ks32 else 64), p.polynomial_size.bit_length()
+    if sk.drift is not None:
+        x = server_ops.improve_drift_ms(x, sk.ms_zeros, *sk.drift, log_mod,
+                                        torus_bits=bits)
+    if p.modulus_switch_type == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION:
+        switch = server_ops.lwe_centered_binary_modulus_switch
+    else:
+        switch = server_ops.lwe_standard_modulus_switch
+    mask, body = switch(x, log_mod, bits)
+    return mask.reshape(-1, p.lwe_dimension), body.reshape(-1)
+
+
+def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
+    """One many-LUT call of ``k`` functions on ``batch`` ciphertexts that
+    cover every input degree <= mod_sup/k - 1: the launch counts around it
+    (``want``), every output decrypted against its function, the step
+    kernel of the path (K3 P = 4, K3-acc32 P = 4 or K4) and its K2 against
+    their plain versions on the call's own inputs (the step kernel on the
+    first ``plain_b`` ciphertexts, all n steps), outputs/s (median of 5)."""
+    import dataclasses
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import server as server_ops
+
+    p = sk.params
+    fns = MANY_LUT_FUNCS[k]
+    many = sk.generate_many_lookup_table(fns)
+    vals = np.arange(batch, dtype=np.uint64) % np.uint64(
+        many.max_input_degree + 1)
+    ct = dataclasses.replace(ck.encrypt(vals), degree=many.max_input_degree)
+    outs = launches_exactly(f"{label} many-LUT k={k}",
+                            lambda: sk.apply_many_lookup_table(ct, many),
+                            want)
+    for i, (o, f) in enumerate(zip(outs, fns)):
+        expect = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+        if not np.array_equal(ck.decrypt_message_and_carry(o), expect):
+            raise AssertionError(f"{label} many-LUT k={k}: output {i} "
+                                 f"decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask, body = mask.reshape(-1, p.lwe_dimension), body.reshape(-1)
+    bl, lv = p.pbs_base_log, p.pbs_level
+    if sk.variant == "v5":
+        name, step_plain, key = ("blind_rotate_goldilocks",
+                                 pk.blind_rotate_goldilocks_plain, sk.bsk_g)
+        step = functools.partial(pk.blind_rotate_goldilocks, bsk_k=sk.bsk_g_k)
+    elif server_ops.crt_acc32_requested(p.polynomial_size, bl, lv):
+        name, step, step_plain = ("blind_rotate_crt_acc32",
+                                  pk.blind_rotate_crt_acc32,
+                                  pk.blind_rotate_crt_acc32_plain)
+        key = sk.bsk_scan
+    else:
+        name, step, step_plain = ("blind_rotate_crt", pk.blind_rotate_crt,
+                                  pk.blind_rotate_crt_plain)
+        key = sk.bsk_scan
+    k2 = (pk.body_rotate_acc32 if name == "blind_rotate_crt_acc32"
+          else pk.body_rotate_u64)
+    k2_plain = (pk.body_rotate_acc32_plain if k2 is pk.body_rotate_acc32
+                else pk.body_rotate_u64_plain)
+    check_equal(f"{k2.__name__} {label} many-LUT", k2, k2_plain,
+                (many.acc, body))
+    acc = k2(many.acc, body)
+    _, plain_ms = check_equal(
+        f"{name} {label} many-LUT", step, step_plain,
+        (acc[:plain_b].contiguous(), mask[:plain_b], key, bl, lv))
+    ms = cuda_ms(lambda: sk.apply_many_lookup_table(ct, many), 5)
+    rate = batch * k / ms * 1e3
+    print(f"{label} many-LUT k={k}: {batch} ciphertexts x {k} functions "
+          f"decrypt right; K2 and the step kernel == plain (B={plain_b}, "
+          f"n={p.lwe_dimension}, plain {plain_ms:.1f} ms); {ms:.3f} ms = "
+          f"{rate:.1f} outputs/s")
+    rows[f"many_lut_{label}_k{k}"] = dict(batch=batch, ms=ms,
+                                          outputs_per_s=rate,
+                                          plain_ms=plain_ms)
+    return rate
+
+
+def phase_shortint_rest(ck22, sk22, sk_v5, card, rate):
+    """The rest of shortint (ROADMAP Queue A items 3 and 5), on kernels the
+    earlier phases hold:
+
+    a. many-LUT on phase 2's 2_2 keys: one keyswitch and one blind rotation
+       on the exact CRT key (built at first use), then one extraction a
+       function, at k = 2 and 4 on 2048 ciphertexts covering every input
+       degree (K2 u64 and K3 P = 4 once each, K1 and K2 acc32 never); at
+       512 under ``TFHE_V4_ACC=32`` (K2 acc32, K3-acc32 P = 4) and on phase
+       7's v5 key (K2 u64, K4); each kernel against its plain version on
+       the call's own inputs, outputs/s;
+    b. the OPRF: shortint for 1-4 random bits (in range, the same seed the
+       same ciphertext); FheUint64 ``generate_oblivious_pseudo_random``
+       (32 blocks, one batched PBS: K2 u64 and K3 once) at batch 1 (ms,
+       median of 3) and a chi-square of 64 seeds' 2,048 2-bit blocks;
+    c. the atomic patterns at full width, fresh seeded keys of the
+       reference's v1.5 2_2 sets: KS32 (n = 918), KS32 with the drift
+       technique (v1_3, 1,449 encryptions of zero) and PBS -> KS (n = 978,
+       small-key ciphertexts): keygen s, a batch of 2048 covering all 16
+       values through ``apply_lookup_table`` decrypted (K2 acc32 and K1
+       once), K2 acc32 and K1 against their plain versions on the batch's
+       own inputs (K1 on 64 ciphertexts, all n steps), PBS/s (median of 5),
+       the keyswitch, the drift choice and K1 timed alone;
+    d. phase 2's keys: add, smart_add, mul, a bivariate LUT and unchecked_neg
+       on a 2048 batch, each decrypted."""
+    import dataclasses
+
+    import torch
+
+    from tfhe_tpu_torch.integer import radix
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.shortint import oprf
+    from tfhe_tpu_torch.shortint.ciphertext import ShortintCiphertext
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    t_phase = time.perf_counter()
+    rows, summary = {}, {}
+    # a. many-LUT
+    t0 = time.perf_counter()
+    sk22.crt_key()
+    torch.cuda.synchronize()
+    print(f"2_2 CRT key at first use: {time.perf_counter() - t0:.2f} s, "
+          f"{tuple(sk22.bsk_scan.shape)}")
+    u64_k3 = {"body_rotate_u64": 1, "blind_rotate_crt": 1}
+    for k in (2, 4):
+        summary[f"many_lut_k{k}_outputs_per_s"] = _many_lut(
+            "2_2 v6b", ck22, sk22, k, BATCH, u64_k3, rows, PLAIN_BATCH)
+    with env(TFHE_V4_ACC="32"):
+        summary["many_lut_acc32_outputs_per_s"] = _many_lut(
+            "2_2 acc32", ck22, sk22, 2, SIDE_BATCH,
+            {"body_rotate_acc32": 1, "blind_rotate_crt_acc32": 1}, rows,
+            PLAIN_BATCH)
+    summary["many_lut_v5_outputs_per_s"] = _many_lut(
+        "2_2 v5", ck22, sk_v5, 2, SIDE_BATCH,
+        {"body_rotate_u64": 1, "blind_rotate_goldilocks": 1}, rows, 8)
+
+    # b. the OPRF
+    for bits in range(1, 5):
+        a = oprf.generate_oblivious_pseudo_random(sk22, 1000 + bits, bits)
+        b = oprf.generate_oblivious_pseudo_random(sk22, 1000 + bits, bits)
+        v = int(ck22.decrypt_message_and_carry(a)[0])
+        if not torch.equal(a.ct, b.ct) or not 0 <= v < 1 << bits:
+            raise AssertionError(f"shortint OPRF, {bits} bits: {v}")
+    isk, ick = radix.ServerKey(sk22), radix.ClientKey(ck22)
+    nb = U64_BLOCKS
+    out = launches_exactly(
+        "FheUint64 OPRF",
+        lambda: isk.generate_oblivious_pseudo_random(7, nb), u64_k3)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        isk.generate_oblivious_pseudo_random(7, nb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    oprf_ms = statistics.median(times)
+    blocks = []
+    for seed in range(OPRF_SEEDS):
+        r = isk.generate_oblivious_pseudo_random(seed, nb)
+        blocks.append(ck22.decrypt_message_and_carry(ShortintCiphertext(
+            ct=r.ct, degree=3, noise_level=1, message_modulus=4,
+            carry_modulus=4)))
+    counts = np.bincount(np.concatenate(blocks).astype(np.int64),
+                         minlength=4)
+    expected = counts.sum() / 4
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    pval = chi2_sf_3(chi2)
+    if counts.sum() != OPRF_SEEDS * nb or pval <= 1e-3:
+        raise AssertionError(f"FheUint64 OPRF blocks {counts}: chi2 {chi2}, "
+                             f"p {pval}")
+    print(f"OPRF: shortint 1-4 bits in range and deterministic; FheUint64 "
+          f"{oprf_ms:.2f} ms at batch 1 ({nb} blocks, one PBS call); "
+          f"{OPRF_SEEDS} seeds x {nb} blocks: counts {counts.tolist()}, "
+          f"chi2 {chi2:.3f}, p {pval:.4f}")
+    summary.update(fheuint64_oprf_ms=oprf_ms, oprf_chi2=chi2, oprf_p=pval)
+
+    # c. the atomic patterns at full width
+    acc32_k1 = {"body_rotate_acc32": 1, "blind_rotate_bnf2_acc32": 1}
+    for name in PATTERN_SETS:
+        p = PARAMS_BY_NAME[name]
+        t0 = time.perf_counter()
+        ck = ClientKey.generate(p, seed=SEED)
+        sk = ServerKey.generate(ck)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        label = (f"{name} ({sk.order}, n={p.lwe_dimension}, "
+                 f"{'KS32' if sk.ks32 else 'KS64'}"
+                 f"{', drift' if sk.drift else ''})")
+        if sk.variant != "v6b":
+            raise AssertionError(f"{name}: variant {sk.variant}")
+        mod = p.message_modulus * p.carry_modulus
+        f = lambda x: (3 * x) % mod
+        vals = np.arange(BATCH, dtype=np.uint64) % np.uint64(mod)
+        ct = ck.encrypt(vals)
+        lut = sk.generate_lookup_table(f)
+        out = launches_exactly(label, lambda: sk.apply_lookup_table(ct, lut),
+                               acc32_k1)
+        want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+        if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+            raise AssertionError(f"{label}: batch decrypts wrong")
+        mask, body = pbs_inputs(sk, ct)
+        check_equal(f"body_rotate_acc32 {name}", pk.body_rotate_acc32,
+                    pk.body_rotate_acc32_plain, (lut.acc, body))
+        hi = pk.body_rotate_acc32(lut.acc, body)
+        args = (sk.bsk_b, p.pbs_base_log, p.pbs_level, sk.flavor)
+        _, plain_ms = check_equal(
+            f"blind_rotate_bnf2_acc32 {name}", pk.blind_rotate_bnf2_acc32,
+            pk.blind_rotate_bnf2_acc32_plain,
+            (hi[:PLAIN_BATCH].contiguous(), mask[:PLAIN_BATCH], *args))
+        step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 5)
+        k1_ms = cuda_ms(lambda: pk.blind_rotate_bnf2_acc32(hi, mask, *args),
+                        3)
+        ks_in = (sk.pbs_only(ct.ct, lut.acc) if sk.order == "pbs_ks"
+                 else ct.ct)
+        ks_ms = cuda_ms(lambda: sk.ks_only(ks_in), 5)
+        drift_ms = None
+        if sk.drift is not None:
+            small = sk.ks_only(ct.ct)
+            drift_ms = cuda_ms(lambda: server_ops.improve_drift_ms(
+                small, sk.ms_zeros, *sk.drift,
+                p.polynomial_size.bit_length(), torus_bits=32), 3)
+        k1_bound_ms, k1_by = step_bound(
+            "blind_rotate_bnf2_acc32", BATCH, p.lwe_dimension, p.glwe_size,
+            p.pbs_level, p.polynomial_size, 2, 4, rate)
+        row = dict(keygen_s=keygen_s, pbs_ms=step_ms,
+                   pbs_per_s=BATCH / step_ms * 1e3, k1_ms=k1_ms,
+                   k1_bound_ms=k1_bound_ms, k1_bound_by=k1_by,
+                   k1_plain_ms=plain_ms, keyswitch_ms=ks_ms,
+                   drift_ms=drift_ms)
+        print(f"{label}: keygen {keygen_s:.2f} s; {BATCH} ciphertexts "
+              f"decrypt to 3x mod 16; K2 acc32 and K1 == plain (K1 at "
+              f"B={PLAIN_BATCH}, n={p.lwe_dimension}, plain {plain_ms:.1f} "
+              f"ms); step {step_ms:.3f} ms = {BATCH / step_ms * 1e3:.1f} "
+              f"PBS/s on {card}; K1 {k1_ms:.3f} ms (bound {k1_bound_ms:.2f}, "
+              f"{k1_by}), keyswitch {ks_ms:.3f} ms"
+              + (f", drift choice {drift_ms:.3f} ms" if drift_ms else ""))
+        rows[name] = row
+        summary[f"{name}_pbs_per_s"] = BATCH / step_ms * 1e3
+        del ck, sk, ct, out, hi, mask, body, ks_in
+        torch.cuda.empty_cache()
+
+    # d. the leveled and bivariate ops on phase 2's keys
+    mm = sk22.params.message_modulus
+    va = np.arange(BATCH, dtype=np.uint64) % np.uint64(mm)
+    vb = (np.arange(BATCH, dtype=np.uint64) // np.uint64(mm)) % np.uint64(mm)
+    a, b = ck22.encrypt(va), ck22.encrypt(vb)
+    ops = {
+        "add": (lambda: sk22.add(a, b), (va + vb) % mm),
+        "smart_add": (lambda: sk22.smart_add(a, b), va + vb),
+        "mul": (lambda: sk22.mul(a, b), (va * vb) % mm),
+        "bivariate": (lambda: sk22.unchecked_apply_lookup_table_bivariate(
+            a, b, lambda x, y: (x + 2 * y) % mm), (va + 2 * vb) % mm),
+        "unchecked_neg": (lambda: sk22.unchecked_neg(a), mm - va),
+    }
+    for op, (fn, want) in ops.items():
+        if not np.array_equal(ck22.decrypt_message_and_carry(fn()), want):
+            raise AssertionError(f"2_2 {op}: {BATCH} outputs decrypt wrong")
+    print(f"2_2 add, smart_add, mul, bivariate LUT, unchecked_neg: {BATCH} "
+          f"ciphertexts each decrypt right")
+    summary["shortint_rest_s"] = time.perf_counter() - t_phase
+    for name, row in rows.items():
+        print(json.dumps({"row": name, **row}))
+    print(f"phase 16: {summary['shortint_rest_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1740,7 +2074,8 @@ def main() -> int:
     sk_crt, s = phase_shortint_crt(ck22, rate, rows)
     summary.update(s)
     summary.update(phase_two_plane(ck22, rate, rows))
-    summary.update(phase_shortint_v5(ck22, rate, rows))
+    sk_v5, s = phase_shortint_v5(ck22, rate, rows)
+    summary.update(s)
     summary.update(phase_boolean_acc32(bck, bsk, card, rate, rows,
                                        summary["and_ms"]))
     summary.update(phase_shortint_v4_acc32(ck22, sk_crt, rate, rows))
@@ -1750,6 +2085,7 @@ def main() -> int:
     summary.update(phase_integer(ck22, sk22, card, rows))
     summary.update(phase_strings(ck22, sk22, card, rows))
     summary.update(phase_hlapi(card, summary["readme_chain"][1]))
+    summary.update(phase_shortint_rest(ck22, sk22, sk_v5, card, rate))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",

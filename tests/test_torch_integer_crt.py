@@ -15,7 +15,8 @@ import torch
 
 from tfhe_tpu.integer import bigint as jbigint
 from tfhe_tpu.integer import crt as jcrt
-from test_torch_integer_ops import integer_keys, public_names
+from test_torch_integer_ops import (  # noqa: F401  (one_torch_thread: autouse)
+    integer_keys, one_torch_thread, public_names)
 
 from tfhe_tpu_torch._torus import from_u64, to_u64
 from tfhe_tpu_torch.integer import bigint, crt

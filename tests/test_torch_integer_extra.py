@@ -3,15 +3,19 @@
 on the CPU: every public op of ``RadixExtraOps`` on the same inputs (JAX
 encryptions carried into the port) gives the JAX output bit for bit
 (tolerance 0), with equal degrees and noise levels, decrypts to the clear
-oracle and leaves its inputs unchanged; the shortint OPRF is not ported,
-so its integer op raises instead of running another path."""
+oracle and leaves its inputs unchanged; the OPRF's one batched PBS equals
+the JAX per-block loop. The ``scalar_div_rem`` cases, the deepest, run
+from ``test_torch_integer_div.py`` (``DIV_CASES``), so that they do not
+share a worker with this file's."""
 
 import numpy as np
 import pytest
 
-from tfhe_tpu.integer.ops_extra import RadixExtraOps as JRadixExtraOps
-from test_torch_integer_ops import carry_in, integer_keys, public_names, run_case
+from tfhe_tpu_torch._torus import to_u64
 
+from tfhe_tpu.integer.ops_extra import RadixExtraOps as JRadixExtraOps
+from test_torch_integer_ops import (  # noqa: F401  (one_torch_thread: autouse)
+    carry_in, integer_keys, one_torch_thread, public_names, run_case)
 from tfhe_tpu_torch.integer.ops_extra import RadixExtraOps
 
 SEED = 21  # tests/test_integer_extra.py's key seed
@@ -106,12 +110,6 @@ CASES = {
         lambda k, x: k.index_of([x["b"], x["a"], x["a"]], x["a"]),
         lambda c: (np.where(c["b"] == c["a"], 0, 1), [True, True]),
         ("u", "b")),
-    "scalar_div_rem": (lambda k, x: k.scalar_div_rem(x["a"], 3),
-                       lambda c: (c["a"] // 3, c["a"] % 3), ("u", "u")),
-    "scalar_div_rem[pow2]": (lambda k, x: k.scalar_div_rem(x["a"], 8),
-                             lambda c: (c["a"] // 8, c["a"] % 8), ("u", "u")),
-    "scalar_div_rem[wide]": (lambda k, x: k.scalar_div_rem(x["a"], 300),
-                             lambda c: (c["a"] * 0, c["a"]), ("u", "u")),
     "scalar_div": (lambda k, x: k.scalar_div(x["a"], 1),
                    lambda c: c["a"], "u"),
     "scalar_rem": (lambda k, x: k.scalar_rem(x["d"], 16),
@@ -138,12 +136,23 @@ CASES = {
         lambda c: (2 * c["a"] + 3 * c["d"]) % MOD, "u"),
 }
 
+# run by test_torch_integer_div.py
+DIV_CASES = {
+    "scalar_div_rem": (lambda k, x: k.scalar_div_rem(x["a"], 3),
+                       lambda c: (c["a"] // 3, c["a"] % 3), ("u", "u")),
+    "scalar_div_rem[pow2]": (lambda k, x: k.scalar_div_rem(x["a"], 8),
+                             lambda c: (c["a"] // 8, c["a"] % 8), ("u", "u")),
+    "scalar_div_rem[wide]": (lambda k, x: k.scalar_div_rem(x["a"], 300),
+                             lambda c: (c["a"] * 0, c["a"]), ("u", "u")),
+}
+
 
 def test_public_ops_match_jax():
     """The port's RadixExtraOps has exactly the JAX one's public names, and
-    each op has a bit-equality case here (OPRF: the raise below)."""
+    each op has a bit-equality case here or in test_torch_integer_div.py
+    (the OPRF: the test below)."""
     assert public_names(RadixExtraOps) == public_names(JRadixExtraOps)
-    cased = {n.split("[")[0] for n in CASES}
+    cased = {n.split("[")[0] for n in list(CASES) + list(DIV_CASES)}
     assert public_names(JRadixExtraOps) - {
         "generate_oblivious_pseudo_random"} == cased
 
@@ -153,7 +162,29 @@ def test_op_bit_equal(ctx, name):
     run_case(ctx, *CASES[name])
 
 
-def test_oblivious_pseudo_random_is_not_ported(ctx):
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        ctx["sk"].generate_oblivious_pseudo_random(seed=7, num_blocks=NB,
-                                                   random_bits_count=5)
+def test_oblivious_pseudo_random_is_not_ported(ctx, monkeypatch):
+    """(Its name dates from before the OPRF was ported.) The integer OPRF
+    runs its blocks' seeded LWEs through ONE batched PBS (one plain K2 u64
+    -> K3 call on the exact CRT key); the blocks, degrees and noise levels
+    equal tfhe_tpu's per-block loop bit for bit, for a bound inside a
+    block (5 bits: 2 + 2 + 1, then a trivial zero block) and for every
+    bit, and the value decrypts below its bound."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    calls = []
+    real = pk.blind_rotate_crt_plain
+    monkeypatch.setattr(pk, "blind_rotate_crt_plain",
+                        lambda *a: calls.append(a) or real(*a))
+    for bits in (5, None):
+        calls.clear()
+        want = ctx["jsk"].generate_oblivious_pseudo_random(
+            seed=7, num_blocks=NB, random_bits_count=bits)
+        got = ctx["sk"].generate_oblivious_pseudo_random(
+            seed=7, num_blocks=NB, random_bits_count=bits)
+        np.testing.assert_array_equal(to_u64(got.ct), np.asarray(want.ct))
+        np.testing.assert_array_equal(got.degrees, want.degrees)
+        np.testing.assert_array_equal(got.noise_levels, want.noise_levels)
+        assert len(calls) == 1
+        value = int(ctx["ck"].decrypt_radix(got))
+        assert 0 <= value < (1 << (bits or BITS))
+    assert got.degrees.tolist() == [3, 3, 3, 3]

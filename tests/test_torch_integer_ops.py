@@ -41,6 +41,17 @@ MOD = 1 << BITS
 # shared helpers
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's port ops on one torch thread, then restore the count:
+    the plain kernels' small int64 ops run several times slower on 8
+    threads than on one, more so beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def integer_keys(seed):
     """(JAX client key, JAX server key, port client key, port server key)
     from one seed; the port's on the CPU."""

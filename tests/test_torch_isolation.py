@@ -4,12 +4,14 @@ kernel bench and the SASS counter import, in a fresh interpreter without
 either being loaded; entry points without a device ask
 for the GPU and raise when there is none; CPU tensors take the plain
 versions of the kernels, whose launch counts stay 0; each variant runs its
-own path, and unported parameter sets raise instead of running another
-path."""
+own path, and multi-bit parameter sets (the one kind still unported) raise
+instead of running another path; the ROADMAP items that the port's
+``NotImplementedError`` messages name carry ROADMAP.md's titles."""
 
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import types
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tfhe_tpu_torch._torus import to_u64
 from tfhe_tpu_torch.ops import pbs_kernel as pk
 from tfhe_tpu_torch.shortint.client_key import ClientKey
 from tfhe_tpu_torch.shortint.server_key import ServerKey
@@ -67,7 +70,11 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/integer/bigint.py",
             "tfhe_tpu_torch/strings/ascii.py",
             "tfhe_tpu_torch/high_level_api/api.py",
-            "tfhe_tpu_torch/high_level_api/kv_store.py"} <= names
+            "tfhe_tpu_torch/high_level_api/kv_store.py",
+            "tfhe_tpu_torch/shortint/oprf.py",
+            "tfhe_tpu_torch/utils/params_registry.py",
+            "tfhe_tpu_torch/utils/params_universe.py",
+            "tfhe_tpu_torch/utils/fork_budgets.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -84,6 +91,10 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.integer import crt, gen_keys\n"
         "from tfhe_tpu_torch import high_level_api, strings\n"
         "from tfhe_tpu_torch.high_level_api import kv_store\n"
+        "from tfhe_tpu_torch.shortint import oprf\n"
+        "from tfhe_tpu_torch.utils import fork_budgets\n"
+        "from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME\n"
+        "PARAMS_BY_NAME['V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128']\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
         "sk = ServerKey.generate(ck)\n"
         "out = sk.apply_lookup_table(ck.encrypt([1, 2]),\n"
@@ -129,29 +140,53 @@ def test_cpu_tensors_take_plain_versions():
         assert fn.launches == 0, fn.__name__
 
 
+def _toy_set(kind, pmod):
+    """The toy parameter set of an atomic pattern, from a params module (the
+    port's or tfhe_tpu's)."""
+    if kind == "ks32":
+        return pmod.PARAM_TEST_TOY_KS32
+    if kind == "pbs_ks":
+        return pmod.PARAM_TEST_TOY_PBS_KS
+    return dataclasses.replace(
+        pmod.PARAM_TEST_TOY,
+        modulus_switch_type=pmod.ModulusSwitchType
+        .DRIFT_TECHNIQUE_NOISE_REDUCTION,
+        modulus_switch_noise_reduction_params=pmod
+        .ModulusSwitchNoiseReductionParams(16, 2.0 ** 57, 3.0, 2.0 ** -80),
+        name="PARAM_TEST_TOY_DRIFT")
+
+
 @pytest.mark.parametrize("kind", ["multi-bit", "ks32", "pbs_ks", "drift"])
 def test_unported_parameter_sets_raise(kind):
-    """Parameters are duck-typed: a multi-bit or KS32 set (no class in the
-    port yet), or a classic set asking for an unported pattern, raises,
-    naming the ROADMAP item that ports it by number and title."""
-    fields = {f.name: getattr(P, f.name) for f in dataclasses.fields(P)}
-    fields.update({
-        "multi-bit": {"grouping_factor": 2},
-        "ks32": {"post_keyswitch_ciphertext_modulus":
-                 pm.CiphertextModulus(0, 32)},
-        "pbs_ks": {"encryption_key_choice": pm.EncryptionKeyChoice.SMALL},
-        "drift": {"modulus_switch_type":
-                  pm.ModulusSwitchType.DRIFT_TECHNIQUE_NOISE_REDUCTION},
-    }[kind])
-    ck = ClientKey.generate(P, seed=5, device="cpu")
-    ck.params = types.SimpleNamespace(**fields)
-    item = {"multi-bit": "item 8: other PBS flavors",
-            "ks32": "item 5: the rest of shortint",
-            "pbs_ks": "item 5: the rest of shortint",
-            "drift": "item 5: the rest of shortint"}[kind]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A {item}"):
-        ServerKey.generate(ck)
+    """A multi-bit set (here duck-typed by its grouping factor) is the one
+    kind the port does not carry: it raises, naming the ROADMAP item that
+    ports it by number and title. The other atomic patterns, which raised
+    until ROADMAP Queue A item 5 ported them, now run and equal tfhe_tpu
+    bit for bit on a LUT round trip (KS32, PBS -> KS, the drift technique)."""
+    if kind == "multi-bit":
+        fields = {f.name: getattr(P, f.name) for f in dataclasses.fields(P)}
+        fields["grouping_factor"] = 2
+        ck = ClientKey.generate(P, seed=5, device="cpu")
+        ck.params = types.SimpleNamespace(**fields)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 8: other PBS flavors"):
+            ServerKey.generate(ck)
+        return
+    from tfhe_tpu.shortint.client_key import ClientKey as JClientKey
+    from tfhe_tpu.shortint.server_key import ServerKey as JServerKey
+    from tfhe_tpu.utils import params as jparams
+
+    jck = JClientKey.generate(_toy_set(kind, jparams), seed=5)
+    jsk = JServerKey.generate(jck)
+    ck = ClientKey.generate(_toy_set(kind, pm), seed=5, device="cpu")
+    sk = ServerKey.generate(ck)
+    msgs = np.array([0, 1, 2, 3], dtype=np.uint64)
+    f = lambda x: (x + 3) % 4
+    jout = jsk.apply_lookup_table(jck.encrypt(msgs),
+                                  jsk.generate_lookup_table(f))
+    out = sk.apply_lookup_table(ck.encrypt(msgs), sk.generate_lookup_table(f))
+    np.testing.assert_array_equal(to_u64(out.ct), np.asarray(jout.ct))
+    np.testing.assert_array_equal(ck.decrypt(out), [3, 0, 1, 2])
 
 
 @pytest.mark.parametrize("variant", ["crt", "v5"])
@@ -182,3 +217,16 @@ def test_v6_variant_runs_default_pair(monkeypatch):
     out = sk.apply_lookup_table(ck.encrypt([3, 7]),
                                 sk.generate_lookup_table(lambda x: 2 * x))
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out), [6, 14])
+
+
+def test_roadmap_items_carry_roadmap_titles():
+    """``_roadmap.ITEMS`` holds exactly the open Queue A items of ROADMAP.md,
+    each under the title in bold after its number."""
+    from tfhe_tpu_torch._roadmap import ITEMS
+
+    text = open(os.path.join(ROOT, "ROADMAP.md")).read()
+    queue = text[text.index("### Queue A"):text.index("### Queue B")]
+    titles = {int(m.group(1)): m.group(2).rstrip(".").lower()
+              for m in re.finditer(r"^(\d+)\. \*\*([^*]+)\*\*", queue,
+                                   re.M)}
+    assert {i: t.lower() for i, t in ITEMS.items()} == titles

@@ -1,0 +1,144 @@
+"""The port's parameter classes, named sets and universe
+(``tfhe_tpu_torch.utils.params``, ``params_registry``, ``params_universe``)
+against tfhe_tpu's: every name of tfhe_tpu's ``UNIVERSE`` materializes in
+the port to the same class and equal field values (nested sets, moduli,
+distributions and drift parameters compared field by field), the
+hand-written sets equal their JAX counterparts, ``PARAMS_BY_NAME`` falls
+through to the universe with the constants first, the reference's v1.5 2_2
+sets resolve to the variant tfhe_tpu resolves, and only multi-bit sets
+raise. Tolerance: exact (the same constants)."""
+
+import dataclasses
+import enum
+
+import numpy as np
+import pytest
+
+from tfhe_tpu.shortint.server_key import resolve_variant as jresolve
+from tfhe_tpu.utils import params as jparams
+from tfhe_tpu.utils import params_registry as jreg
+
+from tfhe_tpu_torch import convert
+from tfhe_tpu_torch.shortint.client_key import ClientKey
+from tfhe_tpu_torch.shortint.server_key import (ServerKey, check_supported,
+                                                resolve_variant)
+from tfhe_tpu_torch.utils import params
+from tfhe_tpu_torch.utils import params_registry as reg
+from tfhe_tpu_torch.utils import params_universe
+
+V1_5_2_2 = ("PARAM_MESSAGE_2_CARRY_2_KS_PBS",
+            "V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
+            "V1_3_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
+            "V1_5_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128")
+
+
+def _plain(v):
+    """A parameter object as plain data: class name and fields, nested."""
+    if dataclasses.is_dataclass(v):
+        return (type(v).__name__,
+                {f.name: _plain(getattr(v, f.name))
+                 for f in dataclasses.fields(v)})
+    if isinstance(v, enum.Enum):
+        return (type(v).__name__, v.value)
+    if isinstance(v, tuple):
+        return tuple(_plain(x) for x in v)
+    return v
+
+
+def test_universe_is_a_verbatim_copy():
+    assert params_universe.RAW_PARAMS == jreg.RAW_PARAMS
+    assert reg.EXTRA_PARAMS == jreg.EXTRA_PARAMS
+    assert len(reg.RAW_PARAMS) == len(jreg.RAW_PARAMS) > 600
+
+
+def test_every_universe_name_materializes_equal():
+    for name in jreg.RAW_PARAMS:
+        got, want = reg.UNIVERSE[name], jreg.UNIVERSE[name]
+        assert _plain(got) == _plain(want), name
+        assert name in params.PARAMS_BY_NAME
+    assert reg.all_names("KeySwitch32") == jreg.all_names("KeySwitch32")
+    assert reg.UNIVERSE.names() == jreg.UNIVERSE.names()
+
+
+def test_named_sets_equal():
+    for name in ("PARAM_MESSAGE_2_CARRY_2_KS_PBS",
+                 "PARAM_MESSAGE_1_CARRY_1_KS_PBS",
+                 "PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM", "PARAM_TEST_TOY",
+                 "PARAM_TEST_TOY_PBS_KS", "PARAM_TEST_TOY_KS32",
+                 "PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS",
+                 "PARAM_TEST_TOY_MULTI_BIT"):
+        assert _plain(getattr(params, name)) == _plain(getattr(jparams, name))
+        if name in jparams.PARAMS_BY_NAME:
+            assert _plain(params.PARAMS_BY_NAME[name]) == \
+                _plain(jparams.PARAMS_BY_NAME[name]), name
+        # the port's registry also names the toy pattern sets, for convert
+        assert params.PARAMS_BY_NAME[name] is getattr(params, name)
+
+
+def test_params_by_name_falls_through_with_constants_first():
+    """The constant PARAM_MESSAGE_2_CARRY_2_KS_PBS keeps its GAUSSIAN_2M128
+    values (n = 866); the universe's alias of that name means TUNIFORM (n =
+    918), as in tfhe_tpu (ROADMAP standing note 6)."""
+    assert params.PARAMS_BY_NAME["PARAM_MESSAGE_2_CARRY_2_KS_PBS"] \
+        .lwe_dimension == 866
+    assert reg.UNIVERSE["PARAM_MESSAGE_2_CARRY_2_KS_PBS"].lwe_dimension == 918
+    p = params.PARAMS_BY_NAME[
+        "V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128"]
+    assert isinstance(p, params.KeySwitch32PBSParameters)
+    assert "NOT_A_PARAMETER_SET" not in params.PARAMS_BY_NAME
+    with pytest.raises(KeyError):
+        params.PARAMS_BY_NAME["NOT_A_PARAMETER_SET"]
+    meta = params.PARAMS_BY_NAME["V1_5_META_PARAM_CPU_2_2_KS32_PBS_TUNIFORM_2M128"]
+    assert isinstance(meta, params.MetaParameters)
+    assert meta.compute_parameters == p
+
+
+def test_v1_5_2_2_sets_resolve_as_tfhe_tpu(monkeypatch):
+    monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
+    monkeypatch.delenv("TFHE_V4_ACC", raising=False)
+    for name in V1_5_2_2:
+        p, jp = params.PARAMS_BY_NAME[name], jparams.PARAMS_BY_NAME[name]
+        got = resolve_variant(p.polynomial_size, p.pbs_base_log, p.pbs_level,
+                              params=p)
+        assert got == jresolve(jp.polynomial_size, jp.pbs_base_log,
+                               jp.pbs_level, params=jp) == "v6b", name
+        check_supported(p)
+
+
+def test_only_multi_bit_raises():
+    """check_supported raises for every multi-bit set of the universe (by
+    class) and for no other compute set; the message names ROADMAP item 8
+    and its title."""
+    multi = [n for n, (k, _) in reg.RAW_PARAMS.items()
+             if k == "MultiBitPBSParameters"]
+    others = [n for n, (k, _) in reg.RAW_PARAMS.items()
+              if k in ("ClassicPBSParameters", "KeySwitch32PBSParameters")]
+    assert multi and others
+    for name in multi + ["PARAM_TEST_TOY_MULTI_BIT"]:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 8: other PBS flavors"):
+            check_supported(params.PARAMS_BY_NAME[name])
+    for name in others:
+        check_supported(params.PARAMS_BY_NAME[name])
+    ck = ClientKey.generate(params.PARAM_TEST_TOY, seed=1, device="cpu")
+    ck.params = params.PARAM_TEST_TOY_MULTI_BIT
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServerKey.generate(ck)
+
+
+def test_universe_name_carried_into_client_key():
+    """A universe name carries secret-key bits into a port ClientKey that
+    decrypts with that set's parameters."""
+    name = "V1_5_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128"
+    p = params.PARAMS_BY_NAME[name]
+    rng = np.random.default_rng(4)
+    glwe = rng.integers(0, 2, size=(p.glwe_dimension, p.polynomial_size),
+                        dtype=np.uint64)
+    lwe = rng.integers(0, 2, size=p.lwe_dimension, dtype=np.uint64)
+    ck = convert.client_key_from_arrays(name, glwe, lwe, device="cpu")
+    assert ck.params is p and ck.params.encryption_key_choice == \
+        params.EncryptionKeyChoice.SMALL
+    back = convert.client_key_to_arrays(ck)
+    assert back[0] == name
+    np.testing.assert_array_equal(back[1], glwe)
+    np.testing.assert_array_equal(back[2], lwe)

@@ -2,7 +2,9 @@
 BOOLEAN_TEST_TOY on the CPU (the kernels' plain versions). The FHE streams
 start from a clear-warmed, then encrypted state (the 1152-round FHE warm-up
 runs on the GPU in chip_smoke.py); one test runs a full-FHE 64-round step
-from the unwarmed state. Tolerance: exact (same keys and inputs => the same
+from the unwarmed state. The 128-bit keystream from a warmed state is
+``test_torch_trivium_keystream.py``, so that it does not share a worker
+with this file's tests. Tolerance: exact (same keys and inputs => the same
 ciphertext bits as tfhe_tpu)."""
 
 import sys
@@ -17,6 +19,8 @@ from apps import trivium as jtriv
 from tfhe_tpu.boolean.keys import ClientKey as JClientKey
 from tfhe_tpu.boolean.keys import ServerKey as JServerKey
 from tfhe_tpu.utils.params import BOOLEAN_TEST_TOY as JP
+
+from test_torch_strings import one_torch_thread  # noqa: F401  (autouse)
 
 from tfhe_tpu_torch import boolean
 from tfhe_tpu_torch._torus import to_u64
@@ -44,20 +48,6 @@ def test_clear_trivium_matches_jax():
                                                                     warm)
         assert got.s == want.s
         assert got.next_bits(300) == want.next_bits(300)
-
-
-def test_keystream_from_warmed_state_bit_equal(keys):
-    jck, jsk, ck, sk = keys
-    clear = ClearTrivium(KEY, IV)
-    state_bits = np.array(clear.s, dtype=bool)
-    jstream = jtriv.TriviumStream.from_state(jsk, jck.encrypt(state_bits))
-    stream = TriviumStream.from_state(sk, ck.encrypt(state_bits))
-    np.testing.assert_array_equal(to_u64(stream.state.ct),
-                                  np.asarray(jstream.state.ct))
-    got = stream.next_bits(128)
-    np.testing.assert_array_equal(to_u64(got.ct),
-                                  np.asarray(jstream.next_bits(128).ct))
-    assert [int(b) for b in ck.decrypt(got)] == clear.next_bits(128)
 
 
 def test_one_step_from_initial_state_bit_equal(keys):

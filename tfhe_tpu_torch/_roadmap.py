@@ -8,8 +8,6 @@ that ports it, by number and by the title that item has there.
 from __future__ import annotations
 
 ITEMS = {
-    3: "many-LUT and OPRF",
-    5: "the rest of shortint",
     6: "shortint side modules",
     7: "u128 noise squashing",
     8: "other PBS flavors",

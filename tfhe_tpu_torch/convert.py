@@ -13,7 +13,7 @@ import torch
 
 from . import boolean
 from ._device import resolve_device
-from ._torus import from_u32, from_u64, to_u64
+from ._torus import from_u32, from_u64, to_u32, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
 from .integer import radix
 from .ops import ntt as ntt_mod
@@ -25,7 +25,8 @@ from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
 
 def client_key_from_arrays(params_name: str, glwe_sk_bits, lwe_sk_bits,
                            device=None) -> ClientKey:
-    """A port ClientKey from secret-key bits u64[k, N] and u64[n]. It
+    """A port ClientKey from secret-key bits u64[k, N] and u64[n], for any
+    name of ``PARAMS_BY_NAME`` (the universe's names included). It
     decrypts; it carries no random streams, so it does not encrypt."""
     dev = resolve_device(device)
     return ClientKey(params=PARAMS_BY_NAME[params_name],
@@ -34,17 +35,26 @@ def client_key_from_arrays(params_name: str, glwe_sk_bits, lwe_sk_bits,
                      device=dev)
 
 
+def client_key_to_arrays(ck: ClientKey) -> tuple:
+    """Inverse of :func:`client_key_from_arrays`: (params name, GLWE key
+    bits u64[k, N], LWE key bits u64[n])."""
+    return ck.params.name, to_u64(ck.glwe_sk.bits), to_u64(ck.lwe_sk.bits)
+
+
 def server_key_from_arrays(params_name: str, ksk_u64,
                            bsk_scan_residues_u32, num_primes: int,
-                           device=None) -> ServerKey:
+                           device=None, ms_zeros_u64=None) -> ServerKey:
     """A port ServerKey from ``tfhe_tpu``'s stored key arrays: the KSK
-    u64[n_big, l_ks, n_small+1] and the CRT-domain bootstrap key in scan
-    layout u32[n, 2(residue/shoup), P, l*R, R, N] over the first
-    ``num_primes`` PRIMES32. The standard-domain BSK is rebuilt exactly with
-    the port's inverse NTT + Garner reconstruction (as
-    ``tfhe_tpu.shortint.server_key`` does before deriving its BNF2 key),
-    then prepared for the resolved variant (under v5, ``bsk_g`` equals
-    ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``)."""
+    u64[n_big, l_ks, n_small+1] (u32 values under KS32), the CRT-domain
+    bootstrap key in scan layout u32[n, 2(residue/shoup), P, l*R, R, N]
+    over the first ``num_primes`` PRIMES32, and under the drift technique
+    the encryptions of zero u64[Z, n_small+1] (``ServerKey.ms_zeros``).
+    The standard-domain BSK is rebuilt exactly with the port's inverse NTT
+    + Garner reconstruction (as ``tfhe_tpu.shortint.server_key`` does
+    before deriving its BNF2 key), then prepared for the resolved variant
+    (under v5, ``bsk_g`` equals ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``);
+    the CRT key itself is carried as given, the key of many-LUT and the
+    OPRF under v6/v6b and crt."""
     p = PARAMS_BY_NAME[params_name]
     check_supported(p)
     dev = resolve_device(device)
@@ -56,12 +66,26 @@ def server_key_from_arrays(params_name: str, ksk_u64,
         raise ValueError(f"scan layout {scan.shape} does not hold {num_primes} "
                          "primes of residues + Shoup duals")
     levels = lR // R
-    res = from_u32(scan[:, 0], dev).to(torch.int64) & 0xFFFFFFFF
+    crt_key = from_u32(scan, dev)
+    res = crt_key[:, 0].to(torch.int64) & 0xFFFFFFFF
     res = res.movedim(1, 0)  # [P, n, l*R, R, N]
     plan = ntt_mod.get_plan(N, num_primes)
     std = plan.reconstruct_u64(plan.inv(res)).reshape(nlwe, levels, R, R, N)
-    return ServerKey.from_standard_keys(p, from_u64(ksk_u64, dev), std,
-                                        variant)
+    ms_zeros = None if ms_zeros_u64 is None else from_u64(ms_zeros_u64, dev)
+    return ServerKey.from_standard_keys(
+        p, from_u64(ksk_u64, dev), std, variant, ms_zeros=ms_zeros,
+        bsk_scan=None if variant == "v5" else crt_key)
+
+
+def server_key_to_arrays(sk: ServerKey) -> tuple:
+    """Inverse of :func:`server_key_from_arrays`: (params name, KSK u64,
+    CRT key in scan layout u32, its prime count, the encryptions of zero
+    u64 or None). A v5 key keeps no CRT key: it raises."""
+    if sk.variant == "v5":
+        raise ValueError("a v5 server key carries no CRT key")
+    scan = sk.crt_key()
+    return (sk.params.name, to_u64(sk.ksk), to_u32(scan), scan.shape[2],
+            None if sk.ms_zeros is None else to_u64(sk.ms_zeros))
 
 
 def boolean_client_key_from_arrays(params_name: str, glwe_sk_bits,
@@ -91,14 +115,14 @@ def boolean_server_key_from_arrays(params_name: str, ksk_u64,
 
 def integer_keys_from_arrays(params_name: str, glwe_sk_bits, lwe_sk_bits,
                              ksk_u64, bsk_scan_residues_u32, num_primes: int,
-                             device=None):
+                             device=None, ms_zeros_u64=None):
     """The port's integer (ClientKey, ServerKey) over the shortint keys of
     :func:`client_key_from_arrays` and :func:`server_key_from_arrays`, which
     take these arrays. The client key decrypts; it does not encrypt."""
     ck = client_key_from_arrays(params_name, glwe_sk_bits, lwe_sk_bits,
                                 device)
     sk = server_key_from_arrays(params_name, ksk_u64, bsk_scan_residues_u32,
-                                num_primes, device)
+                                num_primes, device, ms_zeros_u64)
     return radix.ClientKey(ck), radix.ServerKey(sk)
 
 

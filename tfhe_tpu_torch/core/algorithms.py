@@ -1,9 +1,10 @@
-"""Core-crypto algorithms of the main path: secret keys, LWE/GLWE
-encryption, keyswitch and bootstrap key generation, and the bootstrap key's
-exact CRT transform.
+"""Core-crypto algorithms: secret keys, LWE encryption (over the u64 and
+the u32 torus), trivial LWEs, GLWE and GGSW encryption, GLWE decryption,
+keyswitch (u64 and KS32) and bootstrap key generation, and the bootstrap
+key's exact CRT transform.
 
-Torch counterpart of the subset of ``tfhe_tpu/core/algorithms.py`` the
-shortint KS -> PBS path and the boolean layer need. Random draws come from the host CSPRNG
+Torch counterpart of ``tfhe_tpu/core/algorithms.py`` without the
+multi-bit key (ROADMAP Queue A item 8). Random draws come from the host CSPRNG
 (``utils/csprng.py``) in the JAX package's documented order, so the same
 seed gives byte-equal keys and ciphertexts; the arithmetic (dot products,
 the negacyclic key products through the port's NTT) runs on the device of
@@ -63,6 +64,34 @@ def lwe_encrypt(sk: LweSecretKey, plaintexts, noise: DynamicDistribution,
     return torch.cat([masks, body[:, None]], dim=1)
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def lwe_encrypt32(sk: LweSecretKey, plaintexts, noise: DynamicDistribution,
+                  gen: EncryptionRandomGenerator) -> torch.Tensor:
+    """LWE encryption over the u32 torus (the KS32 pattern's post-keyswitch
+    modulus): masks then noise drawn as :func:`lwe_encrypt` draws them,
+    each reduced to 32 bits. Returns int64[m, n+1] holding u32 values."""
+    pts = np.atleast_1d(np.asarray(plaintexts, dtype=np.uint64))
+    m, n = pts.shape[0], sk.dim
+    dev = sk.bits.device
+    masks = from_u64(gen.mask.uniform_u64(m * n).reshape(m, n)
+                     & np.uint64(_MASK32), dev)
+    es = from_u64(gen.sample_noise32(noise, m), dev)
+    body = ((masks * sk.bits).sum(dim=1) + from_u64(pts, dev) + es) & _MASK32
+    return torch.cat([masks, body[:, None]], dim=1)
+
+
+def lwe_trivial(n: int, plaintexts, device) -> torch.Tensor:
+    """Trivial (noiseless, maskless) LWEs of ``plaintexts``: int64[m, n+1]
+    (reference ``lwe_encryption.rs`` trivial encrypt)."""
+    pts = from_u64(np.atleast_1d(np.asarray(plaintexts, dtype=np.uint64)),
+                   device)
+    out = torch.zeros((pts.shape[0], n + 1), dtype=torch.int64, device=device)
+    out[:, n] = pts
+    return out
+
+
 def lwe_decrypt(sk: LweSecretKey, cts: torch.Tensor) -> torch.Tensor:
     """Raw plaintexts (noise included): b - <a, s> (lwe_encryption.rs:519)."""
     cts = cts.reshape(-1, sk.dim + 1)
@@ -116,6 +145,15 @@ def glwe_encrypt(sk: GlweSecretKey, plaintext_polys: torch.Tensor,
     return torch.cat([masks, body[:, None, :]], dim=1)
 
 
+def glwe_decrypt(sk: GlweSecretKey, cts: torch.Tensor) -> torch.Tensor:
+    """Raw plaintext polynomials (noise included): int64[m, k+1, N] (or
+    [k+1, N]) -> int64[m, N]."""
+    if cts.ndim == 2:
+        cts = cts[None]
+    k = sk.glwe_dim
+    return cts[:, k] - _binary_polymul_batch(sk.bits, cts[:, :k])
+
+
 # ---------------------------------------------------------------------------
 # keyswitch key
 # ---------------------------------------------------------------------------
@@ -145,6 +183,32 @@ def gen_keyswitch_key(in_sk: LweSecretKey, out_sk: LweSecretKey,
     return LweKeyswitchKey(data, base_log, levels)
 
 
+def gen_keyswitch_key32(in_sk: LweSecretKey, out_sk: LweSecretKey,
+                        base_log: int, levels: int,
+                        noise: DynamicDistribution,
+                        gen: EncryptionRandomGenerator) -> LweKeyswitchKey:
+    """The KS32 keyswitch key: row i encrypts the big key's bit i over the
+    u32 torus, summands bit << (32 - base_log * level)
+    (``shortint/atomic_pattern/ks32.rs`` keygen). Rows are drawn as
+    :func:`lwe_encrypt32` draws them, one row at a time; the arithmetic
+    runs once for the whole key."""
+    n_in, n_out = in_sk.dim, out_sk.dim
+    masks = np.empty((n_in, levels, n_out), dtype=np.uint64)
+    es = np.empty((n_in, levels), dtype=np.uint64)
+    for i in range(n_in):
+        masks[i] = gen.mask.uniform_u64(levels * n_out).reshape(levels, n_out)
+        es[i] = gen.sample_noise32(noise, levels)
+    dev = out_sk.bits.device
+    masks_t = from_u64(masks & np.uint64(_MASK32), dev)
+    shifts = torch.tensor([32 - base_log * (levels - j) for j in range(levels)],
+                          dtype=torch.int64, device=dev)
+    pts = (in_sk.bits.to(dev)[:, None] << shifts) & _MASK32
+    body = ((masks_t * out_sk.bits).sum(dim=-1) + pts
+            + from_u64(es, dev)) & _MASK32
+    data = torch.cat([masks_t, body[..., None]], dim=-1)
+    return LweKeyswitchKey(data, base_log, levels)
+
+
 # ---------------------------------------------------------------------------
 # GGSW + bootstrap key
 # ---------------------------------------------------------------------------
@@ -165,6 +229,19 @@ def _ggsw_messages(sk: GlweSecretKey, cleartexts: torch.Tensor,
             msgs[:, j, r] = sk.bits[r][None, :] * factor[:, None]
         msgs[:, j, k, 0] = -factor
     return msgs
+
+
+def ggsw_encrypt(sk: GlweSecretKey, cleartext: int, base_log: int,
+                 levels: int, noise: DynamicDistribution,
+                 gen: EncryptionRandomGenerator) -> torch.Tensor:
+    """GGSW encryption of a small cleartext: int64[l, k+1, k+1, N], its
+    rows drawn in storage order (ggsw_encryption.rs:20-175)."""
+    k, N = sk.bits.shape
+    clear = torch.tensor([int(cleartext)], dtype=torch.int64,
+                         device=sk.bits.device)
+    msgs = _ggsw_messages(sk, clear, base_log, levels)
+    rows = glwe_encrypt(sk, msgs.reshape(-1, N), noise, gen)
+    return rows.reshape(levels, k + 1, k + 1, N)
 
 
 def gen_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,

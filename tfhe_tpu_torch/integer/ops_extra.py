@@ -1,5 +1,6 @@
 """Integer radix op tail: parallel multi-operand sum & mul, vector find,
-constant-divisor division, bit manipulation, dot products.
+constant-divisor division, bit manipulation, dot products, oblivious
+pseudo-random generation.
 
 Torch counterpart of ``tfhe_tpu/integer/ops_extra.py``. Reference files
 (all under tfhe/src/integer/server_key/radix_parallel/): ``sum.rs``
@@ -19,10 +20,13 @@ block axis; sequential depth only where the algorithm demands it.
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import numpy as np
 import torch
+
+from ..shortint import oprf as _oprf
 
 NOMINAL_NOISE = 1
 
@@ -531,8 +535,43 @@ class RadixExtraOps:
         self, seed: int, num_blocks: int, random_bits_count: int = None
     ):
         """Encrypted uniform value in [0, 2^random_bits_count) the server
-        cannot see (integer/oprf.rs:31-105). Its per-block seeded-LWE PBS is
-        the shortint OPRF, which the port does not carry yet."""
-        raise NotImplementedError(
-            "oblivious pseudo-random generation needs the shortint OPRF, "
-            "which is not ported yet (ROADMAP Queue A item 3)")
+        cannot see (par_generate_oblivious_pseudo_random_unsigned_integer,
+        integer/oprf.rs:31-105): per-block seeds derived from
+        ``shake_256(b"tfhe-tpu-oprf" || seed || i)``, the seeded LWEs of
+        the blocks under the bound through ONE batched PBS (each block's
+        PBS is independent, so the blocks equal ``tfhe_tpu``'s per-block
+        loop), trivial zero blocks above the bound."""
+        from .radix import RadixCiphertext
+
+        mm = self.key.params.message_modulus
+        mbits = int(np.log2(mm))
+        if random_bits_count is None:
+            random_bits_count = mbits * num_blocks
+        if random_bits_count > mbits * num_blocks:
+            raise ValueError(f"{random_bits_count} random bits do not fit "
+                             f"{num_blocks} blocks")
+        seeds, bits = [], []
+        for i in range(num_blocks):
+            lo = i * mbits
+            if lo >= random_bits_count:
+                break
+            seeds.append(int.from_bytes(hashlib.shake_256(
+                b"tfhe-tpu-oprf" + seed.to_bytes(16, "little")
+                + i.to_bytes(8, "little")).digest(8), "little"))
+            bits.append(min(mbits, random_bits_count - lo))
+        p = self.key.params
+        dim = p.glwe_dimension * p.polynomial_size + 1
+        blocks = torch.zeros((num_blocks, dim), dtype=torch.int64,
+                             device=self.key.device)
+        if seeds:
+            blocks[:len(seeds)] = _oprf.oblivious_pseudo_random_batch(
+                self.key, seeds, bits)
+        degrees = [(1 << b) - 1 for b in bits] + [0] * (num_blocks
+                                                        - len(bits))
+        return RadixCiphertext(
+            ct=blocks,
+            degrees=np.array(degrees, dtype=np.int64),
+            noise_levels=np.ones(num_blocks, dtype=np.int64),
+            message_modulus=mm,
+            carry_modulus=p.carry_modulus,
+        )

@@ -62,6 +62,18 @@ def decompose(x: torch.Tensor, base_log: int, level_count: int) -> torch.Tensor:
     return torch.stack(digits, dim=-1)
 
 
+def recompose(digits: torch.Tensor, base_log: int,
+              level_count: int) -> torch.Tensor:
+    """Sum of digit_i * q / B^level mod 2^64, the inverse of
+    :func:`decompose` up to :func:`closest_representable` rounding; the
+    digit axis is last, level ``level_count`` first."""
+    acc = torch.zeros(digits.shape[:-1], dtype=torch.int64,
+                      device=digits.device)
+    for idx in range(level_count):
+        acc = acc + (digits[..., idx] << (64 - base_log * (level_count - idx)))
+    return acc
+
+
 def recomposition_summand(value_signed: np.ndarray, level: int,
                           base_log: int) -> np.ndarray:
     """DecompositionTerm::to_recomposition_summand — value << (64 -

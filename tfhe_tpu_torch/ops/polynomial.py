@@ -38,3 +38,9 @@ def monomial_div(poly: torch.Tensor, degree) -> torch.Tensor:
     n = poly.shape[-1]
     degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
     return monomial_mul(poly, torch.remainder(2 * n - degree, 2 * n))
+
+
+def monomial_mul_and_subtract(poly: torch.Tensor, degree) -> torch.Tensor:
+    """``poly * X^degree - poly``, the first step of a CMUX (reference
+    ``polynomial_wrapping_monic_monomial_mul_and_subtract``)."""
+    return monomial_mul(poly, degree) - poly

@@ -1,25 +1,30 @@
-"""Server-side operations of the KS -> PBS paths, in torch.
+"""Server-side operations of the atomic patterns, in torch.
 
-Torch counterpart of the main-path subset of ``tfhe_tpu/ops/server.py``:
+Torch counterpart of ``tfhe_tpu/ops/server.py`` without the multi-bit PBS
+(ROADMAP Queue A item 8):
 
 - keyswitch: ``core_crypto/algorithms/lwe_keyswitch.rs:137-230``, computed
   as ONE int8 GEMM of the gadget digits against the KSK in signed base-256
   limbs (``torch._int_mm``; the JAX package leaves the same product to
-  XLA's ``jnp.dot``);
-- modulus switch to 2N with the centered-binary body correction
-  (``algorithms/modulus_switch.rs:35-104``);
+  XLA's ``jnp.dot``), and the KS32 keyswitch onto the u32 torus
+  (``lwe_keyswitch.rs:331``, 4 limbs);
+- modulus switch to 2N from the u64 or the u32 torus, standard or with the
+  centered-binary body correction (``algorithms/modulus_switch.rs:35-104``),
+  and the drift technique's choice of an encryption of zero
+  (``modulus_switch_noise_reduction.rs``);
 - sample extraction (``algorithms/glwe_sample_extraction.rs:89``);
 - the exact CRT spec: external product, the cmux steps, blind rotation
   (exact, or in acc32 mode) and the portable PBS over P NTT primes with
   Garner reconstruction;
-- the programmable bootstraps that run the kernels (``ops/pbs_kernel.py``):
-  the exact CRT PBS (K2 u64, K3; under ``TFHE_V4_ACC=32`` K2 acc32,
-  K3-acc32), the v6/v6b BNF PBS (K2, K1 in acc32
-  mode; K2 u64, K3-bnf2 in two-plane mode) and the v5 Goldilocks PBS (K2
-  u64, K4).
+- the blind rotations and programmable bootstraps that run the kernels
+  (``ops/pbs_kernel.py``): the exact CRT PBS (K2 u64, K3; under
+  ``TFHE_V4_ACC=32`` K2 acc32, K3-acc32), the v6/v6b BNF PBS (K2, K1 in
+  acc32 mode; K2 u64, K3-bnf2 in two-plane mode) and the v5 Goldilocks PBS
+  (K2 u64, K4).
 
 Tensors are int64 torus values (see ``_torus.py``), batched over leading
-dims.
+dims; u32 torus values (KS32) ride in int64, reduced to 32 bits after every
+wrap.
 """
 
 from __future__ import annotations
@@ -93,12 +98,76 @@ def keyswitch_mxu(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
 
 
 # ---------------------------------------------------------------------------
+# keyswitch with scalar change (u64 -> u32): the KS32 atomic pattern
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def ksk32_to_i8_limbs(ksk32: np.ndarray, base_log: int) -> np.ndarray:
+    """A KSK of u32 entries in signed base-256 limb form:
+    u64[n_in, l, n_out+1] (values < 2^32) -> int8[n_in*l, (n_out+1)*4]
+    (numpy, host)."""
+    assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
+    v = np.asarray(ksk32, dtype=np.uint64) & np.uint64(_MASK32)
+    limbs = np.empty(v.shape + (4,), dtype=np.int8)
+    for k in range(4):
+        r = (v & np.uint64(0xFF)).astype(np.int64)
+        r = np.where(r > 127, r - 256, r)
+        limbs[..., k] = r.astype(np.int8)
+        v = (v - r.astype(np.uint64)) >> np.uint64(8)
+    n_in, l, o = ksk32.shape
+    return limbs.reshape(n_in * l, o * 4)
+
+
+def keyswitch_mxu32(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
+                    levels: int) -> torch.Tensor:
+    """u64 -> u32 LWE keyswitch as one int8 GEMM
+    (``lwe_keyswitch.rs:331`` keyswitch_lwe_ciphertext_with_scalar_change):
+    the mask decomposes with the u64 decomposer, the MAC runs against the
+    4 u32 limbs, the body rounds to the closest multiple of 2^32 (ties up)
+    and shifts down, and the output wraps mod 2^32.
+
+    ``ct``: int64[..., n_in+1]; ``ksk_i8``: int8[n_in*l, (n_out+1)*4].
+    Returns int64[..., n_out+1] holding u32 values."""
+    K, O4 = ksk_i8.shape
+    n_in = K // levels
+    n_out = O4 // 4 - 1
+    batch = ct.shape[:-1]
+    d8 = decompose(ct[..., :n_in], base_log, levels).to(torch.int8)
+    d8 = d8.reshape(-1, K)
+    B = d8.shape[0]
+    # torch._int_mm on CUDA wants m > 16, m % 8 == 0 and n % 8 == 0: pad
+    # the rows, and the limb columns ((n_out+1)*4 may be odd times 4)
+    pad = max(24, -(-B // 8) * 8) - B
+    if pad:
+        d8 = torch.cat([d8, d8.new_zeros((pad, K))])
+    if O4 % 8:
+        ksk_i8 = torch.cat([ksk_i8, ksk_i8.new_zeros((K, 8 - O4 % 8))], dim=1)
+    sums = torch._int_mm(d8, ksk_i8)[:B, :O4]
+    sums = sums.reshape(batch + (n_out + 1, 4)).to(torch.int64)
+    w = torch.tensor([1 << (8 * k) for k in range(4)], dtype=torch.int64,
+                     device=ct.device)
+    out = -(sums * w).sum(dim=-1)
+    out[..., n_out] += srl(ct[..., n_in] + (1 << 31), 32)
+    return out & _MASK32
+
+
+# ---------------------------------------------------------------------------
 # modulus switch
 # ---------------------------------------------------------------------------
 
-def modulus_switch(x: torch.Tensor, log_modulus: int) -> torch.Tensor:
-    """Round to the nearest multiple of 2^64 / 2^log_modulus; the switched
-    value in [0, 2^log_modulus) (fft_impl/common.rs:10)."""
+def modulus_switch(x: torch.Tensor, log_modulus: int,
+                   torus_bits: int = 64) -> torch.Tensor:
+    """Round to the nearest multiple of 2^torus_bits / 2^log_modulus; the
+    switched value in [0, 2^log_modulus) (fft_impl/common.rs:10).
+    ``torus_bits`` = 32 reads the low 32 bits: the KS32 pattern's
+    post-keyswitch modulus (``atomic_pattern/ks32.rs``)."""
+    if torus_bits < 64:
+        half = 1 << (torus_bits - log_modulus - 1)
+        out = ((x & ((1 << torus_bits) - 1)) + half) >> (torus_bits
+                                                          - log_modulus)
+        return out & ((1 << log_modulus) - 1)
     half = 1 << (64 - log_modulus - 1)
     return srl(x + half, 64 - log_modulus)
 
@@ -108,35 +177,119 @@ def _trunc_div2(x: torch.Tensor) -> torch.Tensor:
     return torch.div(x, 2, rounding_mode="trunc")
 
 
-def centered_binary_ms_body_correction(mask: torch.Tensor,
-                                       log_modulus: int) -> torch.Tensor:
+def _ms_round_error(x: torch.Tensor, log_modulus: int,
+                    torus_bits: int) -> torch.Tensor:
+    """The signed rounding error rounded(x) - x of the modulus switch, as
+    int64 (a torus_bits-wide wrapping difference, sign-extended)."""
+    rounded = (modulus_switch(x, log_modulus, torus_bits)
+               << (torus_bits - log_modulus))
+    if torus_bits < 64:
+        err = rounded - (x & ((1 << torus_bits) - 1))
+        tb = 1 << (torus_bits - 1)
+        return ((err + tb) & ((1 << torus_bits) - 1)) - tb
+    return rounded - x
+
+
+def centered_binary_ms_body_correction(mask: torch.Tensor, log_modulus: int,
+                                       torus_bits: int = 64) -> torch.Tensor:
     """Correction added to the body before a centered-binary modulus switch
     (CenteredMeanNoiseReduction, algorithms/modulus_switch.rs:57).
     ``mask``: int64[..., n] -> int64[...]."""
-    rounded = modulus_switch(mask, log_modulus) << (64 - log_modulus)
-    err = rounded - mask  # signed rounding error (wrapping difference)
+    err = _ms_round_error(mask, log_modulus, torus_bits)
     half_err = _trunc_div2(err)
     halving_err_doubled = 2 * half_err - err  # in {-1, 0, 1}
     sum_half = half_err.sum(dim=-1)
     sum_halving = halving_err_doubled.sum(dim=-1)
     sum_half = sum_half - _trunc_div2(sum_halving)
-    return sum_half - (1 << (64 - log_modulus - 1))
+    return sum_half - (1 << (torus_bits - log_modulus - 1))
 
 
-def lwe_centered_binary_modulus_switch(ct: torch.Tensor, log_modulus: int):
+def lwe_centered_binary_modulus_switch(ct: torch.Tensor, log_modulus: int,
+                                       torus_bits: int = 64):
     """(switched_mask, switched_body) in [0, 2^log_modulus), with the
     centered-binary body correction applied before the switch."""
     n = ct.shape[-1] - 1
     mask = ct[..., :n]
-    corr = centered_binary_ms_body_correction(mask, log_modulus)
-    return (modulus_switch(mask, log_modulus),
-            modulus_switch(ct[..., n] + corr, log_modulus))
+    corr = centered_binary_ms_body_correction(mask, log_modulus, torus_bits)
+    return (modulus_switch(mask, log_modulus, torus_bits),
+            modulus_switch(ct[..., n] + corr, log_modulus, torus_bits))
 
 
-def lwe_standard_modulus_switch(ct: torch.Tensor, log_modulus: int):
+def lwe_standard_modulus_switch(ct: torch.Tensor, log_modulus: int,
+                                torus_bits: int = 64):
     n = ct.shape[-1] - 1
-    return (modulus_switch(ct[..., :n], log_modulus),
-            modulus_switch(ct[..., n], log_modulus))
+    return (modulus_switch(ct[..., :n], log_modulus, torus_bits),
+            modulus_switch(ct[..., n], log_modulus, torus_bits))
+
+
+# ---------------------------------------------------------------------------
+# drift-technique modulus-switch noise reduction
+# ---------------------------------------------------------------------------
+
+def _ms_round_error_f64(x: torch.Tensor, log_modulus: int,
+                        torus_bits: int = 64) -> torch.Tensor:
+    """The switch's signed rounding error rounded(x) - x as f64
+    (modulus_switch_noise_reduction.rs:14-36 round_error_float); |err| <=
+    2^(torus_bits - log_modulus - 1) < 2^53, so the f64 value is exact."""
+    return _ms_round_error(x, log_modulus, torus_bits).to(torch.float64)
+
+
+def choose_drift_candidate(ct: torch.Tensor, zeros: torch.Tensor,
+                           r_sigma_factor: float, bound: float,
+                           input_variance: float, log_modulus: int,
+                           torus_bits: int = 64,
+                           chunk: int = 64) -> torch.Tensor:
+    """Drift-technique candidate selection (eprint 2024/1718; reference
+    ``modulus_switch_noise_reduction.rs:99``): for each LWE, the candidates
+    {no addition} and {ct + zeros[z]} are measured by
+    ``|expectancy| + sqrt(variance + modular_input_variance) * r_sigma``
+    with expectancy = body_err - sum(mask_err)/2 and variance =
+    sum(mask_err^2)/4 over the switch's rounding errors. Returns the
+    candidate index of each LWE (0 = no addition, z+1 = zeros[z]): the
+    first candidate whose measure is <= ``bound``, else the first minimum.
+
+    ``ct``: int64[..., n+1]; ``zeros``: int64[Z, n+1]. The modular
+    variance is input_variance * 2^(2*torus_bits). Candidates are measured
+    ``chunk`` at a time on the ciphertexts' device, to bound the transient
+    memory (all of them at once would not fit at production zero counts).
+    At torus_bits = 32 every summand is an integer below 2^53 and the sums
+    are exact in any order; at 64 bits a sum may round, so a near-tie can
+    fall to another candidate than ``tfhe_tpu``'s."""
+    n = ct.shape[-1] - 1
+    zeros_ext = torch.cat([zeros.new_zeros((1, n + 1)), zeros.to(ct.device)])
+    mod_var = float(input_variance) * float(2.0 ** (2 * torus_bits))
+    r_sigma = float(r_sigma_factor)
+    measures = []
+    for z0 in range(0, zeros_ext.shape[0], chunk):
+        zk = zeros_ext[z0:z0 + chunk]
+        cand = ct[None] + zk.reshape((zk.shape[0],) + (1,) * (ct.ndim - 1)
+                                     + (n + 1,))
+        err = _ms_round_error_f64(cand, log_modulus, torus_bits)
+        mask_err = err[..., :n]
+        expectancy = err[..., n] - mask_err.sum(dim=-1) / 2.0
+        variance = (mask_err * mask_err).sum(dim=-1) / 4.0
+        measures.append(expectancy.abs()
+                        + torch.sqrt(variance + mod_var) * r_sigma)
+    measures = torch.cat(measures)  # [Z+1, ...]
+    sat = measures <= float(bound)
+    first_sat = torch.argmax(sat.to(torch.int8), dim=0)  # first True
+    best = torch.argmin(measures, dim=0)  # first occurrence of the min
+    return torch.where(sat.any(dim=0), first_sat, best)
+
+
+def improve_drift_ms(ct: torch.Tensor, zeros: torch.Tensor,
+                     r_sigma_factor: float, bound: float,
+                     input_variance: float, log_modulus: int,
+                     torus_bits: int = 64) -> torch.Tensor:
+    """Add the chosen encryption of zero to each LWE (identity when the
+    no-addition candidate wins). The modulus switch that follows must be
+    the standard rounding switch (reference
+    improve_noise_and_modulus_switch -> lwe_ciphertext_modulus_switch)."""
+    idx = choose_drift_candidate(ct, zeros, r_sigma_factor, bound,
+                                 input_variance, log_modulus, torus_bits)
+    n = ct.shape[-1] - 1
+    zeros_ext = torch.cat([zeros.new_zeros((1, n + 1)), zeros.to(ct.device)])
+    return ct + zeros_ext[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -251,15 +404,17 @@ def crt_acc32_requested(poly_size: int, base_log: int, levels: int) -> bool:
 
 
 def _switch_and_flatten(ct_in: torch.Tensor, lut: torch.Tensor, N: int,
-                        centered_ms: bool):
-    """Modulus switch to 2N, flattened to one batch dim: (batch shape,
-    mask [B, n], body [B], lut [R, N] shared or [B, R, N])."""
+                        centered_ms: bool, torus_bits: int = 64):
+    """Modulus switch to 2N from the ``torus_bits`` torus, flattened to one
+    batch dim: (batch shape, mask [B, n], body [B], lut [R, N] shared or
+    [B, R, N])."""
     log_modulus = N.bit_length()
     if centered_ms:
-        ms_mask, ms_body = lwe_centered_binary_modulus_switch(ct_in,
-                                                              log_modulus)
+        ms_mask, ms_body = lwe_centered_binary_modulus_switch(
+            ct_in, log_modulus, torus_bits)
     else:
-        ms_mask, ms_body = lwe_standard_modulus_switch(ct_in, log_modulus)
+        ms_mask, ms_body = lwe_standard_modulus_switch(ct_in, log_modulus,
+                                                       torus_bits)
     batch = ct_in.shape[:-1]
     n_small = ct_in.shape[-1] - 1
     if lut.ndim > 2:
@@ -285,6 +440,42 @@ def programmable_bootstrap(ct_in: torch.Tensor, lut: torch.Tensor,
     return out.reshape(batch + (out.shape[-1],))
 
 
+def crt_rotation(lut: torch.Tensor, ms_mask: torch.Tensor,
+                 ms_body: torch.Tensor, bsk_scan: torch.Tensor,
+                 base_log: int, levels: int) -> torch.Tensor:
+    """Blind rotation on the exact CRT key, the rotated GLWE int64[B, R, N]:
+    K2 body rotation (u64) -> K3 (P-prime Garner tail, two-plane
+    accumulator); when :func:`crt_acc32_requested` (``TFHE_V4_ACC=32``)
+    the accumulator is the u32 hi plane as on the TPU: K2 acc32 ->
+    K3-acc32, every increment rounded to a multiple of 2^32 (``tfhe_tpu``'s
+    ``pbs_kernel.blind_rotate_pallas``).
+
+    ``lut``: int64[R, N] (shared) or [B, R, N]; ``ms_mask``: [B, n] and
+    ``ms_body``: [B] in [0, 2N); ``bsk_scan``: int32[n, 2, P, l*R, R, N].
+    CUDA tensors run the kernels, CPU tensors their plain versions."""
+    if crt_acc32_requested(bsk_scan.shape[-1], base_log, levels):
+        hi = pk.body_rotate_acc32(lut, ms_body)
+        hi = pk.blind_rotate_crt_acc32(hi, ms_mask, bsk_scan, base_log,
+                                       levels)
+        return hi.to(torch.int64) << 32
+    acc = pk.body_rotate_u64(lut, ms_body)
+    return pk.blind_rotate_crt(acc, ms_mask, bsk_scan, base_log, levels)
+
+
+def goldilocks_rotation(lut: torch.Tensor, ms_mask: torch.Tensor,
+                        ms_body: torch.Tensor, bsk_g: torch.Tensor,
+                        base_log: int, levels: int,
+                        bsk_k: torch.Tensor) -> torch.Tensor:
+    """Blind rotation on the v5 Goldilocks key, the rotated GLWE
+    int64[B, R, N]: K2 body rotation (u64, the ``monomial_div`` of
+    ``pbs_kernel_g.py:726``) -> K4. ``bsk_g``: int32 (u32)
+    [n, 2, l*R, R, G, 128]; ``bsk_k``: the same key in K4's order
+    (``pbs_kernel.goldilocks_kernel_key``)."""
+    acc = pk.body_rotate_u64(lut, ms_body)
+    return pk.blind_rotate_goldilocks(acc, ms_mask, bsk_g, base_log, levels,
+                                      bsk_k)
+
+
 def programmable_bootstrap_crt(
     ct_in: torch.Tensor,
     lut: torch.Tensor,
@@ -293,29 +484,18 @@ def programmable_bootstrap_crt(
     levels: int,
     centered_ms: bool = True,
     extract_nth: int = 0,
+    input_torus_bits: int = 64,
 ) -> torch.Tensor:
     """Classic PBS on the exact CRT path, the counterpart of ``tfhe_tpu``'s
     ``programmable_bootstrap_pallas`` (``ops/server.py:540``): modulus
-    switch -> K2 body rotation (u64) -> K3 blind rotation (P-prime Garner
-    tail, two-plane accumulator) -> sample extraction. When
-    :func:`crt_acc32_requested` (``TFHE_V4_ACC=32``), the accumulator is
-    the u32 hi plane as on the TPU: K2 acc32 -> K3-acc32, every increment
-    rounded to a multiple of 2^32.
+    switch -> :func:`crt_rotation` -> sample extraction.
 
     ``bsk_scan``: int32[n, 2, P, l*R, R, N] (``pbs_kernel.
     bsk_to_scan_layout`` of the NTT key). CUDA tensors run the kernels, CPU
     tensors their plain versions. Returns int64[..., k*N + 1]."""
-    N = bsk_scan.shape[-1]
-    batch, ms_mask, ms_body, lut = _switch_and_flatten(ct_in, lut, N,
-                                                       centered_ms)
-    if crt_acc32_requested(N, base_log, levels):
-        hi = pk.body_rotate_acc32(lut, ms_body)
-        hi = pk.blind_rotate_crt_acc32(hi, ms_mask, bsk_scan, base_log,
-                                       levels)
-        acc = hi.to(torch.int64) << 32
-    else:
-        acc = pk.body_rotate_u64(lut, ms_body)
-        acc = pk.blind_rotate_crt(acc, ms_mask, bsk_scan, base_log, levels)
+    batch, ms_mask, ms_body, lut = _switch_and_flatten(
+        ct_in, lut, bsk_scan.shape[-1], centered_ms, input_torus_bits)
+    acc = crt_rotation(lut, ms_mask, ms_body, bsk_scan, base_log, levels)
     out = sample_extract(acc, extract_nth)
     return out.reshape(batch + (out.shape[-1],))
 
@@ -329,6 +509,7 @@ def programmable_bootstrap_bnf2(
     centered_ms: bool = True,
     extract_nth: int = 0,
     flavor=None,
+    input_torus_bits: int = 64,
 ) -> torch.Tensor:
     """Classic PBS on the 2-prime BNF path: modulus switch -> body rotation
     -> blind rotation -> sample extraction. Under ``TFHE_V4_ACC=32`` (the
@@ -338,13 +519,14 @@ def programmable_bootstrap_bnf2(
     (``one_step_stacked``), a TPU layout of the same function, so the port
     runs K1 under it as well.
 
-    ``ct_in``: int64[..., n+1] under the small key; ``lut``: int64[R, N]
+    ``ct_in``: int64[..., n+1] under the small key (u32 values with
+    ``input_torus_bits`` = 32, the KS32 pattern); ``lut``: int64[R, N]
     (shared) or [..., R, N]; ``bsk_scan2``: int32[n, 2, 2, l*R, R, N] from
     ``bnf2.bootstrap_key_to_bnf2``. CUDA tensors run the kernels, CPU
     tensors their plain versions. Returns int64[..., k*N + 1]."""
     fl = flavor or bnf2_mod.DEFAULT
     batch, ms_mask, ms_body, lut = _switch_and_flatten(
-        ct_in, lut, bsk_scan2.shape[5], centered_ms)
+        ct_in, lut, bsk_scan2.shape[5], centered_ms, input_torus_bits)
     if acc_mode() == "32":
         hi = pk.body_rotate_acc32(lut, ms_body)
         hi = pk.blind_rotate_bnf2_acc32(hi, ms_mask, bsk_scan2, base_log,
@@ -368,23 +550,21 @@ def programmable_bootstrap_goldilocks(
     extract_nth: int = 0,
     *,
     bsk_k: torch.Tensor,
+    input_torus_bits: int = 64,
 ) -> torch.Tensor:
     """Classic PBS on the single-prime Goldilocks (BNF) path, the v5
     variant: the counterpart of ``tfhe_tpu``'s
     ``ops/server.py::programmable_bootstrap_goldilocks`` (``:596-653``,
-    without its TPU batch padding): modulus switch -> K2 body rotation
-    (u64, the ``monomial_div`` of ``pbs_kernel_g.py:726``) -> K4 blind
-    rotation -> sample extraction.
+    without its TPU batch padding): modulus switch ->
+    :func:`goldilocks_rotation` -> sample extraction.
 
     ``bsk_g``: int32 (u32) [n, 2, l*R, R, G, 128] from
     ``goldilocks.bootstrap_key_to_goldilocks``; ``bsk_k``: the same key in
-    K4's order (``pbs_kernel.goldilocks_kernel_key``), prepared once. CUDA
-    tensors run the kernels, CPU tensors their plain versions. Returns
-    int64[..., k*N + 1]."""
+    K4's order, prepared once. CUDA tensors run the kernels, CPU tensors
+    their plain versions. Returns int64[..., k*N + 1]."""
     batch, ms_mask, ms_body, lut = _switch_and_flatten(
-        ct_in, lut, bsk_g.shape[4] * 128, centered_ms)
-    acc = pk.body_rotate_u64(lut, ms_body)
-    acc = pk.blind_rotate_goldilocks(acc, ms_mask, bsk_g, base_log, levels,
-                                     bsk_k)
+        ct_in, lut, bsk_g.shape[4] * 128, centered_ms, input_torus_bits)
+    acc = goldilocks_rotation(lut, ms_mask, ms_body, bsk_g, base_log, levels,
+                              bsk_k)
     out = sample_extract(acc, extract_nth)
     return out.reshape(batch + (out.shape[-1],))

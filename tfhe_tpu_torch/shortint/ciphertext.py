@@ -28,6 +28,10 @@ class ShortintCiphertext:
     def batch_shape(self):
         return tuple(self.ct.shape[:-1])
 
+    @property
+    def lwe_dimension(self) -> int:
+        return self.ct.shape[-1] - 1
+
     def with_ct(self, ct, degree=None, noise_level=None) -> "ShortintCiphertext":
         return replace(
             self,
@@ -43,3 +47,16 @@ class LookupTable:
 
     acc: torch.Tensor  # int64[k+1, N]
     degree: int
+
+
+@dataclass
+class ManyLookupTable:
+    """Several functions packed in one accumulator (reference
+    ManyLookupTableOwned): after one blind rotation, function i's output is
+    the sample extraction at coefficient ``i * stride``."""
+
+    acc: torch.Tensor  # int64[k+1, N]
+    degrees: list
+    stride: int
+    count: int
+    max_input_degree: int = 0

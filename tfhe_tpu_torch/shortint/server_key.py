@@ -1,20 +1,23 @@
-"""Shortint server key: LUTs and the KS -> PBS atomic pattern on the
-v6/v6b BNF2 path, the v5 Goldilocks path and the exact CRT path.
+"""Shortint server key: LUTs, many-LUT, the atomic patterns (KS -> PBS,
+KS32 with or without the drift technique, PBS -> KS) on the v6/v6b BNF2
+path, the v5 Goldilocks path and the exact CRT path, and the leveled and
+bivariate ops.
 
-Torch counterpart of the main-path subset of
-``tfhe_tpu/shortint/server_key.py`` (reference
+Torch counterpart of ``tfhe_tpu/shortint/server_key.py`` (reference
 ``tfhe/src/shortint/server_key/mod.rs``: generate_lookup_table:805,
-apply_lookup_table:935; ``atomic_pattern/standard.rs:155``). The key holds
-device tensors: the KSK (canonical and int8-limb form) and the bootstrap
-key of the resolved transform variant (BNF2 for v6/v6b, the Goldilocks key
-for v5, the P-prime NTT key in scan layout for crt).
+apply_lookup_table:935; ``atomic_pattern/standard.rs:155``,
+``atomic_pattern/ks32.rs``). The key holds device tensors: the KSK
+(canonical and int8-limb form), the bootstrap key of the resolved transform
+variant (BNF2 for v6/v6b, the Goldilocks key for v5, the P-prime NTT key in
+scan layout for crt), and the drift technique's encryptions of zero.
 
-What this slice does not carry raises ``NotImplementedError`` naming the
-ROADMAP item; no other path is substituted.
+Multi-bit parameter sets raise ``NotImplementedError`` naming the ROADMAP
+item; no other path is substituted.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from .._roadmap import not_ported
-from .._torus import from_u64, to_u64
+from .._torus import from_u64, to_u64, u64_const
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
 from ..core.entities import LweBootstrapKey
@@ -32,10 +35,12 @@ from ..ops import goldilocks as gl
 from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
 from ..ops import server as server_ops
+from ..utils import fork_budgets
 from ..utils.encoding import ShortintEncoding
 from ..utils.params import (ClassicPBSParameters, EncryptionKeyChoice,
-                            ModulusSwitchType)
-from .ciphertext import NOMINAL_NOISE, LookupTable, ShortintCiphertext
+                            ModulusSwitchType, MultiBitPBSParameters)
+from .ciphertext import (NOMINAL_NOISE, LookupTable, ManyLookupTable,
+                         ShortintCiphertext)
 from .client_key import ClientKey
 
 #: default transform variant of the classic-PBS path, as in tfhe_tpu:
@@ -92,18 +97,30 @@ def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
 
 
 def check_supported(p) -> None:
-    """Raise NotImplementedError for a parameter set outside this slice
-    (parameters are duck-typed: a multi-bit or KS32 set from elsewhere must
-    not silently run the classic path)."""
-    if getattr(p, "grouping_factor", 0):
+    """Raise NotImplementedError for a multi-bit parameter set (by class, or
+    duck-typed by its grouping factor): the port has no multi-bit PBS yet,
+    and no other path runs in its place."""
+    if isinstance(p, MultiBitPBSParameters) or getattr(p, "grouping_factor",
+                                                       0):
         raise not_ported("multi-bit PBS", 8)
+
+
+def is_ks32(p) -> bool:
+    """The KS32 atomic pattern: post-keyswitch ciphertexts live on a u32
+    modulus (``KeySwitch32PBSParameters``, ``atomic_pattern/ks32.rs``)."""
     mod = getattr(p, "post_keyswitch_ciphertext_modulus", None)
-    if mod is not None and mod.bits == 32:
-        raise not_ported("the KS32 atomic pattern (keyswitch_mxu32)", 5)
-    if p.encryption_key_choice != EncryptionKeyChoice.BIG:
-        raise not_ported("the PBS -> KS order (small-key ciphertexts)", 5)
-    if p.modulus_switch_type == ModulusSwitchType.DRIFT_TECHNIQUE_NOISE_REDUCTION:
-        raise not_ported("drift-technique modulus switching", 5)
+    return mod is not None and mod.bits == 32
+
+
+def drift_params(p):
+    """(r_sigma, bound, input_variance) of a parameter set that selects the
+    drift-technique modulus-switch noise reduction, else None."""
+    d = getattr(p, "modulus_switch_noise_reduction_params", None)
+    if (p.modulus_switch_type
+            == ModulusSwitchType.DRIFT_TECHNIQUE_NOISE_REDUCTION
+            and d is not None):
+        return d.ms_r_sigma_factor, d.ms_bound, d.ms_input_variance
+    return None
 
 
 def flavor_for(variant: str) -> Optional[b2.Bnf2Flavor]:
@@ -134,18 +151,28 @@ def prepare_crt_key(bsk_std: torch.Tensor, p) -> torch.Tensor:
 @dataclass
 class ServerKey:
     params: ClassicPBSParameters
-    ksk: torch.Tensor  # int64[n_big, l_ks, n_small+1]
-    ksk_i8: torch.Tensor  # int8[n_big*l_ks, (n_small+1)*8]
+    #: int64[n_big, l_ks, n_small+1] (u32 values under KS32)
+    ksk: torch.Tensor
+    ksk_i8: torch.Tensor  # int8[n_big*l_ks, (n_small+1)*limbs], 8 or 4 limbs
     bsk_b: Optional[torch.Tensor]  # int32 (u32) [n_small, 2, 2, l*R, R, N]
     variant: str
     max_degree: int = 0
-    #: the crt variant's key, int32 (u32) [n_small, 2, P, l*R, R, N]
+    #: the exact CRT key, int32 (u32) [n_small, 2, P, l*R, R, N]: the crt
+    #: variant's bootstrap key; under v6/v6b the many-LUT and OPRF key,
+    #: built at first use (:meth:`crt_key`) from ``bsk_std``
     bsk_scan: Optional[torch.Tensor] = None
     #: the v5 variant's key, int32 (u32) [n_small, 2 (hi, lo), l*R, R, G,
     #: 128] (``tfhe_tpu``'s ``bsk_scan_g`` layout), and the same key in
     #: K4's order, int64 [n_small, l*R, R, N] (prepared once)
     bsk_g: Optional[torch.Tensor] = None
     bsk_g_k: Optional[torch.Tensor] = None
+    #: the standard-domain BSK int64[n, l, R, R, N], kept under v6/v6b
+    #: until :meth:`crt_key` turns it into ``bsk_scan``
+    bsk_std: Optional[torch.Tensor] = None
+    #: drift-technique modulus switching: encryptions of zero under the
+    #: small key, int64[Z, n_small+1] (u32 values under KS32)
+    #: (``shortint/server_key/modulus_switch_noise_reduction.rs``)
+    ms_zeros: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -169,48 +196,109 @@ class ServerKey:
         key = self.bsk_scan if self.variant == "crt" else self.bsk_b
         return key.shape[2]
 
+    @property
+    def ks32(self) -> bool:
+        return is_ks32(self.params)
+
+    @property
+    def order(self) -> str:
+        """'ks_pbs' for big-key ciphertexts, 'pbs_ks' for small-key ones
+        (EncryptionKeyChoice, ``atomic_pattern/standard.rs:155-190``)."""
+        return ("pbs_ks" if self.params.encryption_key_choice
+                == EncryptionKeyChoice.SMALL else "ks_pbs")
+
+    @property
+    def drift(self):
+        """(r_sigma, bound, input_variance) when the key runs the drift
+        technique (its parameters ask for it and it carries the zeros)."""
+        return drift_params(self.params) if self.ms_zeros is not None else None
+
+    @property
+    def _pbs_input_bits(self) -> int:
+        """The torus the PBS switches from: 32 bits under KS32."""
+        return 32 if self.ks32 else 64
+
+    def crt_key(self) -> torch.Tensor:
+        """The exact CRT key in scan layout, the key of many-LUT and the
+        OPRF under v6/v6b (``tfhe_tpu`` keeps it beside every variant's key,
+        ``server_key.py:423-442``). Built at first use from ``bsk_std``,
+        which it then replaces, so no other path's keygen grows."""
+        if self.bsk_scan is None:
+            if self.bsk_std is None:
+                raise ValueError("this server key carries neither the CRT "
+                                 "key nor the standard-domain BSK to build "
+                                 "it from")
+            self.bsk_scan = prepare_crt_key(self.bsk_std, self.params)
+            self.bsk_std = None
+        return self.bsk_scan
+
     # ------------------------------------------------------------------
     @classmethod
-    def generate(cls, client_key: ClientKey) -> "ServerKey":
-        """BSK (GGSW of each small-key bit under the GLWE key) then KSK
-        (big -> small), drawn from the client key's keygen stream in the
-        JAX package's order; computed on the client key's device. The
-        standard-domain BSK goes straight to the variant's form (the JAX
-        package goes through the exact 4-prime form and back to BNF2, with
-        equal bits)."""
+    def generate(cls, client_key: ClientKey,
+                 reference_forks: bool = False) -> "ServerKey":
+        """BSK (GGSW of each small-key bit under the GLWE key), then the KSK
+        (big -> small; onto the u32 torus under KS32), then under the drift
+        technique the encryptions of zero (small key, lwe noise, u32 under
+        KS32), all drawn from the client key's keygen stream in the JAX
+        package's order and computed on the client key's device.
+        ``reference_forks=True`` draws the BSK with the reference's fork
+        layout (``utils/fork_budgets.py``). The standard-domain BSK goes
+        straight to the variant's form (the JAX package goes through the
+        exact CRT form and back to BNF2, with equal bits)."""
         p = client_key.params
         check_supported(p)
         variant = resolve_variant(p.polynomial_size, p.pbs_base_log,
                                   p.pbs_level, params=p)
         gen = client_key._keygen_gen
-        bsk = algo.gen_bootstrap_key(
-            client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
-            p.pbs_level, p.glwe_noise_distribution, gen)
-        ksk = algo.gen_keyswitch_key(
-            client_key.big_lwe_sk, client_key.lwe_sk, p.ks_base_log,
-            p.ks_level, p.lwe_noise_distribution, gen)
-        return cls.from_standard_keys(p, ksk.data, bsk.data, variant)
+        gen_bsk = (fork_budgets.gen_bootstrap_key_reference_forks
+                   if reference_forks else algo.gen_bootstrap_key)
+        bsk = gen_bsk(client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
+                      p.pbs_level, p.glwe_noise_distribution, gen)
+        gen_ksk = (algo.gen_keyswitch_key32 if is_ks32(p)
+                   else algo.gen_keyswitch_key)
+        ksk = gen_ksk(client_key.big_lwe_sk, client_key.lwe_sk, p.ks_base_log,
+                      p.ks_level, p.lwe_noise_distribution, gen)
+        ms_zeros = None
+        if drift_params(p) is not None:
+            count = p.modulus_switch_noise_reduction_params \
+                .modulus_switch_zeros_count
+            enc = algo.lwe_encrypt32 if is_ks32(p) else algo.lwe_encrypt
+            ms_zeros = enc(client_key.lwe_sk, np.zeros(count, np.uint64),
+                           p.lwe_noise_distribution, gen)
+        return cls.from_standard_keys(p, ksk.data, bsk.data, variant,
+                                      ms_zeros=ms_zeros)
 
     @classmethod
-    def from_standard_keys(cls, p: ClassicPBSParameters, ksk: torch.Tensor,
-                           bsk_std: torch.Tensor,
-                           variant: str) -> "ServerKey":
-        """Key preparation: the KSK's int8 limbs and the variant's transform
-        of the standard-domain BSK int64[n, l, R, R, N]."""
-        ksk_i8 = server_ops.ksk_to_i8_limbs(to_u64(ksk), p.ks_base_log)
+    def from_standard_keys(cls, p, ksk: torch.Tensor, bsk_std: torch.Tensor,
+                           variant: str,
+                           ms_zeros: Optional[torch.Tensor] = None,
+                           bsk_scan: Optional[torch.Tensor] = None,
+                           ) -> "ServerKey":
+        """Key preparation: the KSK's int8 limbs (4 under KS32) and the
+        variant's transform of the standard-domain BSK int64[n, l, R, R, N].
+        ``bsk_scan``, when given, is the exact CRT key (it must be the
+        transform of ``bsk_std``)."""
+        limbs = (server_ops.ksk32_to_i8_limbs if is_ks32(p)
+                 else server_ops.ksk_to_i8_limbs)
+        ksk_i8 = limbs(to_u64(ksk), p.ks_base_log)
         flavor = flavor_for(variant)
         bsk_g = (gl.bootstrap_key_to_goldilocks(bsk_std) if variant == "v5"
                  else None)
+        if bsk_scan is None and variant == "crt":
+            bsk_scan = prepare_crt_key(bsk_std, p)
         return cls(
             params=p,
             ksk=ksk,
             ksk_i8=torch.from_numpy(ksk_i8).to(ksk.device),
             bsk_b=(b2.bootstrap_key_to_bnf2(bsk_std, flavor) if flavor
                    else None),
-            bsk_scan=prepare_crt_key(bsk_std, p) if variant == "crt" else None,
+            bsk_scan=bsk_scan,
             bsk_g=bsk_g,
             bsk_g_k=(pk.goldilocks_kernel_key(bsk_g) if bsk_g is not None
                      else None),
+            bsk_std=(bsk_std if flavor is not None and bsk_scan is None
+                     else None),
+            ms_zeros=ms_zeros,
             variant=variant,
             max_degree=p.message_modulus * p.carry_modulus - 1,
         )
@@ -228,71 +316,272 @@ class ServerKey:
     # ------------------------------------------------------------------
     # lookup tables
     # ------------------------------------------------------------------
-    def generate_lookup_table(self, f: Callable[[int], int]) -> LookupTable:
-        """Accumulator layout per engine/mod.rs:80-141: one box of
-        N/(mm*cm) slots per input value, the first half-box negated and
-        rotated out to center the boxes on the modulus-switch grid."""
+    def _accumulator(self, body: np.ndarray, box: int) -> torch.Tensor:
+        """The trivial GLWE of a LUT body u64[N]: the first half-box
+        negated and rotated out to center the boxes on the modulus-switch
+        grid (engine/mod.rs:80-141)."""
         p = self.params
-        N = p.polynomial_size
-        mod_sup = p.message_modulus * p.carry_modulus
-        box = N // mod_sup
-        enc = self.encoding
-        fe = [int(f(int(x))) for x in range(mod_sup)]
-        encoded = np.array([enc.encode(v) for v in fe], dtype=np.uint64)
-        body = np.repeat(encoded, box)
         half = box // 2
         with np.errstate(over="ignore"):
             body[:half] = np.uint64(0) - body[:half]
         body = np.roll(body, -half)
-        acc = np.zeros((p.glwe_size, N), dtype=np.uint64)
+        acc = np.zeros((p.glwe_size, p.polynomial_size), dtype=np.uint64)
         acc[-1] = body
-        return LookupTable(acc=from_u64(acc, self.device), degree=max(fe))
+        return from_u64(acc, self.device)
+
+    def generate_lookup_table(self, f: Callable[[int], int]) -> LookupTable:
+        """One box of N/(mm*cm) slots per input value (engine/mod.rs:80)."""
+        p = self.params
+        mod_sup = p.message_modulus * p.carry_modulus
+        box = p.polynomial_size // mod_sup
+        enc = self.encoding
+        fe = [int(f(int(x))) for x in range(mod_sup)]
+        encoded = np.array([enc.encode(v) for v in fe], dtype=np.uint64)
+        return LookupTable(acc=self._accumulator(np.repeat(encoded, box), box),
+                           degree=max(fe))
+
+    def generate_many_lookup_table(self, fns) -> ManyLookupTable:
+        """Several functions packed in ONE accumulator as consecutive
+        sub-LUTs: after a single blind rotation, the sample extraction at
+        ``i * stride`` gives function i (engine/mod.rs:168
+        fill_many_lut_accumulator, shortint/server_key/mod.rs:622-632). The
+        input degree must be <= mod_sup/len(fns) - 1, so that the rotation
+        stays inside sub-LUT 0."""
+        p = self.params
+        mod_sup = p.message_modulus * p.carry_modulus
+        box = p.polynomial_size // mod_sup
+        k = len(fns)
+        if not 0 < k <= mod_sup // 2:
+            raise ValueError(f"1 to {mod_sup // 2} functions, got {k}")
+        max_degree = mod_sup // k - 1
+        sub_size = (max_degree + 1) * box
+        enc = self.encoding
+        body = np.zeros(p.polynomial_size, dtype=np.uint64)
+        degrees = []
+        for i, f in enumerate(fns):
+            vals = [int(f(v)) for v in range(max_degree + 1)]
+            for v, val in enumerate(vals):
+                lo = i * sub_size + v * box
+                body[lo:lo + box] = enc.encode(val)
+            degrees.append(max(vals))
+        return ManyLookupTable(acc=self._accumulator(body, box),
+                               degrees=degrees, stride=sub_size, count=k,
+                               max_input_degree=max_degree)
+
+    def generate_msg_lookup_table(self, f, modulus: Optional[int] = None
+                                  ) -> LookupTable:
+        m = modulus or self.params.message_modulus
+        return self.generate_lookup_table(lambda x: f(x % m) % m)
 
     # ------------------------------------------------------------------
-    # the atomic pattern
+    # the atomic patterns
     # ------------------------------------------------------------------
-    def _ks_pbs(self, ct: torch.Tensor, lut_acc: torch.Tensor) -> torch.Tensor:
-        """Keyswitch (big -> small key) then PBS (small -> big key)."""
+    def ks_only(self, ct: torch.Tensor) -> torch.Tensor:
+        """Keyswitch big -> small key (onto the u32 torus under KS32)."""
         p = self.params
-        small = server_ops.keyswitch_mxu(ct, self.ksk_i8, p.ks_base_log,
-                                         p.ks_level)
+        ks = (server_ops.keyswitch_mxu32 if self.ks32
+              else server_ops.keyswitch_mxu)
+        return ks(ct, self.ksk_i8, p.ks_base_log, p.ks_level)
+
+    def pbs_only(self, ct_small: torch.Tensor,
+                 lut_acc: torch.Tensor) -> torch.Tensor:
+        """PBS small -> big key on the variant's kernels; under the drift
+        technique the chosen encryption of zero is added first and the
+        switch is the standard one (``tfhe_tpu``'s ``server_key.py:
+        177-191``)."""
+        p = self.params
+        bits = self._pbs_input_bits
         centered = (p.modulus_switch_type
                     == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION)
+        if self.drift is not None:
+            r_sigma, bound, input_variance = self.drift
+            ct_small = server_ops.improve_drift_ms(
+                ct_small, self.ms_zeros, r_sigma, bound, input_variance,
+                p.polynomial_size.bit_length(), torus_bits=bits)
+        args = (p.pbs_base_log, p.pbs_level, centered)
         if self.variant == "crt":
             return server_ops.programmable_bootstrap_crt(
-                small, lut_acc, self.bsk_scan, p.pbs_base_log, p.pbs_level,
-                centered_ms=centered)
+                ct_small, lut_acc, self.bsk_scan, *args,
+                input_torus_bits=bits)
         if self.variant == "v5":
             return server_ops.programmable_bootstrap_goldilocks(
-                small, lut_acc, self.bsk_g, p.pbs_base_log, p.pbs_level,
-                centered_ms=centered, bsk_k=self.bsk_g_k)
+                ct_small, lut_acc, self.bsk_g, *args, bsk_k=self.bsk_g_k,
+                input_torus_bits=bits)
         return server_ops.programmable_bootstrap_bnf2(
-            small, lut_acc, self.bsk_b, p.pbs_base_log, p.pbs_level,
-            centered_ms=centered, flavor=self.flavor)
+            ct_small, lut_acc, self.bsk_b, *args, flavor=self.flavor,
+            input_torus_bits=bits)
+
+    def ks_pbs(self, ct: torch.Tensor, lut_acc: torch.Tensor) -> torch.Tensor:
+        """The atomic pattern on a tensor: KS -> PBS for big-key
+        ciphertexts, PBS -> KS for small-key ones."""
+        if self.order == "pbs_ks":
+            return self.ks_only(self.pbs_only(ct, lut_acc))
+        return self.pbs_only(self.ks_only(ct), lut_acc)
 
     def apply_lookup_table(self, ct: ShortintCiphertext,
                            lut: LookupTable) -> ShortintCiphertext:
-        if ct.under_key != "big":
-            raise ValueError(f"ks_pbs pattern expects big-key input, got "
-                             f"{ct.under_key}")
-        out = self._ks_pbs(ct.ct.to(self.device), lut.acc)
+        expect = "big" if self.order == "ks_pbs" else "small"
+        if ct.under_key != expect:
+            raise ValueError(f"{self.order} pattern expects {expect}-key "
+                             f"input, got {ct.under_key}")
+        out = self.ks_pbs(ct.ct.to(self.device), lut.acc)
         return ShortintCiphertext(
             ct=out,
             degree=lut.degree,
             noise_level=NOMINAL_NOISE,
             message_modulus=ct.message_modulus,
             carry_modulus=ct.carry_modulus,
-            under_key="big",
+            under_key=expect,
         )
 
-    def keyswitch(self, ct: ShortintCiphertext) -> ShortintCiphertext:
+    def apply_many_lookup_table(self, ct: ShortintCiphertext,
+                                many: ManyLookupTable) -> list:
+        """ONE keyswitch and blind rotation, then ``many.count`` sample
+        extractions from the rotated GLWE. The rotation runs on the exact
+        CRT key (K2 u64 -> K3, or K2 acc32 -> K3-acc32 under
+        ``TFHE_V4_ACC=32``) under v6/v6b/crt, and on the Goldilocks key (K2
+        u64 -> K4) under v5, as ``tfhe_tpu``'s ``server_key.py:578-668``;
+        the switch is the centered or the standard one (never the drift
+        technique's), from the u32 torus under KS32."""
+        if ct.under_key != "big":
+            raise ValueError(f"many-LUT expects big-key input, got "
+                             f"{ct.under_key}")
+        if ct.degree > many.max_input_degree:
+            raise ValueError(f"input degree {ct.degree} exceeds the "
+                             f"many-LUT limit {many.max_input_degree}")
         p = self.params
-        out = server_ops.keyswitch_mxu(ct.ct.to(self.device), self.ksk_i8,
-                                       p.ks_base_log, p.ks_level)
-        return ct.with_ct(out)
+        centered = (p.modulus_switch_type
+                    == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION)
+        small = self.ks_only(ct.ct.to(self.device))
+        batch, ms_mask, ms_body, lut = server_ops._switch_and_flatten(
+            small, many.acc, p.polynomial_size, centered,
+            self._pbs_input_bits)
+        if self.variant == "v5":
+            rotated = server_ops.goldilocks_rotation(
+                lut, ms_mask, ms_body, self.bsk_g, p.pbs_base_log,
+                p.pbs_level, self.bsk_g_k)
+        else:
+            rotated = server_ops.crt_rotation(
+                lut, ms_mask, ms_body, self.crt_key(), p.pbs_base_log,
+                p.pbs_level)
+        rotated = rotated.reshape(batch + tuple(many.acc.shape))
+        return [ShortintCiphertext(
+            ct=server_ops.sample_extract(rotated, i * many.stride),
+            degree=many.degrees[i], noise_level=NOMINAL_NOISE,
+            message_modulus=ct.message_modulus,
+            carry_modulus=ct.carry_modulus, under_key="big")
+            for i in range(many.count)]
+
+    def keyswitch(self, ct: ShortintCiphertext) -> ShortintCiphertext:
+        return ct.with_ct(self.ks_only(ct.ct.to(self.device)))
 
     def message_extract(self, ct: ShortintCiphertext) -> ShortintCiphertext:
         """PBS with x -> x % message_modulus (clears carries)."""
         lut = self.generate_lookup_table(
             lambda x: x % self.params.message_modulus)
         return self.apply_lookup_table(ct, lut)
+
+    def carry_extract(self, ct: ShortintCiphertext) -> ShortintCiphertext:
+        lut = self.generate_lookup_table(
+            lambda x: x // self.params.message_modulus)
+        return self.apply_lookup_table(ct, lut)
+
+    # ------------------------------------------------------------------
+    # leveled operations: degree and noise bookkeeping per
+    # shortint/ciphertext/common.rs
+    # ------------------------------------------------------------------
+    def _check_noise(self, level: int):
+        if level > self.params.max_noise_level:
+            raise ValueError(f"noise level {level} exceeds max "
+                             f"{self.params.max_noise_level}")
+
+    def unchecked_add(self, a: ShortintCiphertext,
+                      b: ShortintCiphertext) -> ShortintCiphertext:
+        return ShortintCiphertext(
+            ct=a.ct + b.ct.to(a.ct.device),
+            degree=a.degree + b.degree,
+            noise_level=a.noise_level + b.noise_level,
+            message_modulus=a.message_modulus,
+            carry_modulus=a.carry_modulus,
+            under_key=a.under_key,
+        )
+
+    def _add_to_body(self, ct: torch.Tensor, value: int) -> torch.Tensor:
+        out = ct.clone()
+        out[..., -1] += u64_const(value)
+        return out
+
+    def unchecked_scalar_add(self, a: ShortintCiphertext,
+                             scalar: int) -> ShortintCiphertext:
+        delta = self.encoding.delta()
+        return a.with_ct(self._add_to_body(a.ct, scalar * delta),
+                         degree=a.degree + scalar)
+
+    def unchecked_scalar_mul(self, a: ShortintCiphertext,
+                             scalar: int) -> ShortintCiphertext:
+        return a.with_ct(a.ct * u64_const(scalar), degree=a.degree * scalar,
+                         noise_level=a.noise_level * scalar)
+
+    def unchecked_neg(self, a: ShortintCiphertext) -> ShortintCiphertext:
+        """-ct plus the degree correction z * Delta, z the smallest
+        multiple of message_modulus above the degree (server_key/neg.rs)."""
+        mm = a.message_modulus
+        z = math.ceil((a.degree + 1) / mm) * mm
+        delta = self.encoding.delta()
+        return a.with_ct(self._add_to_body(-a.ct, z * delta), degree=z - 1)
+
+    def unchecked_sub(self, a: ShortintCiphertext,
+                      b: ShortintCiphertext) -> ShortintCiphertext:
+        return self.unchecked_add(a, self.unchecked_neg(b))
+
+    # ------------------------------------------------------------------
+    # PBS-based binary ops
+    # ------------------------------------------------------------------
+    def unchecked_apply_lookup_table_bivariate(
+            self, a: ShortintCiphertext, b: ShortintCiphertext,
+            f: Callable[[int, int], int]) -> ShortintCiphertext:
+        """Pack lhs * factor + rhs, then one univariate PBS
+        (shortint/server_key/bivariate_pbs.rs:26-45,141)."""
+        factor = b.degree + 1
+        packed = self.unchecked_add(self.unchecked_scalar_mul(a, factor), b)
+        self._check_noise(packed.noise_level)
+        mm = self.params.message_modulus
+        lut = self.generate_lookup_table(
+            lambda x: f((x // factor) % mm, x % factor))
+        return self.apply_lookup_table(packed, lut)
+
+    def add(self, a: ShortintCiphertext,
+            b: ShortintCiphertext) -> ShortintCiphertext:
+        """Default add (shortint/server_key/add.rs:85-101): message-extract
+        dirty inputs, add, message-extract the sum (empty carry out)."""
+        mm = self.params.message_modulus
+        if a.degree >= mm:
+            a = self.message_extract(a)
+        if b.degree >= mm:
+            b = self.message_extract(b)
+        out = self.unchecked_add(a, b)
+        self._check_noise(out.noise_level)
+        return self.message_extract(out)
+
+    def smart_add(self, a: ShortintCiphertext,
+                  b: ShortintCiphertext) -> ShortintCiphertext:
+        """Smart add (add.rs:303-325): clean the inputs only when the sum
+        would overflow the degree or noise budget; carries are kept."""
+        p = self.params
+        budget = p.message_modulus * p.carry_modulus - 1
+        if (a.degree + b.degree > budget
+                or a.noise_level + b.noise_level > p.max_noise_level):
+            if a.degree >= b.degree:
+                a = self.message_extract(a)
+            if a.degree + b.degree > budget:
+                b = self.message_extract(b)
+        out = self.unchecked_add(a, b)
+        self._check_noise(out.noise_level)
+        return out
+
+    def mul(self, a: ShortintCiphertext,
+            b: ShortintCiphertext) -> ShortintCiphertext:
+        mm = self.params.message_modulus
+        return self.unchecked_apply_lookup_table_bivariate(
+            a, b, lambda x, y: (x * y) % mm)
+

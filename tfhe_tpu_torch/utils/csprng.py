@@ -259,8 +259,34 @@ class EncryptionRandomGenerator:
         self.mask = AesCtrGenerator(seed)
         self.noise = AesCtrGenerator(noise_seed)
 
+    def fork(self, n_children: int, mask_bytes: int, noise_bytes: int):
+        """Split both streams into ``n_children`` bounded children; the
+        parent jumps past all of them (``AesCtrGenerator::par_try_fork``)."""
+        masks = self.mask.try_fork(n_children, mask_bytes)
+        noises = self.noise.try_fork(n_children, noise_bytes)
+        out = []
+        for m, s in zip(masks, noises):
+            g = EncryptionRandomGenerator.__new__(EncryptionRandomGenerator)
+            g.mask = m
+            g.noise = s
+            out.append(g)
+        return out
+
     def sample_noise(self, dist, n: int) -> np.ndarray:
         """Torus noise (uint64) from a DynamicDistribution."""
         if dist.kind == "gaussian":
             return self.noise.gaussian_torus_u64(n, dist.std_dev)
         return self.noise.t_uniform_torus_u64(n, dist.bound_log2)
+
+    def sample_noise32(self, dist, n: int) -> np.ndarray:
+        """Noise over the u32 torus (the KS32 pattern), as u32 values in
+        uint64: a gaussian's fractional part scaled by 2^32, a t-uniform
+        bound taken as absolute."""
+        if dist.kind == "gaussian":
+            pairs = self.noise.gaussian_pairs_f64((n + 1) // 2,
+                                                  dist.std_dev)[:n]
+            frac = pairs - np.round(pairs)
+            v = np.round(frac * 2.0 ** 32).astype(np.int64)
+            return v.astype(np.uint64) & np.uint64(0xFFFFFFFF)
+        v = self.noise.t_uniform_torus_u64(n, dist.bound_log2)
+        return v & np.uint64(0xFFFFFFFF)
