@@ -121,7 +121,24 @@ Phases (any failure raises and exits non-zero):
     acc32 and K1 against their plain versions on its inputs), PBS/s, the
     keyswitch, the drift choice and K1 alone; then add, smart_add, mul, a
     bivariate LUT and unchecked_neg on phase 2's keys, each decrypted;
-17. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+17. the shortint side modules (``phase_side_modules``) on phase 2's keys:
+    list compression at ``COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (2048
+    ciphertexts into 8 GLWEs; compress, then decompress all: K2 u64 and K3
+    P = 4 once each at n = k_c*N_c = 1024, every other kernel never; K3
+    against its plain version on the path's first 64 ciphertexts, all 1024
+    steps; each output decrypted; ms, ciphertexts/s, stored bytes); a
+    compact list of 2048 values under ``PARAM_PKE_MESSAGE_2_CARRY_2_KS_
+    PBS_TUNIFORM_2M128`` expanded and cast onto the small key (4 x 4, then
+    ``pbs_only``: K2 acc32 and K1 once), decrypted, casts/s; phase 2's 2048
+    ciphertexts re-randomized through the 1 x 24 casting key onto the big
+    key, decrypted; a 2_2 public key (131,264 encryptions of zero on the
+    card), 32 values encrypted with it and decrypted; a compressed server
+    key from a fresh client key of phase 2's seed, decompressed on the card
+    and byte-equal to phase 2's key; the HLAPI: a compressed list of
+    FheUint8, FheUint32 and FheBool (each item back and decrypted) and a
+    compact list builder -> expand, decrypted; WoP-PBS (its key, then
+    x -> 7x + 3 mod 16 on two values, message and carry decrypted);
+18. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -2048,6 +2065,265 @@ def phase_shortint_rest(ck22, sk22, sk_v5, card, rate):
     return summary
 
 
+COMP_PARAMS = "COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS"  # list_compression
+COMP_BATCH = 2048  # phase 17's compressed list: 8 GLWEs of 256
+CPK_PARAMS = "PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128"
+CAST_PARAMS = "PARAM_KEYSWITCH_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128"
+RERAND_PARAMS = ("V1_5_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_"
+                 "TUNIFORM_2M128")
+PK_VALUES = 32  # values encrypted with the public key
+HL_ITEMS = (("FheUint8", 173), ("FheUint32", 3_000_000_007),
+            ("FheBool", True))  # the HLAPI compressed list of phase 17
+WOPBS_VALUES = (3, 14)  # WoP-PBS inputs (message + carry)
+
+
+def host_s(fn):
+    """(fn(), seconds on the host clock, the device synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def no_launches(label, fn):
+    """Run ``fn`` with the launch counts zeroed around it: no kernel may
+    launch. Returns ``fn``'s output."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    pk.reset_launches()
+    out = fn()
+    got = launches_of(*LUT_KERNELS)
+    if any(got.values()):
+        raise AssertionError(f"{label}: launches {got}, want none")
+    return out
+
+
+def check_clear(label, got, want):
+    if not np.array_equal(np.asarray(got, dtype=np.uint64).reshape(-1),
+                          np.asarray(want, dtype=np.uint64).reshape(-1)):
+        raise AssertionError(f"{label}: decrypts to {got}, want {want}")
+
+
+def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
+    """The shortint side modules (ROADMAP Queue A item 6) on phase 2's 2_2
+    keys, on kernels the earlier phases hold:
+
+    a. list compression: COMP_BATCH ciphertexts packed (torch ops, no
+       kernel) and all of them decompressed (K2 u64 -> K3 P = 4 at
+       n = 1024, one launch each, nothing else), decrypted; K2 u64 and K3
+       against their plain versions on the call's own inputs (K3 on
+       PLAIN_BATCH ciphertexts, all 1024 steps); the ms of each, K3 alone,
+       ciphertexts/s, the stored bytes;
+    b. a compact list of COMP_BATCH values expanded and cast onto the small
+       key (keyswitch 4 x 4, then pbs_only: K2 acc32 -> K1), decrypted;
+       phase 2's batch re-randomized through the 1 x 24 key onto the big
+       key (no kernel), decrypted;
+    c. a public key on the card, PK_VALUES values through it;
+    d. a compressed server key of phase 2's seed, decompressed byte-equal
+       to phase 2's key;
+    e. the HLAPI's compressed and compact lists on a compression keyset;
+    f. WoP-PBS: its key, and ``wopbs`` on each of WOPBS_VALUES."""
+    import torch
+
+    from tfhe_tpu_torch.high_level_api import api
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.shortint import list_compression as lc
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.compact_public_key import (
+        CompactPrivateKey, CompactPublicKey)
+    from tfhe_tpu_torch.shortint.compressed_server_key import \
+        CompressedServerKey
+    from tfhe_tpu_torch.shortint.key_switching_key import (
+        KeySwitchingKey, re_randomize_ciphertexts)
+    from tfhe_tpu_torch.shortint.public_key import PublicKey
+    from tfhe_tpu_torch.shortint.wopbs import WopbsKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    t_phase = time.perf_counter()
+    p = ck22.params
+    R, N = p.glwe_size, p.polynomial_size
+    mod = p.message_modulus * p.carry_modulus
+    summary = {}
+
+    # a. list compression
+    cp = getattr(lc, COMP_PARAMS)
+    (comp, dec), keys_s = host_s(lambda: lc.new_compression_decompression_keys(
+        ck22, lc.new_compression_private_key(ck22, cp)))
+    n_in = cp.packing_ks_glwe_dimension * cp.packing_ks_polynomial_size
+    vals = np.arange(COMP_BATCH, dtype=np.uint64) % np.uint64(mod)
+    ct = ck22.encrypt(vals)
+    lst = no_launches("compress", lambda: lc.compress(comp, ct))
+    out = launches_exactly("decompress", lambda: lc.decompress(lst, dec, sk22),
+                           {"body_rotate_u64": 1, "blind_rotate_crt": 1})
+    k3_launches = launches_of("blind_rotate_crt")["blind_rotate_crt"]
+    check_clear("decompress", ck22.decrypt_message_and_carry(out), vals)
+    per = min(cp.lwe_per_glwe, cp.packing_ks_polynomial_size)
+    idx = torch.arange(COMP_BATCH, device=DEVICE)
+    glwes = (lst.storage.to(torch.int64) & 0xFFFFFFFF) << (
+        64 - cp.storage_log_modulus)
+    small = server_ops.sample_extract_at(glwes[idx // per], idx % per)
+    mask, body = server_ops.lwe_standard_modulus_switch(small,
+                                                        N.bit_length())
+    lut = sk22.generate_lookup_table(lambda x: x % mod)
+    check_equal("body_rotate_u64 decompress", pk.body_rotate_u64,
+                pk.body_rotate_u64_plain, (lut.acc, body))
+    acc = pk.body_rotate_u64(lut.acc, body)
+    args = (dec.bsk_scan, cp.br_base_log, cp.br_level)
+    err, plain_ms = check_equal(
+        "blind_rotate_crt decompress", pk.blind_rotate_crt,
+        pk.blind_rotate_crt_plain,
+        (acc[:PLAIN_BATCH].contiguous(), mask[:PLAIN_BATCH], *args))
+    k3_ms = cuda_ms(lambda: pk.blind_rotate_crt(acc, mask, *args), 2)
+    comp_ms = cuda_ms(lambda: lc.compress(comp, ct), 3)
+    dec_ms = cuda_ms(lambda: lc.decompress(lst, dec, sk22), 3)
+    stored = lst.storage.numel() * cp.storage_log_modulus / 8
+    full = COMP_BATCH * ct.ct.shape[-1] * 8
+    rows["blind_rotate_crt_p4_decompress"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
+        replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=k3_launches,
+        max_abs_err=err, ms=k3_ms, plain_ms=plain_ms,
+        bound=step_bound("blind_rotate_crt", COMP_BATCH, n_in, R,
+                         cp.br_level, N, dec.num_primes, 8, rate),
+        shape=f"2_2 decompression B={COMP_BATCH} n={n_in} P=4",
+        plain_shape=f"2_2 decompression B={PLAIN_BATCH} n={n_in} P=4")
+    summary.update(compression_keygen_s=keys_s, compress_ms=comp_ms,
+                   decompress_ms=dec_ms,
+                   decompress_per_s=COMP_BATCH / dec_ms * 1e3,
+                   compressed_bytes=stored, uncompressed_bytes=full)
+    print(f"compression {COMP_PARAMS}: keys {keys_s:.2f} s; {COMP_BATCH} "
+          f"ciphertexts -> {lst.storage.shape[0]} GLWEs, {stored:.0f} B "
+          f"stored against {full} B ({full / stored:.1f}x); compress "
+          f"{comp_ms:.3f} ms, decompress {dec_ms:.3f} ms = "
+          f"{COMP_BATCH / dec_ms * 1e3:.1f} ciphertexts/s on {card}, each "
+          f"decrypted; K3 P=4 n={n_in} == plain (B={PLAIN_BATCH}, plain "
+          f"{plain_ms:.1f} ms), {k3_ms:.3f} ms at B={COMP_BATCH}")
+    del comp, dec, lst, out, small, mask, body, acc, glwes
+
+    # b. compact public key, casting, re-randomization
+    priv = CompactPrivateKey.generate(PARAMS_BY_NAME[CPK_PARAMS], seed=SEED)
+    cpk = CompactPublicKey.generate(priv)
+    cast_key = KeySwitchingKey.generate(priv, ck22, sk22,
+                                        PARAMS_BY_NAME[CAST_PARAMS])
+    clist, enc_s = host_s(lambda: cpk.encrypt(vals))
+    expanded, exp_s = host_s(clist.expand_to_shortint)
+    check_clear("compact list", priv.decrypt_expanded(expanded.ct), vals)
+    out = launches_exactly(
+        "cast", lambda: cast_key.cast(expanded),
+        {"body_rotate_acc32": 1, "blind_rotate_bnf2_acc32": 1})
+    check_clear("cast", ck22.decrypt_message_and_carry(out), vals)
+    cast_ms = cuda_ms(lambda: cast_key.cast(expanded), 3)
+    rerand_key = KeySwitchingKey.generate(priv, ck22, sk22,
+                                          PARAMS_BY_NAME[RERAND_PARAMS])
+    ct2 = batch22[0]
+    want2 = ck22.decrypt_message_and_carry(ct2)
+    (rr,), rr_s = host_s(lambda: no_launches(
+        "re-randomize", lambda: re_randomize_ciphertexts(
+            [ct2], cpk, rerand_key, seed=SEED)))
+    check_clear("re-randomized", ck22.decrypt_message_and_carry(rr), want2)
+    if torch.equal(rr.ct, ct2.ct):
+        raise AssertionError("re-randomization left the ciphertexts as they "
+                             "were")
+    summary.update(cpk_encrypt_s=enc_s, cpk_expand_s=exp_s, cast_ms=cast_ms,
+                   casts_per_s=COMP_BATCH / cast_ms * 1e3,
+                   rerandomize_s=rr_s)
+    print(f"compact PK {CPK_PARAMS}: {COMP_BATCH} values encrypted in "
+          f"{enc_s:.3f} s, expanded in {exp_s:.3f} s; cast {CAST_PARAMS} "
+          f"{cast_ms:.3f} ms = {COMP_BATCH / cast_ms * 1e3:.1f} casts/s, "
+          f"decrypted; phase 2's {COMP_BATCH} re-randomized ({RERAND_PARAMS}) "
+          f"in {rr_s:.3f} s, decrypted")
+    del cpk, priv, cast_key, rerand_key, clist, expanded, out, rr
+
+    # c. the public key
+    pub, pk_s = host_s(lambda: PublicKey.generate(ck22))
+    pv = np.arange(PK_VALUES, dtype=np.uint64) % np.uint64(p.message_modulus)
+    pct, pk_enc_s = host_s(lambda: pub.encrypt(pv))
+    check_clear("public key", ck22.decrypt(pct), pv)
+    _, pk_enc2_s = host_s(lambda: pub.encrypt(pv))
+    summary.update(public_key_s=pk_s, public_key_encrypt_ms=pk_enc2_s * 1e3)
+    print(f"public key: {tuple(pub.zeros.shape)} on the card in {pk_s:.2f} "
+          f"s; {PK_VALUES} values encrypted in {pk_enc_s * 1e3:.1f} ms (first, "
+          f"limbs built) and {pk_enc2_s * 1e3:.1f} ms, decrypted")
+    del pub, pct
+    torch.cuda.empty_cache()
+
+    # d. the compressed server key
+    csk, csk_s = host_s(lambda: CompressedServerKey.generate(
+        ClientKey.generate(p, seed=SEED)))
+    skd, dec_s = host_s(csk.decompress)
+    for f in ("ksk", "ksk_i8", "bsk_b"):
+        if not torch.equal(getattr(skd, f), getattr(sk22, f)):
+            raise AssertionError(f"decompressed key: {f} differs")
+    if not torch.equal(skd.crt_key(), sk22.crt_key()):
+        raise AssertionError("decompressed key: the CRT key differs")
+    body_mb = csk.serialized_size_bytes() / 1e6
+    key_mb = sum(t.numel() * t.element_size()
+                 for t in (sk22.bsk_b, sk22.ksk, sk22.ksk_i8)) / 1e6
+    summary.update(compressed_key_s=csk_s, compressed_key_decompress_s=dec_s,
+                   compressed_key_mb=body_mb, server_key_mb=key_mb)
+    print(f"compressed server key: generated in {csk_s:.2f} s, "
+          f"decompressed in {dec_s:.2f} s, byte-equal to phase 2's key (KSK, "
+          f"limbs, BNF2 BSK, CRT key); {body_mb:.2f} MB of bodies against "
+          f"{key_mb:.2f} MB of device key")
+    del csk, skd
+
+    # e. the HLAPI
+    (hck, hsk), hkey_s = host_s(lambda: api.generate_keys(
+        api.ConfigBuilder().use_custom_parameters(p).with_seed(SEED)
+        .enable_compression(cp).build()))
+    api.set_server_key(hsk)
+    builder = api.CompressedCiphertextListBuilder()
+    for ty, v in HL_ITEMS:
+        builder.push(getattr(api, ty).encrypt(v, hck))
+    hl, hl_s = host_s(builder.build)
+    got = [hl.get(i).decrypt(hck) for i in range(len(hl))]
+    if got != [v for _, v in HL_ITEMS]:
+        raise AssertionError(f"HLAPI compressed list: {got}")
+    hcpk = api.CompactPublicKey.new(hck, hsk, PARAMS_BY_NAME[CPK_PARAMS],
+                                    PARAMS_BY_NAME[CAST_PARAMS], seed=SEED)
+    cl = api.CompactCiphertextListBuilder(hcpk).push(201, api.FheUint8) \
+        .push(False, api.FheBool).build()
+    got = [v.decrypt(hck) for v in cl.expand()]
+    if got != [201, False]:
+        raise AssertionError(f"HLAPI compact list: {got}")
+    api.unset_server_key()
+    summary.update(hlapi_compression_keys_s=hkey_s,
+                   hlapi_compressed_list_build_s=hl_s)
+    print(f"HLAPI: generate_keys with compression {hkey_s:.2f} s; "
+          f"compressed list of {', '.join(t for t, _ in HL_ITEMS)} built in "
+          f"{hl_s:.3f} s, each item back and decrypted; compact list "
+          f"builder -> expand decrypted")
+    del hck, hsk, hl, hcpk, cl
+
+    # f. WoP-PBS
+    wk, wk_s = host_s(lambda: WopbsKey.generate(ck22, sk22))
+    f = lambda x: (7 * x + 3) % mod  # noqa: E731
+    wopbs_s = []
+    for v in WOPBS_VALUES:
+        wct = ck22.encrypt(np.array([v], dtype=np.uint64))
+        wout, s_ = host_s(lambda: no_launches(
+            "wopbs", lambda: wk.wopbs(wct, f)))
+        check_clear(f"wopbs({v})", ck22.decrypt_message_and_carry(wout),
+                    [f(v)])
+        wopbs_s.append(s_)
+    summary.update(wopbs_keygen_s=wk_s, wopbs_s=wopbs_s)
+    print(f"WoP-PBS: key {wk_s:.2f} s (packing keys "
+          f"{tuple(wk.pfpksk.shape)}, BSK P={wk.wopbs_num_primes}); "
+          f"wopbs x -> 7x + 3 mod 16 on {list(WOPBS_VALUES)}: "
+          f"{', '.join(f'{t:.2f}' for t in wopbs_s)} s, message and carry "
+          f"decrypted")
+    del wk
+    torch.cuda.empty_cache()
+
+    summary["side_modules_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"row": "side_modules", **summary}))
+    print(f"phase 17: {summary['side_modules_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2086,9 +2362,11 @@ def main() -> int:
     summary.update(phase_strings(ck22, sk22, card, rows))
     summary.update(phase_hlapi(card, summary["readme_chain"][1]))
     summary.update(phase_shortint_rest(ck22, sk22, sk_v5, card, rate))
+    summary.update(phase_side_modules(ck22, sk22, batch22, card, rate, rows))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
+             "blind_rotate_crt_p4_decompress",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",

@@ -1,17 +1,24 @@
 """The port's typed high-level API (``tfhe_tpu_torch.high_level_api``)
 against ``tfhe_tpu.high_level_api`` at PARAM_TEST_TOY on the CPU: the tests
-of ``tests/test_hlapi.py``, the reference README chain, ``test_tag_propagation``
-and ``test_fhe_array_elementwise`` of ``tests/test_hlapi_extra.py`` and
-``test_kv_store`` of ``tests/test_pk_kv.py``.
+of ``tests/test_hlapi.py``, the reference README chain, the tests of
+``tests/test_hlapi_extra.py`` but noise squashing and safe serialization
+(``test_tag_propagation``, ``test_fhe_array_elementwise``, the compressed
+server key, the compact public key, the compressed and the compact list,
+the XOF key set) and ``test_kv_store`` of ``tests/test_pk_kv.py``.
 
 Same seed => byte-equal keys. Every input is a JAX encryption carried into
 the port type of the same name; each operator, cast, comparison, array op
 and ``KVStore`` op runs in both packages (each with its own global server
 key) and the port's output must equal the JAX one bit for bit (tolerance
 0: blocks, degrees, noise levels, type), decrypt to the clear result, and
-leave every input unchanged. Every entry the port does not carry yet
+leave every input unchanged. The entries of the shortint side modules
+(ROADMAP Queue A item 6) give tfhe_tpu's keys and outputs bit for bit; the
+encryption randomness of a compact list (``secrets.randbits``, read by both
+packages) is pinned for that. Every entry the port does not carry yet
 raises ``NotImplementedError`` naming its ROADMAP item by number and title.
 """
+
+import secrets
 
 import numpy as np
 import pytest
@@ -20,15 +27,19 @@ import torch
 from tfhe_tpu import high_level_api as jhl
 from tfhe_tpu.high_level_api import api as japi
 from tfhe_tpu.high_level_api import kv_store as jkv
+from tfhe_tpu.shortint import list_compression as jlc
+from tfhe_tpu.utils import params as jparams
 from tfhe_tpu.utils.params import PARAM_TEST_TOY as JP
 from test_torch_integer_ops import assert_unchanged, snapshot
 from test_torch_integer_ops import carry_in as carry_in_integer
 from test_torch_strings import one_torch_thread  # noqa: F401  (autouse)
 
 from tfhe_tpu_torch import high_level_api as hl
-from tfhe_tpu_torch._torus import to_u64
+from tfhe_tpu_torch._torus import to_u32, to_u64
 from tfhe_tpu_torch.high_level_api import api
 from tfhe_tpu_torch.high_level_api import kv_store
+from tfhe_tpu_torch.shortint import list_compression as lc
+from tfhe_tpu_torch.utils import params as pm
 from tfhe_tpu_torch.utils.params import PARAM_TEST_TOY as P
 
 SEED = 7  # tests/test_hlapi.py's key seed
@@ -201,10 +212,13 @@ def test_tag_propagation(keys):
         assert ck.tag == api.Tag(b"tenant-42")
         assert ck.tag != api.Tag(b"tenant-43")
         assert api.ServerKey(keys["sk"].inner, tag=ck.tag).tag == ck.tag
-        # the compressed server key that carries the tag in the JAX test
-        with pytest.raises(NotImplementedError,
-                           match="item 6: shortint side modules"):
-            api.CompressedServerKey.generate(ck)
+        # drawn from both packages' keygen streams, which stay in step
+        csk = api.CompressedServerKey.generate(ck)
+        jcsk = japi.CompressedServerKey.generate(keys["jck"])
+        np.testing.assert_array_equal(to_u64(csk.inner.ksk_bodies),
+                                      jcsk.inner.ksk_bodies)
+        assert csk.tag == ck.tag
+        assert csk.decompress().tag == ck.tag
     finally:
         ck.tag = old
 
@@ -269,9 +283,6 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
 UNPORTED = {
     "keycache": (lambda: api.generate_keys(config(api, P), use_keycache=True,
                                            device="cpu"), (9,)),
-    "compression_config": (lambda: api.generate_keys(
-        api.ConfigBuilder().use_custom_parameters(P)
-        .enable_compression(object()).build(), device="cpu"), (6,)),
     "noise_squashing_config": (lambda: api.ClientKey.generate(
         api.ConfigBuilder().use_custom_parameters(P)
         .enable_noise_squashing(object()).build(), device="cpu"), (7,)),
@@ -281,31 +292,23 @@ UNPORTED = {
                              (7,)),
     "CompressedSquashedNoiseCiphertextList": (
         lambda: api.CompressedSquashedNoiseCiphertextList.builder(), (7,)),
-    "CompressedServerKey": (lambda: api.CompressedServerKey(None), (6,)),
-    "CompressedXofKeySet": (
-        lambda: api.CompressedXofKeySet.generate(api.Config(), seed=1), (6,)),
-    "CompactPublicKey": (lambda: api.CompactPublicKey.new(None, None, None,
-                                                          None), (6, 9)),
-    "HlCompactCiphertextList": (lambda: api.HlCompactCiphertextList(None),
-                                (6, 9)),
-    "CompactCiphertextListBuilder": (
-        lambda: api.CompactCiphertextListBuilder(None), (6, 9)),
-    "HlCompressedCiphertextList": (
-        lambda: api.HlCompressedCiphertextList(None, []), (6,)),
-    "CompressedCiphertextListBuilder": (
-        lambda: api.CompressedCiphertextListBuilder(), (6,)),
+    "verify_and_expand": (lambda: api.HlCompactCiphertextList(
+        None, [], None).verify_and_expand(None), (9,)),
+    "build_with_proof": (lambda: api.CompactCiphertextListBuilder(
+        None).build_with_proof(None), (9,)),
     "safe_serialize": (lambda: api.safe_serialize(None), (9,)),
     "safe_deserialize": (lambda: api.safe_deserialize(b""), (9,)),
 }
 
-TITLES = {6: "shortint side modules", 7: "u128 noise squashing",
+TITLES = {7: "u128 noise squashing", 8: "other PBS flavors",
           9: "platform layers"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_entries_raise(name):
     """Each entry whose module the port does not carry yet raises, naming
-    every ROADMAP item it waits on by number and title."""
+    every ROADMAP item it waits on by number and title (the ZK half of the
+    compact lists: item 9)."""
     fn, items = UNPORTED[name]
     with pytest.raises(NotImplementedError) as err:
         fn()
@@ -313,6 +316,252 @@ def test_unported_entries_raise(name):
     assert "ROADMAP Queue A" in msg
     for i in items:
         assert f"item {i}: {TITLES[i]}" in msg, msg
+
+
+# -- the shortint side modules' entries (ROADMAP Queue A item 6) ---------------
+
+def pke_sets(m, n, name):
+    """tests/test_hlapi_extra.py's toy compact-PK set of dimension ``n``
+    and its casting set onto the big key, from the params module ``m``."""
+    return (m.CompactPublicKeyEncryptionParameters(
+                encryption_lwe_dimension=n,
+                encryption_noise_distribution=m.DynamicDistribution
+                .t_uniform(3),
+                message_modulus=4, carry_modulus=4, name=f"TOY_PKE_{name}"),
+            m.ShortintKeySwitchingParameters(
+                ks_base_log=3, ks_level=5,
+                destination_key=m.EncryptionKeyChoice.BIG,
+                name=f"TOY_KS_{name}"))
+
+
+@pytest.fixture(scope="module")
+def comp_keys():
+    """tests/test_hlapi_extra.py's compression config (seed 8) in both
+    packages."""
+    jck, jsk = japi.generate_keys(
+        japi.ConfigBuilder().use_custom_parameters(JP).with_seed(8)
+        .enable_compression(jlc.COMP_PARAM_TEST_TOY).build())
+    ck, sk = api.generate_keys(
+        api.ConfigBuilder().use_custom_parameters(P).with_seed(8)
+        .enable_compression(lc.COMP_PARAM_TEST_TOY).build(), device="cpu")
+    return {"jck": jck, "jsk": jsk, "ck": ck, "sk": sk}
+
+
+@pytest.fixture
+def pinned_randbits(monkeypatch):
+    """The OS entropy of compact-list encryption, pinned for both
+    packages."""
+    monkeypatch.setattr(secrets, "randbits", lambda k: (1 << k) // 3)
+
+
+def _use_keys(k):
+    japi.set_server_key(k["jsk"])
+    api.set_server_key(k["sk"])
+
+
+def _cpks(keys, n, name, seed):
+    (jpke, jks), (pke, ks) = pke_sets(jparams, n, name), pke_sets(pm, n,
+                                                                  name)
+    return (japi.CompactPublicKey.new(keys["jck"], keys["jsk"], jpke, jks,
+                                      seed=seed),
+            api.CompactPublicKey.new(keys["ck"], keys["sk"], pke, ks,
+                                     seed=seed))
+
+
+def _compressed_items(k):
+    """FheUint8(173), FheUint4(9), FheBool(True): JAX encryptions under the
+    compression keyset and their port copies."""
+    j = [japi.FheUint8.encrypt(173, k["jck"]),
+         japi.FheUint4.encrypt(9, k["jck"]), japi.FheBool.encrypt(True,
+                                                                  k["jck"])]
+    return j, [carry_in(x) for x in j]
+
+
+def _entry_compression_config(keys, comp_keys):
+    jck, jsk, ck, sk = (comp_keys[n] for n in ("jck", "jsk", "ck", "sk"))
+    np.testing.assert_array_equal(
+        to_u64(ck.compression_private_key.comp_glwe_sk.bits),
+        np.asarray(jck.compression_private_key.comp_glwe_sk.bits))
+    np.testing.assert_array_equal(to_u64(sk.compression_key.pksk_hat),
+                                  np.asarray(jsk.compression_key.pksk_hat))
+    np.testing.assert_array_equal(to_u32(sk.decompression_key.bsk_scan),
+                                  np.asarray(jsk.decompression_key.bsk_scan))
+    np.testing.assert_array_equal(to_u64(sk.inner.key.ksk),
+                                  np.asarray(jsk.inner.key.ksk))
+
+
+def _entry_compressed_server_key(keys, comp_keys):
+    cfg = (api.Config(P, seed=77), japi.Config(JP, seed=77))
+    csk = api.CompressedServerKey.generate(api.ClientKey.generate(
+        cfg[0], device="cpu"))
+    jcsk = japi.CompressedServerKey.generate(japi.ClientKey.generate(cfg[1]))
+    np.testing.assert_array_equal(to_u64(csk.inner.bsk_bodies),
+                                  jcsk.inner.bsk_bodies)
+    np.testing.assert_array_equal(to_u64(csk.inner.ksk_bodies),
+                                  jcsk.inner.ksk_bodies)
+    sk, jsk = csk.decompress(), jcsk.decompress()
+    assert isinstance(sk, api.ServerKey)
+    np.testing.assert_array_equal(to_u32(sk.inner.key.crt_key()),
+                                  np.asarray(jsk.inner.key.bsk_scan))
+
+
+def _entry_xof_key_set(keys, comp_keys):
+    cfg = api.ConfigBuilder().use_custom_parameters(P).build()
+    jcfg = japi.ConfigBuilder().use_custom_parameters(JP).build()
+    ks = api.CompressedXofKeySet.generate(cfg, seed=5, device="cpu")
+    jks = japi.CompressedXofKeySet.generate(jcfg, seed=5)
+    assert ks.seed == jks.seed == 5 and ks.config.seed == 5
+    np.testing.assert_array_equal(
+        to_u64(ks.compressed_server_key.inner.bsk_bodies),
+        jks.compressed_server_key.inner.bsk_bodies)
+
+
+def _entry_compact_public_key(keys, comp_keys):
+    jcpk, cpk = _cpks(keys, 64, "HL", 21)
+    np.testing.assert_array_equal(to_u64(cpk.pk.mask), jcpk.pk.mask)
+    np.testing.assert_array_equal(to_u64(cpk.pk.body), jcpk.pk.body)
+    np.testing.assert_array_equal(to_u64(cpk.ksk.ksk), np.asarray(jcpk.ksk.ksk))
+    assert cpk.tag == keys["ck"].tag
+
+
+def _entry_compact_list(keys, comp_keys):
+    jcpk, cpk = _cpks(keys, 16, "CL", 31)
+    jl = japi.CompactCiphertextListBuilder(jcpk).push(6, japi.FheUint4) \
+        .push(False, japi.FheBool).build()
+    lst = api.CompactCiphertextListBuilder(cpk).push(6, api.FheUint4) \
+        .push(False, api.FheBool).build()
+    assert len(lst) == len(jl) == 2
+    assert [(t.__name__, nb, off) for t, nb, off in lst.entries] == [
+        (t.__name__, nb, off) for t, nb, off in jl.entries]
+    np.testing.assert_array_equal(to_u64(lst.clist.masks), jl.clist.masks)
+    np.testing.assert_array_equal(to_u64(lst.clist.bodies), jl.clist.bodies)
+
+
+def _entry_compact_list_builder(keys, comp_keys):
+    jcpk, cpk = _cpks(keys, 16, "CL", 31)
+    jb = japi.CompactCiphertextListBuilder(jcpk).push(200, japi.FheUint8)
+    b = api.CompactCiphertextListBuilder(cpk).push(200, api.FheUint8)
+    assert b._digits == jb._digits == [0, 2, 0, 3]
+    (jv,), (v,) = jb.build().expand(), b.build().expand()
+    assert_same(jv, v)
+
+
+def _entry_compressed_list(keys, comp_keys):
+    _use_keys(comp_keys)
+    j, p = _compressed_items(comp_keys)
+    jl = japi.CompressedCiphertextListBuilder().push(j[0]).push(j[2]).build()
+    lst = api.CompressedCiphertextListBuilder().push(p[0]).push(p[2]).build()
+    assert len(lst) == 2
+    assert_same(jl.get(1), lst.get(1))
+
+
+def _entry_compressed_list_builder(keys, comp_keys):
+    _use_keys(comp_keys)
+    j, p = _compressed_items(comp_keys)
+    jl = japi.CompressedCiphertextListBuilder().push(j[1]).build()
+    lst = api.CompressedCiphertextListBuilder().push(p[1]).build()
+    np.testing.assert_array_equal(to_u32(lst.packed.storage),
+                                  jl.packed.storage)
+    assert lst.entries[0][1:] == jl.entries[0][1:] == (2, 0)
+
+
+SIDE_ENTRIES = {
+    "compression_config": _entry_compression_config,
+    "CompressedServerKey": _entry_compressed_server_key,
+    "CompressedXofKeySet": _entry_xof_key_set,
+    "CompactPublicKey": _entry_compact_public_key,
+    "HlCompactCiphertextList": _entry_compact_list,
+    "CompactCiphertextListBuilder": _entry_compact_list_builder,
+    "HlCompressedCiphertextList": _entry_compressed_list,
+    "CompressedCiphertextListBuilder": _entry_compressed_list_builder,
+}
+
+
+@pytest.mark.parametrize("name", list(SIDE_ENTRIES))
+def test_side_module_entries_run(keys, comp_keys, pinned_randbits, name):
+    """Each entry that raised until the shortint side modules were ported
+    (ROADMAP Queue A item 6) now runs and gives tfhe_tpu's keys, lists and
+    values bit for bit."""
+    SIDE_ENTRIES[name](keys, comp_keys)
+
+
+# -- tests/test_hlapi_extra.py: the side modules' HLAPI tests ------------------
+
+def test_compressed_server_key_hlapi(keys):
+    """A key set of seed 77 from its compressed server key: x + x on the
+    decompressed key, bit-equal to tfhe_tpu, decrypts to 18."""
+    jsk = japi.CompressedServerKey.generate(
+        japi.ClientKey.generate(japi.Config(JP, seed=77))).decompress()
+    ck2 = api.ClientKey.generate(api.Config(P, seed=77), device="cpu")
+    sk = api.CompressedServerKey.generate(ck2).decompress()
+    jck2 = japi.ClientKey.generate(japi.Config(JP, seed=77))
+    _use_keys({"jsk": jsk, "sk": sk})
+    x = japi.FheUint8.encrypt(9, jck2)
+    y = carry_in(x) + carry_in(x)
+    assert_same(x + x, y)
+    assert y.decrypt(ck2) == 18
+
+
+def test_compact_public_key_hlapi(keys, pinned_randbits):
+    jcpk, cpk = _cpks(keys, 64, "HL", 21)
+    jx, x = jcpk.encrypt_radix(201, japi.FheUint8), cpk.encrypt_radix(
+        201, api.FheUint8)
+    assert_same(jx, x)
+    assert x.decrypt(keys["ck"]) == 201
+    assert run(keys, lambda m, a: a + a, jx) == (201 * 2) % 256
+
+
+def test_compressed_ciphertext_list_hlapi(comp_keys):
+    """push/build/get over mixed types (compressed_ciphertext_list.rs)."""
+    _use_keys(comp_keys)
+    j, p = _compressed_items(comp_keys)
+    jl = japi.CompressedCiphertextListBuilder().push(j[0]).push(j[1]) \
+        .push(j[2]).build()
+    lst = api.CompressedCiphertextListBuilder().push(p[0]).push(p[1]) \
+        .push(p[2]).build()
+    np.testing.assert_array_equal(to_u32(lst.packed.storage),
+                                  jl.packed.storage)
+    assert len(lst) == 3
+    got = [lst.get(i) for i in range(3)]
+    for i, g in enumerate(got):
+        assert_same(jl.get(i), g)
+    ck = comp_keys["ck"]
+    assert [got[0].decrypt(ck), got[1].decrypt(ck), got[2].decrypt(ck)] == [
+        173, 9, True]
+    assert type(got[1]).__name__ == "FheUint4"
+
+
+def test_compact_list_builder_hlapi(keys, pinned_randbits):
+    """Typed compact list: push/build/expand (compact_list.rs)."""
+    jcpk, cpk = _cpks(keys, 16, "CL", 31)
+    jvals = japi.CompactCiphertextListBuilder(jcpk).push(11, japi.FheUint4) \
+        .push(True, japi.FheBool).push(2, japi.FheUint2).build().expand()
+    vals = api.CompactCiphertextListBuilder(cpk).push(11, api.FheUint4) \
+        .push(True, api.FheBool).push(2, api.FheUint2).build().expand()
+    for jv, v in zip(jvals, vals):
+        assert_same(jv, v)
+    assert [clear(keys, v) for v in vals] == [11, True, 2]
+
+
+def test_xof_keyset_deterministic():
+    """Equal seeds give byte-equal key sets, equal to tfhe_tpu's, and keys
+    derived on either side decrypt each other's results
+    (xof_key_set.rs)."""
+    cfg = api.ConfigBuilder().use_custom_parameters(P).build()
+    ck1, sk1 = api.CompressedXofKeySet.generate(cfg, seed=99,
+                                                device="cpu").decompress()
+    ck2, sk2 = api.CompressedXofKeySet.generate(cfg, seed=99,
+                                                device="cpu").decompress()
+    jck, _ = japi.CompressedXofKeySet.generate(
+        japi.ConfigBuilder().use_custom_parameters(JP).build(),
+        seed=99).decompress()
+    assert torch.equal(ck1.inner.key.lwe_sk.bits, ck2.inner.key.lwe_sk.bits)
+    np.testing.assert_array_equal(to_u64(ck1.inner.key.lwe_sk.bits),
+                                  np.asarray(jck.inner.key.lwe_sk.bits))
+    assert torch.equal(sk1.inner.key.bsk_b, sk2.inner.key.bsk_b)
+    api.set_server_key(sk1)
+    x = api.FheUint8.encrypt(42, ck1)
+    assert int((x + x).decrypt(ck2)) == 84
 
 
 def _public(cls):

@@ -72,6 +72,12 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/high_level_api/api.py",
             "tfhe_tpu_torch/high_level_api/kv_store.py",
             "tfhe_tpu_torch/shortint/oprf.py",
+            "tfhe_tpu_torch/shortint/public_key.py",
+            "tfhe_tpu_torch/shortint/compact_public_key.py",
+            "tfhe_tpu_torch/shortint/key_switching_key.py",
+            "tfhe_tpu_torch/shortint/compressed_server_key.py",
+            "tfhe_tpu_torch/shortint/list_compression.py",
+            "tfhe_tpu_torch/shortint/wopbs.py",
             "tfhe_tpu_torch/utils/params_registry.py",
             "tfhe_tpu_torch/utils/params_universe.py",
             "tfhe_tpu_torch/utils/fork_budgets.py"} <= names
@@ -92,6 +98,9 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch import high_level_api, strings\n"
         "from tfhe_tpu_torch.high_level_api import kv_store\n"
         "from tfhe_tpu_torch.shortint import oprf\n"
+        "from tfhe_tpu_torch.shortint import (public_key, compact_public_key,\n"
+        "    key_switching_key, compressed_server_key, list_compression,\n"
+        "    wopbs)\n"
         "from tfhe_tpu_torch.utils import fork_budgets\n"
         "from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME\n"
         "PARAMS_BY_NAME['V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128']\n"

@@ -25,7 +25,9 @@ Layer map (the shortint KS -> PBS main path and what is built on it):
                  PBS (BNF2 and exact CRT)
     core/      — secret keys, LWE/GLWE encryption, KSK and BSK generation,
                  the BSK's CRT transform
-    shortint/  — ClientKey, ServerKey, LUTs, ciphertexts
+    shortint/  — ClientKey, ServerKey, LUTs, ciphertexts; public and
+                 compact public keys, casting, compressed server keys,
+                 list compression, WoP-PBS
     boolean/   — boolean ClientKey, ServerKey, gates
     apps/      — FHE Trivium and transciphering
     utils/     — parameter sets, encoding, AES-CTR CSPRNG

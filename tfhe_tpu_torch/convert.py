@@ -17,8 +17,14 @@ from ._torus import from_u32, from_u64, to_u32, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
 from .integer import radix
 from .ops import ntt as ntt_mod
+from .shortint import list_compression as lc
 from .shortint.client_key import ClientKey
+from .shortint.compact_public_key import CompactPrivateKey, CompactPublicKey
+from .shortint.compressed_server_key import CompressedServerKey
+from .shortint.key_switching_key import KeySwitchingKey, ksk_limbs
+from .shortint.public_key import PublicKey
 from .shortint.server_key import ServerKey, check_supported, resolve_variant
+from .shortint.wopbs import WopbsKey
 from .strings.ascii import FheAsciiString
 from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
 
@@ -175,3 +181,107 @@ def ascii_string_to_arrays(s: FheAsciiString) -> tuple:
     num_blocks, dim+1], degrees, noise_levels, message_modulus,
     carry_modulus, capacity)."""
     return radix_ciphertext_to_arrays(s.chars) + (s.capacity,)
+
+
+# -- the shortint side modules ------------------------------------------------
+# Their parameter sets (compact-PK, casting, compression) are the port's own
+# objects, given by the caller: the test sets among them have no name the
+# port can look up.
+
+def public_key_from_arrays(params_name: str, zeros_u64,
+                           device=None) -> PublicKey:
+    """A PublicKey from ``tfhe_tpu``'s ``PublicKey.zeros`` u64[count, n+1]."""
+    return PublicKey(zeros=from_u64(zeros_u64, resolve_device(device)),
+                     params=PARAMS_BY_NAME[params_name])
+
+
+def compact_private_key_from_arrays(params, bits_u64,
+                                    device=None) -> CompactPrivateKey:
+    """A CompactPrivateKey from its key bits u64[n]: it decrypts expanded
+    lists; it carries no generator, so it makes no public key."""
+    return CompactPrivateKey(
+        lwe_sk=LweSecretKey(from_u64(bits_u64, resolve_device(device))),
+        params=params)
+
+
+def compact_public_key_from_arrays(params, mask_u64, body_u64,
+                                   device=None) -> CompactPublicKey:
+    """A CompactPublicKey from ``tfhe_tpu``'s mask and body u64[n]."""
+    dev = resolve_device(device)
+    return CompactPublicKey(mask=from_u64(mask_u64, dev),
+                            body=from_u64(body_u64, dev), params=params)
+
+
+def key_switching_key_from_arrays(params, ksk_u64, dest_server_key,
+                                  dest_under: str, cast_rshift: int,
+                                  src_server_key=None) -> KeySwitchingKey:
+    """A KeySwitchingKey from ``tfhe_tpu``'s ``ksk`` u64[n_src, l,
+    n_dst+1] and its bookkeeping, on the destination key's device."""
+    ksk = from_u64(ksk_u64, dest_server_key.device)
+    return KeySwitchingKey(ksk=ksk, ksk_i8=ksk_limbs(ksk), params=params,
+                           dest_server_key=dest_server_key,
+                           src_server_key=src_server_key,
+                           cast_rshift=cast_rshift, dest_under=dest_under)
+
+
+def compression_keys_from_arrays(params, comp_glwe_sk_bits, pksk_hat_u64,
+                                 num_primes: int, dec_bsk_scan_u32,
+                                 dec_num_primes: int, device=None) -> tuple:
+    """(CompressionPrivateKeys, CompressionKey, DecompressionKey) from
+    ``tfhe_tpu``'s: the compression GLWE key bits u64[k_c, N_c], the
+    packing key's residues u64[P, n_big, l, R_c, N_c] and the decompression
+    key in scan layout u32[k_c*N_c, 2, P', l*R, R, N]."""
+    dev = resolve_device(device)
+    return (lc.CompressionPrivateKeys(
+                comp_glwe_sk=GlweSecretKey(from_u64(comp_glwe_sk_bits, dev)), params=params),
+            lc.CompressionKey(pksk_hat=from_u64(pksk_hat_u64, dev),
+                              params=params, num_primes=num_primes),
+            lc.DecompressionKey(bsk_scan=from_u32(dec_bsk_scan_u32, dev),
+                                br_base_log=params.br_base_log,
+                                br_level=params.br_level,
+                                num_primes=dec_num_primes))
+
+
+def compressed_list_from_arrays(params, storage_u32, count: int,
+                                message_modulus: int, carry_modulus: int,
+                                device=None) -> lc.CompressedCiphertextList:
+    """A CompressedCiphertextList from ``tfhe_tpu``'s ``storage``
+    u32[n_glwe, R_c, N_c]."""
+    return lc.CompressedCiphertextList(
+        storage=from_u32(storage_u32, resolve_device(device)), count=count,
+        message_modulus=message_modulus, carry_modulus=carry_modulus,
+        params=params)
+
+
+def compressed_server_key_from_arrays(params_name: str, bsk_bodies_u64,
+                                      ksk_bodies_u64, mask_seed: int,
+                                      bsk_mask_start: int,
+                                      ksk_mask_start: int, max_degree: int,
+                                      device=None) -> CompressedServerKey:
+    """A CompressedServerKey from ``tfhe_tpu``'s bodies (BSK u64[n, l,
+    k+1, N], KSK u64[n_big, l_ks]) and mask-stream coordinates."""
+    dev = resolve_device(device)
+    return CompressedServerKey(
+        params=PARAMS_BY_NAME[params_name],
+        bsk_bodies=from_u64(bsk_bodies_u64, dev),
+        ksk_bodies=from_u64(ksk_bodies_u64, dev), mask_seed=mask_seed,
+        bsk_mask_start=bsk_mask_start, ksk_mask_start=ksk_mask_start,
+        max_degree=max_degree)
+
+
+def wopbs_key_from_arrays(server_key: ServerKey, pfpksk_u64,
+                          wopbs_bsk_hat_u32, wopbs_pbs_base_log: int,
+                          wopbs_pbs_levels: int, cbs_base_log: int,
+                          cbs_levels: int, pf_base_log: int,
+                          pf_levels: int) -> WopbsKey:
+    """A WopbsKey beside ``server_key`` from ``tfhe_tpu``'s packing keys
+    u64[k+1, n_in+1, l_pf, k+1, N] and its bootstrap key's residues and
+    Shoup duals u32[2, P, n, l, R, R, N], on the server key's device."""
+    dev = server_key.device
+    bsk = from_u32(wopbs_bsk_hat_u32, dev)
+    return WopbsKey(
+        server_key=server_key, pfpksk=from_u64(pfpksk_u64, dev),
+        wopbs_bsk_hat=bsk, wopbs_pbs_base_log=wopbs_pbs_base_log,
+        wopbs_pbs_levels=wopbs_pbs_levels, wopbs_num_primes=bsk.shape[1],
+        cbs_base_log=cbs_base_log, cbs_levels=cbs_levels,
+        pf_base_log=pf_base_log, pf_levels=pf_levels)

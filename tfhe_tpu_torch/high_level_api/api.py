@@ -10,9 +10,11 @@ Shift/rotate amounts are taken modulo the bit width, like the reference.
 Keys live on ``device`` (the GPU unless the caller asks for another); every
 op runs through the integer ``ServerKey`` on the key's device.
 
-The parts of the JAX API that need modules the port does not carry yet
-(compression, noise squashing, compact public keys, ZK, serialization, the
-keycache) raise ``NotImplementedError`` naming their ROADMAP item.
+Compression keys and compressed ciphertext lists, the compressed server
+key and the XOF key set, the compact public key and compact lists run on
+the shortint side modules. The parts of the JAX API that need modules the
+port does not carry yet (noise squashing, ZK, serialization, the keycache)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,8 +27,15 @@ import numpy as np
 import torch
 
 from .. import integer
-from .._roadmap import not_ported
+from .._roadmap import not_ported, unported_class
 from ..integer.radix import BooleanBlock, RadixCiphertext
+from ..shortint import list_compression as _lc
+from ..shortint.ciphertext import NOMINAL_NOISE, ShortintCiphertext
+from ..shortint.compact_public_key import CompactPrivateKey
+from ..shortint.compact_public_key import CompactPublicKey as _ShortintCPK
+from ..shortint.compressed_server_key import (
+    CompressedServerKey as _ShortintCompressed)
+from ..shortint.key_switching_key import KeySwitchingKey
 from ..utils.params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
 
 # ---------------------------------------------------------------------------
@@ -39,8 +48,8 @@ class Config:
     parameters: ClassicPBSParameters = PARAM_MESSAGE_2_CARRY_2_KS_PBS
     seed: Optional[int] = None
     # optional companion parameter sets (reference Config carries the same
-    # optionals: config.rs / MetaParameters); keygen refuses them until
-    # their modules are ported
+    # optionals: config.rs / MetaParameters); keygen refuses the
+    # noise-squashing ones until their modules are ported
     noise_squashing_parameters: Optional[Any] = None
     noise_squashing_compression_parameters: Optional[Any] = None
     compression_parameters: Optional[Any] = None
@@ -95,8 +104,6 @@ def _check_config(config: Config) -> None:
     if (config.noise_squashing_parameters is not None
             or config.noise_squashing_compression_parameters is not None):
         raise not_ported("noise-squashing keys", 7)
-    if config.compression_parameters is not None:
-        raise not_ported("compression keys", 6)
 
 
 class Tag:
@@ -117,6 +124,7 @@ class ClientKey:
     def __init__(self, inner: integer.ClientKey, tag: Tag = None):
         self.inner = inner
         self.tag = tag or Tag()
+        self.compression_private_key = None
 
     @classmethod
     def generate(cls, config: Config, device=None) -> "ClientKey":
@@ -132,15 +140,43 @@ class ServerKey:
     def __init__(self, inner: integer.ServerKey, tag: Tag = None):
         self.inner = inner
         self.tag = tag or Tag()
+        self.compression_key = None
+        self.decompression_key = None
+
+
+class CompressedServerKey:
+    """Seeded server key at the HLAPI level (high_level_api/keys/server.rs
+    CompressedServerKey)."""
+
+    def __init__(self, inner: _ShortintCompressed, tag: Tag = None):
+        self.inner = inner
+        self.tag = tag or Tag()
+
+    @classmethod
+    def generate(cls, client_key: ClientKey) -> "CompressedServerKey":
+        """From the client key's keygen stream, on its device."""
+        return cls(_ShortintCompressed.generate(client_key.inner.key),
+                   tag=client_key.tag)
+
+    def decompress(self) -> ServerKey:
+        return ServerKey(integer.ServerKey(self.inner.decompress()),
+                         tag=self.tag)
 
 
 def generate_keys(config: Config, use_keycache: bool = False, device=None):
     """Reference ``high_level_api/keys/mod.rs:40``: (ClientKey, ServerKey)
-    on ``device`` (the GPU when unset)."""
+    on ``device`` (the GPU when unset), with the compression keys when the
+    config enables compression."""
     if use_keycache:
         raise not_ported("the keycache", 9)
     ck = ClientKey.generate(config, device=device)
     sk = ServerKey(integer.ServerKey.generate(ck.inner))
+    if config.compression_parameters is not None:
+        ck.compression_private_key = _lc.new_compression_private_key(
+            ck.inner.key, config.compression_parameters)
+        sk.compression_key, sk.decompression_key = (
+            _lc.new_compression_decompression_keys(
+                ck.inner.key, ck.compression_private_key))
     return ck, sk
 
 
@@ -163,41 +199,62 @@ def _sk() -> integer.ServerKey:
     return _SERVER_KEY.inner
 
 
-def _unported_class(name: str, what: str, items: tuple, constructors=()):
-    """A class of the JAX API whose module the port does not carry yet:
-    making one, or calling one of its ``constructors``, raises."""
-
-    def refuse(*args, **kwargs):
-        raise not_ported(what, *items)
-
-    ns = {"__doc__": f"Not ported yet: {what}.",
-          "__init__": lambda self, *a, **k: refuse()}
-    ns.update({c: classmethod(lambda cls, *a, **k: refuse())
-               for c in constructors})
-    return type(name, (), ns)
-
-
-CompressedServerKey = _unported_class(
-    "CompressedServerKey", "the compressed server key", (6,),
-    ("generate",))
-CompressedXofKeySet = _unported_class(
-    "CompressedXofKeySet", "the XOF key set (a compressed server key)",
-    (6,), ("generate",))
-SquashedNoiseFheUint = _unported_class(
+SquashedNoiseFheUint = unported_class(
     "SquashedNoiseFheUint", "noise squashing", (7,))
-CompressedSquashedNoiseCiphertextList = _unported_class(
+CompressedSquashedNoiseCiphertextList = unported_class(
     "CompressedSquashedNoiseCiphertextList",
     "lists of noise-squashed ciphertexts", (7,), ("builder",))
-CompactPublicKey = _unported_class(
-    "CompactPublicKey", "the compact public key", (6, 9), ("new",))
-HlCompactCiphertextList = _unported_class(
-    "HlCompactCiphertextList", "compact ciphertext lists", (6, 9))
-CompactCiphertextListBuilder = _unported_class(
-    "CompactCiphertextListBuilder", "compact ciphertext lists", (6, 9))
-HlCompressedCiphertextList = _unported_class(
-    "HlCompressedCiphertextList", "compressed ciphertext lists", (6,))
-CompressedCiphertextListBuilder = _unported_class(
-    "CompressedCiphertextListBuilder", "compressed ciphertext lists", (6,))
+
+
+class CompactPublicKey:
+    """HLAPI compact public key with the casting key into the compute
+    keyset (high_level_api compact lists + keys/public.rs)."""
+
+    def __init__(self, pk: _ShortintCPK, ksk: KeySwitchingKey,
+                 tag: Tag = None):
+        self.pk = pk
+        self.ksk = ksk
+        self.tag = tag or Tag()
+
+    @classmethod
+    def new(cls, client_key: "ClientKey", server_key: "ServerKey",
+            pke_params, ks_params, seed: int = 0) -> "CompactPublicKey":
+        """The compact keys from ``seed`` and the casting key from the
+        client key's keygen stream, on the client key's device."""
+        ck = client_key.inner.key
+        priv = CompactPrivateKey.generate(pke_params, seed=seed,
+                                          device=ck.device)
+        ksk = KeySwitchingKey.generate(priv, ck, server_key.inner.key,
+                                       ks_params)
+        return cls(_ShortintCPK.generate(priv), ksk, tag=client_key.tag)
+
+    def encrypt_radix(self, value: int, ty):
+        """A clear integer into ``ty`` (an FheUintN class) through the
+        compact-PK path: compact list -> expand -> cast blockwise."""
+        sk = _sk()
+        nb = ty.num_blocks(sk.params)
+        clist = self.pk.encrypt(_digits(int(value), nb,
+                                        sk.params.message_modulus))
+        return ty(_radix(self.ksk.cast(clist.expand_to_shortint()).ct, nb))
+
+
+def _digits(value: int, nb: int, mm: int) -> list:
+    """The ``nb`` base-``mm`` digits of ``value``, least significant first."""
+    out = []
+    for _ in range(nb):
+        out.append(value % mm)
+        value //= mm
+    return out
+
+
+def _radix(ct: torch.Tensor, nb: int) -> RadixCiphertext:
+    """Fresh blocks int64[nb, dim+1] under the global server key's params
+    as a radix ciphertext at nominal noise."""
+    p = _sk().params
+    return RadixCiphertext(
+        ct=ct, degrees=np.full(nb, p.message_modulus - 1, dtype=np.int64),
+        noise_levels=np.ones(nb, dtype=np.int64),
+        message_modulus=p.message_modulus, carry_modulus=p.carry_modulus)
 
 
 def safe_serialize(obj, serialized_size_limit: int = 1 << 30) -> bytes:
@@ -595,3 +652,166 @@ globals().update(
 
 def fhe_uint_array(bits: int):
     return _UNSIGNED_ARRAY_TYPES[bits]
+
+
+# ---------------------------------------------------------------------------
+# compressed ciphertext lists (high_level_api/compressed_ciphertext_list.rs)
+# ---------------------------------------------------------------------------
+
+def _typed(ty, ct: torch.Tensor, nb: int):
+    """Blocks int64[nb, dim+1] as a value of ``ty`` (FheBool or an
+    FheUintN / FheIntN class)."""
+    if ty is FheBool:
+        return FheBool(BooleanBlock(ct=ct[0]))
+    return ty(_radix(ct, nb))
+
+
+class HlCompressedCiphertextList:
+    """Packed-GLWE storage of a list of FHE values of mixed types; items
+    come back by index through the decompression key."""
+
+    def __init__(self, packed: _lc.CompressedCiphertextList, entries):
+        self.packed = packed
+        self.entries = entries  # [(type, num_blocks, block_offset)]
+
+    def __len__(self):
+        return len(self.entries)
+
+    def get(self, idx: int):
+        """Decompress item ``idx`` into its FHE type (the global server key
+        must carry the decompression key)."""
+        sk = _SERVER_KEY
+        assert sk is not None and sk.decompression_key is not None, (
+            "server key with compression enabled must be set")
+        ty, nb, off = self.entries[idx]
+        out = _lc.decompress(self.packed, sk.decompression_key,
+                             sk.inner.key, indices=range(off, off + nb))
+        return _typed(ty, out.ct, nb)
+
+
+class CompressedCiphertextListBuilder:
+    """push(FheUintN | FheIntN | FheBool) ... -> build(): all blocks packed
+    into shared GLWEs (CompressedCiphertextListBuilder,
+    compressed_ciphertext_list.rs)."""
+
+    def __init__(self):
+        self._items = []
+
+    def push(self, item) -> "CompressedCiphertextListBuilder":
+        self._items.append(item)
+        return self
+
+    def build(self) -> HlCompressedCiphertextList:
+        sk = _SERVER_KEY
+        assert sk is not None and sk.compression_key is not None, (
+            "server key with compression enabled must be set")
+        blocks, entries, off = [], [], 0
+        for item in self._items:
+            if isinstance(item, FheBool):
+                blocks.append(item.block.ct[None])
+                entries.append((FheBool, 1, off))
+            else:
+                blocks.append(item.ct.ct)
+                entries.append((type(item), item.ct.ct.shape[-2], off))
+            off += entries[-1][1]
+        p = sk.inner.key.params
+        batched = ShortintCiphertext(
+            ct=torch.cat(blocks), degree=p.message_modulus - 1,
+            noise_level=NOMINAL_NOISE, message_modulus=p.message_modulus,
+            carry_modulus=p.carry_modulus)
+        return HlCompressedCiphertextList(
+            _lc.compress(sk.compression_key, batched), entries)
+
+
+# ---------------------------------------------------------------------------
+# compact ciphertext lists (high_level_api/compact_list.rs)
+# ---------------------------------------------------------------------------
+
+class HlCompactCiphertextList:
+    """Shared-mask compact list of typed values, expanded into the compute
+    keyset through the casting key."""
+
+    def __init__(self, clist, entries, pk: CompactPublicKey, proofs=None,
+                 metadata=b""):
+        self.clist = clist  # shortint CompactCiphertextList
+        self.entries = entries  # [(type, num_blocks, digit_offset)]
+        self.pk = pk
+        self.proofs = proofs
+        self.metadata = metadata
+
+    def __len__(self):
+        return len(self.entries)
+
+    def expand(self):
+        """-> the list's FHE values (the whole list expanded and cast
+        once)."""
+        cast = self.pk.ksk.cast(self.clist.expand_to_shortint())
+        return [_typed(ty, cast.ct[off:off + nb], nb)
+                for ty, nb, off in self.entries]
+
+    def verify_and_expand(self, crs, metadata: bytes = b""):
+        """The ZK path (compact_list.rs:638)."""
+        raise not_ported("proven compact lists (ZK)", 9)
+
+
+class CompactCiphertextListBuilder:
+    """push typed clear values, then build()."""
+
+    def __init__(self, pk: CompactPublicKey):
+        self.pk = pk
+        self._digits = []
+        self._entries = []
+
+    def push(self, value, ty) -> "CompactCiphertextListBuilder":
+        p = _sk().params
+        if ty is FheBool:
+            self._entries.append((FheBool, 1, len(self._digits)))
+            self._digits.append(int(bool(value)))
+            return self
+        nb = ty.num_blocks(p)
+        self._entries.append((ty, nb, len(self._digits)))
+        self._digits += _digits(int(value), nb, p.message_modulus)
+        return self
+
+    def build(self) -> HlCompactCiphertextList:
+        clist = self.pk.pk.encrypt(np.array(self._digits, dtype=np.uint64))
+        return HlCompactCiphertextList(clist, self._entries, self.pk)
+
+    def build_with_proof(self, crs, metadata: bytes = b""):
+        """The ZK path (ProvenCompactCiphertextList::encrypt_and_prove)."""
+        raise not_ported("proven compact lists (ZK)", 9)
+
+
+# ---------------------------------------------------------------------------
+# XOF key set (high_level_api/xof_key_set.rs): every key from ONE seed
+# ---------------------------------------------------------------------------
+
+class CompressedXofKeySet:
+    """All key material derived from a single seed: ship the seed and the
+    compressed server key's bodies, expand anywhere (xof_key_set.rs:117,
+    365). Two parties holding the seed derive the same keys."""
+
+    def __init__(self, seed: int, config: Config, compressed_server_key,
+                 device=None):
+        self.seed = seed
+        self.config = config
+        self.compressed_server_key = compressed_server_key
+        self.device = device
+
+    @classmethod
+    def generate(cls, config: Config, seed: int,
+                 device=None) -> "CompressedXofKeySet":
+        """On ``device`` (the GPU when unset)."""
+        cfg = Config(parameters=config.parameters, seed=seed,
+                     noise_squashing_parameters=config
+                     .noise_squashing_parameters,
+                     compression_parameters=config.compression_parameters)
+        ck = ClientKey.generate(cfg, device=device)
+        return cls(seed=seed, config=cfg,
+                   compressed_server_key=CompressedServerKey.generate(ck),
+                   device=ck.inner.key.device)
+
+    def decompress(self):
+        """-> (ClientKey, ServerKey), byte-equal for equal seeds."""
+        ck = ClientKey.generate(self.config, device=self.device)
+        return ck, self.compressed_server_key.decompress()

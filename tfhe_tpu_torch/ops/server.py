@@ -6,14 +6,16 @@ Torch counterpart of ``tfhe_tpu/ops/server.py`` without the multi-bit PBS
 - keyswitch: ``core_crypto/algorithms/lwe_keyswitch.rs:137-230``, computed
   as ONE int8 GEMM of the gadget digits against the KSK in signed base-256
   limbs (``torch._int_mm``; the JAX package leaves the same product to
-  XLA's ``jnp.dot``), and the KS32 keyswitch onto the u32 torus
-  (``lwe_keyswitch.rs:331``, 4 limbs);
+  XLA's ``jnp.dot``), for base logs above 7 (the casting keys', up to 2^23
+  a digit) one GEMM a digit limb (:func:`limb_matmul`), and the KS32
+  keyswitch onto the u32 torus (``lwe_keyswitch.rs:331``, 4 limbs);
 - modulus switch to 2N from the u64 or the u32 torus, standard or with the
   centered-binary body correction (``algorithms/modulus_switch.rs:35-104``),
   and the drift technique's choice of an encryption of zero
   (``modulus_switch_noise_reduction.rs``);
-- sample extraction (``algorithms/glwe_sample_extraction.rs:89``);
-- the exact CRT spec: external product, the cmux steps, blind rotation
+- sample extraction (``algorithms/glwe_sample_extraction.rs:89``), also at
+  one coefficient per GLWE of a batch;
+- the exact CRT spec: external product, cmux, the cmux steps, blind rotation
   (exact, or in acc32 mode) and the portable PBS over P NTT primes with
   Garner reconstruction;
 - the blind rotations and programmable bootstraps that run the kernels
@@ -42,58 +44,95 @@ from .decomp import decompose
 from .polynomial import monomial_div, monomial_mul
 
 # ---------------------------------------------------------------------------
-# keyswitch (int8 GEMM)
+# keyswitch: exact products mod 2^64 through int8 GEMMs
 # ---------------------------------------------------------------------------
+
+_LIMB_WEIGHTS = tuple(1 << (8 * k) for k in range(8))
+
+
+def u64_to_i8_limbs(x: torch.Tensor) -> torch.Tensor:
+    """int64-held u64 values in signed base-256 limb form on their device,
+    int64[...] -> int8[..., 8]: x = sum(limb_k * 256^k) mod 2^64 with
+    limb_k in [-128, 127] (the 9th carry limb contributes 2^64 == 0 and is
+    dropped; the arithmetic shift changes only bits that limb would
+    hold)."""
+    limbs = []
+    for _ in range(8):
+        r = ((x + 128) & 0xFF) - 128
+        limbs.append(r.to(torch.int8))
+        x = (x - r) >> 8
+    return torch.stack(limbs, dim=-1)
 
 
 def ksk_to_i8_limbs(ksk: np.ndarray, base_log: int) -> np.ndarray:
-    """The KSK in signed base-256 limb form: every u64 entry rewritten as
-    sum(limb_k * 256^k) mod 2^64 with limb_k in [-128, 127] (the 9th carry
-    limb contributes 2^64 == 0 and is dropped).
-    u64[n_in, l, n_out+1] -> int8[n_in * l, (n_out+1) * 8] (numpy, host)."""
-    # base_log == 8 would admit a +128 balanced digit, which wraps in int8
+    """The KSK in the limb form of :func:`u64_to_i8_limbs`:
+    u64[n_in, l, n_out+1] -> int8[n_in * l, (n_out+1) * 8] (numpy, host;
+    ``tfhe_tpu``'s contract, which keeps the compute keys' base_log <= 7)."""
     assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
-    v = np.asarray(ksk, dtype=np.uint64).copy()
-    limbs = np.empty(v.shape + (8,), dtype=np.int8)
-    for k in range(8):
-        r = (v & np.uint64(0xFF)).astype(np.int64)
-        r = np.where(r > 127, r - 256, r)
-        limbs[..., k] = r.astype(np.int8)
-        v = (v - r.astype(np.uint64)) >> np.uint64(8)
     n_in, l, o = ksk.shape
-    return limbs.reshape(n_in * l, o * 8)
+    x = torch.from_numpy(np.asarray(ksk, dtype=np.uint64).view(np.int64))
+    return u64_to_i8_limbs(x).reshape(n_in * l, o * 8).numpy()
+
+
+def _int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, O] -> int32 [M, O] through ``torch._int_mm``,
+    zero-padded to its CUDA shape rules (M > 16 and a multiple of 8, K and
+    O multiples of 8)."""
+    M, K = a8.shape
+    O = b8.shape[1]
+    pad_m, pad_k, pad_o = max(24, -(-M // 8) * 8) - M, -K % 8, -O % 8
+    if pad_m or pad_k:
+        a8 = torch.cat([a8, a8.new_zeros((M, pad_k))], dim=1)
+        a8 = torch.cat([a8, a8.new_zeros((pad_m, K + pad_k))])
+    if pad_k or pad_o:
+        b8 = torch.cat([b8, b8.new_zeros((K, pad_o))], dim=1)
+        b8 = torch.cat([b8, b8.new_zeros((pad_k, O + pad_o))])
+    return torch._int_mm(a8, b8)[:M, :O]
+
+
+def limb_matmul(d: torch.Tensor, w_i8: torch.Tensor,
+                digit_bits: int) -> torch.Tensor:
+    """sum_k d[m, k] * W[k, o] mod 2^64, exact, for signed ``d`` with
+    |d| <= 2^(digit_bits - 1) (gadget digits, or 0/1 selections with
+    ``digit_bits`` = 1) and u64 ``W`` given by its limbs ``w_i8``
+    [K, O*8] (:func:`u64_to_i8_limbs`): one int8 GEMM a digit limb
+    (digit_bits // 8 + 1 signed base-256 limbs; one GEMM up to 7 bits),
+    the 8 limb sums recombined as sum_k s_k * 2^(8k). A GEMM's row sum
+    stays below K * 128 * min(2^(digit_bits-1), 128) < 2^31. Returns
+    int64[M, O]."""
+    M, K = d.shape
+    O = w_i8.shape[1] // 8
+    assert K * 128 * min(1 << (digit_bits - 1), 128) < 1 << 31, \
+        "an int8 GEMM row sum would overflow int32"
+    w = torch.tensor(_LIMB_WEIGHTS, dtype=torch.int64, device=d.device)
+    n_limbs = digit_bits // 8 + 1
+    total = 0
+    for a in range(n_limbs):
+        r = d
+        if a < n_limbs - 1:
+            r = ((d + 128) & 0xFF) - 128
+            d = (d - r) >> 8
+        sums = _int_mm(r.to(torch.int8), w_i8).reshape(M, O, 8)
+        total = total + ((sums.to(torch.int64) * w).sum(dim=-1) << (8 * a))
+    return total
 
 
 def keyswitch_mxu(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
                   levels: int) -> torch.Tensor:
-    """LWE keyswitch as one int8 x int8 -> int32 GEMM.
-
-    out = [0 | b] - sum_{i,l} digit_{i,l} * KSK[i, l], with the digits
-    ``[B, n_in*l]`` multiplied against the limbs ``[n_in*l, (n_out+1)*8]``
-    and the 8 limb sums recombined as sum_k s_k * 2^(8k) mod 2^64. Exact:
-    |digit| <= 2^(base_log-1) <= 64 and |limb| <= 128, so a row sum stays
-    below K * 2^13 < 2^31 for K up to 2^18.
+    """LWE keyswitch (``lwe_keyswitch.rs:137-230``) as int8 GEMMs:
+    out = [0 | b] - sum_{i,l} digit_{i,l} * KSK[i, l] mod 2^64, the digits
+    ``[B, n_in*l]`` against the KSK's limbs ``[n_in*l, (n_out+1)*8]`` by
+    :func:`limb_matmul`: ONE GEMM for base_log <= 7 (``tfhe_tpu``'s
+    ``keyswitch_mxu``), one a digit limb above (its generic ``keyswitch``:
+    the casting keys' digits reach 2^23).
 
     ``ct``: int64[..., n_in+1]; ``ksk_i8``: int8[n_in*l, (n_out+1)*8]."""
     K, O8 = ksk_i8.shape
-    n_in = K // levels
-    n_out = O8 // 8 - 1
-    a = ct[..., :n_in]
-    b = ct[..., n_in]
+    n_in, n_out = K // levels, O8 // 8 - 1
     batch = ct.shape[:-1]
-    d8 = decompose(a, base_log, levels).to(torch.int8).reshape(-1, K)
-    B = d8.shape[0]
-    # torch._int_mm on CUDA wants m > 16 and m % 8 == 0
-    pad = max(24, -(-B // 8) * 8) - B
-    if pad:
-        d8 = torch.cat([d8, d8.new_zeros((pad, K))])
-    sums = torch._int_mm(d8, ksk_i8)[:B]
-    sums = sums.reshape(batch + (n_out + 1, 8)).to(torch.int64)
-    w = torch.tensor([1 << (8 * k) for k in range(8)], dtype=torch.int64,
-                     device=ct.device)
-    total = (sums * w).sum(dim=-1)
-    out = -total
-    out[..., n_out] += b
+    d = decompose(ct[..., :n_in], base_log, levels).reshape(-1, K)
+    out = -limb_matmul(d, ksk_i8, base_log).reshape(batch + (n_out + 1,))
+    out[..., n_out] += ct[..., n_in]
     return out
 
 
@@ -105,19 +144,14 @@ _MASK32 = 0xFFFFFFFF
 
 
 def ksk32_to_i8_limbs(ksk32: np.ndarray, base_log: int) -> np.ndarray:
-    """A KSK of u32 entries in signed base-256 limb form:
-    u64[n_in, l, n_out+1] (values < 2^32) -> int8[n_in*l, (n_out+1)*4]
-    (numpy, host)."""
+    """A KSK of u32 entries in its low 4 limbs (:func:`u64_to_i8_limbs`;
+    the carry out of them is 0 mod 2^32): u64[n_in, l, n_out+1] (values
+    < 2^32) -> int8[n_in*l, (n_out+1)*4] (numpy, host)."""
     assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
-    v = np.asarray(ksk32, dtype=np.uint64) & np.uint64(_MASK32)
-    limbs = np.empty(v.shape + (4,), dtype=np.int8)
-    for k in range(4):
-        r = (v & np.uint64(0xFF)).astype(np.int64)
-        r = np.where(r > 127, r - 256, r)
-        limbs[..., k] = r.astype(np.int8)
-        v = (v - r.astype(np.uint64)) >> np.uint64(8)
     n_in, l, o = ksk32.shape
-    return limbs.reshape(n_in * l, o * 4)
+    x = torch.from_numpy(np.asarray(ksk32, dtype=np.uint64).view(np.int64))
+    return u64_to_i8_limbs(x & _MASK32)[..., :4].reshape(n_in * l,
+                                                          o * 4).numpy()
 
 
 def keyswitch_mxu32(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
@@ -131,23 +165,12 @@ def keyswitch_mxu32(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,
     ``ct``: int64[..., n_in+1]; ``ksk_i8``: int8[n_in*l, (n_out+1)*4].
     Returns int64[..., n_out+1] holding u32 values."""
     K, O4 = ksk_i8.shape
-    n_in = K // levels
-    n_out = O4 // 4 - 1
+    n_in, n_out = K // levels, O4 // 4 - 1
     batch = ct.shape[:-1]
     d8 = decompose(ct[..., :n_in], base_log, levels).to(torch.int8)
-    d8 = d8.reshape(-1, K)
-    B = d8.shape[0]
-    # torch._int_mm on CUDA wants m > 16, m % 8 == 0 and n % 8 == 0: pad
-    # the rows, and the limb columns ((n_out+1)*4 may be odd times 4)
-    pad = max(24, -(-B // 8) * 8) - B
-    if pad:
-        d8 = torch.cat([d8, d8.new_zeros((pad, K))])
-    if O4 % 8:
-        ksk_i8 = torch.cat([ksk_i8, ksk_i8.new_zeros((K, 8 - O4 % 8))], dim=1)
-    sums = torch._int_mm(d8, ksk_i8)[:B, :O4]
+    sums = _int_mm(d8.reshape(-1, K), ksk_i8)
     sums = sums.reshape(batch + (n_out + 1, 4)).to(torch.int64)
-    w = torch.tensor([1 << (8 * k) for k in range(4)], dtype=torch.int64,
-                     device=ct.device)
+    w = torch.tensor(_LIMB_WEIGHTS[:4], dtype=torch.int64, device=ct.device)
     out = -(sums * w).sum(dim=-1)
     out[..., n_out] += srl(ct[..., n_in] + (1 << 31), 32)
     return out & _MASK32
@@ -311,6 +334,23 @@ def sample_extract(glwe: torch.Tensor, nth: int = 0) -> torch.Tensor:
     return torch.cat([out_mask, body[..., None]], dim=-1)
 
 
+def sample_extract_at(glwe: torch.Tensor, nth: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_extract` of each GLWE of a batch at its own
+    coefficient: ``glwe`` int64[M, k+1, N], ``nth`` int[M] in [0, N) ->
+    int64[M, k*N + 1]. Mask coefficient i is a[nth - i] for i <= nth and
+    -a[N + nth - i] above."""
+    M, R, N = glwe.shape
+    nth = nth.to(torch.int64).to(glwe.device)
+    src = nth[:, None] - torch.arange(N, device=glwe.device)[None]
+    neg = src < 0
+    src = torch.where(neg, src + N, src)
+    mask = torch.gather(glwe[:, :R - 1], 2,
+                        src[:, None].expand(M, R - 1, N))
+    mask = torch.where(neg[:, None], -mask, mask).reshape(M, (R - 1) * N)
+    body = glwe[torch.arange(M, device=glwe.device), R - 1, nth]
+    return torch.cat([mask, body[:, None]], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # external product / cmux / blind rotation: the exact CRT spec
 # ---------------------------------------------------------------------------
@@ -336,6 +376,17 @@ def external_product_ntt(ggsw_hat: torch.Tensor, glwe: torch.Tensor,
     prod = ntt_mod.shoup_mul(dhat[..., None, :], g, gs, p)
     acc_hat = torch.remainder(prod.sum(dim=(-4, -3)), p[..., 0, 0])
     return plan.reconstruct_u64(plan.inv(acc_hat))
+
+
+def cmux_ntt(ggsw_hat: torch.Tensor, ct0: torch.Tensor, ct1: torch.Tensor,
+             base_log: int, levels: int,
+             plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """ct0 + GGSW x (ct1 - ct0): ct1 when the GGSW encrypts 1, ct0 when it
+    encrypts 0 (``fft_impl/fft64/crypto/ggsw.rs:510`` cmux; ``tfhe_tpu``'s
+    ``server.cmux_ntt``). ``ggsw_hat``: int32 (u32) [2, P, l, R, R, N] as
+    :func:`external_product_ntt` takes it."""
+    return ct0 + external_product_ntt(ggsw_hat, ct1 - ct0, base_log, levels,
+                                      plan)
 
 
 def round32(x: torch.Tensor) -> torch.Tensor:
