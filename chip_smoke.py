@@ -138,7 +138,22 @@ Phases (any failure raises and exits non-zero):
     FheUint8, FheUint32 and FheBool (each item back and decrypted) and a
     compact list builder -> expand, decrypted; WoP-PBS (its key, then
     x -> 7x + 3 mod 16 on two values, message and carry decrypted);
-18. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+18. the multi-bit PBS (``phase_multi_bit``) at three sets of the
+    reference's universe by name, full width, each on its own seeded keys:
+    the GPU default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_
+    TUNIFORM_2M128`` (n = 920, N = 2048, 230 steps) at 2048: keygen s, the
+    batch through ``apply_lookup_table`` (K2 u64 and K5 once, every other
+    kernel never), decrypted, K2 u64 and K5 against their plain versions
+    on the path's inputs (K5 on the first 64 ciphertexts, all steps, the
+    whole key) and K5 on random u64 accumulators over 32 steps, PBS/s and
+    K5 alone; at batch 1 KS -> PBS and K5 (median of 5), FheUint64 add,
+    bitand and eq (ms, rounds) against their oracles beside phase 13's
+    v6b rows, the README chain at FheUint32, the FheUint64 OPRF; then
+    ``PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS`` (N = 4096, 452
+    steps) and ``V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_
+    TUNIFORM_2M128`` (l = 2, 293 steps) at 512, each decrypted and its K5
+    against the plain version on 16 ciphertexts, all steps;
+19. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -489,9 +504,21 @@ def step_kernel_report():
                                        512))):
         print(f"  {label}: {pk.step_smem_bytes(*args) / 1024:.0f} KiB "
               "dynamic shared memory a block")
+    for label, g, R, levels, N in (("K5 group 4", 4, 2, 1, 2048),
+                                   ("K5 group 2, N = 4096", 2, 2, 1, 4096),
+                                   ("K5 group 3, l = 2", 3, 2, 2, 2048)):
+        smem = pk.step_smem_bytes("blind_rotate_multi_bit", 4, R, levels, N)
+        occ = pk.multi_bit_occupancy(R, levels, N, g)
+        print(f"  {label}: {smem / 1024:.0f} KiB dynamic shared memory a "
+              f"block, {occ['registers']} registers, {occ['local_bytes']} "
+              f"local bytes a thread, {occ['blocks_per_sm']} blocks per SM")
+        if smem != sp.step_smem_bytes(4, R, levels, N, 8):
+            raise AssertionError(f"K5 shared memory {smem} != acc + digits "
+                                 f"at {label}")
     if spilled:
         raise AssertionError(f"K1/K3 step kernels spill: {spilled}")
-    print("K1 and K3: no spills; shared memory == acc + digits")
+    print("K1 and K3: no spills; K1, K3 and K5: shared memory == acc + "
+          "digits")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -1389,6 +1416,63 @@ def _int_oracle(name, x, y, bits):
                 "div": lambda: x // y}[name]()
 
 
+def readme_chain(ick, isk, key, lanes, rng):
+    """The README example (FheUint32 ``a * b >> b``, cast to FheUint8,
+    ``min(c)``, ``& 1``) over ``lanes`` lanes (1: the README's 1344, 5, 7;
+    more: drawn from ``rng``), each step decrypted against its numpy
+    oracle; {step: ms, rounds and PBS that ``key`` counted}."""
+    bits_per_block = int(np.log2(key.params.message_modulus))
+    nb32, nb8 = README_BLOCKS, README_C_BLOCKS
+    steps = (("mul", lambda x, b, c: isk.mul(x, b),
+              lambda x, b, c: x * b),
+             ("right_shift", lambda x, b, c: isk.right_shift(x, b),
+              lambda x, b, c: x >> (b % np.uint64(nb32 * bits_per_block))),
+             ("cast_to_num_blocks", lambda x, b, c: isk.cast_to_num_blocks(x, nb8),
+              lambda x, b, c: x),
+             ("min", lambda x, b, c: isk.min(x, c), lambda x, b, c: np.minimum(x, c)),
+             ("scalar_bitand", lambda x, b, c: isk.scalar_bitand(x, 1),
+              lambda x, b, c: x & np.uint64(1)))
+    m32 = np.uint64((1 << (nb32 * bits_per_block)) - 1)
+    m8 = np.uint64((1 << (nb8 * bits_per_block)) - 1)
+    if lanes == 1:
+        va, vb, vc = (np.array([v], dtype=np.uint64) for v in (1344, 5, 7))
+    else:
+        va, vb = (rng.integers(0, int(m32) + 1, lanes, dtype=np.uint64)
+                  for _ in range(2))
+        vc = rng.integers(0, int(m8) + 1, lanes, dtype=np.uint64)
+    a, b = ick.encrypt_radix(va, nb32), ick.encrypt_radix(vb, nb32)
+    c = ick.encrypt_radix(vc, nb8)
+    x, want, row = a, va, {}
+    for i, (step, fn, oracle) in enumerate(steps):
+        x, ms, rounds, pbs = timed(key, fn, x, b, c)
+        with np.errstate(over="ignore"):
+            want = oracle(want, vb, vc) & (m32 if i < 2 else m8)
+        got = ick.decrypt_radix(x)
+        if not np.array_equal(got, want.astype(got.dtype)):
+            raise AssertionError(f"integer README {step}, {lanes} lanes: "
+                                 f"decrypts to {got}, want {want}")
+        row[step] = {"ms": ms, "rounds": rounds, "pbs": pbs}
+    if lanes == 1 and [int(v) for v in ick.decrypt_radix(x)] != [1]:
+        raise AssertionError("README example: the chain does not end in 1")
+    print(f"README chain (FheUint32 -> FheUint8), {lanes} lane(s), "
+          f"decrypted at every step: " + ", ".join(
+              f"{k} {v['ms']:.1f} ms ({v['rounds']} rounds, {v['pbs']} PBS)"
+              for k, v in row.items()))
+    return row
+
+
+def expect_radix(ick, isk, label, out, want):
+    """Fail unless the radix ciphertext or boolean block ``out`` decrypts
+    to ``want``."""
+    from tfhe_tpu_torch.integer import radix
+
+    got = (isk.decrypt_bool(ick, out) if isinstance(out, radix.BooleanBlock)
+           else ick.decrypt_radix(out))
+    if not np.array_equal(got, np.asarray(want).astype(got.dtype)):
+        raise AssertionError(f"integer {label}: decrypts to {got}, want "
+                             f"{want}")
+
+
 def phase_integer(ck, sk, card, rows):
     """The integer layer (``tfhe_tpu_torch.integer``) on phase 2's 2_2 v6b
     keys, every PBS through the shortint ``apply_lookup_table`` (KS, K2
@@ -1411,55 +1495,12 @@ def phase_integer(ck, sk, card, rows):
     bits_per_block = int(np.log2(sk.params.message_modulus))
     rng = np.random.default_rng(SEED)
 
-    def clear(out):
-        if isinstance(out, radix.BooleanBlock):
-            return isk.decrypt_bool(ick, out)
-        return ick.decrypt_radix(out)
-
-    def expect(label, out, want):
-        got = clear(out)
-        if not np.array_equal(got, np.asarray(want).astype(got.dtype)):
-            raise AssertionError(f"integer {label}: decrypts to {got}, want "
-                                 f"{want}")
+    expect = functools.partial(expect_radix, ick, isk)
 
     # 1. the README example: FheUint32 a * b >> b, cast to FheUint8, min
     #    with c, & 1
-    nb32, nb8 = README_BLOCKS, README_C_BLOCKS
-    steps = (("mul", lambda x, b, c: isk.mul(x, b),
-              lambda x, b, c: x * b),
-             ("right_shift", lambda x, b, c: isk.right_shift(x, b),
-              lambda x, b, c: x >> (b % np.uint64(nb32 * bits_per_block))),
-             ("cast_to_num_blocks", lambda x, b, c: isk.cast_to_num_blocks(x, nb8),
-              lambda x, b, c: x),
-             ("min", lambda x, b, c: isk.min(x, c), lambda x, b, c: np.minimum(x, c)),
-             ("scalar_bitand", lambda x, b, c: isk.scalar_bitand(x, 1),
-              lambda x, b, c: x & np.uint64(1)))
-    chain = {}
-    m32 = np.uint64((1 << (nb32 * bits_per_block)) - 1)
-    m8 = np.uint64((1 << (nb8 * bits_per_block)) - 1)
-    for lanes in (1, INT_LANES):
-        if lanes == 1:
-            va, vb, vc = (np.array([v], dtype=np.uint64) for v in (1344, 5, 7))
-        else:
-            va, vb = (rng.integers(0, int(m32) + 1, lanes, dtype=np.uint64)
-                      for _ in range(2))
-            vc = rng.integers(0, int(m8) + 1, lanes, dtype=np.uint64)
-        a, b = ick.encrypt_radix(va, nb32), ick.encrypt_radix(vb, nb32)
-        c = ick.encrypt_radix(vc, nb8)
-        x, want, row = a, va, {}
-        for i, (step, fn, oracle) in enumerate(steps):
-            x, ms, rounds, pbs = timed(key, fn, x, b, c)
-            with np.errstate(over="ignore"):
-                want = oracle(want, vb, vc) & (m32 if i < 2 else m8)
-            expect(f"README {step}, {lanes} lanes", x, want)
-            row[step] = {"ms": ms, "rounds": rounds, "pbs": pbs}
-        if lanes == 1 and [int(v) for v in clear(x)] != [1]:
-            raise AssertionError("README example: the chain does not end in 1")
-        chain[lanes] = row
-        print(f"README chain (FheUint32 -> FheUint8), {lanes} lane(s), "
-              f"decrypted at every step: " + ", ".join(
-                  f"{k} {v['ms']:.1f} ms ({v['rounds']} rounds, {v['pbs']} PBS)"
-                  for k, v in row.items()))
+    chain = {lanes: readme_chain(ick, isk, key, lanes, rng)
+             for lanes in (1, INT_LANES)}
 
     # 2. the FheUint64 table of bench.py --integer
     table = []
@@ -1761,7 +1802,7 @@ PATTERN_SETS = ("V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
 LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "blind_rotate_bnf2_acc32", "blind_rotate_crt",
                "blind_rotate_crt_acc32", "blind_rotate_bnf2_u64",
-               "blind_rotate_goldilocks")
+               "blind_rotate_goldilocks", "blind_rotate_multi_bit")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -2324,6 +2365,230 @@ def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the multi-bit PBS
+# ---------------------------------------------------------------------------
+
+#: the multi-bit sets of phase 18 by universe name: (label, name, batch,
+#: ciphertexts of K5's check against its plain version on the path's own
+#: inputs)
+MB_SETS = (
+    ("g4", "PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+     BATCH, PLAIN_BATCH),
+    ("g2_n4096", "PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS",
+     SIDE_BATCH, 16),
+    ("g3", "V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_"
+     "TUNIFORM_2M128", SIDE_BATCH, 16))
+MB_LAUNCHES = {"body_rotate_u64": 1, "blind_rotate_multi_bit": 1}
+MB_INT_OPS = ("add", "bitand", "eq")  # FheUint64 at batch 1 on group 4
+
+
+def multi_bit_bytes(B: int, n_groups: int, grouping: int, R: int,
+                    levels: int, N: int, P: int) -> float:
+    """Bytes the function must move: the key's residues once (the function
+    needs no Shoup duals, which K5 also reads), the u64 accumulator in and
+    out, the mask, the constant tables and exponents."""
+    key = n_groups * P * ((1 << grouping) - 1) * levels * R * R * N * 4
+    return (key + 2 * B * R * N * 8 + B * n_groups * grouping * 4
+            + P * 8 * N * 4 + N * 4)
+
+
+def _multi_bit_set(label, name, batch, plain_b, rate, rows):
+    """One multi-bit set at full width: keygen, a batch covering all 16
+    message+carry values through ``apply_lookup_table`` with the launch
+    counts zeroed just before and read just after (K2 u64 and K5 once,
+    every other kernel never), every output decrypted; K2 u64 and K5
+    against their plain versions on the path's own inputs (K5 on the first
+    ``plain_b`` ciphertexts, all n/g steps, the whole key), K5 on random
+    u64 accumulators over 32 steps; PBS/s at ``batch`` and K5 alone.
+    Returns (client key, server key, summary)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[name]
+    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
+                       p.pbs_level, p.pbs_base_log)
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    P, ng = sk.num_primes, sk.bsk_mb.shape[0]
+    print(f"keygen {label} ({name}): {keygen_s:.1f} s, n = {p.lwe_dimension}"
+          f", g = {g}, N = {N}, l = {lv}, P = {P}, K5 key "
+          f"{tuple(sk.bsk_mb.shape)} ({sk.bsk_mb.numel() * 4 / 1e9:.3f} GB)")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (3 * x) % mod
+    vals = np.arange(batch, dtype=np.uint64) % mod
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    out = launches_exactly(f"{label} main path",
+                           lambda: sk.apply_lookup_table(ct, lut),
+                           MB_LAUNCHES)
+    k5_launches = launches_of("blind_rotate_multi_bit")[
+        "blind_rotate_multi_bit"]
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError(f"{label}: batch decrypts wrong")
+    print(f"{label}: {batch} ciphertexts decrypt to 3x mod 16; K2 u64 and "
+          "K5 once each, every other kernel never")
+
+    mask, body = switched(sk, ct)
+    check_equal(f"body_rotate_u64 {label}", pk.body_rotate_u64,
+                pk.body_rotate_u64_plain, (lut.acc, body))
+    acc = pk.body_rotate_u64(lut.acc, body)
+    k5, k5_plain = pk.blind_rotate_multi_bit, pk.blind_rotate_multi_bit_plain
+    err, plain_ms = check_equal(
+        f"blind_rotate_multi_bit {label}", k5, k5_plain,
+        (acc[:plain_b].contiguous(), mask[:plain_b], sk.bsk_mb, bl, lv))
+    steps = min(32, ng)
+    racc, rmask = _random_acc_mask(np.random.default_rng(SEED + 18),
+                                   plain_b, steps * g, R, N)
+    check_equal(f"blind_rotate_multi_bit {label}, random acc", k5, k5_plain,
+                (racc, rmask, sk.bsk_mb[:steps].contiguous(), bl, lv))
+    print(f"{label}: K2 u64 == plain at B={batch}; K5 == plain at "
+          f"B={plain_b}, {ng} steps (plain {plain_ms:.1f} ms) and on random "
+          f"accumulators, {steps} steps")
+    k5_ms = cuda_ms(lambda: k5(acc, mask, sk.bsk_mb, bl, lv), 3)
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
+    print(f"{label} KS->PBS B={batch}: {step_ms:.3f} ms = "
+          f"{batch / step_ms * 1e3:.1f} PBS/s; K5 {k5_ms:.3f} ms "
+          f"({k5_ms / ng * 1e3:.1f} us a step)")
+    rows[f"blind_rotate_multi_bit_{label}"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu",
+        replaces="tfhe_tpu/ops/server.py:809",
+        launches=k5_launches, max_abs_err=err,
+        ms=k5_ms, plain_ms=plain_ms,
+        bound=bound(kb.multi_bit_pipe_instructions(batch, ng, g, R, lv, N, P),
+                    multi_bit_bytes(batch, ng, g, R, lv, N, P), rate),
+        shape=f"{label} B={batch} n/g={ng} g={g}",
+        plain_shape=f"{label} B={plain_b} n/g={ng} g={g}",
+        note="no pallas_call: XLA in tfhe_tpu")
+    return ck, sk, {f"mb_{label}_keygen_s": keygen_s,
+                    f"mb_{label}_pbs_ms": step_ms,
+                    f"mb_{label}_pbs_per_s": batch / step_ms * 1e3,
+                    f"mb_{label}_k5_ms": k5_ms}
+
+
+def phase_multi_bit(card, rate, rows, table13):
+    """The multi-bit PBS (ROADMAP Queue A item 8, first half) on K2 u64 ->
+    K5, at three sets of the reference's universe by name, full width:
+    a. the GPU default group-4 set (n = 920, N = 2048, 230 steps) at
+       2048 (``_multi_bit_set``); then at batch 1: KS -> PBS ms and K5
+       alone (median of 5, CUDA events, a batch-1 K5 row beside the batch
+       one), FheUint64 add, bitand and eq (ms, rounds) against their numpy
+       oracles beside phase 13's v6b numbers, the README chain at
+       FheUint32, and the FheUint64 OPRF (one batched PBS: K2 u64 and K5
+       once);
+    b. the group-2 set at N = 4096 (452 steps; K5's largest shared
+       memory) and
+    c. the v1.5 GPU group-3 set (l = 2, 293 steps), each at 512
+       (``_multi_bit_set``, K5 against its plain version on 16
+       ciphertexts)."""
+    import torch
+
+    from tfhe_tpu_torch.integer import radix
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    t_phase = time.perf_counter()
+    summary = {}
+    (label, name, batch, plain_b), *rest = MB_SETS
+    ck, sk, s = _multi_bit_set(label, name, batch, plain_b, rate, rows)
+    summary.update(s)
+
+    # a. batch 1 on the group-4 keys
+    p = sk.params
+    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
+                       p.pbs_level, p.pbs_base_log)
+    ng = sk.bsk_mb.shape[0]
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    lut = sk.generate_lookup_table(lambda x: (3 * x) % 16)
+    out = launches_exactly(f"{label} batch 1",
+                           lambda: sk.apply_lookup_table(ct1, lut),
+                           MB_LAUNCHES)
+    k5_launches = launches_of("blind_rotate_multi_bit")[
+        "blind_rotate_multi_bit"]
+    if int(ck.decrypt_message_and_carry(out)[0]) != 5:
+        raise AssertionError("group-4 batch 1 decrypts wrong")
+    ks_pbs_1 = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    mask, body = switched(sk, ct1)
+    acc1 = pk.body_rotate_u64(lut.acc, body)
+    k5_1 = cuda_ms(lambda: pk.blind_rotate_multi_bit(
+        acc1, mask, sk.bsk_mb, bl, lv), 5)
+    print(f"{label} batch 1: KS->PBS {ks_pbs_1:.3f} ms, K5 {k5_1:.3f} ms "
+          f"({k5_1 / ng * 1e3:.1f} us a step) on {card}")
+    rows[f"blind_rotate_multi_bit_{label}_b1"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu",
+        replaces="tfhe_tpu/ops/server.py:809",
+        launches=k5_launches,
+        max_abs_err=rows[f"blind_rotate_multi_bit_{label}"]["max_abs_err"],
+        ms=k5_1, plain_ms=rows[f"blind_rotate_multi_bit_{label}"]["plain_ms"],
+        bound=bound(kb.multi_bit_pipe_instructions(1, ng, g, R, lv, N, 4),
+                    multi_bit_bytes(1, ng, g, R, lv, N, 4), rate),
+        shape=f"{label} B=1 n/g={ng} g={g}",
+        plain_shape=rows[f"blind_rotate_multi_bit_{label}"]["plain_shape"],
+        note="no pallas_call: XLA in tfhe_tpu")
+    summary.update({"mb_g4_ks_pbs_b1_ms": ks_pbs_1, "mb_g4_k5_b1_ms": k5_1})
+
+    key = CountingKey(sk)
+    ick, isk = radix.ClientKey(ck), radix.ServerKey(key)
+    rng = np.random.default_rng(SEED + 18)
+    bits64 = U64_BLOCKS * int(np.log2(p.message_modulus))
+    xs = rng.integers(0, 1 << bits64, 1, dtype=np.uint64)
+    ys = rng.integers(1, 1 << bits64, 1, dtype=np.uint64)
+    a, b = ick.encrypt_radix(xs, U64_BLOCKS), ick.encrypt_radix(ys, U64_BLOCKS)
+    v6b = {r["metric"]: r for r in table13}
+    for op in MB_INT_OPS:
+        fn = getattr(isk, op)
+        want = _int_oracle(op, xs, ys, bits64)
+        times = []
+        for _ in range(4):  # a checked warm-up run, then three
+            out, ms, rounds, pbs = timed(key, fn, a, b)
+            expect_radix(ick, isk, f"{label} FheUint64 {op}", out, want)
+            times.append(ms)
+        ms = statistics.median(times[1:])
+        ref = v6b.get(f"fheuint64_{op}_latency", {})
+        print(json.dumps({"metric": f"mb_{label}_fheuint64_{op}_latency",
+                          "value": ms, "unit": "ms", "batch": 1,
+                          "rounds": rounds, "pbs": pbs, "card": card,
+                          "runs_ms": times[1:],
+                          "v6b_ms": ref.get("value"),
+                          "v6b_rounds": ref.get("rounds")}))
+        summary[f"mb_{label}_fheuint64_{op}_ms"] = ms
+        summary[f"mb_{label}_fheuint64_{op}_rounds"] = rounds
+    summary[f"mb_{label}_readme_chain"] = readme_chain(ick, isk, key, 1, rng)
+    t0 = time.perf_counter()
+    oprf = launches_exactly(
+        f"{label} FheUint64 OPRF",
+        lambda: isk.generate_oblivious_pseudo_random(seed=SEED,
+                                                     num_blocks=U64_BLOCKS),
+        MB_LAUNCHES)
+    oprf_ms = (time.perf_counter() - t0) * 1e3
+    value = int(ick.decrypt_radix(oprf))
+    if not 0 <= value < 1 << bits64 or oprf.degrees.max() > 3:
+        raise AssertionError(f"{label} FheUint64 OPRF: {value}")
+    print(f"{label} FheUint64 OPRF at batch 1: {oprf_ms:.1f} ms (one batched "
+          f"PBS of {U64_BLOCKS} blocks, host clock)")
+    summary[f"mb_{label}_oprf_ms"] = oprf_ms
+    del ck, sk, key, isk, ick
+    torch.cuda.empty_cache()
+
+    # b, c. the group-2 set at N = 4096 and the group-3 set
+    for label, name, batch, plain_b in rest:
+        _, _, s = _multi_bit_set(label, name, batch, plain_b, rate, rows)
+        summary.update(s)
+        torch.cuda.empty_cache()
+    summary["multi_bit_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: {summary['multi_bit_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2363,11 +2628,14 @@ def main() -> int:
     summary.update(phase_hlapi(card, summary["readme_chain"][1]))
     summary.update(phase_shortint_rest(ck22, sk22, sk_v5, card, rate))
     summary.update(phase_side_modules(ck22, sk22, batch22, card, rate, rows))
+    summary.update(phase_multi_bit(card, rate, rows, summary["fheuint_table"]))
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_crt_p4_decompress",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
+             "blind_rotate_multi_bit_g4", "blind_rotate_multi_bit_g4_b1",
+             "blind_rotate_multi_bit_g2_n4096", "blind_rotate_multi_bit_g3",
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")

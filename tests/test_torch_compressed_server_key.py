@@ -6,8 +6,8 @@ to the port's ``ServerKey.generate`` of a fresh client key of that seed,
 for each transform variant (v6b: the BNF2 key, the standard-domain BSK;
 crt: the exact CRT key; v5: the Goldilocks key; all: the KSK and its int8
 limbs). Under v6b and crt the exact CRT key also equals tfhe_tpu's
-decompressed ``bsk_scan``. Multi-bit sets raise naming ROADMAP item 8,
-serialization item 9. Tolerance: exact.
+decompressed ``bsk_scan``. A multi-bit set decompresses to K5's key;
+serialization raises naming ROADMAP item 9. Tolerance: exact.
 """
 
 import dataclasses
@@ -106,17 +106,40 @@ def test_production_size():
     assert (n * l * (k + 1) * N + k * N * p.ks_level) * 8 < 30 * 1024 * 1024
 
 
-def test_multi_bit_and_serialization_raise():
+def _multi_bit_client_key():
+    """A client key of PARAM_TEST_TOY with a grouping factor of 2
+    (duck-typed: the set's fields as class attributes)."""
     fields = {f.name: getattr(P, f.name) for f in dataclasses.fields(P)}
     ck = _fresh()
-    ck.params = type("MultiBit", (), dict(fields, grouping_factor=2))()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 8: other PBS flavors"):
-        CompressedServerKey.generate(ck)
-    csk = CompressedServerKey.generate(_fresh())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 9: platform layers"):
-        csk.serialize()
+    ck.params = type("MultiBit", (), dict(fields, grouping_factor=2,
+                                          glwe_size=P.glwe_size))()
+    return ck
+
+
+def test_multi_bit_decompresses_equal():
+    """A multi-bit set's compressed key (the GGSWs of subset products,
+    drawn as ``ServerKey.generate`` draws them) decompresses to the server
+    key of a fresh client key of the same seed: K5's key and the KSK."""
+    csk = CompressedServerKey.generate(_multi_bit_client_key())
+    assert tuple(csk.bsk_bodies.shape) == (8, 3, 1, 2, 256)
+    sk = csk.decompress()
+    want = ServerKey.generate(_multi_bit_client_key())
+    assert torch.equal(sk.bsk_mb, want.bsk_mb)
+    assert torch.equal(sk.ksk, want.ksk) and torch.equal(sk.ksk_i8,
+                                                         want.ksk_i8)
+    assert sk.bsk_b is None and sk.bsk_scan is None
+
+
+def test_multi_bit_and_serialization_raise():
+    """(Its name dates from before the multi-bit PBS was ported: a
+    multi-bit set compresses now, ``test_multi_bit_decompresses_equal``.)
+    Serializing a compressed key raises naming ROADMAP item 9, classic and
+    multi-bit alike."""
+    for ck in (_fresh(), _multi_bit_client_key()):
+        csk = CompressedServerKey.generate(ck)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 9: platform layers"):
+            csk.serialize()
 
 
 def test_ks32_set_refused():

@@ -4,9 +4,8 @@ kernel bench and the SASS counter import, in a fresh interpreter without
 either being loaded; entry points without a device ask
 for the GPU and raise when there is none; CPU tensors take the plain
 versions of the kernels, whose launch counts stay 0; each variant runs its
-own path, and multi-bit parameter sets (the one kind still unported) raise
-instead of running another path; the ROADMAP items that the port's
-``NotImplementedError`` messages name carry ROADMAP.md's titles."""
+own path, multi-bit parameter sets included; the ROADMAP items that the
+port's ``NotImplementedError`` messages name carry ROADMAP.md's titles."""
 
 import ast
 import dataclasses
@@ -144,7 +143,7 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    assert len(pk.KERNELS) == 7
+    assert len(pk.KERNELS) == 8
     for fn in pk.KERNELS:
         assert fn.launches == 0, fn.__name__
 
@@ -167,28 +166,35 @@ def _toy_set(kind, pmod):
 
 @pytest.mark.parametrize("kind", ["multi-bit", "ks32", "pbs_ks", "drift"])
 def test_unported_parameter_sets_raise(kind):
-    """A multi-bit set (here duck-typed by its grouping factor) is the one
-    kind the port does not carry: it raises, naming the ROADMAP item that
-    ports it by number and title. The other atomic patterns, which raised
-    until ROADMAP Queue A item 5 ported them, now run and equal tfhe_tpu
-    bit for bit on a LUT round trip (KS32, PBS -> KS, the drift technique)."""
-    if kind == "multi-bit":
-        fields = {f.name: getattr(P, f.name) for f in dataclasses.fields(P)}
-        fields["grouping_factor"] = 2
-        ck = ClientKey.generate(P, seed=5, device="cpu")
-        ck.params = types.SimpleNamespace(**fields)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 8: other PBS flavors"):
-            ServerKey.generate(ck)
-        return
+    """(Its name dates from before the multi-bit PBS was ported.) Every
+    kind of parameter set runs its own path and equals tfhe_tpu bit for bit
+    on a LUT round trip: a multi-bit set (here duck-typed by its grouping
+    factor) builds a multi-bit key and runs the multi-bit PBS (plain K2 u64
+    -> K5), as the other atomic patterns, which raised until ROADMAP Queue
+    A item 5 ported them, run theirs (KS32, PBS -> KS, the drift
+    technique)."""
     from tfhe_tpu.shortint.client_key import ClientKey as JClientKey
     from tfhe_tpu.shortint.server_key import ServerKey as JServerKey
     from tfhe_tpu.utils import params as jparams
 
-    jck = JClientKey.generate(_toy_set(kind, jparams), seed=5)
+    if kind == "multi-bit":
+        def multi_bit(pmod):
+            fields = {f.name: getattr(pmod.PARAM_TEST_TOY, f.name)
+                      for f in dataclasses.fields(pmod.PARAM_TEST_TOY)}
+            return types.SimpleNamespace(**dict(
+                fields, grouping_factor=2,
+                glwe_size=pmod.PARAM_TEST_TOY.glwe_size))
+
+        jck = JClientKey.generate(jparams.PARAM_TEST_TOY, seed=5)
+        jck.params = multi_bit(jparams)
+        ck = ClientKey.generate(P, seed=5, device="cpu")
+        ck.params = multi_bit(pm)
+    else:
+        jck = JClientKey.generate(_toy_set(kind, jparams), seed=5)
+        ck = ClientKey.generate(_toy_set(kind, pm), seed=5, device="cpu")
     jsk = JServerKey.generate(jck)
-    ck = ClientKey.generate(_toy_set(kind, pm), seed=5, device="cpu")
     sk = ServerKey.generate(ck)
+    assert (sk.bsk_mb is not None) == (kind == "multi-bit")
     msgs = np.array([0, 1, 2, 3], dtype=np.uint64)
     f = lambda x: (x + 3) % 4
     jout = jsk.apply_lookup_table(jck.encrypt(msgs),

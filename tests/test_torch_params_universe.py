@@ -5,8 +5,8 @@ the port to the same class and equal field values (nested sets, moduli,
 distributions and drift parameters compared field by field), the
 hand-written sets equal their JAX counterparts, ``PARAMS_BY_NAME`` falls
 through to the universe with the constants first, the reference's v1.5 2_2
-sets resolve to the variant tfhe_tpu resolves, and only multi-bit sets
-raise. Tolerance: exact (the same constants)."""
+sets resolve to the variant tfhe_tpu resolves, and no set raises, the
+multi-bit ones included. Tolerance: exact (the same constants)."""
 
 import dataclasses
 import enum
@@ -17,6 +17,8 @@ import pytest
 from tfhe_tpu.shortint.server_key import resolve_variant as jresolve
 from tfhe_tpu.utils import params as jparams
 from tfhe_tpu.utils import params_registry as jreg
+
+from test_torch_strings import one_torch_thread  # noqa: F401
 
 from tfhe_tpu_torch import convert
 from tfhe_tpu_torch.shortint.client_key import ClientKey
@@ -106,24 +108,79 @@ def test_v1_5_2_2_sets_resolve_as_tfhe_tpu(monkeypatch):
 
 
 def test_only_multi_bit_raises():
-    """check_supported raises for every multi-bit set of the universe (by
-    class) and for no other compute set; the message names ROADMAP item 8
-    and its title."""
+    """(Its name dates from before the multi-bit PBS was ported.) No set
+    of the universe raises any more: ``check_supported`` passes for every
+    multi-bit and every other compute set, and each distinct multi-bit
+    shape of the universe (grouping, k, l, base log) builds a server key at
+    TOY size (``PARAM_TEST_TOY_MULTI_BIT`` with that shape, n = 2g) whose
+    LUT round trip decrypts right (the plain K2 u64 -> K5)."""
     multi = [n for n, (k, _) in reg.RAW_PARAMS.items()
              if k == "MultiBitPBSParameters"]
     others = [n for n, (k, _) in reg.RAW_PARAMS.items()
               if k in ("ClassicPBSParameters", "KeySwitch32PBSParameters")]
-    assert multi and others
-    for name in multi + ["PARAM_TEST_TOY_MULTI_BIT"]:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 8: other PBS flavors"):
-            check_supported(params.PARAMS_BY_NAME[name])
-    for name in others:
+    assert len(multi) == 253 and others
+    for name in multi + ["PARAM_TEST_TOY_MULTI_BIT"] + others:
         check_supported(params.PARAMS_BY_NAME[name])
-    ck = ClientKey.generate(params.PARAM_TEST_TOY, seed=1, device="cpu")
-    ck.params = params.PARAM_TEST_TOY_MULTI_BIT
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServerKey.generate(ck)
+    shapes = sorted({(p.grouping_factor, p.glwe_dimension, p.pbs_level,
+                      p.pbs_base_log)
+                     for p in map(params.PARAMS_BY_NAME.__getitem__, multi)})
+    assert {s[0] for s in shapes} == {2, 3, 4}
+    vals = np.arange(16, dtype=np.uint64)
+    for g, k, levels, base_log in shapes:
+        p = dataclasses.replace(
+            params.PARAM_TEST_TOY_MULTI_BIT, grouping_factor=g,
+            lwe_dimension=2 * g, glwe_dimension=k, pbs_level=levels,
+            pbs_base_log=base_log, name="PARAM_TEST_TOY_MULTI_BIT")
+        ck = ClientKey.generate(p, seed=1, device="cpu")
+        sk = ServerKey.generate(ck)
+        assert tuple(sk.bsk_mb.shape) == (2, 2, sk.num_primes, (1 << g) - 1,
+                                          levels * (k + 1), k + 1, 256)
+        out = sk.apply_lookup_table(ck.encrypt(vals),
+                                    sk.generate_lookup_table(
+                                        lambda x: (x + 5) % 16))
+        np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
+                                      (vals + 5) % 16, err_msg=str(
+                                          (g, k, levels, base_log)))
+    bad = dataclasses.replace(params.PARAM_TEST_TOY_MULTI_BIT,
+                              lwe_dimension=15)
+    with pytest.raises(ValueError, match="divisible"):
+        check_supported(bad)
+
+
+def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu():
+    """On a CUDA device ``check_supported`` refuses, naming ROADMAP R7, the
+    multi-bit sets whose acc and digits exceed a Hopper block's shared
+    memory (the formula of K5's ``_smem`` export,
+    ``step_passes.step_smem_bytes`` at 8-byte acc): 140 of the 253, each at
+    N >= 8192 or at N = 4096 with l = 2. The other 113 pass, and every set
+    passes on the CPU. ``ServerKey.generate`` refuses before it draws a
+    key (its client key here holds no key material at all)."""
+    import types
+
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.ops import step_passes as sp
+
+    multi = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
+             if k == "MultiBitPBSParameters"]
+    refused = []
+    for p in multi:
+        check_supported(p, "cpu")
+        smem = sp.step_smem_bytes(4, p.glwe_size, p.pbs_level,
+                                  p.polynomial_size, 8)
+        if smem > pk._SMEM_LIMIT:
+            with pytest.raises(ValueError, match="R7"):
+                check_supported(p, "cuda")
+            refused.append((p.polynomial_size, p.pbs_level))
+        else:
+            check_supported(p, "cuda")
+    assert len(multi) - len(refused) == 113 and len(refused) == 140
+    assert all(N >= 8192 or (N, lv) == (4096, 2) for N, lv in refused)
+    big = next(p for p in multi if p.polynomial_size >= 8192)
+    fake = types.SimpleNamespace(params=big, device=torch.device("cuda"))
+    with pytest.raises(ValueError, match="cannot run on the GPU"):
+        ServerKey.generate(fake)
 
 
 def test_universe_name_carried_into_client_key():

@@ -98,7 +98,8 @@ def aes_lib():
 
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
 CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
-                "blind_rotate_goldilocks", "kernel_bench", "vpu_primitives",
+                "blind_rotate_goldilocks", "blind_rotate_multi_bit",
+                "kernel_bench", "vpu_primitives",
                 "ntt_variants", "v4_probe", "mxu_probe", "ntt_mxu")
 
 

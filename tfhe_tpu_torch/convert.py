@@ -17,13 +17,15 @@ from ._torus import from_u32, from_u64, to_u32, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
 from .integer import radix
 from .ops import ntt as ntt_mod
+from .ops import pbs_kernel as pk
 from .shortint import list_compression as lc
 from .shortint.client_key import ClientKey
 from .shortint.compact_public_key import CompactPrivateKey, CompactPublicKey
 from .shortint.compressed_server_key import CompressedServerKey
 from .shortint.key_switching_key import KeySwitchingKey, ksk_limbs
 from .shortint.public_key import PublicKey
-from .shortint.server_key import ServerKey, check_supported, resolve_variant
+from .shortint.server_key import (ServerKey, check_supported, grouping_of,
+                                  resolve_variant)
 from .shortint.wopbs import WopbsKey
 from .strings.ascii import FheAsciiString
 from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
@@ -60,10 +62,20 @@ def server_key_from_arrays(params_name: str, ksk_u64,
     before deriving its BNF2 key), then prepared for the resolved variant
     (under v5, ``bsk_g`` equals ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``);
     the CRT key itself is carried as given, the key of many-LUT and the
-    OPRF under v6/v6b and crt."""
+    OPRF under v6/v6b and crt. A multi-bit set's key arrives as
+    ``tfhe_tpu`` stores it, residues and duals u32[2, P, n/g, 2^g-1, l, R,
+    R, N], and is laid out for K5."""
     p = PARAMS_BY_NAME[params_name]
-    check_supported(p)
     dev = resolve_device(device)
+    check_supported(p, dev)
+    ms_zeros = None if ms_zeros_u64 is None else from_u64(ms_zeros_u64, dev)
+    if grouping_of(p):
+        res = np.asarray(bsk_scan_residues_u32, dtype=np.uint32)
+        if res.ndim != 8 or res.shape[:2] != (2, num_primes):
+            raise ValueError(f"multi-bit key {res.shape} does not hold "
+                             f"{num_primes} primes of residues + Shoup duals")
+        return ServerKey.from_multi_bit_residues(
+            p, from_u64(ksk_u64, dev), from_u32(res, dev), ms_zeros=ms_zeros)
     variant = resolve_variant(p.polynomial_size, p.pbs_base_log, p.pbs_level,
                               params=p)
     scan = np.asarray(bsk_scan_residues_u32, dtype=np.uint32)
@@ -77,7 +89,6 @@ def server_key_from_arrays(params_name: str, ksk_u64,
     res = res.movedim(1, 0)  # [P, n, l*R, R, N]
     plan = ntt_mod.get_plan(N, num_primes)
     std = plan.reconstruct_u64(plan.inv(res)).reshape(nlwe, levels, R, R, N)
-    ms_zeros = None if ms_zeros_u64 is None else from_u64(ms_zeros_u64, dev)
     return ServerKey.from_standard_keys(
         p, from_u64(ksk_u64, dev), std, variant, ms_zeros=ms_zeros,
         bsk_scan=None if variant == "v5" else crt_key)
@@ -85,13 +96,19 @@ def server_key_from_arrays(params_name: str, ksk_u64,
 
 def server_key_to_arrays(sk: ServerKey) -> tuple:
     """Inverse of :func:`server_key_from_arrays`: (params name, KSK u64,
-    CRT key in scan layout u32, its prime count, the encryptions of zero
-    u64 or None). A v5 key keeps no CRT key: it raises."""
+    CRT key in scan layout u32 (a multi-bit key: ``tfhe_tpu``'s residue
+    layout), its prime count, the encryptions of zero u64 or None). A v5
+    key keeps no CRT key: it raises."""
+    zeros = None if sk.ms_zeros is None else to_u64(sk.ms_zeros)
+    if sk.bsk_mb is not None:
+        res = pk.multi_bit_legacy_layout(sk.bsk_mb, sk.params.pbs_level)
+        return (sk.params.name, to_u64(sk.ksk), to_u32(res.contiguous()),
+                sk.num_primes, zeros)
     if sk.variant == "v5":
         raise ValueError("a v5 server key carries no CRT key")
     scan = sk.crt_key()
     return (sk.params.name, to_u64(sk.ksk), to_u32(scan), scan.shape[2],
-            None if sk.ms_zeros is None else to_u64(sk.ms_zeros))
+            zeros)
 
 
 def boolean_client_key_from_arrays(params_name: str, glwe_sk_bits,

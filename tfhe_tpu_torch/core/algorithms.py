@@ -3,8 +3,8 @@ the u32 torus), trivial LWEs, GLWE and GGSW encryption, GLWE decryption,
 keyswitch (u64 and KS32) and bootstrap key generation, and the bootstrap
 key's exact CRT transform.
 
-Torch counterpart of ``tfhe_tpu/core/algorithms.py`` without the
-multi-bit key (ROADMAP Queue A item 8). Random draws come from the host CSPRNG
+Torch counterpart of ``tfhe_tpu/core/algorithms.py``, the multi-bit
+bootstrap key included. Random draws come from the host CSPRNG
 (``utils/csprng.py``) in the JAX package's documented order, so the same
 seed gives byte-equal keys and ciphertexts; the arithmetic (dot products,
 the negacyclic key products through the port's NTT) runs on the device of
@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._torus import from_u64, i64_to_u32
+from .._torus import from_u64
 from ..ops import ntt as ntt_mod
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..utils.params import DynamicDistribution
@@ -260,6 +260,37 @@ def gen_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,
                            base_log, levels)
 
 
+def gen_multi_bit_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,
+                                base_log: int, levels: int, grouping: int,
+                                noise: DynamicDistribution,
+                                gen: EncryptionRandomGenerator
+                                ) -> LweBootstrapKey:
+    """Multi-bit BSK (``lwe_multi_bit_programmable_bootstrapping`` keygen):
+    for each group of ``grouping`` small-key bits, GGSW encryptions of
+    every nonempty subset product prod_{j in v} s_j, subset index v = 1 ..
+    2^g - 1 a bitmask over the group; all rows in one batched draw, as
+    ``tfhe_tpu`` draws them. Returns data int64[n/g, 2^g-1, l, k+1, k+1,
+    N]."""
+    n = in_sk.dim
+    if n % grouping:
+        raise ValueError(f"lwe_dimension {n} is not divisible by the "
+                         f"grouping {grouping}")
+    ngroups, nsub = n // grouping, (1 << grouping) - 1
+    k, N = glwe_sk.bits.shape
+    bits = in_sk.bits.to(glwe_sk.bits.device).reshape(ngroups, grouping)
+    subsets = torch.tensor(
+        [[(v >> j) & 1 for j in range(grouping)] for v in range(1, nsub + 1)],
+        dtype=torch.bool, device=bits.device)  # [2^g-1, g]
+    # prod over the subset's bits: 1 where every chosen bit is 1
+    clear = torch.where(subsets[None], bits[:, None, :],
+                        torch.ones_like(bits[:, None, :])).prod(dim=-1)
+    msgs = _ggsw_messages(glwe_sk, clear.reshape(-1), base_log, levels)
+    rows = glwe_encrypt(glwe_sk, msgs.reshape(-1, N), noise, gen)
+    return LweBootstrapKey(
+        rows.reshape(ngroups, nsub, levels, k + 1, k + 1, N), base_log,
+        levels)
+
+
 def bootstrap_key_to_ntt(bsk: LweBootstrapKey,
                          num_primes: int) -> NttLweBootstrapKey:
     """Forward-transform every BSK polynomial over the first ``num_primes``
@@ -269,10 +300,6 @@ def bootstrap_key_to_ntt(bsk: LweBootstrapKey,
     at keygen only (res < 2^30, so res << 32 stays below 2^62)."""
     N = bsk.data.shape[-1]
     plan = ntt_mod.get_plan(N, num_primes)
-    res = plan.fwd(bsk.data)  # [P, n, l, k+1, k+1, N]
-    p = plan.tables(res.device)["p"].reshape(
-        (num_primes,) + (1,) * (res.ndim - 1))
-    shoup = torch.div(res << 32, p, rounding_mode="floor")
     return NttLweBootstrapKey(
-        residues=i64_to_u32(torch.stack([res, shoup])).contiguous(),
+        residues=ntt_mod.with_shoup_duals(plan.fwd(bsk.data), plan),
         base_log=bsk.base_log, levels=bsk.levels, num_primes=num_primes)

@@ -141,6 +141,20 @@ SASS_OPS = {
         "element": (14, 3, 2), "level": (34, 12, 1),
         "fwd_butterfly": (39, 14, 0), "mac": (32, 17.5, 0),
         "inv_butterfly": (39, 18.5, 0), "untwist_tail": (23, 14.5, 0)},
+    # K5 (the multi-bit group step at P = 4): K3 P=4's row for the work it
+    # shares (the digit state and lift, the transforms, the Shoup MAC term,
+    # the untwist and Garner tail; K5's lift has no rotation, so "element"
+    # is a floor from above by a few instructions), and K5's own Barrett
+    # product with its add_mod, read from its MAC pass loop (per product:
+    # 4 IMAD.WIDE.U32, IMAD, IMAD.X, IMAD.IADD, IMAD.MOV; 2 IADD3, 2 SEL,
+    # 2 ISETP, a VIADD): "combine" per coef_v x row sum (P*R*N*(2^g-1) a
+    # step), "coef" per product building the 2^g-1 coefficients
+    # (P*N*(2^g-1-g))
+    "blind_rotate_multi_bit/4": {
+        "element": (20, 5, 2), "level": (20, 23, 1),
+        "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
+        "inv_butterfly": (7, 7.5, 0), "untwist_tail": (32, 50.5, 1),
+        "combine": (7, 10, 1), "coef": (7, 10, 1)},
     # the micro-kernels, per unit of their loop
     "kb_ntt_fwd": {"twist": (2, 4.5, 0), "fwd_butterfly": (5, 6.5, 0)},
     "kb_ntt_inv": {"inv_butterfly": (7, 7.5, 0), "twist": (2, 4.5, 0)},
@@ -177,6 +191,14 @@ SASS_LOOP_TOTALS = {
     "kb_step_crt_r2": ("kernel_bench", "10GarnerTailILi4EEELb1E", (119, 110)),
     "blind_rotate_goldilocks": ("blind_rotate_goldilocks",
                                 "blind_rotate_goldilocks_kernel", (582, 221)),
+    # K5 at P = 4, each grouping's instantiation (its SASS_OPS row is
+    # shared)
+    "blind_rotate_multi_bit/4/g2": ("blind_rotate_multi_bit",
+                                    "multi_bit_kernelILi4ELi2E", (3178, 3375)),
+    "blind_rotate_multi_bit/4/g3": ("blind_rotate_multi_bit",
+                                    "multi_bit_kernelILi4ELi3E", (3450, 3649)),
+    "blind_rotate_multi_bit/4/g4": ("blind_rotate_multi_bit",
+                                    "multi_bit_kernelILi4ELi4E", (3940, 4172)),
     "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
     "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1E", (9, 11)),
     "kb_mac": ("kernel_bench", "kb_mac_kernel", (35, 28)),
@@ -254,6 +276,24 @@ def step_pipe_instructions(kernel: str, B: int, n: int, R: int,
         "element": R * N, "level": lR * N,
         "fwd_butterfly": P * lR * half_log, "mac": P * R * lR * N,
         "inv_butterfly": P * R * half_log, "untwist_tail": R * N})
+
+
+def multi_bit_pipe_instructions(B: int, n_groups: int, grouping: int,
+                                R: int, levels: int, N: int,
+                                P: int) -> float:
+    """Busier-pipe instructions of ``B`` ciphertexts times ``n_groups``
+    group steps of K5 (``blind_rotate_multi_bit``) at :data:`SASS_OPS`:
+    per step and ciphertext R*N elements, l*R*N levels, P*l*R forward and
+    P*R inverse transforms, P*(2^g-1)*R*l*R*N Shoup MAC terms,
+    P*(2^g-1)*R*N products by the coefficients and P*(2^g-1-g)*N products
+    building them, R*N untwists with the tail."""
+    nsub = (1 << grouping) - 1
+    lR, half_log = levels * R, (N // 2) * (N.bit_length() - 1)
+    return float(B) * n_groups * _pipes(f"blind_rotate_multi_bit/{P}", {
+        "element": R * N, "level": lR * N,
+        "fwd_butterfly": P * lR * half_log, "inv_butterfly": P * R * half_log,
+        "mac": P * nsub * R * lR * N, "combine": P * nsub * R * N,
+        "coef": P * (nsub - grouping) * N, "untwist_tail": R * N})
 
 
 def micro_pipe_instructions(name: str, rows: int, N: int,

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from .._torus import srl, u64_const, urem
+from .._torus import M32, i64_to_u32, srl, u64_const, urem
 
 # tfhe-ntt native64::Plan32 primes (tfhe-ntt/src/lib.rs:457-461), extended
 # with six more c*2^16 + 1 primes, in the same order as tfhe_tpu.
@@ -313,3 +313,15 @@ class NegacyclicNtt:
 @functools.lru_cache(maxsize=None)
 def get_plan(n: int, num_primes: int, primes: tuple = None) -> NegacyclicNtt:
     return NegacyclicNtt(n, num_primes, primes=primes)
+
+
+def with_shoup_duals(res: torch.Tensor, plan: NegacyclicNtt) -> torch.Tensor:
+    """Residues u32 [P, ...] over ``plan``'s primes (any integer dtype) ->
+    int32 (u32) [2, P, ...]: the residues and their Shoup duals
+    floor(res * 2^32 / p), one int64 division an entry (res < 2^30, so
+    res << 32 stays below 2^62)."""
+    res = res.to(torch.int64) & M32
+    p = plan.tables(res.device)["p"].reshape(
+        (plan.num_primes,) + (1,) * (res.ndim - 1))
+    shoup = torch.div(res << 32, p, rounding_mode="floor")
+    return i64_to_u32(torch.stack([res, shoup])).contiguous()

@@ -1,8 +1,9 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Seven wrappers, each replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``:
+Eight wrappers, seven replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py`` and one the XLA
+multi-bit rotation of ``tfhe_tpu/ops/server.py``:
 
 - K2 ``body_rotate_acc32`` and ``body_rotate_u64`` (``csrc/body_rotate.cu``)
   replace ``_build_body_rot_fn_v4`` in its two modes: lut * X^{-body} on
@@ -23,6 +24,10 @@ Seven wrappers, each replacing a Pallas kernel of
 - K4 ``blind_rotate_goldilocks`` (``csrc/blind_rotate_goldilocks.cu``)
   replaces ``pbs_kernel_g.py::_build_step_fn_g`` (the v5 step over the
   Goldilocks prime): all n CMUX steps on the u64 accumulator in one launch.
+- K5 ``blind_rotate_multi_bit`` (``csrc/blind_rotate_multi_bit.cu``)
+  replaces ``tfhe_tpu/ops/server.py::multi_bit_blind_rotate`` (XLA, no
+  ``pallas_call``): all n/g group steps of the multi-bit blind rotation on
+  the u64 accumulator in one launch.
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -242,6 +247,7 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
 #: the library of each step-kernel entry other than K3's
 _STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
               "blind_rotate_goldilocks": "blind_rotate_goldilocks",
+              "blind_rotate_multi_bit": "blind_rotate_multi_bit",
               "kb_step_bnf2_acc32_r2": "kernel_bench",
               "kb_step_crt_r2": "kernel_bench"}
 
@@ -256,7 +262,8 @@ def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     """Dynamic shared memory of one block of the blind-rotation kernel
     ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
     ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64``,
-    ``blind_rotate_goldilocks`` at P = 1, or the kernel bench's references
+    ``blind_rotate_goldilocks`` at P = 1, ``blind_rotate_multi_bit``, or
+    the kernel bench's references
     ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
     for a prime count the entry does not take. Needs the built library."""
@@ -270,15 +277,18 @@ def step_occupancy(entry: str, P: int, R: int, levels: int, N: int) -> dict:
     at the entry's shared memory), registers and local (spill) bytes per
     thread of K1 or K3 entry ``entry`` at P primes (its ``<entry>_occupancy``
     export). Needs the built library and a GPU."""
-    fn = getattr(_step_lib(entry), f"{entry}_occupancy")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    return _occupancy(getattr(_step_lib(entry), f"{entry}_occupancy"),
+                      entry, P, R, levels, N.bit_length() - 1)
+
+
+def _occupancy(fn, entry: str, *shape: int) -> dict:
+    fn.argtypes = ([ctypes.c_int] * len(shape)
+                   + [ctypes.POINTER(ctypes.c_int)] * 2)
     fn.restype = ctypes.c_int
     regs, local = ctypes.c_int(), ctypes.c_int()
-    blocks = fn(P, R, levels, N.bit_length() - 1, ctypes.byref(regs),
-                ctypes.byref(local))
+    blocks = fn(*shape, ctypes.byref(regs), ctypes.byref(local))
     if blocks <= 0:
-        raise RuntimeError(f"{entry}_occupancy: {blocks} (P={P}, R={R}, "
-                           f"levels={levels}, N={N})")
+        raise RuntimeError(f"{entry}_occupancy: {blocks} at {shape}")
     return {"blocks_per_sm": blocks, "registers": regs.value,
             "local_bytes": local.value}
 
@@ -643,7 +653,204 @@ def blind_rotate_goldilocks(acc: torch.Tensor, msed_mask: torch.Tensor,
 blind_rotate_goldilocks.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K5: the n/g group steps of the multi-bit blind rotation
+# ---------------------------------------------------------------------------
+
+MAX_MB_LEVELS = 8  # G1's constant table holds 8 levels a prime
+#: K5's instantiations: its prime count (that of every multi-bit set of the
+#: universe) and groupings
+MB_PRIMES = 4
+MB_GROUPINGS = (2, 3, 4)
+
+
+def multi_bit_key_layout(residues: torch.Tensor) -> torch.Tensor:
+    """The multi-bit key as K5 reads it: ``tfhe_tpu``'s stored residues and
+    Shoup duals [2, P, n/g, 2^g-1, l, R, R, N] -> int32 [n/g, 2, P, 2^g-1,
+    l*R, R, N] (contiguous: one group step's key in one run)."""
+    two, P, ng, nsub, l, R, R2, N = residues.shape
+    return residues.movedim(2, 0).reshape(ng, two, P, nsub, l * R, R2,
+                                          N).contiguous()
+
+
+def multi_bit_legacy_layout(mbk: torch.Tensor, levels: int) -> torch.Tensor:
+    """Inverse of :func:`multi_bit_key_layout` (a view)."""
+    ng, two, P, nsub, lR, R, N = mbk.shape
+    return mbk.reshape(ng, two, P, nsub, levels, lR // levels, R,
+                       N).movedim(0, 2)
+
+
+def multi_bit_grouping(mbk: torch.Tensor) -> int:
+    """g of a key in K5's layout (its 2^g - 1 subsets)."""
+    return (mbk.shape[3] + 1).bit_length() - 1
+
+
+def multi_bit_occupancy(R: int, levels: int, N: int, grouping: int) -> dict:
+    """:func:`step_occupancy` of K5 at its prime count and ``grouping``
+    (its ``blind_rotate_multi_bit_occupancy`` export)."""
+    return _occupancy(_step_lib("blind_rotate_multi_bit")
+                      .blind_rotate_multi_bit_occupancy,
+                      "blind_rotate_multi_bit", MB_PRIMES, R, levels,
+                      N.bit_length() - 1, grouping)
+
+
+def multi_bit_refusal(P: int, grouping: int, R: int, levels: int,
+                      base_log: int, N: int):
+    """Why K5 cannot run a multi-bit shape, or None: its instantiations
+    (P = MB_PRIMES, g in MB_GROUPINGS), G1's table (levels <=
+    MAX_MB_LEVELS), the decomposition of the hi word (base_log * levels <=
+    31), and the shared memory of a block, acc u64[R, N] and digits
+    u32[l R, P, N] as its ``_smem`` export counts them. Needs no built
+    library."""
+    smem = R * N * 8 + 4 * P * levels * R * N
+    if P != MB_PRIMES or grouping not in MB_GROUPINGS:
+        return (f"K5 is instantiated at P = {MB_PRIMES}, g in "
+                f"{MB_GROUPINGS}, not P = {P}, g = {grouping}")
+    if levels > MAX_MB_LEVELS or base_log * levels > 31:
+        return (f"K5 takes levels <= {MAX_MB_LEVELS} and base_log * levels "
+                f"<= 31, not {levels} x {base_log}")
+    if smem > _SMEM_LIMIT:
+        return (f"K5 needs {smem} B of shared memory a block at N = {N}, "
+                f"R = {R}, l = {levels}, above the card's {_SMEM_LIMIT}")
+    return None
+
+
+def blind_rotate_multi_bit_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
+                                 mbk: torch.Tensor, base_log: int,
+                                 levels: int) -> torch.Tensor:
+    """The n/g group steps of the multi-bit blind rotation on the u64
+    accumulator after its body rotation (spec of K5:
+    ``server.multi_bit_group_steps``). ``acc``: int64[B, R, N];
+    ``msed_mask``: [B, n] in [0, 2N); ``mbk``: int32[n/g, 2, P, 2^g-1,
+    l*R, R, N] (:func:`multi_bit_key_layout`). Returns int64[B, R, N]."""
+    from . import server  # server imports this module
+
+    P, N = mbk.shape[2], mbk.shape[-1]
+    res = multi_bit_legacy_layout(mbk, levels)[0]
+    return server.multi_bit_group_steps(acc, msed_mask, res, base_log, levels,
+                                        multi_bit_grouping(mbk),
+                                        ntt_mod.get_plan(N, P))
+
+
+def multi_bit_exponents(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
+    """e_t, int32[N]: the transform's point t of every prime evaluates at
+    psi^{e_t} (e_t = 2 bitrev(t) + 1, the DIF order), checked against the
+    plan's own transform of X: NTT(X^a - 1)[t] = psi^{e_t a} - 1."""
+    n, log_n = plan.n, plan.log_n
+    t = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(log_n):
+        rev |= ((t >> b) & 1) << (log_n - 1 - b)
+    e = 2 * rev + 1
+    x = torch.zeros(n, dtype=torch.int64)
+    x[1] = 1
+    got = plan.fwd_digits(x).numpy()
+    for pi, p in enumerate(plan.primes):
+        psi = int(plan.twist[pi][1])
+        want = [pow(psi, int(k), p) for k in e]
+        if not np.array_equal(got[pi], np.array(want, dtype=np.int64)):
+            raise AssertionError(f"the transform's points at p={p} are not "
+                                 "psi^(2 bitrev(t) + 1)")
+    return e.astype(np.int32)
+
+
+def multi_bit_constants(plan: ntt_mod.NegacyclicNtt, base_log: int,
+                        levels: int, R: int):
+    """K5's MAC constants: G1's gadget entries u32[5, 8] (prime, level) and
+    their Shoup duals, from ``server._trivial_ggsw_one_hat``, whose only
+    non-zero entries are diagonal and equal at every point (checked), and
+    each prime's Barrett constant floor(2^64 / p), u64[5]."""
+    from . import server  # server imports this module
+
+    if levels > MAX_MB_LEVELS:
+        raise ValueError(f"levels={levels}: K5 holds {MAX_MB_LEVELS}")
+    triv = server._trivial_ggsw_one_hat(plan.n, plan.num_primes, base_log,
+                                        levels, R)  # [P, l, R, R, N]
+    diag = triv[:, :, 0, 0, 0]  # [P, l]
+    off = triv.copy()
+    for r in range(R):
+        if not (triv[:, :, r, r] == diag[..., None]).all():
+            raise AssertionError("G1's diagonal is not one constant")
+        off[:, :, r, r] = 0
+    if off.any():
+        raise AssertionError("G1 is not diagonal")
+    g1 = np.zeros((MAX_CRT_PRIMES, MAX_MB_LEVELS), dtype=np.uint64)
+    g1_sh = np.zeros_like(g1)
+    mu = np.zeros(MAX_CRT_PRIMES, dtype=np.uint64)
+    for pi, p in enumerate(plan.primes):
+        mu[pi] = (1 << 64) // p
+        for lev in range(levels):
+            g1[pi, lev] = diag[pi, lev]
+            g1_sh[pi, lev] = (int(g1[pi, lev]) << 32) // p
+    return g1.astype(np.uint32), g1_sh.astype(np.uint32), mu
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_lib():
+    from .._build import cuda_lib
+
+    lib = cuda_lib("blind_rotate_multi_bit")
+    i, v = ctypes.c_int, ctypes.c_void_p
+    lib.blind_rotate_multi_bit.argtypes = [
+        v, v, v, v, v, v, i, i, i, i, i, i, i, i, v, ctypes.c_ulonglong, v, v,
+        v, v]
+    lib.blind_rotate_multi_bit.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_host(plan: ntt_mod.NegacyclicNtt, base_log: int, levels: int,
+             R: int, device: str):
+    """K5's constants: the exponents on ``device``, G1 and the Barrett
+    constants as ctypes arrays (host memory)."""
+    g1, g1_sh, mu = multi_bit_constants(plan, base_log, levels, R)
+    u32 = lambda a: (ctypes.c_uint * a.size)(*[int(x) for x in a.ravel()])
+    exps = torch.from_numpy(multi_bit_exponents(plan)).to(device)
+    return (exps, u32(g1), u32(g1_sh),
+            (ctypes.c_ulonglong * mu.size)(*[int(x) for x in mu]))
+
+
+def blind_rotate_multi_bit(acc: torch.Tensor, msed_mask: torch.Tensor,
+                           mbk: torch.Tensor, base_log: int,
+                           levels: int) -> torch.Tensor:
+    """K5 wrapper: see :func:`blind_rotate_multi_bit_plain`."""
+    if acc.device.type == "cpu":
+        return blind_rotate_multi_bit_plain(acc, msed_mask, mbk, base_log,
+                                            levels)
+    P = mbk.shape[2] if mbk.ndim == 7 else 0
+    if P != MB_PRIMES:
+        raise ValueError(f"mbk {tuple(mbk.shape)}: the kernel takes "
+                         f"{MB_PRIMES} primes")
+    g = multi_bit_grouping(mbk)
+    if g not in MB_GROUPINGS:
+        raise ValueError(f"mbk {tuple(mbk.shape)}: the kernel takes "
+                         f"groupings {MB_GROUPINGS}")
+    (B, n, R, N), a32 = _acc_mask_shapes(
+        "blind_rotate_multi_bit", acc, msed_mask, mbk.shape[0] * g, P,
+        base_log, levels, torch.int64)
+    _check(mbk, "mbk", torch.int32, 7, acc.device)
+    if tuple(mbk.shape[1:]) != (2, P, (1 << g) - 1, levels * R, R, N):
+        raise ValueError(f"mbk shape {tuple(mbk.shape)} does not match "
+                         f"P={P}, g={g}, R={R}, levels={levels}, N={N}")
+    dev = acc.device
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    exps, g1, g1_sh, mu = _k5_host(plan, base_log, levels, R, str(dev))
+    out = torch.empty_like(acc)
+    rc = _k5_lib().blind_rotate_multi_bit(
+        _ptr(acc), _ptr(a32), _ptr(mbk), _ptr(tables), _ptr(exps), _ptr(out),
+        B, mbk.shape[0], g, R, levels, base_log, N.bit_length() - 1, P,
+        _garner_host(plan), plan.full_prod_mod64, g1, g1_sh, mu,
+        _stream(dev))
+    _raise_on(rc, "blind_rotate_multi_bit")
+    blind_rotate_multi_bit.launches += 1
+    return out
+
+
+blind_rotate_multi_bit.launches = 0
+
+
 #: every kernel wrapper of this module, each with its ``launches`` count
 KERNELS = (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
            blind_rotate_crt, blind_rotate_crt_acc32, blind_rotate_bnf2_u64,
-           blind_rotate_goldilocks)
+           blind_rotate_goldilocks, blind_rotate_multi_bit)

@@ -1,7 +1,6 @@
 """Server-side operations of the atomic patterns, in torch.
 
-Torch counterpart of ``tfhe_tpu/ops/server.py`` without the multi-bit PBS
-(ROADMAP Queue A item 8):
+Torch counterpart of ``tfhe_tpu/ops/server.py``:
 
 - keyswitch: ``core_crypto/algorithms/lwe_keyswitch.rs:137-230``, computed
   as ONE int8 GEMM of the gadget digits against the KSK in signed base-256
@@ -22,7 +21,11 @@ Torch counterpart of ``tfhe_tpu/ops/server.py`` without the multi-bit PBS
   (``ops/pbs_kernel.py``): the exact CRT PBS (K2 u64, K3; under
   ``TFHE_V4_ACC=32`` K2 acc32, K3-acc32), the v6/v6b BNF PBS (K2, K1 in
   acc32 mode; K2 u64, K3-bnf2 in two-plane mode) and the v5 Goldilocks PBS
-  (K2 u64, K4).
+  (K2 u64, K4);
+- the multi-bit PBS (``lwe_multi_bit_programmable_bootstrapping.rs``): the
+  torch spec of ``tfhe_tpu``'s ``multi_bit_blind_rotate`` (n/g external
+  products against GGSWs combined in the transform domain), and the path
+  that runs its kernels (K2 u64, K5).
 
 Tensors are int64 torus values (see ``_torus.py``), batched over leading
 dims; u32 torus values (KS32) ride in int64, reduced to 32 bits after every
@@ -31,12 +34,13 @@ wrap.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from .._torus import srl, u32_to_i64
+from .._torus import M32, srl, u32_to_i64
 from . import bnf2 as bnf2_mod
 from . import ntt as ntt_mod
 from . import pbs_kernel as pk
@@ -617,5 +621,173 @@ def programmable_bootstrap_goldilocks(
         ct_in, lut, bsk_g.shape[4] * 128, centered_ms, input_torus_bits)
     acc = goldilocks_rotation(lut, ms_mask, ms_body, bsk_g, base_log, levels,
                               bsk_k)
+    out = sample_extract(acc, extract_nth)
+    return out.reshape(batch + (out.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# multi-bit PBS -- reference lwe_multi_bit_programmable_bootstrapping.rs
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _trivial_ggsw_one_hat(n: int, num_primes: int, base_log: int,
+                          levels: int, R: int) -> np.ndarray:
+    """Transform-domain trivial GGSW of the cleartext 1: the diagonal
+    gadget entries q/B^(levels-j) in coefficient 0 (GGSW = m*G with no
+    encryption), twisted and forward-transformed with object ints, as
+    ``tfhe_tpu``'s ``_trivial_ggsw_one_hat``. numpy u64[P, l, R, R, N]."""
+    plan = ntt_mod.get_plan(n, num_primes)
+    data = np.zeros((levels, R, R, n), dtype=np.uint64)
+    for j in range(levels):
+        shift = 64 - base_log * (levels - j)
+        for r in range(R):
+            data[j, r, r, 0] = np.uint64(1) << np.uint64(shift)
+    out = np.zeros((plan.num_primes,) + data.shape, dtype=np.uint64)
+    for pi, p in enumerate(plan.primes):
+        r = (data % np.uint64(p)).astype(object)
+        r = (r * plan.twist[pi].astype(object)) % p  # twist
+        x = r.astype(np.uint64)
+        nloc = n
+        for s in range(plan.log_n):
+            m = nloc >> s
+            h = m >> 1
+            xr = x.reshape(data.shape[:-1] + (nloc // m, 2, h))
+            a = xr[..., 0, :].astype(object)
+            b = xr[..., 1, :].astype(object)
+            u = (a + b) % p
+            v = ((a - b) * plan.tw_fwd[s][pi].astype(object)) % p
+            x = np.stack([u, v], axis=-2).reshape(data.shape).astype(
+                np.uint64)
+        out[pi] = x
+    return out
+
+
+def multi_bit_group_steps(acc: torch.Tensor, msed_mask: torch.Tensor,
+                          mbk_hat: torch.Tensor, base_log: int, levels: int,
+                          grouping: int,
+                          plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """The n/g group steps of :func:`multi_bit_blind_rotate` on an
+    accumulator whose body rotation is applied (the spec of K5). Step t
+    builds the combined GGSW
+
+        G1 + sum_{v=1}^{2^g-1} prod_{j in v} NTT(X^{a_{tg+j}} - 1)
+             (.) GGSW_{t,v}
+
+    (G1 the trivial GGSW of 1, :func:`_trivial_ggsw_one_hat`), and the new
+    accumulator is its external product with the old one, which it
+    replaces: Garner(INTT(sum_r NTT(decompose(acc))_r (.) combined_r)).
+
+    ``acc``: int64[..., R, N]; ``msed_mask``: [..., n] in [0, 2N) (n/g
+    groups of g); ``mbk_hat``: residues [P, n/g, 2^g-1, l, R, R, N] in any
+    integer dtype (u32 values, no Shoup duals)."""
+    ngroups = mbk_hat.shape[1]
+    R, N = acc.shape[-2:]
+    batch = acc.shape[:-2]
+    P = plan.num_primes
+    dev = acc.device
+    mask = msed_mask.to(torch.int64)
+    triv = torch.from_numpy(_trivial_ggsw_one_hat(
+        N, P, base_log, levels, R).view(np.int64)).to(dev)
+    triv = triv.reshape((P,) + (1,) * len(batch) + triv.shape[1:])
+    p = plan.tables(dev)["p"]
+    p_full = p.reshape((P,) + (1,) * (len(batch) + 4))  # [P, .., l, R, C, N]
+    p_b = p.reshape((P,) + (1,) * (len(batch) + 1))  # [P, .., N]
+    delta = torch.zeros(batch + (N,), dtype=torch.int64, device=dev)
+    delta[..., 0] = 1
+    for t in range(ngroups):
+        nh = [plan.fwd_digits(monomial_mul(delta, mask[..., t * grouping + j])
+                              - delta)
+              for j in range(grouping)]  # [P, .., N] each
+        combined = triv.expand((P,) + batch + (levels, R, R, N))
+        for v in range(1, 1 << grouping):
+            coef = None
+            for j in range(grouping):
+                if (v >> j) & 1:
+                    coef = nh[j] if coef is None else (coef * nh[j]) % p_b
+            gv = (mbk_hat[:, t, v - 1].to(torch.int64) & M32).reshape(
+                (P,) + (1,) * len(batch) + (levels, R, R, N))
+            combined = combined + (coef[..., None, None, None, :] * gv) \
+                % p_full
+        combined = combined % p_full
+        digits = decompose(acc, base_log, levels).movedim(-1, -3)
+        dhat = plan.fwd_digits(digits)  # [P, .., l, R, N]
+        prod = (dhat[..., None, :] * combined) % p_full
+        acc_hat = prod.sum(dim=(-4, -3)) % p_full[..., 0, 0]
+        acc = plan.reconstruct_u64(plan.inv(acc_hat))
+    return acc
+
+
+def _multi_bit_kernel_key(mbk_hat: torch.Tensor, grouping: int,
+                          plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """``tfhe_tpu``'s multi-bit key argument, residues [P, n/g, 2^g-1, l,
+    R, R, N] without duals, as K5 reads it (duals added, its layout)."""
+    if mbk_hat.shape[2] != (1 << grouping) - 1:
+        raise ValueError(f"mbk_hat {tuple(mbk_hat.shape)} does not hold the "
+                         f"2^{grouping} - 1 subsets of grouping {grouping}")
+    return pk.multi_bit_key_layout(ntt_mod.with_shoup_duals(mbk_hat, plan))
+
+
+def multi_bit_blind_rotate(lut: torch.Tensor, msed_mask: torch.Tensor,
+                           msed_body: torch.Tensor, mbk_hat: torch.Tensor,
+                           base_log: int, levels: int, grouping: int,
+                           plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """Multi-bit blind rotation with ``tfhe_tpu``'s signature
+    (``multi_bit_blind_rotate``, ``std_prepare_multi_bit_ggsw``): the
+    accumulator starts as ``monomial_div(lut, body)``, then the group
+    steps of :func:`multi_bit_group_steps`; run as
+    :func:`multi_bit_rotation` on the key laid out for K5. ``lut``:
+    int64[..., R, N]; ``msed_mask``: [..., n]; ``msed_body``: [...];
+    ``mbk_hat``: residues [P, n/g, 2^g-1, l, R, R, N]."""
+    batch = msed_body.shape
+    R, N = lut.shape[-2:]
+    lut = lut.expand(batch + (R, N)).reshape(-1, R, N)
+    out = multi_bit_rotation(
+        lut, msed_mask.reshape(-1, msed_mask.shape[-1]),
+        msed_body.reshape(-1), _multi_bit_kernel_key(mbk_hat, grouping, plan),
+        base_log, levels)
+    return out.reshape(batch + (R, N))
+
+
+def multi_bit_programmable_bootstrap(ct_in: torch.Tensor, lut: torch.Tensor,
+                                     mbk_hat: torch.Tensor, base_log: int,
+                                     levels: int, grouping: int,
+                                     plan: ntt_mod.NegacyclicNtt,
+                                     extract_nth: int = 0) -> torch.Tensor:
+    """Multi-bit PBS with ``tfhe_tpu``'s signature
+    (``multi_bit_programmable_bootstrap``): the standard modulus switch
+    (never the centered one), the rotation, sample extraction; run as
+    :func:`programmable_bootstrap_multi_bit` on the key laid out for K5."""
+    return programmable_bootstrap_multi_bit(
+        ct_in, lut, _multi_bit_kernel_key(mbk_hat, grouping, plan), base_log,
+        levels, extract_nth)
+
+
+def multi_bit_rotation(lut: torch.Tensor, ms_mask: torch.Tensor,
+                       ms_body: torch.Tensor, mbk: torch.Tensor,
+                       base_log: int, levels: int) -> torch.Tensor:
+    """Multi-bit blind rotation on its kernels, the rotated GLWE
+    int64[B, R, N]: K2 body rotation (u64) -> K5. ``mbk``: the key in K5's
+    layout int32 [n/g, 2, P, 2^g-1, l*R, R, N]
+    (``pbs_kernel.multi_bit_key_layout``). CUDA tensors run the kernels,
+    CPU tensors their plain versions."""
+    acc = pk.body_rotate_u64(lut, ms_body)
+    return pk.blind_rotate_multi_bit(acc, ms_mask, mbk, base_log, levels)
+
+
+def programmable_bootstrap_multi_bit(
+    ct_in: torch.Tensor,
+    lut: torch.Tensor,
+    mbk: torch.Tensor,
+    base_log: int,
+    levels: int,
+    extract_nth: int = 0,
+    input_torus_bits: int = 64,
+) -> torch.Tensor:
+    """Multi-bit PBS on the kernels: the standard modulus switch ->
+    :func:`multi_bit_rotation` -> sample extraction. Returns
+    int64[..., k*N + 1]."""
+    batch, ms_mask, ms_body, lut = _switch_and_flatten(
+        ct_in, lut, mbk.shape[-1], False, input_torus_bits)
+    acc = multi_bit_rotation(lut, ms_mask, ms_body, mbk, base_log, levels)
     out = sample_extract(acc, extract_nth)
     return out.reshape(batch + (out.shape[-1],))

@@ -10,10 +10,11 @@ recorded coordinates are the keygen mask stream's (key, byte offset) at
 the start of each key's draws, so :meth:`CompressedServerKey.decompress`
 builds a server key byte-equal to ``ServerKey.generate`` of the same client
 key for the variant in use (v6b: the BNF2 key, the standard-domain BSK, the
-KSK and its int8 limbs).
+KSK and its int8 limbs; a multi-bit set: its key of subset-product GGSWs in
+K5's layout).
 
-Classic KS64 keys only, as in ``tfhe_tpu``: a multi-bit set raises
-(ROADMAP Queue A item 8), and so does serialization (item 9).
+KS64 keys only, as in ``tfhe_tpu``, classic or multi-bit; serialization
+raises (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -29,21 +30,24 @@ from .._torus import from_u64
 from ..core import algorithms as algo
 from ..utils.csprng import AesCtrGenerator
 from .client_key import ClientKey
-from .server_key import (ServerKey, check_supported, drift_params, is_ks32,
-                         resolve_variant)
+from .server_key import (ServerKey, check_supported, drift_params,
+                         grouping_of, is_ks32, resolve_variant)
 
 
 def _check_classic(p) -> None:
     check_supported(p)
     if is_ks32(p) or drift_params(p) is not None:
         raise ValueError(f"{p.name}: the compressed server key carries the "
-                         "classic KS64 key only, as tfhe_tpu's does")
+                         "classic KS64 key (or a multi-bit one) only, as "
+                         "tfhe_tpu's does")
 
 
 @dataclass
 class CompressedServerKey:
     params: Any
-    bsk_bodies: torch.Tensor  # int64[n, l, k+1, N]: each GGSW row's body
+    #: int64[n, l, k+1, N] (multi-bit: [n/g, 2^g-1, l, k+1, N]): each GGSW
+    #: row's body
+    bsk_bodies: torch.Tensor
     ksk_bodies: torch.Tensor  # int64[n_big, l_ks]: each KSK LWE's body
     mask_seed: int  # the keygen mask stream's AES key
     bsk_mask_start: int  # stream byte offset of the first BSK mask draw
@@ -52,17 +56,24 @@ class CompressedServerKey:
 
     @classmethod
     def generate(cls, client_key: ClientKey) -> "CompressedServerKey":
-        """The draws of :meth:`ServerKey.generate` (the BSK with glwe
-        noise, then the KSK with lwe noise), recording where each key's
-        masks start and keeping only the bodies."""
+        """The draws of :meth:`ServerKey.generate` (the BSK, or a
+        multi-bit set's GGSWs of subset products, with glwe noise, then the
+        KSK with lwe noise), recording where each key's masks start and
+        keeping only the bodies."""
         p = client_key.params
         _check_classic(p)
         gen = client_key._keygen_gen
         mask_seed = int.from_bytes(gen.mask._key16, "little")
         bsk_mask_start = gen.mask.table_index
-        bsk = algo.gen_bootstrap_key(
-            client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
-            p.pbs_level, p.glwe_noise_distribution, gen)
+        g = grouping_of(p)
+        if g:
+            bsk = algo.gen_multi_bit_bootstrap_key(
+                client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
+                p.pbs_level, g, p.glwe_noise_distribution, gen)
+        else:
+            bsk = algo.gen_bootstrap_key(
+                client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
+                p.pbs_level, p.glwe_noise_distribution, gen)
         ksk_mask_start = gen.mask.table_index
         ksk = algo.gen_keyswitch_key(
             client_key.big_lwe_sk, client_key.lwe_sk, p.ks_base_log,
@@ -85,7 +96,7 @@ class CompressedServerKey:
         k, N = p.glwe_dimension, p.polynomial_size
         n_big, n_small = k * N, p.lwe_dimension
         dev = self.device
-        rows = tuple(self.bsk_bodies.shape[:-1])  # (n, l, k+1)
+        rows = tuple(self.bsk_bodies.shape[:-1])  # (n, l, k+1) or multi-bit
         stream = AesCtrGenerator(self.mask_seed,
                                  table_index=self.bsk_mask_start)
         masks = stream.uniform_u64(int(np.prod(rows)) * k * N)

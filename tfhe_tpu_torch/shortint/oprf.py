@@ -10,8 +10,9 @@ LUT recipe (oprf.rs:185-255): acc[x] = (2*(x // poly_delta) + 1) * delta / 2
 with poly_delta = 2N / 2^bits (no box encoding), then a final plaintext add
 of degree * delta / 2. The PBS switches with the standard rounding and runs
 on the exact CRT key (K2 u64 -> K3, or K2 acc32 -> K3-acc32 under
-``TFHE_V4_ACC=32``) under v6/v6b/crt, and on the Goldilocks key (K2 u64 ->
-K4) under v5.
+``TFHE_V4_ACC=32``) under v6/v6b/crt, on the Goldilocks key (K2 u64 ->
+K4) under v5, and on a multi-bit key's (K2 u64 -> K5) whatever the
+variant (``tfhe_tpu``'s ``oprf.py:69-74``).
 """
 
 from __future__ import annotations
@@ -78,13 +79,8 @@ def oblivious_pseudo_random_batch(server_key, seeds, random_bits_counts
         lut = from_u64(accs[bits[0]], dev)
     else:
         lut = from_u64(np.stack([accs[b] for b in bits]), dev)
-    args = (p.pbs_base_log, p.pbs_level, False)
-    if sk.variant == "v5":
-        out = server_ops.programmable_bootstrap_goldilocks(
-            cts, lut, sk.bsk_g, *args, bsk_k=sk.bsk_g_k)
-    else:
-        out = server_ops.programmable_bootstrap_crt(cts, lut, sk.crt_key(),
-                                                    *args)
+    _, rotated = sk._rotate(cts, lut, False, 64)
+    out = server_ops.sample_extract(rotated, 0)
     delta = 1 << (64 - _full_bits(p))
     plain = torch.tensor([u64_const(((1 << b) - 1) * delta // 2)
                           for b in bits], dtype=torch.int64, device=dev)

@@ -1,7 +1,7 @@
 """Shortint server key: LUTs, many-LUT, the atomic patterns (KS -> PBS,
 KS32 with or without the drift technique, PBS -> KS) on the v6/v6b BNF2
-path, the v5 Goldilocks path and the exact CRT path, and the leveled and
-bivariate ops.
+path, the v5 Goldilocks path, the exact CRT path and the multi-bit PBS,
+and the leveled and bivariate ops.
 
 Torch counterpart of ``tfhe_tpu/shortint/server_key.py`` (reference
 ``tfhe/src/shortint/server_key/mod.rs``: generate_lookup_table:805,
@@ -9,10 +9,8 @@ apply_lookup_table:935; ``atomic_pattern/standard.rs:155``,
 ``atomic_pattern/ks32.rs``). The key holds device tensors: the KSK
 (canonical and int8-limb form), the bootstrap key of the resolved transform
 variant (BNF2 for v6/v6b, the Goldilocks key for v5, the P-prime NTT key in
-scan layout for crt), and the drift technique's encryptions of zero.
-
-Multi-bit parameter sets raise ``NotImplementedError`` naming the ROADMAP
-item; no other path is substituted.
+scan layout for crt; a multi-bit set's key of GGSWs of subset products,
+whatever the variant), and the drift technique's encryptions of zero.
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._roadmap import not_ported
 from .._torus import from_u64, to_u64, u64_const
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
@@ -38,7 +35,7 @@ from ..ops import server as server_ops
 from ..utils import fork_budgets
 from ..utils.encoding import ShortintEncoding
 from ..utils.params import (ClassicPBSParameters, EncryptionKeyChoice,
-                            ModulusSwitchType, MultiBitPBSParameters)
+                            ModulusSwitchType)
 from .ciphertext import (NOMINAL_NOISE, LookupTable, ManyLookupTable,
                          ShortintCiphertext)
 from .client_key import ClientKey
@@ -77,12 +74,14 @@ def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
                     params=None) -> str:
     """'v6b', 'v6', 'v5' or 'crt' for the given PBS shape, honoring
     TFHE_NTT_VARIANT as the JAX package does (``server_key.py:86-110``):
-    every value other than v5, v6 and v6b selects crt, and so does a shape
-    outside the variant's kernel envelope (``bnf2.eligible``,
-    ``goldilocks.eligible``); with ``params``, approximate variants must
-    also pass :func:`variant_noise_margin_ok` (v6b degrades to v6, then to
-    crt; v5 to crt)."""
+    every value other than v5, v6 and v6b selects crt, and so does a
+    multi-bit ``params`` or a shape outside the variant's kernel envelope
+    (``bnf2.eligible``, ``goldilocks.eligible``); with ``params``,
+    approximate variants must also pass :func:`variant_noise_margin_ok`
+    (v6b degrades to v6, then to crt; v5 to crt)."""
     v = os.environ.get("TFHE_NTT_VARIANT", _DEFAULT_VARIANT)
+    if grouping_of(params):
+        return "crt"
     if v in ("v6", "v6b") and b2.eligible(poly_size, pbs_base_log,
                                           pbs_levels):
         if params is None or variant_noise_margin_ok(params, v):
@@ -96,13 +95,31 @@ def resolve_variant(poly_size: int, pbs_base_log: int, pbs_levels: int,
     return "crt"
 
 
-def check_supported(p) -> None:
-    """Raise NotImplementedError for a multi-bit parameter set (by class, or
-    duck-typed by its grouping factor): the port has no multi-bit PBS yet,
-    and no other path runs in its place."""
-    if isinstance(p, MultiBitPBSParameters) or getattr(p, "grouping_factor",
-                                                       0):
-        raise not_ported("multi-bit PBS", 8)
+def grouping_of(p) -> int:
+    """The grouping factor g of a multi-bit parameter set, 0 for a classic
+    one (``MultiBitPBSParameters``, or any set carrying a grouping)."""
+    return getattr(p, "grouping_factor", 0) or 0
+
+
+def check_supported(p, device=None) -> None:
+    """Raise ValueError for a parameter set no server key can be built
+    for: a multi-bit set whose LWE dimension the grouping does not divide
+    (every set of the universe passes, multi-bit ones included), or, on a
+    CUDA ``device``, a multi-bit set K5 cannot run
+    (``pbs_kernel.multi_bit_refusal``: 140 of the universe's 253, N >= 8192
+    or N = 4096 at l = 2; they run on the CPU only), before any key is
+    drawn."""
+    g = grouping_of(p)
+    if g and p.lwe_dimension % g:
+        raise ValueError(f"{p.name}: lwe_dimension {p.lwe_dimension} is not "
+                         f"divisible by the grouping {g}")
+    if g and device is not None and torch.device(device).type == "cuda":
+        why = pk.multi_bit_refusal(num_primes_for(p), g, p.glwe_size,
+                                   p.pbs_level, p.pbs_base_log,
+                                   p.polynomial_size)
+        if why:
+            raise ValueError(f"{p.name} cannot run on the GPU: {why} "
+                             "(ROADMAP R7); it runs on the CPU only")
 
 
 def is_ks32(p) -> bool:
@@ -131,12 +148,21 @@ def flavor_for(variant: str) -> Optional[b2.Bnf2Flavor]:
 
 def num_primes_for(p) -> int:
     """Primes of the exact CRT transform for a PBS shape: enough for the
-    external product's bound base_log + 64 + log2 N + log2(l (k+1)) bits
-    (JAX ``ServerKey._num_primes_for``; 4 at 2_2, 3 for the boolean sets)."""
+    external product's bound base_log + 64 + log2 N + log2(l (k+1)) bits,
+    plus g log2 3 bits for a multi-bit set's combined GGSW (the sum over
+    subsets of 2^|v| = 3^g) (JAX ``ServerKey._num_primes_for``; 4 at 2_2
+    and at every multi-bit set of the universe, 3 for the boolean sets)."""
     bound = ntt_mod.polymul_bound_bits(
         p.pbs_base_log, p.polynomial_size,
         num_sums=p.pbs_level * p.glwe_size)
-    return ntt_mod.min_primes_for_bound(bound)
+    return ntt_mod.min_primes_for_bound(bound + grouping_of(p) * 1.585)
+
+
+def _ksk_i8(p, ksk: torch.Tensor) -> torch.Tensor:
+    """The KSK's int8 limbs on its device (4 a value under KS32)."""
+    limbs = (server_ops.ksk32_to_i8_limbs if is_ks32(p)
+             else server_ops.ksk_to_i8_limbs)
+    return torch.from_numpy(limbs(to_u64(ksk), p.ks_base_log)).to(ksk.device)
 
 
 def prepare_crt_key(bsk_std: torch.Tensor, p) -> torch.Tensor:
@@ -173,6 +199,10 @@ class ServerKey:
     #: small key, int64[Z, n_small+1] (u32 values under KS32)
     #: (``shortint/server_key/modulus_switch_noise_reduction.rs``)
     ms_zeros: Optional[torch.Tensor] = None
+    #: a multi-bit set's key in K5's layout, int32 (u32) [n/g, 2, P,
+    #: 2^g-1, l*R, R, N] (``pbs_kernel.multi_bit_key_layout``): the key of
+    #: every PBS of the set, whatever the variant
+    bsk_mb: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -189,8 +219,10 @@ class ServerKey:
 
     @property
     def num_primes(self) -> int:
-        """Primes of the bootstrap key's transform: P for crt, 2 for v6 and
-        v6b, 1 for v5 (the Goldilocks prime)."""
+        """Primes of the bootstrap key's transform: P for crt and for a
+        multi-bit key, 2 for v6 and v6b, 1 for v5 (the Goldilocks prime)."""
+        if self.bsk_mb is not None:
+            return self.bsk_mb.shape[2]
         if self.variant == "v5":
             return 1
         key = self.bsk_scan if self.variant == "crt" else self.bsk_b
@@ -222,7 +254,11 @@ class ServerKey:
         """The exact CRT key in scan layout, the key of many-LUT and the
         OPRF under v6/v6b (``tfhe_tpu`` keeps it beside every variant's key,
         ``server_key.py:423-442``). Built at first use from ``bsk_std``,
-        which it then replaces, so no other path's keygen grows."""
+        which it then replaces, so no other path's keygen grows. A
+        multi-bit key has none: its many-LUT and OPRF run on K5."""
+        if self.bsk_mb is not None:
+            raise ValueError("a multi-bit server key carries no classic CRT "
+                             "key")
         if self.bsk_scan is None:
             if self.bsk_std is None:
                 raise ValueError("this server key carries neither the CRT "
@@ -244,16 +280,26 @@ class ServerKey:
         ``reference_forks=True`` draws the BSK with the reference's fork
         layout (``utils/fork_budgets.py``). The standard-domain BSK goes
         straight to the variant's form (the JAX package goes through the
-        exact CRT form and back to BNF2, with equal bits)."""
+        exact CRT form and back to BNF2, with equal bits). A multi-bit set
+        draws the GGSWs of its subset products instead
+        (``algorithms.gen_multi_bit_bootstrap_key``), whatever
+        ``reference_forks`` says, as ``tfhe_tpu`` does."""
         p = client_key.params
-        check_supported(p)
+        check_supported(p, client_key.device)
+        g = grouping_of(p)
         variant = resolve_variant(p.polynomial_size, p.pbs_base_log,
                                   p.pbs_level, params=p)
         gen = client_key._keygen_gen
-        gen_bsk = (fork_budgets.gen_bootstrap_key_reference_forks
-                   if reference_forks else algo.gen_bootstrap_key)
-        bsk = gen_bsk(client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
-                      p.pbs_level, p.glwe_noise_distribution, gen)
+        if g:
+            bsk = algo.gen_multi_bit_bootstrap_key(
+                client_key.lwe_sk, client_key.glwe_sk, p.pbs_base_log,
+                p.pbs_level, g, p.glwe_noise_distribution, gen)
+        else:
+            gen_bsk = (fork_budgets.gen_bootstrap_key_reference_forks
+                       if reference_forks else algo.gen_bootstrap_key)
+            bsk = gen_bsk(client_key.lwe_sk, client_key.glwe_sk,
+                          p.pbs_base_log, p.pbs_level,
+                          p.glwe_noise_distribution, gen)
         gen_ksk = (algo.gen_keyswitch_key32 if is_ks32(p)
                    else algo.gen_keyswitch_key)
         ksk = gen_ksk(client_key.big_lwe_sk, client_key.lwe_sk, p.ks_base_log,
@@ -275,12 +321,16 @@ class ServerKey:
                            bsk_scan: Optional[torch.Tensor] = None,
                            ) -> "ServerKey":
         """Key preparation: the KSK's int8 limbs (4 under KS32) and the
-        variant's transform of the standard-domain BSK int64[n, l, R, R, N].
-        ``bsk_scan``, when given, is the exact CRT key (it must be the
-        transform of ``bsk_std``)."""
-        limbs = (server_ops.ksk32_to_i8_limbs if is_ks32(p)
-                 else server_ops.ksk_to_i8_limbs)
-        ksk_i8 = limbs(to_u64(ksk), p.ks_base_log)
+        variant's transform of the standard-domain BSK int64[n, l, R, R, N]
+        (a multi-bit set's [n/g, 2^g-1, l, R, R, N]: its exact CRT
+        transform in K5's layout, whatever the variant). ``bsk_scan``, when
+        given, is the exact CRT key (it must be the transform of
+        ``bsk_std``)."""
+        if grouping_of(p):
+            return cls.from_multi_bit_residues(
+                p, ksk, algo.bootstrap_key_to_ntt(
+                    LweBootstrapKey(bsk_std, p.pbs_base_log, p.pbs_level),
+                    num_primes_for(p)).residues, ms_zeros=ms_zeros)
         flavor = flavor_for(variant)
         bsk_g = (gl.bootstrap_key_to_goldilocks(bsk_std) if variant == "v5"
                  else None)
@@ -289,7 +339,7 @@ class ServerKey:
         return cls(
             params=p,
             ksk=ksk,
-            ksk_i8=torch.from_numpy(ksk_i8).to(ksk.device),
+            ksk_i8=_ksk_i8(p, ksk),
             bsk_b=(b2.bootstrap_key_to_bnf2(bsk_std, flavor) if flavor
                    else None),
             bsk_scan=bsk_scan,
@@ -302,6 +352,21 @@ class ServerKey:
             variant=variant,
             max_degree=p.message_modulus * p.carry_modulus - 1,
         )
+
+    @classmethod
+    def from_multi_bit_residues(cls, p, ksk: torch.Tensor,
+                                residues: torch.Tensor,
+                                ms_zeros: Optional[torch.Tensor] = None
+                                ) -> "ServerKey":
+        """A multi-bit key from the KSK and the bootstrap key's residues and
+        Shoup duals as ``tfhe_tpu`` stores them, int32 (u32) [2, P, n/g,
+        2^g-1, l, R, R, N], laid out for K5."""
+        check_supported(p, ksk.device)
+        return cls(
+            params=p, ksk=ksk, ksk_i8=_ksk_i8(p, ksk), bsk_b=None,
+            variant="crt", bsk_mb=pk.multi_bit_key_layout(residues),
+            ms_zeros=ms_zeros,
+            max_degree=p.message_modulus * p.carry_modulus - 1)
 
     @property
     def encoding(self) -> ShortintEncoding:
@@ -385,7 +450,9 @@ class ServerKey:
 
     def pbs_only(self, ct_small: torch.Tensor,
                  lut_acc: torch.Tensor) -> torch.Tensor:
-        """PBS small -> big key on the variant's kernels; under the drift
+        """PBS small -> big key on the variant's kernels (a multi-bit key:
+        the standard switch, K2 u64 and K5, whatever the variant, as
+        ``tfhe_tpu``'s ``server_key.py:155-160``); under the drift
         technique the chosen encryption of zero is added first and the
         switch is the standard one (``tfhe_tpu``'s ``server_key.py:
         177-191``)."""
@@ -398,18 +465,41 @@ class ServerKey:
             ct_small = server_ops.improve_drift_ms(
                 ct_small, self.ms_zeros, r_sigma, bound, input_variance,
                 p.polynomial_size.bit_length(), torus_bits=bits)
-        args = (p.pbs_base_log, p.pbs_level, centered)
-        if self.variant == "crt":
-            return server_ops.programmable_bootstrap_crt(
-                ct_small, lut_acc, self.bsk_scan, *args,
-                input_torus_bits=bits)
-        if self.variant == "v5":
-            return server_ops.programmable_bootstrap_goldilocks(
-                ct_small, lut_acc, self.bsk_g, *args, bsk_k=self.bsk_g_k,
-                input_torus_bits=bits)
-        return server_ops.programmable_bootstrap_bnf2(
-            ct_small, lut_acc, self.bsk_b, *args, flavor=self.flavor,
-            input_torus_bits=bits)
+        if self.flavor is not None:
+            return server_ops.programmable_bootstrap_bnf2(
+                ct_small, lut_acc, self.bsk_b, p.pbs_base_log, p.pbs_level,
+                centered, flavor=self.flavor, input_torus_bits=bits)
+        batch, rotated = self._rotate(ct_small, lut_acc, centered, bits)
+        out = server_ops.sample_extract(rotated, 0)
+        return out.reshape(batch + (out.shape[-1],))
+
+    def _rotate(self, ct_small: torch.Tensor, lut: torch.Tensor,
+                centered: bool, torus_bits: int) -> tuple:
+        """Modulus switch and blind rotation on the key's exact kernels,
+        (batch shape, rotated GLWE int64[B, R, N]): a multi-bit key's K2 u64
+        -> K5 (the standard switch whatever ``centered`` says, as
+        ``tfhe_tpu``'s ``server_key.py:155-160``), the Goldilocks key's K2
+        u64 -> K4 under v5, else the CRT key's K2 u64 -> K3 (or K2 acc32 ->
+        K3-acc32 under ``TFHE_V4_ACC=32``). The one place that picks the
+        rotation of the PBS off the BNF2 path, of many-LUT and of the
+        OPRF."""
+        p = self.params
+        multi_bit = self.bsk_mb is not None
+        batch, ms_mask, ms_body, lut = server_ops._switch_and_flatten(
+            ct_small, lut, p.polynomial_size, centered and not multi_bit,
+            torus_bits)
+        args = (lut, ms_mask, ms_body)
+        if multi_bit:
+            rotated = server_ops.multi_bit_rotation(
+                *args, self.bsk_mb, p.pbs_base_log, p.pbs_level)
+        elif self.variant == "v5":
+            rotated = server_ops.goldilocks_rotation(
+                *args, self.bsk_g, p.pbs_base_log, p.pbs_level,
+                self.bsk_g_k)
+        else:
+            rotated = server_ops.crt_rotation(
+                *args, self.crt_key(), p.pbs_base_log, p.pbs_level)
+        return batch, rotated
 
     def ks_pbs(self, ct: torch.Tensor, lut_acc: torch.Tensor) -> torch.Tensor:
         """The atomic pattern on a tensor: KS -> PBS for big-key
@@ -442,28 +532,21 @@ class ServerKey:
         ``TFHE_V4_ACC=32``) under v6/v6b/crt, and on the Goldilocks key (K2
         u64 -> K4) under v5, as ``tfhe_tpu``'s ``server_key.py:578-668``;
         the switch is the centered or the standard one (never the drift
-        technique's), from the u32 torus under KS32."""
+        technique's), from the u32 torus under KS32. A multi-bit key runs
+        its rotation on K2 u64 -> K5 with the standard switch, then the
+        extractions, as tfhe-rs does; ``tfhe_tpu`` raises there (ROADMAP
+        standing note 11)."""
         if ct.under_key != "big":
             raise ValueError(f"many-LUT expects big-key input, got "
                              f"{ct.under_key}")
         if ct.degree > many.max_input_degree:
             raise ValueError(f"input degree {ct.degree} exceeds the "
                              f"many-LUT limit {many.max_input_degree}")
-        p = self.params
-        centered = (p.modulus_switch_type
+        centered = (self.params.modulus_switch_type
                     == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION)
         small = self.ks_only(ct.ct.to(self.device))
-        batch, ms_mask, ms_body, lut = server_ops._switch_and_flatten(
-            small, many.acc, p.polynomial_size, centered,
-            self._pbs_input_bits)
-        if self.variant == "v5":
-            rotated = server_ops.goldilocks_rotation(
-                lut, ms_mask, ms_body, self.bsk_g, p.pbs_base_log,
-                p.pbs_level, self.bsk_g_k)
-        else:
-            rotated = server_ops.crt_rotation(
-                lut, ms_mask, ms_body, self.crt_key(), p.pbs_base_log,
-                p.pbs_level)
+        batch, rotated = self._rotate(small, many.acc, centered,
+                                      self._pbs_input_bits)
         rotated = rotated.reshape(batch + tuple(many.acc.shape))
         return [ShortintCiphertext(
             ct=server_ops.sample_extract(rotated, i * many.stride),

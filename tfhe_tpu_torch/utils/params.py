@@ -138,8 +138,9 @@ class ClassicPBSParameters:
 
 @dataclass(frozen=True)
 class MultiBitPBSParameters:
-    """Multi-bit PBS parameters (reference ``MultiBitPBSParameters``). The
-    port has no multi-bit PBS yet: a server key of this class raises."""
+    """Multi-bit PBS parameters (reference ``MultiBitPBSParameters``): the
+    blind rotation takes ``grouping_factor`` mask values a step
+    (``ops/server.py::multi_bit_group_steps``, K5 on the GPU)."""
 
     lwe_dimension: int
     glwe_dimension: int
