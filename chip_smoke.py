@@ -141,18 +141,20 @@ Phases (any failure raises and exits non-zero):
 18. the multi-bit PBS (``phase_multi_bit``) at three sets of the
     reference's universe by name, full width, each on its own seeded keys:
     the GPU default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_
-    TUNIFORM_2M128`` (n = 920, N = 2048, 230 steps) at 2048: keygen s, the
-    batch through ``apply_lookup_table`` (K2 u64 and K5 once, every other
-    kernel never), decrypted, K2 u64 and K5 against their plain versions
-    on the path's inputs (K5 on the first 64 ciphertexts, all steps, the
-    whole key) and K5 on random u64 accumulators over 32 steps, PBS/s and
-    K5 alone; at batch 1 KS -> PBS and K5 (median of 5), FheUint64 add,
-    bitand and eq (ms, rounds) against their oracles beside phase 13's
-    v6b rows, the README chain at FheUint32, the FheUint64 OPRF; then
-    ``PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS`` (N = 4096, 452
-    steps) and ``V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_
-    TUNIFORM_2M128`` (l = 2, 293 steps) at 512, each decrypted and its K5
-    against the plain version on 16 ciphertexts, all steps;
+    TUNIFORM_2M128`` (n = 920, N = 2048, 230 steps) at 2048, 1, 32 and 264:
+    keygen s, each batch through ``apply_lookup_table`` (K2 u64 once, K5a
+    and K5b once a chunk of steps, r14 and every other kernel never),
+    decrypted, the K5 pair equal to r14 on the whole batch and both timed
+    in turns (median of 5), K5a and K5b apart; at 2048 K2 u64, K5a (the
+    first chunk, the whole batch), K5b (all steps, 64 ciphertexts) and the
+    pair (64 ciphertexts, and random u64 accumulators over 32 steps)
+    against their plain versions; at batch 1 KS -> PBS (median of 5),
+    FheUint64 add, bitand and eq (ms, rounds) against their oracles beside
+    phase 13's v6b rows, the README chain at FheUint32, the FheUint64
+    OPRF; then ``PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS`` (N =
+    4096, 452 steps) and ``V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_
+    CARRY_2_KS_PBS_TUNIFORM_2M128`` (l = 2, 293 steps) at 512, the same
+    checks (plain versions on 16 ciphertexts) and timings;
 19. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -507,17 +509,21 @@ def step_kernel_report():
     for label, g, R, levels, N in (("K5 group 4", 4, 2, 1, 2048),
                                    ("K5 group 2, N = 4096", 2, 2, 1, 4096),
                                    ("K5 group 3, l = 2", 3, 2, 2, 2048)):
-        smem = pk.step_smem_bytes("blind_rotate_multi_bit", 4, R, levels, N)
         occ = pk.multi_bit_occupancy(R, levels, N, g)
-        print(f"  {label}: {smem / 1024:.0f} KiB dynamic shared memory a "
-              f"block, {occ['registers']} registers, {occ['local_bytes']} "
-              f"local bytes a thread, {occ['blocks_per_sm']} blocks per SM")
-        if smem != sp.step_smem_bytes(4, R, levels, N, 8):
-            raise AssertionError(f"K5 shared memory {smem} != acc + digits "
-                                 f"at {label}")
+        for kernel, entry in (("accumulate", "multi_bit_accumulate"),
+                              ("r14", "blind_rotate_multi_bit_r14")):
+            smem = pk.step_smem_bytes(entry, 4, R, levels, N)
+            if smem != sp.step_smem_bytes(4, R, levels, N, 8):
+                raise AssertionError(f"{entry} shared memory {smem} != acc "
+                                     f"+ digits at {label}")
+        print(f"  {label}: K5b {smem / 1024:.0f} KiB dynamic shared memory a "
+              "block (r14 the same); " + "; ".join(
+                  f"{k} {o['registers']} registers, {o['local_bytes']} local "
+                  f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
+                  for k, o in occ.items()))
     if spilled:
         raise AssertionError(f"K1/K3 step kernels spill: {spilled}")
-    print("K1 and K3: no spills; K1, K3 and K5: shared memory == acc + "
+    print("K1 and K3: no spills; K1, K3, K5b and r14: shared memory == acc + "
           "digits")
 
 
@@ -1802,7 +1808,8 @@ PATTERN_SETS = ("V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
 LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "blind_rotate_bnf2_acc32", "blind_rotate_crt",
                "blind_rotate_crt_acc32", "blind_rotate_bnf2_u64",
-               "blind_rotate_goldilocks", "blind_rotate_multi_bit")
+               "blind_rotate_goldilocks", "multi_bit_keybundle",
+               "multi_bit_accumulate", "blind_rotate_multi_bit_r14")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -2370,58 +2377,142 @@ def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
 # ---------------------------------------------------------------------------
 
 #: the multi-bit sets of phase 18 by universe name: (label, name, batch,
-#: ciphertexts of K5's check against its plain version on the path's own
-#: inputs)
+#: ciphertexts of the checks against the plain versions on the path's own
+#: inputs (at most: a smaller batch checks all of its own), the other
+#: batches timed in turns)
 MB_SETS = (
     ("g4", "PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
-     BATCH, PLAIN_BATCH),
+     BATCH, PLAIN_BATCH, (1, 32, 264)),
     ("g2_n4096", "PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS",
-     SIDE_BATCH, 16),
+     SIDE_BATCH, 16, ()),
     ("g3", "V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_"
-     "TUNIFORM_2M128", SIDE_BATCH, 16))
-MB_LAUNCHES = {"body_rotate_u64": 1, "blind_rotate_multi_bit": 1}
+     "TUNIFORM_2M128", SIDE_BATCH, 16, ()))
 MB_INT_OPS = ("add", "bitand", "eq")  # FheUint64 at batch 1 on group 4
+MB_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu"
+MB_REPLACES = "tfhe_tpu/ops/server.py:809"
+#: the kernel rows of phase 18 at each shape: the pair (the function K5
+#: computes), K5a, K5b, the single-kernel reference r14
+MB_ROWS = ("blind_rotate_multi_bit", "multi_bit_keybundle",
+           "multi_bit_accumulate", "blind_rotate_multi_bit_r14")
+MB_SHAPES = ("g4", "g4_b1", "g4_b32", "g4_b264", "g2_n4096", "g3")
+
+
+def mb_launches(B: int, mbk) -> dict:
+    """The launches of one multi-bit PBS of B ciphertexts on key ``mbk``:
+    K2 u64 once, K5a and K5b once a chunk of ``pk.multi_bit_chunk`` steps,
+    r14 (and every other kernel) never."""
+    import math
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    ng, _, P, _, lR, R, N = mbk.shape
+    pairs = math.ceil(ng / pk.multi_bit_chunk(B, ng, P, lR, R, N))
+    return {"body_rotate_u64": 1, "multi_bit_keybundle": pairs,
+            "multi_bit_accumulate": pairs}
 
 
 def multi_bit_bytes(B: int, n_groups: int, grouping: int, R: int,
                     levels: int, N: int, P: int) -> float:
     """Bytes the function must move: the key's residues once (the function
-    needs no Shoup duals, which K5 also reads), the u64 accumulator in and
-    out, the mask, the constant tables and exponents."""
+    needs no Shoup duals, which K5a and r14 also read), the u64
+    accumulator in and out, the mask, the constant tables and exponents."""
     key = n_groups * P * ((1 << grouping) - 1) * levels * R * R * N * 4
     return (key + 2 * B * R * N * 8 + B * n_groups * grouping * 4
             + P * 8 * N * 4 + N * 4)
 
 
-def _multi_bit_set(label, name, batch, plain_b, rate, rows):
-    """One multi-bit set at full width: keygen, a batch covering all 16
-    message+carry values through ``apply_lookup_table`` with the launch
-    counts zeroed just before and read just after (K2 u64 and K5 once,
-    every other kernel never), every output decrypted; K2 u64 and K5
-    against their plain versions on the path's own inputs (K5 on the first
-    ``plain_b`` ciphertexts, all n/g steps, the whole key), K5 on random
-    u64 accumulators over 32 steps; PBS/s at ``batch`` and K5 alone.
-    Returns (client key, server key, summary)."""
+def keybundle_bytes(B: int, n_groups: int, grouping: int, R: int,
+                    levels: int, N: int, P: int) -> float:
+    """K5a's bytes: the key's residues once, the mask, the tables and
+    exponents, and the bundles written (P l R R N u32 a
+    ciphertext-step)."""
+    key = n_groups * P * ((1 << grouping) - 1) * levels * R * R * N * 4
+    return (key + B * n_groups * grouping * 4 + P * 8 * N * 4 + N * 4
+            + B * n_groups * P * levels * R * R * N * 4)
+
+
+def accumulate_bytes(B: int, n_groups: int, R: int, levels: int, N: int,
+                     P: int) -> float:
+    """K5b's bytes: the bundles read, the u64 accumulator in and out, the
+    tables."""
+    return (B * n_groups * P * levels * R * R * N * 4 + 2 * B * R * N * 8
+            + P * 8 * N * 4)
+
+
+def median_in_turns(new, ref, reps: int = 5) -> tuple:
+    """CUDA-event ms of ``new()`` and ``ref()`` run in turns (ref, new,
+    ref, new, ...) after one warm-up run each: (median of new's ``reps``
+    runs, median of ref's)."""
+    new(), ref()
+    times = {new: [], ref: []}
+    for _ in range(reps):
+        for fn in (ref, new):
+            times[fn].append(cuda_ms(fn, 1, warmup=False))
+    return statistics.median(times[new]), statistics.median(times[ref])
+
+
+def _multi_bit_plain(label, sk, acc, mask, plain_b):
+    """K5a, K5b and the pair against their plain versions on a shape's own
+    inputs (``acc``, ``mask``: the switched, body-rotated batch), exact:
+    K5a on the call's first chunk of steps for the whole batch, K5b over
+    all n/g steps of the first ``plain_b`` ciphertexts (their bundles from
+    K5a), the pair on those ciphertexts and on random u64 accumulators
+    over 32 steps. Returns the (max_abs_err, plain ms, plain shape) of K5a,
+    K5b and the pair."""
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    p = sk.params
+    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
+                       p.pbs_level, p.pbs_base_log)
+    mbk = sk.bsk_mb
+    ng, P = mbk.shape[0], mbk.shape[2]
+    B = acc.shape[0]
+    C = pk.multi_bit_chunk(B, ng, P, lv * R, R, N)
+    a = check_equal(f"multi_bit_keybundle {label}", pk.multi_bit_keybundle,
+                    pk.multi_bit_keybundle_plain, (mask, mbk, 0, C, bl, lv))
+    acc_b, mask_b = acc[:plain_b].contiguous(), mask[:plain_b].contiguous()
+    bundles = pk.multi_bit_keybundle(mask_b, mbk, 0, ng, bl, lv)
+    b = check_equal(f"multi_bit_accumulate {label}", pk.multi_bit_accumulate,
+                    pk.multi_bit_accumulate_plain, (acc_b, bundles, bl, lv))
+    del bundles
+    f = check_equal(f"blind_rotate_multi_bit {label}",
+                    pk.blind_rotate_multi_bit, pk.blind_rotate_multi_bit_plain,
+                    (acc_b, mask_b, mbk, bl, lv))
+    steps = min(32, ng)
+    racc, rmask = _random_acc_mask(np.random.default_rng(SEED + 18),
+                                   plain_b, steps * g, R, N)
+    check_equal(f"blind_rotate_multi_bit {label}, random acc",
+                pk.blind_rotate_multi_bit, pk.blind_rotate_multi_bit_plain,
+                (racc, rmask, mbk[:steps].contiguous(), bl, lv))
+    print(f"{label}: K5a == plain on steps 0..{C - 1} of B={B} (plain "
+          f"{a[1]:.1f} ms); K5b == plain over {ng} steps at B={plain_b} "
+          f"(plain {b[1]:.1f} ms); the pair == plain at B={plain_b} (plain "
+          f"{f[1]:.1f} ms) and on random accumulators, {steps} steps")
+    return ((*a, f"{label} B={B} steps 0..{C - 1}"),
+            (*b, f"{label} B={plain_b} n/g={ng}"),
+            (*f, f"{label} B={plain_b} n/g={ng}"))
+
+
+def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
+    """One multi-bit shape: ``batch`` ciphertexts covering all message +
+    carry values through ``apply_lookup_table`` with the launch counts
+    zeroed just before and read just after (``mb_launches``), decrypted;
+    K5a, K5b and the pair against their plain versions on that batch's
+    inputs (``_multi_bit_plain``, ``plain_b`` ciphertexts, which give the
+    rows' plain columns); the pair equal to r14 on the whole batch; the
+    pair and r14 timed in turns (median of 5), K5a and K5b apart over the
+    call's chunks (median of 3), KS -> PBS (median of 5); the shape's four
+    kernel rows. Returns the shape's numbers."""
     import torch
 
     from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
-    from tfhe_tpu_torch.shortint.client_key import ClientKey
-    from tfhe_tpu_torch.shortint.server_key import ServerKey
-    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
 
-    p = PARAMS_BY_NAME[name]
+    p = sk.params
     g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
                        p.pbs_level, p.pbs_base_log)
-    t0 = time.perf_counter()
-    ck = ClientKey.generate(p, seed=SEED)
-    sk = ServerKey.generate(ck)
-    torch.cuda.synchronize()
-    keygen_s = time.perf_counter() - t0
-    P, ng = sk.num_primes, sk.bsk_mb.shape[0]
-    print(f"keygen {label} ({name}): {keygen_s:.1f} s, n = {p.lwe_dimension}"
-          f", g = {g}, N = {N}, l = {lv}, P = {P}, K5 key "
-          f"{tuple(sk.bsk_mb.shape)} ({sk.bsk_mb.numel() * 4 / 1e9:.3f} GB)")
+    mbk = sk.bsk_mb
+    ng, P = mbk.shape[0], mbk.shape[2]
     mod = p.message_modulus * p.carry_modulus
     f = lambda x: (3 * x) % mod
     vals = np.arange(batch, dtype=np.uint64) % mod
@@ -2429,160 +2520,186 @@ def _multi_bit_set(label, name, batch, plain_b, rate, rows):
     lut = sk.generate_lookup_table(f)
     out = launches_exactly(f"{label} main path",
                            lambda: sk.apply_lookup_table(ct, lut),
-                           MB_LAUNCHES)
-    k5_launches = launches_of("blind_rotate_multi_bit")[
-        "blind_rotate_multi_bit"]
+                           mb_launches(batch, mbk))
+    launches = launches_of(*MB_ROWS[1:])
     want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
     if not np.array_equal(ck.decrypt_message_and_carry(out), want):
-        raise AssertionError(f"{label}: batch decrypts wrong")
-    print(f"{label}: {batch} ciphertexts decrypt to 3x mod 16; K2 u64 and "
-          "K5 once each, every other kernel never")
-
+        raise AssertionError(f"{label}: batch of {batch} decrypts wrong")
     mask, body = switched(sk, ct)
+    mask = mask.contiguous()
     check_equal(f"body_rotate_u64 {label}", pk.body_rotate_u64,
                 pk.body_rotate_u64_plain, (lut.acc, body))
     acc = pk.body_rotate_u64(lut.acc, body)
-    k5, k5_plain = pk.blind_rotate_multi_bit, pk.blind_rotate_multi_bit_plain
-    err, plain_ms = check_equal(
-        f"blind_rotate_multi_bit {label}", k5, k5_plain,
-        (acc[:plain_b].contiguous(), mask[:plain_b], sk.bsk_mb, bl, lv))
-    steps = min(32, ng)
-    racc, rmask = _random_acc_mask(np.random.default_rng(SEED + 18),
-                                   plain_b, steps * g, R, N)
-    check_equal(f"blind_rotate_multi_bit {label}, random acc", k5, k5_plain,
-                (racc, rmask, sk.bsk_mb[:steps].contiguous(), bl, lv))
-    print(f"{label}: K2 u64 == plain at B={batch}; K5 == plain at "
-          f"B={plain_b}, {ng} steps (plain {plain_ms:.1f} ms) and on random "
-          f"accumulators, {steps} steps")
-    k5_ms = cuda_ms(lambda: k5(acc, mask, sk.bsk_mb, bl, lv), 3)
-    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 3)
-    print(f"{label} KS->PBS B={batch}: {step_ms:.3f} ms = "
-          f"{batch / step_ms * 1e3:.1f} PBS/s; K5 {k5_ms:.3f} ms "
-          f"({k5_ms / ng * 1e3:.1f} us a step)")
+    plain = _multi_bit_plain(label, sk, acc, mask, plain_b)
+    pair = lambda: pk.blind_rotate_multi_bit(acc, mask, mbk, bl, lv)
+    r14 = lambda: pk.blind_rotate_multi_bit_r14(acc, mask, mbk, bl, lv)
+    if not torch.equal(pair(), r14()):
+        raise AssertionError(f"{label}: the K5 pair != r14 at B={batch}")
+    pair_ms, r14_ms = median_in_turns(pair, r14)
+    C = pk.multi_bit_chunk(batch, ng, P, lv * R, R, N)
+    chunks = [(t0, min(C, ng - t0)) for t0 in range(0, ng, C)]
+    k5a_ms = cuda_ms(lambda: [pk.multi_bit_keybundle(mask, mbk, t0, c, bl, lv)
+                              for t0, c in chunks], 3)
+    bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
+               for c in {c for _, c in chunks}}
+    k5b_ms = cuda_ms(lambda: [pk.multi_bit_accumulate(acc, bundles[c], bl, lv)
+                              for _, c in chunks], 3)
+    del bundles
+    torch.cuda.empty_cache()
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 5)
+    print(f"{label} B={batch}: KS->PBS {step_ms:.3f} ms = "
+          f"{batch / step_ms * 1e3:.1f} PBS/s; in turns the K5 pair "
+          f"{pair_ms:.3f} ms, r14 {r14_ms:.3f} ms ({r14_ms / pair_ms:.2f}x, "
+          f"pair == r14); {len(chunks)} chunks of {C} steps: K5a "
+          f"{k5a_ms:.3f} ms, K5b {k5b_ms:.3f} ms "
+          f"({k5b_ms / ng * 1e3:.1f} us a step); launches {launches}")
+    (a_err, a_plain, a_shape), (b_err, b_plain, b_shape), \
+        (f_err, f_plain, f_shape) = plain
+    fn_bound = bound(kb.multi_bit_pipe_instructions(batch, ng, g, R, lv, N, P),
+                     multi_bit_bytes(batch, ng, g, R, lv, N, P), rate)
+    common = dict(source=MB_SOURCE, replaces=MB_REPLACES,
+                  shape=f"{label} B={batch} n/g={ng} g={g} C={C}",
+                  note="no pallas_call: XLA in tfhe_tpu")
     rows[f"blind_rotate_multi_bit_{label}"] = dict(
-        source="tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu",
-        replaces="tfhe_tpu/ops/server.py:809",
-        launches=k5_launches, max_abs_err=err,
-        ms=k5_ms, plain_ms=plain_ms,
-        bound=bound(kb.multi_bit_pipe_instructions(batch, ng, g, R, lv, N, P),
-                    multi_bit_bytes(batch, ng, g, R, lv, N, P), rate),
-        shape=f"{label} B={batch} n/g={ng} g={g}",
-        plain_shape=f"{label} B={plain_b} n/g={ng} g={g}",
-        note="no pallas_call: XLA in tfhe_tpu")
-    return ck, sk, {f"mb_{label}_keygen_s": keygen_s,
-                    f"mb_{label}_pbs_ms": step_ms,
-                    f"mb_{label}_pbs_per_s": batch / step_ms * 1e3,
-                    f"mb_{label}_k5_ms": k5_ms}
+        common, launches=launches["multi_bit_keybundle"]
+        + launches["multi_bit_accumulate"], max_abs_err=f_err, ms=pair_ms,
+        plain_ms=f_plain, plain_shape=f_shape, bound=fn_bound,
+        kernel="the K5 pair (K5a + K5b a chunk), in turns with r14")
+    rows[f"multi_bit_keybundle_{label}"] = dict(
+        common, launches=launches["multi_bit_keybundle"], max_abs_err=a_err,
+        ms=k5a_ms, plain_ms=a_plain, plain_shape=a_shape,
+        bound=bound(kb.multi_bit_keybundle_pipe_instructions(
+            batch, ng, g, R, lv, N, P),
+            keybundle_bytes(batch, ng, g, R, lv, N, P), rate),
+        kernel="K5a, all chunks of the call")
+    rows[f"multi_bit_accumulate_{label}"] = dict(
+        common, launches=launches["multi_bit_accumulate"], max_abs_err=b_err,
+        ms=k5b_ms, plain_ms=b_plain, plain_shape=b_shape,
+        bound=bound(kb.multi_bit_accumulate_pipe_instructions(
+            batch, ng, R, lv, N, P),
+            accumulate_bytes(batch, ng, R, lv, N, P), rate),
+        kernel="K5b, all chunks of the call")
+    rows[f"blind_rotate_multi_bit_r14_{label}"] = dict(
+        common, launches=launches["blind_rotate_multi_bit_r14"],
+        max_abs_err=f_err, ms=r14_ms, plain_ms=f_plain, plain_shape=f_shape,
+        bound=fn_bound,
+        kernel="r14, the single-kernel reference (no user path), in turns "
+               "with the pair")
+    return {f"mb_{label}_pbs_ms": step_ms,
+            f"mb_{label}_pbs_per_s": batch / step_ms * 1e3,
+            f"mb_{label}_k5_ms": pair_ms, f"mb_{label}_r14_ms": r14_ms,
+            f"mb_{label}_k5a_ms": k5a_ms, f"mb_{label}_k5b_ms": k5b_ms,
+            f"mb_{label}_chunk": C}
+
+
+def _multi_bit_keys(label, name):
+    """Seeded keys of a multi-bit set of the universe: (ck, sk, keygen s)."""
+    import torch
+
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[name]
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    print(f"keygen {label} ({name}): {keygen_s:.1f} s, n = {p.lwe_dimension}"
+          f", g = {p.grouping_factor}, N = {p.polynomial_size}, l = "
+          f"{p.pbs_level}, P = {sk.num_primes}, K5 key "
+          f"{tuple(sk.bsk_mb.shape)} ({sk.bsk_mb.numel() * 4 / 1e9:.3f} GB)")
+    return ck, sk, keygen_s
 
 
 def phase_multi_bit(card, rate, rows, table13):
     """The multi-bit PBS (ROADMAP Queue A item 8, first half) on K2 u64 ->
-    K5, at three sets of the reference's universe by name, full width:
-    a. the GPU default group-4 set (n = 920, N = 2048, 230 steps) at
-       2048 (``_multi_bit_set``); then at batch 1: KS -> PBS ms and K5
-       alone (median of 5, CUDA events, a batch-1 K5 row beside the batch
-       one), FheUint64 add, bitand and eq (ms, rounds) against their numpy
-       oracles beside phase 13's v6b numbers, the README chain at
-       FheUint32, and the FheUint64 OPRF (one batched PBS: K2 u64 and K5
-       once);
-    b. the group-2 set at N = 4096 (452 steps; K5's largest shared
+    the K5 pair (K5a, K5b a chunk of steps), at three sets of the
+    reference's universe by name, full width, each on its own seeded keys:
+    a. the GPU default group-4 set (n = 920, N = 2048, 230 steps) at 2048
+       (``_multi_bit_shape``, the plain checks on 64 ciphertexts), then at
+       1, 32 and 264 (each through ``apply_lookup_table`` with its launch
+       counts, decrypted, the plain checks on min(batch, 64) ciphertexts,
+       the pair == r14 and timed in turns); at batch 1
+       KS -> PBS (median of 5), FheUint64 add, bitand and eq (ms, rounds)
+       against their numpy oracles beside phase 13's v6b numbers, the
+       README chain at FheUint32, and the FheUint64 OPRF (one batched PBS);
+    b. the group-2 set at N = 4096 (452 steps; K5b's largest shared
        memory) and
-    c. the v1.5 GPU group-3 set (l = 2, 293 steps), each at 512
-       (``_multi_bit_set``, K5 against its plain version on 16
-       ciphertexts)."""
+    c. the v1.5 GPU group-3 set (l = 2, 293 steps), each at 512 (the plain
+       checks on 16 ciphertexts)."""
     import torch
 
     from tfhe_tpu_torch.integer import radix
-    from tfhe_tpu_torch.ops import kernel_bench as kb
-    from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     t_phase = time.perf_counter()
     summary = {}
-    (label, name, batch, plain_b), *rest = MB_SETS
-    ck, sk, s = _multi_bit_set(label, name, batch, plain_b, rate, rows)
-    summary.update(s)
-
-    # a. batch 1 on the group-4 keys
-    p = sk.params
-    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
-                       p.pbs_level, p.pbs_base_log)
-    ng = sk.bsk_mb.shape[0]
-    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
-    lut = sk.generate_lookup_table(lambda x: (3 * x) % 16)
-    out = launches_exactly(f"{label} batch 1",
-                           lambda: sk.apply_lookup_table(ct1, lut),
-                           MB_LAUNCHES)
-    k5_launches = launches_of("blind_rotate_multi_bit")[
-        "blind_rotate_multi_bit"]
-    if int(ck.decrypt_message_and_carry(out)[0]) != 5:
-        raise AssertionError("group-4 batch 1 decrypts wrong")
-    ks_pbs_1 = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
-    mask, body = switched(sk, ct1)
-    acc1 = pk.body_rotate_u64(lut.acc, body)
-    k5_1 = cuda_ms(lambda: pk.blind_rotate_multi_bit(
-        acc1, mask, sk.bsk_mb, bl, lv), 5)
-    print(f"{label} batch 1: KS->PBS {ks_pbs_1:.3f} ms, K5 {k5_1:.3f} ms "
-          f"({k5_1 / ng * 1e3:.1f} us a step) on {card}")
-    rows[f"blind_rotate_multi_bit_{label}_b1"] = dict(
-        source="tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu",
-        replaces="tfhe_tpu/ops/server.py:809",
-        launches=k5_launches,
-        max_abs_err=rows[f"blind_rotate_multi_bit_{label}"]["max_abs_err"],
-        ms=k5_1, plain_ms=rows[f"blind_rotate_multi_bit_{label}"]["plain_ms"],
-        bound=bound(kb.multi_bit_pipe_instructions(1, ng, g, R, lv, N, 4),
-                    multi_bit_bytes(1, ng, g, R, lv, N, 4), rate),
-        shape=f"{label} B=1 n/g={ng} g={g}",
-        plain_shape=rows[f"blind_rotate_multi_bit_{label}"]["plain_shape"],
-        note="no pallas_call: XLA in tfhe_tpu")
-    summary.update({"mb_g4_ks_pbs_b1_ms": ks_pbs_1, "mb_g4_k5_b1_ms": k5_1})
-
-    key = CountingKey(sk)
-    ick, isk = radix.ClientKey(ck), radix.ServerKey(key)
-    rng = np.random.default_rng(SEED + 18)
-    bits64 = U64_BLOCKS * int(np.log2(p.message_modulus))
-    xs = rng.integers(0, 1 << bits64, 1, dtype=np.uint64)
-    ys = rng.integers(1, 1 << bits64, 1, dtype=np.uint64)
-    a, b = ick.encrypt_radix(xs, U64_BLOCKS), ick.encrypt_radix(ys, U64_BLOCKS)
-    v6b = {r["metric"]: r for r in table13}
-    for op in MB_INT_OPS:
-        fn = getattr(isk, op)
-        want = _int_oracle(op, xs, ys, bits64)
-        times = []
-        for _ in range(4):  # a checked warm-up run, then three
-            out, ms, rounds, pbs = timed(key, fn, a, b)
-            expect_radix(ick, isk, f"{label} FheUint64 {op}", out, want)
-            times.append(ms)
-        ms = statistics.median(times[1:])
-        ref = v6b.get(f"fheuint64_{op}_latency", {})
-        print(json.dumps({"metric": f"mb_{label}_fheuint64_{op}_latency",
-                          "value": ms, "unit": "ms", "batch": 1,
-                          "rounds": rounds, "pbs": pbs, "card": card,
-                          "runs_ms": times[1:],
-                          "v6b_ms": ref.get("value"),
-                          "v6b_rounds": ref.get("rounds")}))
-        summary[f"mb_{label}_fheuint64_{op}_ms"] = ms
-        summary[f"mb_{label}_fheuint64_{op}_rounds"] = rounds
-    summary[f"mb_{label}_readme_chain"] = readme_chain(ick, isk, key, 1, rng)
-    t0 = time.perf_counter()
-    oprf = launches_exactly(
-        f"{label} FheUint64 OPRF",
-        lambda: isk.generate_oblivious_pseudo_random(seed=SEED,
-                                                     num_blocks=U64_BLOCKS),
-        MB_LAUNCHES)
-    oprf_ms = (time.perf_counter() - t0) * 1e3
-    value = int(ick.decrypt_radix(oprf))
-    if not 0 <= value < 1 << bits64 or oprf.degrees.max() > 3:
-        raise AssertionError(f"{label} FheUint64 OPRF: {value}")
-    print(f"{label} FheUint64 OPRF at batch 1: {oprf_ms:.1f} ms (one batched "
-          f"PBS of {U64_BLOCKS} blocks, host clock)")
-    summary[f"mb_{label}_oprf_ms"] = oprf_ms
-    del ck, sk, key, isk, ick
-    torch.cuda.empty_cache()
-
-    # b, c. the group-2 set at N = 4096 and the group-3 set
-    for label, name, batch, plain_b in rest:
-        _, _, s = _multi_bit_set(label, name, batch, plain_b, rate, rows)
-        summary.update(s)
+    for label, name, batch, plain_b, more in MB_SETS:
+        ck, sk, keygen_s = _multi_bit_keys(label, name)
+        summary[f"mb_{label}_keygen_s"] = keygen_s
+        summary.update(_multi_bit_shape(label, ck, sk, batch, rate, rows,
+                                        plain_b))
+        for b in more:
+            summary.update(_multi_bit_shape(f"{label}_b{b}", ck, sk, b, rate,
+                                            rows, min(b, plain_b)))
+        if label != "g4":
+            del ck, sk
+            torch.cuda.empty_cache()
+            continue
+        # a. batch 1 on the group-4 keys: KS -> PBS, the integer ops
+        ks_pbs_1 = summary["mb_g4_b1_pbs_ms"]
+        k5a_1, k5b_1 = summary["mb_g4_b1_k5a_ms"], summary["mb_g4_b1_k5b_ms"]
+        ng = sk.bsk_mb.shape[0]
+        print(f"{label} batch 1: KS->PBS {ks_pbs_1:.3f} ms, the K5 pair "
+              f"{summary['mb_g4_b1_k5_ms']:.3f} ms (r14 "
+              f"{summary['mb_g4_b1_r14_ms']:.3f}): K5a {k5a_1:.3f} ms, K5b "
+              f"{k5b_1:.3f} ms = {k5b_1 / ng * 1e3:.1f} us a step, on {card}")
+        summary["mb_g4_ks_pbs_b1_ms"] = ks_pbs_1
+        p = sk.params
+        key = CountingKey(sk)
+        ick, isk = radix.ClientKey(ck), radix.ServerKey(key)
+        rng = np.random.default_rng(SEED + 18)
+        bits64 = U64_BLOCKS * int(np.log2(p.message_modulus))
+        xs = rng.integers(0, 1 << bits64, 1, dtype=np.uint64)
+        ys = rng.integers(1, 1 << bits64, 1, dtype=np.uint64)
+        a = ick.encrypt_radix(xs, U64_BLOCKS)
+        b = ick.encrypt_radix(ys, U64_BLOCKS)
+        v6b = {r["metric"]: r for r in table13}
+        for op in MB_INT_OPS:
+            fn = getattr(isk, op)
+            want = _int_oracle(op, xs, ys, bits64)
+            times = []
+            for _ in range(4):  # a checked warm-up run, then three
+                out, ms, rounds, pbs = timed(key, fn, a, b)
+                expect_radix(ick, isk, f"{label} FheUint64 {op}", out, want)
+                times.append(ms)
+            ms = statistics.median(times[1:])
+            ref = v6b.get(f"fheuint64_{op}_latency", {})
+            print(json.dumps({"metric": f"mb_{label}_fheuint64_{op}_latency",
+                              "value": ms, "unit": "ms", "batch": 1,
+                              "rounds": rounds, "pbs": pbs, "card": card,
+                              "runs_ms": times[1:],
+                              "v6b_ms": ref.get("value"),
+                              "v6b_rounds": ref.get("rounds")}))
+            summary[f"mb_{label}_fheuint64_{op}_ms"] = ms
+            summary[f"mb_{label}_fheuint64_{op}_rounds"] = rounds
+        summary[f"mb_{label}_readme_chain"] = readme_chain(ick, isk, key, 1,
+                                                           rng)
+        t0 = time.perf_counter()
+        oprf = launches_exactly(
+            f"{label} FheUint64 OPRF",
+            lambda: isk.generate_oblivious_pseudo_random(
+                seed=SEED, num_blocks=U64_BLOCKS),
+            mb_launches(U64_BLOCKS, sk.bsk_mb))
+        oprf_ms = (time.perf_counter() - t0) * 1e3
+        value = int(ick.decrypt_radix(oprf))
+        if not 0 <= value < 1 << bits64 or oprf.degrees.max() > 3:
+            raise AssertionError(f"{label} FheUint64 OPRF: {value}")
+        print(f"{label} FheUint64 OPRF at batch 1: {oprf_ms:.1f} ms (one "
+              f"batched PBS of {U64_BLOCKS} blocks, host clock)")
+        summary[f"mb_{label}_oprf_ms"] = oprf_ms
+        del ck, sk, key, isk, ick
         torch.cuda.empty_cache()
     summary["multi_bit_s"] = time.perf_counter() - t_phase
     print(f"phase 18: {summary['multi_bit_s']:.1f} s")
@@ -2634,8 +2751,7 @@ def main() -> int:
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_crt_p4_decompress",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
-             "blind_rotate_multi_bit_g4", "blind_rotate_multi_bit_g4_b1",
-             "blind_rotate_multi_bit_g2_n4096", "blind_rotate_multi_bit_g3",
+             *(f"{row}_{shape}" for shape in MB_SHAPES for row in MB_ROWS),
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")

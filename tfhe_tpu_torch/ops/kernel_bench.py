@@ -144,12 +144,15 @@ SASS_OPS = {
     # K5 (the multi-bit group step at P = 4): K3 P=4's row for the work it
     # shares (the digit state and lift, the transforms, the Shoup MAC term,
     # the untwist and Garner tail; K5's lift has no rotation, so "element"
-    # is a floor from above by a few instructions), and K5's own Barrett
+    # is a floor from above by a few instructions), and r14's own Barrett
     # product with its add_mod, read from its MAC pass loop (per product:
     # 4 IMAD.WIDE.U32, IMAD, IMAD.X, IMAD.IADD, IMAD.MOV; 2 IADD3, 2 SEL,
     # 2 ISETP, a VIADD): "combine" per coef_v x row sum (P*R*N*(2^g-1) a
     # step), "coef" per product building the 2^g-1 coefficients
-    # (P*N*(2^g-1-g))
+    # (P*N*(2^g-1-g)). The function's bound (the pair's and r14's rows)
+    # counts these units; K5a's and K5b's rows count their own parts of
+    # them (K5a the Shoup terms and coefficient products of the bundle,
+    # K5b K3's units and one "combine" a MAC term against the bundle)
     "blind_rotate_multi_bit/4": {
         "element": (20, 5, 2), "level": (20, 23, 1),
         "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
@@ -191,14 +194,22 @@ SASS_LOOP_TOTALS = {
     "kb_step_crt_r2": ("kernel_bench", "10GarnerTailILi4EEELb1E", (119, 110)),
     "blind_rotate_goldilocks": ("blind_rotate_goldilocks",
                                 "blind_rotate_goldilocks_kernel", (582, 221)),
-    # K5 at P = 4, each grouping's instantiation (its SASS_OPS row is
-    # shared)
+    # K5 at P = 4: the single-kernel reference r14 at each grouping, K5a at
+    # each grouping, K5b (its SASS_OPS row is shared)
     "blind_rotate_multi_bit/4/g2": ("blind_rotate_multi_bit",
                                     "multi_bit_kernelILi4ELi2E", (3178, 3375)),
     "blind_rotate_multi_bit/4/g3": ("blind_rotate_multi_bit",
                                     "multi_bit_kernelILi4ELi3E", (3450, 3649)),
     "blind_rotate_multi_bit/4/g4": ("blind_rotate_multi_bit",
                                     "multi_bit_kernelILi4ELi4E", (3940, 4172)),
+    "multi_bit_keybundle/4/g2": ("blind_rotate_multi_bit",
+                                 "keybundle_kernelILi4ELi2E", (30, 34)),
+    "multi_bit_keybundle/4/g3": ("blind_rotate_multi_bit",
+                                 "keybundle_kernelILi4ELi3E", (51, 71)),
+    "multi_bit_keybundle/4/g4": ("blind_rotate_multi_bit",
+                                 "keybundle_kernelILi4ELi4E", (91, 128)),
+    "multi_bit_accumulate/4": ("blind_rotate_multi_bit",
+                               "accumulate_kernelILi4E", (3353, 3599)),
     "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
     "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1E", (9, 11)),
     "kb_mac": ("kernel_bench", "kb_mac_kernel", (35, 28)),
@@ -294,6 +305,36 @@ def multi_bit_pipe_instructions(B: int, n_groups: int, grouping: int,
         "fwd_butterfly": P * lR * half_log, "inv_butterfly": P * R * half_log,
         "mac": P * nsub * R * lR * N, "combine": P * nsub * R * N,
         "coef": P * (nsub - grouping) * N, "untwist_tail": R * N})
+
+
+def multi_bit_keybundle_pipe_instructions(B: int, n_groups: int,
+                                          grouping: int, R: int,
+                                          levels: int, N: int,
+                                          P: int) -> float:
+    """Busier-pipe instructions of K5a (``multi_bit_keybundle``) building
+    the bundles of ``B`` ciphertexts times ``n_groups`` steps, at K5's
+    :data:`SASS_OPS` row: per ciphertext-step P*(2^g-1)*l*R*R*N Shoup terms
+    of the bundle and P*(2^g-1-g)*N products building the coefficients."""
+    nsub = (1 << grouping) - 1
+    return float(B) * n_groups * _pipes(f"blind_rotate_multi_bit/{P}", {
+        "mac": P * nsub * R * levels * R * N,
+        "coef": P * (nsub - grouping) * N})
+
+
+def multi_bit_accumulate_pipe_instructions(B: int, n_groups: int, R: int,
+                                           levels: int, N: int,
+                                           P: int) -> float:
+    """Busier-pipe instructions of K5b (``multi_bit_accumulate``) over
+    ``B`` ciphertexts times ``n_groups`` steps, at K5's :data:`SASS_OPS`
+    row: per ciphertext-step K3's units (R*N elements, l*R*N levels,
+    P*l*R forward and P*R inverse transforms, R*N untwists with the tail)
+    and P*R*l*R*N MAC terms against the bundle, each a Barrett product
+    with its add_mod (the row's "combine")."""
+    lR, half_log = levels * R, (N // 2) * (N.bit_length() - 1)
+    return float(B) * n_groups * _pipes(f"blind_rotate_multi_bit/{P}", {
+        "element": R * N, "level": lR * N,
+        "fwd_butterfly": P * lR * half_log, "inv_butterfly": P * R * half_log,
+        "combine": P * R * lR * N, "untwist_tail": R * N})
 
 
 def micro_pipe_instructions(name: str, rows: int, N: int,

@@ -1,8 +1,8 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Eight wrappers, seven replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py`` and one the XLA
+Ten wrappers, seven replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py`` and three the XLA
 multi-bit rotation of ``tfhe_tpu/ops/server.py``:
 
 - K2 ``body_rotate_acc32`` and ``body_rotate_u64`` (``csrc/body_rotate.cu``)
@@ -24,10 +24,16 @@ multi-bit rotation of ``tfhe_tpu/ops/server.py``:
 - K4 ``blind_rotate_goldilocks`` (``csrc/blind_rotate_goldilocks.cu``)
   replaces ``pbs_kernel_g.py::_build_step_fn_g`` (the v5 step over the
   Goldilocks prime): all n CMUX steps on the u64 accumulator in one launch.
-- K5 ``blind_rotate_multi_bit`` (``csrc/blind_rotate_multi_bit.cu``)
-  replaces ``tfhe_tpu/ops/server.py::multi_bit_blind_rotate`` (XLA, no
-  ``pallas_call``): all n/g group steps of the multi-bit blind rotation on
-  the u64 accumulator in one launch.
+- K5, the n/g group steps of the multi-bit blind rotation on the u64
+  accumulator (``csrc/blind_rotate_multi_bit.cu``), replaces
+  ``tfhe_tpu/ops/server.py::multi_bit_blind_rotate`` (XLA, no
+  ``pallas_call``) as a pair a chunk of steps (``blind_rotate_multi_bit``
+  runs the chunks): K5a ``multi_bit_keybundle`` builds the chunk's key
+  bundles (each step's combined GGSW a ciphertext) across the whole card,
+  K5b ``multi_bit_accumulate`` runs the dependent external products
+  against them. ``blind_rotate_multi_bit_r14``, the single kernel of all
+  n/g steps a ciphertext the pair replaced, is launched by no user path:
+  it is the reference the pair is timed against.
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -247,7 +253,8 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
 #: the library of each step-kernel entry other than K3's
 _STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
               "blind_rotate_goldilocks": "blind_rotate_goldilocks",
-              "blind_rotate_multi_bit": "blind_rotate_multi_bit",
+              "multi_bit_accumulate": "blind_rotate_multi_bit",
+              "blind_rotate_multi_bit_r14": "blind_rotate_multi_bit",
               "kb_step_bnf2_acc32_r2": "kernel_bench",
               "kb_step_crt_r2": "kernel_bench"}
 
@@ -262,8 +269,8 @@ def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     """Dynamic shared memory of one block of the blind-rotation kernel
     ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
     ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64``,
-    ``blind_rotate_goldilocks`` at P = 1, ``blind_rotate_multi_bit``, or
-    the kernel bench's references
+    ``blind_rotate_goldilocks`` at P = 1, ``multi_bit_accumulate`` (K5b),
+    ``blind_rotate_multi_bit_r14``, or the kernel bench's references
     ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
     for a prime count the entry does not take. Needs the built library."""
@@ -310,21 +317,15 @@ def _step_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
     return shapes, a32
 
 
-def _acc_mask_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
-                     n_steps: int, P: int, base_log: int, levels: int,
-                     acc_dtype):
-    """Check a blind-rotation kernel's accumulator, mask and geometry (P:
-    the prime count its ``<entry>_smem`` export takes); returns
-    (B, n, R, N) and the mask as contiguous int32 on the accumulator's
-    device. The caller checks its own key."""
+def _acc_shapes(name: str, acc: torch.Tensor, P: int, base_log: int,
+                levels: int, acc_dtype):
+    """Check a blind-rotation kernel's accumulator and geometry (P: the
+    prime count its ``<entry>_smem`` export takes); returns (B, R, N)."""
     dev = acc.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     _check(acc, "acc", acc_dtype, 3, dev)
     B, R, N = acc.shape
-    if tuple(msed_mask.shape) != (B, n_steps):
-        raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
-                         f"{(B, n_steps)}")
     if N & (N - 1) or N < 2:
         raise ValueError(f"N={N} is not a power of two")
     if not (base_log >= 1 and levels >= 1 and base_log * levels <= 31):
@@ -338,7 +339,20 @@ def _acc_mask_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
         raise ValueError(f"{name}: P={P}, R={R}, levels={levels}, N={N} "
                          f"needs {smem} B of shared memory per block (0: "
                          f"unsupported P), outside 1..{_SMEM_LIMIT}")
-    a32 = msed_mask.to(device=dev, dtype=torch.int32).contiguous()
+    return B, R, N
+
+
+def _acc_mask_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+                     n_steps: int, P: int, base_log: int, levels: int,
+                     acc_dtype):
+    """Check a blind-rotation kernel's accumulator, mask and geometry (as
+    :func:`_acc_shapes`); returns (B, n, R, N) and the mask as contiguous
+    int32 on the accumulator's device. The caller checks its own key."""
+    B, R, N = _acc_shapes(name, acc, P, base_log, levels, acc_dtype)
+    if tuple(msed_mask.shape) != (B, n_steps):
+        raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
+                         f"{(B, n_steps)}")
+    a32 = msed_mask.to(device=acc.device, dtype=torch.int32).contiguous()
     return (B, n_steps, R, N), a32
 
 
@@ -662,6 +676,8 @@ MAX_MB_LEVELS = 8  # G1's constant table holds 8 levels a prime
 #: universe) and groupings
 MB_PRIMES = 4
 MB_GROUPINGS = (2, 3, 4)
+#: bytes of the key bundles one K5a/K5b pair holds (:func:`multi_bit_chunk`)
+MB_SCRATCH_BYTES = 2 << 30
 
 
 def multi_bit_key_layout(residues: torch.Tensor) -> torch.Tensor:
@@ -686,12 +702,17 @@ def multi_bit_grouping(mbk: torch.Tensor) -> int:
 
 
 def multi_bit_occupancy(R: int, levels: int, N: int, grouping: int) -> dict:
-    """:func:`step_occupancy` of K5 at its prime count and ``grouping``
-    (its ``blind_rotate_multi_bit_occupancy`` export)."""
-    return _occupancy(_step_lib("blind_rotate_multi_bit")
-                      .blind_rotate_multi_bit_occupancy,
-                      "blind_rotate_multi_bit", MB_PRIMES, R, levels,
-                      N.bit_length() - 1, grouping)
+    """:func:`step_occupancy` of K5's kernels at their prime count and
+    ``grouping``: {"keybundle": K5a, "accumulate": K5b, "r14": the
+    single-kernel reference} (their ``<entry>_occupancy`` exports)."""
+    lib = _step_lib("multi_bit_accumulate")
+    shape = (MB_PRIMES, R, levels, N.bit_length() - 1)
+    return {"keybundle": _occupancy(lib.multi_bit_keybundle_occupancy,
+                                    "multi_bit_keybundle", *shape, grouping),
+            "accumulate": _occupancy(lib.multi_bit_accumulate_occupancy,
+                                     "multi_bit_accumulate", *shape),
+            "r14": _occupancy(lib.blind_rotate_multi_bit_r14_occupancy,
+                              "blind_rotate_multi_bit_r14", *shape, grouping)}
 
 
 def multi_bit_refusal(P: int, grouping: int, R: int, levels: int,
@@ -715,11 +736,21 @@ def multi_bit_refusal(P: int, grouping: int, R: int, levels: int,
     return None
 
 
+def multi_bit_chunk(B: int, n_groups: int, P: int, lR: int, R: int,
+                    N: int) -> int:
+    """C, the group steps of one K5a/K5b pair: as many as the bundles of
+    ``B`` ciphertexts (P*lR*R*N u32 a ciphertext-step) fit in
+    :data:`MB_SCRATCH_BYTES`, at least 1, at most ``n_groups``. A call
+    makes ceil(n_groups / C) pairs."""
+    per_step = B * P * lR * R * N * 4
+    return max(1, min(n_groups, MB_SCRATCH_BYTES // per_step))
+
+
 def blind_rotate_multi_bit_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
                                  mbk: torch.Tensor, base_log: int,
                                  levels: int) -> torch.Tensor:
     """The n/g group steps of the multi-bit blind rotation on the u64
-    accumulator after its body rotation (spec of K5:
+    accumulator after its body rotation (spec of the K5 pair and of r14:
     ``server.multi_bit_group_steps``). ``acc``: int64[B, R, N];
     ``msed_mask``: [B, n] in [0, 2N); ``mbk``: int32[n/g, 2, P, 2^g-1,
     l*R, R, N] (:func:`multi_bit_key_layout`). Returns int64[B, R, N]."""
@@ -730,6 +761,35 @@ def blind_rotate_multi_bit_plain(acc: torch.Tensor, msed_mask: torch.Tensor,
     return server.multi_bit_group_steps(acc, msed_mask, res, base_log, levels,
                                         multi_bit_grouping(mbk),
                                         ntt_mod.get_plan(N, P))
+
+
+def multi_bit_keybundle_plain(msed_mask: torch.Tensor, mbk: torch.Tensor,
+                              t0: int, count: int, base_log: int,
+                              levels: int) -> torch.Tensor:
+    """The key bundles of group steps t0 .. t0+count-1 (spec of K5a:
+    ``server.multi_bit_keybundle_plain``) on the key in K5's layout.
+    ``msed_mask``: [B, n] in [0, 2N); ``mbk``: int32[n/g, 2, P, 2^g-1,
+    l*R, R, N]. Returns int32 [B, count, P, l*R, R, N] (u32 residues)."""
+    from . import server  # server imports this module
+
+    P, N = mbk.shape[2], mbk.shape[-1]
+    res = multi_bit_legacy_layout(mbk, levels)[0]
+    return server.multi_bit_keybundle_plain(
+        msed_mask, res, t0, count, base_log, levels, multi_bit_grouping(mbk),
+        ntt_mod.get_plan(N, P)).to(torch.int32)
+
+
+def multi_bit_accumulate_plain(acc: torch.Tensor, bundles: torch.Tensor,
+                               base_log: int, levels: int) -> torch.Tensor:
+    """The external products of a chunk of group steps against their key
+    bundles (spec of K5b: ``server.multi_bit_accumulate_plain``). ``acc``:
+    int64[B, R, N]; ``bundles``: int32 [B, count, P, l*R, R, N]. Returns
+    int64[B, R, N]."""
+    from . import server  # server imports this module
+
+    P, N = bundles.shape[2], bundles.shape[-1]
+    return server.multi_bit_accumulate_plain(acc, bundles, base_log, levels,
+                                             ntt_mod.get_plan(N, P))
 
 
 def multi_bit_exponents(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
@@ -790,11 +850,16 @@ def _k5_lib():
     from .._build import cuda_lib
 
     lib = cuda_lib("blind_rotate_multi_bit")
-    i, v = ctypes.c_int, ctypes.c_void_p
-    lib.blind_rotate_multi_bit.argtypes = [
-        v, v, v, v, v, v, i, i, i, i, i, i, i, i, v, ctypes.c_ulonglong, v, v,
-        v, v]
-    lib.blind_rotate_multi_bit.restype = ctypes.c_int
+    i, v, ull = ctypes.c_int, ctypes.c_void_p, ctypes.c_ulonglong
+    lib.blind_rotate_multi_bit_r14.argtypes = [
+        v, v, v, v, v, v, i, i, i, i, i, i, i, i, v, ull, v, v, v, v]
+    lib.multi_bit_keybundle.argtypes = [
+        v, v, v, v, v, i, i, i, i, i, i, i, i, i, v, v, v, v]
+    lib.multi_bit_accumulate.argtypes = [
+        v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
+    for entry in (lib.blind_rotate_multi_bit_r14, lib.multi_bit_keybundle,
+                  lib.multi_bit_accumulate):
+        entry.restype = ctypes.c_int
     return lib
 
 
@@ -810,25 +875,138 @@ def _k5_host(plan: ntt_mod.NegacyclicNtt, base_log: int, levels: int,
             (ctypes.c_ulonglong * mu.size)(*[int(x) for x in mu]))
 
 
+def _multi_bit_key_shapes(name: str, mbk: torch.Tensor, device):
+    """Check a key in K5's layout on ``device``; returns (P, g)."""
+    P = mbk.shape[2] if mbk.ndim == 7 else 0
+    if P != MB_PRIMES:
+        raise ValueError(f"mbk {tuple(mbk.shape)}: {name} takes "
+                         f"{MB_PRIMES} primes")
+    g = multi_bit_grouping(mbk)
+    if g not in MB_GROUPINGS or mbk.shape[3] != (1 << g) - 1:
+        raise ValueError(f"mbk {tuple(mbk.shape)}: {name} takes "
+                         f"groupings {MB_GROUPINGS}")
+    _check(mbk, "mbk", torch.int32, 7, device)
+    return P, g
+
+
+def multi_bit_keybundle(msed_mask: torch.Tensor, mbk: torch.Tensor, t0: int,
+                        count: int, base_log: int, levels: int,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5a wrapper: see :func:`multi_bit_keybundle_plain`. ``out``: a
+    buffer of at least B*count*P*l*R*R*N int32 on the key's device to
+    write the bundles into (its first elements, viewed in their shape);
+    allocated when None."""
+    if mbk.device.type == "cpu":
+        return multi_bit_keybundle_plain(msed_mask, mbk, t0, count, base_log,
+                                         levels)
+    dev = mbk.device
+    if dev.type != "cuda":
+        raise ValueError(f"multi_bit_keybundle: unsupported device {dev}")
+    P, g = _multi_bit_key_shapes("multi_bit_keybundle", mbk, dev)
+    ng, _, _, _, lR, R, N = mbk.shape
+    if lR != levels * R or N & (N - 1) or not 8 <= N <= 8192:
+        raise ValueError(f"mbk shape {tuple(mbk.shape)} does not match "
+                         f"levels={levels}")
+    B = msed_mask.shape[0]
+    if msed_mask.ndim != 2 or msed_mask.shape[1] != ng * g or B < 1:
+        raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
+                         f"(B, {ng * g})")
+    if not (0 <= t0 and 1 <= count and t0 + count <= ng):
+        raise ValueError(f"steps {t0}..{t0 + count - 1} outside 0..{ng - 1}")
+    a32 = msed_mask.to(device=dev, dtype=torch.int32).contiguous()
+    shape = (B, count, P, lR, R, N)
+    size = B * count * P * lR * R * N
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    else:
+        if out.dtype != torch.int32 or out.device != dev or \
+                out.numel() < size or not out.is_contiguous():
+            raise ValueError(f"out: {out.dtype} {tuple(out.shape)} on "
+                             f"{out.device} cannot hold {shape} int32")
+        out = out.reshape(-1)[:size].view(shape)
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    exps, g1, _, mu = _k5_host(plan, base_log, levels, R, str(dev))
+    rc = _k5_lib().multi_bit_keybundle(
+        _ptr(a32), _ptr(mbk), _ptr(tables), _ptr(exps), _ptr(out), B,
+        ng * g, t0, count, g, R, levels, N.bit_length() - 1, P,
+        _garner_host(plan), g1, mu, _stream(dev))
+    _raise_on(rc, "multi_bit_keybundle")
+    multi_bit_keybundle.launches += 1
+    return out
+
+
+def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
+                         base_log: int, levels: int) -> torch.Tensor:
+    """K5b wrapper: see :func:`multi_bit_accumulate_plain`."""
+    if acc.device.type == "cpu":
+        return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
+    B, R, N = _acc_shapes("multi_bit_accumulate", acc, MB_PRIMES, base_log,
+                          levels, torch.int64)
+    _check(bundles, "bundles", torch.int32, 6, acc.device)
+    count, P = bundles.shape[1:3]
+    if tuple(bundles.shape) != (B, count, MB_PRIMES, levels * R, R, N):
+        raise ValueError(f"bundles shape {tuple(bundles.shape)} != [{B}, "
+                         f"count, {MB_PRIMES}, {levels * R}, {R}, {N}]")
+    dev = acc.device
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    _, _, _, mu = _k5_host(plan, base_log, levels, R, str(dev))
+    out = torch.empty_like(acc)
+    rc = _k5_lib().multi_bit_accumulate(
+        _ptr(acc), _ptr(bundles), _ptr(tables), _ptr(out), B, count, R,
+        levels, base_log, N.bit_length() - 1, P, _garner_host(plan),
+        plan.full_prod_mod64, mu, _stream(dev))
+    _raise_on(rc, "multi_bit_accumulate")
+    multi_bit_accumulate.launches += 1
+    return out
+
+
 def blind_rotate_multi_bit(acc: torch.Tensor, msed_mask: torch.Tensor,
                            mbk: torch.Tensor, base_log: int,
                            levels: int) -> torch.Tensor:
-    """K5 wrapper: see :func:`blind_rotate_multi_bit_plain`."""
+    """The K5 pair: see :func:`blind_rotate_multi_bit_plain`. Chunks of
+    C = :func:`multi_bit_chunk` group steps, each one K5a launch (the
+    chunk's key bundles, into one scratch buffer of the call) and one K5b
+    launch, counted by their wrappers."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return blind_rotate_multi_bit_plain(acc, msed_mask, mbk, base_log,
+                                            levels)
+    if dev.type != "cuda":
+        raise ValueError(f"blind_rotate_multi_bit: unsupported device {dev}")
+    if acc.ndim != 3 or mbk.ndim != 7:
+        raise ValueError(f"acc {tuple(acc.shape)}, mbk {tuple(mbk.shape)}: "
+                         "expected [B, R, N] and K5's key layout")
+    B, R, N = acc.shape
+    ng, _, P, _, lR = mbk.shape[:5]
+    chunk = multi_bit_chunk(B, ng, P, lR, R, N)
+    scratch = torch.empty(B * chunk * P * lR * R * N, dtype=torch.int32,
+                          device=dev)
+    for t0 in range(0, ng, chunk):
+        count = min(chunk, ng - t0)
+        bundles = multi_bit_keybundle(msed_mask, mbk, t0, count, base_log,
+                                      levels, out=scratch)
+        acc = multi_bit_accumulate(acc, bundles, base_log, levels)
+    return acc
+
+
+def blind_rotate_multi_bit_r14(acc: torch.Tensor, msed_mask: torch.Tensor,
+                               mbk: torch.Tensor, base_log: int,
+                               levels: int) -> torch.Tensor:
+    """r14, the single-kernel reference of the K5 pair (all n/g steps of
+    a ciphertext in one block, streaming the key), launched by no user
+    path: see :func:`blind_rotate_multi_bit_plain`."""
     if acc.device.type == "cpu":
         return blind_rotate_multi_bit_plain(acc, msed_mask, mbk, base_log,
                                             levels)
-    P = mbk.shape[2] if mbk.ndim == 7 else 0
-    if P != MB_PRIMES:
-        raise ValueError(f"mbk {tuple(mbk.shape)}: the kernel takes "
-                         f"{MB_PRIMES} primes")
-    g = multi_bit_grouping(mbk)
-    if g not in MB_GROUPINGS:
-        raise ValueError(f"mbk {tuple(mbk.shape)}: the kernel takes "
-                         f"groupings {MB_GROUPINGS}")
+    name = "blind_rotate_multi_bit_r14"
+    if acc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {acc.device}")
+    P, g = _multi_bit_key_shapes(name, mbk, acc.device)
     (B, n, R, N), a32 = _acc_mask_shapes(
-        "blind_rotate_multi_bit", acc, msed_mask, mbk.shape[0] * g, P,
-        base_log, levels, torch.int64)
-    _check(mbk, "mbk", torch.int32, 7, acc.device)
+        name, acc, msed_mask, mbk.shape[0] * g, P, base_log, levels,
+        torch.int64)
     if tuple(mbk.shape[1:]) != (2, P, (1 << g) - 1, levels * R, R, N):
         raise ValueError(f"mbk shape {tuple(mbk.shape)} does not match "
                          f"P={P}, g={g}, R={R}, levels={levels}, N={N}")
@@ -837,20 +1015,23 @@ def blind_rotate_multi_bit(acc: torch.Tensor, msed_mask: torch.Tensor,
     tables = _plan_tables_dev(plan, str(dev))
     exps, g1, g1_sh, mu = _k5_host(plan, base_log, levels, R, str(dev))
     out = torch.empty_like(acc)
-    rc = _k5_lib().blind_rotate_multi_bit(
+    rc = _k5_lib().blind_rotate_multi_bit_r14(
         _ptr(acc), _ptr(a32), _ptr(mbk), _ptr(tables), _ptr(exps), _ptr(out),
         B, mbk.shape[0], g, R, levels, base_log, N.bit_length() - 1, P,
         _garner_host(plan), plan.full_prod_mod64, g1, g1_sh, mu,
         _stream(dev))
-    _raise_on(rc, "blind_rotate_multi_bit")
-    blind_rotate_multi_bit.launches += 1
+    _raise_on(rc, name)
+    blind_rotate_multi_bit_r14.launches += 1
     return out
 
 
-blind_rotate_multi_bit.launches = 0
+multi_bit_keybundle.launches = 0
+multi_bit_accumulate.launches = 0
+blind_rotate_multi_bit_r14.launches = 0
 
 
 #: every kernel wrapper of this module, each with its ``launches`` count
 KERNELS = (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
            blind_rotate_crt, blind_rotate_crt_acc32, blind_rotate_bnf2_u64,
-           blind_rotate_goldilocks, blind_rotate_multi_bit)
+           blind_rotate_goldilocks, multi_bit_keybundle, multi_bit_accumulate,
+           blind_rotate_multi_bit_r14)

@@ -24,8 +24,9 @@ Torch counterpart of ``tfhe_tpu/ops/server.py``:
   (K2 u64, K4);
 - the multi-bit PBS (``lwe_multi_bit_programmable_bootstrapping.rs``): the
   torch spec of ``tfhe_tpu``'s ``multi_bit_blind_rotate`` (n/g external
-  products against GGSWs combined in the transform domain), and the path
-  that runs its kernels (K2 u64, K5).
+  products against GGSWs combined in the transform domain, split into the
+  key bundles and the accumulate), and the path that runs its kernels (K2
+  u64, then K5a and K5b a chunk of steps).
 
 Tensors are int64 torus values (see ``_torus.py``), batched over leading
 dims; u32 torus values (KS32) ride in int64, reduced to 32 bits after every
@@ -662,20 +663,89 @@ def _trivial_ggsw_one_hat(n: int, num_primes: int, base_log: int,
     return out
 
 
+def multi_bit_keybundle_plain(msed_mask: torch.Tensor,
+                              mbk_hat: torch.Tensor, t0: int, count: int,
+                              base_log: int, levels: int, grouping: int,
+                              plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """The key bundles of group steps t0 .. t0+count-1 (the spec of K5a):
+    for each ciphertext, step t's combined GGSW
+
+        G1 + sum_{v=1}^{2^g-1} prod_{j in v} NTT(X^{a_{tg+j}} - 1)
+             (.) GGSW_{t,v}  (mod each prime)
+
+    (G1 the trivial GGSW of 1, :func:`_trivial_ggsw_one_hat`), which
+    depends on the key and the step's g mask values, not on the
+    accumulator. ``msed_mask``: [B, n] in [0, 2N) (n/g groups of g);
+    ``mbk_hat``: residues [P, n/g, 2^g-1, l, R, R, N] in any integer dtype
+    (u32 values, no Shoup duals). Returns int64 [B, count, P, l*R, R, N],
+    the layout K5a writes and K5b reads."""
+    B = msed_mask.shape[0]
+    R, N = mbk_hat.shape[-2:]
+    P = plan.num_primes
+    dev = msed_mask.device
+    mask = msed_mask.to(torch.int64)
+    triv = torch.from_numpy(_trivial_ggsw_one_hat(
+        N, P, base_log, levels, R).view(np.int64)).to(dev)[:, None]
+    p = plan.tables(dev)["p"]
+    p_full = p.reshape(P, 1, 1, 1, 1, 1)  # [P, B, l, R, C, N]
+    p_b = p.reshape(P, 1, 1)  # [P, B, N]
+    delta = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    delta[:, 0] = 1
+    out = []
+    for t in range(t0, t0 + count):
+        nh = [plan.fwd_digits(monomial_mul(delta, mask[:, t * grouping + j])
+                              - delta)
+              for j in range(grouping)]  # [P, B, N] each
+        combined = triv.expand(P, B, levels, R, R, N)
+        for v in range(1, 1 << grouping):
+            coef = None
+            for j in range(grouping):
+                if (v >> j) & 1:
+                    coef = nh[j] if coef is None else (coef * nh[j]) % p_b
+            gv = (mbk_hat[:, t, v - 1].to(torch.int64) & M32).reshape(
+                P, 1, levels, R, R, N)
+            combined = combined + (coef[..., None, None, None, :] * gv) \
+                % p_full
+        combined = combined % p_full
+        out.append(combined.movedim(0, 1).reshape(B, P, levels * R, R, N))
+    return torch.stack(out, dim=1)
+
+
+def multi_bit_accumulate_plain(acc: torch.Tensor, bundles: torch.Tensor,
+                               base_log: int, levels: int,
+                               plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
+    """The dependent external products of a chunk of group steps (the spec
+    of K5b): per step, the new accumulator replaces the old one,
+    Garner(INTT(sum_r NTT(decompose(acc))_r (.) bundle_r)). ``acc``:
+    int64[B, R, N]; ``bundles``: [B, count, P, l*R, R, N] (u32 residues in
+    any integer dtype, :func:`multi_bit_keybundle_plain`'s layout)."""
+    B, count, P = bundles.shape[:3]
+    R, N = acc.shape[-2:]
+    p = plan.tables(acc.device)["p"]
+    p_full = p.reshape(P, 1, 1, 1, 1, 1)  # [P, B, l, R, C, N]
+    for tt in range(count):
+        combined = (bundles[:, tt].to(torch.int64) & M32).reshape(
+            B, P, levels, R, R, N).movedim(1, 0)
+        digits = decompose(acc, base_log, levels).movedim(-1, -3)
+        dhat = plan.fwd_digits(digits)  # [P, B, l, R, N]
+        prod = (dhat[..., None, :] * combined) % p_full
+        acc_hat = prod.sum(dim=(-4, -3)) % p_full[..., 0, 0]
+        acc = plan.reconstruct_u64(plan.inv(acc_hat))
+    return acc
+
+
 def multi_bit_group_steps(acc: torch.Tensor, msed_mask: torch.Tensor,
                           mbk_hat: torch.Tensor, base_log: int, levels: int,
                           grouping: int,
                           plan: ntt_mod.NegacyclicNtt) -> torch.Tensor:
     """The n/g group steps of :func:`multi_bit_blind_rotate` on an
-    accumulator whose body rotation is applied (the spec of K5). Step t
-    builds the combined GGSW
-
-        G1 + sum_{v=1}^{2^g-1} prod_{j in v} NTT(X^{a_{tg+j}} - 1)
-             (.) GGSW_{t,v}
-
-    (G1 the trivial GGSW of 1, :func:`_trivial_ggsw_one_hat`), and the new
-    accumulator is its external product with the old one, which it
-    replaces: Garner(INTT(sum_r NTT(decompose(acc))_r (.) combined_r)).
+    accumulator whose body rotation is applied (the spec of the K5 pair and
+    of the single-kernel reference r14): chunks of
+    ``pbs_kernel.multi_bit_chunk`` steps, as the kernels run, each the key
+    bundles of :func:`multi_bit_keybundle_plain` then the external
+    products of :func:`multi_bit_accumulate_plain`. Every value between
+    the decomposition and the Garner tail is exact mod each prime, so the
+    chunking does not change the result.
 
     ``acc``: int64[..., R, N]; ``msed_mask``: [..., n] in [0, 2N) (n/g
     groups of g); ``mbk_hat``: residues [P, n/g, 2^g-1, l, R, R, N] in any
@@ -683,38 +753,16 @@ def multi_bit_group_steps(acc: torch.Tensor, msed_mask: torch.Tensor,
     ngroups = mbk_hat.shape[1]
     R, N = acc.shape[-2:]
     batch = acc.shape[:-2]
-    P = plan.num_primes
-    dev = acc.device
-    mask = msed_mask.to(torch.int64)
-    triv = torch.from_numpy(_trivial_ggsw_one_hat(
-        N, P, base_log, levels, R).view(np.int64)).to(dev)
-    triv = triv.reshape((P,) + (1,) * len(batch) + triv.shape[1:])
-    p = plan.tables(dev)["p"]
-    p_full = p.reshape((P,) + (1,) * (len(batch) + 4))  # [P, .., l, R, C, N]
-    p_b = p.reshape((P,) + (1,) * (len(batch) + 1))  # [P, .., N]
-    delta = torch.zeros(batch + (N,), dtype=torch.int64, device=dev)
-    delta[..., 0] = 1
-    for t in range(ngroups):
-        nh = [plan.fwd_digits(monomial_mul(delta, mask[..., t * grouping + j])
-                              - delta)
-              for j in range(grouping)]  # [P, .., N] each
-        combined = triv.expand((P,) + batch + (levels, R, R, N))
-        for v in range(1, 1 << grouping):
-            coef = None
-            for j in range(grouping):
-                if (v >> j) & 1:
-                    coef = nh[j] if coef is None else (coef * nh[j]) % p_b
-            gv = (mbk_hat[:, t, v - 1].to(torch.int64) & M32).reshape(
-                (P,) + (1,) * len(batch) + (levels, R, R, N))
-            combined = combined + (coef[..., None, None, None, :] * gv) \
-                % p_full
-        combined = combined % p_full
-        digits = decompose(acc, base_log, levels).movedim(-1, -3)
-        dhat = plan.fwd_digits(digits)  # [P, .., l, R, N]
-        prod = (dhat[..., None, :] * combined) % p_full
-        acc_hat = prod.sum(dim=(-4, -3)) % p_full[..., 0, 0]
-        acc = plan.reconstruct_u64(plan.inv(acc_hat))
-    return acc
+    acc = acc.reshape(-1, R, N)
+    mask = msed_mask.reshape(-1, msed_mask.shape[-1])
+    chunk = pk.multi_bit_chunk(acc.shape[0], ngroups, plan.num_primes,
+                               levels * R, R, N)
+    for t0 in range(0, ngroups, chunk):
+        count = min(chunk, ngroups - t0)
+        bundles = multi_bit_keybundle_plain(mask, mbk_hat, t0, count,
+                                            base_log, levels, grouping, plan)
+        acc = multi_bit_accumulate_plain(acc, bundles, base_log, levels, plan)
+    return acc.reshape(batch + (R, N))
 
 
 def _multi_bit_kernel_key(mbk_hat: torch.Tensor, grouping: int,
@@ -766,8 +814,9 @@ def multi_bit_rotation(lut: torch.Tensor, ms_mask: torch.Tensor,
                        ms_body: torch.Tensor, mbk: torch.Tensor,
                        base_log: int, levels: int) -> torch.Tensor:
     """Multi-bit blind rotation on its kernels, the rotated GLWE
-    int64[B, R, N]: K2 body rotation (u64) -> K5. ``mbk``: the key in K5's
-    layout int32 [n/g, 2, P, 2^g-1, l*R, R, N]
+    int64[B, R, N]: K2 body rotation (u64) -> the K5 pair
+    (``pbs_kernel.blind_rotate_multi_bit``: K5a and K5b a chunk of steps).
+    ``mbk``: the key in K5's layout int32 [n/g, 2, P, 2^g-1, l*R, R, N]
     (``pbs_kernel.multi_bit_key_layout``). CUDA tensors run the kernels,
     CPU tensors their plain versions."""
     acc = pk.body_rotate_u64(lut, ms_body)
