@@ -155,7 +155,20 @@ Phases (any failure raises and exits non-zero):
     4096, 452 steps) and ``V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_
     CARRY_2_KS_PBS_TUNIFORM_2M128`` (l = 2, 293 steps) at 512, the same
     checks (plain versions on 16 ciphertexts) and timings;
-19. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+19. the platform layers (``phase_platform``, ROADMAP Queue A item 9a) on
+    phase 2's keys: the server key through ``safe_serialize`` and back
+    onto the card (MB, ms; its output on phase 2's batch ``torch.equal``
+    to phase 2's, PBS/s beside phase 2's); the thin client on the CPU (32
+    FheUint64 pairs, bit-equal to the full stack's on the card, added on
+    the round-tripped key, the sums decrypted on the CPU); the keycache (a
+    miss, then a hit, equal keys); ``utils.trace`` spans whose PBS and KS
+    counts must equal phase 13's; ROADMAP R1's first split of a batch-1
+    FheUint64 add round on phase 2's key and on phase 18's group-4 key from
+    a ``torch.profiler`` trace (its times printed, not gated; a trace
+    without the span or the key's kernels fails); the golden test
+    vectors on K2 u64 -> K3 at N = 256, and those kernel calls against
+    their plain versions;
+20. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
@@ -2699,11 +2712,329 @@ def phase_multi_bit(card, rate, rows, table13):
         print(f"{label} FheUint64 OPRF at batch 1: {oprf_ms:.1f} ms (one "
               f"batched PBS of {U64_BLOCKS} blocks, host clock)")
         summary[f"mb_{label}_oprf_ms"] = oprf_ms
-        del ck, sk, key, isk, ick
+        g4_keys = ck, sk  # phase 19's R1 split reads a round on them
+        del key, isk, ick
         torch.cuda.empty_cache()
     summary["multi_bit_s"] = time.perf_counter() - t_phase
     print(f"phase 18: {summary['multi_bit_s']:.1f} s")
-    return summary
+    return summary, g4_keys
+
+
+CLIENT_LANES = 32  # phase 19's thin-client FheUint64 pairs
+R1_KERNELS = (  # (label, kernel-name part) of the R1 split, first match
+    ("K2", "body_rotate_kernel"), ("K5a", "multi_bit_keybundle_kernel"),
+    ("K5b", "multi_bit_accumulate_kernel"), ("K1", "blind_rotate_kernel"),
+    ("H2D copy", "Memcpy HtoD"), ("keyswitch GEMM", "gemm"))
+
+
+def r1_split(events, span_name: str, rounds: int, need=()) -> dict:
+    """R1's first split of a traced op from the profiler's events: the
+    device time by kernel class (``R1_KERNELS``, the rest "other device")
+    and the host time beside it (the span's wall time minus the union of
+    the device intervals inside it), each in ms a round. Raises when the
+    trace holds no span or no device event of a class in ``need``."""
+    span = [e for e in events if e.name == span_name
+            and e.device_type.name == "CPU"]
+    if not span:
+        raise AssertionError(f"the trace holds no span {span_name!r}")
+    t0, t1 = span[0].time_range.start, span[0].time_range.end
+    dev = sorted((e for e in events if e.device_type.name == "CUDA"
+                  and e.name != span_name  # the span's GPU-side range
+                  and t0 <= e.time_range.start <= t1),
+                 key=lambda e: e.time_range.start)
+    split, counts = {}, {}
+    for e in dev:
+        label = next((lab for lab, part in R1_KERNELS
+                      if part.lower() in e.name.lower()), "other device")
+        split[label] = split.get(label, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+        counts[label] = counts.get(label, 0) + 1
+    busy, end = 0.0, t0
+    for e in dev:  # the union of the device intervals
+        a, b = max(e.time_range.start, end), e.time_range.end
+        if b > a:
+            busy += b - a
+            end = b
+    missing = [lab for lab in need if lab not in counts]
+    if missing:
+        raise AssertionError(f"the profiler recorded no {missing} kernel in "
+                             f"{span_name!r} (device events: {counts})")
+    wall = (t1 - t0) / 1e3
+    out = {k: v / rounds for k, v in split.items()}
+    out["host (wall - device busy)"] = (wall - busy / 1e3) / rounds
+    return {"ms_a_round": out, "events": counts, "wall_ms": wall,
+            "device_busy_ms": busy / 1e3, "rounds": rounds}
+
+
+def phase_platform(ck22, sk22, batch22, g4_keys, card, summary):
+    """The platform layers (ROADMAP Queue A item 9a) at 2_2, full width:
+    a. phase 2's server key through ``safe_serialize`` and back onto the
+       card (size limit, ``conformance_params``): MB, ms; its
+       ``apply_lookup_table`` on phase 2's 2048 ciphertexts
+       ``torch.equal`` to phase 2's output (K2 acc32 and K1 once), PBS/s
+       beside phase 2's;
+    b. the thin client (``tfhe_tpu_torch.client``) on ``device="cpu"``:
+       phase 2's client key from its envelope, CLIENT_LANES FheUint64
+       pairs encrypted, each bit-equal to a fresh full-stack ClientKey of
+       the seed on the card; their envelopes loaded onto the card as
+       FheUint64, added on the round-tripped key (8 rounds), the sums'
+       envelope decrypted by the client on the CPU;
+    c. ``generate_keys(ConfigBuilder().build(), use_keycache=True)`` twice
+       on a fresh cache under ``chiprun_out/`` (a miss: keygen and write;
+       then a hit: a load), the keys' tensors equal, a FheUint64 add on the
+       hit's key decrypted; the cache removed;
+    d. ``utils.trace`` spans around phase 13's FheUint64 add, bitand and eq
+       at batch 1: PBS and KS counts equal to what phase 13's wrapper of
+       ``apply_lookup_table`` counted;
+    e. ROADMAP R1's first split (its times printed, not gated):
+       ``trace.profile`` around one batch-1 FheUint64 add on phase 2's key
+       and on phase 18's group-4 key: device ms a round of the keyswitch
+       GEMM, the H2D copies (the LUT), K2, K1 or K5a + K5b, other kernels,
+       and the host time beside them; the profiler's overhead against the
+       same add unprofiled. It fails when the trace holds no span or no
+       K2 and K1 (K5a and K5b) event;
+    f. the golden vectors (``apps.test_vectors.check(device="cuda")``: K2
+       u64 -> K3 at N = 256) against ``apps/test_vectors_data/
+       checksums.json``, and that K2 u64 and K3 call against their plain
+       versions."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tfhe_tpu_torch import client, integer, keycache
+    from tfhe_tpu_torch.high_level_api import api as hl
+    from tfhe_tpu_torch._torus import from_u64, to_u64
+    from tfhe_tpu_torch.apps import test_vectors as tv
+    from tfhe_tpu_torch.integer import radix
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.utils import serialization as ser
+    from tfhe_tpu_torch.utils import trace
+
+    t_phase = time.perf_counter()
+    out = {}
+    p = sk22.params
+    bits = U64_BLOCKS * int(np.log2(p.message_modulus))  # FheUint64
+    uint = hl.fhe_uint(bits)
+    v6b = {r["metric"]: r for r in summary["fheuint_table"]}
+    names = [f.__name__ for f in pk.KERNELS]
+    pk.reset_launches()
+
+    def host(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*args)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    # a. the server key round trip
+    ct, lut, want = batch22
+    blob, ser_ms = host(hl.safe_serialize,
+                        hl.ServerKey(integer.ServerKey(sk22)))
+    sk_rt, de_ms = host(lambda: hl.safe_deserialize(
+        blob, conformance=ser.conformance_params(p.name)))
+    mb = len(blob) / 1e6
+    print(f"2_2 server key envelope: {mb:.2f} MB, safe_serialize "
+          f"{ser_ms:.1f} ms, safe_deserialize onto the card {de_ms:.1f} ms")
+    before = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32")
+    got = sk_rt.apply_lookup_table(ct, lut)
+    torch.cuda.synchronize()
+    after = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32")
+    require_launched("round-tripped key", {k: after[k] - before[k]
+                                           for k in after})
+    if not torch.equal(got.ct, want):
+        raise AssertionError("the deserialized 2_2 key's output differs "
+                             "from phase 2's")
+    step_ms = cuda_ms(lambda: sk_rt.apply_lookup_table(ct, lut), 5)
+    rt_rate = BATCH / step_ms * 1e3
+    print(f"round-tripped key: {BATCH} ciphertexts torch.equal to phase 2's;"
+          f" KS->PBS {step_ms:.3f} ms = {rt_rate:.1f} PBS/s (phase 2: "
+          f"{summary['pbs_per_s']:.1f}, {rt_rate / summary['pbs_per_s'] - 1:+.2%})"
+          f" on {card}")
+    out.update(platform_sk_mb=mb, platform_serialize_ms=ser_ms,
+               platform_deserialize_ms=de_ms, platform_rt_pbs_per_s=rt_rate)
+    del blob
+
+    steps = {"a": time.perf_counter() - t_phase}
+
+    # b. thin client (CPU) -> server (the card) -> client
+    t = time.perf_counter()
+    cck = ser.deserialize(client.serialize_client_key(ck22),
+                          expected_type="ShortintClientKey", device="cpu")
+    rng = np.random.default_rng(SEED + 19)
+    xs = rng.integers(0, 1 << bits, CLIENT_LANES, dtype=np.uint64)
+    ys = rng.integers(0, 1 << bits, CLIENT_LANES, dtype=np.uint64)
+    ca = client.encrypt_radix(cck, xs, U64_BLOCKS)
+    cb = client.encrypt_radix(cck, ys, U64_BLOCKS)
+    enc_s = time.perf_counter() - t
+    fck = radix.ClientKey.generate(p, seed=SEED)  # on the card
+    for c, v in ((ca, xs), (cb, ys)):
+        full = to_u64(fck.encrypt_radix(v, U64_BLOCKS).ct)
+        if not (isinstance(c.ct, np.ndarray) and np.array_equal(c.ct, full)):
+            raise AssertionError("thin-client ciphertexts differ from the "
+                                 "full stack's on the card")
+    blobs = [client.serialize_radix(c) for c in (ca, cb)]
+    key = CountingKey(sk_rt)
+    hl.set_server_key(hl.ServerKey(radix.ServerKey(key)))
+    try:
+        (a, b), load_ms = host(lambda: [hl.safe_deserialize(x)
+                                        for x in blobs])
+        if (not isinstance(a, uint)
+                or a.ct.ct.device.type != torch.device(DEVICE).type):
+            raise AssertionError(f"loaded {type(a).__name__} on "
+                                 f"{a.ct.ct.device}")
+        key.rounds = 0
+        total, add_ms = host(lambda: a + b)
+        rounds = key.rounds
+        answer = hl.safe_serialize(total)
+    finally:
+        hl.unset_server_key()
+    back = ser.deserialize(answer, expected_type="RadixCiphertext",
+                           device="cpu")
+    t = time.perf_counter()
+    sums = client.decrypt_radix(cck, back)
+    dec_s = time.perf_counter() - t
+    want_sums = _int_oracle("add", xs, ys, bits)
+    if not np.array_equal(sums, want_sums):
+        raise AssertionError(f"thin client: {int((sums != want_sums).sum())}"
+                             f" of {CLIENT_LANES} sums wrong")
+    print(f"thin client (cpu): {CLIENT_LANES} FheUint{bits} pairs encrypted in "
+          f"{enc_s:.2f} s, bit-equal to the full stack's on the card; server "
+          f"loaded them in {load_ms:.1f} ms, add {add_ms:.1f} ms ({rounds} "
+          f"rounds) on the round-tripped key; {CLIENT_LANES} sums decrypted "
+          f"right on the CPU in {dec_s:.2f} s")
+    want_rounds = v6b[f"fheuint{bits}_add_latency"]["rounds"]
+    if rounds != want_rounds:
+        raise AssertionError(f"FheUint{bits} add took {rounds} rounds, "
+                             f"phase 13's {want_rounds}")
+    out.update(platform_client_encrypt_s=enc_s, platform_client_add_ms=add_ms)
+    del sk_rt, key, a, b, total, fck
+
+    steps["b"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # c. the keycache: a miss, then a hit
+    os.makedirs("chiprun_out", exist_ok=True)
+    kdir = tempfile.mkdtemp(prefix="keycache_", dir="chiprun_out")
+    try:
+        with env(TFHE_TPU_KEYCACHE=kdir):
+            config = hl.ConfigBuilder().build()
+            keycache.clear_memory_cache()
+            (ck_m, sk_m), miss_ms = host(hl.generate_keys, config, True)
+            keycache.clear_memory_cache()
+            (ck_h, sk_h), hit_ms = host(hl.generate_keys, config, True)
+            keycache.clear_memory_cache()
+        km, kh = sk_m.inner.key, sk_h.inner.key
+        pairs = [(f, getattr(km, f), getattr(kh, f))
+                 for f in ("ksk", "ksk_i8", "bsk_b")]
+        pairs.append(("CRT key", km.stored_bsk(), kh.stored_bsk()))
+        for f, t_m, t_h in pairs:
+            if not torch.equal(t_m, t_h):
+                raise AssertionError(f"keycache: the hit's {f} differs")
+        del pairs
+        hl.set_server_key(sk_h)
+        try:
+            x, y = (int(v) for v in rng.integers(0, 1 << (bits - 1), 2))
+            s = uint.encrypt(x, ck_h) + uint.encrypt(y, ck_h)
+            if s.decrypt(ck_m) != (x + y) % (1 << bits):
+                raise AssertionError("keycache: the hit's add decrypts wrong")
+        finally:
+            hl.unset_server_key()
+        print(f"keycache ({config.parameters.name}, seed 0): miss (keygen "
+              f"+ write) "
+              f"{miss_ms / 1e3:.2f} s, hit (load) {hit_ms / 1e3:.2f} s; the "
+              f"keys' tensors equal; FheUint{bits} add on the hit right")
+        out.update(platform_keycache_miss_s=miss_ms / 1e3,
+                   platform_keycache_hit_s=hit_ms / 1e3)
+    finally:
+        shutil.rmtree(kdir, ignore_errors=True)
+    del ck_m, sk_m, ck_h, sk_h, km, kh
+    torch.cuda.empty_cache()
+
+    steps["c"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # d. the trace counters against phase 13's wrapper
+    ick, isk = radix.ClientKey(ck22), radix.ServerKey(sk22)
+    xs1 = rng.integers(0, 1 << bits, 1, dtype=np.uint64)
+    ys1 = rng.integers(1, 1 << bits, 1, dtype=np.uint64)
+    a1, b1 = (ick.encrypt_radix(v, U64_BLOCKS) for v in (xs1, ys1))
+    trace.reset_pbs_count()
+    with trace.span("fheuint64_ops") as outer:
+        for op in MB_INT_OPS:
+            with trace.span(op) as sp:
+                res = getattr(isk, op)(a1, b1)
+            expect_radix(ick, isk, f"traced FheUint{bits} {op}", res,
+                         _int_oracle(op, xs1, ys1, bits))
+            want_pbs = v6b[f"fheuint{bits}_{op}_latency"]["pbs"]
+            if (sp.pbs, sp.ks) != (want_pbs, want_pbs):
+                raise AssertionError(f"trace {op}: {sp.pbs} PBS, {sp.ks} KS;"
+                                     f" phase 13 counted {want_pbs}")
+    if (outer.pbs, trace.get_ks_count()) != (
+            sum(c.pbs for c in outer.children),) * 2:
+        raise AssertionError(f"nested spans: {outer.report()}")
+    print("trace spans == phase 13's counts:\n" + outer.report())
+
+    steps["d"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # e. R1's first split: one batch-1 FheUint64 add a key, profiled
+    keys = [("v6b", ("K2", "K1"), ck22, sk22)]
+    if g4_keys is not None:
+        keys.append(("g4", ("K2", "K5a", "K5b"), *g4_keys))
+    for label, need, ck_, sk_ in keys:
+        key = CountingKey(sk_)
+        ick_, isk_ = radix.ClientKey(ck_), radix.ServerKey(key)
+        a_, b_ = (ick_.encrypt_radix(v, U64_BLOCKS) for v in (xs1, ys1))
+        isk_.add(a_, b_)  # warm
+        plain_ms = statistics.median(host(isk_.add, a_, b_)[1]
+                                     for _ in range(3))
+        log_dir = os.path.join("chiprun_out", f"r1_trace_{label}")
+        key.rounds = 0
+        with trace.profile(log_dir) as prof:
+            with trace.span(f"fheuint64_add_{label}") as sp:
+                res = isk_.add(a_, b_)
+                torch.cuda.synchronize()
+        rounds = key.rounds
+        expect_radix(ick_, isk_, f"profiled FheUint{bits} add ({label})",
+                     res, _int_oracle("add", xs1, ys1, bits))
+        split = r1_split(prof.events(), sp.name, rounds, need)
+        print(json.dumps({"metric": f"r1_split_fheuint{bits}_add_{label}",
+                          "card": card, "plain_ms": plain_ms,
+                          "profiled_wall_ms": sp.seconds * 1e3,
+                          "profiler_overhead": sp.seconds * 1e3 / plain_ms
+                          - 1, **split}))
+        out[f"platform_r1_{label}"] = split["ms_a_round"]
+    del ick_, isk_, key
+
+    steps["e"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # f. the golden vectors on the card (K2 u64 -> K3 at N = 256)
+    if not tv.check(device=DEVICE):
+        raise AssertionError("the golden test vectors do not reproduce on "
+                             "the card")
+    tck, tsk = tv.keys(DEVICE)
+    vec = tv.vectors(tck, tsk)
+    tp = tck.params
+    msm = from_u64(vec["lwe_ms"][None, :-1], DEVICE)
+    msb = from_u64(vec["lwe_ms"][-1:], DEVICE)
+    for tag, f in tv.luts(tp.message_modulus * tp.carry_modulus):
+        tlut = tsk.generate_lookup_table(f).acc
+        check_equal("body_rotate_u64", pk.body_rotate_u64,
+                    pk.body_rotate_u64_plain, (tlut, msb))
+        acc = pk.body_rotate_u64(tlut, msb)
+        check_equal("blind_rotate_crt", pk.blind_rotate_crt,
+                    pk.blind_rotate_crt_plain,
+                    (acc, msm, tsk.crt_key(), tp.pbs_base_log, tp.pbs_level))
+    print(f"golden vectors: all of checksums.json reproduce on {card}; K2 "
+          f"u64 and K3 (P={tsk.crt_key().shape[2]}, N={tp.polynomial_size}) "
+          f"== plain on both LUTs")
+    launches = launches_of(*names)
+    print(f"phase 19 launches (with the plain checks' kernel runs): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    steps["f"] = time.perf_counter() - t_phase - sum(steps.values())
+    out["platform_launches"] = launches
+    out["platform_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['platform_s']:.1f} s (steps a-f, s: "
+          f"{ {k: round(v, 1) for k, v in steps.items()} })")
+    return out
 
 
 def main() -> int:
@@ -2745,7 +3076,11 @@ def main() -> int:
     summary.update(phase_hlapi(card, summary["readme_chain"][1]))
     summary.update(phase_shortint_rest(ck22, sk22, sk_v5, card, rate))
     summary.update(phase_side_modules(ck22, sk22, batch22, card, rate, rows))
-    summary.update(phase_multi_bit(card, rate, rows, summary["fheuint_table"]))
+    s, g4_keys = phase_multi_bit(card, rate, rows, summary["fheuint_table"])
+    summary.update(s)
+    summary.update(phase_platform(ck22, sk22, batch22, g4_keys, card,
+                                  summary))
+    del g4_keys
 
     order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",

@@ -7,10 +7,12 @@ for each transform variant (v6b: the BNF2 key, the standard-domain BSK;
 crt: the exact CRT key; v5: the Goldilocks key; all: the KSK and its int8
 limbs). Under v6b and crt the exact CRT key also equals tfhe_tpu's
 decompressed ``bsk_scan``. A multi-bit set decompresses to K5's key;
-serialization raises naming ROADMAP item 9. Tolerance: exact.
+``serialize`` writes tfhe_tpu's ``CompressedServerKey`` envelope, which
+either package reads back. Tolerance: exact.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import torch
 from tfhe_tpu.shortint.client_key import ClientKey as JClientKey
 from tfhe_tpu.shortint.compressed_server_key import \
     CompressedServerKey as JCompressed
+from tfhe_tpu.utils import serialization as jser
 from tfhe_tpu.utils.params import PARAM_TEST_TOY as JP
 
 from test_torch_strings import one_torch_thread  # noqa: F401
@@ -29,6 +32,7 @@ from tfhe_tpu_torch.shortint.client_key import ClientKey
 from tfhe_tpu_torch.shortint.compressed_server_key import CompressedServerKey
 from tfhe_tpu_torch.shortint.server_key import ServerKey
 from tfhe_tpu_torch.utils import params as pm
+from tfhe_tpu_torch.utils import serialization as ser
 from tfhe_tpu_torch.utils.params import PARAM_TEST_TOY as P
 
 SEED = 11  # tests/test_compressed_server_key.py's seed
@@ -130,16 +134,28 @@ def test_multi_bit_decompresses_equal():
     assert sk.bsk_b is None and sk.bsk_scan is None
 
 
-def test_multi_bit_and_serialization_raise():
-    """(Its name dates from before the multi-bit PBS was ported: a
-    multi-bit set compresses now, ``test_multi_bit_decompresses_equal``.)
-    Serializing a compressed key raises naming ROADMAP item 9, classic and
-    multi-bit alike."""
-    for ck in (_fresh(), _multi_bit_client_key()):
-        csk = CompressedServerKey.generate(ck)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 9: platform layers"):
-            csk.serialize()
+def test_multi_bit_and_serialization_raise(jax_key):
+    """(Its name dates from before the multi-bit PBS and serialization
+    were ported: a multi-bit set compresses,
+    ``test_multi_bit_decompresses_equal``.) ``serialize`` writes
+    tfhe_tpu's envelope byte for byte, classic and multi-bit alike (the
+    duck-typed multi-bit set has no registered name, so only the classic
+    one is read back); the load decompresses to the same key."""
+    jcsk, _ = jax_key
+    csk = CompressedServerKey.generate(_fresh())
+    blob = csk.serialize()
+    assert blob == jser.serialize_compressed_server_key(jcsk)
+    back = ser.deserialize(blob, expected_type="CompressedServerKey",
+                           device="cpu")
+    assert back.serialize() == blob
+    assert_same_key(back.decompress(), csk.decompress())
+    jback = jser.deserialize(blob, expected_type="CompressedServerKey")
+    np.testing.assert_array_equal(jback.bsk_bodies, jcsk.bsk_bodies)
+    mb = CompressedServerKey.generate(_multi_bit_client_key())
+    as_numpy = types.SimpleNamespace(**dict(
+        vars(mb), bsk_bodies=to_u64(mb.bsk_bodies),
+        ksk_bodies=to_u64(mb.ksk_bodies)))
+    assert mb.serialize() == jser.serialize_compressed_server_key(as_numpy)
 
 
 def test_ks32_set_refused():

@@ -1,7 +1,7 @@
 """The port's typed high-level API (``tfhe_tpu_torch.high_level_api``)
 against ``tfhe_tpu.high_level_api`` at PARAM_TEST_TOY on the CPU: the tests
 of ``tests/test_hlapi.py``, the reference README chain, the tests of
-``tests/test_hlapi_extra.py`` but noise squashing and safe serialization
+``tests/test_hlapi_extra.py`` but noise squashing
 (``test_tag_propagation``, ``test_fhe_array_elementwise``, the compressed
 server key, the compact public key, the compressed and the compact list,
 the XOF key set) and ``test_kv_store`` of ``tests/test_pk_kv.py``.
@@ -14,8 +14,11 @@ key) and the port's output must equal the JAX one bit for bit (tolerance
 leave every input unchanged. The entries of the shortint side modules
 (ROADMAP Queue A item 6) give tfhe_tpu's keys and outputs bit for bit; the
 encryption randomness of a compact list (``secrets.randbits``, read by both
-packages) is pinned for that. Every entry the port does not carry yet
-raises ``NotImplementedError`` naming its ROADMAP item by number and title.
+packages) is pinned for that. ``safe_serialize`` writes tfhe_tpu's bytes,
+``safe_deserialize`` reads them (size limit, conformance), and
+``generate_keys(use_keycache=True)`` gives the seed's keys from a cache
+under ``tmp_path``. Every entry the port does not carry yet raises
+``NotImplementedError`` naming its ROADMAP item by number and title.
 """
 
 import secrets
@@ -281,8 +284,6 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
 
 
 UNPORTED = {
-    "keycache": (lambda: api.generate_keys(config(api, P), use_keycache=True,
-                                           device="cpu"), (9,)),
     "noise_squashing_config": (lambda: api.ClientKey.generate(
         api.ConfigBuilder().use_custom_parameters(P)
         .enable_noise_squashing(object()).build(), device="cpu"), (7,)),
@@ -296,8 +297,6 @@ UNPORTED = {
         None, [], None).verify_and_expand(None), (9,)),
     "build_with_proof": (lambda: api.CompactCiphertextListBuilder(
         None).build_with_proof(None), (9,)),
-    "safe_serialize": (lambda: api.safe_serialize(None), (9,)),
-    "safe_deserialize": (lambda: api.safe_deserialize(b""), (9,)),
 }
 
 TITLES = {7: "u128 noise squashing", 8: "other PBS flavors",
@@ -316,6 +315,78 @@ def test_unported_entries_raise(name):
     assert "ROADMAP Queue A" in msg
     for i in items:
         assert f"item {i}: {TITLES[i]}" in msg, msg
+
+
+def _keycache_round_trip(keys, tmp_path, monkeypatch):
+    """``generate_keys(use_keycache=True)``: a miss writes the cache, a hit
+    reads it; both give the seed's keys, and an add runs on the hit's."""
+    from tfhe_tpu_torch import keycache
+
+    monkeypatch.setenv("TFHE_TPU_KEYCACHE", str(tmp_path))
+    keycache.clear_memory_cache()
+    try:
+        miss = api.generate_keys(config(api, P), use_keycache=True,
+                                 device="cpu")
+        keycache.clear_memory_cache()
+        ck, sk = api.generate_keys(config(api, P), use_keycache=True,
+                                   device="cpu")
+    finally:
+        keycache.clear_memory_cache()
+    for key in (miss[1], sk):
+        assert torch.equal(key.inner.key.bsk_b, keys["sk"].inner.key.bsk_b)
+    assert torch.equal(ck.inner.key.lwe_sk.bits,
+                       keys["ck"].inner.key.lwe_sk.bits)
+    api.set_server_key(sk)
+    a, b = api.FheUint8.encrypt(250, ck), api.FheUint8.encrypt(9, ck)
+    assert (a + b).decrypt(keys["ck"]) == 3
+
+
+def _safe_serialize_round_trip(keys, tmp_path, monkeypatch):
+    """tfhe_tpu's bytes for an integer, the client key and the server key;
+    the size limit holds at write time."""
+    x = japi.FheUint16.encrypt(4321, keys["jck"])
+    assert api.safe_serialize(carry_in(x)) == japi.safe_serialize(x)
+    assert api.safe_serialize(keys["ck"]) == japi.safe_serialize(keys["jck"])
+    assert api.safe_serialize(keys["sk"]) == japi.safe_serialize(keys["jsk"])
+    with pytest.raises(ValueError, match="exceeds limit"):
+        api.safe_serialize(keys["sk"], serialized_size_limit=1000)
+    with pytest.raises(TypeError, match="unsupported type"):
+        api.safe_serialize(object())
+
+
+def _safe_deserialize_round_trip(keys, tmp_path, monkeypatch):
+    """tfhe_tpu's envelopes load onto the CPU: an integer as its FheUint
+    type (it decrypts and computes), the keys as shortint keys; the size
+    limit and the conformance predicate hold."""
+    x = japi.FheUint16.encrypt(4321, keys["jck"])
+    back = api.safe_deserialize(japi.safe_serialize(x), device="cpu")
+    assert type(back) is api.FheUint16 and back.decrypt(keys["ck"]) == 4321
+    assert_same(x + x, back + back)
+    ck = api.safe_deserialize(japi.safe_serialize(keys["jck"]), device="cpu")
+    assert torch.equal(ck.lwe_sk.bits, keys["ck"].inner.key.lwe_sk.bits)
+    from tfhe_tpu_torch.utils import serialization as ser
+
+    blob = japi.safe_serialize(keys["jsk"])
+    sk = api.safe_deserialize(blob, conformance=ser.conformance_params(
+        P.name), device="cpu")
+    assert torch.equal(sk.bsk_b, keys["sk"].inner.key.bsk_b)
+    with pytest.raises(ser.SerializationError, match="conformance"):
+        api.safe_deserialize(blob, conformance=ser.conformance_params(
+            "PARAM_MESSAGE_2_CARRY_2_KS_PBS"), device="cpu")
+    with pytest.raises(ValueError, match="exceeds limit"):
+        api.safe_deserialize(blob, serialized_size_limit=len(blob) - 1)
+
+
+ROUND_TRIPS = {"keycache": _keycache_round_trip,
+               "safe_serialize": _safe_serialize_round_trip,
+               "safe_deserialize": _safe_deserialize_round_trip}
+
+
+@pytest.mark.parametrize("name", list(ROUND_TRIPS))
+def test_retired_raises_round_trip(keys, name, tmp_path, monkeypatch):
+    """The entries that raised until ROADMAP Queue A item 9's first slice
+    (the keycache, safe serialization) run, against tfhe_tpu's bytes."""
+    ROUND_TRIPS[name](keys, tmp_path, monkeypatch)
 
 
 # -- the shortint side modules' entries (ROADMAP Queue A item 6) ---------------

@@ -79,7 +79,14 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/shortint/wopbs.py",
             "tfhe_tpu_torch/utils/params_registry.py",
             "tfhe_tpu_torch/utils/params_universe.py",
-            "tfhe_tpu_torch/utils/fork_budgets.py"} <= names
+            "tfhe_tpu_torch/utils/fork_budgets.py",
+            "tfhe_tpu_torch/utils/trace.py",
+            "tfhe_tpu_torch/utils/serialization.py",
+            "tfhe_tpu_torch/utils/cbor.py",
+            "tfhe_tpu_torch/utils/hostarray.py",
+            "tfhe_tpu_torch/keycache.py",
+            "tfhe_tpu_torch/client.py",
+            "tfhe_tpu_torch/apps/test_vectors.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -101,6 +108,9 @@ def test_toy_pbs_runs_without_jax_loaded():
         "    key_switching_key, compressed_server_key, list_compression,\n"
         "    wopbs)\n"
         "from tfhe_tpu_torch.utils import fork_budgets\n"
+        "from tfhe_tpu_torch.utils import trace, serialization, cbor\n"
+        "from tfhe_tpu_torch import keycache, client\n"
+        "from tfhe_tpu_torch.apps import test_vectors\n"
         "from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME\n"
         "PARAMS_BY_NAME['V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128']\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"

@@ -9,23 +9,19 @@ or ``tfhe_tpu``.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from . import boolean
 from ._device import resolve_device
 from ._torus import from_u32, from_u64, to_u32, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
 from .integer import radix
-from .ops import ntt as ntt_mod
-from .ops import pbs_kernel as pk
 from .shortint import list_compression as lc
 from .shortint.client_key import ClientKey
 from .shortint.compact_public_key import CompactPrivateKey, CompactPublicKey
 from .shortint.compressed_server_key import CompressedServerKey
 from .shortint.key_switching_key import KeySwitchingKey, ksk_limbs
 from .shortint.public_key import PublicKey
-from .shortint.server_key import (ServerKey, check_supported, grouping_of,
-                                  resolve_variant)
+from .shortint.server_key import ServerKey
 from .shortint.wopbs import WopbsKey
 from .strings.ascii import FheAsciiString
 from .utils.params import BOOLEAN_PARAMS_BY_NAME, PARAMS_BY_NAME
@@ -52,63 +48,23 @@ def client_key_to_arrays(ck: ClientKey) -> tuple:
 def server_key_from_arrays(params_name: str, ksk_u64,
                            bsk_scan_residues_u32, num_primes: int,
                            device=None, ms_zeros_u64=None) -> ServerKey:
-    """A port ServerKey from ``tfhe_tpu``'s stored key arrays: the KSK
-    u64[n_big, l_ks, n_small+1] (u32 values under KS32), the CRT-domain
-    bootstrap key in scan layout u32[n, 2(residue/shoup), P, l*R, R, N]
-    over the first ``num_primes`` PRIMES32, and under the drift technique
-    the encryptions of zero u64[Z, n_small+1] (``ServerKey.ms_zeros``).
-    The standard-domain BSK is rebuilt exactly with the port's inverse NTT
-    + Garner reconstruction (as ``tfhe_tpu.shortint.server_key`` does
-    before deriving its BNF2 key), then prepared for the resolved variant
-    (under v5, ``bsk_g`` equals ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``);
-    the CRT key itself is carried as given, the key of many-LUT and the
-    OPRF under v6/v6b and crt. A multi-bit set's key arrives as
-    ``tfhe_tpu`` stores it, residues and duals u32[2, P, n/g, 2^g-1, l, R,
-    R, N], and is laid out for K5."""
-    p = PARAMS_BY_NAME[params_name]
-    dev = resolve_device(device)
-    check_supported(p, dev)
-    ms_zeros = None if ms_zeros_u64 is None else from_u64(ms_zeros_u64, dev)
-    if grouping_of(p):
-        res = np.asarray(bsk_scan_residues_u32, dtype=np.uint32)
-        if res.ndim != 8 or res.shape[:2] != (2, num_primes):
-            raise ValueError(f"multi-bit key {res.shape} does not hold "
-                             f"{num_primes} primes of residues + Shoup duals")
-        return ServerKey.from_multi_bit_residues(
-            p, from_u64(ksk_u64, dev), from_u32(res, dev), ms_zeros=ms_zeros)
-    variant = resolve_variant(p.polynomial_size, p.pbs_base_log, p.pbs_level,
-                              params=p)
-    scan = np.asarray(bsk_scan_residues_u32, dtype=np.uint32)
-    nlwe, two, P, lR, R, N = scan.shape
-    if P != num_primes or two != 2:
-        raise ValueError(f"scan layout {scan.shape} does not hold {num_primes} "
-                         "primes of residues + Shoup duals")
-    levels = lR // R
-    crt_key = from_u32(scan, dev)
-    res = crt_key[:, 0].to(torch.int64) & 0xFFFFFFFF
-    res = res.movedim(1, 0)  # [P, n, l*R, R, N]
-    plan = ntt_mod.get_plan(N, num_primes)
-    std = plan.reconstruct_u64(plan.inv(res)).reshape(nlwe, levels, R, R, N)
-    return ServerKey.from_standard_keys(
-        p, from_u64(ksk_u64, dev), std, variant, ms_zeros=ms_zeros,
-        bsk_scan=None if variant == "v5" else crt_key)
+    """A port ServerKey from ``tfhe_tpu``'s stored key arrays, for any name
+    of ``PARAMS_BY_NAME`` (:meth:`ServerKey.from_stored`: the KSK, the CRT
+    key in scan layout (a multi-bit set's residue layout), its prime count
+    and the drift technique's encryptions of zero)."""
+    return ServerKey.from_stored(PARAMS_BY_NAME[params_name], ksk_u64,
+                                 bsk_scan_residues_u32, num_primes, device,
+                                 ms_zeros_u64)
 
 
 def server_key_to_arrays(sk: ServerKey) -> tuple:
     """Inverse of :func:`server_key_from_arrays`: (params name, KSK u64,
     CRT key in scan layout u32 (a multi-bit key: ``tfhe_tpu``'s residue
-    layout), its prime count, the encryptions of zero u64 or None). A v5
-    key keeps no CRT key: it raises."""
+    layout), its prime count, the encryptions of zero u64 or None)."""
     zeros = None if sk.ms_zeros is None else to_u64(sk.ms_zeros)
-    if sk.bsk_mb is not None:
-        res = pk.multi_bit_legacy_layout(sk.bsk_mb, sk.params.pbs_level)
-        return (sk.params.name, to_u64(sk.ksk), to_u32(res.contiguous()),
-                sk.num_primes, zeros)
-    if sk.variant == "v5":
-        raise ValueError("a v5 server key carries no CRT key")
-    scan = sk.crt_key()
-    return (sk.params.name, to_u64(sk.ksk), to_u32(scan), scan.shape[2],
-            zeros)
+    bsk = sk.stored_bsk()  # P on axis 2, a multi-bit key's on axis 1
+    return (sk.params.name, to_u64(sk.ksk), to_u32(bsk),
+            bsk.shape[1 if sk.bsk_mb is not None else 2], zeros)
 
 
 def boolean_client_key_from_arrays(params_name: str, glwe_sk_bits,

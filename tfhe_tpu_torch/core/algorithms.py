@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from .._torus import from_u64
-from ..ops import ntt as ntt_mod
 from ..utils.csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..utils.params import DynamicDistribution
 from .entities import (GlweSecretKey, LweBootstrapKey, LweKeyswitchKey,
@@ -110,6 +109,10 @@ def _binary_polymul_batch(s_bits: torch.Tensor,
     int64[..., N]. The CRT-NTT plan has enough primes for the
     1 + 64 + log2(N) + log2(k) bit bound, so the result is the exact
     product mod 2^64 (the same primes as the JAX package)."""
+    # ops/ is imported at use: the thin client (client.py) encrypts with
+    # this module where the server stack is absent
+    from ..ops import ntt as ntt_mod
+
     k, n = s_bits.shape
     num_primes = ntt_mod.min_primes_for_bound(
         ntt_mod.polymul_bound_bits(1, n, num_sums=k))
@@ -298,6 +301,8 @@ def bootstrap_key_to_ntt(bsk: LweBootstrapKey,
     fft64/crypto/bootstrap.rs:199), on the key's device, with the Shoup dual
     floor(res * 2^32 / p) of every residue: one int64 division per entry,
     at keygen only (res < 2^30, so res << 32 stays below 2^62)."""
+    from ..ops import ntt as ntt_mod
+
     N = bsk.data.shape[-1]
     plan = ntt_mod.get_plan(N, num_primes)
     return NttLweBootstrapKey(

@@ -12,9 +12,11 @@ op runs through the integer ``ServerKey`` on the key's device.
 
 Compression keys and compressed ciphertext lists, the compressed server
 key and the XOF key set, the compact public key and compact lists run on
-the shortint side modules. The parts of the JAX API that need modules the
-port does not carry yet (noise squashing, ZK, serialization, the keycache)
-raise ``NotImplementedError`` naming their ROADMAP item.
+the shortint side modules; ``safe_serialize`` / ``safe_deserialize`` write
+and read ``tfhe_tpu``'s envelopes, and ``generate_keys(use_keycache=True)``
+shares its key cache. The parts of the JAX API that need modules the port
+does not carry yet (noise squashing, ZK) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..shortint.compact_public_key import CompactPublicKey as _ShortintCPK
 from ..shortint.compressed_server_key import (
     CompressedServerKey as _ShortintCompressed)
 from ..shortint.key_switching_key import KeySwitchingKey
+from ..utils import serialization as _ser
 from ..utils.params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
 
 # ---------------------------------------------------------------------------
@@ -166,11 +169,20 @@ class CompressedServerKey:
 def generate_keys(config: Config, use_keycache: bool = False, device=None):
     """Reference ``high_level_api/keys/mod.rs:40``: (ClientKey, ServerKey)
     on ``device`` (the GPU when unset), with the compression keys when the
-    config enables compression."""
+    config enables compression. ``use_keycache`` takes the shortint keys
+    from the disk cache (``keycache.get_shortint_keys``), generating and
+    writing them on a miss."""
     if use_keycache:
-        raise not_ported("the keycache", 9)
-    ck = ClientKey.generate(config, device=device)
-    sk = ServerKey(integer.ServerKey.generate(ck.inner))
+        from ..keycache import get_shortint_keys
+
+        _check_config(config)
+        sck, ssk = get_shortint_keys(config.parameters, config.seed or 0,
+                                     device)
+        ck = ClientKey(integer.ClientKey(sck))
+        sk = ServerKey(integer.ServerKey(ssk))
+    else:
+        ck = ClientKey.generate(config, device=device)
+        sk = ServerKey(integer.ServerKey.generate(ck.inner))
     if config.compression_parameters is not None:
         ck.compression_private_key = _lc.new_compression_private_key(
             ck.inner.key, config.compression_parameters)
@@ -257,14 +269,51 @@ def _radix(ct: torch.Tensor, nb: int) -> RadixCiphertext:
         message_modulus=p.message_modulus, carry_modulus=p.carry_modulus)
 
 
+# ---------------------------------------------------------------------------
+# safe serialization envelope (high_level_api/safe_serialization.rs:151-300)
+# ---------------------------------------------------------------------------
+
 def safe_serialize(obj, serialized_size_limit: int = 1 << 30) -> bytes:
-    """Versioned, size-bounded envelope (safe_serialization.rs)."""
-    raise not_ported("safe serialization", 9)
+    """Versioned envelope with a size bound (``tfhe_tpu``'s bytes); rejects
+    oversized payloads at write time like the reference's SafeSerializer.
+    FheUint/FheInt values, client keys and server keys."""
+    if isinstance(obj, _FheIntegerBase):
+        data = _ser.serialize_radix(obj.ct)
+    elif isinstance(obj, ClientKey):
+        data = _ser.serialize_shortint_client_key(obj.inner.key)
+    elif isinstance(obj, ServerKey):
+        data = _ser.serialize_shortint_server_key(obj.inner.key)
+    else:
+        raise TypeError(f"safe_serialize: unsupported type {type(obj)}")
+    if len(data) > serialized_size_limit:
+        raise ValueError(
+            f"serialized size {len(data)} exceeds limit {serialized_size_limit}"
+        )
+    return data
 
 
 def safe_deserialize(data: bytes, serialized_size_limit: int = 1 << 30,
-                     conformance=None):
-    raise not_ported("safe serialization", 9)
+                     conformance=None, device=None):
+    """Bounded and conformance-checked load onto ``device`` (the GPU when
+    unset); an integer comes back as the FheUint type of its width, a key
+    as the shortint key, as in ``tfhe_tpu``."""
+    if len(data) > serialized_size_limit:
+        raise ValueError(
+            f"payload size {len(data)} exceeds limit {serialized_size_limit}"
+        )
+    obj = _ser.deserialize(data, conformance=conformance, device=device)
+    if isinstance(obj, RadixCiphertext):
+        return _wrap_radix(obj)
+    return obj
+
+
+def _wrap_radix(radix_ct: RadixCiphertext):
+    """A radix ciphertext in the FheUint type of its width."""
+    width = radix_ct.num_blocks * int(math.log2(radix_ct.message_modulus))
+    ty = _UNSIGNED_TYPES.get(width)
+    if ty is None:
+        raise ValueError(f"no FheUint type for width {width}")
+    return ty(radix_ct)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ key for the variant in use (v6b: the BNF2 key, the standard-domain BSK, the
 KSK and its int8 limbs; a multi-bit set: its key of subset-product GGSWs in
 K5's layout).
 
-KS64 keys only, as in ``tfhe_tpu``, classic or multi-bit; serialization
-raises (ROADMAP Queue A item 9).
+KS64 keys only, as in ``tfhe_tpu``, classic or multi-bit; :meth:`serialize`
+writes ``tfhe_tpu``'s ``CompressedServerKey`` envelope
+(``utils/serialization.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from .._roadmap import not_ported
 from .._torus import from_u64
 from ..core import algorithms as algo
+from ..utils import serialization as ser
 from ..utils.csprng import AesCtrGenerator
 from .client_key import ClientKey
 from .server_key import (ServerKey, check_supported, drift_params,
@@ -117,4 +118,6 @@ class CompressedServerKey:
         return (self.bsk_bodies.numel() + self.ksk_bodies.numel()) * 8 + 64
 
     def serialize(self) -> bytes:
-        raise not_ported("serialization of the compressed server key", 9)
+        """``tfhe_tpu``'s envelope of this key, byte for byte; read it back
+        with ``utils.serialization.deserialize``."""
+        return ser.serialize_compressed_server_key(self)

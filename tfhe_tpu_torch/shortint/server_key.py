@@ -23,7 +23,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._torus import from_u64, to_u64, u64_const
+from .._device import resolve_device
+from .._torus import from_u32, from_u64, to_u64, u64_const
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
 from ..core.entities import LweBootstrapKey
@@ -32,7 +33,7 @@ from ..ops import goldilocks as gl
 from ..ops import ntt as ntt_mod
 from ..ops import pbs_kernel as pk
 from ..ops import server as server_ops
-from ..utils import fork_budgets
+from ..utils import fork_budgets, trace
 from ..utils.encoding import ShortintEncoding
 from ..utils.params import (ClassicPBSParameters, EncryptionKeyChoice,
                             ModulusSwitchType)
@@ -174,6 +175,17 @@ def prepare_crt_key(bsk_std: torch.Tensor, p) -> torch.Tensor:
     return pk.bsk_to_scan_layout(ntt_key.residues)
 
 
+def _count(ct: ShortintCiphertext, pbs: bool) -> None:
+    """The trace counters of one dispatch (``utils/trace.py``): a keyswitch,
+    and with ``pbs`` a bootstrap, for each ciphertext of the batch, at the
+    sites where ``tfhe_tpu`` counts them (``server_key.py:595-598``,
+    ``:684-687``, ``:699-702``)."""
+    n = math.prod(ct.ct.shape[:-1]) or 1
+    if pbs:
+        trace.add_pbs(n)
+    trace.add_ks(n)
+
+
 @dataclass
 class ServerKey:
     params: ClassicPBSParameters
@@ -192,8 +204,9 @@ class ServerKey:
     #: K4's order, int64 [n_small, l*R, R, N] (prepared once)
     bsk_g: Optional[torch.Tensor] = None
     bsk_g_k: Optional[torch.Tensor] = None
-    #: the standard-domain BSK int64[n, l, R, R, N], kept under v6/v6b
-    #: until :meth:`crt_key` turns it into ``bsk_scan``
+    #: the standard-domain BSK int64[n, l, R, R, N], kept under v6/v6b/v5
+    #: until :meth:`crt_key` turns it into ``bsk_scan`` (under v5 only the
+    #: stored form reads it: 56.8 MB on the key's device at 2_2)
     bsk_std: Optional[torch.Tensor] = None
     #: drift-technique modulus switching: encryptions of zero under the
     #: small key, int64[Z, n_small+1] (u32 values under KS32)
@@ -254,19 +267,33 @@ class ServerKey:
         """The exact CRT key in scan layout, the key of many-LUT and the
         OPRF under v6/v6b (``tfhe_tpu`` keeps it beside every variant's key,
         ``server_key.py:423-442``). Built at first use from ``bsk_std``,
-        which it then replaces, so no other path's keygen grows. A
+        which it then replaces, so the keygen of v6/v6b grows by
+        ``bsk_std`` only; a v5 key keeps ``bsk_std`` for its stored form. A
         multi-bit key has none: its many-LUT and OPRF run on K5."""
         if self.bsk_mb is not None:
             raise ValueError("a multi-bit server key carries no classic CRT "
                              "key")
         if self.bsk_scan is None:
-            if self.bsk_std is None:
-                raise ValueError("this server key carries neither the CRT "
-                                 "key nor the standard-domain BSK to build "
-                                 "it from")
-            self.bsk_scan = prepare_crt_key(self.bsk_std, self.params)
+            self.bsk_scan = self.stored_bsk()
             self.bsk_std = None
         return self.bsk_scan
+
+    def stored_bsk(self) -> torch.Tensor:
+        """The bootstrap key as ``tfhe_tpu`` stores it (its serialization,
+        its keycache, ``convert``): a classic key's exact CRT key in scan
+        layout, int32 (u32) [n, 2, P, l*R, R, N], built into a temporary
+        from ``bsk_std`` when the key holds none (the key is left as it
+        was); a multi-bit key's residues and duals, int32 (u32) [2, P, n/g,
+        2^g-1, l, R, R, N]."""
+        if self.bsk_mb is not None:
+            return pk.multi_bit_legacy_layout(self.bsk_mb,
+                                              self.params.pbs_level)
+        if self.bsk_scan is not None:
+            return self.bsk_scan
+        if self.bsk_std is None:
+            raise ValueError("this server key carries neither the CRT key "
+                             "nor the standard-domain BSK to build it from")
+        return prepare_crt_key(self.bsk_std, self.params)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -346,12 +373,57 @@ class ServerKey:
             bsk_g=bsk_g,
             bsk_g_k=(pk.goldilocks_kernel_key(bsk_g) if bsk_g is not None
                      else None),
-            bsk_std=(bsk_std if flavor is not None and bsk_scan is None
+            bsk_std=(bsk_std if variant != "crt" and bsk_scan is None
                      else None),
             ms_zeros=ms_zeros,
             variant=variant,
             max_degree=p.message_modulus * p.carry_modulus - 1,
         )
+
+    @classmethod
+    def from_stored(cls, p, ksk_u64, bsk_scan_u32, num_primes: int,
+                    device=None, ms_zeros_u64=None) -> "ServerKey":
+        """A key from ``tfhe_tpu``'s stored arrays (its ``ServerKey``
+        fields, what its serialization and keycache hold), on ``device``
+        (the GPU when unset): the KSK u64[n_big, l_ks, n_small+1] (u32
+        values under KS32), the CRT-domain bootstrap key in scan layout
+        u32[n, 2 (residue/shoup), P, l*R, R, N] over the first
+        ``num_primes`` PRIMES32, and under the drift technique the
+        encryptions of zero u64[Z, n_small+1]. The standard-domain BSK is
+        rebuilt exactly with the inverse NTT and the Garner reconstruction
+        (as ``tfhe_tpu.shortint.server_key`` does before deriving its BNF2
+        key), then prepared for the resolved variant (under v5, ``bsk_g``
+        equals ``tfhe_tpu``'s ``ServerKey.bsk_scan_g``); the CRT key itself
+        is kept as given. A multi-bit set's key arrives as ``tfhe_tpu``
+        stores it, residues and duals u32[2, P, n/g, 2^g-1, l, R, R, N],
+        and is laid out for K5."""
+        dev = resolve_device(device)
+        check_supported(p, dev)
+        ksk = from_u64(ksk_u64, dev)
+        ms_zeros = None if ms_zeros_u64 is None else from_u64(ms_zeros_u64,
+                                                               dev)
+        if grouping_of(p):
+            res = np.asarray(bsk_scan_u32, dtype=np.uint32)
+            if res.ndim != 8 or res.shape[:2] != (2, num_primes):
+                raise ValueError(f"multi-bit key {res.shape} does not hold "
+                                 f"{num_primes} primes of residues + Shoup "
+                                 "duals")
+            return cls.from_multi_bit_residues(p, ksk, from_u32(res, dev),
+                                               ms_zeros=ms_zeros)
+        variant = resolve_variant(p.polynomial_size, p.pbs_base_log,
+                                  p.pbs_level, params=p)
+        scan = np.asarray(bsk_scan_u32, dtype=np.uint32)
+        if scan.ndim != 6 or scan.shape[1:3] != (2, num_primes):
+            raise ValueError(f"scan layout {scan.shape} does not hold "
+                             f"{num_primes} primes of residues + Shoup duals")
+        nlwe, _, P, lR, R, N = scan.shape
+        crt_key = from_u32(scan, dev)
+        res = (crt_key[:, 0].to(torch.int64) & 0xFFFFFFFF).movedim(1, 0)
+        plan = ntt_mod.get_plan(N, P)
+        std = plan.reconstruct_u64(plan.inv(res)).reshape(
+            nlwe, lR // R, R, R, N)
+        return cls.from_standard_keys(p, ksk, std, variant,
+                                      ms_zeros=ms_zeros, bsk_scan=crt_key)
 
     @classmethod
     def from_multi_bit_residues(cls, p, ksk: torch.Tensor,
@@ -514,6 +586,7 @@ class ServerKey:
         if ct.under_key != expect:
             raise ValueError(f"{self.order} pattern expects {expect}-key "
                              f"input, got {ct.under_key}")
+        _count(ct, pbs=True)
         out = self.ks_pbs(ct.ct.to(self.device), lut.acc)
         return ShortintCiphertext(
             ct=out,
@@ -544,6 +617,7 @@ class ServerKey:
                              f"many-LUT limit {many.max_input_degree}")
         centered = (self.params.modulus_switch_type
                     == ModulusSwitchType.CENTERED_MEAN_NOISE_REDUCTION)
+        _count(ct, pbs=True)
         small = self.ks_only(ct.ct.to(self.device))
         batch, rotated = self._rotate(small, many.acc, centered,
                                       self._pbs_input_bits)
@@ -556,6 +630,7 @@ class ServerKey:
             for i in range(many.count)]
 
     def keyswitch(self, ct: ShortintCiphertext) -> ShortintCiphertext:
+        _count(ct, pbs=False)
         return ct.with_ct(self.ks_only(ct.ct.to(self.device)))
 
     def message_extract(self, ct: ShortintCiphertext) -> ShortintCiphertext:
