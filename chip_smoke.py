@@ -16,9 +16,16 @@ Phases (any failure raises and exits non-zero):
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
    against their plain versions (exact) on the path's own inputs (the
-   whole batch, all 866 steps) and at three 32-step cases;
+   whole batch, all 866 steps) and at three 32-step cases; K2 acc32, its
+   plain version and its first design ``body_rotate_acc32_r1``
+   ``torch.equal`` on the path's shared LUT at B = 2048, 1 and 32, on a
+   random per-ciphertext LUT at 2048 (also unaligned), on LUT tables
+   beyond shared memory (N = 32768) and on the three cases' random LUTs;
    ``ServerKey.apply_lookup_table`` with the launch counts zeroed just
-   before and read just after; timings;
+   before and read just after (r1 never); timings: K2 acc32 and r1 in
+   turns at 2048 (shared and per-ciphertext LUT), 1 and 32 on the device
+   alone (``k2_device_ms``), a 33.55 MB device-to-device ``copy_`` for
+   reference;
 3. boolean gates at ``BOOLEAN_DEFAULT_PARAMETERS`` (exact CRT, P = 3):
    seeded keygen, 4096 random pairs, every gate (``not_`` and ``mux``
    included) against its truth table; K2 u64 and K3 against their plain
@@ -171,9 +178,13 @@ Phases (any failure raises and exits non-zero):
 20. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
-Times are CUDA events: a kernel's ``ms`` is the median of a few runs (K2:
-the mean of 200 back-to-back launches between one pair of events); a plain
-version's ``plain_ms`` is its comparison run. Bounds: ``bound_ms`` is the
+Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
+(acc32, r1 and u64) is its kernel's mean device duration over 200
+launches from ``torch.profiler``'s device events, each launch writing
+another of 4 output buffers so that the writes reach HBM
+(``k2_device_ms``; the wrapper-inclusive mean of 200 back-to-back calls
+between one pair of events is printed beside it); a plain version's
+``plain_ms`` is its comparison run. Bounds: ``bound_ms`` is the
 larger of the bytes the kernel must move over the card's HBM rate (3.35
 TB/s, H100 SXM data sheet) and its instructions over the rate of one
 64-lane-per-SM integer pipe (64 lanes x SMs x max SM clock), counted per
@@ -206,6 +217,7 @@ SIDE_BATCH = 512  # shortint crt and two-plane phases
 PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
+K2_BUFFERS = 4  # outputs a K2 timing writes in turn: 4 x 33.55 MB > the L2
 KB_CHECK_LOOPS = 16  # micro-kernel passes of the exactness check
 TRIVIUM_KEY = [(i * 7 + 3) % 2 for i in range(80)]
 TRIVIUM_IV = [(i * 5 + 1) % 2 for i in range(80)]
@@ -257,6 +269,57 @@ def cuda_ms_loop(fn, launches: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def k2_device_ms(fn, kernel: str = "body_rotate") -> dict:
+    """A µs kernel's time on the device alone: the mean duration of the
+    last ``K2_LAUNCHES`` device events whose name holds ``kernel`` over
+    twice as many calls of ``fn`` under ``torch.profiler`` (one such kernel
+    a call; it raises when the trace holds fewer: the profiler's tracing
+    misses kernels of its first milliseconds, and now and then one more),
+    beside the wrapper-inclusive mean of ``K2_LAUNCHES`` back-to-back
+    calls between one pair of CUDA events (the wrapper's own launches,
+    allocations and host work included). Each call's result is kept until
+    ``K2_BUFFERS`` later calls have run, so successive launches write
+    distinct buffers and their writes reach HBM rather than staying in the
+    50 MB L2. ms: {"device_ms", "wrapper_ms"}."""
+    import collections
+
+    import torch
+
+    n = K2_LAUNCHES
+    kept = collections.deque([fn()], maxlen=K2_BUFFERS)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        kept.append(fn())
+    end.record()
+    end.synchronize()
+    wrapper_ms = start.elapsed_time(end) / n
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2 * n):
+            kept.append(fn())
+        torch.cuda.synchronize()
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type.name == "CUDA" and kernel in e.name)
+    if len(ranges) < n:
+        raise AssertionError(f"the profiler recorded {len(ranges)} "
+                             f"{kernel!r} kernels for {2 * n} calls")
+    us = sum(t1 - t0 for t0, t1 in ranges[-n:])
+    return {"device_ms": us / n / 1e3, "wrapper_ms": wrapper_ms}
+
+
+def k2_in_turns(new, ref) -> tuple:
+    """:func:`k2_device_ms` of ``new`` and ``ref`` in turns (ref, new, new,
+    ref): (new, ref), each key the mean of its two turns."""
+    r1, n1, n2, r2 = (k2_device_ms(fn) for fn in (ref, new, new, ref))
+    return ({k: (n1[k] + n2[k]) / 2 for k in n1},
+            {k: (r1[k] + r2[k]) / 2 for k in r1})
 
 
 def max_abs_err(a, b) -> float:
@@ -587,6 +650,99 @@ def in_turns(new, ref, reps: int = 2) -> tuple:
     return (n1 + n2) / 2, (r1 + r2) / 2
 
 
+def check_k2_acc32(label, lut, body):
+    """K2 acc32, its plain version and its first design r1 on the same
+    inputs: ``torch.equal``, else it raises."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    got = pk.body_rotate_acc32(lut, body)
+    want = pk.body_rotate_acc32_plain(lut, body)
+    ref = pk.body_rotate_acc32_r1(lut, body)
+    torch.cuda.synchronize()
+    for name, other in (("plain", want), ("r1", ref)):
+        if not torch.equal(got, other):
+            bad = int((got != other).sum())
+            raise AssertionError(f"K2 acc32 {label}: {bad} words differ from "
+                                 f"its {name} version")
+
+
+def k2_acc32_cases(rng, lut, ms_body) -> dict:
+    """Phase 2's K2 acc32 shapes, label -> (lut, body): the path's shared
+    LUT at B = 2048, 1 and 32; a random per-ciphertext LUT at 2048 (u64
+    words at the fold's half-way points, the edge bodies first), also at
+    an address 8 bytes off 16-byte alignment; shared tables beyond a
+    block's shared memory (N = 32768, R = 2)."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+
+    R, N = lut.shape
+    words = rng.integers(0, 1 << 64, size=(BATCH, R, N), dtype=np.uint64)
+    flat = words.reshape(-1)
+    flat[::97] = (flat[::97] & ~np.uint64((1 << 32) - 1)) | np.uint64(1 << 31)
+    flat[1::1009] = np.uint64(1 << 63)
+    lut_ct = from_u64(words, DEVICE)
+    body = rng.integers(0, 2 * N, size=BATCH)
+    body[:6] = [0, 1, N - 1, N, N + 1, 2 * N - 1]
+    body = torch.from_numpy(body).to(DEVICE)
+    off = torch.empty(lut_ct.numel() + 1, dtype=torch.int64, device=DEVICE)
+    lut_off = off[1:].view(lut_ct.shape)
+    lut_off.copy_(lut_ct)
+    big_n = 32768
+    lut_big = from_u64(rng.integers(0, 1 << 64, size=(2, big_n),
+                                    dtype=np.uint64), DEVICE)
+    body_big = torch.from_numpy(rng.integers(0, 2 * big_n, size=64)).to(DEVICE)
+    return {f"{BATCH}_shared": (lut, ms_body),
+            f"{BATCH}_per_ct": (lut_ct, body),
+            "1_shared": (lut, ms_body[:1]),
+            "32_shared": (lut, ms_body[:32]),
+            f"{BATCH}_per_ct_unaligned": (lut_off, body),
+            f"64_shared_n{big_n}": (lut_big, body_big)}
+
+
+def k2_acc32_timings(card, rate, cases) -> dict:
+    """K2 acc32 and r1 in turns on the device alone (:func:`k2_in_turns`)
+    at the path's shapes (2048 with the shared and a per-ciphertext LUT, 1,
+    32), each beside its bound; a 33.55 MB device-to-device ``copy_`` (the
+    card's read-and-write stream, for reference). ({label: {"new", "r1":
+    {"device_ms", "wrapper_ms"}, "bound": (ms, by)}}, the copy's
+    {"device_ms", "wrapper_ms"})."""
+    import itertools
+
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    out = {}
+    for label in (f"{BATCH}_shared", f"{BATCH}_per_ct", "1_shared",
+                  "32_shared"):
+        lut, body = cases[label]
+        R, N = lut.shape[-2:]
+        B = body.shape[0]
+        new, r1 = k2_in_turns(lambda: pk.body_rotate_acc32(lut, body),
+                              lambda: pk.body_rotate_acc32_r1(lut, body))
+        b = bound(B * R * N * 8, k2_bytes(B, R, N, lut.ndim == 2, 4), rate)
+        out[label] = {"new": new, "r1": r1, "bound": b}
+        print(f"K2 acc32 {label}: {new['device_ms']:.5f} ms on the device "
+              f"({new['wrapper_ms']:.5f} ms a wrapper call), r1 "
+              f"{r1['device_ms']:.5f} ms ({r1['wrapper_ms']:.5f}); bound "
+              f"{b[0]:.5f} ms ({b[1]}): {b[0] / new['device_ms']:.1%} "
+              f"(r1 {b[0] / r1['device_ms']:.1%}) on {card}")
+    lut, body = cases[f"{BATCH}_shared"]
+    src = torch.empty(BATCH * lut.numel(), dtype=torch.int32, device=DEVICE)
+    dsts = itertools.cycle([torch.empty_like(src) for _ in range(K2_BUFFERS)])
+    cp = k2_device_ms(lambda: next(dsts).copy_(src), kernel="Memcpy DtoD")
+    nbytes = 2 * src.numel() * 4
+    print(f"copy_ of {src.numel() * 4 / 1e6:.2f} MB device to device: "
+          f"{cp['device_ms']:.5f} ms on the device, "
+          f"{nbytes / cp['device_ms'] / 1e6:.0f} GB/s read + write "
+          f"({nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms at the HBM rate) on "
+          f"{card}")
+    return out, cp
+
+
 def phase_shortint_v6b(card, rate, rows):
     import torch
 
@@ -645,9 +801,12 @@ def phase_shortint_v6b(card, rate, rows):
         lut_r = from_u64(rng.integers(0, 1 << 64, size=(B, R_, N_),
                                       dtype=np.uint64), DEVICE)
         body = torch.from_numpy(rng.integers(0, 2 * N_, size=B)).to(DEVICE)
-        check_equal("body_rotate_acc32", pk.body_rotate_acc32,
-                    pk.body_rotate_acc32_plain, (lut_r, body))
+        check_k2_acc32(label, lut_r, body)
         print(f"K1, K2 acc32 == plain: {label}, B={B}, {steps} steps")
+    k2_cases = k2_acc32_cases(rng, lut.acc, ms_body)
+    for label, args in k2_cases.items():
+        check_k2_acc32(label, *args)
+    print(f"K2 acc32 == plain == r1 (torch.equal): {', '.join(k2_cases)}")
 
     # the main path through the entry point
     pk.reset_launches()
@@ -655,6 +814,9 @@ def phase_shortint_v6b(card, rate, rows):
     torch.cuda.synchronize()
     launches = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32")
     require_launched("2_2 v6b main path", launches)
+    r1_launches = pk.body_rotate_acc32_r1.launches
+    if r1_launches:
+        raise AssertionError(f"the main path launched r1 {r1_launches} times")
     if tuple(out.ct.shape) != (BATCH, p.big_lwe_dimension + 1):
         raise AssertionError(f"output shape {tuple(out.ct.shape)}")
     got_clear = ck.decrypt_message_and_carry(out)
@@ -664,8 +826,7 @@ def phase_shortint_v6b(card, rate, rows):
     print(f"2_2 v6b: {BATCH} ciphertexts decrypt to 3x mod 16")
 
     # timing
-    k2_ms = cuda_ms_loop(lambda: pk.body_rotate_acc32(lut.acc, ms_body),
-                         K2_LAUNCHES)
+    k2, k2_copy = k2_acc32_timings(card, rate, k2_cases)
     k1_ms = cuda_ms(lambda: pk.blind_rotate_bnf2_acc32(
         acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl), 3)
     ks_ms = cuda_ms(lambda: server_ops.keyswitch_mxu(
@@ -674,13 +835,24 @@ def phase_shortint_v6b(card, rate, rows):
     print(f"keyswitch (torch._int_mm int8 GEMM) B={BATCH}: {ks_ms:.3f} ms")
     print(f"KS->PBS step B={BATCH}: {step_ms:.3f} ms = "
           f"{BATCH / step_ms * 1e3:.1f} PBS/s on {card}")
-    k2_bound = bound(BATCH * R * N * 8, k2_bytes(BATCH, R, N, True, 4), rate)
-    rows["body_rotate_acc32"] = dict(
-        source="tfhe_tpu_torch/csrc/body_rotate.cu",
-        replaces="tfhe_tpu/ops/pbs_kernel.py:1930",
-        launches=launches["body_rotate_acc32"], max_abs_err=k2_err,
-        ms=k2_ms, plain_ms=k2_plain, bound=k2_bound,
-        shape=f"2_2 B={BATCH}", plain_shape=f"2_2 B={BATCH}")
+    for name, which in (("body_rotate_acc32", "new"),
+                        ("body_rotate_acc32_r1", "r1")):
+        t = k2[f"{BATCH}_shared"]
+        rows[name] = dict(
+            source="tfhe_tpu_torch/csrc/body_rotate.cu",
+            replaces="tfhe_tpu/ops/pbs_kernel.py:1930",
+            launches=(launches["body_rotate_acc32"] if which == "new"
+                      else r1_launches),
+            max_abs_err=k2_err, ms=t[which]["device_ms"],
+            plain_ms=k2_plain, bound=t["bound"],
+            wrapper_ms=t[which]["wrapper_ms"],
+            shapes={label: {"ms": v[which]["device_ms"],
+                            "wrapper_ms": v[which]["wrapper_ms"],
+                            "bound_ms": v["bound"][0]}
+                    for label, v in k2.items()},
+            timing="device events, 200 launches, 4 output buffers",
+            shape=f"2_2 B={BATCH} shared LUT",
+            plain_shape=f"2_2 B={BATCH}")
     rows["blind_rotate_bnf2_acc32"] = dict(
         source="tfhe_tpu_torch/csrc/blind_rotate_bnf2.cu",
         replaces="tfhe_tpu/ops/pbs_kernel.py:1848",
@@ -689,8 +861,14 @@ def phase_shortint_v6b(card, rate, rows):
         bound=step_bound("blind_rotate_bnf2_acc32", BATCH, n, R,
                          p.pbs_level, N, 2, 4, rate),
         shape=f"2_2 B={BATCH} n={n}", plain_shape=f"2_2 B={BATCH} n={n}")
-    return ck, sk, (ct, lut, out.ct), {"ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
-                               "pbs_per_s": BATCH / step_ms * 1e3}
+    return ck, sk, (ct, lut, out.ct), {
+        "ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
+        "pbs_per_s": BATCH / step_ms * 1e3,
+        "k2_copy_ms": k2_copy["device_ms"],
+        "k2_acc32": {label: {"ms": v["new"]["device_ms"],
+                             "r1_ms": v["r1"]["device_ms"],
+                             "bound_ms": v["bound"][0]}
+                     for label, v in k2.items()}}
 
 
 def phase_boolean(card, rate, rows):
@@ -757,8 +935,8 @@ def phase_boolean(card, rate, rows):
           f"{BOOL_BATCH} random inputs; mux launches {mux_launches}")
 
     # timing
-    k2_ms = cuda_ms_loop(lambda: pk.body_rotate_u64(lut, ms_body),
-                         K2_LAUNCHES)
+    k2 = k2_device_ms(lambda: pk.body_rotate_u64(lut, ms_body))
+    k2_ms = k2["device_ms"]
     k3_ms = cuda_ms(lambda: pk.blind_rotate_crt(
         acc, ms_mask, sk.bsk_scan, p.pbs_base_log, p.pbs_level), 2)
     k3_small_ms = cuda_ms(lambda: pk.blind_rotate_crt(
@@ -772,7 +950,8 @@ def phase_boolean(card, rate, rows):
           f"{BOOL_BATCH / gate_ms * 1e3:.1f} gates/s; mux {mux_ms:.3f} ms = "
           f"{BOOL_BATCH / mux_ms * 1e3:.1f} mux/s on {card}")
     print(f"boolean and_ breakdown B={BOOL_BATCH}: K3 {k3_ms:.3f} ms, "
-          f"K2 u64 {k2_ms:.4f} ms, keyswitch {ks_ms:.3f} ms, rest "
+          f"K2 u64 {k2_ms:.5f} ms (device; {k2['wrapper_ms']:.5f} ms a "
+          f"wrapper call), keyswitch {ks_ms:.3f} ms, rest "
           f"{gate_ms - k3_ms - k2_ms - ks_ms:.3f} ms; K3 at B={PLAIN_BATCH}: "
           f"{k3_small_ms:.3f} ms")
     k2_bound = bound(BOOL_BATCH * R * N * 6,
@@ -781,7 +960,8 @@ def phase_boolean(card, rate, rows):
         source="tfhe_tpu_torch/csrc/body_rotate.cu",
         replaces="tfhe_tpu/ops/pbs_kernel.py:1930",
         launches=launches["body_rotate_u64"], max_abs_err=k2_err, ms=k2_ms,
-        plain_ms=k2_plain, bound=k2_bound,
+        plain_ms=k2_plain, bound=k2_bound, wrapper_ms=k2["wrapper_ms"],
+        timing="device events, 200 launches, 4 output buffers",
         shape=f"boolean B={BOOL_BATCH}", plain_shape=f"boolean B={BOOL_BATCH}")
     rows["blind_rotate_crt"] = dict(
         source="tfhe_tpu_torch/csrc/blind_rotate_crt.cu",
@@ -1822,7 +2002,8 @@ LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "blind_rotate_bnf2_acc32", "blind_rotate_crt",
                "blind_rotate_crt_acc32", "blind_rotate_bnf2_u64",
                "blind_rotate_goldilocks", "multi_bit_keybundle",
-               "multi_bit_accumulate", "blind_rotate_multi_bit_r14")
+               "multi_bit_accumulate", "blind_rotate_multi_bit_r14",
+               "body_rotate_acc32_r1")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -2722,7 +2903,7 @@ def phase_multi_bit(card, rate, rows, table13):
 
 CLIENT_LANES = 32  # phase 19's thin-client FheUint64 pairs
 R1_KERNELS = (  # (label, kernel-name part) of the R1 split, first match
-    ("K2", "body_rotate_kernel"), ("K5a", "multi_bit_keybundle_kernel"),
+    ("K2", "body_rotate"), ("K5a", "multi_bit_keybundle_kernel"),
     ("K5b", "multi_bit_accumulate_kernel"), ("K1", "blind_rotate_kernel"),
     ("H2D copy", "Memcpy HtoD"), ("keyswitch GEMM", "gemm"))
 
@@ -3082,7 +3263,8 @@ def main() -> int:
                                   summary))
     del g4_keys
 
-    order = ("body_rotate_acc32", "blind_rotate_bnf2_acc32", "body_rotate_u64",
+    order = ("body_rotate_acc32", "body_rotate_acc32_r1",
+             "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_crt_p4_decompress",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",

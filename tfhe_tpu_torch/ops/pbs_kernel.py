@@ -1,7 +1,7 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Ten wrappers, seven replacing a Pallas kernel of
+Eleven wrappers, eight replacing a Pallas kernel of
 ``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py`` and three the XLA
 multi-bit rotation of ``tfhe_tpu/ops/server.py``:
 
@@ -9,6 +9,10 @@ multi-bit rotation of ``tfhe_tpu/ops/server.py``:
   replace ``_build_body_rot_fn_v4`` in its two modes: lut * X^{-body} on
   the exact u64 coefficients, then (acc32) the fold to the u32 hi plane
   (round to the nearest multiple of 2^32), or (two-plane) the exact u64.
+  ``body_rotate_acc32`` copies out of a table of folded words a LUT row
+  (:func:`body_rotate_acc32_table`); ``body_rotate_acc32_r1``, its first
+  design, is launched by no user path: it is the reference the table
+  design is timed against.
 - K1 ``blind_rotate_bnf2_acc32`` (``csrc/blind_rotate_bnf2.cu``) replaces
   ``_build_step_fn_v4`` in acc32 mode with the ``bnf2_c32`` tail: all n
   CMUX steps of the v6/v6b blind rotation in one launch.
@@ -138,12 +142,32 @@ def body_rotate_acc32_plain(lut: torch.Tensor,
     return i64_to_u32(srl(body_rotate_u64_plain(lut, body) + (1 << 31), 32))
 
 
+def body_rotate_acc32_table(lut: torch.Tensor,
+                            body: torch.Tensor) -> torch.Tensor:
+    """K2 acc32 as its kernel indexes it (``csrc/body_rotate.cu``): each
+    LUT row becomes a table of 2N folded words, ``T[s] = fold(lut[s])`` and
+    ``T[N + s] = fold(-lut[s])`` (the negation on the exact u64, before the
+    fold), and ``out[t] = T[(t - d) mod 2N]`` with ``d = (2N - body) mod
+    2N``. Equal to :func:`body_rotate_acc32_plain`; same arguments."""
+    n = lut.shape[-1]
+    fold = lambda v: i64_to_u32(srl(v + (1 << 31), 32))
+    table = torch.cat([fold(lut), fold(-lut)], dim=-1)  # [(B,) R, 2N]
+    B, R = body.shape[0], lut.shape[-2]
+    d = torch.remainder(2 * n - body.to(torch.int64), 2 * n)
+    t = torch.arange(n, device=lut.device)
+    idx = torch.remainder(t[None, :] - d[:, None], 2 * n)  # [B, N]
+    return torch.gather(table.expand(B, R, 2 * n), 2,
+                        idx[:, None, :].expand(B, R, n))
+
+
 @functools.lru_cache(maxsize=None)
 def _k2_lib():
     from .._build import cuda_lib
 
     lib = cuda_lib("body_rotate")
-    for entry in (lib.body_rotate_acc32, lib.body_rotate_u64):
+    # body: int64 for body_rotate_acc32, int32 for the other two entries
+    for entry in (lib.body_rotate_acc32, lib.body_rotate_acc32_r1,
+                  lib.body_rotate_u64):
         entry.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -152,7 +176,7 @@ def _k2_lib():
     return lib
 
 
-def _body_rotate(entry: str, out_dtype, lut: torch.Tensor,
+def _body_rotate(entry: str, out_dtype, body_dtype, lut: torch.Tensor,
                  body: torch.Tensor) -> torch.Tensor:
     """Check the shapes and launch one K2 entry on the GPU."""
     if lut.device.type != "cuda":
@@ -165,23 +189,43 @@ def _body_rotate(entry: str, out_dtype, lut: torch.Tensor,
     R, N = lut.shape[-2:]
     if lut.ndim == 3 and lut.shape[0] != B:
         raise ValueError(f"lut batch {lut.shape[0]} != body batch {B}")
-    if not 0 < B <= 65535:
+    if body_dtype == torch.int64:  # body_rotate_acc32: any B, N = 2^k >= 4
+        if B < 1 or N < 4 or N & (N - 1):
+            raise ValueError(f"{entry}: batch {B}, N {N}: needs a batch and "
+                             f"N a power of two >= 4")
+    elif not 0 < B <= 65535:
         raise ValueError(f"batch {B} outside the kernel grid (1..65535)")
-    body32 = body.to(device=lut.device, dtype=torch.int32).contiguous()
+    body = body.to(device=lut.device, dtype=body_dtype).contiguous()
     out = torch.empty((B, R, N), dtype=out_dtype, device=lut.device)
     stride = R * N if lut.ndim == 3 else 0
-    rc = getattr(_k2_lib(), entry)(_ptr(lut), stride, _ptr(body32),
-                                   _ptr(out), B, R, N, _stream(lut.device))
+    rc = getattr(_k2_lib(), entry)(_ptr(lut), stride, _ptr(body), _ptr(out),
+                                   B, R, N, _stream(lut.device))
     _raise_on(rc, entry)
     return out
 
 
 def body_rotate_acc32(lut: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
-    """K2 wrapper, acc32 mode: see :func:`body_rotate_acc32_plain`."""
+    """K2 wrapper, acc32 mode: see :func:`body_rotate_acc32_plain` (the
+    kernel's indexing: :func:`body_rotate_acc32_table`). ``body`` is read as
+    int64, so an int64 body on the LUT's device costs no extra launch."""
     if lut.device.type == "cpu":
         return body_rotate_acc32_plain(lut, body)
-    out = _body_rotate("body_rotate_acc32", torch.int32, lut, body)
+    out = _body_rotate("body_rotate_acc32", torch.int32, torch.int64, lut,
+                       body)
     body_rotate_acc32.launches += 1
+    return out
+
+
+def body_rotate_acc32_r1(lut: torch.Tensor,
+                         body: torch.Tensor) -> torch.Tensor:
+    """The first design of K2 acc32 (one block a ciphertext row), the
+    reference :func:`body_rotate_acc32` is timed against; no user path
+    calls it. Same function, same arguments."""
+    if lut.device.type == "cpu":
+        return body_rotate_acc32_plain(lut, body)
+    out = _body_rotate("body_rotate_acc32_r1", torch.int32, torch.int32, lut,
+                       body)
+    body_rotate_acc32_r1.launches += 1
     return out
 
 
@@ -189,12 +233,13 @@ def body_rotate_u64(lut: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
     """K2 wrapper, two-plane mode: see :func:`body_rotate_u64_plain`."""
     if lut.device.type == "cpu":
         return body_rotate_u64_plain(lut, body)
-    out = _body_rotate("body_rotate_u64", torch.int64, lut, body)
+    out = _body_rotate("body_rotate_u64", torch.int64, torch.int32, lut, body)
     body_rotate_u64.launches += 1
     return out
 
 
 body_rotate_acc32.launches = 0
+body_rotate_acc32_r1.launches = 0
 body_rotate_u64.launches = 0
 
 
@@ -1031,7 +1076,8 @@ blind_rotate_multi_bit_r14.launches = 0
 
 
 #: every kernel wrapper of this module, each with its ``launches`` count
-KERNELS = (body_rotate_acc32, body_rotate_u64, blind_rotate_bnf2_acc32,
-           blind_rotate_crt, blind_rotate_crt_acc32, blind_rotate_bnf2_u64,
-           blind_rotate_goldilocks, multi_bit_keybundle, multi_bit_accumulate,
+KERNELS = (body_rotate_acc32, body_rotate_acc32_r1, body_rotate_u64,
+           blind_rotate_bnf2_acc32, blind_rotate_crt, blind_rotate_crt_acc32,
+           blind_rotate_bnf2_u64, blind_rotate_goldilocks,
+           multi_bit_keybundle, multi_bit_accumulate,
            blind_rotate_multi_bit_r14)
