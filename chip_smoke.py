@@ -175,7 +175,17 @@ Phases (any failure raises and exits non-zero):
     without the span or the key's kernels fails); the golden test
     vectors on K2 u64 -> K3 at N = 256, and those kernel calls against
     their plain versions;
-20. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+20. the u128 noise squashing (``phase_noise_squashing``, ROADMAP Queue A
+    item 7, torch ops on the card: no kernel) at the reference's 2_2 squash
+    and squash-compression sets, full width, on phase 2's keys: keygen s
+    and MB; 64 values covering all 16 message+carry values squashed (ms,
+    ms a step, launches a step from ``torch.profiler``), decrypted, the
+    largest phase error below 2^72; the card ``torch.equal`` to the CPU on
+    ``decompose128``, ``_reconstruct128`` and 16 rotation steps; the batch
+    compressed into one list, unpacked and decrypted; the squashed
+    envelope round trip; the HLAPI (``generate_keys`` with both squash
+    sets, a FheUint64 ``squash_noise``, a list of two FheUint8);
+21. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
@@ -202,6 +212,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3218,6 +3229,296 @@ def phase_platform(ck22, sk22, batch22, g4_keys, card, summary):
     return out
 
 
+SQUASH_PARAMS = "NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128"
+SQUASH_COMP_PARAMS = ("NOISE_SQUASHING_COMP_PARAM_MESSAGE_2_CARRY_2_KS_PBS_"
+                      "TUNIFORM_2M128")
+SQUASH_BATCH = 64  # phase 20's shortint batch: one packed GLWE of 128
+SQUASH_TERMS = 5  # fresh encryptions summed by unchecked_add a value
+SQUASH_PROFILE_STEPS = 8  # rotation steps a profiled window
+SQUASH_CHECK_STEPS = 16  # rotation steps held card == CPU
+SQUASH_CHECK_CTS = 4  # ciphertexts of that rotation
+SQUASH_DECOMP_VALUES = 1 << 20  # u128 values decomposed on both devices
+SQUASH_RECON_VALUES = 1 << 18  # residue vectors reconstructed on both
+SQUASH_MAX_ERR_LOG2 = 72  # phase errors must stay below 2^72
+SQUASH_HL_U64 = 0xFEDC_BA98_7654_3210  # the squashed FheUint64
+SQUASH_HL_U8 = (200, 55)  # the two FheUint8 of the squashed list
+
+
+def squash_step_split(nsk, hi, lo, mask, body, steps: int) -> dict:
+    """``torch.profiler`` around ``steps`` rotation steps of the u128 PBS
+    (the key's first ``steps`` GGSWs) after the same steps once unprofiled
+    inside the trace (the profiler misses the kernels of its first
+    milliseconds): ``r1_split`` of the second run, its device events
+    counted a step."""
+    import torch
+
+    from tfhe_tpu_torch.core import squash as sq
+    from tfhe_tpu_torch.ops import ntt as ntt_mod
+
+    plan = ntt_mod.get_plan(hi.shape[-1], nsk.num_primes)
+    key = nsk.bsk_res[:, :steps]
+    m = mask[..., :steps]
+
+    def run():
+        return sq.blind_rotate128(hi, lo, m, body, key, nsk.base_log,
+                                  nsk.levels, plan)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("squash_steps"):
+            run()
+            torch.cuda.synchronize()
+    split = r1_split(prof.events(), "squash_steps", steps)
+    split["launches_a_step"] = sum(split["events"].values()) / steps
+    if not split["launches_a_step"]:
+        raise AssertionError("the profiler recorded no device event of the "
+                             "u128 rotation steps")
+    return split
+
+
+def squash_values(rng, batch: int, mod_sup: int) -> tuple:
+    """``batch`` message-and-carry values covering 0 .. mod_sup-1 and their
+    SQUASH_TERMS message digits (each < 4) that sum to them."""
+    vals = np.arange(batch) % mod_sup
+    rng.shuffle(vals)
+    digits = np.zeros((SQUASH_TERMS, batch), dtype=np.uint64)
+    rest = vals.copy()
+    for t in range(SQUASH_TERMS):
+        digits[t] = np.minimum(rest, 3)
+        rest = rest - digits[t].astype(rest.dtype)
+    assert not rest.any()
+    return vals, digits
+
+
+def phase_noise_squashing(ck22, sk22, card):
+    """The u128 noise squashing (ROADMAP Queue A item 7) at the reference's
+    2_2 squash sets, full width, on phase 2's keys (torch ops on the card:
+    ``tfhe_tpu`` runs it in XLA, no Pallas kernel):
+    a. ``NoiseSquashingPrivateKey``, ``NoiseSquashingKey`` (6 primes, n =
+       866 steps, base 2^24 x 3), the compression private key and
+       ``NoiseSquashingCompressionKey`` (8 primes, N_c = 1024, k_c = 6) from
+       phase 2's keygen stream: seconds, MB;
+    b. SQUASH_BATCH values covering all 16 message-and-carry values (sums
+       of SQUASH_TERMS fresh encryptions by ``unchecked_add``) squashed: ms,
+       ms a step, device launches and ms a step (``torch.profiler``, a
+       window of SQUASH_PROFILE_STEPS steps); every value decrypts under the
+       squash private key, the largest phase error below 2^72;
+    c. the card ``torch.equal`` to the CPU: ``decompose128`` at (24, 3) and
+       (61, 1) on SQUASH_DECOMP_VALUES random u128 values with edge values,
+       ``_reconstruct128`` at 6 and 8 primes on random residues,
+       ``blind_rotate128``'s first SQUASH_CHECK_STEPS steps on
+       SQUASH_CHECK_CTS of the batch;
+    d. the batch compressed into one list (one GLWE): ms; all of it unpacked
+       and decrypted under the compression private key;
+    e. the squashed batch through ``serialize_squashed_ciphertext`` and back
+       onto the card: ``torch.equal``, decrypted; MB, ms;
+    f. the HLAPI: ``generate_keys`` on phase 2's parameters with both squash
+       sets (s), a FheUint64 through ``squash_noise`` (ms), two FheUint8
+       into a ``CompressedSquashedNoiseCiphertextList``, each
+       ``get(i).decrypt_with_compression_key`` right."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+    from tfhe_tpu_torch.core import squash as sq
+    from tfhe_tpu_torch.high_level_api import api as hl
+    from tfhe_tpu_torch.ops import ntt as ntt_mod
+    from tfhe_tpu_torch.ops import server as server_ops
+    from tfhe_tpu_torch.shortint import noise_squashing as ns
+    from tfhe_tpu_torch.shortint import noise_squashing_compression as nsc
+    from tfhe_tpu_torch.utils import serialization as ser
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    t_phase = time.perf_counter()
+    out = {}
+    sp, cp = PARAMS_BY_NAME[SQUASH_PARAMS], PARAMS_BY_NAME[SQUASH_COMP_PARAMS]
+    p = sk22.params
+    mod_sup = p.message_modulus * p.carry_modulus
+    rng = np.random.default_rng(SEED + 20)
+
+    # a. the keys
+    priv, s_priv = host_s(lambda: ns.NoiseSquashingPrivateKey.generate(
+        ck22, sp))
+    nsk, s_bsk = host_s(lambda: ns.NoiseSquashingKey.generate(ck22, priv))
+    cpriv, s_cpriv = host_s(
+        lambda: nsc.NoiseSquashingCompressionPrivateKey.generate(ck22, cp))
+    ckey, s_ckey = host_s(lambda: nsc.NoiseSquashingCompressionKey.generate(
+        ck22, priv, cpriv))
+    bsk_mb = nsk.bsk_res.numel() * nsk.bsk_res.element_size() / 1e6
+    pksk_mb = ckey.pksk_hat.numel() * ckey.pksk_hat.element_size() / 1e6
+    print(f"squash keys ({SQUASH_PARAMS}, {SQUASH_COMP_PARAMS}): private "
+          f"{s_priv:.2f} s, BSK {s_bsk:.2f} s ({bsk_mb:.1f} MB, "
+          f"{tuple(nsk.bsk_res.shape)}, P={nsk.num_primes}), compression "
+          f"private {s_cpriv:.2f} s, packing key {s_ckey:.2f} s "
+          f"({pksk_mb:.1f} MB, {tuple(ckey.pksk_hat.shape)}, "
+          f"P={ckey.num_primes}) on {card}")
+    if nsk.bsk_res.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"squash key on {nsk.bsk_res.device}")
+    out.update(squash_keygen_s=s_bsk, squash_comp_keygen_s=s_ckey,
+               squash_bsk_mb=bsk_mb, squash_pksk_mb=pksk_mb)
+    steps = {"a": time.perf_counter() - t_phase}
+
+    # b. a shortint batch squashed
+    vals, digits = squash_values(rng, SQUASH_BATCH, mod_sup)
+    ct = ck22.encrypt(digits[0])
+    for d in digits[1:]:
+        ct = sk22.unchecked_add(ct, ck22.encrypt(d))
+    nsk.squash_ciphertext_noise(sk22, ct)  # warm
+    squashed, s_squash = host_s(lambda: nsk.squash_ciphertext_noise(sk22,
+                                                                    ct))
+    n_steps = nsk.bsk_res.shape[1]
+    got = priv.decrypt(squashed)
+    if got != [int(v) for v in vals]:
+        bad = sum(int(g != v) for g, v in zip(got, vals))
+        raise AssertionError(f"squash: {bad} of {SQUASH_BATCH} values "
+                             f"decrypt wrong")
+    delta = (1 << 127) // mod_sup
+    errs = []
+    for raw, v in zip(priv.decrypt_raw(squashed), vals):
+        e = (raw - int(v) * delta) & ((1 << 128) - 1)
+        errs.append(abs(e - (1 << 128) if e >> 127 else e))
+    err_log2 = math.log2(max(max(errs), 1))
+    if not err_log2 < SQUASH_MAX_ERR_LOG2:
+        raise AssertionError(f"squash: largest phase error 2^{err_log2:.2f}")
+    small = sk22.ks_only(ct.ct)
+    ms_mask, ms_body = server_ops.lwe_centered_binary_modulus_switch(
+        small, sp.polynomial_size.bit_length())
+    lut_hi, lut_lo = nsk.identity_lut()
+    shape = (SQUASH_BATCH,) + tuple(lut_hi.shape)
+    split = squash_step_split(nsk, lut_hi.expand(shape), lut_lo.expand(shape),
+                              ms_mask, ms_body, SQUASH_PROFILE_STEPS)
+    ms = s_squash * 1e3
+    row = {"metric": "squash_shortint", "batch": SQUASH_BATCH, "ms": ms,
+           "ms_a_step": ms / n_steps, "steps": n_steps,
+           "launches_a_step": split["launches_a_step"],
+           "device_ms_a_step": split["device_busy_ms"] / SQUASH_PROFILE_STEPS,
+           "profiled_wall_ms_a_step": split["wall_ms"] / SQUASH_PROFILE_STEPS,
+           "events": split["events"], "max_err_log2": err_log2, "card": card}
+    print(json.dumps(row))
+    print(f"squash: {SQUASH_BATCH} values (all {mod_sup} message+carry) "
+          f"decrypt right; largest phase error 2^{err_log2:.2f} (< "
+          f"2^{SQUASH_MAX_ERR_LOG2})")
+    out.update(squash_ms=ms, squash_ms_a_step=ms / n_steps,
+               squash_launches_a_step=split["launches_a_step"],
+               squash_max_err_log2=err_log2)
+    steps["b"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # c. the card against the CPU
+    def same(label, fn, *args):
+        dev = fn(*args)
+        host = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+        dev = dev if isinstance(dev, tuple) else (dev,)
+        host = host if isinstance(host, tuple) else (host,)
+        if not all(torch.equal(d.cpu(), h) for d, h in zip(dev, host)):
+            raise AssertionError(f"{label}: the card differs from the CPU")
+
+    hi = rng.integers(0, 1 << 64, SQUASH_DECOMP_VALUES, dtype=np.uint64)
+    lo = rng.integers(0, 1 << 64, SQUASH_DECOMP_VALUES, dtype=np.uint64)
+    edges = np.array([0, (1 << 64) - 1, 1 << 63, (1 << 63) - 1, 1],
+                     dtype=np.uint64)
+    hi[:25] = np.repeat(edges, 5)
+    lo[:25] = np.tile(edges, 5)
+    hi_d, lo_d = from_u64(hi, DEVICE), from_u64(lo, DEVICE)
+    for bl, lv in ((24, 3), (61, 1)):
+        same(f"decompose128({bl}, {lv})", sq.decompose128, hi_d, lo_d, bl, lv)
+    for P in (6, 8):
+        plan = ntt_mod.get_plan(2048, P)
+        res = np.stack([rng.integers(0, q, SQUASH_RECON_VALUES,
+                                     dtype=np.uint64) for q in plan.primes])
+        res[:, 0], res[:, 1] = 0, np.array(plan.primes) - 1
+        same(f"_reconstruct128(P={P})", functools.partial(
+            sq._reconstruct128, plan), from_u64(res, DEVICE))
+    c = SQUASH_CHECK_CTS
+    same(f"blind_rotate128 ({SQUASH_CHECK_STEPS} steps, {c} ciphertexts)",
+         functools.partial(sq.blind_rotate128, base_log=nsk.base_log,
+                           levels=nsk.levels, plan=ntt_mod.get_plan(
+                               sp.polynomial_size, nsk.num_primes)),
+         lut_hi.expand(shape)[:c], lut_lo.expand(shape)[:c],
+         ms_mask[:c, :SQUASH_CHECK_STEPS], ms_body[:c],
+         nsk.bsk_res[:, :SQUASH_CHECK_STEPS])
+    print(f"card == CPU: decompose128 (24, 3) and (61, 1) on "
+          f"{SQUASH_DECOMP_VALUES} values, _reconstruct128 P = 6 and 8 on "
+          f"{SQUASH_RECON_VALUES}, blind_rotate128 {SQUASH_CHECK_STEPS} steps "
+          f"x {c} ciphertexts")
+    steps["c"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # d. the batch compressed into one list
+    nsc.compress_noise_squashed_ciphertexts_into_list(ckey, [squashed])
+    packed, s_comp = host_s(
+        lambda: nsc.compress_noise_squashed_ciphertexts_into_list(
+            ckey, [squashed]))
+    unpacked = [cpriv.decrypt(packed.unpack(i))[0] for i in range(len(packed))]
+    if unpacked != [int(v) for v in vals]:
+        bad = sum(int(g != v) for g, v in zip(unpacked, vals))
+        raise AssertionError(f"squashed list: {bad} of {len(packed)} values "
+                             f"unpack wrong")
+    print(json.dumps({"metric": "squash_compress", "count": len(packed),
+                      "glwes": packed.glwe_hi.shape[0], "ms": s_comp * 1e3,
+                      "card": card}))
+    out["squash_compress_ms"] = s_comp * 1e3
+    steps["d"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # e. the squashed envelope
+    blob, s_ser = host_s(lambda: ser.serialize_squashed_ciphertext(squashed))
+    back, s_de = host_s(lambda: ser.deserialize(
+        blob, expected_type="SquashedNoiseCiphertext"))
+    if not (torch.equal(back.hi, squashed.hi)
+            and torch.equal(back.lo, squashed.lo)
+            and back.hi.device.type == torch.device(DEVICE).type):
+        raise AssertionError("the round-tripped squashed ciphertext differs")
+    if priv.decrypt(back) != got:
+        raise AssertionError("the round-tripped squashed ciphertext "
+                             "decrypts wrong")
+    print(f"squashed envelope: {len(blob) / 1e6:.2f} MB, serialize "
+          f"{s_ser * 1e3:.1f} ms, load onto the card {s_de * 1e3:.1f} ms, "
+          f"torch.equal and decrypted")
+    del nsk, ckey, squashed, packed, back, blob
+    torch.cuda.empty_cache()
+    steps["e"] = time.perf_counter() - t_phase - sum(steps.values())
+
+    # f. the HLAPI
+    config = (hl.ConfigBuilder().use_custom_parameters(p).with_seed(SEED)
+              .enable_noise_squashing(sp)
+              .enable_noise_squashing_compression(cp).build())
+    (ck, sk), s_keys = host_s(lambda: hl.generate_keys(config))
+    hl.set_server_key(sk)
+    try:
+        x = hl.FheUint64.encrypt(SQUASH_HL_U64, ck)
+        s64, s_u64 = host_s(x.squash_noise)
+        if s64.decrypt(ck) != SQUASH_HL_U64:
+            raise AssertionError("the squashed FheUint64 decrypts wrong")
+        items = [hl.FheUint8.encrypt(v, ck).squash_noise()
+                 for v in SQUASH_HL_U8]
+        builder = hl.CompressedSquashedNoiseCiphertextList.builder()
+        for it in items:
+            builder.push(it)
+        lst = builder.build()
+        got8 = [lst.get(i).decrypt_with_compression_key(ck)
+                for i in range(len(lst))]
+        if got8 != list(SQUASH_HL_U8):
+            raise AssertionError(f"the squashed list decrypts to {got8}")
+    finally:
+        hl.unset_server_key()
+    print(json.dumps({"metric": "squash_fheuint64", "ms": s_u64 * 1e3,
+                      "blocks": s64.squashed.hi.shape[0],
+                      "hl_keygen_s": s_keys, "card": card}))
+    print(f"HLAPI: generate_keys with both squash sets {s_keys:.1f} s; "
+          f"FheUint64 squash_noise {s_u64 * 1e3:.1f} ms, decrypted right; "
+          f"FheUint8 {SQUASH_HL_U8} through a CompressedSquashedNoise"
+          f"CiphertextList right")
+    out.update(squash_hl_keygen_s=s_keys, squash_fheuint64_ms=s_u64 * 1e3)
+    del ck, sk, x, s64, items, lst
+    torch.cuda.empty_cache()
+    steps["f"] = time.perf_counter() - t_phase - sum(steps.values())
+    out["noise_squashing_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['noise_squashing_s']:.1f} s (steps a-f, s: "
+          f"{ {k: round(v, 1) for k, v in steps.items()} })")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3262,6 +3563,7 @@ def main() -> int:
     summary.update(phase_platform(ck22, sk22, batch22, g4_keys, card,
                                   summary))
     del g4_keys
+    summary.update(phase_noise_squashing(ck22, sk22, card))
 
     order = ("body_rotate_acc32", "body_rotate_acc32_r1",
              "blind_rotate_bnf2_acc32", "body_rotate_u64",

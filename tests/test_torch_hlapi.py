@@ -284,23 +284,13 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
 
 
 UNPORTED = {
-    "noise_squashing_config": (lambda: api.ClientKey.generate(
-        api.ConfigBuilder().use_custom_parameters(P)
-        .enable_noise_squashing(object()).build(), device="cpu"), (7,)),
-    "squash_noise": (lambda: api.FheUint8.encrypt_trivial(3).squash_noise(),
-                     (7,)),
-    "SquashedNoiseFheUint": (lambda: api.SquashedNoiseFheUint(None, 8, 4),
-                             (7,)),
-    "CompressedSquashedNoiseCiphertextList": (
-        lambda: api.CompressedSquashedNoiseCiphertextList.builder(), (7,)),
     "verify_and_expand": (lambda: api.HlCompactCiphertextList(
         None, [], None).verify_and_expand(None), (9,)),
     "build_with_proof": (lambda: api.CompactCiphertextListBuilder(
         None).build_with_proof(None), (9,)),
 }
 
-TITLES = {7: "u128 noise squashing", 8: "other PBS flavors",
-          9: "platform layers"}
+TITLES = {8: "other PBS flavors", 9: "platform layers"}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))

@@ -241,20 +241,27 @@ def test_keyswitch_any_base_log(base_log, levels):
 
 
 def test_shortint_exports_match_jax():
-    """``tfhe_tpu_torch.shortint`` exports ``tfhe_tpu.shortint``'s names;
-    the noise-squashing ones raise naming ROADMAP item 7; ``gen_keys``
-    gives ClientKey.generate's key."""
+    """``tfhe_tpu_torch.shortint`` exports ``tfhe_tpu.shortint``'s names,
+    the noise-squashing ones as the port's classes and function of the
+    squashing modules; ``gen_keys`` gives ClientKey.generate's key."""
     import tfhe_tpu.shortint as jshortint
 
     import tfhe_tpu_torch.shortint as shortint
+    from tfhe_tpu_torch.shortint import noise_squashing as ns
+    from tfhe_tpu_torch.shortint import noise_squashing_compression as nsc
 
     assert set(shortint.__all__) == set(jshortint.__all__)
     assert all(hasattr(shortint, n) for n in shortint.__all__)
-    with pytest.raises(NotImplementedError,
-                       match="item 7: u128 noise squashing"):
-        shortint.NoiseSquashingKey.generate(None, None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        shortint.compress_noise_squashed_ciphertexts_into_list([])
+    for mod, names in ((ns, ("NoiseSquashingKey", "NoiseSquashingPrivateKey",
+                             "SquashedNoiseCiphertext")),
+                       (nsc, ("CompressedSquashedNoiseCiphertextList",
+                              "NoiseSquashingCompressionKey",
+                              "NoiseSquashingCompressionPrivateKey",
+                              "compress_noise_squashed_ciphertexts_into_"
+                              "list"))):
+        for n in names:
+            assert getattr(shortint, n) is getattr(mod, n), n
+            assert getattr(jshortint, n).__name__ == n
     ck, sk = shortint.gen_keys(pm.PARAM_TEST_TOY, seed=3, device="cpu")
     assert torch.equal(ck.lwe_sk.bits, ClientKey.generate(
         pm.PARAM_TEST_TOY, seed=3, device="cpu").lwe_sk.bits)

@@ -1,14 +1,16 @@
 """The port's safe serialization (``tfhe_tpu_torch.utils.serialization``)
 and CBOR layouts (``utils/cbor.py``) against tfhe_tpu at PARAM_TEST_TOY on
 the CPU. Same seeds => byte-equal objects, so for every type tfhe_tpu
-serializes but the noise-squashed and ZK ones the port's envelope equals
-tfhe_tpu's byte for byte, and each package reads what the other wrote: the
-shortint client key, the server key (v6b, crt, v5, multi-bit, KS32, and a
-drift key, whose encryptions of zero neither package stores), the shortint
-ciphertext, the radix ciphertext, the compressed and the compact list, the
-compressed server key. Also: the size limit, the magic, the expected type,
-conformance, the upgrade chains (the compact list's v1), untrusted array
-specs, the raises of the squashed and ZK types (ROADMAP items 7 and 9),
+serializes but the ZK ones the port's envelope equals tfhe_tpu's byte for
+byte, and each package reads what the other wrote: the shortint client
+key, the server key (v6b, crt, v5, multi-bit, KS32, and a drift key, whose
+encryptions of zero neither package stores), the shortint ciphertext, the
+radix ciphertext, the compressed and the compact list, the compressed
+server key (the squashed ciphertext's envelope: the frozen corpus here,
+``tests/test_torch_noise_squashing.py`` both ways). Also: the size limit,
+the magic, the expected type, conformance, the upgrade chains (the compact
+list's v1), untrusted array specs, the raises of the ZK types (ROADMAP
+item 9),
 the frozen corpus ``tests/data/compat_*_v1.bin``, and a client key carried
 in without its seed. Tolerance: exact (bytes)."""
 
@@ -411,9 +413,9 @@ PORTED = {"shortint_ck": "ShortintClientKey",
           "radix_ct": "RadixCiphertext",
           "compressed_list": "CompressedCiphertextList",
           "compact_list": "CompactCiphertextList",
-          "compressed_server_key": "CompressedServerKey"}
-UNPORTED = {"squashed_ct": ("SquashedNoiseCiphertext", 7),
-            "zk_crs": ("PkeV2Crs", 9),
+          "compressed_server_key": "CompressedServerKey",
+          "squashed_ct": "SquashedNoiseCiphertext"}
+UNPORTED = {"zk_crs": ("PkeV2Crs", 9),
             "zk_proof": ("PkeV2Proof", 9)}
 
 
@@ -444,6 +446,7 @@ def test_corpus_artifact_loads(corpus, name):
              "CompressedCiphertextList": ser.serialize_compressed_list,
              "CompactCiphertextList": ser.serialize_compact_list,
              "CompressedServerKey": ser.serialize_compressed_server_key,
+             "SquashedNoiseCiphertext": ser.serialize_squashed_ciphertext,
              }[PORTED[name]]
     assert write(obj) == blobs[name]
 
@@ -466,14 +469,13 @@ def test_corpus_semantics(corpus):
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_corpus_unported_types_raise(corpus, name):
-    """The squashed (item 7) and ZK (item 9) artifacts are recognized and
-    raise naming their ROADMAP item; so does writing those types."""
+    """The ZK (item 9) artifacts are recognized and raise naming their
+    ROADMAP item; so does writing those types."""
     tname, item = UNPORTED[name]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A item {item}"):
         ser.deserialize(corpus[1][name], expected_type=tname, device="cpu")
-    write = {"squashed_ct": ser.serialize_squashed_ciphertext,
-             "zk_crs": ser.serialize_zk_crs,
+    write = {"zk_crs": ser.serialize_zk_crs,
              "zk_proof": ser.serialize_zk_proof}[name]
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A item {item}"):

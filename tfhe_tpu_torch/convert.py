@@ -14,11 +14,14 @@ from . import boolean
 from ._device import resolve_device
 from ._torus import from_u32, from_u64, to_u32, to_u64
 from .core.entities import GlweSecretKey, LweSecretKey
+from .core.squash import GlweSecretKey128
 from .integer import radix
 from .shortint import list_compression as lc
 from .shortint.client_key import ClientKey
 from .shortint.compact_public_key import CompactPrivateKey, CompactPublicKey
 from .shortint.compressed_server_key import CompressedServerKey
+from .shortint import noise_squashing as ns
+from .shortint import noise_squashing_compression as nsc
 from .shortint.key_switching_key import KeySwitchingKey, ksk_limbs
 from .shortint.public_key import PublicKey
 from .shortint.server_key import ServerKey
@@ -258,3 +261,69 @@ def wopbs_key_from_arrays(server_key: ServerKey, pfpksk_u64,
         wopbs_pbs_levels=wopbs_pbs_levels, wopbs_num_primes=bsk.shape[1],
         cbs_base_log=cbs_base_log, cbs_levels=cbs_levels,
         pf_base_log=pf_base_log, pf_levels=pf_levels)
+
+
+# -- noise squashing ----------------------------------------------------------
+# The squashing parameter sets are the caller's objects, as above.
+
+def noise_squashing_private_key_from_arrays(params, glwe_sk_bits,
+                                            device=None
+                                            ) -> ns.NoiseSquashingPrivateKey:
+    """A NoiseSquashingPrivateKey from its u128 GLWE key bits u64[k, N]."""
+    return ns.NoiseSquashingPrivateKey(
+        glwe_sk=GlweSecretKey128(from_u64(glwe_sk_bits,
+                                          resolve_device(device))),
+        params=params)
+
+
+def noise_squashing_key_from_arrays(params, bsk_res_u32,
+                                    device=None) -> ns.NoiseSquashingKey:
+    """A NoiseSquashingKey from ``tfhe_tpu``'s ``bsk_res`` u32[P, n, l, R,
+    R, N]."""
+    res = from_u32(bsk_res_u32, resolve_device(device))
+    return ns.NoiseSquashingKey(
+        bsk_res=res, base_log=params.decomp_base_log,
+        levels=params.decomp_level_count, num_primes=res.shape[0],
+        params=params)
+
+
+def squashed_ciphertext_from_arrays(hi_u64, lo_u64, degree: int,
+                                    message_modulus: int, carry_modulus: int,
+                                    device=None) -> ns.SquashedNoiseCiphertext:
+    """A SquashedNoiseCiphertext from ``tfhe_tpu``'s (hi, lo) u64[...,
+    kN+1]."""
+    dev = resolve_device(device)
+    return ns.SquashedNoiseCiphertext(
+        hi=from_u64(hi_u64, dev), lo=from_u64(lo_u64, dev),
+        degree=int(degree), message_modulus=message_modulus,
+        carry_modulus=carry_modulus)
+
+
+def squash_compression_keys_from_arrays(params, comp_glwe_sk_bits,
+                                        pksk_hat_u32, in_dim: int,
+                                        device=None) -> tuple:
+    """(NoiseSquashingCompressionPrivateKey, NoiseSquashingCompressionKey)
+    from ``tfhe_tpu``'s: the packed domain's GLWE key bits u64[k_c, N_c]
+    and the packing key's residues u32[P, n_in, l, R_c, N_c]."""
+    dev = resolve_device(device)
+    pksk = from_u32(pksk_hat_u32, dev)
+    return (nsc.NoiseSquashingCompressionPrivateKey(
+                glwe_sk=GlweSecretKey128(from_u64(comp_glwe_sk_bits, dev)),
+                params=params),
+            nsc.NoiseSquashingCompressionKey(
+                pksk_hat=pksk, params=params, num_primes=pksk.shape[0],
+                in_dim=in_dim))
+
+
+def compressed_squashed_list_from_arrays(
+        params, glwe_hi_u64, glwe_lo_u64, count: int, message_modulus: int,
+        carry_modulus: int, degrees=None, device=None
+) -> nsc.CompressedSquashedNoiseCiphertextList:
+    """A CompressedSquashedNoiseCiphertextList from ``tfhe_tpu``'s packed
+    GLWEs (hi, lo) u64[n_glwe, R_c, N_c]."""
+    dev = resolve_device(device)
+    return nsc.CompressedSquashedNoiseCiphertextList(
+        glwe_hi=from_u64(glwe_hi_u64, dev), glwe_lo=from_u64(glwe_lo_u64, dev),
+        count=count, message_modulus=message_modulus,
+        carry_modulus=carry_modulus, params=params,
+        degrees=None if degrees is None else list(degrees))

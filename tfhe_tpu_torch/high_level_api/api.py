@@ -12,11 +12,13 @@ op runs through the integer ``ServerKey`` on the key's device.
 
 Compression keys and compressed ciphertext lists, the compressed server
 key and the XOF key set, the compact public key and compact lists run on
-the shortint side modules; ``safe_serialize`` / ``safe_deserialize`` write
-and read ``tfhe_tpu``'s envelopes, and ``generate_keys(use_keycache=True)``
-shares its key cache. The parts of the JAX API that need modules the port
-does not carry yet (noise squashing, ZK) raise ``NotImplementedError``
-naming their ROADMAP item.
+the shortint side modules; noise squashing (``squash_noise``,
+``SquashedNoiseFheUint``) and the lists of squashed values on the shortint
+squashing modules; ``safe_serialize`` / ``safe_deserialize`` write and
+read ``tfhe_tpu``'s envelopes, and ``generate_keys(use_keycache=True)``
+shares its key cache. The ZK half of the compact lists, whose module the
+port does not carry yet, raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import integer
-from .._roadmap import not_ported, unported_class
+from .._roadmap import not_ported
 from ..integer.radix import BooleanBlock, RadixCiphertext
 from ..shortint import list_compression as _lc
 from ..shortint.ciphertext import NOMINAL_NOISE, ShortintCiphertext
@@ -38,6 +40,12 @@ from ..shortint.compact_public_key import CompactPublicKey as _ShortintCPK
 from ..shortint.compressed_server_key import (
     CompressedServerKey as _ShortintCompressed)
 from ..shortint.key_switching_key import KeySwitchingKey
+from ..shortint.noise_squashing import (NoiseSquashingKey,
+                                        NoiseSquashingPrivateKey,
+                                        SquashedNoiseCiphertext)
+from ..shortint.noise_squashing_compression import (
+    NoiseSquashingCompressionKey, NoiseSquashingCompressionPrivateKey,
+    compress_noise_squashed_ciphertexts_into_list)
 from ..utils import serialization as _ser
 from ..utils.params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
 
@@ -51,8 +59,7 @@ class Config:
     parameters: ClassicPBSParameters = PARAM_MESSAGE_2_CARRY_2_KS_PBS
     seed: Optional[int] = None
     # optional companion parameter sets (reference Config carries the same
-    # optionals: config.rs / MetaParameters); keygen refuses the
-    # noise-squashing ones until their modules are ported
+    # optionals: config.rs / MetaParameters)
     noise_squashing_parameters: Optional[Any] = None
     noise_squashing_compression_parameters: Optional[Any] = None
     compression_parameters: Optional[Any] = None
@@ -102,13 +109,6 @@ class ConfigBuilder:
         )
 
 
-def _check_config(config: Config) -> None:
-    """Refuse a config asking for a key the port cannot make yet."""
-    if (config.noise_squashing_parameters is not None
-            or config.noise_squashing_compression_parameters is not None):
-        raise not_ported("noise-squashing keys", 7)
-
-
 class Tag:
     """User metadata carried by keys and propagated into every ciphertext
     produced under them (reference ``high_level_api/tag.rs:319``)."""
@@ -124,25 +124,37 @@ class Tag:
 
 
 class ClientKey:
-    def __init__(self, inner: integer.ClientKey, tag: Tag = None):
+    def __init__(self, inner: integer.ClientKey, tag: Tag = None,
+                 noise_squashing_private_key=None):
         self.inner = inner
         self.tag = tag or Tag()
+        self.noise_squashing_private_key = noise_squashing_private_key
+        self.noise_squashing_compression_private_key = None
         self.compression_private_key = None
 
     @classmethod
     def generate(cls, config: Config, device=None) -> "ClientKey":
         """Seeded keygen on ``device`` (the GPU when unset; raises without
-        one)."""
-        _check_config(config)
+        one). A config with noise-squashing parameters draws the squashing
+        private key here, before any server key is drawn, as
+        ``tfhe_tpu`` does."""
         seed = config.seed if config.seed is not None else 0
-        return cls(integer.ClientKey.generate(config.parameters, seed,
-                                              device=device))
+        inner = integer.ClientKey.generate(config.parameters, seed,
+                                           device=device)
+        nspk = None
+        if config.noise_squashing_parameters is not None:
+            nspk = NoiseSquashingPrivateKey.generate(
+                inner.key, config.noise_squashing_parameters)
+        return cls(inner, noise_squashing_private_key=nspk)
 
 
 class ServerKey:
-    def __init__(self, inner: integer.ServerKey, tag: Tag = None):
+    def __init__(self, inner: integer.ServerKey, tag: Tag = None,
+                 noise_squashing_key=None):
         self.inner = inner
         self.tag = tag or Tag()
+        self.noise_squashing_key = noise_squashing_key
+        self.noise_squashing_compression_key = None
         self.compression_key = None
         self.decompression_key = None
 
@@ -168,14 +180,15 @@ class CompressedServerKey:
 
 def generate_keys(config: Config, use_keycache: bool = False, device=None):
     """Reference ``high_level_api/keys/mod.rs:40``: (ClientKey, ServerKey)
-    on ``device`` (the GPU when unset), with the compression keys when the
-    config enables compression. ``use_keycache`` takes the shortint keys
-    from the disk cache (``keycache.get_shortint_keys``), generating and
-    writing them on a miss."""
+    on ``device`` (the GPU when unset), with the noise-squashing keys and
+    the compression keys when the config enables them, all drawn from the
+    client key's keygen stream in ``tfhe_tpu``'s order. ``use_keycache``
+    takes the shortint keys from the disk cache
+    (``keycache.get_shortint_keys``), generating and writing them on a
+    miss."""
     if use_keycache:
         from ..keycache import get_shortint_keys
 
-        _check_config(config)
         sck, ssk = get_shortint_keys(config.parameters, config.seed or 0,
                                      device)
         ck = ClientKey(integer.ClientKey(sck))
@@ -183,6 +196,21 @@ def generate_keys(config: Config, use_keycache: bool = False, device=None):
     else:
         ck = ClientKey.generate(config, device=device)
         sk = ServerKey(integer.ServerKey.generate(ck.inner))
+    if config.noise_squashing_parameters is not None:
+        sck = ck.inner.key
+        if ck.noise_squashing_private_key is None:
+            ck.noise_squashing_private_key = NoiseSquashingPrivateKey.generate(
+                sck, config.noise_squashing_parameters)
+        sk.noise_squashing_key = NoiseSquashingKey.generate(
+            sck, ck.noise_squashing_private_key)
+        if config.noise_squashing_compression_parameters is not None:
+            ck.noise_squashing_compression_private_key = (
+                NoiseSquashingCompressionPrivateKey.generate(
+                    sck, config.noise_squashing_compression_parameters))
+            sk.noise_squashing_compression_key = (
+                NoiseSquashingCompressionKey.generate(
+                    sck, ck.noise_squashing_private_key,
+                    ck.noise_squashing_compression_private_key))
     if config.compression_parameters is not None:
         ck.compression_private_key = _lc.new_compression_private_key(
             ck.inner.key, config.compression_parameters)
@@ -211,11 +239,96 @@ def _sk() -> integer.ServerKey:
     return _SERVER_KEY.inner
 
 
-SquashedNoiseFheUint = unported_class(
-    "SquashedNoiseFheUint", "noise squashing", (7,))
-CompressedSquashedNoiseCiphertextList = unported_class(
-    "CompressedSquashedNoiseCiphertextList",
-    "lists of noise-squashed ciphertexts", (7,), ("builder",))
+def _recompose(vals: list, message_modulus: int, num_bits: int) -> int:
+    """The clear integer of block values, least significant first."""
+    out = 0
+    for digit in reversed(vals):
+        out = out * message_modulus + int(digit)
+    return out % (1 << num_bits)
+
+
+class SquashedNoiseFheUint:
+    """Noise-squashed (u128) integer awaiting threshold decryption
+    (high_level_api squashed_noise types)."""
+
+    def __init__(self, squashed: SquashedNoiseCiphertext, num_bits: int,
+                 message_modulus: int):
+        self.squashed = squashed  # shortint SquashedNoiseCiphertext, batched
+        self.num_bits = num_bits
+        self.message_modulus = message_modulus
+
+    def decrypt(self, client_key: "ClientKey") -> int:
+        priv = client_key.noise_squashing_private_key
+        if priv is None:
+            raise ValueError("config lacks noise_squashing_parameters")
+        return _recompose(priv.decrypt(self.squashed), self.message_modulus,
+                          self.num_bits)
+
+    def decrypt_with_compression_key(self, client_key: "ClientKey") -> int:
+        """Decrypt an entry unpacked from a compressed list (it lives under
+        the squashing *compression* key, private_key.rs:100)."""
+        priv = client_key.noise_squashing_compression_private_key
+        if priv is None:
+            raise ValueError(
+                "config lacks noise_squashing_compression_parameters")
+        return _recompose(priv.decrypt(self.squashed), self.message_modulus,
+                          self.num_bits)
+
+
+class CompressedSquashedNoiseCiphertextList:
+    """HLAPI packed list of noise-squashed integers
+    (high_level_api/compressed_noise_squashed_ciphertext_list.rs). Built
+    with the server-side compression key; entries unpack WITHOUT a PBS and
+    decrypt under the squashing compression private key."""
+
+    def __init__(self, inner, items):
+        self.inner = inner  # shortint CompressedSquashedNoiseCiphertextList
+        self.items = items  # [(num_bits, message_modulus, n_blocks)]
+
+    @classmethod
+    def builder(cls) -> "_SquashedNoiseListBuilder":
+        return _SquashedNoiseListBuilder()
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def get(self, index: int) -> SquashedNoiseFheUint:
+        if not 0 <= index < len(self.items):
+            raise IndexError(f"index {index} out of a list of "
+                             f"{len(self.items)}")
+        start = sum(nb for _, _, nb in self.items[:index])
+        num_bits, mm, nb = self.items[index]
+        blocks = [self.inner.unpack(start + j) for j in range(nb)]
+        batched = SquashedNoiseCiphertext(
+            hi=torch.stack([b.hi for b in blocks]),
+            lo=torch.stack([b.lo for b in blocks]),
+            degree=max(b.degree for b in blocks), message_modulus=mm,
+            carry_modulus=blocks[0].carry_modulus)
+        return SquashedNoiseFheUint(batched, num_bits, mm)
+
+
+class _SquashedNoiseListBuilder:
+    def __init__(self):
+        self._entries = []
+
+    def push(self, value: SquashedNoiseFheUint) -> "_SquashedNoiseListBuilder":
+        self._entries.append(value)
+        return self
+
+    def build(self) -> CompressedSquashedNoiseCiphertextList:
+        """Pack the pushed values with the global server key's squashing
+        compression key."""
+        key = (_SERVER_KEY.noise_squashing_compression_key
+               if _SERVER_KEY else None)
+        if key is None:
+            raise RuntimeError("server key lacks a noise squashing "
+                               "compression key")
+        inner = compress_noise_squashed_ciphertexts_into_list(
+            key, [e.squashed for e in self._entries])
+        items = [(e.num_bits, e.message_modulus,
+                  e.squashed.hi.reshape(-1, e.squashed.hi.shape[-1]).shape[0])
+                 for e in self._entries]
+        return CompressedSquashedNoiseCiphertextList(inner, items)
 
 
 class CompactPublicKey:
@@ -504,10 +617,24 @@ class _FheIntegerBase:
             return self._wrap(_sk().arithmetic_right_shift(self.ct, int(other)))
         return self._wrap(_sk().scalar_right_shift(self.ct, int(other)))
 
-    def squash_noise(self):
+    def squash_noise(self) -> SquashedNoiseFheUint:
         """Re-encrypt with the 128-bit PBS for threshold decryption
-        (high_level_api squash_noise)."""
-        raise not_ported("noise squashing", 7)
+        (high_level_api squash_noise; shortint/noise_squashing/): the
+        carry-clean blocks through the global server key's squashing key,
+        on its device."""
+        nsk = _SERVER_KEY.noise_squashing_key if _SERVER_KEY else None
+        if nsk is None:
+            raise RuntimeError("server key lacks a noise squashing key")
+        sk = _sk()
+        clean = sk._clean(self.ct)
+        blocks = ShortintCiphertext(
+            ct=clean.ct, degree=int(np.max(clean.degrees)),
+            noise_level=int(np.max(clean.noise_levels)),
+            message_modulus=clean.message_modulus,
+            carry_modulus=clean.carry_modulus)
+        return SquashedNoiseFheUint(
+            nsk.squash_ciphertext_noise(sk.key, blocks), self.NUM_BITS,
+            clean.message_modulus)
 
     def rotate_left(self, amount: int):
         return self._wrap(_sk().scalar_rotate_left(self.ct, int(amount)))

@@ -209,33 +209,60 @@ class NegacyclicNtt:
     def _p(self, tb, ndim: int) -> torch.Tensor:
         return tb["p"].reshape((self.num_primes,) + (1,) * ndim)
 
+    def p_like(self, ndim: int, device) -> torch.Tensor:
+        """The primes as int64 [P, 1, ..., 1] (``ndim`` ones) on ``device``:
+        the broadcast of a per-prime reduction over residues [P, ...]."""
+        return self._p(self.tables(device), ndim)
+
     # -- forward ------------------------------------------------------------
     def fwd_digits(self, x: torch.Tensor) -> torch.Tensor:
         """Forward transform of small signed integers (|x| < 2p, e.g.
         gadget digits): int64[..., N] -> residues int64[P, ..., N]."""
         assert x.shape[-1] == self.n
         tb = self.tables(x.device)
-        lead = x.shape[:-1]
         xs = x.reshape(1, -1, self.n)
         p = self._p(tb, 2)
         r = torch.where(xs < 0, xs + p, xs)
         r = torch.where(r < 0, r + p, r)
-        r = shoup_mul(r, tb["twist"][:, None], tb["twist_sh"][:, None], p)
-        return self._fwd_stages(r, tb).reshape((self.num_primes,) + lead
-                                               + (self.n,))
+        return self._twisted_fwd(r, tb, x.shape[:-1])
 
     def fwd(self, x: torch.Tensor) -> torch.Tensor:
         """Forward transform of int64-held u64 torus values (cold path:
         key transforms, key-algebra products): -> int64[P, ..., N]."""
         assert x.shape[-1] == self.n
         tb = self.tables(x.device)
-        lead = x.shape[:-1]
         xs = x.reshape(-1, self.n)
         r = torch.stack([urem(xs, p) for p in self.primes])
+        return self._twisted_fwd(r, tb, x.shape[:-1])
+
+    def fwd_signed(self, x: torch.Tensor) -> torch.Tensor:
+        """Forward transform of signed int64 values of any size (digits of
+        a base beyond the primes, e.g. the squashed-list packing
+        keyswitch's base 2^61): each reduced with a full remainder first.
+        -> int64[P, ..., N]."""
+        assert x.shape[-1] == self.n
+        tb = self.tables(x.device)
+        r = torch.remainder(x.reshape(1, -1, self.n), self._p(tb, 2))
+        return self._twisted_fwd(r, tb, x.shape[:-1])
+
+    def fwd_u128(self, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+        """Forward transform of u128 values held as (hi, lo) int64 limb
+        pairs: each reduced as (hi mod p)(2^64 mod p) + lo mod p, both limbs
+        read as full u64. -> int64[P, ..., N]."""
+        assert hi.shape == lo.shape and hi.shape[-1] == self.n
+        tb = self.tables(hi.device)
+        hs, ls = hi.reshape(-1, self.n), lo.reshape(-1, self.n)
+        r = torch.stack([(urem(hs, p) * ((1 << 64) % p) + urem(ls, p)) % p
+                         for p in self.primes])
+        return self._twisted_fwd(r, tb, hi.shape[:-1])
+
+    def _twisted_fwd(self, r: torch.Tensor, tb, lead) -> torch.Tensor:
+        """The psi twist and the DIF stages on canonical residues r [P, M,
+        N], shaped back to [P, *lead, N]."""
         p = self._p(tb, 2)
         r = shoup_mul(r, tb["twist"][:, None], tb["twist_sh"][:, None], p)
-        return self._fwd_stages(r, tb).reshape((self.num_primes,) + lead
-                                               + (self.n,))
+        return self._fwd_stages(r, tb).reshape((self.num_primes,)
+                                               + tuple(lead) + (self.n,))
 
     def _fwd_stages(self, r: torch.Tensor, tb) -> torch.Tensor:
         """DIF stages on r [P, M, N]."""

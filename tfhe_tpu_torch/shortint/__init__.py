@@ -1,11 +1,10 @@
 """Shortint layer of the port: client and server keys, LUTs, and the side
 modules (public and compact public keys, keyset casting, compressed server
-keys, list compression, WoP-PBS). The names are ``tfhe_tpu.shortint``'s;
-the noise-squashing ones raise until ROADMAP Queue A item 7 ports them."""
+keys, list compression, WoP-PBS, noise squashing and the lists of squashed
+ciphertexts). The names are ``tfhe_tpu.shortint``'s."""
 
 from importlib import import_module
 
-from .._roadmap import not_ported, unported_class
 from .ciphertext import (LookupTable, ManyLookupTable,  # noqa: F401
                          ShortintCiphertext)
 from .client_key import ClientKey  # noqa: F401
@@ -22,6 +21,14 @@ _SERVER_SIDE = {
     "PublicKey": "public_key",
     "ServerKey": "server_key",
     "WopbsKey": "wopbs",
+    "NoiseSquashingKey": "noise_squashing",
+    "NoiseSquashingPrivateKey": "noise_squashing",
+    "SquashedNoiseCiphertext": "noise_squashing",
+    "CompressedSquashedNoiseCiphertextList": "noise_squashing_compression",
+    "NoiseSquashingCompressionKey": "noise_squashing_compression",
+    "NoiseSquashingCompressionPrivateKey": "noise_squashing_compression",
+    "compress_noise_squashed_ciphertexts_into_list":
+        "noise_squashing_compression",
 }
 
 
@@ -30,26 +37,6 @@ def __getattr__(name):
         return getattr(import_module(f".{_SERVER_SIDE[name]}", __name__),
                        name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-NoiseSquashingKey = unported_class(
-    "NoiseSquashingKey", "noise squashing", (7,), ("generate",))
-NoiseSquashingPrivateKey = unported_class(
-    "NoiseSquashingPrivateKey", "noise squashing", (7,), ("generate",))
-SquashedNoiseCiphertext = unported_class(
-    "SquashedNoiseCiphertext", "noise squashing", (7,))
-CompressedSquashedNoiseCiphertextList = unported_class(
-    "CompressedSquashedNoiseCiphertextList",
-    "lists of noise-squashed ciphertexts", (7,))
-NoiseSquashingCompressionKey = unported_class(
-    "NoiseSquashingCompressionKey", "lists of noise-squashed ciphertexts",
-    (7,), ("generate",))
-NoiseSquashingCompressionPrivateKey = unported_class(
-    "NoiseSquashingCompressionPrivateKey",
-    "lists of noise-squashed ciphertexts", (7,), ("generate",))
-
-
-def compress_noise_squashed_ciphertexts_into_list(*args, **kwargs):
-    raise not_ported("lists of noise-squashed ciphertexts", 7)
 
 
 def gen_keys(params, seed: int = 0, device=None):

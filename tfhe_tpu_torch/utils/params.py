@@ -464,6 +464,21 @@ PARAM_TEST_TOY_MULTI_BIT = MultiBitPBSParameters(
     name="PARAM_TEST_TOY_MULTI_BIT",
 )
 
+# Small, *insecure* noise-squashing parameters for fast CI tests (the real
+# sets live in params_registry, e.g.
+# NOISE_SQUASHING_PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128).
+PARAM_TEST_TOY_SQUASH = NoiseSquashingParameters(
+    glwe_dimension=1,
+    polynomial_size=256,
+    glwe_noise_distribution=_T(3),
+    decomp_base_log=24,
+    decomp_level_count=3,
+    message_modulus=4,
+    carry_modulus=4,
+    modulus_switch_type=ModulusSwitchType.STANDARD,
+    name="PARAM_TEST_TOY_SQUASH",
+)
+
 
 class _ParamsByName(dict):
     """name -> parameters: the constants of this module first, then every

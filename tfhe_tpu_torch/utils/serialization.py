@@ -13,8 +13,8 @@ byte offset. The port holds torus values in ``int64`` and the CRT keys in
 ``tfhe_tpu`` writes, so an envelope of the port equals ``tfhe_tpu``'s for
 the same object and each package reads what the other wrote.
 :func:`deserialize` places tensors on ``device`` (the GPU when unset).
-Types whose modules the port does not carry yet (noise squashing, ZK) are
-registered and raise naming their ROADMAP item, on load and on save.
+The ZK types, whose module the port does not carry yet, are registered
+and raise naming their ROADMAP item, on load and on save.
 """
 
 from __future__ import annotations
@@ -275,11 +275,26 @@ def _shortint_ct_from(payload, device):
 
 
 def serialize_squashed_ciphertext(ct) -> bytes:
-    raise not_ported("serialization of noise-squashed ciphertexts", 7)
+    return serialize(
+        "SquashedNoiseCiphertext",
+        {"degree": ct.degree, "message_modulus": ct.message_modulus,
+         "carry_modulus": ct.carry_modulus},
+        {"hi": to_u64(ct.hi), "lo": to_u64(ct.lo)},
+    )
 
 
 def _squashed_ct_from(payload, device):
-    raise not_ported("noise-squashed ciphertexts", 7)
+    from .._device import resolve_device
+    from .._torus import from_u64
+    from ..shortint.noise_squashing import SquashedNoiseCiphertext
+
+    m = payload["meta"]
+    a = payload["arrays"]
+    dev = resolve_device(device)
+    return SquashedNoiseCiphertext(
+        hi=from_u64(a["hi"], dev), lo=from_u64(a["lo"], dev),
+        degree=m["degree"], message_modulus=m["message_modulus"],
+        carry_modulus=m["carry_modulus"])
 
 
 def _dist_to_meta(d) -> list:
