@@ -15,8 +15,9 @@ Phases (any failure raises and exits non-zero):
    memory, cluster size and blocks per SM (a spill fails);
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
-   against their plain versions (exact) on the path's own inputs (the
-   whole batch, all 866 steps) and at three 32-step cases; K2 acc32, its
+   against their plain versions (exact) on the path's own inputs (K2 on
+   the whole batch, K1 on its first 64 ciphertexts, all 866 steps) and at
+   three 32-step cases; K2 acc32, its
    plain version and its first design ``body_rotate_acc32_r1``
    ``torch.equal`` on the path's shared LUT at B = 2048, 1 and 32, on a
    random per-ciphertext LUT at 2048 (also unaligned), on LUT tables
@@ -120,12 +121,14 @@ Phases (any failure raises and exits non-zero):
     at k = 2 and 4 on 2048 ciphertexts covering every input degree; at
     512 under ``TFHE_V4_ACC=32``, K2 acc32 and K3-acc32, and on phase 7's
     v5 key, K2 u64 and K4), each output decrypted, each kernel against its
-    plain version on the call's own inputs, outputs/s; the shortint OPRF
+    plain version on the call's own inputs (a step kernel over its first
+    PLAIN_STEPS steps), outputs/s; the shortint OPRF
     (1-4 bits) and the FheUint64 OPRF (one batched PBS, ms at batch 1, a
     chi-square of 64 seeds' 2,048 blocks); the reference's v1.5 2_2 KS32,
     KS32 + drift (v1_3) and PBS -> KS sets at full width: keygen s, a
     2048 batch through ``apply_lookup_table`` (K2 acc32 and K1 once, K2
-    acc32 and K1 against their plain versions on its inputs), PBS/s, the
+    acc32 and K1 against their plain versions on its inputs, K1 over its
+    first PLAIN_STEPS steps), PBS/s, the
     keyswitch, the drift choice and K1 alone; then add, smart_add, mul, a
     bivariate LUT and unchecked_neg on phase 2's keys, each decrypted;
 17. the shortint side modules (``phase_side_modules``) on phase 2's keys:
@@ -144,15 +147,16 @@ Phases (any failure raises and exits non-zero):
     and byte-equal to phase 2's key; the HLAPI: a compressed list of
     FheUint8, FheUint32 and FheBool (each item back and decrypted) and a
     compact list builder -> expand, decrypted; WoP-PBS (its key, then
-    x -> 7x + 3 mod 16 on two values, message and carry decrypted);
+    x -> 7x + 3 mod 16 on one value, message and carry decrypted);
 18. the multi-bit PBS (``phase_multi_bit``) at three sets of the
     reference's universe by name, full width, each on its own seeded keys:
     the GPU default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_
     TUNIFORM_2M128`` (n = 920, N = 2048, 230 steps) at 2048, 1, 32 and 264:
     keygen s, each batch through ``apply_lookup_table`` (K2 u64 once, K5a
     and K5b once a chunk of steps, r14 and every other kernel never),
-    decrypted, the K5 pair equal to r14 on the whole batch and both timed
-    in turns (median of 5), K5a and K5b apart; at 2048 K2 u64, K5a (the
+    decrypted, at 2048 the K5 pair equal to r14 on the whole batch and
+    both timed in turns (median of 5; r14 at that shape only), the pair
+    alone elsewhere, K5a and K5b apart; at 2048 K2 u64, K5a (the
     first chunk, the whole batch), K5b (all steps, 64 ciphertexts) and the
     pair (64 ciphertexts, and random u64 accumulators over 32 steps)
     against their plain versions; at batch 1 KS -> PBS (median of 5),
@@ -185,7 +189,22 @@ Phases (any failure raises and exits non-zero):
     compressed into one list, unpacked and decrypted; the squashed
     envelope round trip; the HLAPI (``generate_keys`` with both squash
     sets, a FheUint64 ``squash_noise``, a list of two FheUint8);
-21. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+21. the prime-modulus NTT64 PBS (``phase_ntt64``, ROADMAP Queue A item 8,
+    on K6) at the reference's doc recipe, full width (n = 742, k = 1, N =
+    2048, b = 23, l = 1, q = 2^64 - 2^32 + 1, 4-bit messages): key MB and
+    keygen s; the 16 messages through f(x) = 2x with the launch counts
+    around the call (K6 once), decrypted; a batch of 2048, decrypted, PBS/s
+    and K6's ms (medians of 5); K6 ``torch.equal`` to ``cmux_steps_q`` on 8
+    ciphertexts over 400 of the 742 steps; the card's modulus switch against
+    Python ints on 2^16 values and the edges;
+22. ZK-proven compact lists (``phase_zk``, ROADMAP Queue A item 9b) at
+    ``PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128`` onto phase 2's
+    keys: the v2 CRS for k = 128 (s, MB); the thin client proving 4
+    FheUint64 on the CPU (s, bytes); the server's ``verify_and_expand`` on
+    the card (verify s, expand and cast ms, K2 acc32 and K1 launched), all
+    4 decrypted; a tampered body rejected; the CRS and proof envelopes
+    round-tripped; the native BLS12-446 curve required;
+23. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
@@ -226,6 +245,7 @@ BATCH = 2048  # shortint 2_2 main path
 BOOL_BATCH = 4096  # boolean gates
 SIDE_BATCH = 512  # shortint crt and two-plane phases
 PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
+PLAIN_STEPS = 256  # steps of phase 16's plain comparisons (of 866-978)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
 K2_BUFFERS = 4  # outputs a K2 timing writes in turn: 4 x 33.55 MB > the L2
@@ -593,6 +613,18 @@ def step_kernel_report():
                                        512))):
         print(f"  {label}: {pk.step_smem_bytes(*args) / 1024:.0f} KiB "
               "dynamic shared memory a block")
+    smem = pk.step_smem_bytes("blind_rotate_ntt64", 1, 2, 1, 2048)
+    occ = pk._occupancy(pk._k6_lib().blind_rotate_ntt64_occupancy,
+                        "blind_rotate_ntt64", 2, 1, 11)
+    if smem != pk.ntt64_smem_bytes(2, 1, 2048):
+        raise AssertionError(f"blind_rotate_ntt64_smem {smem} != acc + "
+                             "digits + MAC at the NTT64 doc recipe")
+    if occ["local_bytes"]:
+        spilled["K6 at the NTT64 doc recipe"] = occ["local_bytes"]
+    print(f"  K6 NTT64 doc recipe (k = 1, l = 1, N = 2048): "
+          f"{smem / 1024:.0f} KiB dynamic shared memory a block, "
+          f"{occ['registers']} registers, {occ['local_bytes']} local bytes "
+          f"a thread, {occ['blocks_per_sm']} blocks per SM")
     for label, g, R, levels, N in (("K5 group 4", 4, 2, 1, 2048),
                                    ("K5 group 2, N = 4096", 2, 2, 1, 4096),
                                    ("K5 group 3, l = 2", 3, 2, 2, 2048)):
@@ -609,9 +641,9 @@ def step_kernel_report():
                   f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
                   for k, o in occ.items()))
     if spilled:
-        raise AssertionError(f"K1/K3 step kernels spill: {spilled}")
-    print("K1 and K3: no spills; K1, K3, K5b and r14: shared memory == acc + "
-          "digits")
+        raise AssertionError(f"K1/K3/K6 step kernels spill: {spilled}")
+    print("K1, K3 and K6: no spills; K1, K3, K5b and r14: shared memory == "
+          "acc + digits; K6: acc + digits + MAC")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -796,8 +828,10 @@ def phase_shortint_v6b(card, rate, rows):
     k1_err, k1_plain = check_equal(
         "blind_rotate_bnf2_acc32", pk.blind_rotate_bnf2_acc32,
         pk.blind_rotate_bnf2_acc32_plain,
-        (acc_hi, ms_mask, sk.bsk_b, p.pbs_base_log, p.pbs_level, fl))
-    print(f"K2 acc32 and K1 == plain at B={BATCH}, n={n}")
+        (acc_hi[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH],
+         sk.bsk_b, p.pbs_base_log, p.pbs_level, fl))
+    print(f"K2 acc32 == plain at B={BATCH}; K1 == plain on the path's first "
+          f"{PLAIN_BATCH} ciphertexts, n={n}")
     rng = np.random.default_rng(SEED)
     p11 = PARAM_MESSAGE_1_CARRY_1_KS_PBS
     for label, B, steps, R_, levels, N_, flavor in (
@@ -871,7 +905,8 @@ def phase_shortint_v6b(card, rate, rows):
         ms=k1_ms, plain_ms=k1_plain,
         bound=step_bound("blind_rotate_bnf2_acc32", BATCH, n, R,
                          p.pbs_level, N, 2, 4, rate),
-        shape=f"2_2 B={BATCH} n={n}", plain_shape=f"2_2 B={BATCH} n={n}")
+        shape=f"2_2 B={BATCH} n={n}",
+        plain_shape=f"2_2 B={PLAIN_BATCH} of {BATCH} n={n}")
     return ck, sk, (ct, lut, out.ct), {
         "ks_gemm_ms": ks_ms, "ks_pbs_ms": step_ms,
         "pbs_per_s": BATCH / step_ms * 1e3,
@@ -2071,7 +2106,8 @@ def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
     (``want``), every output decrypted against its function, the step
     kernel of the path (K3 P = 4, K3-acc32 P = 4 or K4) and its K2 against
     their plain versions on the call's own inputs (the step kernel on the
-    first ``plain_b`` ciphertexts, all n steps), outputs/s (median of 5)."""
+    first ``plain_b`` ciphertexts over the first PLAIN_STEPS steps),
+    outputs/s (median of 5)."""
     import dataclasses
 
     from tfhe_tpu_torch.ops import pbs_kernel as pk
@@ -2093,20 +2129,22 @@ def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
                                  f"decrypts wrong")
     mask, body = switched(sk, ct)
     mask, body = mask.reshape(-1, p.lwe_dimension), body.reshape(-1)
-    bl, lv = p.pbs_base_log, p.pbs_level
+    bl, lv, S = p.pbs_base_log, p.pbs_level, PLAIN_STEPS
     if sk.variant == "v5":
         name, step_plain, key = ("blind_rotate_goldilocks",
-                                 pk.blind_rotate_goldilocks_plain, sk.bsk_g)
-        step = functools.partial(pk.blind_rotate_goldilocks, bsk_k=sk.bsk_g_k)
+                                 pk.blind_rotate_goldilocks_plain,
+                                 sk.bsk_g[:S])
+        step = functools.partial(pk.blind_rotate_goldilocks,
+                                 bsk_k=sk.bsk_g_k[:S])
     elif server_ops.crt_acc32_requested(p.polynomial_size, bl, lv):
         name, step, step_plain = ("blind_rotate_crt_acc32",
                                   pk.blind_rotate_crt_acc32,
                                   pk.blind_rotate_crt_acc32_plain)
-        key = sk.bsk_scan
+        key = sk.bsk_scan[:S]
     else:
         name, step, step_plain = ("blind_rotate_crt", pk.blind_rotate_crt,
                                   pk.blind_rotate_crt_plain)
-        key = sk.bsk_scan
+        key = sk.bsk_scan[:S]
     k2 = (pk.body_rotate_acc32 if name == "blind_rotate_crt_acc32"
           else pk.body_rotate_u64)
     k2_plain = (pk.body_rotate_acc32_plain if k2 is pk.body_rotate_acc32
@@ -2116,16 +2154,17 @@ def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
     acc = k2(many.acc, body)
     _, plain_ms = check_equal(
         f"{name} {label} many-LUT", step, step_plain,
-        (acc[:plain_b].contiguous(), mask[:plain_b], key, bl, lv))
+        (acc[:plain_b].contiguous(), mask[:plain_b, :S].contiguous(), key,
+         bl, lv))
     ms = cuda_ms(lambda: sk.apply_many_lookup_table(ct, many), 5)
     rate = batch * k / ms * 1e3
     print(f"{label} many-LUT k={k}: {batch} ciphertexts x {k} functions "
           f"decrypt right; K2 and the step kernel == plain (B={plain_b}, "
-          f"n={p.lwe_dimension}, plain {plain_ms:.1f} ms); {ms:.3f} ms = "
-          f"{rate:.1f} outputs/s")
+          f"the first {S} of n={p.lwe_dimension} steps, plain "
+          f"{plain_ms:.1f} ms); {ms:.3f} ms = {rate:.1f} outputs/s")
     rows[f"many_lut_{label}_k{k}"] = dict(batch=batch, ms=ms,
                                           outputs_per_s=rate,
-                                          plain_ms=plain_ms)
+                                          plain_ms=plain_ms, plain_steps=S)
     return rate
 
 
@@ -2150,7 +2189,8 @@ def phase_shortint_rest(ck22, sk22, sk_v5, card, rate):
        small-key ciphertexts): keygen s, a batch of 2048 covering all 16
        values through ``apply_lookup_table`` decrypted (K2 acc32 and K1
        once), K2 acc32 and K1 against their plain versions on the batch's
-       own inputs (K1 on 64 ciphertexts, all n steps), PBS/s (median of 5),
+       own inputs (K1 on 64 ciphertexts over the first PLAIN_STEPS steps),
+       PBS/s (median of 5),
        the keyswitch, the drift choice and K1 timed alone;
     d. phase 2's keys: add, smart_add, mul, a bivariate LUT and unchecked_neg
        on a 2048 batch, each decrypted."""
@@ -2260,7 +2300,9 @@ def phase_shortint_rest(ck22, sk22, sk_v5, card, rate):
         _, plain_ms = check_equal(
             f"blind_rotate_bnf2_acc32 {name}", pk.blind_rotate_bnf2_acc32,
             pk.blind_rotate_bnf2_acc32_plain,
-            (hi[:PLAIN_BATCH].contiguous(), mask[:PLAIN_BATCH], *args))
+            (hi[:PLAIN_BATCH].contiguous(),
+             mask[:PLAIN_BATCH, :PLAIN_STEPS].contiguous(),
+             sk.bsk_b[:PLAIN_STEPS], *args[1:]))
         step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 5)
         k1_ms = cuda_ms(lambda: pk.blind_rotate_bnf2_acc32(hi, mask, *args),
                         3)
@@ -2279,12 +2321,13 @@ def phase_shortint_rest(ck22, sk22, sk_v5, card, rate):
         row = dict(keygen_s=keygen_s, pbs_ms=step_ms,
                    pbs_per_s=BATCH / step_ms * 1e3, k1_ms=k1_ms,
                    k1_bound_ms=k1_bound_ms, k1_bound_by=k1_by,
-                   k1_plain_ms=plain_ms, keyswitch_ms=ks_ms,
+                   k1_plain_ms=plain_ms, k1_plain_steps=PLAIN_STEPS,
+                   keyswitch_ms=ks_ms,
                    drift_ms=drift_ms)
         print(f"{label}: keygen {keygen_s:.2f} s; {BATCH} ciphertexts "
               f"decrypt to 3x mod 16; K2 acc32 and K1 == plain (K1 at "
-              f"B={PLAIN_BATCH}, n={p.lwe_dimension}, plain {plain_ms:.1f} "
-              f"ms); step {step_ms:.3f} ms = {BATCH / step_ms * 1e3:.1f} "
+              f"B={PLAIN_BATCH}, the first {PLAIN_STEPS} of "
+              f"n={p.lwe_dimension} steps, plain {plain_ms:.1f} ms); step {step_ms:.3f} ms = {BATCH / step_ms * 1e3:.1f} "
               f"PBS/s on {card}; K1 {k1_ms:.3f} ms (bound {k1_bound_ms:.2f}, "
               f"{k1_by}), keyswitch {ks_ms:.3f} ms"
               + (f", drift choice {drift_ms:.3f} ms" if drift_ms else ""))
@@ -2327,7 +2370,7 @@ RERAND_PARAMS = ("V1_5_PARAM_KEYSWITCH_PKE_TO_BIG_MESSAGE_2_CARRY_2_KS_PBS_"
 PK_VALUES = 32  # values encrypted with the public key
 HL_ITEMS = (("FheUint8", 173), ("FheUint32", 3_000_000_007),
             ("FheBool", True))  # the HLAPI compressed list of phase 17
-WOPBS_VALUES = (3, 14)  # WoP-PBS inputs (message + carry)
+WOPBS_VALUE = 14  # the WoP-PBS input (message 2, carry 3)
 
 
 def host_s(fn):
@@ -2378,7 +2421,7 @@ def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
     d. a compressed server key of phase 2's seed, decompressed byte-equal
        to phase 2's key;
     e. the HLAPI's compressed and compact lists on a compression keyset;
-    f. WoP-PBS: its key, and ``wopbs`` on each of WOPBS_VALUES."""
+    f. WoP-PBS: its key, and ``wopbs`` on WOPBS_VALUE."""
     import torch
 
     from tfhe_tpu_torch.high_level_api import api
@@ -2554,20 +2597,16 @@ def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
     # f. WoP-PBS
     wk, wk_s = host_s(lambda: WopbsKey.generate(ck22, sk22))
     f = lambda x: (7 * x + 3) % mod  # noqa: E731
-    wopbs_s = []
-    for v in WOPBS_VALUES:
-        wct = ck22.encrypt(np.array([v], dtype=np.uint64))
-        wout, s_ = host_s(lambda: no_launches(
-            "wopbs", lambda: wk.wopbs(wct, f)))
-        check_clear(f"wopbs({v})", ck22.decrypt_message_and_carry(wout),
-                    [f(v)])
-        wopbs_s.append(s_)
+    v = WOPBS_VALUE
+    wct = ck22.encrypt(np.array([v], dtype=np.uint64))
+    wout, wopbs_s = host_s(lambda: no_launches(
+        "wopbs", lambda: wk.wopbs(wct, f)))
+    check_clear(f"wopbs({v})", ck22.decrypt_message_and_carry(wout), [f(v)])
     summary.update(wopbs_keygen_s=wk_s, wopbs_s=wopbs_s)
     print(f"WoP-PBS: key {wk_s:.2f} s (packing keys "
           f"{tuple(wk.pfpksk.shape)}, BSK P={wk.wopbs_num_primes}); "
-          f"wopbs x -> 7x + 3 mod 16 on {list(WOPBS_VALUES)}: "
-          f"{', '.join(f'{t:.2f}' for t in wopbs_s)} s, message and carry "
-          f"decrypted")
+          f"wopbs x -> 7x + 3 mod 16 on {v}: {wopbs_s:.2f} s, message and "
+          f"carry decrypted")
     del wk
     torch.cuda.empty_cache()
 
@@ -2704,8 +2743,9 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
     zeroed just before and read just after (``mb_launches``), decrypted;
     K5a, K5b and the pair against their plain versions on that batch's
     inputs (``_multi_bit_plain``, ``plain_b`` ciphertexts, which give the
-    rows' plain columns); the pair equal to r14 on the whole batch; the
-    pair and r14 timed in turns (median of 5), K5a and K5b apart over the
+    rows' plain columns); at g4 (B = 2048) alone the pair equal to r14,
+    the reference no user path launches, on the whole batch and the two
+    timed in turns (median of 5), elsewhere the pair alone (median of 5); K5a and K5b apart over the
     call's chunks (median of 3), KS -> PBS (median of 5); the shape's four
     kernel rows. Returns the shape's numbers."""
     import torch
@@ -2738,9 +2778,12 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
     plain = _multi_bit_plain(label, sk, acc, mask, plain_b)
     pair = lambda: pk.blind_rotate_multi_bit(acc, mask, mbk, bl, lv)
     r14 = lambda: pk.blind_rotate_multi_bit_r14(acc, mask, mbk, bl, lv)
-    if not torch.equal(pair(), r14()):
-        raise AssertionError(f"{label}: the K5 pair != r14 at B={batch}")
-    pair_ms, r14_ms = median_in_turns(pair, r14)
+    if label == "g4":
+        if not torch.equal(pair(), r14()):
+            raise AssertionError(f"{label}: the K5 pair != r14 at B={batch}")
+        pair_ms, r14_ms = median_in_turns(pair, r14)
+    else:
+        pair_ms, r14_ms = cuda_ms(pair, 5), None
     C = pk.multi_bit_chunk(batch, ng, P, lv * R, R, N)
     chunks = [(t0, min(C, ng - t0)) for t0 in range(0, ng, C)]
     k5a_ms = cuda_ms(lambda: [pk.multi_bit_keybundle(mask, mbk, t0, c, bl, lv)
@@ -2752,10 +2795,12 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
     del bundles
     torch.cuda.empty_cache()
     step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 5)
+    r14_note = ("r14 run at g4 alone" if r14_ms is None else
+                f"in turns with r14 {r14_ms:.3f} ms "
+                f"({r14_ms / pair_ms:.2f}x, pair == r14)")
     print(f"{label} B={batch}: KS->PBS {step_ms:.3f} ms = "
-          f"{batch / step_ms * 1e3:.1f} PBS/s; in turns the K5 pair "
-          f"{pair_ms:.3f} ms, r14 {r14_ms:.3f} ms ({r14_ms / pair_ms:.2f}x, "
-          f"pair == r14); {len(chunks)} chunks of {C} steps: K5a "
+          f"{batch / step_ms * 1e3:.1f} PBS/s; the K5 pair {pair_ms:.3f} ms, "
+          f"{r14_note}; {len(chunks)} chunks of {C} steps: K5a "
           f"{k5a_ms:.3f} ms, K5b {k5b_ms:.3f} ms "
           f"({k5b_ms / ng * 1e3:.1f} us a step); launches {launches}")
     (a_err, a_plain, a_shape), (b_err, b_plain, b_shape), \
@@ -2769,7 +2814,8 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
         common, launches=launches["multi_bit_keybundle"]
         + launches["multi_bit_accumulate"], max_abs_err=f_err, ms=pair_ms,
         plain_ms=f_plain, plain_shape=f_shape, bound=fn_bound,
-        kernel="the K5 pair (K5a + K5b a chunk), in turns with r14")
+        kernel="the K5 pair (K5a + K5b a chunk)"
+               + (", in turns with r14" if r14_ms is not None else ""))
     rows[f"multi_bit_keybundle_{label}"] = dict(
         common, launches=launches["multi_bit_keybundle"], max_abs_err=a_err,
         ms=k5a_ms, plain_ms=a_plain, plain_shape=a_shape,
@@ -2784,12 +2830,13 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
             batch, ng, R, lv, N, P),
             accumulate_bytes(batch, ng, R, lv, N, P), rate),
         kernel="K5b, all chunks of the call")
-    rows[f"blind_rotate_multi_bit_r14_{label}"] = dict(
-        common, launches=launches["blind_rotate_multi_bit_r14"],
-        max_abs_err=f_err, ms=r14_ms, plain_ms=f_plain, plain_shape=f_shape,
-        bound=fn_bound,
-        kernel="r14, the single-kernel reference (no user path), in turns "
-               "with the pair")
+    if r14_ms is not None:
+        rows[f"blind_rotate_multi_bit_r14_{label}"] = dict(
+            common, launches=launches["blind_rotate_multi_bit_r14"],
+            max_abs_err=f_err, ms=r14_ms, plain_ms=f_plain,
+            plain_shape=f_shape, bound=fn_bound,
+            kernel="r14, the single-kernel reference (no user path), in "
+                   "turns with the pair")
     return {f"mb_{label}_pbs_ms": step_ms,
             f"mb_{label}_pbs_per_s": batch / step_ms * 1e3,
             f"mb_{label}_k5_ms": pair_ms, f"mb_{label}_r14_ms": r14_ms,
@@ -2826,7 +2873,7 @@ def phase_multi_bit(card, rate, rows, table13):
        (``_multi_bit_shape``, the plain checks on 64 ciphertexts), then at
        1, 32 and 264 (each through ``apply_lookup_table`` with its launch
        counts, decrypted, the plain checks on min(batch, 64) ciphertexts,
-       the pair == r14 and timed in turns); at batch 1
+       the pair timed); at batch 1
        KS -> PBS (median of 5), FheUint64 add, bitand and eq (ms, rounds)
        against their numpy oracles beside phase 13's v6b numbers, the
        README chain at FheUint32, and the FheUint64 OPRF (one batched PBS);
@@ -2857,8 +2904,7 @@ def phase_multi_bit(card, rate, rows, table13):
         k5a_1, k5b_1 = summary["mb_g4_b1_k5a_ms"], summary["mb_g4_b1_k5b_ms"]
         ng = sk.bsk_mb.shape[0]
         print(f"{label} batch 1: KS->PBS {ks_pbs_1:.3f} ms, the K5 pair "
-              f"{summary['mb_g4_b1_k5_ms']:.3f} ms (r14 "
-              f"{summary['mb_g4_b1_r14_ms']:.3f}): K5a {k5a_1:.3f} ms, K5b "
+              f"{summary['mb_g4_b1_k5_ms']:.3f} ms: K5a {k5a_1:.3f} ms, K5b "
               f"{k5b_1:.3f} ms = {k5b_1 / ng * 1e3:.1f} us a step, on {card}")
         summary["mb_g4_ks_pbs_b1_ms"] = ks_pbs_1
         p = sk.params
@@ -3519,6 +3565,303 @@ def phase_noise_squashing(ck22, sk22, card):
     return out
 
 
+#: phase 21: the reference's NTT64 PBS doc recipe (ntt64_pbs.rs:31-176)
+NTT64_N, NTT64_K, NTT64_POLY, NTT64_BASE_LOG, NTT64_LEVELS = 742, 1, 2048, 23, 1
+NTT64_MM = 16  # 4-bit messages
+NTT64_LWE_STD = 0.000007069849454709433  # relative to q, as the doc gives
+NTT64_GLWE_STD = 0.00000000000000029403601535432533
+NTT64_PLAIN_CTS = 8  # K6 against cmux_steps_q on the card, on 8 ciphertexts
+#: ... over the first 400 steps: the plain version is launch-bound (≈ 1,100
+#: torch kernels a step, 20.4 s for all 742 steps on an H100), so fewer
+#: ciphertexts would not shorten it, and it is held to about 15 s
+NTT64_PLAIN_STEPS = 400
+NTT64_SWITCH_VALUES = 1 << 16  # random values of the modulus-switch check
+
+
+def phase_ntt64(card, rate, rows):
+    """The prime-modulus NTT64 PBS (ROADMAP Queue A item 8, second half;
+    ``ops/ntt64_pbs.py`` on K6) at the reference's doc recipe, full width:
+    n = 742, k = 1, N = 2048, b = 23, l = 1, q = 2^64 - 2^32 + 1, 4-bit
+    messages, f(x) = 2x.
+    a. the key from numpy's generator at SEED on the card: MB, keygen s;
+    b. the 16 messages through ``pbs_ntt64`` with the launch counts zeroed
+       just before and read just after (K6 once, every other kernel
+       never), each decrypted to 2m (mod 2 * 16, the padding bit's space);
+    c. a batch of 2048 (all 16 messages): decrypted, PBS/s (median of 5),
+       K6 alone (median of 5 CUDA-event timings);
+    d. K6 ``torch.equal`` to its plain version ``cmux_steps_q`` on the card,
+       on the batch's first NTT64_PLAIN_CTS ciphertexts over the key's first
+       NTT64_PLAIN_STEPS steps (the plain version's time is its comparison
+       run);
+    e. the card's modulus switch equal to a Python-int switch on
+       NTT64_SWITCH_VALUES random values and the edges 0, 1, q//2, q//2 + 1,
+       q - 1."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64, to_u64
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import ntt64_pbs as pn
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    t_phase = time.perf_counter()
+    Q = pn.Q
+    n, k, N = NTT64_N, NTT64_K, NTT64_POLY
+    bl, lv, R = NTT64_BASE_LOG, NTT64_LEVELS, NTT64_K + 1
+    delta = (1 << 63) // NTT64_MM
+    rng = np.random.default_rng(SEED)
+    lwe_sk = rng.integers(0, 2, size=n).astype(np.uint8)
+    glwe_sk = rng.integers(0, 2, size=(k, N)).astype(np.uint8)
+    t0 = time.perf_counter()
+    bsk_hat = pn.bootstrap_key_to_ntt64(pn.gen_bootstrap_key_ntt64(
+        lwe_sk, glwe_sk, bl, lv, NTT64_GLWE_STD * Q, rng, device=DEVICE))
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_mb = bsk_hat.numel() * bsk_hat.element_size() / 1e6
+    print(f"NTT64 key: {tuple(bsk_hat.shape)}, {key_mb:.1f} MB, keygen "
+          f"{keygen_s:.2f} s")
+    lut = pn.generate_lut_q(N, R, NTT64_MM, delta, lambda x: 2 * x)
+    big_sk = glwe_sk.reshape(-1)
+
+    def check_decrypts(label, out, msgs):
+        dec = to_u64(pn.decode_q(pn.lwe_decrypt_q(big_sk, out), delta))
+        signed = np.array([int(v) - Q if int(v) > Q // 2 else int(v)
+                           for v in dec])
+        want = (2 * msgs.astype(np.int64)) % (2 * NTT64_MM)
+        bad = int((signed % (2 * NTT64_MM) != want).sum())
+        if bad or tuple(out.shape) != (len(msgs), k * N + 1):
+            raise AssertionError(f"NTT64 {label}: {bad} of {len(msgs)} "
+                                 f"decrypt wrong, shape {tuple(out.shape)}")
+
+    # b. the doc example's 16 messages through the entry point
+    msgs = np.arange(NTT64_MM, dtype=np.uint64)
+    cts = pn.lwe_encrypt_q(lwe_sk, (msgs * np.uint64(delta)) % np.uint64(Q),
+                           NTT64_LWE_STD * Q, rng, device=DEVICE)
+    pk.reset_launches()
+    out = pn.pbs_ntt64(cts, lut, bsk_hat, bl, lv)
+    torch.cuda.synchronize()
+    launches = launches_of("blind_rotate_ntt64")
+    others = {f.__name__: f.launches for f in pk.KERNELS
+              if f is not pk.blind_rotate_ntt64 and f.launches}
+    require_launched("NTT64 PBS main path", launches)
+    if launches["blind_rotate_ntt64"] != 1 or others:
+        raise AssertionError(f"NTT64 PBS: launches {launches}, {others}")
+    check_decrypts("doc example", out, msgs)
+    print(f"NTT64 doc example: {NTT64_MM} messages through f(x) = 2x "
+          "decrypt to 2m (K6 once, no other kernel)")
+
+    # c. a batch of 2048
+    bmsgs = np.arange(BATCH, dtype=np.uint64) % NTT64_MM
+    bcts = pn.lwe_encrypt_q(lwe_sk, (bmsgs * np.uint64(delta)) % np.uint64(Q),
+                            NTT64_LWE_STD * Q, rng, device=DEVICE)
+    check_decrypts(f"batch of {BATCH}", pn.pbs_ntt64(bcts, lut, bsk_hat, bl,
+                                                     lv), bmsgs)
+    pbs_ms = cuda_ms(lambda: pn.pbs_ntt64(bcts, lut, bsk_hat, bl, lv), 5)
+    mask_sw = pn.modulus_switch_nonnative(bcts[:, :-1], N)
+    body_sw = pn.modulus_switch_nonnative(bcts[:, -1], N)
+    lut_t = from_u64(lut, DEVICE)
+    acc = pn.monomial_div_q(lut_t[None].expand(BATCH, R, N),
+                            body_sw[:, None]).contiguous()
+    k6_ms = cuda_ms(lambda: pk.blind_rotate_ntt64(acc, mask_sw, bsk_hat, bl,
+                                                  lv), 5)
+    print(f"NTT64 PBS B={BATCH}: {pbs_ms:.3f} ms = "
+          f"{BATCH / pbs_ms * 1e3:.1f} PBS/s on {card}; K6 {k6_ms:.3f} ms "
+          f"({100 * k6_ms / pbs_ms:.1f} %)")
+
+    # d. K6 against its plain version on the card
+    b, steps = NTT64_PLAIN_CTS, min(NTT64_PLAIN_STEPS, n)
+    err, plain_ms = check_equal(
+        "blind_rotate_ntt64", pk.blind_rotate_ntt64,
+        pk.blind_rotate_ntt64_plain,
+        (acc[:b].contiguous(), mask_sw[:b, :steps].contiguous(),
+         bsk_hat[:steps].contiguous(), bl, lv))
+    print(f"K6 == cmux_steps_q (torch.equal) at B={b}, the first {steps} of "
+          f"{n} steps (plain {plain_ms:.1f} ms)")
+
+    # e. the modulus switch, card against Python ints
+    vals = np.concatenate([
+        rng.integers(0, Q, size=NTT64_SWITCH_VALUES, dtype=np.uint64),
+        np.array([0, 1, Q // 2, Q // 2 + 1, Q - 1], dtype=np.uint64)])
+    got = to_u64(pn.modulus_switch_nonnative(from_u64(vals, DEVICE), N))
+    want = np.array([(int(v) * 2 * N + (Q >> 1)) // Q for v in vals],
+                    dtype=np.uint64)
+    if not np.array_equal(got, want) or int(got[-1]) != 2 * N:
+        raise AssertionError("NTT64 modulus switch: card != Python ints at "
+                             f"{int((got != want).sum())} values")
+    print(f"NTT64 modulus switch: card == Python ints on "
+          f"{len(vals)} values (q - 1 -> 2N)")
+
+    rows["blind_rotate_ntt64"] = dict(
+        source="tfhe_tpu_torch/csrc/blind_rotate_ntt64.cu",
+        replaces="tfhe_tpu/ops/ntt64_pbs.py:296",
+        note="no pallas_call: XLA in tfhe_tpu",
+        launches=launches["blind_rotate_ntt64"], max_abs_err=err, ms=k6_ms,
+        plain_ms=plain_ms,
+        bound=bound(kb.step_pipe_instructions(
+            "blind_rotate_ntt64", BATCH, n, R, lv, N, 1),
+            step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
+        shape=f"NTT64 doc recipe B={BATCH} n={n}",
+        plain_shape=f"NTT64 doc recipe B={b}, {steps} of {n} steps")
+    del bsk_hat, acc, bcts, cts
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"phase 21: {secs:.1f} s")
+    return {"ntt64_key_mb": key_mb, "ntt64_keygen_s": keygen_s,
+            "ntt64_pbs_ms": pbs_ms, "ntt64_pbs_per_s": BATCH / pbs_ms * 1e3,
+            "ntt64_k6_ms": k6_ms, "ntt64_plain_ms": plain_ms,
+            "ntt64_s": secs}
+
+
+ZK_VALUES = (0xFEDC_BA98_7654_3210, 1, 0, 0x0123_4567_89AB_CDEF)  # FheUint64
+ZK_CRS_K = 128  # messages a bin of the CRS: the 4 values' 128 blocks
+ZK_METADATA = b"chip_smoke phase 22"
+
+
+def phase_zk(ck22, sk22, card):
+    """ZK-proven compact lists (ROADMAP Queue A item 9b) at
+    ``PARAM_PKE_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128`` (d = 2048,
+    t-uniform 17) onto phase 2's 2_2 compute keys, through phase 17's
+    casting set:
+    a. the HLAPI compact public key and casting key on phase 2's keys, the
+       v2 CRS for bins of 128 messages: s, MB;
+    b. the thin client (``client.py``, on the CPU with a copy of the
+       compact public key) builds a proven list of 4 FheUint64 (128
+       blocks, one bin, one proof): encrypt-and-prove s, the proof's bytes;
+    c. the server loads the list and the proof from their envelopes onto
+       the card: the proofs verified alone (s, host), then
+       ``HlCompactCiphertextList.verify_and_expand`` run (s; its launches
+       counted), expand and cast ms (the casting keyswitch, then K2 acc32
+       and K1 once each, timed apart), all 4 values decrypted;
+    d. a tampered body rejected;
+    e. the CRS and proof envelopes round-tripped (MB, s);
+    f. the native curve (``csrc/bls446.c``) answered the CRS powers, the
+       MSMs, the pairing checks and the subgroup checks."""
+    from tfhe_tpu_torch import client, integer
+    from tfhe_tpu_torch.high_level_api import api
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.compact_public_key import CompactPublicKey
+    from tfhe_tpu_torch.utils import serialization as ser
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+    from tfhe_tpu_torch.zk import curve as cv
+    from tfhe_tpu_torch.zk.proven_list import ProvenCompactCiphertextList
+
+    t_phase = time.perf_counter()
+    native0 = dict(cv.NATIVE_CALLS)
+    if cv._native_lib() is None:
+        raise AssertionError("phase 22: the BLS12-446 library did not build")
+    pke = PARAMS_BY_NAME[CPK_PARAMS]
+    hck = api.ClientKey(integer.ClientKey(ck22))
+    hsk = api.ServerKey(integer.ServerKey(sk22))
+    hcpk, cpk_s = host_s(lambda: api.CompactPublicKey.new(
+        hck, hsk, pke, PARAMS_BY_NAME[CAST_PARAMS], seed=SEED))
+    crs, crs_s = host_s(lambda: client.client_crs(pke, ZK_CRS_K, seed=SEED))
+    crs_blob = ser.serialize_zk_crs(crs)
+    print(f"ZK: compact public key and casting key {cpk_s:.2f} s; v2 CRS (d "
+          f"= {crs.d}, k = {crs.k}, n = {crs.n}: {len(crs.g_list)} G1, "
+          f"{len(crs.g_hat_list)} G2) {crs_s:.2f} s, {len(crs_blob) / 1e6:.2f}"
+          " MB")
+
+    # b. the thin client, on the CPU
+    blocks = api.FheUint64.num_blocks(ck22.params)
+    client_pk = CompactPublicKey(mask=hcpk.pk.mask.cpu(),
+                                 body=hcpk.pk.body.cpu(), params=pke)
+    lst, prove_s = host_s(lambda: client.build_proven_compact_list(
+        client_pk, list(ZK_VALUES), blocks, crs, metadata=ZK_METADATA))
+    list_blob = client.serialize_compact_list(lst.ct_list)
+    proof_blobs = [client.serialize_proof(p) for p in lst.proofs]
+    proof_bytes = sum(len(p.to_bytes()) for p in lst.proofs)
+    print(f"ZK thin client: {len(ZK_VALUES)} FheUint64 ({blocks * len(ZK_VALUES)}"
+          f" blocks, {len(lst.proofs)} bin(s), a proof each) encrypted and "
+          f"proven in "
+          f"{prove_s:.2f} s; proof {proof_bytes} B ({len(proof_blobs[0])} B "
+          f"envelope), list {len(list_blob) / 1e3:.1f} kB")
+
+    # c. the server: envelopes onto the card, verify, expand and cast
+    clist = ser.deserialize(list_blob, expected_type="CompactCiphertextList",
+                            device=DEVICE)
+    proofs = [ser.deserialize(b, expected_type="PkeV2Proof", device=DEVICE)
+              for b in proof_blobs]
+    entries = [(api.FheUint64, blocks, i * blocks)
+               for i in range(len(ZK_VALUES))]
+    hl = api.HlCompactCiphertextList(clist, entries, hcpk, proofs,
+                                     ZK_METADATA)
+    proven = ProvenCompactCiphertextList(ct_list=clist, proofs=proofs,
+                                         metadata=ZK_METADATA)
+    ok, verify_s = host_s(lambda: proven.verify(crs, hcpk.pk, ZK_METADATA))
+    if not ok:
+        raise AssertionError("ZK: the server refused the thin client's list")
+    api.set_server_key(hsk)
+    try:
+        pk.reset_launches()
+        vals, vexp_s = host_s(lambda: hl.verify_and_expand(
+            crs, metadata=ZK_METADATA))
+        launches = launches_of("body_rotate_acc32", "blind_rotate_bnf2_acc32")
+        require_launched("ZK expand and cast", launches)
+        got = [v.decrypt(hck) for v in vals]
+        if got != list(ZK_VALUES):
+            raise AssertionError(f"ZK: the list decrypts to {got}")
+        expand_ms = cuda_ms(hl.expand, 3)
+        print(f"ZK server: verify alone {verify_s:.2f} s; verify_and_expand "
+              f"{vexp_s:.2f} s (launches {launches}); expand and cast on the "
+              f"card {expand_ms:.2f} ms (median of 3, timed apart); all "
+              f"{len(ZK_VALUES)} FheUint64 decrypt right")
+
+        # d. a tampered body
+        bad = _tampered(clist, 3)
+        tampered = api.HlCompactCiphertextList(bad, entries, hcpk, proofs,
+                                               ZK_METADATA)
+        try:
+            tampered.verify_and_expand(crs, metadata=ZK_METADATA)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("ZK: a tampered list was accepted")
+        print("ZK: a list with one tampered body is rejected")
+    finally:
+        api.unset_server_key()
+
+    # e. the envelopes round-tripped
+    back, crs_load_s = host_s(lambda: ser.deserialize(
+        crs_blob, expected_type="PkeV2Crs", device=DEVICE))
+    if ser.serialize_zk_crs(back) != crs_blob:
+        raise AssertionError("ZK: the CRS envelope does not round-trip")
+    if [ser.serialize_zk_proof(p) for p in proofs] != proof_blobs:
+        raise AssertionError("ZK: the proof envelope does not round-trip")
+    print(f"ZK envelopes: CRS {len(crs_blob) / 1e6:.2f} MB loaded (every "
+          f"point checked) in {crs_load_s:.2f} s and written back "
+          f"byte-equal; proof {len(proof_blobs[0])} B round-trips")
+
+    # f. the native curve
+    native = {k: cv.NATIVE_CALLS[k] - native0[k] for k in cv.NATIVE_CALLS}
+    unused = [k for k in ("fixed_powers", "msm", "pairing_product",
+                          "subgroup") if native[k] < 1]
+    if unused:
+        raise AssertionError(f"ZK: the native curve did not answer {unused}"
+                             f": {native}")
+    print(f"ZK: the native BLS12-446 curve (csrc/bls446.c) answered {native}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 22: {secs:.1f} s")
+    print(json.dumps({"metric": "zk_proven_list", "values": len(ZK_VALUES),
+                      "blocks": blocks * len(ZK_VALUES), "crs_s": crs_s,
+                      "crs_mb": len(crs_blob) / 1e6, "prove_s": prove_s,
+                      "proof_bytes": proof_bytes, "verify_s": verify_s,
+                      "verify_and_expand_s": vexp_s, "expand_ms": expand_ms, "crs_load_s": crs_load_s,
+                      "card": card}))
+    return {"zk_crs_s": crs_s, "zk_crs_mb": len(crs_blob) / 1e6,
+            "zk_prove_s": prove_s, "zk_proof_bytes": proof_bytes,
+            "zk_verify_s": verify_s, "zk_verify_and_expand_s": vexp_s,
+            "zk_expand_ms": expand_ms,
+            "zk_crs_load_s": crs_load_s, "zk_s": secs}
+
+
+def _tampered(clist, i: int):
+    """A copy of ``clist`` with body ``i`` moved by 2^60."""
+    import dataclasses
+
+    bodies = clist.bodies.clone()
+    bodies[i] += 1 << 60
+    return dataclasses.replace(clist, bodies=bodies)
+
+
 def main() -> int:
     import torch
 
@@ -3564,13 +3907,17 @@ def main() -> int:
                                   summary))
     del g4_keys
     summary.update(phase_noise_squashing(ck22, sk22, card))
+    summary.update(phase_ntt64(card, rate, rows))
+    summary.update(phase_zk(ck22, sk22, card))
 
     order = ("body_rotate_acc32", "body_rotate_acc32_r1",
              "blind_rotate_bnf2_acc32", "body_rotate_u64",
              "blind_rotate_crt", "blind_rotate_crt_p4",
              "blind_rotate_crt_p4_decompress",
              "blind_rotate_bnf2_u64", "blind_rotate_goldilocks",
-             *(f"{row}_{shape}" for shape in MB_SHAPES for row in MB_ROWS),
+             "blind_rotate_ntt64",
+             *(f"{row}_{shape}" for shape in MB_SHAPES for row in MB_ROWS
+               if row != "blind_rotate_multi_bit_r14" or shape == "g4"),
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")

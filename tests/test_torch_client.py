@@ -10,7 +10,8 @@
 3. ``tfhe_tpu``'s server and the port's both compute on what the client
    wrote (an add), and the client decrypts the port server's answer;
 4. compact lists equal ``tfhe_tpu``'s client's (``secrets.randbits``
-   pinned, both packages read it); the ZK half raises (ROADMAP item 9).
+   pinned, both packages read it), and so do the ZK half's CRS, proven
+   lists, proofs and their envelope (``secrets.token_bytes`` pinned too).
 
 Tolerance: exact."""
 
@@ -175,14 +176,69 @@ def test_compact_list_equal_to_tfhe_tpu(monkeypatch):
     np.testing.assert_array_equal(to_u64(lst.masks), jl.masks)
 
 
-@pytest.mark.parametrize("fn", ["build_proven_compact_list", "client_crs",
-                                "serialize_proof"])
-def test_zk_half_raises(fn):
-    args = {"build_proven_compact_list": (None, [1], 1, None),
-            "client_crs": (None, 4), "serialize_proof": (None,)}[fn]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 9: platform layers"):
-        getattr(client, fn)(*args)
+@pytest.fixture(scope="module")
+def zk_lists():
+    """Both clients' v2 CRS for the toy compact set (k = 4) and a proven
+    list of [9, 3] at 2 blocks each, ``secrets`` pinned for both."""
+    (jpke, _), (pke, _) = toy_sets(jparams), toy_sets(pm)
+    with pytest.MonkeyPatch.context() as mp:
+        bits = iter(range(21, 1000))
+        mp.setattr(secrets, "randbits", lambda k: next(bits))
+        mp.setattr(secrets, "token_bytes", lambda k: b"\x07" * k)
+        _, jpk = jclient.generate_compact_keys(jpke, seed=7)
+        jcrs = jclient.client_crs(jpke, 4, seed=2)
+        jl = jclient.build_proven_compact_list(jpk, [9, 3], 2, jcrs,
+                                               metadata=b"md")
+        bits = iter(range(21, 1000))
+        priv, pk = client.generate_compact_keys(pke, seed=7, device="cpu")
+        crs = client.client_crs(pke, 4, seed=2)
+        lst = client.build_proven_compact_list(pk, [9, 3], 2, crs,
+                                               metadata=b"md")
+    return dict(jcrs=jcrs, jl=jl, crs=crs, lst=lst, pk=pk, priv=priv,
+                jpke=jpke, pke=pke)
+
+
+def _zk_client_crs(z):
+    assert ser.serialize_zk_crs(z["crs"]) == jser.serialize_zk_crs(z["jcrs"])
+    v1, jv1 = (client.client_crs(z["pke"], 4, seed=3, scheme="v1"),
+               jclient.client_crs(z["jpke"], 4, seed=3, scheme="v1"))
+    assert type(v1).__name__ == "PkeCrs"
+    assert [p.to_bytes() for p in v1.g_list + v1.g_hat_list] == \
+        [p.to_bytes() for p in jv1.g_list + jv1.g_hat_list]
+
+
+def _zk_build_proven_compact_list(z):
+    lst, jl = z["lst"], z["jl"]
+    assert client.serialize_compact_list(lst.ct_list) == \
+        jclient.serialize_compact_list(jl.ct_list)
+    assert [p.to_bytes() for p in lst.proofs] == \
+        [p.to_bytes() for p in jl.proofs]
+    ct = lst.verify_and_expand(z["crs"], z["pk"], metadata=b"md")
+    # radix digits of [9, 3] at message_modulus 4, 2 blocks each
+    np.testing.assert_array_equal(z["priv"].decrypt_expanded(ct.ct),
+                                  [1, 2, 3, 0])
+
+
+def _zk_serialize_proof(z):
+    blob = client.serialize_proof(z["lst"].proofs[0])
+    assert blob == jclient.serialize_proof(z["jl"].proofs[0])
+    back = ser.deserialize(blob, expected_type="PkeV2Proof", device="cpu")
+    assert back.to_bytes() == z["lst"].proofs[0].to_bytes()
+
+
+ZK_CALLS = {"build_proven_compact_list": _zk_build_proven_compact_list,
+            "client_crs": _zk_client_crs,
+            "serialize_proof": _zk_serialize_proof}
+
+
+@pytest.mark.parametrize("fn", list(ZK_CALLS))
+def test_zk_half_raises(zk_lists, fn):
+    """Each ZK entry of the client works and equals ``tfhe_tpu``'s client's
+    output byte for byte: the CRS (v2, and v1's points), the proven list
+    and its proofs (which verify and expand to the radix digits), the proof
+    envelope (read back). The name is kept from when these entries
+    raised."""
+    ZK_CALLS[fn](zk_lists)
 
 
 def test_exports_match_tfhe_tpu():

@@ -17,10 +17,12 @@ encryption randomness of a compact list (``secrets.randbits``, read by both
 packages) is pinned for that. ``safe_serialize`` writes tfhe_tpu's bytes,
 ``safe_deserialize`` reads them (size limit, conformance), and
 ``generate_keys(use_keycache=True)`` gives the seed's keys from a cache
-under ``tmp_path``. Every entry the port does not carry yet raises
-``NotImplementedError`` naming its ROADMAP item by number and title.
+under ``tmp_path``. The ZK half of the compact lists (``build_with_proof``,
+``verify_and_expand``) gives tfhe_tpu's lists, proofs and values
+(``secrets.token_bytes`` pinned too).
 """
 
+import dataclasses
 import secrets
 
 import numpy as np
@@ -283,28 +285,69 @@ def test_entry_points_need_a_gpu_by_default(monkeypatch):
         api.ClientKey.generate(config(api, P))
 
 
-UNPORTED = {
-    "verify_and_expand": (lambda: api.HlCompactCiphertextList(
-        None, [], None).verify_and_expand(None), (9,)),
-    "build_with_proof": (lambda: api.CompactCiphertextListBuilder(
-        None).build_with_proof(None), (9,)),
-}
+@pytest.fixture(scope="module")
+def zk_lists(keys):
+    """A typed proven compact list (FheUint4 11, FheBool True, FheUint8 200)
+    in both packages: the toy compact set of dimension 16 onto the big key
+    (seed 41), the v2 CRS for bins of 16 (seed 2), ``secrets`` pinned."""
+    import tfhe_tpu.zk.proven_list as jpl
 
-TITLES = {8: "other PBS flavors", 9: "platform layers"}
+    import tfhe_tpu_torch.zk.proven_list as ppl
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(secrets, "randbits", lambda k: (1 << k) // 5)
+        mp.setattr(secrets, "token_bytes", lambda k: b"\x0b" * k)
+        jcpk, cpk = _cpks(keys, 16, "ZK", 41)
+        jcrs = jpl.crs_for_params_v2(jcpk.pk.params, 16, seed=2)
+        crs = ppl.crs_for_params_v2(cpk.pk.params, 16, seed=2)
+        _use_keys(keys)
+        jl = japi.CompactCiphertextListBuilder(jcpk).push(
+            11, japi.FheUint4).push(True, japi.FheBool).push(
+            200, japi.FheUint8).build_with_proof(jcrs, metadata=b"hl")
+        lst = api.CompactCiphertextListBuilder(cpk).push(
+            11, api.FheUint4).push(True, api.FheBool).push(
+            200, api.FheUint8).build_with_proof(crs, metadata=b"hl")
+    return jl, lst, jcrs, crs
 
 
-@pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_entries_raise(name):
-    """Each entry whose module the port does not carry yet raises, naming
-    every ROADMAP item it waits on by number and title (the ZK half of the
-    compact lists: item 9)."""
-    fn, items = UNPORTED[name]
-    with pytest.raises(NotImplementedError) as err:
-        fn()
-    msg = str(err.value)
-    assert "ROADMAP Queue A" in msg
-    for i in items:
-        assert f"item {i}: {TITLES[i]}" in msg, msg
+def _zk_build_with_proof(keys, zk):
+    jl, lst, _, _ = zk
+    np.testing.assert_array_equal(to_u64(lst.clist.masks), jl.clist.masks)
+    np.testing.assert_array_equal(to_u64(lst.clist.bodies), jl.clist.bodies)
+    assert [p.to_bytes() for p in lst.proofs] == \
+        [p.to_bytes() for p in jl.proofs]
+    assert lst.metadata == b"hl" and len(lst) == 3
+
+
+def _zk_verify_and_expand(keys, zk):
+    jl, lst, jcrs, crs = zk
+    _use_keys(keys)
+    jvals = jl.verify_and_expand(jcrs, metadata=b"hl")
+    vals = lst.verify_and_expand(crs, metadata=b"hl")
+    for jv, v in zip(jvals, vals):
+        assert_same(jv, v)
+    assert [clear(keys, v) for v in vals] == [11, True, 200]
+    with pytest.raises(ValueError, match="invalid ZK proof"):
+        lst.verify_and_expand(crs, metadata=b"other")
+    bad = dataclasses.replace(lst.clist, bodies=lst.clist.bodies.clone())
+    bad.bodies[2] += 1 << 60
+    with pytest.raises(ValueError, match="invalid ZK proof"):
+        api.HlCompactCiphertextList(bad, lst.entries, lst.pk, lst.proofs,
+                                    lst.metadata).verify_and_expand(
+            crs, metadata=b"hl")
+
+
+ZK_ENTRIES = {"verify_and_expand": _zk_verify_and_expand,
+              "build_with_proof": _zk_build_with_proof}
+
+
+@pytest.mark.parametrize("name", list(ZK_ENTRIES))
+def test_unported_entries_raise(keys, zk_lists, name):
+    """``build_with_proof`` gives tfhe_tpu's list and proofs bit for bit;
+    ``verify_and_expand`` verifies, then expands and casts to tfhe_tpu's
+    values, and refuses other metadata and a tampered body. The name is
+    kept from when these entries raised."""
+    ZK_ENTRIES[name](keys, zk_lists)
 
 
 def _keycache_round_trip(keys, tmp_path, monkeypatch):

@@ -86,7 +86,15 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/utils/hostarray.py",
             "tfhe_tpu_torch/keycache.py",
             "tfhe_tpu_torch/client.py",
-            "tfhe_tpu_torch/apps/test_vectors.py"} <= names
+            "tfhe_tpu_torch/apps/test_vectors.py",
+            "tfhe_tpu_torch/ops/ntt64_pbs.py",
+            "tfhe_tpu_torch/zk/__init__.py",
+            "tfhe_tpu_torch/zk/curve.py",
+            "tfhe_tpu_torch/zk/four_squares.py",
+            "tfhe_tpu_torch/zk/pke.py",
+            "tfhe_tpu_torch/zk/pke_v2.py",
+            "tfhe_tpu_torch/zk/transcript.py",
+            "tfhe_tpu_torch/zk/proven_list.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -111,6 +119,9 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.utils import trace, serialization, cbor\n"
         "from tfhe_tpu_torch import keycache, client\n"
         "from tfhe_tpu_torch.apps import test_vectors\n"
+        "from tfhe_tpu_torch.ops import ntt64_pbs\n"
+        "from tfhe_tpu_torch import zk\n"
+        "from tfhe_tpu_torch.zk import transcript, four_squares\n"
         "from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME\n"
         "PARAMS_BY_NAME['V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128']\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
@@ -153,7 +164,7 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    assert len(pk.KERNELS) == 11
+    assert len(pk.KERNELS) == 12
     for fn in pk.KERNELS:
         assert fn.launches == 0, fn.__name__
 

@@ -1,16 +1,16 @@
 """The port's safe serialization (``tfhe_tpu_torch.utils.serialization``)
 and CBOR layouts (``utils/cbor.py``) against tfhe_tpu at PARAM_TEST_TOY on
 the CPU. Same seeds => byte-equal objects, so for every type tfhe_tpu
-serializes but the ZK ones the port's envelope equals tfhe_tpu's byte for
-byte, and each package reads what the other wrote: the shortint client
+serializes the port's envelope equals tfhe_tpu's byte for byte, and each
+package reads what the other wrote: the shortint client
 key, the server key (v6b, crt, v5, multi-bit, KS32, and a drift key, whose
 encryptions of zero neither package stores), the shortint ciphertext, the
 radix ciphertext, the compressed and the compact list, the compressed
 server key (the squashed ciphertext's envelope: the frozen corpus here,
 ``tests/test_torch_noise_squashing.py`` both ways). Also: the size limit,
 the magic, the expected type, conformance, the upgrade chains (the compact
-list's v1), untrusted array specs, the raises of the ZK types (ROADMAP
-item 9),
+list's v1), untrusted array specs, the ZK types (their envelopes from
+the frozen corpus; fresh ones in ``tests/test_torch_zk.py``),
 the frozen corpus ``tests/data/compat_*_v1.bin``, and a client key carried
 in without its seed. Tolerance: exact (bytes)."""
 
@@ -415,14 +415,14 @@ PORTED = {"shortint_ck": "ShortintClientKey",
           "compact_list": "CompactCiphertextList",
           "compressed_server_key": "CompressedServerKey",
           "squashed_ct": "SquashedNoiseCiphertext"}
-UNPORTED = {"zk_crs": ("PkeV2Crs", 9),
-            "zk_proof": ("PkeV2Proof", 9)}
+ZK_TYPES = {"zk_crs": ("PkeV2Crs", ser.serialize_zk_crs),
+            "zk_proof": ("PkeV2Proof", ser.serialize_zk_proof)}
 
 
 @pytest.fixture(scope="module")
 def corpus():
     manifest = json.load(open(os.path.join(DATA, "compat_manifest_v2.json")))
-    assert set(manifest["artifacts"]) == set(PORTED) | set(UNPORTED)
+    assert set(manifest["artifacts"]) == set(PORTED) | set(ZK_TYPES)
     blobs = {}
     for name, info in manifest["artifacts"].items():
         blob = open(os.path.join(DATA, info["file"]), "rb").read()
@@ -467,19 +467,24 @@ def test_corpus_semantics(corpus):
     assert cl.params.name == "TOY_PKE_ZK" and cl.count == 4
 
 
-@pytest.mark.parametrize("name", list(UNPORTED))
+@pytest.mark.parametrize("name", list(ZK_TYPES))
 def test_corpus_unported_types_raise(corpus, name):
-    """The ZK (item 9) artifacts are recognized and raise naming their
-    ROADMAP item; so does writing those types."""
-    tname, item = UNPORTED[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}"):
-        ser.deserialize(corpus[1][name], expected_type=tname, device="cpu")
-    write = {"zk_crs": ser.serialize_zk_crs,
-             "zk_proof": ser.serialize_zk_proof}[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}"):
-        write(None)
+    """The frozen ZK artifacts load in the port, every point checked
+    (canonical, on the curve, in the subgroup), and write back the same
+    bytes; the proof's tfhe_tpu object writes the same bytes as the port's
+    (tfhe_tpu's own corpus test loads its CRS: ~40 s of pure-Python
+    subgroup checks). The name is kept from when these types raised."""
+    tname, write = ZK_TYPES[name]
+    blob = corpus[1][name]
+    obj = ser.deserialize(blob, expected_type=tname, device="cpu")
+    assert write(obj) == blob
+    if name == "zk_crs":
+        assert len(obj.g_list) == 2 * obj.n + 1
+        assert len(obj.g_hat_list) == obj.n + 1
+    else:
+        jobj = jser.deserialize(blob, expected_type=tname)
+        assert jser.serialize_zk_proof(jobj) == blob
+        assert obj.to_bytes() == jobj.to_bytes()
 
 
 # -- CBOR ------------------------------------------------------------------------------

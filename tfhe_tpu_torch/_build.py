@@ -2,8 +2,11 @@
 
 Two kinds of source live in ``csrc/``:
 
-- ``aes_ctr.c``: the host AES-CTR keystream, compiled with ``cc``. When no
-  compiler is present the CSPRNG keeps its bit-identical numpy path.
+- ``aes_ctr.c`` and ``bls446.c``: host code compiled with ``cc``, the
+  AES-CTR keystream and the BLS12-446 curve's hot loops (the ZK proofs'
+  MSMs, CRS powers and pairings). When no compiler is present the CSPRNG
+  keeps its bit-identical numpy path and ``zk/curve.py`` its pure-Python
+  curve (the spec both are held to).
 - ``*.cu``: the CUDA kernels, compiled with ``nvcc`` for ``sm_90a`` into a
   shared library with a plain C interface (no PyTorch headers, so a build
   takes seconds). A missing or failing nvcc raises: there is no CPU stand-in
@@ -63,15 +66,14 @@ def sass_path(name: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# host AES (cc)
+# host libraries (cc): AES-CTR, the BLS12-446 curve
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def aes_lib():
-    """The loaded AES-CTR library, or None when it cannot be built (the
-    CSPRNG then uses its numpy AES, which gives the same bytes)."""
-    src = os.path.join(CSRC, "aes_ctr.c")
-    so = _so_path("aes_ctr")
+def _host_lib(name: str):
+    """``csrc/<name>.c`` built with ``cc`` (when stale) and loaded, or None
+    when it cannot be built."""
+    src = os.path.join(CSRC, f"{name}.c")
+    so = _so_path(name)
     if _stale(so, src):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp.{os.getpid()}"
@@ -84,11 +86,47 @@ def aes_lib():
                 os.unlink(tmp)
             if not os.path.exists(so):
                 return None
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so)
+
+
+@functools.lru_cache(maxsize=None)
+def aes_lib():
+    """The loaded AES-CTR library, or None when it cannot be built (the
+    CSPRNG then uses its numpy AES, which gives the same bytes)."""
+    lib = _host_lib("aes_ctr")
+    if lib is None:
+        return None
     lib.aes128_ctr_stream.argtypes = [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
         ctypes.POINTER(ctypes.c_uint8)]
     lib.aes128_ctr_stream.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bls_lib():
+    """The loaded BLS12-446 library (``csrc/bls446.c``: G1/G2 fixed-base
+    powers and MSMs, the multi-pairing check, one pairing), or None when it
+    cannot be built (``zk/curve.py`` then runs its pure-Python curve)."""
+    lib = _host_lib("bls446")
+    if lib is None:
+        return None
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    for pre in ("g1", "g2"):
+        fp = getattr(lib, f"{pre}_fixed_powers")
+        fp.argtypes = [u64p, u64p, ctypes.c_longlong, ctypes.c_int, u64p,
+                       u8p]
+        fp.restype = None
+        ms = getattr(lib, f"{pre}_msm")
+        ms.argtypes = [u64p, u8p, u64p, ctypes.c_longlong, u64p, u8p]
+        ms.restype = None
+    lib.pairing_product_is_one.argtypes = [u64p, u8p, u64p, u8p,
+                                           ctypes.c_longlong, u64p,
+                                           ctypes.c_int, u8p]
+    lib.pairing_product_is_one.restype = ctypes.c_int
+    lib.pairing_eval.argtypes = [u64p, u64p, u64p, ctypes.c_int, u64p]
+    lib.pairing_eval.restype = ctypes.c_int
     return lib
 
 
@@ -99,6 +137,7 @@ def aes_lib():
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
 CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
                 "blind_rotate_goldilocks", "blind_rotate_multi_bit",
+                "blind_rotate_ntt64",
                 "kernel_bench", "vpu_primitives",
                 "ntt_variants", "v4_probe", "mxu_probe", "ntt_mxu")
 

@@ -8,7 +8,6 @@ that ports it, by number and by the title that item has there.
 from __future__ import annotations
 
 ITEMS = {
-    8: "other PBS flavors",
     9: "platform layers",
 }
 

@@ -18,7 +18,9 @@ device, and the envelopes are the regular ``RadixCiphertext`` /
 :mod:`tfhe_tpu_torch.utils.serialization`, byte-equal to ``tfhe_tpu``'s,
 so the client, the port's server and ``tfhe_tpu`` read each other's.
 The ZK half (``build_proven_compact_list``, ``client_crs``,
-``serialize_proof``) raises until ROADMAP Queue A item 9's ZK slice.
+``serialize_proof``) proves on the host (``zk/``): its proofs and the
+``PkeV2Crs`` / ``PkeV2Proof`` envelopes equal ``tfhe_tpu``'s from the same
+seeds, and each package verifies the other's.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._roadmap import not_ported
 from .shortint.ciphertext import NOMINAL_NOISE, ShortintCiphertext
 from .shortint.client_key import ClientKey as ShortintClientKey
 from .shortint.compact_public_key import CompactPrivateKey, CompactPublicKey
@@ -187,12 +188,27 @@ def build_compact_list(pk: CompactPublicKey, values, num_blocks: int):
 
 def build_proven_compact_list(pk, values, num_blocks: int, crs,
                               metadata: bytes = b""):
-    raise not_ported("proven compact lists (ZK)", 9)
+    """build_compact_list + a ZK proof of encryption correctness per
+    shared-mask bin (ProvenCompactCiphertextList::builder ...
+    build_with_proof_packed in the wasm client). Proving runs on the host
+    (the BLS12-446 library of ``csrc/bls446.c`` when cc built it, else the
+    pure-Python curve)."""
+    from .zk.proven_list import ProvenCompactCiphertextList
+
+    mm = pk.params.message_modulus
+    return ProvenCompactCiphertextList.encrypt_and_prove(
+        pk, _radix_digits(values, num_blocks, mm).reshape(-1), crs,
+        metadata=metadata)
 
 
 def client_crs(cpk_params, max_bin_messages: int, seed: int = 0,
                scheme: str = "v2"):
-    raise not_ported("the ZK CRS", 9)
+    """CRS sized for the parameter set (CompactPkeCrs::from_config).
+    ``scheme``: 'v2' (the reference default since v0.11) or 'v1'."""
+    from .zk import proven_list as pl
+
+    fn = pl.crs_for_params_v2 if scheme == "v2" else pl.crs_for_params
+    return fn(cpk_params, max_bin_messages, seed=seed)
 
 
 def serialize_compact_list(cl) -> bytes:

@@ -327,3 +327,70 @@ def compressed_squashed_list_from_arrays(
         count=count, message_modulus=message_modulus,
         carry_modulus=carry_modulus, params=params,
         degrees=None if degrees is None else list(degrees))
+
+
+def ntt64_bootstrap_key_from_arrays(bsk_u64, device=None):
+    """The prime-modulus NTT64 PBS key from ``tfhe_tpu``'s u64[n, l, R, R,
+    N] (``bsk_hat`` of ``ntt64_pbs.bootstrap_key_to_ntt64``, or the
+    standard-domain key): canonical values mod q as int64, the layout K6
+    reads."""
+    return from_u64(bsk_u64, resolve_device(device)).contiguous()
+
+
+def ntt64_ciphertexts_from_arrays(cts_u64, device=None):
+    """Mod-q LWE (u64[B, n+1]) or GLWE (u64[B, R, N]) ciphertexts of the
+    NTT64 PBS from ``tfhe_tpu``'s, as int64."""
+    return from_u64(cts_u64, resolve_device(device))
+
+
+def zk_from_envelope(blob: bytes):
+    """A ZK CRS or proof (``PkeV2Crs`` / ``PkeV2Proof``) from its envelope
+    bytes, as ``tfhe_tpu.utils.serialization`` writes them (host
+    objects)."""
+    from .utils import serialization as ser
+
+    return ser.deserialize(blob, device="cpu")
+
+
+def _points(cls, points):
+    """Points of an object in memory, carried by their bytes (checked on
+    the curve; their subgroup was checked where they were made or
+    loaded)."""
+    return [cls.from_bytes(p.to_bytes(), check_subgroup=False)
+            for p in points]
+
+
+def zk_crs_from_fields(crs):
+    """The port's ``PkeV2Crs`` (or v1 ``PkeCrs``) from a ``tfhe_tpu`` CRS:
+    its int fields copied, its points carried by their bytes."""
+    from .zk.curve import G1, G2
+    from .zk.pke import PkeCrs
+    from .zk.pke_v2 import PkeV2Crs
+
+    if hasattr(crs, "b_inf"):
+        cls, names = PkeV2Crs, ("d", "k", "b_inf", "q", "t", "pad_bits",
+                                "bound_type", "n", "big_d",
+                                "b_bound_squared", "m_bound", "sid", "ds")
+    else:
+        cls, names = PkeCrs, ("d", "k", "b", "q", "t", "pad_bits", "n",
+                              "big_d", "b_r", "sid", "ds")
+    return cls(g_list=_points(G1, crs.g_list),
+               g_hat_list=_points(G2, crs.g_hat_list),
+               **{f: getattr(crs, f) for f in names})
+
+
+def zk_proof_from_fields(proof):
+    """The port's ``PkeV2Proof`` (or v1 ``PkeProof``) from a ``tfhe_tpu``
+    proof, point by point through their bytes."""
+    from .utils.serialization import PROOF_FIELDS
+    from .zk.curve import G1, G2
+    from .zk.pke import PkeProof
+    from .zk.pke_v2 import PkeV2Proof
+
+    if hasattr(proof, "C_hat_e"):
+        cls, names = PkeV2Proof, PROOF_FIELDS
+    else:
+        cls, names = PkeProof, ("c_hat", "c_y", "pi")
+    pts = {f: getattr(proof, f) for f in names}
+    return cls(**{f: _points(G2 if type(p).__name__ == "G2" else G1, [p])[0]
+                  for f, p in pts.items()})

@@ -16,9 +16,9 @@ the shortint side modules; noise squashing (``squash_noise``,
 ``SquashedNoiseFheUint``) and the lists of squashed values on the shortint
 squashing modules; ``safe_serialize`` / ``safe_deserialize`` write and
 read ``tfhe_tpu``'s envelopes, and ``generate_keys(use_keycache=True)``
-shares its key cache. The ZK half of the compact lists, whose module the
-port does not carry yet, raises ``NotImplementedError`` naming its ROADMAP
-item.
+shares its key cache. The ZK half of the compact lists
+(``build_with_proof``, ``verify_and_expand``) proves and verifies on the
+host (``zk/``), then expands and casts on the key's device.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from .. import integer
-from .._roadmap import not_ported
 from ..integer.radix import BooleanBlock, RadixCiphertext
 from ..shortint import list_compression as _lc
 from ..shortint.ciphertext import NOMINAL_NOISE, ShortintCiphertext
@@ -926,8 +925,18 @@ class HlCompactCiphertextList:
                 for ty, nb, off in self.entries]
 
     def verify_and_expand(self, crs, metadata: bytes = b""):
-        """The ZK path (compact_list.rs:638)."""
-        raise not_ported("proven compact lists (ZK)", 9)
+        """The ZK path (compact_list.rs:638
+        ProvenCompactCiphertextList::verify_and_expand): every bin's proof
+        verified on the host, then :meth:`expand` on the key's device;
+        raises ``ValueError`` on a proof that does not verify."""
+        from ..zk.proven_list import ProvenCompactCiphertextList
+
+        assert self.proofs is not None, "list was built without proofs"
+        proven = ProvenCompactCiphertextList(
+            ct_list=self.clist, proofs=self.proofs, metadata=self.metadata)
+        if not proven.verify(crs, self.pk.pk, metadata=metadata):
+            raise ValueError("invalid ZK proof for compact ciphertext list")
+        return self.expand()
 
 
 class CompactCiphertextListBuilder:
@@ -953,9 +962,19 @@ class CompactCiphertextListBuilder:
         clist = self.pk.pk.encrypt(np.array(self._digits, dtype=np.uint64))
         return HlCompactCiphertextList(clist, self._entries, self.pk)
 
-    def build_with_proof(self, crs, metadata: bytes = b""):
-        """The ZK path (ProvenCompactCiphertextList::encrypt_and_prove)."""
-        raise not_ported("proven compact lists (ZK)", 9)
+    def build_with_proof(self, crs,
+                         metadata: bytes = b"") -> HlCompactCiphertextList:
+        """The ZK path (ProvenCompactCiphertextList::encrypt_and_prove): the
+        list encrypted on the key's device with a proof a bin, proven on
+        the host."""
+        from ..zk.proven_list import ProvenCompactCiphertextList
+
+        proven = ProvenCompactCiphertextList.encrypt_and_prove(
+            self.pk.pk, np.array(self._digits, dtype=np.uint64), crs,
+            metadata=metadata)
+        return HlCompactCiphertextList(
+            proven.ct_list, self._entries, self.pk, proofs=proven.proofs,
+            metadata=metadata)
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,17 @@ SASS_OPS = {
         "element": (14, 3, 2), "level": (34, 12, 1),
         "fwd_butterfly": (39, 14, 0), "mac": (32, 17.5, 0),
         "inv_butterfly": (39, 18.5, 0), "untwist_tail": (23, 14.5, 0)},
+    # K6 (the NTT64 PBS over the same field, P = 1): K4's transforms and
+    # MAC loops, identical in the SASS; the level loop (4 copies) holds the
+    # non-native decomposer's 64-bit digit, its sign and the lift before
+    # the twist; the element loop (its 3 remainder copies of the level
+    # loop taken out) the rotation with the mod-q negation, g_sub and the
+    # sign split with the rounded shift; untwist_tail the untwist and
+    # g_add. flex: sass_loops counts no VIADD in these loops
+    "blind_rotate_ntt64": {
+        "element": (28, 4, 0), "level": (45, 13, 0),
+        "fwd_butterfly": (39, 14, 0), "mac": (32, 17.5, 0),
+        "inv_butterfly": (39, 18.5, 0), "untwist_tail": (32, 17.5, 0)},
     # K5 (the multi-bit group step at P = 4): K3 P=4's row for the work it
     # shares (the digit state and lift, the transforms, the Shoup MAC term,
     # the untwist and Garner tail; K5's lift has no rotation, so "element"
@@ -194,6 +205,8 @@ SASS_LOOP_TOTALS = {
     "kb_step_crt_r2": ("kernel_bench", "10GarnerTailILi4EEELb1E", (119, 110)),
     "blind_rotate_goldilocks": ("blind_rotate_goldilocks",
                                 "blind_rotate_goldilocks_kernel", (582, 221)),
+    "blind_rotate_ntt64": ("blind_rotate_ntt64", "blind_rotate_ntt64_kernel",
+                           (677, 230)),
     # K5 at P = 4: the single-kernel reference r14 at each grouping, K5a at
     # each grouping, K5b (its SASS_OPS row is shared)
     "blind_rotate_multi_bit/4/g2": ("blind_rotate_multi_bit",
@@ -276,7 +289,7 @@ def step_pipe_instructions(kernel: str, B: int, n: int, R: int,
                            levels: int, N: int, P: int) -> float:
     """Busier-pipe instructions of ``B`` ciphertexts times ``n`` steps of a
     blind-rotation kernel (``kernel``: its entry, K1, K3, K3-acc32,
-    K3-bnf2 or K4 at P = 1), at :data:`SASS_OPS`: per step and
+    K3-bnf2, or K4 or K6 at P = 1), at :data:`SASS_OPS`: per step and
     ciphertext R*N elements, l*R*N levels, P*l*R forward and P*R inverse
     transforms of N/2*log2(N) butterflies, P*R*l*R*N MAC products and R*N
     untwists with the tail."""

@@ -1,9 +1,10 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Eleven wrappers, eight replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py`` and three the XLA
-multi-bit rotation of ``tfhe_tpu/ops/server.py``:
+Twelve wrappers, eight replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``, three the XLA
+multi-bit rotation of ``tfhe_tpu/ops/server.py`` and one the XLA rotation
+of ``tfhe_tpu/ops/ntt64_pbs.py``:
 
 - K2 ``body_rotate_acc32`` and ``body_rotate_u64`` (``csrc/body_rotate.cu``)
   replace ``_build_body_rot_fn_v4`` in its two modes: lut * X^{-body} on
@@ -38,6 +39,11 @@ multi-bit rotation of ``tfhe_tpu/ops/server.py``:
   against them. ``blind_rotate_multi_bit_r14``, the single kernel of all
   n/g steps a ciphertext the pair replaced, is launched by no user path:
   it is the reference the pair is timed against.
+- K6 ``blind_rotate_ntt64`` (``csrc/blind_rotate_ntt64.cu``) replaces
+  ``tfhe_tpu/ops/ntt64_pbs.py::blind_rotate_ntt64``'s step loop (XLA, no
+  ``pallas_call``): all n CMUX steps of the prime-modulus PBS, ciphertexts
+  mod the Goldilocks prime, in one launch (K4's loop with the rotation,
+  the decomposer and the accumulate mod q).
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -61,6 +67,7 @@ from .._torus import M32, i64_to_u32, srl, u32_to_i64
 from . import bnf2 as bnf2_mod
 from . import goldilocks as gl
 from . import ntt as ntt_mod
+from . import ntt64_pbs as n64
 from .polynomial import monomial_div
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -298,6 +305,7 @@ def garner_constants(plan: ntt_mod.NegacyclicNtt) -> np.ndarray:
 #: the library of each step-kernel entry other than K3's
 _STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
               "blind_rotate_goldilocks": "blind_rotate_goldilocks",
+              "blind_rotate_ntt64": "blind_rotate_ntt64",
               "multi_bit_accumulate": "blind_rotate_multi_bit",
               "blind_rotate_multi_bit_r14": "blind_rotate_multi_bit",
               "kb_step_bnf2_acc32_r2": "kernel_bench",
@@ -713,6 +721,95 @@ blind_rotate_goldilocks.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K6: the n CMUX steps of the prime-modulus NTT64 blind rotation
+# ---------------------------------------------------------------------------
+
+def ntt64_smem_bytes(R: int, levels: int, N: int) -> int:
+    """Dynamic shared memory of one K6 block: acc, the l*R digit
+    transforms and the R MAC results, u64 (``blind_rotate_ntt64_smem``)."""
+    return (R + levels * R + R) * N * 8
+
+
+def ntt64_refusal(R: int, levels: int, base_log: int, N: int) -> str:
+    """Why K6 cannot run a shape ('' when it can): N a power of two in
+    [256, 8192], 0 < b*l < 64, one block's shared memory within the card's
+    232,448 B."""
+    if not (256 <= N <= 8192 and N & (N - 1) == 0):
+        return (f"NTT64 PBS: N = {N} outside K6's envelope (a power of two "
+                "in [256, 8192])")
+    if not (base_log >= 1 and levels >= 1 and base_log * levels < 64):
+        return (f"NTT64 PBS: base_log = {base_log}, levels = {levels} "
+                "outside K6's envelope (b*l < 64)")
+    smem = ntt64_smem_bytes(R, levels, N)
+    if smem > _SMEM_LIMIT:
+        return (f"NTT64 PBS: R = {R}, l = {levels}, N = {N} needs {smem} B "
+                f"of shared memory a block, above the card's {_SMEM_LIMIT}")
+    return ""
+
+
+def blind_rotate_ntt64_plain(acc: torch.Tensor, mask_sw: torch.Tensor,
+                             bsk_hat: torch.Tensor, base_log: int,
+                             levels: int) -> torch.Tensor:
+    """The n CMUX steps of the mod-q blind rotation after its body rotation
+    (spec of K6: ``ntt64_pbs.cmux_steps_q``, the loop of ``tfhe_tpu``'s
+    ``ntt64_pbs.blind_rotate_ntt64``). ``acc``: int64[B, R, N] canonical
+    mod q; ``mask_sw``: [B, n] in [0, 2N]; ``bsk_hat``: int64[n, l, R, R,
+    N], ``ntt64_pbs.bootstrap_key_to_ntt64``. Returns int64[B, R, N]."""
+    return n64.cmux_steps_q(acc, mask_sw, bsk_hat, base_log, levels)
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_lib():
+    from .._build import cuda_lib
+
+    lib = cuda_lib("blind_rotate_ntt64")
+    i, v = ctypes.c_int, ctypes.c_void_p
+    lib.blind_rotate_ntt64.argtypes = [v, v, v, v, v, i, i, i, i, i, i, v]
+    lib.blind_rotate_ntt64.restype = ctypes.c_int
+    return lib
+
+
+def blind_rotate_ntt64(acc: torch.Tensor, mask_sw: torch.Tensor,
+                       bsk_hat: torch.Tensor, base_log: int,
+                       levels: int) -> torch.Tensor:
+    """K6 wrapper: see :func:`blind_rotate_ntt64_plain`. The key is read as
+    it is (the transform's DIF order is K6's)."""
+    if acc.device.type == "cpu":
+        return blind_rotate_ntt64_plain(acc, mask_sw, bsk_hat, base_log,
+                                        levels)
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError(f"blind_rotate_ntt64: unsupported device {dev}")
+    _check(acc, "acc", torch.int64, 3, dev)
+    B, R, N = acc.shape
+    why = ntt64_refusal(R, levels, base_log, N)
+    if why:
+        raise ValueError(why)
+    n_steps = bsk_hat.shape[0]
+    _check(bsk_hat, "bsk_hat", torch.int64, 5, dev)
+    if tuple(bsk_hat.shape[1:]) != (levels, R, R, N):
+        raise ValueError(f"bsk_hat shape {tuple(bsk_hat.shape)} != "
+                         f"[n, {levels}, {R}, {R}, {N}]")
+    if tuple(mask_sw.shape) != (B, n_steps):
+        raise ValueError(f"mask_sw shape {tuple(mask_sw.shape)} != "
+                         f"{(B, n_steps)}")
+    if not 0 < B < 2 ** 31:
+        raise ValueError(f"batch {B} outside the kernel grid")
+    a32 = mask_sw.to(device=dev, dtype=torch.int32).contiguous()
+    tables = _goldilocks_tables_dev(N, str(dev))
+    out = torch.empty_like(acc)
+    rc = _k6_lib().blind_rotate_ntt64(
+        _ptr(acc), _ptr(a32), _ptr(bsk_hat), _ptr(tables), _ptr(out), B,
+        n_steps, R, levels, base_log, N.bit_length() - 1, _stream(dev))
+    _raise_on(rc, "blind_rotate_ntt64")
+    blind_rotate_ntt64.launches += 1
+    return out
+
+
+blind_rotate_ntt64.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K5: the n/g group steps of the multi-bit blind rotation
 # ---------------------------------------------------------------------------
 
@@ -1080,4 +1177,4 @@ KERNELS = (body_rotate_acc32, body_rotate_acc32_r1, body_rotate_u64,
            blind_rotate_bnf2_acc32, blind_rotate_crt, blind_rotate_crt_acc32,
            blind_rotate_bnf2_u64, blind_rotate_goldilocks,
            multi_bit_keybundle, multi_bit_accumulate,
-           blind_rotate_multi_bit_r14)
+           blind_rotate_multi_bit_r14, blind_rotate_ntt64)

@@ -13,8 +13,8 @@ byte offset. The port holds torus values in ``int64`` and the CRT keys in
 ``tfhe_tpu`` writes, so an envelope of the port equals ``tfhe_tpu``'s for
 the same object and each package reads what the other wrote.
 :func:`deserialize` places tensors on ``device`` (the GPU when unset).
-The ZK types, whose module the port does not carry yet, are registered
-and raise naming their ROADMAP item, on load and on save.
+The ZK types (``PkeV2Crs``, ``PkeV2Proof``) are host objects of ``zk/``:
+their envelopes hold raw point bytes and load on the host.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .._roadmap import not_ported
 from .._torus import to_u32, to_u64
 
 MAGIC = b"TFHETPU1"
@@ -421,19 +420,70 @@ def _compact_list_from(payload, device):
 
 
 def serialize_zk_crs(crs) -> bytes:
-    raise not_ported("serialization of the ZK CRS", 9)
-
-
-def serialize_zk_proof(proof) -> bytes:
-    raise not_ported("serialization of ZK proofs", 9)
+    """``tfhe_tpu``'s ``PkeV2Crs`` envelope: the punctured powers-of-alpha
+    lists as raw point bytes (112 B a G1, 224 B a G2, the zero point all
+    zero bytes), the scalar fields in the header, ``ds`` as hex."""
+    g = np.frombuffer(
+        b"".join(p.to_bytes() for p in crs.g_list), dtype=np.uint8)
+    gh = np.frombuffer(
+        b"".join(p.to_bytes() for p in crs.g_hat_list), dtype=np.uint8)
+    meta = {k: getattr(crs, k) for k in (
+        "d", "k", "b_inf", "q", "t", "pad_bits", "bound_type", "n", "big_d",
+        "b_bound_squared", "m_bound", "sid")}
+    meta["ds"] = crs.ds.hex()
+    return serialize("PkeV2Crs", meta, {"g_list": g, "g_hat_list": gh})
 
 
 def _zk_crs_from(payload, device):
-    raise not_ported("the ZK CRS (PkeV2Crs)", 9)
+    """Every point is checked as ``tfhe_tpu``'s loader checks it (canonical,
+    on the curve, in the prime-order subgroup); the subgroup checks of the
+    whole CRS run at once (``zk.curve.check_subgroup_many``)."""
+    from ..zk.curve import G1, G2, InvalidPointError, check_subgroup_many
+    from ..zk.pke_v2 import PkeV2Crs
+
+    m = dict(payload["meta"])
+    ds = bytes.fromhex(m.pop("ds"))
+    a = payload["arrays"]
+    raw_g = a["g_list"].tobytes()
+    raw_gh = a["g_hat_list"].tobytes()
+    try:
+        g_list = [G1.from_bytes(raw_g[i:i + 112], check_subgroup=False)
+                  for i in range(0, len(raw_g), 112)]
+        gh_list = [G2.from_bytes(raw_gh[i:i + 224], check_subgroup=False)
+                   for i in range(0, len(raw_gh), 224)]
+        check_subgroup_many(g_list + gh_list)
+    except InvalidPointError as e:
+        raise SerializationError(f"PkeV2Crs: {e}") from e
+    return PkeV2Crs(g_list=g_list, g_hat_list=gh_list, ds=ds, **m)
+
+
+#: the points of a ``PkeV2Proof``, in envelope order; the G2 ones
+PROOF_FIELDS = ("C_hat_e", "C_e", "C_r_tilde", "C_R", "C_hat_bin", "C_y",
+                "C_h1", "C_h2", "C_hat_t", "pi", "pi_kzg", "C_hat_h3",
+                "C_hat_w")
+_PROOF_G2 = {"C_hat_e", "C_hat_bin", "C_hat_t", "C_hat_h3", "C_hat_w"}
+
+
+def serialize_zk_proof(proof) -> bytes:
+    """``tfhe_tpu``'s ``PkeV2Proof`` envelope: each point's raw bytes."""
+    blobs = {f: np.frombuffer(getattr(proof, f).to_bytes(), dtype=np.uint8)
+             for f in PROOF_FIELDS}
+    return serialize("PkeV2Proof", {}, blobs)
 
 
 def _zk_proof_from(payload, device):
-    raise not_ported("ZK proofs (PkeV2Proof)", 9)
+    from ..zk.curve import G1, G2, InvalidPointError
+    from ..zk.pke_v2 import PkeV2Proof
+
+    a = payload["arrays"]
+    kwargs = {}
+    for f in PROOF_FIELDS:
+        cls = G2 if f in _PROOF_G2 else G1
+        try:
+            kwargs[f] = cls.from_bytes(a[f].tobytes())
+        except InvalidPointError as e:
+            raise SerializationError(f"PkeV2Proof.{f}: {e}") from e
+    return PkeV2Proof(**kwargs)
 
 
 def serialize_compressed_server_key(csk) -> bytes:
