@@ -46,10 +46,10 @@ Phases (any failure raises and exits non-zero):
    prime): a batch of 2048 through ``apply_lookup_table`` with the launch
    counts around it (K2 u64 and K4 once each, K1 and K3 never), decrypting
    to 3x mod 16; K2 u64 and K4 against their plain versions on that
-   batch's own keyswitched inputs (K4's on its first 64 ciphertexts, all
-   866 steps, the whole key), K4 on random u64 accumulators over 32 steps
-   and at 1_1 geometry (R = 5, N = 512); KS -> PBS and K4 timed at
-   B = 2048;
+   batch's own keyswitched inputs (K4's on its first 64 ciphertexts over
+   the first PLAIN_STEPS of the 866 steps, as phase 16's), K4 on random
+   u64 accumulators over 32 steps and at 1_1 geometry (R = 5, N = 512);
+   KS -> PBS and K4 timed at B = 2048;
 8. boolean gates under ``TFHE_V4_ACC=32`` with phase 3's keys (K2 acc32,
    K3-acc32: the exact CRT step on the u32 hi plane, every increment
    rounded to 2^32): every gate on the 4096 pairs against its truth table,
@@ -204,7 +204,21 @@ Phases (any failure raises and exits non-zero):
     the card (verify s, expand and cast ms, K2 acc32 and K1 launched), all
     4 decrypted; a tampered body rejected; the CRS and proof envelopes
     round-tripped; the native BLS12-446 curve required;
-23. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+23. the batch mesh, the C API and the reference-vector twin
+    (``phase_mesh_c_api``, ROADMAP Queue A item 9c) on phase 2's keys and
+    batch: ``sharded_ks_pbs`` over every device of the host and over a
+    two-way split on the one card, each ``torch.equal`` to phase 2's
+    output with K2 acc32 and K1 launched once a chunk, the ``B % n``
+    refusal, ``scaling_sweep`` (PBS/s beside phase 2's), ``init_distributed``
+    on ``nccl`` (a world of 1); the C API built with cc, ``c_api_test`` run
+    on the GPU at 2_2 (its op times; its serialized sum byte-equal to the
+    Python HLAPI's), the library loaded into this process for one
+    encrypt-add-decrypt (K2 acc32 and K1 launched); the reference vectors'
+    toy and valid_params_128 sets generated on the host (each SHA-256
+    equal to the CPU run's) and their decryption contract on the card
+    through K2 u64 -> K3 P = 4, both kernels held to their plain versions
+    (K3 at valid_params_128 over the first PLAIN_STEPS steps);
+24. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
@@ -233,6 +247,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -245,7 +260,7 @@ BATCH = 2048  # shortint 2_2 main path
 BOOL_BATCH = 4096  # boolean gates
 SIDE_BATCH = 512  # shortint crt and two-plane phases
 PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
-PLAIN_STEPS = 256  # steps of phase 16's plain comparisons (of 866-978)
+PLAIN_STEPS = 256  # steps of phases 7, 16 and 23's plain checks (of 833-978)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
 K2_BUFFERS = 4  # outputs a K2 timing writes in turn: 4 x 33.55 MB > the L2
@@ -1243,11 +1258,12 @@ def phase_shortint_v5(ck, rate, rows):
     # K4 reads the key in its own order, prepared once per key: the
     # ServerKey's cached bsk_g_k on the path's check, one made from each
     # extra check's own key otherwise
+    S = PLAIN_STEPS
     err, plain_ms = check_equal(
         "blind_rotate_goldilocks 2_2 v5",
-        functools.partial(k4, bsk_k=sk.bsk_g_k), k4_plain,
-        (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_g, bl,
-         lv))
+        functools.partial(k4, bsk_k=sk.bsk_g_k[:S]), k4_plain,
+        (acc[:PLAIN_BATCH].contiguous(),
+         ms_mask[:PLAIN_BATCH, :S].contiguous(), sk.bsk_g[:S], bl, lv))
     rng = np.random.default_rng(SEED + 5)
     steps = min(32, n)
     racc, rmask = _random_acc_mask(rng, PLAIN_BATCH, steps, R, N)
@@ -1265,7 +1281,8 @@ def phase_shortint_v5(ck, rate, rows):
                 functools.partial(k4, bsk_k=pk.goldilocks_kernel_key(g)),
                 k4_plain, (racc, rmask, g, p11.pbs_base_log, p11.pbs_level))
     print(f"2_2 v5: K2 u64 == plain at B={BATCH}; K4 == plain at "
-          f"B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms), on random "
+          f"B={PLAIN_BATCH}, the first {S} of n={n} steps (plain "
+          f"{plain_ms:.3f} ms), on random "
           f"accumulators ({steps} steps) and at 1_1 geometry (R={R11}, "
           f"N={N11}, 32 steps)")
 
@@ -1284,7 +1301,7 @@ def phase_shortint_v5(ck, rate, rows):
             "blind_rotate_goldilocks", BATCH, n, R, lv, N, 1),
             step_bytes(BATCH, n, R, lv, N, 1, 8), rate),
         shape=f"2_2 v5 B={BATCH} n={n}",
-        plain_shape=f"2_2 v5 B={PLAIN_BATCH} n={n}")
+        plain_shape=f"2_2 v5 B={PLAIN_BATCH}, the first {S} of n={n} steps")
     return sk, {"v5_keygen_s": keygen_s, "v5_pbs_ms": step_ms,
                 "v5_pbs_per_s": BATCH / step_ms * 1e3, "v5_k4_ms": k4_ms}
 
@@ -3862,6 +3879,287 @@ def _tampered(clist, i: int):
     return dataclasses.replace(clist, bodies=bodies)
 
 
+MESH_ITERS = 3  # the scaling sweep's timed runs a mesh size
+C_API_PARAMS = "PARAM_MESSAGE_2_CARRY_2_KS_PBS"  # the C program's keys
+C_API_A, C_API_B = 27, 15  # the C program's FheUint8 operands
+VALID_HOST_LIMIT_S = 30.0  # valid_params_128 is checked only below this
+
+
+def phase_mesh_c_api(ck22, sk22, batch22, card, summary, rows):
+    """ROADMAP Queue A item 9c on phase 2's 2_2 v6b keys and batch of 2048:
+    a. the batch mesh (``parallel/mesh.py``): ``sharded_ks_pbs`` over
+       ``make_batch_mesh()`` (every device of the host) and over a two-way
+       split on the one card (``["cuda:0", "cuda:0"]``: the split and the
+       gather, no scaling claimed), each output ``torch.equal`` to phase
+       2's, the launch counts around each call (K2 acc32 and K1 once a
+       chunk, K3 never), the split timed (median of 3) beside phase 2's
+       step; the ``B % n`` ``ValueError``; ``scaling_sweep`` at
+       1 .. the device count (PBS/s beside phase 2's); ``init_distributed``
+       with a world of 1 over a ``file://`` store on ``nccl``, an
+       all-reduce, then ``destroy_process_group``;
+    b. the C API (``tfhe_tpu_torch/c_api``): the library and ``c_api_test``
+       built with cc (s); the program run on the GPU at C_API_PARAMS with
+       SEED (every check passes, ``c_api_test OK``; its calls' wall ms, an
+       op's with the decryption of its result), its
+       serialized sum byte-equal to the same keys, encryptions and add
+       through the Python HLAPI on the card; then the library loaded into
+       this process (``ctypes.PyDLL``) for one encrypt-add-decrypt, the
+       launch counts around the add (K2 acc32 and K1), the sum's bytes
+       equal again;
+    c. the reference-vector twin (``apps/test_vectors_ref.py``): the toy
+       set generated on the host, each artifact's SHA-256 equal to the CPU
+       run's (``TOY_SHA256``); ``decrypt_contract`` on the card (K2 u64 and
+       K3 P = 4 once a LUT, nothing else), K2 u64 and K3 ``torch.equal`` to
+       their plain versions on its inputs; ``valid_params_128`` the same
+       (digests ``VALID_SHA256``, the contract on the card, K3's plain
+       check over the first PLAIN_STEPS of its 833 steps) when its host
+       generation took at most VALID_HOST_LIMIT_S, else left out with the
+       reason printed.
+    Phase 23's launches of K2 acc32, K1, K2 u64 and K3 P = 4 go into their
+    kernel rows as ``mesh_c_api_launches``."""
+    import ctypes
+    import sysconfig
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tfhe_tpu_torch import _build
+    from tfhe_tpu_torch.apps import test_vectors_ref as tvr
+    from tfhe_tpu_torch.high_level_api import api
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.parallel import mesh as pmesh
+    from tfhe_tpu_torch.utils import serialization as ser
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    t_phase = time.perf_counter()
+    names = ("body_rotate_acc32", "blind_rotate_bnf2_acc32",
+             "body_rotate_u64", "blind_rotate_crt")
+    total = dict.fromkeys(names, 0)
+
+    def counted(label, fn, want):
+        """:func:`launches_exactly`, its launches added to ``total``."""
+        out = launches_exactly(label, fn, want)
+        for k in names:
+            total[k] += getattr(pk, k).launches
+        return out
+
+    ct, lut, want = batch22
+    out = {}
+
+    # a. the batch mesh
+    n_dev = torch.cuda.device_count()
+    for label, mesh in (("mesh of every device", pmesh.make_batch_mesh()),
+                        ("two-way split on one card", pmesh.make_batch_mesh(
+                            devices=["cuda:0", "cuda:0"]))):
+        run = pmesh.sharded_ks_pbs(sk22, mesh)
+        n = len(mesh)
+        got = counted(f"{label} ({n} chunks of {BATCH // n})",
+                      lambda: run(ct.ct, lut.acc),
+                      {"body_rotate_acc32": n, "blind_rotate_bnf2_acc32": n})
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: output != phase 2's")
+    pk.reset_launches()
+    split_ms = cuda_ms(lambda: run(ct.ct, lut.acc), 3, warmup=False)
+    for k in names:
+        total[k] += getattr(pk, k).launches
+    print(f"mesh: {n_dev} device(s) {[str(d) for d in pmesh.make_batch_mesh()]}"
+          f" and the two-way split on cuda:0: outputs torch.equal to phase "
+          f"2's ({BATCH} ciphertexts); the split {split_ms:.3f} ms (median "
+          f"of 3), phase 2's step {1e3 * BATCH / summary['pbs_per_s']:.3f} "
+          f"ms")
+    try:
+        pmesh.sharded_ks_pbs(sk22, pmesh.make_batch_mesh(
+            devices=["cuda:0"] * 3))(ct.ct, lut.acc)
+    except ValueError as e:
+        print(f"mesh: B % 3 refused ({e})")
+    else:
+        raise AssertionError("mesh: a batch of 2048 split 3 ways ran")
+    pk.reset_launches()
+    sweep = pmesh.scaling_sweep(sk22, lut.acc, ct.ct,
+                                list(range(1, n_dev + 1)), iters=MESH_ITERS)
+    for k in names:
+        total[k] += getattr(pk, k).launches
+    print(f"mesh scaling_sweep (B={BATCH}, {MESH_ITERS} runs): "
+          f"{ {n: round(v, 1) for n, v in sweep.items()} } PBS/s; phase 2: "
+          f"{summary['pbs_per_s']:.1f} PBS/s on {card}")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        pmesh.init_distributed(f"file://{td}/store", 1, 0, device=DEVICE)
+        try:
+            backend = dist.get_backend()
+            x = torch.ones(4, device=DEVICE)
+            dist.all_reduce(x)
+            if (backend != ("nccl" if DEVICE == "cuda" else "gloo")
+                    or dist.get_world_size() != 1
+                    or not torch.equal(x, torch.ones_like(x))):
+                raise AssertionError(f"init_distributed: {backend}, world "
+                                     f"of {dist.get_world_size()}")
+        finally:
+            dist.destroy_process_group()
+        dist_s = time.perf_counter() - t0
+    print(f"init_distributed: {backend}, world of 1 over a file:// store, "
+          f"all-reduce, destroyed: {dist_s:.2f} s")
+    out.update(mesh_pbs_per_s=sweep, mesh_split_ms=split_ms,
+               mesh_dist_s=dist_s)
+    t_mesh = time.perf_counter() - t_phase
+
+    # b. the C API
+    build = _build.c_api_build()
+    print(f"C API: library and c_api_test built with cc in "
+          f"{build['seconds']:.2f} s (the program links "
+          f"{sysconfig.get_config_var('LIBDIR')}/libpython"
+          f"{sysconfig.get_config_var('LDVERSION')}.so, the library no "
+          f"libpython; this interpreter: Py_ENABLE_SHARED="
+          f"{sysconfig.get_config_var('Py_ENABLE_SHARED')})")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        sum_path = os.path.join(td, "sum.bin")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [build["program"], "gpu" if DEVICE == "cuda" else DEVICE,
+             C_API_PARAMS, sum_path, str(SEED)],
+            capture_output=True, text=True, env=_build.c_api_env(),
+            timeout=300)
+        prog_s = time.perf_counter() - t0
+        if proc.returncode != 0 or "c_api_test OK" not in proc.stdout:
+            raise AssertionError(f"c_api_test failed (rc {proc.returncode}):"
+                                 f"\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        with open(sum_path, "rb") as f:
+            c_sum = f.read()
+    op_ms = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^op (\w+) ([0-9.]+) ms$", proc.stderr, re.M)}
+    print(f"c_api_test on the GPU at {C_API_PARAMS}, seed {SEED}: "
+          f"{proc.stdout.strip()} in {prog_s:.1f} s (process included); "
+          f"calls, ms (an op with the decryption of its result): {op_ms}")
+    p22 = PARAMS_BY_NAME[C_API_PARAMS]
+    hck, hsk = api.generate_keys(api.Config(p22, SEED), device=DEVICE)
+    api.set_server_key(hsk)
+    try:
+        total_ct = (api.FheUint8.encrypt(C_API_A, hck)
+                    + api.FheUint8.encrypt(C_API_B, hck))
+        py_sum = ser.serialize_radix(total_ct.ct)
+    finally:
+        api.unset_server_key()
+    del hck, hsk, total_ct
+    if py_sum != c_sum:
+        raise AssertionError(f"c_api_test's sum ({len(c_sum)} B) != the "
+                             f"Python HLAPI's ({len(py_sum)} B)")
+    print(f"C API: the program's serialized sum ({len(c_sum)} B) is "
+          f"byte-equal to the Python HLAPI's on the card")
+    lib = _build.c_api_lib()
+    # NULL: the GPU, as tfhe_tpu_init()
+    if lib.tfhe_tpu_init_on(None if DEVICE == "cuda"
+                            else DEVICE.encode()) != 0:
+        raise AssertionError(f"in-process tfhe_tpu_init: "
+                             f"{lib.tfhe_tpu_last_error().decode()}")
+    handles = [ctypes.c_void_p() for _ in range(5)]
+    hk, hs, ha, hb, hsum = handles
+
+    def ok(rc, what):
+        if rc != 0:
+            raise AssertionError(f"in-process {what}: "
+                                 f"{lib.tfhe_tpu_last_error().decode()}")
+
+    try:
+        ok(lib.tfhe_tpu_generate_keys(C_API_PARAMS.encode(), SEED,
+                                      ctypes.byref(hk), ctypes.byref(hs)),
+           "generate_keys")
+        ok(lib.tfhe_tpu_set_server_key(hs), "set_server_key")
+        ok(lib.tfhe_tpu_fheuint_encrypt(8, C_API_A, hk, ctypes.byref(ha)),
+           "encrypt")
+        ok(lib.tfhe_tpu_fheuint_encrypt(8, C_API_B, hk, ctypes.byref(hb)),
+           "encrypt")
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        ok(lib.tfhe_tpu_fheuint_add(ha, hb, ctypes.byref(hsum)), "add")
+        torch.cuda.synchronize()
+        add_ms = (time.perf_counter() - t0) * 1e3
+        inproc = {f.__name__: f.launches for f in pk.KERNELS if f.launches}
+        print(f"in-process C add launches: {inproc}")
+        if (inproc.keys() != {"body_rotate_acc32", "blind_rotate_bnf2_acc32"}
+                or min(inproc.values()) < 1):
+            raise AssertionError(f"in-process C add: launches {inproc}")
+        for k in names:
+            total[k] += inproc.get(k, 0)
+        clear = ctypes.c_uint64()
+        ok(lib.tfhe_tpu_fheuint_decrypt(hsum, hk, ctypes.byref(clear)),
+           "decrypt")
+        if clear.value != (C_API_A + C_API_B) % 256:
+            raise AssertionError(f"in-process C add decrypts to "
+                                 f"{clear.value}")
+        buf = ctypes.POINTER(ctypes.c_uint8)()
+        size = ctypes.c_size_t()
+        ok(lib.tfhe_tpu_fheuint_serialize(hsum, ctypes.byref(buf),
+                                          ctypes.byref(size)), "serialize")
+        inproc_sum = ctypes.string_at(buf, size.value)
+        lib.tfhe_tpu_buffer_destroy(buf, size)
+        if inproc_sum != c_sum:
+            raise AssertionError("in-process C sum != c_api_test's")
+    finally:
+        for h in (ha, hb, hsum):
+            lib.tfhe_tpu_fheuint_destroy(h)
+        lib.tfhe_tpu_client_key_destroy(hk)
+        lib.tfhe_tpu_server_key_destroy(hs)
+        lib.tfhe_tpu_shutdown()
+        api.unset_server_key()
+    print(f"C API in this process (ctypes.PyDLL): FheUint8 {C_API_A} + "
+          f"{C_API_B} = {clear.value} ({add_ms:.2f} ms, launches "
+          f"{inproc}), bytes equal to the program's")
+    out.update(c_api_build_s=build["seconds"], c_api_program_s=prog_s, c_api_op_ms=op_ms,
+               c_api_inproc_add_ms=add_ms)
+    t_c = time.perf_counter() - t_phase - t_mesh
+
+    # c. the reference-vector twin
+    gen_s = {}
+    for which, p, digests in (("toy", tvr.TOY, tvr.TOY_SHA256),
+                              ("valid", tvr.VALID, tvr.VALID_SHA256)):
+        files, gen_s[which] = host_s(lambda: tvr.generate(p))
+        if gen_s[which] > VALID_HOST_LIMIT_S:
+            print(f"reference vectors: {which} left out: its host generation "
+                  f"took {gen_s[which]:.1f} s > {VALID_HOST_LIMIT_S:.0f} s")
+            continue
+        if tvr.digests(files) != digests:
+            bad = sorted(k for k, v in tvr.digests(files).items()
+                         if v != digests[k])
+            raise AssertionError(f"reference vectors ({which}): SHA-256 of "
+                                 f"{bad} differ from the CPU run's")
+        decoded = counted(f"decrypt_contract ({which})",
+                          lambda: tvr.decrypt_contract(files, DEVICE),
+                          {"body_rotate_u64": 2, "blind_rotate_crt": 2})
+        tp = files["_internal"]["params"]
+        inputs = tvr.pbs_inputs(files, DEVICE)
+        steps = min(tp["n"], PLAIN_STEPS)
+        for tag, tlut in inputs["luts"].items():
+            check_equal(f"body_rotate_u64 ref vectors {which} {tag}",
+                        pk.body_rotate_u64, pk.body_rotate_u64_plain,
+                        (tlut, inputs["body"]))
+            acc = pk.body_rotate_u64(tlut, inputs["body"])
+            check_equal(f"blind_rotate_crt ref vectors {which} {tag}",
+                        pk.blind_rotate_crt, pk.blind_rotate_crt_plain,
+                        (acc, inputs["mask"][:, :steps].contiguous(),
+                         inputs["key"][:steps], tp["pbs_blog"], tp["pbs_l"]))
+        print(f"reference vectors ({which}, n={tp['n']}, N={tp['N']}): "
+              f"generated on the host in {gen_s[which]:.2f} s, all 10 "
+              f"SHA-256 equal to the CPU run's; decrypt_contract on the "
+              f"card {decoded}; K2 u64 and K3 (P={tvr.CONTRACT_PRIMES}) == "
+              f"plain on both LUTs (K3 over {steps} of {tp['n']} steps)")
+    out["ref_vectors_gen_s"] = gen_s
+    t_tv = time.perf_counter() - t_phase - t_mesh - t_c
+
+    for k in names:
+        row = "blind_rotate_crt_p4" if k == "blind_rotate_crt" else k
+        rows[row]["mesh_c_api_launches"] = total[k]
+    out["mesh_c_api_launches"] = total
+    out["mesh_c_api_s"] = time.perf_counter() - t_phase
+    print(f"phase 23 launches (the plain checks' kernel runs not counted): "
+          f"{total}")
+    print(f"phase 23: {out['mesh_c_api_s']:.1f} s (mesh {t_mesh:.1f}, C API "
+          f"{t_c:.1f}, reference vectors {t_tv:.1f})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3909,6 +4207,8 @@ def main() -> int:
     summary.update(phase_noise_squashing(ck22, sk22, card))
     summary.update(phase_ntt64(card, rate, rows))
     summary.update(phase_zk(ck22, sk22, card))
+    summary.update(phase_mesh_c_api(ck22, sk22, batch22, card, summary,
+                                    rows))
 
     order = ("body_rotate_acc32", "body_rotate_acc32_r1",
              "blind_rotate_bnf2_acc32", "body_rotate_u64",

@@ -232,12 +232,11 @@ ZK_CALLS = {"build_proven_compact_list": _zk_build_proven_compact_list,
 
 
 @pytest.mark.parametrize("fn", list(ZK_CALLS))
-def test_zk_half_raises(zk_lists, fn):
+def test_zk_entries_byte_equal(zk_lists, fn):
     """Each ZK entry of the client works and equals ``tfhe_tpu``'s client's
     output byte for byte: the CRS (v2, and v1's points), the proven list
     and its proofs (which verify and expand to the radix digits), the proof
-    envelope (read back). The name is kept from when these entries
-    raised."""
+    envelope (read back)."""
     ZK_CALLS[fn](zk_lists)
 
 

@@ -134,13 +134,12 @@ def test_multi_bit_decompresses_equal():
     assert sk.bsk_b is None and sk.bsk_scan is None
 
 
-def test_multi_bit_and_serialization_raise(jax_key):
-    """(Its name dates from before the multi-bit PBS and serialization
-    were ported: a multi-bit set compresses,
-    ``test_multi_bit_decompresses_equal``.) ``serialize`` writes
-    tfhe_tpu's envelope byte for byte, classic and multi-bit alike (the
-    duck-typed multi-bit set has no registered name, so only the classic
-    one is read back); the load decompresses to the same key."""
+def test_serialize_classic_and_multi_bit(jax_key):
+    """``serialize`` writes tfhe_tpu's envelope byte for byte, classic and
+    multi-bit alike (the duck-typed multi-bit set has no registered name,
+    so only the classic one is read back); the load decompresses to the
+    same key (a multi-bit set compresses:
+    ``test_multi_bit_decompresses_equal``)."""
     jcsk, _ = jax_key
     csk = CompressedServerKey.generate(_fresh())
     blob = csk.serialize()

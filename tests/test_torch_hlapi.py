@@ -342,11 +342,10 @@ ZK_ENTRIES = {"verify_and_expand": _zk_verify_and_expand,
 
 
 @pytest.mark.parametrize("name", list(ZK_ENTRIES))
-def test_unported_entries_raise(keys, zk_lists, name):
+def test_zk_entries_equal_tfhe_tpu(keys, zk_lists, name):
     """``build_with_proof`` gives tfhe_tpu's list and proofs bit for bit;
     ``verify_and_expand`` verifies, then expands and casts to tfhe_tpu's
-    values, and refuses other metadata and a tampered body. The name is
-    kept from when these entries raised."""
+    values, and refuses other metadata and a tampered body."""
     ZK_ENTRIES[name](keys, zk_lists)
 
 

@@ -162,13 +162,12 @@ def test_op_bit_equal(ctx, name):
     run_case(ctx, *CASES[name])
 
 
-def test_oblivious_pseudo_random_is_not_ported(ctx, monkeypatch):
-    """(Its name dates from before the OPRF was ported.) The integer OPRF
-    runs its blocks' seeded LWEs through ONE batched PBS (one plain K2 u64
-    -> K3 call on the exact CRT key); the blocks, degrees and noise levels
-    equal tfhe_tpu's per-block loop bit for bit, for a bound inside a
-    block (5 bits: 2 + 2 + 1, then a trivial zero block) and for every
-    bit, and the value decrypts below its bound."""
+def test_oblivious_pseudo_random_one_batched_pbs(ctx, monkeypatch):
+    """The integer OPRF runs its blocks' seeded LWEs through ONE batched
+    PBS (one plain K2 u64 -> K3 call on the exact CRT key); the blocks,
+    degrees and noise levels equal tfhe_tpu's per-block loop bit for bit,
+    for a bound inside a block (5 bits: 2 + 2 + 1, then a trivial zero
+    block) and for every bit, and the value decrypts below its bound."""
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     calls = []

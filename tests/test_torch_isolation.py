@@ -1,11 +1,13 @@
 """The port stands alone: no module of tfhe_tpu_torch (nor chip_smoke.py)
-imports jax, jaxlib or tfhe_tpu; a TOY apply_lookup_table runs, and the
-kernel bench and the SASS counter import, in a fresh interpreter without
-either being loaded; entry points without a device ask
-for the GPU and raise when there is none; CPU tensors take the plain
-versions of the kernels, whose launch counts stay 0; each variant runs its
-own path, multi-bit parameter sets included; the ROADMAP items that the
-port's ``NotImplementedError`` messages name carry ROADMAP.md's titles."""
+imports jax, jaxlib or tfhe_tpu, and the C API embeds only the port; a TOY
+apply_lookup_table runs, and the kernel bench, the SASS counter, the batch
+mesh and the reference-vector twin import, in a fresh interpreter without
+either being loaded; entry points without a device ask for the GPU and
+raise when there is none (the batch mesh, the distributed init and the
+twin's decryption contract included); CPU tensors take the plain versions
+of the kernels, whose launch counts stay 0; each variant runs its own path,
+multi-bit parameter sets included; chip_smoke.py drives the mesh, the C API
+and the twin in its phase 23."""
 
 import ast
 import dataclasses
@@ -94,7 +96,10 @@ def test_no_jax_or_tfhe_tpu_imports():
             "tfhe_tpu_torch/zk/pke.py",
             "tfhe_tpu_torch/zk/pke_v2.py",
             "tfhe_tpu_torch/zk/transcript.py",
-            "tfhe_tpu_torch/zk/proven_list.py"} <= names
+            "tfhe_tpu_torch/zk/proven_list.py",
+            "tfhe_tpu_torch/parallel/__init__.py",
+            "tfhe_tpu_torch/parallel/mesh.py",
+            "tfhe_tpu_torch/apps/test_vectors_ref.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -122,6 +127,9 @@ def test_toy_pbs_runs_without_jax_loaded():
         "from tfhe_tpu_torch.ops import ntt64_pbs\n"
         "from tfhe_tpu_torch import zk\n"
         "from tfhe_tpu_torch.zk import transcript, four_squares\n"
+        "from tfhe_tpu_torch.parallel import mesh\n"
+        "from tfhe_tpu_torch.apps import test_vectors_ref as tvr\n"
+        "assert tvr.digests(tvr.generate(tvr.TOY)) == tvr.TOY_SHA256\n"
         "from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME\n"
         "PARAMS_BY_NAME['V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128']\n"
         "ck = ClientKey.generate(P, seed=3, device='cpu')\n"
@@ -153,6 +161,15 @@ def test_entry_points_without_device_need_a_gpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         boolean.ClientKey.generate(pm.BOOLEAN_TEST_TOY, seed=1)
+    from tfhe_tpu_torch.apps import test_vectors_ref as tvr
+    from tfhe_tpu_torch.parallel import mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_batch_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_distributed("localhost:1", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tvr.decrypt_contract(tvr.generate(tvr.TOY))
 
 
 def test_cpu_tensors_take_plain_versions():
@@ -186,10 +203,9 @@ def _toy_set(kind, pmod):
 
 
 @pytest.mark.parametrize("kind", ["multi-bit", "ks32", "pbs_ks", "drift"])
-def test_unported_parameter_sets_raise(kind):
-    """(Its name dates from before the multi-bit PBS was ported.) Every
-    kind of parameter set runs its own path and equals tfhe_tpu bit for bit
-    on a LUT round trip: a multi-bit set (here duck-typed by its grouping
+def test_parameter_kinds_match_tfhe_tpu(kind):
+    """Every kind of parameter set runs its own path and equals tfhe_tpu
+    bit for bit on a LUT round trip: a multi-bit set (here duck-typed by its grouping
     factor) builds a multi-bit key and runs the multi-bit PBS (plain K2 u64
     -> K5), as the other atomic patterns, which raised until ROADMAP Queue
     A item 5 ported them, run theirs (KS32, PBS -> KS, the drift
@@ -255,14 +271,33 @@ def test_v6_variant_runs_default_pair(monkeypatch):
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out), [6, 14])
 
 
-def test_roadmap_items_carry_roadmap_titles():
-    """``_roadmap.ITEMS`` holds exactly the open Queue A items of ROADMAP.md,
-    each under the title in bold after its number."""
-    from tfhe_tpu_torch._roadmap import ITEMS
+def test_c_api_embeds_only_the_port():
+    """The C API's embedded interpreter imports modules of tfhe_tpu_torch
+    only (the high-level API, serialization, the parameter sets and the
+    device rule), and nothing of jax or tfhe_tpu."""
+    src = open(os.path.join(ROOT, "tfhe_tpu_torch", "c_api",
+                            "tfhe_tpu_c.c")).read()
+    modules = re.findall(r'PyImport_ImportModule\(\s*"([^"]+)"', src)
+    assert sorted(modules) == [
+        "tfhe_tpu_torch._device", "tfhe_tpu_torch.high_level_api.api",
+        "tfhe_tpu_torch.utils.params", "tfhe_tpu_torch.utils.serialization"]
+    literals = re.findall(r'"([^"\n]*)"', src)
+    assert not [s for s in literals
+                if re.search(r"\bjax\b|tfhe_tpu\.(?!h$)", s)]
 
-    text = open(os.path.join(ROOT, "ROADMAP.md")).read()
-    queue = text[text.index("### Queue A"):text.index("### Queue B")]
-    titles = {int(m.group(1)): m.group(2).rstrip(".").lower()
-              for m in re.finditer(r"^(\d+)\. \*\*([^*]+)\*\*", queue,
-                                   re.M)}
-    assert {i: t.lower() for i, t in ITEMS.items()} == titles
+
+def test_chip_smoke_drives_phase_23():
+    """chip_smoke.py's phase 23 (``phase_mesh_c_api``) runs from ``main``
+    on phase 2's keys and is listed in the docstring, the card's lines
+    after it as phase 24."""
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    tree = ast.parse(src)
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "phase_mesh_c_api" in funcs
+    called = {n.func.id for n in ast.walk(funcs["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert "phase_mesh_c_api" in called
+    doc = ast.get_docstring(tree)
+    assert re.search(r"^23\. the batch mesh, the C API and the "
+                     r"reference-vector twin", doc, re.M)
+    assert re.search(r"^24\. the card's name and power limit", doc, re.M)

@@ -107,9 +107,8 @@ def test_v1_5_2_2_sets_resolve_as_tfhe_tpu(monkeypatch):
         check_supported(p)
 
 
-def test_only_multi_bit_raises():
-    """(Its name dates from before the multi-bit PBS was ported.) No set
-    of the universe raises any more: ``check_supported`` passes for every
+def test_every_set_is_supported():
+    """No set of the universe raises: ``check_supported`` passes for every
     multi-bit and every other compute set, and each distinct multi-bit
     shape of the universe (grouping, k, l, base log) builds a server key at
     TOY size (``PARAM_TEST_TOY_MULTI_BIT`` with that shape, n = 2g) whose

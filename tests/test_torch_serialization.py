@@ -468,12 +468,12 @@ def test_corpus_semantics(corpus):
 
 
 @pytest.mark.parametrize("name", list(ZK_TYPES))
-def test_corpus_unported_types_raise(corpus, name):
+def test_corpus_zk_types_round_trip(corpus, name):
     """The frozen ZK artifacts load in the port, every point checked
     (canonical, on the curve, in the subgroup), and write back the same
     bytes; the proof's tfhe_tpu object writes the same bytes as the port's
     (tfhe_tpu's own corpus test loads its CRS: ~40 s of pure-Python
-    subgroup checks). The name is kept from when these types raised."""
+    subgroup checks)."""
     tname, write = ZK_TYPES[name]
     blob = corpus[1][name]
     obj = ser.deserialize(blob, expected_type=tname, device="cpu")

@@ -1,16 +1,19 @@
 """Build-on-first-use for the port's native code, loaded with ctypes.
 
-Two kinds of source live in ``csrc/``:
+Three kinds of source:
 
-- ``aes_ctr.c`` and ``bls446.c``: host code compiled with ``cc``, the
-  AES-CTR keystream and the BLS12-446 curve's hot loops (the ZK proofs'
+- ``csrc/aes_ctr.c`` and ``csrc/bls446.c``: host code compiled with ``cc``,
+  the AES-CTR keystream and the BLS12-446 curve's hot loops (the ZK proofs'
   MSMs, CRS powers and pairings). When no compiler is present the CSPRNG
   keeps its bit-identical numpy path and ``zk/curve.py`` its pure-Python
   curve (the spec both are held to).
-- ``*.cu``: the CUDA kernels, compiled with ``nvcc`` for ``sm_90a`` into a
-  shared library with a plain C interface (no PyTorch headers, so a build
-  takes seconds). A missing or failing nvcc raises: there is no CPU stand-in
-  for a CUDA tensor.
+- ``csrc/*.cu``: the CUDA kernels, compiled with ``nvcc`` for ``sm_90a``
+  into a shared library with a plain C interface (no PyTorch headers, so a
+  build takes seconds). A missing or failing nvcc raises: there is no CPU
+  stand-in for a CUDA tensor.
+- ``c_api/``: the C API (``tfhe_tpu_c.c``, which embeds CPython) and its
+  test program, compiled with ``cc`` (:func:`c_api_build`). A failing build
+  raises.
 
 Outputs go to ``tfhe_tpu_torch/_build/`` (git-ignored), each written to a
 temporary name and renamed into place, so concurrent processes never load
@@ -26,6 +29,7 @@ import functools
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -216,3 +220,125 @@ def cuda_lib(name: str):
     Callers declare argtypes/restype of the entry points they use."""
     build_cuda((name,))
     return ctypes.CDLL(_so_path(name))
+
+
+# ---------------------------------------------------------------------------
+# the C API (cc): c_api/tfhe_tpu_c.c and its test program
+# ---------------------------------------------------------------------------
+
+C_API = os.path.join(_PKG, "c_api")
+C_API_TEST = os.path.join(BUILD_DIR, "c_api_test")
+C_FLAGS = ["-O2", "-Wall", "-Wextra"]
+
+
+def python_link() -> list:
+    """The cc flags with which a program embeds this interpreter, read from
+    ``sysconfig`` as ``c_api/Makefile`` reads it: the shared libpython of
+    ``LIBDIR``. Raises when there is none."""
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ver = sysconfig.get_config_var("LDVERSION")
+    if not os.path.exists(os.path.join(libdir, f"libpython{ver}.so")):
+        raise RuntimeError(f"no shared libpython{ver} in {libdir!r} to "
+                           "embed")
+    return [f"-L{libdir}", "-Wl,--no-as-needed", f"-lpython{ver}",
+            f"-Wl,-rpath,{libdir}"]
+
+
+def _cc(out: str, args: list) -> None:
+    """``cc args -o out``, written to a temporary name and renamed into
+    place; raises with cc's output when it fails."""
+    tmp = f"{out}.tmp.{os.getpid()}"
+    proc = subprocess.run(["cc", *args, "-o", tmp], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"C API build failed: cc {' '.join(args)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+
+
+@functools.lru_cache(maxsize=None)
+def c_api_build() -> dict:
+    """Build, when stale, the C API library ``libtfhe_tpu_c.so`` and its
+    test program ``c_api_test`` (``c_api/tests/c_api_test.c``) with ``cc``
+    into ``_build/``. The library does not link libpython (its Python
+    symbols come from the program, or from the interpreter it is loaded
+    into); the program links the interpreter's shared libpython
+    (:func:`python_link`). Returns {"lib", "program", "seconds"}; a failing
+    build raises: there is no fallback."""
+    t0 = time.perf_counter()
+    header = os.path.join(C_API, "tfhe_tpu.h")
+    lib_src = os.path.join(C_API, "tfhe_tpu_c.c")
+    test_src = os.path.join(C_API, "tests", "c_api_test.c")
+    lib = _so_path("tfhe_tpu_c")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    if _stale(lib, lib_src, header):
+        _cc(lib, [*C_FLAGS, "-fPIC", "-shared", f"-I{C_API}",
+                  f"-I{sysconfig.get_path('include')}", lib_src])
+    if _stale(C_API_TEST, test_src, header, lib):
+        _cc(C_API_TEST, [*C_FLAGS, f"-I{C_API}", test_src, f"-L{BUILD_DIR}",
+                         "-ltfhe_tpu_c", *python_link(),
+                         "-Wl,-rpath,$ORIGIN"])
+    return {"lib": lib, "program": C_API_TEST,
+            "seconds": time.perf_counter() - t0}
+
+
+def c_api_env() -> dict:
+    """The environment of a program that embeds the port: this one, with
+    ``PYTHONPATH`` led by the checkout's root (for ``tfhe_tpu_torch``) and
+    this interpreter's site-packages, which an embedded interpreter does not
+    find on its own outside its prefix (a virtual environment)."""
+    import site
+
+    env = dict(os.environ)
+    dirs = [os.path.dirname(_PKG),
+            *(d for d in site.getsitepackages() if os.path.isdir(d)),
+            env.get("PYTHONPATH", "")]
+    env["PYTHONPATH"] = os.pathsep.join(d for d in dirs if d)
+    return env
+
+
+@functools.lru_cache(maxsize=None)
+def c_api_lib():
+    """The C API library loaded into this interpreter with
+    ``ctypes.PyDLL`` (each call holds the GIL; the library's Python symbols
+    resolve against this interpreter), every prototype of ``tfhe_tpu.h``
+    declared: handles are ``c_void_p``, out-handles pointers to them."""
+    lib = ctypes.PyDLL(c_api_build()["lib"])
+    vp, u32, u64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64
+    out = ctypes.POINTER(vp)
+    c_int, c_str = ctypes.c_int, ctypes.c_char_p
+    protos = {
+        "tfhe_tpu_init": (c_int, []),
+        "tfhe_tpu_init_on": (c_int, [c_str]),
+        "tfhe_tpu_shutdown": (c_int, []),
+        "tfhe_tpu_last_error": (c_str, []),
+        "tfhe_tpu_generate_keys": (c_int, [c_str, u64, out, out]),
+        "tfhe_tpu_set_server_key": (c_int, [vp]),
+        "tfhe_tpu_client_key_destroy": (None, [vp]),
+        "tfhe_tpu_server_key_destroy": (None, [vp]),
+        "tfhe_tpu_fheuint_encrypt": (c_int, [u32, u64, vp, out]),
+        "tfhe_tpu_fheuint_decrypt": (c_int, [vp, vp,
+                                             ctypes.POINTER(u64)]),
+        "tfhe_tpu_fheuint_try_encrypt_trivial": (c_int, [u32, u64, out]),
+        "tfhe_tpu_fheuint_destroy": (None, [vp]),
+        "tfhe_tpu_fheuint_neg": (c_int, [vp, out]),
+        "tfhe_tpu_fheuint_not": (c_int, [vp, out]),
+        "tfhe_tpu_fheuint_serialize": (
+            c_int, [vp, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                    ctypes.POINTER(ctypes.c_size_t)]),
+        "tfhe_tpu_fheuint_deserialize": (
+            c_int, [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, out]),
+        "tfhe_tpu_buffer_destroy": (
+            None, [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]),
+    }
+    for op in ("add", "sub", "mul", "bitand", "bitor", "bitxor", "eq", "lt",
+               "ne", "le", "gt", "ge", "min", "max", "div", "rem"):
+        protos[f"tfhe_tpu_fheuint_{op}"] = (c_int, [vp, vp, out])
+    for op in ("add", "mul", "shl", "shr"):
+        protos[f"tfhe_tpu_fheuint_scalar_{op}"] = (c_int, [vp, u64, out])
+    for name, (restype, argtypes) in protos.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib

@@ -98,6 +98,17 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
+def _launch(name: str, entry, device, *args) -> None:
+    """Call the kernel entry ``entry`` with ``args`` and ``device``'s
+    current stream, with ``device`` the current CUDA device for the call
+    (the launch, the entry's shared-memory opt-in and its SM count go to
+    the current device, whatever device the tensors are on), and raise on
+    its error code."""
+    with torch.cuda.device(device):
+        rc = entry(*args, _stream(device))
+    _raise_on(rc, name)
+
+
 def _declare_smem(entry):
     """ctypes signature of a ``<kernel>_smem(P, R, levels, log_n)`` entry."""
     entry.argtypes = [ctypes.c_int] * 4
@@ -205,9 +216,8 @@ def _body_rotate(entry: str, out_dtype, body_dtype, lut: torch.Tensor,
     body = body.to(device=lut.device, dtype=body_dtype).contiguous()
     out = torch.empty((B, R, N), dtype=out_dtype, device=lut.device)
     stride = R * N if lut.ndim == 3 else 0
-    rc = getattr(_k2_lib(), entry)(_ptr(lut), stride, _ptr(body), _ptr(out),
-                                   B, R, N, _stream(lut.device))
-    _raise_on(rc, entry)
+    _launch(entry, getattr(_k2_lib(), entry), lut.device, _ptr(lut), stride,
+            _ptr(body), _ptr(out), B, R, N)
     return out
 
 
@@ -454,11 +464,10 @@ def launch_bnf2_acc32(lib, entry: str, acc_hi: torch.Tensor,
     dev = acc_hi.device
     tables = _plan_tables_dev(fl.plan(N), str(dev))
     out = torch.empty_like(acc_hi)
-    rc = getattr(lib, entry)(
+    _launch(entry, getattr(lib, entry), dev,
         _ptr(acc_hi), _ptr(a32), _ptr(bsk_scan2), _ptr(tables), _ptr(out),
         B, n_steps, R, levels, base_log, N.bit_length() - 1, fl.p0, fl.p1,
-        fl.inv01, fl.inv01_sh, fl.c1t, fl.s2, fl.t32_bias, _stream(dev))
-    _raise_on(rc, entry)
+        fl.inv01, fl.inv01_sh, fl.c1t, fl.s2, fl.t32_bias)
     return out
 
 
@@ -569,11 +578,10 @@ def launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
     plan = ntt_mod.get_plan(N, P)
     tables = _plan_tables_dev(plan, str(dev))
     out = torch.empty_like(acc)
-    rc = getattr(lib or _k3_lib(), entry)(
+    _launch(entry, getattr(lib or _k3_lib(), entry), dev,
         _ptr(acc), _ptr(a32), _ptr(bsk_scan), _ptr(tables), _ptr(out),
         B, n_steps, R, levels, base_log, N.bit_length() - 1, P,
-        _garner_host(plan), plan.full_prod_mod64, _stream(dev))
-    _raise_on(rc, entry)
+        _garner_host(plan), plan.full_prod_mod64)
     return out
 
 
@@ -617,11 +625,10 @@ def blind_rotate_bnf2_u64(acc: torch.Tensor, msed_mask: torch.Tensor,
     dev = acc.device
     tables = _plan_tables_dev(fl.plan(N), str(dev))
     out = torch.empty_like(acc)
-    rc = _k3_lib().blind_rotate_bnf2_u64(
+    _launch("blind_rotate_bnf2_u64", _k3_lib().blind_rotate_bnf2_u64, dev,
         _ptr(acc), _ptr(a32), _ptr(bsk_scan2), _ptr(tables), _ptr(out),
         B, n_steps, R, levels, base_log, N.bit_length() - 1, fl.p0, fl.p1,
-        fl.inv01, fl.inv01_sh, fl.g0, fl.g1, fl.s1, fl.s2, _stream(dev))
-    _raise_on(rc, "blind_rotate_bnf2_u64")
+        fl.inv01, fl.inv01_sh, fl.g0, fl.g1, fl.s1, fl.s2)
     blind_rotate_bnf2_u64.launches += 1
     return out
 
@@ -709,10 +716,9 @@ def blind_rotate_goldilocks(acc: torch.Tensor, msed_mask: torch.Tensor,
     dev = acc.device
     tables = _goldilocks_tables_dev(N, str(dev))
     out = torch.empty_like(acc)
-    rc = _k4_lib().blind_rotate_goldilocks(
+    _launch("blind_rotate_goldilocks", _k4_lib().blind_rotate_goldilocks, dev,
         _ptr(acc), _ptr(a32), _ptr(bsk_k), _ptr(tables), _ptr(out), B,
-        n_steps, R, levels, base_log, N.bit_length() - 1, _stream(dev))
-    _raise_on(rc, "blind_rotate_goldilocks")
+        n_steps, R, levels, base_log, N.bit_length() - 1)
     blind_rotate_goldilocks.launches += 1
     return out
 
@@ -798,10 +804,9 @@ def blind_rotate_ntt64(acc: torch.Tensor, mask_sw: torch.Tensor,
     a32 = mask_sw.to(device=dev, dtype=torch.int32).contiguous()
     tables = _goldilocks_tables_dev(N, str(dev))
     out = torch.empty_like(acc)
-    rc = _k6_lib().blind_rotate_ntt64(
+    _launch("blind_rotate_ntt64", _k6_lib().blind_rotate_ntt64, dev,
         _ptr(acc), _ptr(a32), _ptr(bsk_hat), _ptr(tables), _ptr(out), B,
-        n_steps, R, levels, base_log, N.bit_length() - 1, _stream(dev))
-    _raise_on(rc, "blind_rotate_ntt64")
+        n_steps, R, levels, base_log, N.bit_length() - 1)
     blind_rotate_ntt64.launches += 1
     return out
 
@@ -1069,11 +1074,10 @@ def multi_bit_keybundle(msed_mask: torch.Tensor, mbk: torch.Tensor, t0: int,
     plan = ntt_mod.get_plan(N, P)
     tables = _plan_tables_dev(plan, str(dev))
     exps, g1, _, mu = _k5_host(plan, base_log, levels, R, str(dev))
-    rc = _k5_lib().multi_bit_keybundle(
+    _launch("multi_bit_keybundle", _k5_lib().multi_bit_keybundle, dev,
         _ptr(a32), _ptr(mbk), _ptr(tables), _ptr(exps), _ptr(out), B,
         ng * g, t0, count, g, R, levels, N.bit_length() - 1, P,
-        _garner_host(plan), g1, mu, _stream(dev))
-    _raise_on(rc, "multi_bit_keybundle")
+        _garner_host(plan), g1, mu)
     multi_bit_keybundle.launches += 1
     return out
 
@@ -1095,11 +1099,10 @@ def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
     tables = _plan_tables_dev(plan, str(dev))
     _, _, _, mu = _k5_host(plan, base_log, levels, R, str(dev))
     out = torch.empty_like(acc)
-    rc = _k5_lib().multi_bit_accumulate(
+    _launch("multi_bit_accumulate", _k5_lib().multi_bit_accumulate, dev,
         _ptr(acc), _ptr(bundles), _ptr(tables), _ptr(out), B, count, R,
         levels, base_log, N.bit_length() - 1, P, _garner_host(plan),
-        plan.full_prod_mod64, mu, _stream(dev))
-    _raise_on(rc, "multi_bit_accumulate")
+        plan.full_prod_mod64, mu)
     multi_bit_accumulate.launches += 1
     return out
 
@@ -1157,12 +1160,10 @@ def blind_rotate_multi_bit_r14(acc: torch.Tensor, msed_mask: torch.Tensor,
     tables = _plan_tables_dev(plan, str(dev))
     exps, g1, g1_sh, mu = _k5_host(plan, base_log, levels, R, str(dev))
     out = torch.empty_like(acc)
-    rc = _k5_lib().blind_rotate_multi_bit_r14(
+    _launch(name, _k5_lib().blind_rotate_multi_bit_r14, dev,
         _ptr(acc), _ptr(a32), _ptr(mbk), _ptr(tables), _ptr(exps), _ptr(out),
         B, mbk.shape[0], g, R, levels, base_log, N.bit_length() - 1, P,
-        _garner_host(plan), plan.full_prod_mod64, g1, g1_sh, mu,
-        _stream(dev))
-    _raise_on(rc, name)
+        _garner_host(plan), plan.full_prod_mod64, g1, g1_sh, mu)
     blind_rotate_multi_bit_r14.launches += 1
     return out
 
