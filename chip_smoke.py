@@ -102,7 +102,7 @@ Phases (any failure raises and exits non-zero):
     encrypted pattern ``"cd"`` and separator ``" "``, ``eq``,
     ``to_uppercase``, ``len``, ``contains``, ``find``, ``trim``,
     ``split_once`` and two ``next()`` of ``split``: each one checked run,
-    then the median of 2 at batch 1, every output decrypted against
+    then one timed run at batch 1, every output decrypted against
     Python's ``str`` methods, one JSON row each with its PBS rounds, PBS
     and ms a round; the launch counts around one ``eq`` (K2 acc32 and K1
     once a round, K2 u64, K3 and K4 never), and K2 acc32 and K1 against
@@ -218,7 +218,23 @@ Phases (any failure raises and exits non-zero):
     equal to the CPU run's) and their decryption contract on the card
     through K2 u64 -> K3 P = 4, both kernels held to their plain versions
     (K3 at valid_params_128 over the first PLAIN_STEPS steps);
-24. the card's name and power limit, a ``{"kernels": [...]}`` line, and
+24. tfhe-rs's 3_3 sets on K7 (``phase_wide``: the exact CRT step with its
+    accumulator and digits in global memory, where K3 and K5b exceed a
+    block's shared memory), full width: the classic
+    ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128`` (seeded keygen s and
+    MB; 512 ciphertexts over all 64 values through ``apply_lookup_table``,
+    two-plane and under ``TFHE_V4_ACC=32``, with the launch counts around
+    each call: K2 once, K7 once a chunk, K3 never; decrypted; K7 and
+    K7-acc32 ``torch.equal`` to their plain versions on 8 ciphertexts over
+    the first PLAIN_STEPS steps; PBS/s, K7's ms and bound, KS -> PBS at
+    batch 1) and the GPU group-4 ``..._MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_
+    2M128`` (keygen; 256 ciphertexts through K2 u64, K5a and K7 a chunk,
+    K5b never; decrypted; K5a and K7 equal to their plain versions over
+    16 group steps; PBS/s, batch 1); random keys at the envelope's corners
+    (classic N = 32768 and 16384, multi-bit N = 32768 at l = 3, g = 4:
+    K7, and K5a at N = 32768, equal to their plain versions); the
+    refusal of an N = 65536 set and of a b l = 33 set;
+25. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
@@ -655,10 +671,31 @@ def step_kernel_report():
                   f"{k} {o['registers']} registers, {o['local_bytes']} local "
                   f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
                   for k, o in occ.items()))
+    # K7 where K3 and K5b cannot go: the 3_3 shapes (classic k = 1, l = 2
+    # and the group-4 set at the same N and l)
+    P, R, levels, N = 4, 2, 2, 8192
+    k3 = pk.step_smem_bytes("blind_rotate_crt", P, R, levels, N)
+    k5b = pk.step_smem_bytes("multi_bit_accumulate", P, R, levels, N)
+    if not (k3 == k5b == pk.step_smem_formula(P, R, levels, N, 8)
+            > pk._SMEM_LIMIT and pk.needs_wide(P, R, levels, N)):
+        raise AssertionError(f"3_3: K3 {k3} B, K5b {k5b} B, the dispatch's "
+                             "formula disagrees")
+    occ = pk.wide_occupancy(P, R, levels, N)
+    smem = pk.wide_smem_bytes(P, R, levels, N)
+    print(f"  K7 3_3 (K3 and K5b would need {k3} B a block): K7a/K7b "
+          f"{smem / 1024:.0f} KiB (one polynomial); " + "; ".join(
+              f"{k} {o['registers']} registers, {o['local_bytes']} local "
+              f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
+              for k, o in occ.items()))
+    if smem != 4 * N or pk.wide_smem_bytes(P, R, 3, 65536):
+        raise AssertionError(f"blind_rotate_wide_smem {smem} at 3_3, or a "
+                             "shape beyond N = 32768 taken")
+    spilled.update({f"K7 {k} at 3_3": o["local_bytes"] for k, o in occ.items()
+                    if o["local_bytes"]})
     if spilled:
-        raise AssertionError(f"K1/K3/K6 step kernels spill: {spilled}")
-    print("K1, K3 and K6: no spills; K1, K3, K5b and r14: shared memory == "
-          "acc + digits; K6: acc + digits + MAC")
+        raise AssertionError(f"K1/K3/K6/K7 kernels spill: {spilled}")
+    print("K1, K3, K6 and K7: no spills; K1, K3, K5b and r14: shared memory "
+          "== acc + digits; K6: acc + digits + MAC; K7: one polynomial")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -1885,7 +1922,7 @@ def phase_strings(ck, sk, card, rows):
     acc32, K1): each op on ``"ab cd"`` at capacity STRING_CAPACITY
     (``" ab cd "`` for ``trim``) with the encrypted pattern ``"cd"``
     (capacity 2) and separator ``" "`` (capacity 1): one checked run, then
-    the median of 2 at batch 1, each output decrypted against Python's
+    one timed run at batch 1, each output decrypted against Python's
     ``str`` methods, one JSON row each with its PBS rounds, PBS and ms a
     round; then the launch counts around one ``eq`` and K2 acc32 and K1
     against their plain versions on its first round. The encrypted-pattern
@@ -1930,7 +1967,7 @@ def phase_strings(ck, sk, card, rows):
     table = []
     for name, fn, args, want in ops:
         runs = []
-        for i in range(3):  # a checked run, then two timed ones
+        for i in range(2):  # a checked run, then a timed one
             out, ms, rounds, pbs = timed(key, fn, *args)
             if clear(out) != want:
                 raise AssertionError(f"string {name}: decrypts to "
@@ -2066,7 +2103,8 @@ LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "blind_rotate_crt_acc32", "blind_rotate_bnf2_u64",
                "blind_rotate_goldilocks", "multi_bit_keybundle",
                "multi_bit_accumulate", "blind_rotate_multi_bit_r14",
-               "body_rotate_acc32_r1")
+               "body_rotate_acc32_r1", "blind_rotate_wide",
+               "blind_rotate_wide_acc32", "multi_bit_accumulate_wide")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -4160,6 +4198,369 @@ def phase_mesh_c_api(ck22, sk22, batch22, card, summary, rows):
     return out
 
 
+WIDE_CLASSIC = "PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128"
+WIDE_MULTI_BIT = ("PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_CARRY_3_KS_PBS_"
+                  "GAUSSIAN_2M128")
+WIDE_BATCH = 512  # phase 24's classic 3_3 batch
+WIDE_MB_BATCH = 256  # phase 24's group-4 3_3 batch
+WIDE_PLAIN_CTS = 8  # ciphertexts of phase 24's plain checks
+WIDE_MB_PLAIN_GROUPS = 16  # group steps of the multi-bit plain checks
+#: random keys at the envelope's corners: (label, N, levels, base_log, g)
+WIDE_CORNERS = (("classic_n32768", 32768, 2, 15, 0),
+                ("classic_n16384", 16384, 2, 15, 0),
+                ("multi_bit_n32768", 32768, 3, 10, 4))
+WIDE_CORNER_B, WIDE_CORNER_STEPS = 4, 8
+WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",  # N 65536
+                "V1_5_PARAM_MESSAGE_1_CARRY_6_KS_PBS_GAUSSIAN_2M128")  # b l 33
+WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
+#: int32 operations of K7's units, counted from its source (no SASS
+#: count yet): a digit position's rotate, decomposition, lift and twist; a
+#: forward and an inverse butterfly (add_mod, the difference or the
+#: negation, a Shoup product); a MAC term (Shoup + add_mod, or Barrett +
+#: add_mod); an untwist; a coefficient's Garner tail and accumulate, a
+#: prime
+WIDE_OPS = {"lift": 20, "fwd": 10, "inv": 12, "mac": 8, "mac_barrett": 12,
+            "untwist": 5, "garner": 10}
+
+
+def wide_ops(B: int, steps: int, R: int, levels: int, N: int, P: int,
+             bundle: bool) -> float:
+    """The int32 operations of ``steps`` CRT steps of B ciphertexts on K7's
+    units (``WIDE_OPS``): l R P digit polynomials lifted and transformed, R
+    P outputs of l R MAC terms each, inverse-transformed and untwisted, the
+    Garner tail of R N coefficients."""
+    log_n = N.bit_length() - 1
+    lR = levels * R
+    bfly = N // 2 * log_n
+    per = (lR * P * N * WIDE_OPS["lift"] + lR * P * bfly * WIDE_OPS["fwd"]
+           + R * P * N * lR * WIDE_OPS["mac_barrett" if bundle else "mac"]
+           + R * P * bfly * WIDE_OPS["inv"] + R * P * N * WIDE_OPS["untwist"]
+           + R * N * P * WIDE_OPS["garner"])
+    return float(B) * steps * per
+
+
+def _wide_corner(label, N, levels, base_log, g, rng):
+    """K7 (and at g > 0 K5a and the pair) against the plain versions on
+    random keys, accumulators and masks at an envelope corner, no keygen:
+    WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u32, from_u64
+    from tfhe_tpu_torch.core import algorithms as algo
+    from tfhe_tpu_torch.core.entities import LweBootstrapKey
+    from tfhe_tpu_torch.ops import ntt as ntt_mod
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    R, P, B, steps = 2, 4, WIDE_CORNER_B, WIDE_CORNER_STEPS
+    acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
+                   DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g)
+    if not g:
+        std = torch.randint(-(1 << 63), (1 << 63) - 1,
+                            (steps, levels, R, R, N), generator=gen,
+                            device=DEVICE, dtype=torch.int64)
+        key = pk.bsk_to_scan_layout(algo.bootstrap_key_to_ntt(
+            LweBootstrapKey(std, base_log, levels), P).residues)
+        mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, steps))).to(
+            DEVICE)
+        hi = from_u32(rng.integers(0, 1 << 32, size=(B, R, N),
+                                   dtype=np.uint32), DEVICE)
+        pk.reset_launches()
+        check_equal(f"blind_rotate_wide {label}", pk.blind_rotate_crt,
+                    pk.blind_rotate_crt_plain,
+                    (acc, mask, key, base_log, levels))
+        check_equal(f"blind_rotate_wide_acc32 {label}",
+                    pk.blind_rotate_crt_acc32,
+                    pk.blind_rotate_crt_acc32_plain,
+                    (hi, mask, key, base_log, levels))
+        counts = launches_of("blind_rotate_wide", "blind_rotate_wide_acc32",
+                             "blind_rotate_crt", "blind_rotate_crt_acc32")
+    else:
+        plan = ntt_mod.get_plan(N, P)
+        res = torch.stack([torch.randint(
+            0, int(p), (steps, (1 << g) - 1, levels, R, R, N), generator=gen,
+            device=DEVICE, dtype=torch.int64) for p in plan.primes])
+        mbk = pk.multi_bit_key_layout(ntt_mod.with_shoup_duals(res, plan))
+        del res
+        mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, steps * g))
+                                ).to(DEVICE)
+        pk.reset_launches()
+        check_equal(f"multi_bit_keybundle {label}", pk.multi_bit_keybundle,
+                    pk.multi_bit_keybundle_plain,
+                    (mask, mbk, 0, steps, base_log, levels))
+        bundles = pk.multi_bit_keybundle_plain(mask, mbk, 0, steps, base_log,
+                                               levels)
+        check_equal(f"multi_bit_accumulate_wide {label}",
+                    pk.multi_bit_accumulate, pk.multi_bit_accumulate_plain,
+                    (acc, bundles, base_log, levels))
+        check_equal(f"the pair {label}", pk.blind_rotate_multi_bit,
+                    pk.blind_rotate_multi_bit_plain,
+                    (acc, mask, mbk, base_log, levels))
+        counts = launches_of("multi_bit_keybundle", "multi_bit_accumulate_wide",
+                             "multi_bit_accumulate")
+        k5a_ms = cuda_ms(lambda: pk.multi_bit_keybundle(
+            mask, mbk, 0, steps, base_log, levels), 3)
+        k7_ms = cuda_ms(lambda: pk.multi_bit_accumulate_wide(
+            acc, bundles, base_log, levels), 3)
+        print(f"corner {label}: K5a {k5a_ms:.3f} ms, K7 {k7_ms:.3f} ms at "
+              f"B={B}, {steps} group steps on {DEVICE}")
+        del mbk, bundles
+    print(f"corner {label} (N = {N}, l = {levels}, b = {base_log}, g = {g}): "
+          f"K7{' and K5a' if g else ''} == plain on {B} random ciphertexts "
+          f"over {steps} steps; launches {counts}")
+    if not g and (counts["blind_rotate_crt"] or counts["blind_rotate_crt_acc32"]
+                  or not counts["blind_rotate_wide"]):
+        raise AssertionError(f"corner {label}: K3 ran, or K7 did not")
+    if g and (counts["multi_bit_accumulate"]
+              or not counts["multi_bit_accumulate_wide"]):
+        raise AssertionError(f"corner {label}: K5b ran, or K7 did not")
+    torch.cuda.empty_cache()
+
+
+def phase_wide(card, rate, rows):
+    """tfhe-rs's 3_3 sets on the card through K7 (csrc/blind_rotate_wide.cu:
+    the exact CRT step with acc and digits in global memory, three stage
+    launches a step), full width:
+    a. the classic default ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128``
+       (n = 1006, k = 1, N = 8192, l = 2, b = 15; acc and digits 655,360 B
+       a ciphertext, beyond a block): seeded keygen (s, MB); WIDE_BATCH
+       ciphertexts covering all 64 values through ``apply_lookup_table``
+       (K2 u64 once, K7 once a chunk, K3 never), decrypted; the same under
+       ``TFHE_V4_ACC=32`` (K2 acc32, K7-acc32); K7 and K7-acc32 equal to
+       their plain versions on the first WIDE_PLAIN_CTS ciphertexts' own
+       inputs over the first PLAIN_STEPS steps; PBS/s at WIDE_BATCH, K7's
+       ms and bound; KS -> PBS at batch 1 (median of 5);
+    b. the GPU group-4 default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_
+       CARRY_3_KS_PBS_GAUSSIAN_2M128`` (n = 1004, 251 steps): keygen (s,
+       GB); WIDE_MB_BATCH through ``apply_lookup_table`` (K2 u64, K5a and
+       K7 a chunk, K5b never), decrypted; K5a and K7 equal to their plain
+       versions over the first WIDE_MB_PLAIN_GROUPS group steps; PBS/s; KS
+       -> PBS at batch 1;
+    c. random keys at the envelope's corners (``WIDE_CORNERS``);
+    d. ``check_supported`` refusing WIDE_REFUSED on the card."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey, check_supported
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    t_phase = time.perf_counter()
+    summary = {}
+    # d. the refusals, before any key
+    for name in WIDE_REFUSED:
+        try:
+            check_supported(PARAMS_BY_NAME[name], "cuda")
+        except ValueError as e:
+            if "R10" not in str(e):
+                raise
+            print(f"refused on the card: {e}")
+        else:
+            raise AssertionError(f"{name}: check_supported accepted it")
+
+    # a. classic 3_3
+    p = PARAMS_BY_NAME[WIDE_CLASSIC]
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    R, N, lv, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
+    key, n, P = sk.bsk_scan, p.lwe_dimension, sk.num_primes
+    key_mb = key.numel() * 4 / 1e6
+    if sk.variant != "crt" or not pk.needs_wide(P, R, lv, N):
+        raise AssertionError(f"3_3: variant {sk.variant}, not on K7")
+    print(f"keygen 3_3 ({WIDE_CLASSIC}): {keygen_s:.1f} s, n = {n}, N = {N}, "
+          f"l = {lv}, b = {bl}, P = {P}, CRT key {tuple(key.shape)} "
+          f"({key_mb:.1f} MB); acc + digits "
+          f"{pk.step_smem_formula(P, R, lv, N, 8)} B a block > "
+          f"{pk._SMEM_LIMIT}")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (5 * x + 3) % mod  # noqa: E731
+    vals = np.arange(WIDE_BATCH, dtype=np.uint64) % mod
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    chunks = -(-WIDE_BATCH // pk.wide_chunk(WIDE_BATCH, R, lv, P, N))
+    out = launches_exactly("3_3 main path",
+                           lambda: sk.apply_lookup_table(ct, lut),
+                           {"body_rotate_u64": 1,
+                            "blind_rotate_wide": chunks})
+    launches = launches_of("blind_rotate_wide")["blind_rotate_wide"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("3_3: the batch decrypts wrong")
+    with env(TFHE_V4_ACC="32"):
+        out32 = launches_exactly("3_3 main path, TFHE_V4_ACC=32",
+                                 lambda: sk.apply_lookup_table(ct, lut),
+                                 {"body_rotate_acc32": 1,
+                                  "blind_rotate_wide_acc32": chunks})
+    launches32 = launches_of("blind_rotate_wide_acc32")[
+        "blind_rotate_wide_acc32"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out32), want):
+        raise AssertionError("3_3, TFHE_V4_ACC=32: the batch decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask = mask.contiguous()
+    acc = pk.body_rotate_u64(lut.acc, body)
+    hi = pk.body_rotate_acc32(lut.acc, body)
+    steps = min(PLAIN_STEPS, n)
+    pre = (mask[:WIDE_PLAIN_CTS, :steps].contiguous(),
+           key[:steps].contiguous(), bl, lv)
+    err, plain_ms = check_equal("blind_rotate_wide 3_3", pk.blind_rotate_wide,
+                                pk.blind_rotate_crt_plain,
+                                (acc[:WIDE_PLAIN_CTS].contiguous(), *pre))
+    err32, plain32_ms = check_equal(
+        "blind_rotate_wide_acc32 3_3", pk.blind_rotate_wide_acc32,
+        pk.blind_rotate_crt_acc32_plain,
+        (hi[:WIDE_PLAIN_CTS].contiguous(), *pre))
+    del pre
+    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide(acc, mask, key, bl, lv), 2)
+    k7_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_acc32(hi, mask, key, bl,
+                                                          lv), 2)
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
+                      warmup=False)
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    bnd = bound(wide_ops(WIDE_BATCH, n, R, lv, N, P, False),
+                step_bytes(WIDE_BATCH, n, R, lv, N, P, 8), rate)
+    bnd32 = bound(wide_ops(WIDE_BATCH, n, R, lv, N, P, False),
+                  step_bytes(WIDE_BATCH, n, R, lv, N, P, 4), rate)
+    occ = pk.wide_occupancy(P, R, lv, N)
+    print(f"3_3 B={WIDE_BATCH}: KS->PBS {step_ms:.3f} ms = "
+          f"{WIDE_BATCH / step_ms * 1e3:.1f} PBS/s; K7 {k7_ms:.3f} ms (bound "
+          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}), K7-acc32 "
+          f"{k7_32_ms:.3f} ms; K7 == plain and K7-acc32 == plain on "
+          f"{WIDE_PLAIN_CTS} ciphertexts, the first {steps} of {n} steps "
+          f"(plain {plain_ms:.1f}, {plain32_ms:.1f} ms); batch 1 KS->PBS "
+          f"{b1_ms:.3f} ms ({3 * n} stage launches); K7 stages {occ}; on "
+          f"{card}")
+    common = dict(source=WIDE_SOURCE, shape=f"3_3 B={WIDE_BATCH} n={n} "
+                  f"N={N} l={lv} P={P}")
+    rows["blind_rotate_wide_3_3"] = dict(
+        common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches,
+        max_abs_err=err, ms=k7_ms, plain_ms=plain_ms, bound=bnd,
+        plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
+        kernel="K7 (K7a, K7b, K7c a step), K3's function, u64 acc",
+        bound_note="operations counted from the source (WIDE_OPS)")
+    rows["blind_rotate_wide_acc32_3_3"] = dict(
+        common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches32,
+        max_abs_err=err32, ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32,
+        plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
+        kernel="K7 acc32 (GarnerTail32), K3-acc32's function",
+        bound_note="operations counted from the source (WIDE_OPS)")
+    summary.update(wide_keygen_s=keygen_s, wide_key_mb=key_mb,
+                   wide_pbs_ms=step_ms, wide_pbs_per_s=WIDE_BATCH / step_ms
+                   * 1e3, wide_k7_ms=k7_ms, wide_k7_acc32_ms=k7_32_ms,
+                   wide_k7_bound_ms=bnd[0], wide_ks_pbs_b1_ms=b1_ms,
+                   wide_k7_occupancy=occ)
+    del ck, sk, ct, out, out32, acc, hi, mask, body, key, ct1
+    torch.cuda.empty_cache()
+
+    # b. group-4 3_3
+    ck, sk, mb_keygen_s = _multi_bit_keys("g4_3_3", WIDE_MULTI_BIT)
+    p = sk.params
+    mbk = sk.bsk_mb
+    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
+                       p.pbs_level, p.pbs_base_log)
+    ng, P = mbk.shape[0], mbk.shape[2]
+    mod = p.message_modulus * p.carry_modulus
+    vals = np.arange(WIDE_MB_BATCH, dtype=np.uint64) % mod
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    C = pk.multi_bit_chunk(WIDE_MB_BATCH, ng, P, lv * R, R, N)
+    pairs = -(-ng // C)
+    k7_calls = pairs * -(-WIDE_MB_BATCH // pk.wide_chunk(WIDE_MB_BATCH, R, lv,
+                                                         P, N))
+    out = launches_exactly("g4 3_3 main path",
+                           lambda: sk.apply_lookup_table(ct, lut),
+                           {"body_rotate_u64": 1,
+                            "multi_bit_keybundle": pairs,
+                            "multi_bit_accumulate_wide": k7_calls})
+    mb_launches = launches_of("multi_bit_keybundle",
+                              "multi_bit_accumulate_wide")
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("g4 3_3: the batch decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask = mask.contiguous()
+    acc = pk.body_rotate_u64(lut.acc, body)
+    G = min(WIDE_MB_PLAIN_GROUPS, ng)
+    mask8, acc8 = (mask[:WIDE_PLAIN_CTS].contiguous(),
+                   acc[:WIDE_PLAIN_CTS].contiguous())
+    a_err, a_plain = check_equal("multi_bit_keybundle g4 3_3",
+                                 pk.multi_bit_keybundle,
+                                 pk.multi_bit_keybundle_plain,
+                                 (mask8, mbk, 0, G, bl, lv))
+    bundles8 = pk.multi_bit_keybundle(mask8, mbk, 0, G, bl, lv)
+    b_err, b_plain = check_equal("multi_bit_accumulate_wide g4 3_3",
+                                 pk.multi_bit_accumulate_wide,
+                                 pk.multi_bit_accumulate_plain,
+                                 (acc8, bundles8, bl, lv))
+    del bundles8
+    chunks = [(t0, min(C, ng - t0)) for t0 in range(0, ng, C)]
+    scratch = torch.empty(WIDE_MB_BATCH * C * P * lv * R * R * N,
+                          dtype=torch.int32, device=DEVICE)
+    k5a_ms = cuda_ms(lambda: [pk.multi_bit_keybundle(
+        mask, mbk, t0, c, bl, lv, out=scratch) for t0, c in chunks], 1)
+    del scratch
+    bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
+               for c in {c for _, c in chunks}}
+    k7_mb_ms = cuda_ms(lambda: [pk.multi_bit_accumulate_wide(
+        acc, bundles[c], bl, lv) for _, c in chunks], 1)
+    del bundles
+    torch.cuda.empty_cache()
+    mb_step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
+                         warmup=False)
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    mb_b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    a_bnd = bound(kb.multi_bit_keybundle_pipe_instructions(
+        WIDE_MB_BATCH, ng, g, R, lv, N, P),
+        keybundle_bytes(WIDE_MB_BATCH, ng, g, R, lv, N, P), rate)
+    b_bnd = bound(wide_ops(WIDE_MB_BATCH, ng, R, lv, N, P, True),
+                  accumulate_bytes(WIDE_MB_BATCH, ng, R, lv, N, P), rate)
+    print(f"g4 3_3 B={WIDE_MB_BATCH}: KS->PBS {mb_step_ms:.3f} ms = "
+          f"{WIDE_MB_BATCH / mb_step_ms * 1e3:.1f} PBS/s; {len(chunks)} "
+          f"chunks of {C} steps: K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
+          f"{a_bnd[1]}), K7 {k7_mb_ms:.3f} ms (bound {b_bnd[0]:.2f}, "
+          f"{b_bnd[1]}); K5a and K7 == plain on {WIDE_PLAIN_CTS} "
+          f"ciphertexts over {G} group steps (plain {a_plain:.1f}, "
+          f"{b_plain:.1f} ms); batch 1 KS->PBS {mb_b1_ms:.3f} ms; launches "
+          f"{mb_launches}; on {card}")
+    common = dict(source=WIDE_SOURCE, replaces=MB_REPLACES,
+                  shape=f"g4 3_3 B={WIDE_MB_BATCH} n/g={ng} N={N} l={lv} "
+                  f"C={C}", note="no pallas_call: XLA in tfhe_tpu")
+    rows["multi_bit_accumulate_wide_g4_3_3"] = dict(
+        common, launches=mb_launches["multi_bit_accumulate_wide"],
+        max_abs_err=b_err, ms=k7_mb_ms, plain_ms=b_plain, bound=b_bnd,
+        plain_shape=f"B={WIDE_PLAIN_CTS}, {G} of {ng} group steps",
+        kernel="K7, K5b's function (Barrett MAC against the bundles), all "
+               "chunks of the call",
+        bound_note="operations counted from the source (WIDE_OPS)")
+    rows["multi_bit_keybundle_g4_3_3"] = dict(
+        common, source=MB_SOURCE,
+        launches=mb_launches["multi_bit_keybundle"], max_abs_err=a_err,
+        ms=k5a_ms, plain_ms=a_plain, bound=a_bnd,
+        plain_shape=f"B={WIDE_PLAIN_CTS}, {G} of {ng} group steps",
+        kernel="K5a at N = 8192, l = 2, all chunks of the call")
+    summary.update(wide_mb_keygen_s=mb_keygen_s,
+                   wide_mb_key_gb=mbk.numel() * 4 / 1e9,
+                   wide_mb_pbs_ms=mb_step_ms,
+                   wide_mb_pbs_per_s=WIDE_MB_BATCH / mb_step_ms * 1e3,
+                   wide_mb_k5a_ms=k5a_ms, wide_mb_k7_ms=k7_mb_ms,
+                   wide_mb_ks_pbs_b1_ms=mb_b1_ms)
+    del ck, sk, ct, out, acc, mask, body, mbk, ct1, mask8, acc8
+    torch.cuda.empty_cache()
+
+    # c. the corners
+    rng = np.random.default_rng(SEED + 24)
+    for corner in WIDE_CORNERS:
+        _wide_corner(*corner, rng)
+    summary["wide_s"] = time.perf_counter() - t_phase
+    print(f"phase 24: {summary['wide_s']:.1f} s")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -4209,6 +4610,7 @@ def main() -> int:
     summary.update(phase_zk(ck22, sk22, card))
     summary.update(phase_mesh_c_api(ck22, sk22, batch22, card, summary,
                                     rows))
+    summary.update(phase_wide(card, rate, rows))
 
     order = ("body_rotate_acc32", "body_rotate_acc32_r1",
              "blind_rotate_bnf2_acc32", "body_rotate_u64",
@@ -4219,6 +4621,8 @@ def main() -> int:
              *(f"{row}_{shape}" for shape in MB_SHAPES for row in MB_ROWS
                if row != "blind_rotate_multi_bit_r14" or shape == "g4"),
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
+             "blind_rotate_wide_3_3", "blind_rotate_wide_acc32_3_3",
+             "multi_bit_keybundle_g4_3_3", "multi_bit_accumulate_wide_g4_3_3",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in

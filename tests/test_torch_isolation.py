@@ -181,7 +181,7 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    assert len(pk.KERNELS) == 12
+    assert len(pk.KERNELS) == 15
     for fn in pk.KERNELS:
         assert fn.launches == 0, fn.__name__
 
@@ -288,16 +288,18 @@ def test_c_api_embeds_only_the_port():
 
 def test_chip_smoke_drives_phase_23():
     """chip_smoke.py's phase 23 (``phase_mesh_c_api``) runs from ``main``
-    on phase 2's keys and is listed in the docstring, the card's lines
-    after it as phase 24."""
+    on phase 2's keys and is listed in the docstring, phase 24
+    (``phase_wide``, the 3_3 sets on K7) after it, the card's lines after
+    that as 25."""
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
     tree = ast.parse(src)
     funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    assert "phase_mesh_c_api" in funcs
+    assert "phase_mesh_c_api" in funcs and "phase_wide" in funcs
     called = {n.func.id for n in ast.walk(funcs["main"])
               if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
-    assert "phase_mesh_c_api" in called
+    assert {"phase_mesh_c_api", "phase_wide"} <= called
     doc = ast.get_docstring(tree)
     assert re.search(r"^23\. the batch mesh, the C API and the "
                      r"reference-vector twin", doc, re.M)
-    assert re.search(r"^24\. the card's name and power limit", doc, re.M)
+    assert re.search(r"^24\. tfhe-rs's 3_3 sets on K7", doc, re.M)
+    assert re.search(r"^25\. the card's name and power limit", doc, re.M)

@@ -146,38 +146,67 @@ def test_every_set_is_supported():
         check_supported(bad)
 
 
-def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu():
-    """On a CUDA device ``check_supported`` refuses, naming ROADMAP R7, the
-    multi-bit sets whose acc and digits exceed a Hopper block's shared
-    memory (the formula of K5's ``_smem`` export,
-    ``step_passes.step_smem_bytes`` at 8-byte acc): 140 of the 253, each at
-    N >= 8192 or at N = 4096 with l = 2. The other 113 pass, and every set
-    passes on the CPU. ``ServerKey.generate`` refuses before it draws a
-    key (its client key here holds no key material at all)."""
+#: kind -> (the universe's classes of that kind, sets refused on "cuda",
+#: sets whose CRT steps run on K7 there)
+ENVELOPE = {"classic": (("ClassicPBSParameters", "KeySwitch32PBSParameters"),
+                        32, 53),
+            "multi_bit": (("MultiBitPBSParameters",), 19, 121)}
+
+
+@pytest.mark.parametrize("kind", list(ENVELOPE))
+def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu(kind, monkeypatch):
+    """On a CUDA device ``check_supported`` refuses, naming ROADMAP R10,
+    the sets whose exact CRT steps no kernel holds: N = 65536 (one u32
+    polynomial beyond a block's shared memory, acc and digits beyond it
+    too) or base_log * levels >= 32 (the kernels decompose the hi word):
+    32 classic and 19 multi-bit sets. The sets whose acc and digits exceed
+    a Hopper block's shared memory (the formula of K3's and K5b's
+    ``_smem`` exports, ``step_passes.step_smem_bytes`` at 8-byte acc) but
+    not those bounds pass and run on K7: 53 classic sets on the crt
+    variant (every 3_3 set, the 4_4 sets at N = 32768) and 121 multi-bit
+    ones, the 3_3 GPU defaults among them; one v6b set more runs its
+    many-LUT and OPRF on K7. Every set passes on the CPU. ``ServerKey.
+    generate`` refuses before it draws a key (its client key here holds no
+    key material at all)."""
     import types
 
     import torch
 
     from tfhe_tpu_torch.ops import pbs_kernel as pk
     from tfhe_tpu_torch.ops import step_passes as sp
+    from tfhe_tpu_torch.shortint.server_key import num_primes_for
 
-    multi = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
-             if k == "MultiBitPBSParameters"]
-    refused = []
-    for p in multi:
+    monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
+    classes, n_refused, n_wide = ENVELOPE[kind]
+    sets = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
+            if k in classes]
+    refused, wide = [], []
+    for p in sets:
         check_supported(p, "cpu")
-        smem = sp.step_smem_bytes(4, p.glwe_size, p.pbs_level,
-                                  p.polynomial_size, 8)
-        if smem > pk._SMEM_LIMIT:
-            with pytest.raises(ValueError, match="R7"):
+        N, levels = p.polynomial_size, p.pbs_level
+        smem = sp.step_smem_bytes(num_primes_for(p), p.glwe_size, levels,
+                                  N, 8)
+        if N == 65536 or p.pbs_base_log * levels >= 32:
+            with pytest.raises(ValueError, match="R10"):
                 check_supported(p, "cuda")
-            refused.append((p.polynomial_size, p.pbs_level))
-        else:
-            check_supported(p, "cuda")
-    assert len(multi) - len(refused) == 113 and len(refused) == 140
-    assert all(N >= 8192 or (N, lv) == (4096, 2) for N, lv in refused)
-    big = next(p for p in multi if p.polynomial_size >= 8192)
-    fake = types.SimpleNamespace(params=big, device=torch.device("cuda"))
+            refused.append(p)
+            continue
+        check_supported(p, "cuda")
+        variant = resolve_variant(N, p.pbs_base_log, levels, params=p)
+        if smem > pk._SMEM_LIMIT and variant == "crt":
+            assert N <= pk.WIDE_MAX_N
+            wide.append(p)
+    assert len(refused) == n_refused and len(wide) == n_wide
+    assert all(pk.needs_wide(num_primes_for(p), p.glwe_size, p.pbs_level,
+                             p.polynomial_size) for p in wide)
+    names = {p.name for p in wide}
+    want = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128" if kind ==
+            "classic" else
+            "PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_CARRY_3_KS_PBS_"
+            "GAUSSIAN_2M128")
+    assert any(n.endswith(want) for n in names), want
+    fake = types.SimpleNamespace(params=refused[0],
+                                 device=torch.device("cuda"))
     with pytest.raises(ValueError, match="cannot run on the GPU"):
         ServerKey.generate(fake)
 

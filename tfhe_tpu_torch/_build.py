@@ -140,6 +140,7 @@ def bls_lib():
 
 #: every CUDA source of the package, by library name (csrc/<name>.cu)
 CUDA_SOURCES = ("body_rotate", "blind_rotate_bnf2", "blind_rotate_crt",
+                "blind_rotate_wide",
                 "blind_rotate_goldilocks", "blind_rotate_multi_bit",
                 "blind_rotate_ntt64",
                 "kernel_bench", "vpu_primitives",

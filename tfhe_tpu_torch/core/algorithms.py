@@ -294,17 +294,30 @@ def gen_multi_bit_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,
         levels)
 
 
+#: standard-domain entries :func:`bootstrap_key_to_ntt` transforms at once:
+#: its int64 temporaries are a few times P such slices, not P keys (a
+#: multi-bit 3_3 key's 7.9 GB would need more than an 80 GB card at once)
+NTT_KEY_CHUNK_ENTRIES = 1 << 24
+
+
 def bootstrap_key_to_ntt(bsk: LweBootstrapKey,
                          num_primes: int) -> NttLweBootstrapKey:
     """Forward-transform every BSK polynomial over the first ``num_primes``
     PRIMES32 (the analog of ``fill_with_forward_fourier``,
     fft64/crypto/bootstrap.rs:199), on the key's device, with the Shoup dual
     floor(res * 2^32 / p) of every residue: one int64 division per entry,
-    at keygen only (res < 2^30, so res << 32 stays below 2^62)."""
+    at keygen only (res < 2^30, so res << 32 stays below 2^62). Slices of
+    the first axis of at most ``NTT_KEY_CHUNK_ENTRIES`` entries at a time,
+    into one int32 [2, P, ...] result."""
     from ..ops import ntt as ntt_mod
 
-    N = bsk.data.shape[-1]
-    plan = ntt_mod.get_plan(N, num_primes)
-    return NttLweBootstrapKey(
-        residues=ntt_mod.with_shoup_duals(plan.fwd(bsk.data), plan),
-        base_log=bsk.base_log, levels=bsk.levels, num_primes=num_primes)
+    data = bsk.data
+    plan = ntt_mod.get_plan(data.shape[-1], num_primes)
+    out = torch.empty((2, num_primes) + tuple(data.shape), dtype=torch.int32,
+                      device=data.device)
+    step = max(1, NTT_KEY_CHUNK_ENTRIES // max(1, data[0].numel()))
+    for i in range(0, data.shape[0], step):
+        out[:, :, i:i + step] = ntt_mod.with_shoup_duals(
+            plan.fwd(data[i:i + step]), plan)
+    return NttLweBootstrapKey(residues=out, base_log=bsk.base_log,
+                              levels=bsk.levels, num_primes=num_primes)

@@ -109,6 +109,9 @@ MbPlan make_mb_plan(int log_n) {
     return pl;
 }
 
+// r14's and K5b's shapes: r14's MbPlan holds 5 inverse passes (log_n <= 14)
+// and K5b's block holds acc and digits only up to N = 8192 (its callers
+// check the shared memory).
 bool mb_plan_fits(int R, int levels, int log_n) {
     return log_n >= 3 && log_n <= 13 && R >= 1 && R <= kMaxR && levels >= 1
            && levels <= kMaxLevels;
@@ -714,6 +717,19 @@ KbTile kb_tile(int grouping, int R, int levels, int log_n) {
     return k;
 }
 
+// K5a's shapes: up to N = 32768. Nothing of K5a's own binds at N = 8192:
+// its tile is 128 points whatever N, its grid's x counts tiles, and its
+// shared memory is the key tile (<= 64 KiB), the padded twist row (N +
+// N/16 words, 136 KiB at N = 32768) and the masks, 200 KiB at N = 32768;
+// the bound of log_n <= 13 was K5b's and r14's (mb_plan_fits).
+constexpr int kKbMaxLogN = 15;
+
+bool kb_fits(int grouping, int R, int levels, int log_n) {
+    return log_n >= 3 && log_n <= kKbMaxLogN && R >= 1 && R <= kMaxR
+           && levels >= 1 && levels <= kMaxLevels
+           && kb_tile(grouping, R, levels, log_n).smem <= 232448;
+}
+
 KeyBundleConsts kb_consts(const unsigned* garner, const unsigned* g1,
                           const unsigned long long* mu) {
     KeyBundleConsts kc{};
@@ -832,7 +848,7 @@ extern "C" int multi_bit_keybundle(
         int grouping, int R, int levels, int log_n, int num_primes,
         const unsigned* garner, const unsigned* g1,
         const unsigned long long* mu, void* stream) {
-    if (!mb_plan_fits(R, levels, log_n) || B < 1 || count < 1)
+    if (!kb_fits(grouping, R, levels, log_n) || B < 1 || count < 1)
         return (int)cudaErrorInvalidValue;
     const KeyBundleConsts kc = kb_consts(garner, g1, mu);
     const KbTile k = kb_tile(grouping, R, levels, log_n);

@@ -1,8 +1,8 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Twelve wrappers, eight replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``, three the XLA
+Fifteen wrappers, ten replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``, four the XLA
 multi-bit rotation of ``tfhe_tpu/ops/server.py`` and one the XLA rotation
 of ``tfhe_tpu/ops/ntt64_pbs.py``:
 
@@ -44,6 +44,15 @@ of ``tfhe_tpu/ops/ntt64_pbs.py``:
   ``pallas_call``): all n CMUX steps of the prime-modulus PBS, ciphertexts
   mod the Goldilocks prime, in one launch (K4's loop with the rotation,
   the decomposer and the accumulate mod q).
+
+- K7 ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
+  ``multi_bit_accumulate_wide`` (``csrc/blind_rotate_wide.cu``) compute K3's,
+  K3-acc32's and K5b's functions with the accumulator and the digits in
+  global memory, three stage launches a step, at the shapes whose acc and
+  digits exceed one block's shared memory (N up to :data:`WIDE_MAX_N`):
+  :func:`blind_rotate_crt`, :func:`blind_rotate_crt_acc32` and
+  :func:`multi_bit_accumulate` choose K3 / K5b or K7 from the shape alone
+  (:func:`needs_wide`).
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -585,13 +594,29 @@ def launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
     return out
 
 
+def _wide_shape(acc: torch.Tensor, key: torch.Tensor, levels: int,
+                acc_bytes: int) -> bool:
+    """Whether an operand pair of K3 (key [n, 2, P, l R, R, N]) or K5b
+    (bundles [B, count, P, l R, R, N]) goes to K7: :func:`needs_wide` at
+    its shape (False for operands of another rank: K3's and K5b's own
+    checks raise on them)."""
+    if acc.ndim != 3 or key.ndim != 6:
+        return False
+    return needs_wide(key.shape[2], acc.shape[1], levels, acc.shape[2],
+                      acc_bytes)
+
+
 def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
                      bsk_scan: torch.Tensor, base_log: int,
                      levels: int) -> torch.Tensor:
-    """K3 wrapper, Garner tail: see :func:`blind_rotate_crt_plain`."""
+    """K3 wrapper, Garner tail: see :func:`blind_rotate_crt_plain`. A
+    shape whose acc and digits exceed a block's shared memory goes to K7
+    (:func:`blind_rotate_wide`), which counts its own launches."""
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
+    if _wide_shape(acc, bsk_scan, levels, 8):
+        return blind_rotate_wide(acc, msed_mask, bsk_scan, base_log, levels)
     out = launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
                       levels)
     blind_rotate_crt.launches += 1
@@ -601,10 +626,14 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
 def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
                            bsk_scan: torch.Tensor, base_log: int,
                            levels: int) -> torch.Tensor:
-    """K3-acc32 wrapper: see :func:`blind_rotate_crt_acc32_plain`."""
+    """K3-acc32 wrapper: see :func:`blind_rotate_crt_acc32_plain`. Beyond
+    a block's shared memory: K7 (:func:`blind_rotate_wide_acc32`)."""
     if acc_hi.device.type == "cpu":
         return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
                                             base_log, levels)
+    if _wide_shape(acc_hi, bsk_scan, levels, 4):
+        return blind_rotate_wide_acc32(acc_hi, msed_mask, bsk_scan, base_log,
+                                       levels)
     out = launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
                       base_log, levels)
     blind_rotate_crt_acc32.launches += 1
@@ -864,23 +893,17 @@ def multi_bit_occupancy(R: int, levels: int, N: int, grouping: int) -> dict:
 
 def multi_bit_refusal(P: int, grouping: int, R: int, levels: int,
                       base_log: int, N: int):
-    """Why K5 cannot run a multi-bit shape, or None: its instantiations
-    (P = MB_PRIMES, g in MB_GROUPINGS), G1's table (levels <=
-    MAX_MB_LEVELS), the decomposition of the hi word (base_log * levels <=
-    31), and the shared memory of a block, acc u64[R, N] and digits
-    u32[l R, P, N] as its ``_smem`` export counts them. Needs no built
-    library."""
-    smem = R * N * 8 + 4 * P * levels * R * N
+    """Why the multi-bit kernels cannot run a shape, or None: K5's
+    instantiations (P = MB_PRIMES, g in MB_GROUPINGS), G1's table (levels
+    <= MAX_MB_LEVELS), then :func:`crt_refusal` (K5a takes N up to
+    :data:`WIDE_MAX_N`; the external products run on K5b or, beyond a
+    block's shared memory, on K7). Needs no built library."""
     if P != MB_PRIMES or grouping not in MB_GROUPINGS:
         return (f"K5 is instantiated at P = {MB_PRIMES}, g in "
                 f"{MB_GROUPINGS}, not P = {P}, g = {grouping}")
-    if levels > MAX_MB_LEVELS or base_log * levels > 31:
-        return (f"K5 takes levels <= {MAX_MB_LEVELS} and base_log * levels "
-                f"<= 31, not {levels} x {base_log}")
-    if smem > _SMEM_LIMIT:
-        return (f"K5 needs {smem} B of shared memory a block at N = {N}, "
-                f"R = {R}, l = {levels}, above the card's {_SMEM_LIMIT}")
-    return None
+    if levels > MAX_MB_LEVELS:
+        return f"K5 takes levels <= {MAX_MB_LEVELS}, not {levels}"
+    return crt_refusal(P, R, levels, base_log, N)
 
 
 def multi_bit_chunk(B: int, n_groups: int, P: int, lR: int, R: int,
@@ -1051,7 +1074,7 @@ def multi_bit_keybundle(msed_mask: torch.Tensor, mbk: torch.Tensor, t0: int,
         raise ValueError(f"multi_bit_keybundle: unsupported device {dev}")
     P, g = _multi_bit_key_shapes("multi_bit_keybundle", mbk, dev)
     ng, _, _, _, lR, R, N = mbk.shape
-    if lR != levels * R or N & (N - 1) or not 8 <= N <= 8192:
+    if lR != levels * R or N & (N - 1) or not 8 <= N <= WIDE_MAX_N:
         raise ValueError(f"mbk shape {tuple(mbk.shape)} does not match "
                          f"levels={levels}")
     B = msed_mask.shape[0]
@@ -1084,9 +1107,13 @@ def multi_bit_keybundle(msed_mask: torch.Tensor, mbk: torch.Tensor, t0: int,
 
 def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
                          base_log: int, levels: int) -> torch.Tensor:
-    """K5b wrapper: see :func:`multi_bit_accumulate_plain`."""
+    """K5b wrapper: see :func:`multi_bit_accumulate_plain`. A shape whose
+    acc and digits exceed a block's shared memory goes to K7
+    (:func:`multi_bit_accumulate_wide`), which counts its own launches."""
     if acc.device.type == "cpu":
         return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
+    if _wide_shape(acc, bundles, levels, 8):
+        return multi_bit_accumulate_wide(acc, bundles, base_log, levels)
     B, R, N = _acc_shapes("multi_bit_accumulate", acc, MB_PRIMES, base_log,
                           levels, torch.int64)
     _check(bundles, "bundles", torch.int32, 6, acc.device)
@@ -1173,9 +1200,239 @@ multi_bit_accumulate.launches = 0
 blind_rotate_multi_bit_r14.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K7: K3's and K5b's functions with the accumulator and digits in global
+# memory
+# ---------------------------------------------------------------------------
+
+#: K7's largest N: one u32 polynomial (128 KiB) in a block's shared memory
+WIDE_MAX_N = 32768
+#: bytes of K7's digit and residue scratch a call holds (:func:`wide_chunk`)
+WIDE_SCRATCH_BYTES = 1 << 30
+
+
+def step_smem_formula(P: int, R: int, levels: int, N: int,
+                      acc_bytes: int) -> int:
+    """Bytes of a K3 / K5b block's shared memory at this shape, the
+    accumulator [R][N] and the digits [l R][P][N] u32: the formula their
+    ``<entry>_smem`` exports compute (``chip_smoke.py``'s build phase holds
+    them equal), here without the built library."""
+    return R * N * acc_bytes + 4 * P * levels * R * N
+
+
+def needs_wide(P: int, R: int, levels: int, N: int,
+               acc_bytes: int = 8) -> bool:
+    """Whether a CRT step at this shape exceeds one block's shared memory,
+    so that K7 runs it in place of K3 (``acc_bytes`` 8, or 4 for acc32) or
+    K5b (8)."""
+    return step_smem_formula(P, R, levels, N, acc_bytes) > _SMEM_LIMIT
+
+
+def crt_refusal(P: int, R: int, levels: int, base_log: int, N: int):
+    """Why neither K3 (K5b) nor K7 can run an exact CRT step at this shape,
+    or None: 2..MAX_CRT_PRIMES primes, the decomposition of the hi word
+    (base_log * levels <= 31; beyond, a 64-bit decomposer), and beyond a
+    block's shared memory N <= :data:`WIDE_MAX_N` (one polynomial in a
+    block). Needs no built library."""
+    if not 2 <= P <= MAX_CRT_PRIMES:
+        return f"the CRT kernels take 2..{MAX_CRT_PRIMES} primes, not {P}"
+    if base_log * levels > 31:
+        return (f"base_log * levels = {base_log} x {levels} = "
+                f"{base_log * levels} >= 32: the kernels decompose the hi "
+                "word (a 64-bit decomposer is to come)")
+    if needs_wide(P, R, levels, N) and N > WIDE_MAX_N:
+        return (f"N = {N}: one u32 polynomial is {4 * N // 1024} KiB, and "
+                f"acc and digits {step_smem_formula(P, R, levels, N, 8)} B, "
+                f"beyond a block's {_SMEM_LIMIT} B of shared memory (K7 "
+                f"holds N <= {WIDE_MAX_N})")
+    return None
+
+
+def wide_chunk(B: int, R: int, levels: int, P: int, N: int) -> int:
+    """Ciphertexts of one K7 entry call: as many as their digits [l R, P,
+    N] and residues [R, P, N] u32 fit :data:`WIDE_SCRATCH_BYTES`, at least
+    1, at most ``B``."""
+    per = (levels * R + R) * P * N * 4
+    return max(1, min(B, WIDE_SCRATCH_BYTES // per))
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_lib():
+    from .._build import cuda_lib
+
+    lib = cuda_lib("blind_rotate_wide")
+    i, v, ull = ctypes.c_int, ctypes.c_void_p, ctypes.c_ulonglong
+    for entry in (lib.blind_rotate_wide, lib.blind_rotate_wide_acc32):
+        entry.argtypes = [v, v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v]
+        entry.restype = ctypes.c_int
+    lib.multi_bit_accumulate_wide.argtypes = [
+        v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
+    lib.multi_bit_accumulate_wide.restype = ctypes.c_int
+    lib.blind_rotate_wide_smem.argtypes = [i] * 4
+    lib.blind_rotate_wide_smem.restype = ull
+    return lib
+
+
+def wide_occupancy(P: int, R: int, levels: int, N: int) -> dict:
+    """Resident blocks per SM, registers and local (spill) bytes per
+    thread of K7's three stages ({"decompose": K7a, "mac": K7b, "garner":
+    K7c}) at this shape (``blind_rotate_wide_occupancy``). Needs the built
+    library and a GPU."""
+    fn = _k7_lib().blind_rotate_wide_occupancy
+    return {name: _occupancy(fn, "blind_rotate_wide", P, R, levels,
+                             N.bit_length() - 1, stage)
+            for stage, name in enumerate(("decompose", "mac", "garner"))}
+
+
+def wide_smem_bytes(P: int, R: int, levels: int, N: int) -> int:
+    """Dynamic shared memory of a K7a / K7b block (one u32 polynomial; the
+    ``blind_rotate_wide_smem`` export), 0 outside K7's shapes. Needs the
+    built library."""
+    return _k7_lib().blind_rotate_wide_smem(P, R, levels, N.bit_length() - 1)
+
+
+def _wide_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
+              levels: int, acc_dtype):
+    """Check K7's accumulator and geometry; returns (B, R, N)."""
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    _check(acc, "acc", acc_dtype, 3, dev)
+    B, R, N = acc.shape
+    if N & (N - 1) or not 8 <= N <= WIDE_MAX_N:
+        raise ValueError(f"{name}: N={N} is not a power of two in 8.."
+                         f"{WIDE_MAX_N}")
+    why = crt_refusal(P, R, levels, base_log, N)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    if not 0 < B < 2 ** 31 or levels * R >= 65536:
+        raise ValueError(f"{name}: batch {B}, l R = {levels * R} outside "
+                         "the kernel grid")
+    return B, R, N
+
+
+def _run_wide(name: str, entry, acc: torch.Tensor, rows: torch.Tensor,
+              key_args, P: int, levels: int, chunk_args,
+              extra=()) -> tuple:
+    """Run K7's entry ``entry`` over chunks of :func:`wide_chunk`
+    ciphertexts on a copy of ``acc`` (updated in place by the kernels);
+    ``rows``: the per-ciphertext operand sliced with the chunk (the
+    classic mask, or the multi-bit bundles); ``key_args``: the shared
+    pointer arguments after it; ``chunk_args``: the arguments after the
+    chunk size; ``extra``: those after the Garner constants. Returns (the
+    new accumulator, the entry calls)."""
+    dev = acc.device
+    B, R, N = acc.shape
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    out = acc.clone()
+    Bc = wide_chunk(B, R, levels, P, N)
+    digits = torch.empty(Bc * levels * R * P * N, dtype=torch.int32,
+                         device=dev)
+    res = torch.empty(Bc * R * P * N, dtype=torch.int32, device=dev)
+    calls = 0
+    for b0 in range(0, B, Bc):
+        bc = min(Bc, B - b0)
+        _launch(name, entry, dev, _ptr(out[b0:b0 + bc]),
+                _ptr(rows[b0:b0 + bc]), *key_args, _ptr(tables),
+                _ptr(digits), _ptr(res), bc, *chunk_args,
+                _garner_host(plan), plan.full_prod_mod64, *extra)
+        calls += 1
+    return out, calls
+
+
+def _wide_classic(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+                  bsk_scan: torch.Tensor, base_log: int, levels: int,
+                  acc_dtype) -> tuple:
+    P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
+    B, R, N = _wide_acc(name, acc, P, base_log, levels, acc_dtype)
+    n = bsk_scan.shape[0]
+    _check(bsk_scan, "bsk", torch.int32, 6, acc.device)
+    if tuple(bsk_scan.shape[1:]) != (2, P, levels * R, R, N):
+        raise ValueError(f"bsk shape {tuple(bsk_scan.shape)} does not match "
+                         f"P={P}, R={R}, levels={levels}, N={N}")
+    if tuple(msed_mask.shape) != (B, n):
+        raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
+                         f"{(B, n)}")
+    a32 = msed_mask.to(device=acc.device, dtype=torch.int32).contiguous()
+    return _run_wide(name, getattr(_k7_lib(), name), acc, a32,
+                     (_ptr(bsk_scan),), P, levels,
+                     (n, R, levels, base_log, N.bit_length() - 1, P))
+
+
+def blind_rotate_wide(acc: torch.Tensor, msed_mask: torch.Tensor,
+                      bsk_scan: torch.Tensor, base_log: int,
+                      levels: int) -> torch.Tensor:
+    """K7 wrapper, K3's function on the u64 accumulator (see
+    :func:`blind_rotate_crt_plain`) at any shape of K7's envelope; one
+    launch counted an entry call (the 3 n stage launches of a chunk of
+    :func:`wide_chunk` ciphertexts)."""
+    if acc.device.type == "cpu":
+        return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
+                                      levels)
+    out, calls = _wide_classic("blind_rotate_wide", acc, msed_mask, bsk_scan,
+                               base_log, levels, torch.int64)
+    blind_rotate_wide.launches += calls
+    return out
+
+
+def blind_rotate_wide_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
+                            bsk_scan: torch.Tensor, base_log: int,
+                            levels: int) -> torch.Tensor:
+    """K7 wrapper, K3-acc32's function on the u32 hi plane (see
+    :func:`blind_rotate_crt_acc32_plain`); launches counted as
+    :func:`blind_rotate_wide`'s."""
+    if acc_hi.device.type == "cpu":
+        return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
+                                            base_log, levels)
+    out, calls = _wide_classic("blind_rotate_wide_acc32", acc_hi, msed_mask,
+                               bsk_scan, base_log, levels, torch.int32)
+    blind_rotate_wide_acc32.launches += calls
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _barrett_host(plan: ntt_mod.NegacyclicNtt):
+    """floor(2^64 / p) of each prime, zero-padded to 5, as a ctypes u64
+    array (host memory)."""
+    mu = [(1 << 64) // int(p) for p in plan.primes]
+    mu += [0] * (MAX_CRT_PRIMES - len(mu))
+    return (ctypes.c_ulonglong * MAX_CRT_PRIMES)(*mu)
+
+
+def multi_bit_accumulate_wide(acc: torch.Tensor, bundles: torch.Tensor,
+                              base_log: int, levels: int) -> torch.Tensor:
+    """K7 wrapper, K5b's function (see :func:`multi_bit_accumulate_plain`)
+    at any shape of K7's envelope; launches counted as
+    :func:`blind_rotate_wide`'s."""
+    if acc.device.type == "cpu":
+        return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
+    name = "multi_bit_accumulate_wide"
+    B, R, N = _wide_acc(name, acc, MB_PRIMES, base_log, levels, torch.int64)
+    _check(bundles, "bundles", torch.int32, 6, acc.device)
+    count = bundles.shape[1]
+    if tuple(bundles.shape) != (B, count, MB_PRIMES, levels * R, R, N) \
+            or count < 1:
+        raise ValueError(f"bundles shape {tuple(bundles.shape)} != [{B}, "
+                         f"count, {MB_PRIMES}, {levels * R}, {R}, {N}]")
+    out, calls = _run_wide(
+        name, _k7_lib().multi_bit_accumulate_wide, acc, bundles, (),
+        MB_PRIMES, levels,
+        (count, R, levels, base_log, N.bit_length() - 1, MB_PRIMES),
+        (_barrett_host(ntt_mod.get_plan(N, MB_PRIMES)),))
+    multi_bit_accumulate_wide.launches += calls
+    return out
+
+
+blind_rotate_wide.launches = 0
+blind_rotate_wide_acc32.launches = 0
+multi_bit_accumulate_wide.launches = 0
+
+
 #: every kernel wrapper of this module, each with its ``launches`` count
 KERNELS = (body_rotate_acc32, body_rotate_acc32_r1, body_rotate_u64,
            blind_rotate_bnf2_acc32, blind_rotate_crt, blind_rotate_crt_acc32,
            blind_rotate_bnf2_u64, blind_rotate_goldilocks,
            multi_bit_keybundle, multi_bit_accumulate,
-           blind_rotate_multi_bit_r14, blind_rotate_ntt64)
+           blind_rotate_multi_bit_r14, blind_rotate_ntt64, blind_rotate_wide,
+           blind_rotate_wide_acc32, multi_bit_accumulate_wide)

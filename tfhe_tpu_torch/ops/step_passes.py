@@ -1,6 +1,8 @@
 """The CPU mirror of the step kernels' pass schedule (``csrc/ntt_common.cuh``,
 ``brk::StepPasses``): one CMUX step of K1 and K3 pass by pass, with the
-kernels' own index formulas vectorised over the items their threads own.
+kernels' own index formulas vectorised over the items their threads own;
+and K7's three stages (``csrc/blind_rotate_wide.cu``, the last section:
+one polynomial a block on the same passes, through global memory).
 
 The step kernels run each CMUX step as a few shared-memory passes of up to
 three NTT stages each, in registers (see the header of ``ntt_common.cuh``):
@@ -108,7 +110,8 @@ def step_smem_bytes(P: int, R: int, levels: int, N: int, acc_bytes: int,
     """Dynamic shared memory of one step-kernel block (``blind_rotate_smem``):
     the accumulator [R][N] and the digits [l R][P][N] u32 (``radix2``: the
     radix-2 reference loop, with the MAC buffer [R][P][N] u32 too)."""
-    return R * N * acc_bytes + 4 * P * (levels * R + (R if radix2 else 0)) * N
+    return (pk.step_smem_formula(P, R, levels, N, acc_bytes)
+            + (4 * P * R * N if radix2 else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -482,3 +485,142 @@ def run_piece(piece: str, acc, dig, a, key, base_log: int, levels: int,
             dig = pass_(dig, R, P, N, s0, k, True, tables, primes)
         return acc, dig
     return tail_pass(acc, dig, plan.inv[-1][1], tail, tables)
+
+
+# ---------------------------------------------------------------------------
+# K7 (csrc/blind_rotate_wide.cu): the step's three stages through global
+# memory, one polynomial a block
+# ---------------------------------------------------------------------------
+
+def wide_plan(log_n: int) -> tuple:
+    """K7's passes (``make_wide_plan``): the forward transform, stages [0,
+    log_n) in passes of <= 3 (no lift fused: K7a lifts in its own loop),
+    and the inverse, stages log_n - 1 .. 0 likewise; (fwd, inv) as
+    (first stage, stage count) pairs."""
+    return tuple(_split(0, log_n, False)), tuple(_split(0, log_n, True))
+
+
+def _one_poly_passes(x, passes, inverse: bool, N: int, tb, p: int):
+    """``passes`` of one polynomial's swizzled area x [B, N] (a K7 block
+    of each ciphertext: ``StepPasses<OnePrime>::pass``, P = 1)."""
+    for s0, k in passes:
+        x = pass_(x, 1, 1, N, s0, k, inverse, tb[None], [p])
+    return x
+
+
+def wide_decompose(acc, a, base_log: int, levels: int, tail: Tail, tables,
+                   rotate: bool = True):
+    """K7a (``wide_decompose_kernel``) for every block (b, j = lev R + r,
+    pi): at each position t the balanced digit ``lev`` of the hi word of
+    acc[r] X^a - acc[r] (``rotate``; else of acc[r] itself), lifted mod p
+    and twisted into the swizzled area, the forward passes, and the area
+    read back in natural order. ``a``: [B] in [0, 2N) (ignored without
+    ``rotate``). Returns digits int64 [B, l R, P, N]."""
+    B, R, N = acc.shape
+    log_n = N.bit_length() - 1
+    P = tail.plan.num_primes
+    fwd, _ = wide_plan(log_n)
+    t = torch.arange(N)
+    phys = swz(t)
+    out = torch.zeros(B, levels * R, P, N, dtype=torch.int64)
+    for r in range(R):
+        row = acc[:, r]
+        v = row
+        if rotate:
+            s = t[None] - a.to(torch.int64)[:, None]
+            s = torch.where(s < 0, s + 2 * N, s)
+            neg = s >= N
+            s = torch.where(neg, s - N, s)
+            y = torch.gather(row, 1, s)
+            v = torch.where(neg, -y, y) - row
+        hi = v & M32 if tail.acc32 else srl(v, 32)
+        for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+            for pi, p in enumerate(tail.plan.primes):
+                tb = tables[pi]
+                m = torch.where(d < 0, d + p, d)
+                x = torch.zeros(B, N, dtype=torch.int64)
+                x[:, phys] = ntt_mod.shoup_mul(m, tb[T_TW], tb[T_TW_SH], p)
+                x = _one_poly_passes(x, fwd, False, N, tb, p)
+                out[:, lev * R + r, pi] = x[:, phys]
+    return out
+
+
+def wide_mac(digits, key, R: int, tail: Tail, tables, bundle: bool = False):
+    """K7b (``wide_mac_kernel``) for every block (b, c, pi): at each
+    position t, sum_j digits[j] key[j][c] mod p (add_mod in j order), a
+    Shoup product against the duals (``key``: the step's int64 [2, P, l R,
+    R, N]) or, ``bundle``, a product mod p against the ciphertext's bundle
+    (``key``: int64 [B, P, l R, R, N]); stored swizzled, the inverse
+    passes, then the untwist in natural order. Returns canonical residues
+    int64 [B, R, P, N]."""
+    B, lR, P, N = digits.shape
+    log_n = N.bit_length() - 1
+    _, inv = wide_plan(log_n)
+    phys = swz(torch.arange(N))
+    out = torch.zeros(B, R, P, N, dtype=torch.int64)
+    for c in range(R):
+        for pi, p in enumerate(tail.plan.primes):
+            tb = tables[pi]
+            s = torch.zeros(B, N, dtype=torch.int64)
+            for j in range(lR):
+                d = digits[:, j, pi]
+                if bundle:
+                    prod = (d * key[:, pi, j, c]) % p
+                else:
+                    prod = ntt_mod.shoup_mul(d, key[0, pi, j, c],
+                                             key[1, pi, j, c], p)
+                s = _add_mod(s, prod, p)
+            x = torch.zeros(B, N, dtype=torch.int64)
+            x[:, phys] = s
+            x = _one_poly_passes(x, inv, True, N, tb, p)
+            out[:, c, pi] = ntt_mod.shoup_mul(x[:, phys], tb[T_UTW],
+                                              tb[T_UTW_SH], p)
+    return out
+
+
+def wide_garner(acc, res, tail: Tail, replace: bool = False):
+    """K7c (``wide_garner_kernel``): the tail of each coefficient's P
+    residues (``res`` [B, R, P, N]) added to acc (wrapping at 2^32 for the
+    hi plane) or, ``replace``, in its place."""
+    v = tail(res.movedim(2, 0))
+    new = v if replace else acc + v
+    return new & M32 if tail.acc32 else new
+
+
+def cmux_steps_wide(entry: str, acc, msed_mask, bsk_scan, base_log: int,
+                    levels: int):
+    """All n steps of K7's classic entries on its stages (``entry``:
+    ``blind_rotate_crt`` for the u64 accumulator, ``blind_rotate_crt_acc32``
+    for the u32 hi plane), with the operands of K3's wrapper: acc int64 or
+    int32 [B, R, N], msed_mask [B, n], bsk_scan int32 [n, 2, P, l R, R, N].
+    Returns the accumulator in the operand's dtype."""
+    P, N = bsk_scan.shape[2], acc.shape[-1]
+    tail = tail_of(entry, P, N)
+    tables = tables_of(tail)
+    x = u32_to_i64(acc) if tail.acc32 else acc
+    R = acc.shape[1]
+    for i in range(bsk_scan.shape[0]):
+        dig = wide_decompose(x, msed_mask[:, i], base_log, levels, tail,
+                             tables)
+        res = wide_mac(dig, u32_to_i64(bsk_scan[i]), R, tail, tables)
+        x = wide_garner(x, res, tail)
+    return i64_to_u32(x) if tail.acc32 else x
+
+
+def multi_bit_accumulate_wide(acc, bundles, base_log: int, levels: int):
+    """K7's multi-bit entry on its stages: the ``count`` steps of
+    ``bundles`` int32 [B, count, P, l R, R, N] on acc int64 [B, R, N] (the
+    digits of acc itself, a product mod p against the bundle, the Garner
+    value replacing acc). Returns int64 [B, R, N]."""
+    B, count, P = bundles.shape[:3]
+    R, N = acc.shape[1:]
+    tail = Tail("garner", ntt_mod.get_plan(N, P))
+    tables = tables_of(tail)
+    zero = torch.zeros(B, dtype=torch.int64)
+    for tt in range(count):
+        dig = wide_decompose(acc, zero, base_log, levels, tail, tables,
+                             rotate=False)
+        res = wide_mac(dig, u32_to_i64(bundles[:, tt]), R, tail, tables,
+                       bundle=True)
+        acc = wide_garner(acc, res, tail, replace=True)
+    return acc

@@ -106,21 +106,29 @@ def check_supported(p, device=None) -> None:
     """Raise ValueError for a parameter set no server key can be built
     for: a multi-bit set whose LWE dimension the grouping does not divide
     (every set of the universe passes, multi-bit ones included), or, on a
-    CUDA ``device``, a multi-bit set K5 cannot run
-    (``pbs_kernel.multi_bit_refusal``: 140 of the universe's 253, N >= 8192
-    or N = 4096 at l = 2; they run on the CPU only), before any key is
-    drawn."""
+    CUDA ``device``, before any key is drawn, a set whose exact CRT steps
+    no kernel holds: a multi-bit set outside ``pbs_kernel.
+    multi_bit_refusal`` (K5a with K5b or K7), a classic one outside
+    ``pbs_kernel.crt_refusal`` (K3 or K7: the CRT key is the crt variant's
+    and, under v6/v6b/v5, many-LUT's and the OPRF's). The universe's 32
+    classic and 19 multi-bit sets at N = 65536 or with base_log * levels >=
+    32 are refused (ROADMAP R10); they run on the CPU only."""
     g = grouping_of(p)
     if g and p.lwe_dimension % g:
         raise ValueError(f"{p.name}: lwe_dimension {p.lwe_dimension} is not "
                          f"divisible by the grouping {g}")
-    if g and device is not None and torch.device(device).type == "cuda":
+    if device is None or torch.device(device).type != "cuda":
+        return
+    if g:
         why = pk.multi_bit_refusal(num_primes_for(p), g, p.glwe_size,
                                    p.pbs_level, p.pbs_base_log,
                                    p.polynomial_size)
-        if why:
-            raise ValueError(f"{p.name} cannot run on the GPU: {why} "
-                             "(ROADMAP R7); it runs on the CPU only")
+    else:
+        why = pk.crt_refusal(num_primes_for(p), p.glwe_size, p.pbs_level,
+                             p.pbs_base_log, p.polynomial_size)
+    if why:
+        raise ValueError(f"{p.name} cannot run on the GPU: {why} (ROADMAP "
+                         "R10); it runs on the CPU only")
 
 
 def is_ks32(p) -> bool:
