@@ -681,15 +681,11 @@ def step_kernel_report():
         raise AssertionError(f"3_3: K3 {k3} B, K5b {k5b} B, the dispatch's "
                              "formula disagrees")
     occ = pk.wide_occupancy(P, R, levels, N)
-    smem = pk.wide_smem_bytes(P, R, levels, N)
     print(f"  K7 3_3 (K3 and K5b would need {k3} B a block): K7a/K7b "
-          f"{smem / 1024:.0f} KiB (one polynomial); " + "; ".join(
+          f"{4 * N // 1024} KiB a block (one polynomial); " + "; ".join(
               f"{k} {o['registers']} registers, {o['local_bytes']} local "
               f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
               for k, o in occ.items()))
-    if smem != 4 * N or pk.wide_smem_bytes(P, R, 3, 65536):
-        raise AssertionError(f"blind_rotate_wide_smem {smem} at 3_3, or a "
-                             "shape beyond N = 32768 taken")
     spilled.update({f"K7 {k} at 3_3": o["local_bytes"] for k, o in occ.items()
                     if o["local_bytes"]})
     if spilled:
@@ -4213,32 +4209,6 @@ WIDE_CORNER_B, WIDE_CORNER_STEPS = 4, 8
 WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",  # N 65536
                 "V1_5_PARAM_MESSAGE_1_CARRY_6_KS_PBS_GAUSSIAN_2M128")  # b l 33
 WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
-#: int32 operations of K7's units, counted from its source (no SASS
-#: count yet): a digit position's rotate, decomposition, lift and twist; a
-#: forward and an inverse butterfly (add_mod, the difference or the
-#: negation, a Shoup product); a MAC term (Shoup + add_mod, or Barrett +
-#: add_mod); an untwist; a coefficient's Garner tail and accumulate, a
-#: prime
-WIDE_OPS = {"lift": 20, "fwd": 10, "inv": 12, "mac": 8, "mac_barrett": 12,
-            "untwist": 5, "garner": 10}
-
-
-def wide_ops(B: int, steps: int, R: int, levels: int, N: int, P: int,
-             bundle: bool) -> float:
-    """The int32 operations of ``steps`` CRT steps of B ciphertexts on K7's
-    units (``WIDE_OPS``): l R P digit polynomials lifted and transformed, R
-    P outputs of l R MAC terms each, inverse-transformed and untwisted, the
-    Garner tail of R N coefficients."""
-    log_n = N.bit_length() - 1
-    lR = levels * R
-    bfly = N // 2 * log_n
-    per = (lR * P * N * WIDE_OPS["lift"] + lR * P * bfly * WIDE_OPS["fwd"]
-           + R * P * N * lR * WIDE_OPS["mac_barrett" if bundle else "mac"]
-           + R * P * bfly * WIDE_OPS["inv"] + R * P * N * WIDE_OPS["untwist"]
-           + R * N * P * WIDE_OPS["garner"])
-    return float(B) * steps * per
-
-
 def _wide_corner(label, N, levels, base_log, g, rng):
     """K7 (and at g > 0 K5a and the pair) against the plain versions on
     random keys, accumulators and masks at an envelope corner, no keygen:
@@ -4420,10 +4390,9 @@ def phase_wide(card, rate, rows):
                       warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
     b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
-    bnd = bound(wide_ops(WIDE_BATCH, n, R, lv, N, P, False),
-                step_bytes(WIDE_BATCH, n, R, lv, N, P, 8), rate)
-    bnd32 = bound(wide_ops(WIDE_BATCH, n, R, lv, N, P, False),
-                  step_bytes(WIDE_BATCH, n, R, lv, N, P, 4), rate)
+    bnd = step_bound("blind_rotate_crt", WIDE_BATCH, n, R, lv, N, P, 8, rate)
+    bnd32 = step_bound("blind_rotate_crt_acc32", WIDE_BATCH, n, R, lv, N, P,
+                       4, rate)
     occ = pk.wide_occupancy(P, R, lv, N)
     print(f"3_3 B={WIDE_BATCH}: KS->PBS {step_ms:.3f} ms = "
           f"{WIDE_BATCH / step_ms * 1e3:.1f} PBS/s; K7 {k7_ms:.3f} ms (bound "
@@ -4439,14 +4408,12 @@ def phase_wide(card, rate, rows):
         common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches,
         max_abs_err=err, ms=k7_ms, plain_ms=plain_ms, bound=bnd,
         plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
-        kernel="K7 (K7a, K7b, K7c a step), K3's function, u64 acc",
-        bound_note="operations counted from the source (WIDE_OPS)")
+        kernel="K7 (K7a, K7b, K7c a step), K3's function, u64 acc")
     rows["blind_rotate_wide_acc32_3_3"] = dict(
         common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches32,
         max_abs_err=err32, ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32,
         plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
-        kernel="K7 acc32 (GarnerTail32), K3-acc32's function",
-        bound_note="operations counted from the source (WIDE_OPS)")
+        kernel="K7 acc32 (GarnerTail32), K3-acc32's function")
     summary.update(wide_keygen_s=keygen_s, wide_key_mb=key_mb,
                    wide_pbs_ms=step_ms, wide_pbs_per_s=WIDE_BATCH / step_ms
                    * 1e3, wide_k7_ms=k7_ms, wide_k7_acc32_ms=k7_32_ms,
@@ -4517,8 +4484,9 @@ def phase_wide(card, rate, rows):
     a_bnd = bound(kb.multi_bit_keybundle_pipe_instructions(
         WIDE_MB_BATCH, ng, g, R, lv, N, P),
         keybundle_bytes(WIDE_MB_BATCH, ng, g, R, lv, N, P), rate)
-    b_bnd = bound(wide_ops(WIDE_MB_BATCH, ng, R, lv, N, P, True),
-                  accumulate_bytes(WIDE_MB_BATCH, ng, R, lv, N, P), rate)
+    b_bnd = bound(kb.multi_bit_accumulate_pipe_instructions(
+        WIDE_MB_BATCH, ng, R, lv, N, P),
+        accumulate_bytes(WIDE_MB_BATCH, ng, R, lv, N, P), rate)
     print(f"g4 3_3 B={WIDE_MB_BATCH}: KS->PBS {mb_step_ms:.3f} ms = "
           f"{WIDE_MB_BATCH / mb_step_ms * 1e3:.1f} PBS/s; {len(chunks)} "
           f"chunks of {C} steps: K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
@@ -4535,8 +4503,7 @@ def phase_wide(card, rate, rows):
         max_abs_err=b_err, ms=k7_mb_ms, plain_ms=b_plain, bound=b_bnd,
         plain_shape=f"B={WIDE_PLAIN_CTS}, {G} of {ng} group steps",
         kernel="K7, K5b's function (Barrett MAC against the bundles), all "
-               "chunks of the call",
-        bound_note="operations counted from the source (WIDE_OPS)")
+               "chunks of the call")
     rows["multi_bit_keybundle_g4_3_3"] = dict(
         common, source=MB_SOURCE,
         launches=mb_launches["multi_bit_keybundle"], max_abs_err=a_err,

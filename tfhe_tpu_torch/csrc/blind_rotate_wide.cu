@@ -374,14 +374,6 @@ extern "C" int multi_bit_accumulate_wide(
     });
 }
 
-// Bytes of dynamic shared memory of a K7a or K7b block (one u32
-// polynomial); 0 for a shape K7 does not take.
-extern "C" unsigned long long blind_rotate_wide_smem(int num_primes, int R,
-                                                     int levels, int log_n) {
-    if (!wide_fits(R, levels, 1, log_n, num_primes)) return 0;
-    return wide_smem(log_n);
-}
-
 // Resident blocks per SM of K7a (stage 0), K7b (1) or K7c (2) at this
 // shape (u64 Garner tail at num_primes), with its registers and local
 // (spill) bytes per thread; negative: a CUDA error, 0 for a shape K7 does

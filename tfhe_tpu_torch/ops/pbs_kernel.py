@@ -1268,8 +1268,6 @@ def _k7_lib():
     lib.multi_bit_accumulate_wide.argtypes = [
         v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
     lib.multi_bit_accumulate_wide.restype = ctypes.c_int
-    lib.blind_rotate_wide_smem.argtypes = [i] * 4
-    lib.blind_rotate_wide_smem.restype = ull
     return lib
 
 
@@ -1282,13 +1280,6 @@ def wide_occupancy(P: int, R: int, levels: int, N: int) -> dict:
     return {name: _occupancy(fn, "blind_rotate_wide", P, R, levels,
                              N.bit_length() - 1, stage)
             for stage, name in enumerate(("decompose", "mac", "garner"))}
-
-
-def wide_smem_bytes(P: int, R: int, levels: int, N: int) -> int:
-    """Dynamic shared memory of a K7a / K7b block (one u32 polynomial; the
-    ``blind_rotate_wide_smem`` export), 0 outside K7's shapes. Needs the
-    built library."""
-    return _k7_lib().blind_rotate_wide_smem(P, R, levels, N.bit_length() - 1)
 
 
 def _wide_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
