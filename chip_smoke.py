@@ -218,22 +218,27 @@ Phases (any failure raises and exits non-zero):
     equal to the CPU run's) and their decryption contract on the card
     through K2 u64 -> K3 P = 4, both kernels held to their plain versions
     (K3 at valid_params_128 over the first PLAIN_STEPS steps);
-24. tfhe-rs's 3_3 sets on K7 (``phase_wide``: the exact CRT step with its
-    accumulator and digits in global memory, where K3 and K5b exceed a
-    block's shared memory), full width: the classic
-    ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128`` (seeded keygen s and
-    MB; 512 ciphertexts over all 64 values through ``apply_lookup_table``,
-    two-plane and under ``TFHE_V4_ACC=32``, with the launch counts around
-    each call: K2 once, K7 once a chunk, K3 never; decrypted; K7 and
-    K7-acc32 ``torch.equal`` to their plain versions on 8 ciphertexts over
-    the first PLAIN_STEPS steps; PBS/s, K7's ms and bound, KS -> PBS at
-    batch 1) and the GPU group-4 ``..._MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_
-    2M128`` (keygen; 256 ciphertexts through K2 u64, K5a and K7 a chunk,
-    K5b never; decrypted; K5a and K7 equal to their plain versions over
-    16 group steps; PBS/s, batch 1); random keys at the envelope's corners
-    (classic N = 32768 and 16384, multi-bit N = 32768 at l = 3, g = 4:
-    K7, and K5a at N = 32768, equal to their plain versions); the
-    refusal of an N = 65536 set and of a b l = 33 set;
+24. tfhe-rs's 3_3 sets on K7 (``phase_wide``: the exact CRT step where K3
+    and K5b exceed a block's shared memory), full width, on K7's cluster
+    kernel (a cluster of 8 CTAs a ciphertext, acc and digits in
+    distributed shared memory for all steps, one launch a call): the
+    classic ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128`` (seeded
+    keygen s and MB; 512 ciphertexts over all 64 values through
+    ``apply_lookup_table``, two-plane and under ``TFHE_V4_ACC=32``, with
+    the launch counts around each call: K2 once, the cluster kernel once,
+    K3 and K7 global never; decrypted; the cluster kernel and K7 global
+    (three stage launches a step through global memory) ``torch.equal`` to
+    the plain versions on 8 ciphertexts over the first PLAIN_STEPS steps,
+    both modes, and timed in turns at 512 and at 1; PBS/s, the bound, KS
+    -> PBS at batch 1) and the GPU group-4 ``..._MESSAGE_3_CARRY_3_KS_PBS_
+    GAUSSIAN_2M128`` (keygen; 256 ciphertexts through K2 u64, K5a and the
+    cluster kernel a chunk, K5b and K7 global never; decrypted; K5a and
+    both designs equal to their plain versions over 16 group steps; the
+    designs in turns at 256 and at 1; PBS/s, batch 1); random keys at the
+    envelope's corners (classic N = 16384 on the cluster kernel, classic
+    N = 32768 and multi-bit N = 32768 at l = 3, g = 4 on K7 global, and
+    K5a at N = 32768, equal to their plain versions); the refusal of an
+    N = 65536 set and of a b l = 33 set;
 25. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -681,17 +686,39 @@ def step_kernel_report():
         raise AssertionError(f"3_3: K3 {k3} B, K5b {k5b} B, the dispatch's "
                              "formula disagrees")
     occ = pk.wide_occupancy(P, R, levels, N)
-    print(f"  K7 3_3 (K3 and K5b would need {k3} B a block): K7a/K7b "
-          f"{4 * N // 1024} KiB a block (one polynomial); " + "; ".join(
+    print(f"  K7 global at 3_3 (K3 and K5b would need {k3} B a block): "
+          f"K7a/K7b {4 * N // 1024} KiB a block (one polynomial); " + "; ".join(
               f"{k} {o['registers']} registers, {o['local_bytes']} local "
               f"bytes a thread, {o['blocks_per_sm']} blocks per SM"
               for k, o in occ.items()))
-    spilled.update({f"K7 {k} at 3_3": o["local_bytes"] for k, o in occ.items()
-                    if o["local_bytes"]})
+    spilled.update({f"K7 global {k} at 3_3": o["local_bytes"]
+                    for k, o in occ.items() if o["local_bytes"]})
+    # K7's cluster kernel, where the 3_3 steps run: a CTA's area (held to
+    # the formula of the dispatch and of step_passes), its registers,
+    # spills, CTAs per SM and the clusters resident on the card
+    for label, lv, n_ in (("3_3", levels, N), ("N = 16384, l = 2", 2, 16384)):
+        for entry, acc_bytes in (("blind_rotate_wide_cluster", 8),
+                                 ("blind_rotate_wide_cluster_acc32", 4),
+                                 ("multi_bit_accumulate_wide_cluster", 8)):
+            smem = pk.step_smem_bytes(entry, P, R, lv, n_)
+            want = sp.cluster_smem_bytes(P, R, lv, n_, acc_bytes)
+            if smem != want or smem != pk.cluster_smem_formula(
+                    P, R, lv, n_, acc_bytes):
+                raise AssertionError(f"{entry}_smem {smem} != the "
+                                     f"formula's {want} at {label}")
+        occ = pk.wide_cluster_occupancy(P, R, lv, n_)
+        print(f"  K7 cluster kernel at {label}: {occ['smem_bytes']} B "
+              f"dynamic shared memory a CTA, {occ['registers']} registers, "
+              f"{occ['local_bytes']} local bytes a thread, cluster of "
+              f"{occ['cluster']}, {occ['blocks_per_sm']} CTAs per SM, "
+              f"{occ['clusters']} clusters resident on the card")
+        if occ["local_bytes"]:
+            spilled[f"K7 cluster kernel at {label}"] = occ["local_bytes"]
     if spilled:
         raise AssertionError(f"K1/K3/K6/K7 kernels spill: {spilled}")
     print("K1, K3, K6 and K7: no spills; K1, K3, K5b and r14: shared memory "
-          "== acc + digits; K6: acc + digits + MAC; K7: one polynomial")
+          "== acc + digits; K6: acc + digits + MAC; K7 global: one "
+          "polynomial; K7's cluster kernel: its CTA area")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -2100,7 +2127,9 @@ LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "blind_rotate_goldilocks", "multi_bit_keybundle",
                "multi_bit_accumulate", "blind_rotate_multi_bit_r14",
                "body_rotate_acc32_r1", "blind_rotate_wide",
-               "blind_rotate_wide_acc32", "multi_bit_accumulate_wide")
+               "blind_rotate_wide_acc32", "multi_bit_accumulate_wide",
+               "blind_rotate_wide_cluster", "blind_rotate_wide_cluster_acc32",
+               "multi_bit_accumulate_wide_cluster")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -4209,10 +4238,43 @@ WIDE_CORNER_B, WIDE_CORNER_STEPS = 4, 8
 WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",  # N 65536
                 "V1_5_PARAM_MESSAGE_1_CARRY_6_KS_PBS_GAUSSIAN_2M128")  # b l 33
 WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
+#: K7's wrappers a design: (classic u64, classic acc32, multi-bit)
+WIDE_KERNELS = {"cluster": ("blind_rotate_wide_cluster",
+                            "blind_rotate_wide_cluster_acc32",
+                            "multi_bit_accumulate_wide_cluster"),
+                "global": ("blind_rotate_wide", "blind_rotate_wide_acc32",
+                           "multi_bit_accumulate_wide")}
+
+
+def check_equal_all(name, kernels: dict, plain, args):
+    """Each kernel of ``kernels`` ({label: wrapper}) against one run of the
+    plain version on the same inputs, exact; returns ({label:
+    max_abs_err}, the plain version's ms: its run between CUDA events)."""
+    import torch
+
+    got = {k: fn(*args) for k, fn in kernels.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(*args)
+    end.record()
+    end.synchronize()
+    errs = {}
+    for k, g in got.items():
+        errs[k] = max_abs_err(g, want)
+        if tuple(g.shape) != tuple(want.shape) or errs[k] != 0:
+            raise AssertionError(f"{name} {k}: kernel != plain version "
+                                 f"(max_abs_diff {errs[k]})")
+    return errs, start.elapsed_time(end)
+
+
 def _wide_corner(label, N, levels, base_log, g, rng):
     """K7 (and at g > 0 K5a and the pair) against the plain versions on
     random keys, accumulators and masks at an envelope corner, no keygen:
-    WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps."""
+    WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps, through the
+    dispatch; the design ``pk.wide_route`` names for the shape (the
+    cluster kernel, or K7 global) launched, the other and K3 / K5b never.
+    Returns the launch counts of those checks."""
     import torch
 
     from tfhe_tpu_torch._torus import from_u32, from_u64
@@ -4222,9 +4284,12 @@ def _wide_corner(label, N, levels, base_log, g, rng):
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     R, P, B, steps = 2, 4, WIDE_CORNER_B, WIDE_CORNER_STEPS
+    route = pk.wide_route(P, R, levels, N)
+    other = "global" if route == "cluster" else "cluster"
     acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
                    DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g)
+    names = [n for d in WIDE_KERNELS.values() for n in d]
     if not g:
         std = torch.randint(-(1 << 63), (1 << 63) - 1,
                             (steps, levels, R, R, N), generator=gen,
@@ -4236,15 +4301,17 @@ def _wide_corner(label, N, levels, base_log, g, rng):
         hi = from_u32(rng.integers(0, 1 << 32, size=(B, R, N),
                                    dtype=np.uint32), DEVICE)
         pk.reset_launches()
-        check_equal(f"blind_rotate_wide {label}", pk.blind_rotate_crt,
+        check_equal(f"K7 {label}", pk.blind_rotate_crt,
                     pk.blind_rotate_crt_plain,
                     (acc, mask, key, base_log, levels))
-        check_equal(f"blind_rotate_wide_acc32 {label}",
-                    pk.blind_rotate_crt_acc32,
+        check_equal(f"K7-acc32 {label}", pk.blind_rotate_crt_acc32,
                     pk.blind_rotate_crt_acc32_plain,
                     (hi, mask, key, base_log, levels))
-        counts = launches_of("blind_rotate_wide", "blind_rotate_wide_acc32",
-                             "blind_rotate_crt", "blind_rotate_crt_acc32")
+        counts = launches_of(*names, "blind_rotate_crt",
+                             "blind_rotate_crt_acc32")
+        ran = counts[WIDE_KERNELS[route][0]] and counts[WIDE_KERNELS[route][1]]
+        stray = (counts["blind_rotate_crt"] + counts["blind_rotate_crt_acc32"]
+                 + sum(counts[n] for n in WIDE_KERNELS[other][:2]))
     else:
         plan = ntt_mod.get_plan(N, P)
         res = torch.stack([torch.randint(
@@ -4260,53 +4327,62 @@ def _wide_corner(label, N, levels, base_log, g, rng):
                     (mask, mbk, 0, steps, base_log, levels))
         bundles = pk.multi_bit_keybundle_plain(mask, mbk, 0, steps, base_log,
                                                levels)
-        check_equal(f"multi_bit_accumulate_wide {label}",
-                    pk.multi_bit_accumulate, pk.multi_bit_accumulate_plain,
+        check_equal(f"K7 multi-bit {label}", pk.multi_bit_accumulate,
+                    pk.multi_bit_accumulate_plain,
                     (acc, bundles, base_log, levels))
         check_equal(f"the pair {label}", pk.blind_rotate_multi_bit,
                     pk.blind_rotate_multi_bit_plain,
                     (acc, mask, mbk, base_log, levels))
-        counts = launches_of("multi_bit_keybundle", "multi_bit_accumulate_wide",
-                             "multi_bit_accumulate")
+        counts = launches_of("multi_bit_keybundle", "multi_bit_accumulate",
+                             *names)
+        ran = counts[WIDE_KERNELS[route][2]]
+        stray = counts["multi_bit_accumulate"] + counts[WIDE_KERNELS[other][2]]
+        mb = getattr(pk, WIDE_KERNELS[route][2])
         k5a_ms = cuda_ms(lambda: pk.multi_bit_keybundle(
             mask, mbk, 0, steps, base_log, levels), 3)
-        k7_ms = cuda_ms(lambda: pk.multi_bit_accumulate_wide(
-            acc, bundles, base_log, levels), 3)
-        print(f"corner {label}: K5a {k5a_ms:.3f} ms, K7 {k7_ms:.3f} ms at "
-              f"B={B}, {steps} group steps on {DEVICE}")
+        k7_ms = cuda_ms(lambda: mb(acc, bundles, base_log, levels), 3)
+        print(f"corner {label}: K5a {k5a_ms:.3f} ms, K7 ({route}) "
+              f"{k7_ms:.3f} ms at B={B}, {steps} group steps on {DEVICE}")
         del mbk, bundles
     print(f"corner {label} (N = {N}, l = {levels}, b = {base_log}, g = {g}): "
-          f"K7{' and K5a' if g else ''} == plain on {B} random ciphertexts "
-          f"over {steps} steps; launches {counts}")
-    if not g and (counts["blind_rotate_crt"] or counts["blind_rotate_crt_acc32"]
-                  or not counts["blind_rotate_wide"]):
-        raise AssertionError(f"corner {label}: K3 ran, or K7 did not")
-    if g and (counts["multi_bit_accumulate"]
-              or not counts["multi_bit_accumulate_wide"]):
-        raise AssertionError(f"corner {label}: K5b ran, or K7 did not")
+          f"K7's {route} design{' and K5a' if g else ''} == plain on {B} "
+          f"random ciphertexts over {steps} steps; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if not ran or stray:
+        raise AssertionError(f"corner {label}: K7's {route} design did not "
+                             f"run, or another kernel did: {counts}")
     torch.cuda.empty_cache()
+    return counts
 
 
 def phase_wide(card, rate, rows):
-    """tfhe-rs's 3_3 sets on the card through K7 (csrc/blind_rotate_wide.cu:
-    the exact CRT step with acc and digits in global memory, three stage
-    launches a step), full width:
+    """tfhe-rs's 3_3 sets on the card through K7 (csrc/blind_rotate_wide.cu)
+    at full width. The 3_3 steps run on K7's cluster kernel (a cluster of
+    P R = 8 CTAs a ciphertext, acc and digits in distributed shared memory
+    for all steps, one launch a call); K7 global (three stage launches a
+    step through global memory) is timed beside it in turns on the same
+    inputs and runs the N = 32768 corners:
     a. the classic default ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128``
        (n = 1006, k = 1, N = 8192, l = 2, b = 15; acc and digits 655,360 B
        a ciphertext, beyond a block): seeded keygen (s, MB); WIDE_BATCH
        ciphertexts covering all 64 values through ``apply_lookup_table``
-       (K2 u64 once, K7 once a chunk, K3 never), decrypted; the same under
-       ``TFHE_V4_ACC=32`` (K2 acc32, K7-acc32); K7 and K7-acc32 equal to
-       their plain versions on the first WIDE_PLAIN_CTS ciphertexts' own
-       inputs over the first PLAIN_STEPS steps; PBS/s at WIDE_BATCH, K7's
-       ms and bound; KS -> PBS at batch 1 (median of 5);
+       (K2 u64 once, the cluster kernel once, K3 and K7 global never),
+       decrypted; the same under ``TFHE_V4_ACC=32`` (K2 acc32, the acc32
+       cluster kernel); the cluster kernel and K7 global equal to the
+       plain versions on the first WIDE_PLAIN_CTS ciphertexts' own inputs
+       over the first PLAIN_STEPS steps, both accumulator modes; the two
+       designs in turns at WIDE_BATCH and at batch 1, both modes; PBS/s at
+       WIDE_BATCH, the bound; KS -> PBS at batch 1 (median of 5);
     b. the GPU group-4 default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_
        CARRY_3_KS_PBS_GAUSSIAN_2M128`` (n = 1004, 251 steps): keygen (s,
        GB); WIDE_MB_BATCH through ``apply_lookup_table`` (K2 u64, K5a and
-       K7 a chunk, K5b never), decrypted; K5a and K7 equal to their plain
-       versions over the first WIDE_MB_PLAIN_GROUPS group steps; PBS/s; KS
+       the cluster kernel a chunk, K5b and K7 global never), decrypted;
+       K5a, the cluster kernel and K7 global equal to their plain versions
+       over the first WIDE_MB_PLAIN_GROUPS group steps; the two designs in
+       turns over every chunk at WIDE_MB_BATCH and at batch 1; PBS/s; KS
        -> PBS at batch 1;
-    c. random keys at the envelope's corners (``WIDE_CORNERS``);
+    c. random keys at the envelope's corners (``WIDE_CORNERS``: N = 16384
+       on the cluster kernel, N = 32768 on K7 global);
     d. ``check_supported`` refusing WIDE_REFUSED on the card."""
     import torch
 
@@ -4338,34 +4414,37 @@ def phase_wide(card, rate, rows):
     R, N, lv, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
     key, n, P = sk.bsk_scan, p.lwe_dimension, sk.num_primes
     key_mb = key.numel() * 4 / 1e6
-    if sk.variant != "crt" or not pk.needs_wide(P, R, lv, N):
-        raise AssertionError(f"3_3: variant {sk.variant}, not on K7")
+    if sk.variant != "crt" or pk.wide_route(P, R, lv, N) != "cluster" or \
+            pk.wide_route(P, R, lv, N, 4) != "cluster":
+        raise AssertionError(f"3_3: variant {sk.variant}, not on K7's "
+                             "cluster kernel")
     print(f"keygen 3_3 ({WIDE_CLASSIC}): {keygen_s:.1f} s, n = {n}, N = {N}, "
           f"l = {lv}, b = {bl}, P = {P}, CRT key {tuple(key.shape)} "
           f"({key_mb:.1f} MB); acc + digits "
           f"{pk.step_smem_formula(P, R, lv, N, 8)} B a block > "
-          f"{pk._SMEM_LIMIT}")
+          f"{pk._SMEM_LIMIT}; a cluster CTA "
+          f"{pk.cluster_smem_formula(P, R, lv, N, 8)} B")
     mod = p.message_modulus * p.carry_modulus
     f = lambda x: (5 * x + 3) % mod  # noqa: E731
     vals = np.arange(WIDE_BATCH, dtype=np.uint64) % mod
     want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
     ct = ck.encrypt(vals)
     lut = sk.generate_lookup_table(f)
-    chunks = -(-WIDE_BATCH // pk.wide_chunk(WIDE_BATCH, R, lv, P, N))
     out = launches_exactly("3_3 main path",
                            lambda: sk.apply_lookup_table(ct, lut),
                            {"body_rotate_u64": 1,
-                            "blind_rotate_wide": chunks})
-    launches = launches_of("blind_rotate_wide")["blind_rotate_wide"]
+                            "blind_rotate_wide_cluster": 1})
+    launches = launches_of("blind_rotate_wide_cluster")[
+        "blind_rotate_wide_cluster"]
     if not np.array_equal(ck.decrypt_message_and_carry(out), want):
         raise AssertionError("3_3: the batch decrypts wrong")
     with env(TFHE_V4_ACC="32"):
         out32 = launches_exactly("3_3 main path, TFHE_V4_ACC=32",
                                  lambda: sk.apply_lookup_table(ct, lut),
                                  {"body_rotate_acc32": 1,
-                                  "blind_rotate_wide_acc32": chunks})
-    launches32 = launches_of("blind_rotate_wide_acc32")[
-        "blind_rotate_wide_acc32"]
+                                  "blind_rotate_wide_cluster_acc32": 1})
+    launches32 = launches_of("blind_rotate_wide_cluster_acc32")[
+        "blind_rotate_wide_cluster_acc32"]
     if not np.array_equal(ck.decrypt_message_and_carry(out32), want):
         raise AssertionError("3_3, TFHE_V4_ACC=32: the batch decrypts wrong")
     mask, body = switched(sk, ct)
@@ -4375,17 +4454,31 @@ def phase_wide(card, rate, rows):
     steps = min(PLAIN_STEPS, n)
     pre = (mask[:WIDE_PLAIN_CTS, :steps].contiguous(),
            key[:steps].contiguous(), bl, lv)
-    err, plain_ms = check_equal("blind_rotate_wide 3_3", pk.blind_rotate_wide,
-                                pk.blind_rotate_crt_plain,
-                                (acc[:WIDE_PLAIN_CTS].contiguous(), *pre))
-    err32, plain32_ms = check_equal(
-        "blind_rotate_wide_acc32 3_3", pk.blind_rotate_wide_acc32,
+    errs, plain_ms = check_equal_all(
+        "K7 3_3", {"cluster": pk.blind_rotate_wide_cluster,
+                   "global": pk.blind_rotate_wide},
+        pk.blind_rotate_crt_plain, (acc[:WIDE_PLAIN_CTS].contiguous(), *pre))
+    errs32, plain32_ms = check_equal_all(
+        "K7-acc32 3_3", {"cluster": pk.blind_rotate_wide_cluster_acc32,
+                         "global": pk.blind_rotate_wide_acc32},
         pk.blind_rotate_crt_acc32_plain,
         (hi[:WIDE_PLAIN_CTS].contiguous(), *pre))
     del pre
-    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide(acc, mask, key, bl, lv), 2)
-    k7_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_acc32(hi, mask, key, bl,
-                                                          lv), 2)
+    # the two designs in turns on the batch's own inputs, then at batch 1
+    args, args32 = (acc, mask, key, bl, lv), (hi, mask, key, bl, lv)
+    k7_ms, k7g_ms = in_turns(lambda: pk.blind_rotate_wide_cluster(*args),
+                             lambda: pk.blind_rotate_wide(*args), 1)
+    k7_32_ms, k7g_32_ms = in_turns(
+        lambda: pk.blind_rotate_wide_cluster_acc32(*args32),
+        lambda: pk.blind_rotate_wide_acc32(*args32), 1)
+    one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
+    one32 = (hi[:1].contiguous(), *one[1:])
+    k7_b1, k7g_b1 = in_turns(lambda: pk.blind_rotate_wide_cluster(*one),
+                             lambda: pk.blind_rotate_wide(*one), 3)
+    k7_32_b1, k7g_32_b1 = in_turns(
+        lambda: pk.blind_rotate_wide_cluster_acc32(*one32),
+        lambda: pk.blind_rotate_wide_acc32(*one32), 3)
+    del args, args32, one, one32
     step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
                       warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
@@ -4393,30 +4486,50 @@ def phase_wide(card, rate, rows):
     bnd = step_bound("blind_rotate_crt", WIDE_BATCH, n, R, lv, N, P, 8, rate)
     bnd32 = step_bound("blind_rotate_crt_acc32", WIDE_BATCH, n, R, lv, N, P,
                        4, rate)
-    occ = pk.wide_occupancy(P, R, lv, N)
+    bnd1 = step_bound("blind_rotate_crt", 1, n, R, lv, N, P, 8, rate)
+    occ = pk.wide_cluster_occupancy(P, R, lv, N)
     print(f"3_3 B={WIDE_BATCH}: KS->PBS {step_ms:.3f} ms = "
-          f"{WIDE_BATCH / step_ms * 1e3:.1f} PBS/s; K7 {k7_ms:.3f} ms (bound "
-          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}), K7-acc32 "
-          f"{k7_32_ms:.3f} ms; K7 == plain and K7-acc32 == plain on "
-          f"{WIDE_PLAIN_CTS} ciphertexts, the first {steps} of {n} steps "
-          f"(plain {plain_ms:.1f}, {plain32_ms:.1f} ms); batch 1 KS->PBS "
-          f"{b1_ms:.3f} ms ({3 * n} stage launches); K7 stages {occ}; on "
-          f"{card}")
-    common = dict(source=WIDE_SOURCE, shape=f"3_3 B={WIDE_BATCH} n={n} "
-                  f"N={N} l={lv} P={P}")
-    rows["blind_rotate_wide_3_3"] = dict(
-        common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches,
-        max_abs_err=err, ms=k7_ms, plain_ms=plain_ms, bound=bnd,
-        plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
-        kernel="K7 (K7a, K7b, K7c a step), K3's function, u64 acc")
-    rows["blind_rotate_wide_acc32_3_3"] = dict(
-        common, replaces="tfhe_tpu/ops/pbs_kernel.py:1867", launches=launches32,
-        max_abs_err=err32, ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32,
-        plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps",
-        kernel="K7 acc32 (GarnerTail32), K3-acc32's function")
+          f"{WIDE_BATCH / step_ms * 1e3:.1f} PBS/s; K7 cluster kernel "
+          f"{k7_ms:.3f} ms (bound {bnd[0]:.2f} ms, {bnd[1]}: "
+          f"{bnd[0] / k7_ms:.1%}), K7 global {k7g_ms:.3f} ms in turns "
+          f"({bnd[0] / k7g_ms:.1%}); acc32: cluster {k7_32_ms:.3f}, global "
+          f"{k7g_32_ms:.3f} ms; batch 1: cluster {k7_b1:.3f}, global "
+          f"{k7g_b1:.3f} ms (acc32 {k7_32_b1:.3f}, {k7g_32_b1:.3f}); both "
+          f"designs == plain in both modes on {WIDE_PLAIN_CTS} ciphertexts, "
+          f"the first {steps} of {n} steps (plain {plain_ms:.1f}, "
+          f"{plain32_ms:.1f} ms); batch 1 KS->PBS {b1_ms:.3f} ms (1 launch); "
+          f"the cluster kernel {occ}; on {card}")
+    common = dict(source=WIDE_SOURCE, replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+                  shape=f"3_3 B={WIDE_BATCH} n={n} N={N} l={lv} P={P}",
+                  plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps")
+    rows["blind_rotate_wide_cluster_3_3"] = dict(
+        common, launches=launches, max_abs_err=errs["cluster"], ms=k7_ms,
+        plain_ms=plain_ms, bound=bnd, ms_b1=k7_b1, bound_b1_ms=bnd1[0],
+        global_ms=k7g_ms, global_ms_b1=k7g_b1,
+        kernel="K7's cluster kernel (8 CTAs a ciphertext, all steps in one "
+               "launch), K3's function, u64 acc")
+    rows["blind_rotate_wide_cluster_acc32_3_3"] = dict(
+        common, launches=launches32, max_abs_err=errs32["cluster"],
+        ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32, ms_b1=k7_32_b1,
+        global_ms=k7g_32_ms, global_ms_b1=k7g_32_b1,
+        kernel="K7's cluster kernel, acc32 (GarnerTail32), K3-acc32's "
+               "function")
+    wide_global = {
+        "blind_rotate_wide_3_3": dict(
+            common, max_abs_err=errs["global"], ms=k7g_ms, plain_ms=plain_ms,
+            bound=bnd, ms_b1=k7g_b1,
+            kernel="K7 global (K7a, K7b, K7c a step), K3's function, timed "
+                   "in turns with the cluster kernel; launches: the N = "
+                   "32768 corner's, where the dispatch sends it"),
+        "blind_rotate_wide_acc32_3_3": dict(
+            common, max_abs_err=errs32["global"], ms=k7g_32_ms,
+            plain_ms=plain32_ms, bound=bnd32, ms_b1=k7g_32_b1,
+            kernel="K7 global acc32; launches: the N = 32768 corner's")}
     summary.update(wide_keygen_s=keygen_s, wide_key_mb=key_mb,
                    wide_pbs_ms=step_ms, wide_pbs_per_s=WIDE_BATCH / step_ms
                    * 1e3, wide_k7_ms=k7_ms, wide_k7_acc32_ms=k7_32_ms,
+                   wide_k7_global_ms=k7g_ms, wide_k7_global_acc32_ms=k7g_32_ms,
+                   wide_k7_b1_ms=k7_b1, wide_k7_global_b1_ms=k7g_b1,
                    wide_k7_bound_ms=bnd[0], wide_ks_pbs_b1_ms=b1_ms,
                    wide_k7_occupancy=occ)
     del ck, sk, ct, out, out32, acc, hi, mask, body, key, ct1
@@ -4429,6 +4542,8 @@ def phase_wide(card, rate, rows):
     g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
                        p.pbs_level, p.pbs_base_log)
     ng, P = mbk.shape[0], mbk.shape[2]
+    if pk.wide_route(P, R, lv, N) != "cluster":
+        raise AssertionError("g4 3_3: not on K7's cluster kernel")
     mod = p.message_modulus * p.carry_modulus
     vals = np.arange(WIDE_MB_BATCH, dtype=np.uint64) % mod
     want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
@@ -4436,15 +4551,13 @@ def phase_wide(card, rate, rows):
     lut = sk.generate_lookup_table(f)
     C = pk.multi_bit_chunk(WIDE_MB_BATCH, ng, P, lv * R, R, N)
     pairs = -(-ng // C)
-    k7_calls = pairs * -(-WIDE_MB_BATCH // pk.wide_chunk(WIDE_MB_BATCH, R, lv,
-                                                         P, N))
     out = launches_exactly("g4 3_3 main path",
                            lambda: sk.apply_lookup_table(ct, lut),
                            {"body_rotate_u64": 1,
                             "multi_bit_keybundle": pairs,
-                            "multi_bit_accumulate_wide": k7_calls})
+                            "multi_bit_accumulate_wide_cluster": pairs})
     mb_launches = launches_of("multi_bit_keybundle",
-                              "multi_bit_accumulate_wide")
+                              "multi_bit_accumulate_wide_cluster")
     if not np.array_equal(ck.decrypt_message_and_carry(out), want):
         raise AssertionError("g4 3_3: the batch decrypts wrong")
     mask, body = switched(sk, ct)
@@ -4458,10 +4571,11 @@ def phase_wide(card, rate, rows):
                                  pk.multi_bit_keybundle_plain,
                                  (mask8, mbk, 0, G, bl, lv))
     bundles8 = pk.multi_bit_keybundle(mask8, mbk, 0, G, bl, lv)
-    b_err, b_plain = check_equal("multi_bit_accumulate_wide g4 3_3",
-                                 pk.multi_bit_accumulate_wide,
-                                 pk.multi_bit_accumulate_plain,
-                                 (acc8, bundles8, bl, lv))
+    b_errs, b_plain = check_equal_all(
+        "K7 multi-bit g4 3_3",
+        {"cluster": pk.multi_bit_accumulate_wide_cluster,
+         "global": pk.multi_bit_accumulate_wide},
+        pk.multi_bit_accumulate_plain, (acc8, bundles8, bl, lv))
     del bundles8
     chunks = [(t0, min(C, ng - t0)) for t0 in range(0, ng, C)]
     scratch = torch.empty(WIDE_MB_BATCH * C * P * lv * R * R * N,
@@ -4471,10 +4585,25 @@ def phase_wide(card, rate, rows):
     del scratch
     bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
                for c in {c for _, c in chunks}}
-    k7_mb_ms = cuda_ms(lambda: [pk.multi_bit_accumulate_wide(
-        acc, bundles[c], bl, lv) for _, c in chunks], 1)
+    k7_mb_ms, k7g_mb_ms = in_turns(
+        lambda: [pk.multi_bit_accumulate_wide_cluster(acc, bundles[c], bl, lv)
+                 for _, c in chunks],
+        lambda: [pk.multi_bit_accumulate_wide(acc, bundles[c], bl, lv)
+                 for _, c in chunks], 1)
     del bundles
     torch.cuda.empty_cache()
+    # batch 1: its own chunks (all ng steps in one at this shape)
+    C1 = pk.multi_bit_chunk(1, ng, P, lv * R, R, N)
+    one = [pk.multi_bit_keybundle(mask[:1].contiguous(), mbk, t0,
+                                  min(C1, ng - t0), bl, lv)
+           for t0 in range(0, ng, C1)]
+    acc1 = acc[:1].contiguous()
+    k7_mb_b1, k7g_mb_b1 = in_turns(
+        lambda: [pk.multi_bit_accumulate_wide_cluster(acc1, b, bl, lv)
+                 for b in one],
+        lambda: [pk.multi_bit_accumulate_wide(acc1, b, bl, lv) for b in one],
+        3)
+    del one, acc1
     mb_step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
                          warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
@@ -4487,23 +4616,34 @@ def phase_wide(card, rate, rows):
     b_bnd = bound(kb.multi_bit_accumulate_pipe_instructions(
         WIDE_MB_BATCH, ng, R, lv, N, P),
         accumulate_bytes(WIDE_MB_BATCH, ng, R, lv, N, P), rate)
+    b_bnd1 = bound(kb.multi_bit_accumulate_pipe_instructions(
+        1, ng, R, lv, N, P), accumulate_bytes(1, ng, R, lv, N, P), rate)
     print(f"g4 3_3 B={WIDE_MB_BATCH}: KS->PBS {mb_step_ms:.3f} ms = "
           f"{WIDE_MB_BATCH / mb_step_ms * 1e3:.1f} PBS/s; {len(chunks)} "
           f"chunks of {C} steps: K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
-          f"{a_bnd[1]}), K7 {k7_mb_ms:.3f} ms (bound {b_bnd[0]:.2f}, "
-          f"{b_bnd[1]}); K5a and K7 == plain on {WIDE_PLAIN_CTS} "
-          f"ciphertexts over {G} group steps (plain {a_plain:.1f}, "
-          f"{b_plain:.1f} ms); batch 1 KS->PBS {mb_b1_ms:.3f} ms; launches "
-          f"{mb_launches}; on {card}")
+          f"{a_bnd[1]}), K7 cluster kernel {k7_mb_ms:.3f} ms (bound "
+          f"{b_bnd[0]:.2f}, {b_bnd[1]}: {b_bnd[0] / k7_mb_ms:.1%}), K7 global "
+          f"{k7g_mb_ms:.3f} ms in turns; batch 1 ({ng} steps): cluster "
+          f"{k7_mb_b1:.3f}, global {k7g_mb_b1:.3f} ms; K5a and both designs "
+          f"== plain on {WIDE_PLAIN_CTS} ciphertexts over {G} group steps "
+          f"(plain {a_plain:.1f}, {b_plain:.1f} ms); batch 1 KS->PBS "
+          f"{mb_b1_ms:.3f} ms; launches {mb_launches}; on {card}")
     common = dict(source=WIDE_SOURCE, replaces=MB_REPLACES,
                   shape=f"g4 3_3 B={WIDE_MB_BATCH} n/g={ng} N={N} l={lv} "
-                  f"C={C}", note="no pallas_call: XLA in tfhe_tpu")
-    rows["multi_bit_accumulate_wide_g4_3_3"] = dict(
-        common, launches=mb_launches["multi_bit_accumulate_wide"],
-        max_abs_err=b_err, ms=k7_mb_ms, plain_ms=b_plain, bound=b_bnd,
-        plain_shape=f"B={WIDE_PLAIN_CTS}, {G} of {ng} group steps",
-        kernel="K7, K5b's function (Barrett MAC against the bundles), all "
-               "chunks of the call")
+                  f"C={C}", note="no pallas_call: XLA in tfhe_tpu",
+                  plain_shape=f"B={WIDE_PLAIN_CTS}, {G} of {ng} group steps")
+    rows["multi_bit_accumulate_wide_cluster_g4_3_3"] = dict(
+        common, launches=mb_launches["multi_bit_accumulate_wide_cluster"],
+        max_abs_err=b_errs["cluster"], ms=k7_mb_ms, plain_ms=b_plain,
+        bound=b_bnd, ms_b1=k7_mb_b1, bound_b1_ms=b_bnd1[0],
+        global_ms=k7g_mb_ms, global_ms_b1=k7g_mb_b1,
+        kernel="K7's cluster kernel, K5b's function (Barrett MAC against "
+               "the bundles), all chunks of the call")
+    wide_global["multi_bit_accumulate_wide_g4_3_3"] = dict(
+        common, max_abs_err=b_errs["global"], ms=k7g_mb_ms, plain_ms=b_plain,
+        bound=b_bnd, ms_b1=k7g_mb_b1,
+        kernel="K7 global, K5b's function, timed in turns with the cluster "
+               "kernel; launches: the N = 32768, l = 3 corner's")
     rows["multi_bit_keybundle_g4_3_3"] = dict(
         common, source=MB_SOURCE,
         launches=mb_launches["multi_bit_keybundle"], max_abs_err=a_err,
@@ -4515,14 +4655,24 @@ def phase_wide(card, rate, rows):
                    wide_mb_pbs_ms=mb_step_ms,
                    wide_mb_pbs_per_s=WIDE_MB_BATCH / mb_step_ms * 1e3,
                    wide_mb_k5a_ms=k5a_ms, wide_mb_k7_ms=k7_mb_ms,
+                   wide_mb_k7_global_ms=k7g_mb_ms, wide_mb_k7_b1_ms=k7_mb_b1,
+                   wide_mb_k7_global_b1_ms=k7g_mb_b1,
                    wide_mb_ks_pbs_b1_ms=mb_b1_ms)
     del ck, sk, ct, out, acc, mask, body, mbk, ct1, mask8, acc8
     torch.cuda.empty_cache()
 
-    # c. the corners
+    # c. the corners; K7 global's launches are theirs
     rng = np.random.default_rng(SEED + 24)
-    for corner in WIDE_CORNERS:
-        _wide_corner(*corner, rng)
+    corner = {c[0]: _wide_corner(*c, rng) for c in WIDE_CORNERS}
+    for name, label, wrapper in (
+            ("blind_rotate_wide_3_3", "classic_n32768", "blind_rotate_wide"),
+            ("blind_rotate_wide_acc32_3_3", "classic_n32768",
+             "blind_rotate_wide_acc32"),
+            ("multi_bit_accumulate_wide_g4_3_3", "multi_bit_n32768",
+             "multi_bit_accumulate_wide")):
+        rows[name] = dict(wide_global[name],
+                          launches=corner[label][wrapper],
+                          launches_on=f"corner {label}")
     summary["wide_s"] = time.perf_counter() - t_phase
     print(f"phase 24: {summary['wide_s']:.1f} s")
     return summary
@@ -4588,8 +4738,12 @@ def main() -> int:
              *(f"{row}_{shape}" for shape in MB_SHAPES for row in MB_ROWS
                if row != "blind_rotate_multi_bit_r14" or shape == "g4"),
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
+             "blind_rotate_wide_cluster_3_3",
+             "blind_rotate_wide_cluster_acc32_3_3",
              "blind_rotate_wide_3_3", "blind_rotate_wide_acc32_3_3",
-             "multi_bit_keybundle_g4_3_3", "multi_bit_accumulate_wide_g4_3_3",
+             "multi_bit_keybundle_g4_3_3",
+             "multi_bit_accumulate_wide_cluster_g4_3_3",
+             "multi_bit_accumulate_wide_g4_3_3",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in

@@ -147,14 +147,15 @@ def test_every_set_is_supported():
 
 
 #: kind -> (the universe's classes of that kind, sets refused on "cuda",
-#: sets whose CRT steps run on K7 there)
+#: sets whose CRT steps run on K7 there: on its cluster kernel, on K7
+#: global)
 ENVELOPE = {"classic": (("ClassicPBSParameters", "KeySwitch32PBSParameters"),
-                        32, 53),
-            "multi_bit": (("MultiBitPBSParameters",), 19, 121)}
+                        32, 48, 5),
+            "multi_bit": (("MultiBitPBSParameters",), 19, 76, 45)}
 
 
 @pytest.mark.parametrize("kind", list(ENVELOPE))
-def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu(kind, monkeypatch):
+def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     """On a CUDA device ``check_supported`` refuses, naming ROADMAP R10,
     the sets whose exact CRT steps no kernel holds: N = 65536 (one u32
     polynomial beyond a block's shared memory, acc and digits beyond it
@@ -164,10 +165,14 @@ def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu(kind, monkeypatch):
     ``_smem`` exports, ``step_passes.step_smem_bytes`` at 8-byte acc) but
     not those bounds pass and run on K7: 53 classic sets on the crt
     variant (every 3_3 set, the 4_4 sets at N = 32768) and 121 multi-bit
-    ones, the 3_3 GPU defaults among them; one v6b set more runs its
-    many-LUT and OPRF on K7. Every set passes on the CPU. ``ServerKey.
-    generate`` refuses before it draws a key (its client key here holds no
-    key material at all)."""
+    ones. Of them K7's cluster kernel takes those whose CTA fits a block
+    (``step_passes.cluster_smem_bytes``, ``pbs_kernel.wide_route``): 48
+    classic (N <= 16384, l = 2) and 76 multi-bit (N <= 8192, and N =
+    16384 at l = 2), both 3_3 GPU defaults among them; K7 global the
+    other 5 and 45 (N = 32768, or N = 16384 at l = 3). One v6b set more
+    runs its many-LUT and OPRF on K7. Every set passes on the CPU.
+    ``ServerKey.generate`` refuses before it draws a key (its client key
+    here holds no key material at all)."""
     import types
 
     import torch
@@ -177,10 +182,10 @@ def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu(kind, monkeypatch):
     from tfhe_tpu_torch.shortint.server_key import num_primes_for
 
     monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
-    classes, n_refused, n_wide = ENVELOPE[kind]
+    classes, n_refused, n_cluster, n_global = ENVELOPE[kind]
     sets = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
             if k in classes]
-    refused, wide = [], []
+    refused, wide, cluster = [], [], []
     for p in sets:
         check_supported(p, "cpu")
         N, levels = p.polynomial_size, p.pbs_level
@@ -196,10 +201,19 @@ def test_multi_bit_sets_k5_cannot_hold_refused_on_the_gpu(kind, monkeypatch):
         if smem > pk._SMEM_LIMIT and variant == "crt":
             assert N <= pk.WIDE_MAX_N
             wide.append(p)
-    assert len(refused) == n_refused and len(wide) == n_wide
+            P, R = num_primes_for(p), p.glwe_size
+            if sp.cluster_smem_bytes(P, R, levels, N, 8) <= pk._SMEM_LIMIT:
+                assert pk.wide_route(P, R, levels, N) == "cluster"
+                assert levels == 2 and N <= 16384 or N <= 8192
+                cluster.append(p)
+            else:
+                assert pk.wide_route(P, R, levels, N) == "global"
+                assert N == 32768 or (N == 16384 and levels == 3)
+    assert len(refused) == n_refused
+    assert (len(cluster), len(wide) - len(cluster)) == (n_cluster, n_global)
     assert all(pk.needs_wide(num_primes_for(p), p.glwe_size, p.pbs_level,
                              p.polynomial_size) for p in wide)
-    names = {p.name for p in wide}
+    names = {p.name for p in cluster}
     want = ("PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128" if kind ==
             "classic" else
             "PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_CARRY_3_KS_PBS_"

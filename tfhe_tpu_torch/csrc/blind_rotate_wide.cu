@@ -1,8 +1,8 @@
-// K7: the exact CRT blind rotation with its accumulator and digits in global
-// memory, for Hopper: every classic and multi-bit shape whose accumulator
-// and digit transforms, R N 8 + 4 P l R N bytes, exceed one block's shared
-// memory (232,448 B), up to N = 32768 (one u32 polynomial, 128 KiB, still
-// fits a block).
+// K7: the exact CRT blind rotation beyond one block's shared memory, for
+// Hopper: every classic and multi-bit shape whose accumulator and digit
+// transforms, R N 8 + 4 P l R N bytes, exceed one block's shared memory
+// (232,448 B), up to N = 32768 (one u32 polynomial, 128 KiB, still fits a
+// block).
 //
 // Replaces: tfhe_tpu/ops/pbs_kernel.py::_build_step_fn_v4.step (pallas_call
 // at :1867) with the garner_c tail (:1441), two-plane, and in acc32 mode
@@ -15,7 +15,47 @@
 // (blind_rotate_crt_plain, blind_rotate_crt_acc32_plain,
 // multi_bit_accumulate_plain).
 //
-// One CMUX step on a chunk of Bc ciphertexts is three launches:
+// Two designs, chosen by the wrapper from the shape alone
+// (ops/pbs_kernel.py::wide_route):
+//
+// The cluster kernel (wide_cluster_kernel; every shape whose CTA area below
+// fits a block, which holds the 3_3 sets): one thread-block cluster of
+// P R CTAs a ciphertext runs all n steps of the call in one launch, with
+// the accumulator and the digit transforms in the cluster's distributed
+// shared memory (DSMEM) throughout. CTA rank = r P + pi owns
+//   dig [max(l, R)][N] u32 (swizzled): the l forward-transformed digits of
+//       accumulator row r mod p_pi, then the R MAC partials over them,
+//       then row r's residues;
+//   acc [S] Acc: slice pi of accumulator row r, coefficients [pi S,
+//       pi S + S) (S = 2^ceil(log2(N / P)): with P not a power of two the
+//       last slices are short or empty);
+//   dsl [l][S] i32: the l balanced digits of that slice.
+// A step, each phase closed by a cluster barrier (4 a step):
+//   A. each CTA decomposes its slice: the hi word of X^a acc[r] - acc[r]
+//      (classic; its rotated operand read from the slice's owner over
+//      DSMEM) or of acc[r] itself (multi-bit), l digits into dsl. Once a
+//      coefficient, not once a (digit, prime) as K7 global's K7a: P times
+//      less chain work, and l N words of DSMEM a CTA instead of 2 N acc
+//      words;
+//   B. lift: the digits of row r read from their owners, mod p_pi, twisted,
+//      fused with the first forward pass; the forward passes
+//      (StepPasses<OnePrime>, as K7 global's: no key layout moves); the
+//      last two forward stages fused with the MAC: for every output row c,
+//      the partial sum over the CTA's l digit rows (Shoup against the
+//      step's key and duals from L2, or Barrett against the ciphertext's
+//      bundle), written over dig row c;
+//   C. the first inverse pass sums dig row r of CTAs (pi, .) (the partials
+//      pulled over DSMEM, 16 bytes a thread and row), then the inverse
+//      passes and the untwist: row r's canonical residues mod p_pi;
+//   D. Garner: each CTA gathers the P residues of its slice from CTAs
+//      (., r) and applies tails.cuh's tail, added to the slice (classic:
+//      GarnerTail, GarnerTail32) or in its place (multi-bit).
+// Nothing of a step goes through device memory but the key (or bundle) and
+// the constant tables: no per-step launch and no HBM round trip.
+//
+// K7 global (the three-stage design, for the rest: N = 32768, or N =
+// 16384 at l = 3), one CMUX step on a chunk of Bc ciphertexts in three
+// launches:
 //   K7a (wide_decompose_kernel), one block a (ciphertext, digit row
 //       j = lev R + r, prime): the balanced digit `lev` of the hi word of
 //       X^a acc[r] - acc[r] (classic) or of acc[r] itself (multi-bit, whose
@@ -37,14 +77,16 @@
 //
 // Bound: int32 operations at wide batches (P (l R + R) transforms of
 // N/2 log2 N butterflies a ciphertext-step, the MAC, the lift and the
-// tail), as K3; the design adds the digits' and residues' round trip
+// tail: K3 P=4's SASS per-pipe rule for the function). The cluster kernel
+// adds 4 cluster barriers a step and its DSMEM traffic (l N + N / P words
+// read a CTA-step, and the R - 1 partials and P - 1 residue words a
+// coefficient); K7 global adds the digits' and residues' round trip
 // through L2/HBM, (2 l R + 2 R) P N 4 bytes a ciphertext-step, and three
-// launches a step. It is the simple design: a persistent cooperative kernel
-// in place of the three launches, and K7c fused into the next step's K7a,
-// are later work.
+// launches a step.
 
 #include "ntt_common.cuh"
 #include "tails.cuh"
+#include "wgmma_int8.cuh"  // the cluster pieces
 
 using brk::GarnerTail;
 using brk::GarnerTail32;
@@ -315,6 +357,417 @@ int wide_classic(void* acc, const void* a_ms, const void* bsk,
     });
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernel: one cluster of P R CTAs a ciphertext, all n steps
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterThreads = 512;
+constexpr int kClusterMax = 8;       // the portable cluster size
+constexpr int kClusterMinLogN = 8;   // slices of >= 64 coefficients
+constexpr int kClusterMaxLogN = 14;  // the plan's passes: <= 5 a side
+constexpr int kClusterRowsMax = kClusterMax / 2;  // R <= 4 (P >= 2)
+constexpr size_t kSmemLimit = 232448;
+
+// log2 S, a CTA's accumulator slice: ceil(log2(N / P)) = log_n -
+// floor(log2 P)
+__host__ __device__ __forceinline__ int cluster_log_slice(int log_n, int P) {
+    int f = 0;
+    while ((2 << f) <= P) ++f;
+    return log_n - f;
+}
+
+// rows of a CTA's digit area: its l digit transforms, its R MAC partials
+__host__ __device__ __forceinline__ int cluster_rows(int R, int levels) {
+    return levels > R ? levels : R;
+}
+
+// bytes of a CTA's dynamic shared memory: dig [max(l, R)][N] u32, the
+// acc slice [S] and the slice's digits [l][S] i32
+size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes) {
+    const size_t N = size_t(1) << log_n;
+    const size_t S = size_t(1) << cluster_log_slice(log_n, P);
+    return cluster_rows(R, levels) * N * 4 + S * acc_bytes
+           + (size_t)levels * S * 4;
+}
+
+// Whether the cluster kernel takes this shape: a cluster of at most 8 CTAs,
+// its plan (passes of <= 3 stages, 5 a side), the hi-word decomposer and a
+// CTA area within a block's shared memory.
+bool cluster_fits(int R, int levels, int base_log, int log_n, int P,
+                  int acc_bytes) {
+    return P >= 2 && P <= brk::kMaxPrimes && R >= 1 && P * R <= kClusterMax
+           && levels >= 1 && base_log >= 1 && base_log * levels <= 31
+           && log_n >= kClusterMinLogN && log_n <= kClusterMaxLogN
+           && cluster_smem(R, levels, log_n, P, acc_bytes) <= kSmemLimit;
+}
+
+// The step's passes: forward stages [0, log_n - 2) in passes of <= 3 (the
+// first one lifts), then [log_n - 2, log_n) fused with the MAC; inverse
+// [log_n - 2, log_n) summing the partials, then stages log_n - 3 .. 0 in
+// passes of <= 3 (the last one untwists).
+WidePlan make_cluster_plan(int log_n) {
+    WidePlan pl{};
+    brk::split_stages(0, log_n - 2, false, &pl.n_fwd, pl.fwd_s0, pl.fwd_k);
+    pl.fwd_s0[pl.n_fwd] = log_n - 2;
+    pl.fwd_k[pl.n_fwd++] = 2;
+    pl.inv_s0[0] = log_n - 2;
+    pl.inv_k[0] = 2;
+    pl.n_inv = 1;
+    brk::split_stages(0, log_n - 2, true, &pl.n_inv, pl.inv_s0, pl.inv_k);
+    return pl;
+}
+
+template <class Acc>
+__device__ __forceinline__ Acc ld_cluster(uint32_t a);
+template <>
+__device__ __forceinline__ uint32_t ld_cluster<uint32_t>(uint32_t a) {
+    return wg::ld_cluster_u32(a);
+}
+template <>
+__device__ __forceinline__ uint64_t ld_cluster<uint64_t>(uint32_t a) {
+    return wg::ld_cluster_u64(a);
+}
+
+// B, the lift fused with the first forward pass (stages 0 .. K-1, hl = N >>
+// K, item (lev, g) at positions g + m hl): digit `lev` of position t read
+// from dsl of its owner, CTA r P + (t >> log_s), lifted mod p and twisted
+template <int K>
+__device__ void cluster_lift(uint32_t* dig, uint32_t dsl_sa, int r, int P,
+                             int levels, int log_n, int log_s,
+                             const uint32_t* __restrict__ tb, uint32_t p) {
+    const int N = 1 << log_n;
+    const int log_hl = log_n - K;
+    #pragma unroll 1
+    for (int u = threadIdx.x; u < levels << log_hl; u += blockDim.x) {
+        const int lev = u >> log_hl;
+        const int g = u & ((1 << log_hl) - 1);
+        uint32_t v[1 << K];
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m) {
+            const int t = g + (m << log_hl);
+            const int o = t >> log_s;
+            const int32_t d = (int32_t)wg::ld_cluster_u32(wg::mapa(
+                dsl_sa + 4u * (uint32_t)((lev << log_s) + t - (o << log_s)),
+                (uint32_t)(r * P + o)));
+            const uint32_t m_res =
+                d < 0 ? (uint32_t)(d + (int32_t)p) : (uint32_t)d;
+            v[m] = brk::shoup_mul(m_res, __ldg(tb + brk::T_TW * N + t),
+                                  __ldg(tb + brk::T_TW_SH * N + t), p);
+        }
+        brk::fwd_regs<K>(v, tb, N, 0, g, log_hl, p);
+        const int base = lev * N + g;
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m)
+            dig[brk::swz(base + (m << log_hl))] = v[m];
+    }
+    __syncthreads();
+}
+
+// B, the last two forward stages fused with the MAC: item g holds
+// positions 4g .. 4g + 3; per digit level the two stages, then for every
+// output row c, mac[c] += dig[lev] key[lev R + r][c] mod p; mac[c]
+// written over dig row c. key: the step's residues [P][l R][R][N] (the
+// duals P l R R N words on: classic) or the ciphertext's bundle (Bundle).
+template <bool Bundle>
+__device__ void cluster_mac(uint32_t* dig, const uint32_t* __restrict__ key,
+                            int pi, int r, int R, int levels, int P,
+                            int log_n, const uint32_t* __restrict__ tb,
+                            uint32_t p, uint64_t mu) {
+    constexpr int F = 2, E = 4;
+    const int N = 1 << log_n;
+    const int lR = levels * R;
+    const int s0 = log_n - F;
+    const long long duals = (long long)P * lR * R * N;
+    #pragma unroll 1
+    for (int g = threadIdx.x; g < N >> F; g += blockDim.x) {
+        const int t0 = g << F;
+        uint32_t mac[kClusterRowsMax][E];
+        #pragma unroll
+        for (int c = 0; c < kClusterRowsMax; ++c)
+            #pragma unroll
+            for (int m = 0; m < E; ++m) mac[c][m] = 0;
+        #pragma unroll 1
+        for (int lev = 0; lev < levels; ++lev) {
+            uint32_t d[E];
+            brk::lds_run<E>(dig, lev * N + t0, d);
+            brk::fwd_regs<F>(d, tb, N, s0, 0, 0, p);
+            const uint32_t* kr =
+                key + ((long long)(pi * lR + lev * R + r) * R) * N + t0;
+            #pragma unroll
+            for (int c = 0; c < kClusterRowsMax; ++c) {
+                if (c >= R) break;
+                uint32_t w[E];
+                brk::ldg_run<E>(kr + (long long)c * N, w);
+                if constexpr (Bundle) {
+                    #pragma unroll
+                    for (int m = 0; m < E; ++m)
+                        mac[c][m] = brk::add_mod(
+                            mac[c][m], mul_mod(d[m], w[m], p, mu), p);
+                } else {
+                    uint32_t ws[E];
+                    brk::ldg_run<E>(kr + duals + (long long)c * N, ws);
+                    #pragma unroll
+                    for (int m = 0; m < E; ++m)
+                        mac[c][m] = brk::add_mod(
+                            mac[c][m], brk::shoup_mul(d[m], w[m], ws[m], p),
+                            p);
+                }
+            }
+        }
+        #pragma unroll
+        for (int c = 0; c < kClusterRowsMax; ++c) {
+            if (c >= R) break;
+            brk::sts_run<E>(dig, c * N + t0, mac[c]);
+        }
+    }
+}
+
+// C, the first inverse pass (stages log_n - 1, log_n - 2, item g at 4g ..
+// 4g + 3) on row r: dig row r plus row r of every CTA (pi, q), q != r,
+// the R partials of output row r, then the two stages
+__device__ void cluster_sum(uint32_t* dig, uint32_t dig_sa, int pi, int r,
+                            int R, int P, int log_n,
+                            const uint32_t* __restrict__ tb, uint32_t p) {
+    constexpr int F = 2, E = 4;
+    const int N = 1 << log_n;
+    const int s0 = log_n - F;
+    #pragma unroll 1
+    for (int g = threadIdx.x; g < N >> F; g += blockDim.x) {
+        const int t0 = g << F;
+        uint32_t v[E];
+        brk::lds_run<E>(dig, r * N + t0, v);
+        const uint32_t at = dig_sa + 4u * (uint32_t)brk::swz(r * N + t0);
+        #pragma unroll 1
+        for (int q = 0; q < R; ++q) {
+            if (q == r) continue;
+            const uint4 w = wg::ld_cluster_v4(wg::mapa(at, (uint32_t)(q * P + pi)));
+            v[0] = brk::add_mod(v[0], w.x, p);
+            v[1] = brk::add_mod(v[1], w.y, p);
+            v[2] = brk::add_mod(v[2], w.z, p);
+            v[3] = brk::add_mod(v[3], w.w, p);
+        }
+        brk::inv_regs<F>(v, tb, N, s0, 0, 0, p);
+        brk::sts_run<E>(dig, r * N + t0, v);
+    }
+    __syncthreads();
+}
+
+// C, the last inverse pass (stages K-1 .. 0, hl = N >> K) of row x with the
+// untwist: canonical residues in place
+template <int K>
+__device__ void cluster_untwist(uint32_t* x, int log_n,
+                                const uint32_t* __restrict__ tb, uint32_t p) {
+    const int N = 1 << log_n;
+    const int log_hl = log_n - K;
+    #pragma unroll 1
+    for (int g = threadIdx.x; g < 1 << log_hl; g += blockDim.x) {
+        uint32_t v[1 << K];
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m)
+            v[m] = x[brk::swz(g + (m << log_hl))];
+        brk::inv_regs<K>(v, tb, N, 0, g, log_hl, p);
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m) {
+            const int t = g + (m << log_hl);
+            x[brk::swz(t)] = brk::shoup_mul(v[m], __ldg(tb + brk::T_UTW * N + t),
+                                            __ldg(tb + brk::T_UTW_SH * N + t),
+                                            p);
+        }
+    }
+}
+
+// The cluster kernel. Grid: B P R CTAs in clusters of P R, ciphertext b =
+// blockIdx.x / (P R), rank r P + pi. acc_in, acc_out: Acc [B, R, N];
+// classic: a_ms i32 [B, n_steps] in [0, 2N), key u32 [n_steps, 2, P, l R,
+// R, N] (step i at i key_step); Bundle: key the bundles u32 [B, n_steps,
+// P, l R, R, N] (ciphertext b at b key_b, step tt at tt key_step). The
+// prime, its Barrett constant and the decomposer are read or built where
+// used, which keeps the step loop's live registers within 64.
+template <class Tail, bool Bundle>
+__global__ void __launch_bounds__(kClusterThreads, brk::min_blocks(Tail::P))
+wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
+                    typename Tail::Acc* __restrict__ acc_out,
+                    const int32_t* __restrict__ a_ms,
+                    const uint32_t* __restrict__ key, long long key_b,
+                    long long key_step, int n_steps,
+                    const uint32_t* __restrict__ tables, int R, int levels,
+                    int base_log, int log_n,
+                    const __grid_constant__ WidePlan pl,
+                    const __grid_constant__ WidePrimes pr,
+                    const __grid_constant__ Tail tail) {
+    using Acc = typename Tail::Acc;
+    constexpr int P = Tail::P;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __shared__ uint32_t s_p[1];
+    __shared__ uint64_t s_mu[1];
+    const int N = 1 << log_n;
+    const int log_s = cluster_log_slice(log_n, P);
+    const int S = 1 << log_s;
+    uint32_t* dig = reinterpret_cast<uint32_t*>(smem_raw);
+    Acc* acc = reinterpret_cast<Acc*>(dig + cluster_rows(R, levels) * N);
+    int32_t* dsl = reinterpret_cast<int32_t*>(acc + S);
+    const int rank = (int)wg::cluster_rank();
+    const int pi = rank % P, r = rank / P;
+    const long long b = blockIdx.x / (P * R);
+    if (threadIdx.x == 0) {
+        s_p[0] = pr.p[pi];
+        s_mu[0] = pr.mu[pi];
+    }
+    const uint32_t* tb = tables + (long long)pi * brk::T_COUNT * N;
+    const int base = pi << log_s;  // my slice: [base, base + len)
+    const int len = N - base < S ? (N - base > 0 ? N - base : 0) : S;
+    const long long row = (b * R + r) * N + base;
+    for (int u = threadIdx.x; u < len; u += blockDim.x) acc[u] = acc_in[row + u];
+    const uint32_t acc_sa = wg::smem_u32(acc), dsl_sa = wg::smem_u32(dsl),
+                   dig_sa = wg::smem_u32(dig);
+    // every CTA of the cluster runs before any DSMEM access
+    wg::cluster_sync<false>();
+
+    #pragma unroll 1
+    for (int step = 0; step < n_steps; ++step) {
+        // A. the digits of my slice
+        {
+            const int a = Bundle ? 0 : a_ms[b * n_steps + step];
+            const brk::HiDecomposer dec(base_log, levels);
+            #pragma unroll 1
+            for (int u = threadIdx.x; u < len; u += blockDim.x) {
+                Acc v = acc[u];
+                if (!Bundle) {
+                    int s = base + u - a;
+                    if (s < 0) s += 2 * N;
+                    const bool neg = s >= N;
+                    if (neg) s -= N;
+                    const int o = s >> log_s;
+                    Acc y = ld_cluster<Acc>(wg::mapa(
+                        acc_sa + (uint32_t)(sizeof(Acc) * (s - (o << log_s))),
+                        (uint32_t)(r * P + o)));
+                    if (neg) y = Acc(0) - y;
+                    v = Acc(y - v);
+                }
+                int32_t state = dec.init(brk::hi_word(v));
+                #pragma unroll 1
+                for (int lev = 0; lev < levels; ++lev)
+                    dsl[(lev << log_s) + u] = dec.next(state);
+            }
+        }
+        wg::cluster_sync<false>();
+
+        // B. lift, forward passes, MAC (the first of the passes over the
+        // 6..12 stages below the MAC's holds 3 stages at every log_n of the
+        // envelope; the last inverse pass 2 or 3)
+        cluster_lift<3>(dig, dsl_sa, r, P, levels, log_n, log_s, tb, s_p[0]);
+        #pragma unroll
+        for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+            if (i + 1 < pl.n_fwd)
+                Passes1::pass_k<false>(pl.fwd_k[i], dig, levels, log_n,
+                                       pl.fwd_s0[i], tb, s_p);
+        cluster_mac<Bundle>(dig, key + b * key_b + step * key_step, pi, r, R,
+                            levels, P, log_n, tb, s_p[0], s_mu[0]);
+        wg::cluster_sync<false>();
+
+        // C. the partials summed, the inverse passes, the untwist
+        cluster_sum(dig, dig_sa, pi, r, R, P, log_n, tb, s_p[0]);
+        uint32_t* x = dig + r * N;
+        #pragma unroll
+        for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+            if (i + 1 < pl.n_inv)
+                Passes1::pass_k<true>(pl.inv_k[i], x, 1, log_n, pl.inv_s0[i],
+                                      tb, s_p);
+        if (pl.inv_k[pl.n_inv - 1] == 2)
+            cluster_untwist<2>(x, log_n, tb, s_p[0]);
+        else
+            cluster_untwist<3>(x, log_n, tb, s_p[0]);
+        wg::cluster_sync<false>();
+
+        // D. Garner: my slice's residues from CTAs (., r), 4 coefficients a
+        // thread
+        #pragma unroll 1
+        for (int u = 4 * threadIdx.x; u < len; u += 4 * blockDim.x) {
+            const uint32_t at =
+                dig_sa + 4u * (uint32_t)brk::swz(r * N + base + u);
+            uint32_t m4[P][4];
+            #pragma unroll
+            for (int q = 0; q < P; ++q) {
+                const uint4 w =
+                    wg::ld_cluster_v4(wg::mapa(at, (uint32_t)(r * P + q)));
+                m4[q][0] = w.x; m4[q][1] = w.y; m4[q][2] = w.z; m4[q][3] = w.w;
+            }
+            #pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                uint32_t m[P];
+                #pragma unroll
+                for (int q = 0; q < P; ++q) m[q] = m4[q][e];
+                const Acc inc = tail(m);
+                acc[u + e] = Bundle ? inc : Acc(acc[u + e] + inc);
+            }
+        }
+        wg::cluster_sync<false>();
+    }
+    for (int u = threadIdx.x; u < len; u += blockDim.x) acc_out[row + u] = acc[u];
+}
+
+// Launch the cluster kernel on B ciphertexts: grid B P R, clusters of P R.
+// Returns the launch's error (0 = launched), or cudaErrorInvalidValue for a
+// shape it does not take.
+template <class Tail, bool Bundle>
+int launch_cluster(const typename Tail::Acc* acc_in,
+                   typename Tail::Acc* acc_out, const int32_t* a_ms,
+                   const uint32_t* key, long long key_b, long long key_step,
+                   const uint32_t* tables, int B, int n_steps, int R,
+                   int levels, int base_log, int log_n, const Tail& tail,
+                   const unsigned long long* mu, cudaStream_t stream) {
+    using Acc = typename Tail::Acc;
+    constexpr int P = Tail::P;
+    if (!cluster_fits(R, levels, base_log, log_n, P, (int)sizeof(Acc))
+        || B < 1 || (long long)B * P * R > 0x7fffffffLL || n_steps < 1)
+        return (int)cudaErrorInvalidValue;
+    auto kernel = wide_cluster_kernel<Tail, Bundle>;
+    const size_t smem = cluster_smem(R, levels, log_n, P, (int)sizeof(Acc));
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    WidePrimes pr{};
+    for (int i = 0; i < P; ++i) {
+        pr.p[i] = tail.p[i];
+        pr.mu[i] = mu ? mu[i] : 0ull;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(B * P * R));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = P * R;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, acc_in, acc_out, a_ms, key, key_b,
+                             key_step, n_steps, tables, R, levels, base_log,
+                             log_n, make_cluster_plan(log_n), pr, tail);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+template <template <int> class Tail>
+int cluster_classic(const void* acc_in, void* acc_out, const void* a_ms,
+                    const void* bsk, const void* tables, int B, int n_steps,
+                    int R, int levels, int base_log, int log_n,
+                    int num_primes, const unsigned* garner,
+                    unsigned long long full_prod, void* stream) {
+    return for_primes<Tail>(num_primes, [&](auto t) {
+        using T = decltype(t);
+        using Acc = typename T::Acc;
+        brk::fill_garner(t, garner, full_prod);
+        const long long key_step = 2LL * T::P * levels * R * R << log_n;
+        return launch_cluster<T, false>(
+            (const Acc*)acc_in, (Acc*)acc_out, (const int32_t*)a_ms,
+            (const uint32_t*)bsk, 0, key_step, (const uint32_t*)tables, B,
+            n_steps, R, levels, base_log, log_n, t, nullptr,
+            (cudaStream_t)stream);
+    });
+}
+
 }  // namespace
 
 // K7, classic, on the u64 accumulator (GarnerTail<P>): all n_steps CMUX
@@ -402,5 +855,115 @@ extern "C" int blind_rotate_wide_occupancy(int num_primes, int R, int levels,
     return for_primes<GarnerTail>(num_primes, [&](auto t) {
         return occ(wide_garner_kernel<decltype(t), false>, kGarnerThreads,
                    (size_t)0);
+    });
+}
+
+// K7, the cluster kernel (wide_cluster_kernel), classic, on the u64
+// accumulator (GarnerTail<P>): all n_steps CMUX steps of B ciphertexts in
+// one launch, a cluster of P R CTAs a ciphertext. acc_in, acc_out: u64
+// [B, R, N]; a_ms, bsk, tables, garner as blind_rotate_wide's. Returns the
+// launch's error (0 = launched), or cudaErrorInvalidValue for a shape the
+// cluster kernel does not take (blind_rotate_wide_cluster_smem: 0).
+extern "C" int blind_rotate_wide_cluster(
+        const void* acc_in, void* acc_out, const void* a_ms, const void* bsk,
+        const void* tables, int B, int n_steps, int R, int levels,
+        int base_log, int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, void* stream) {
+    return cluster_classic<GarnerTail>(acc_in, acc_out, a_ms, bsk, tables, B,
+                                       n_steps, R, levels, base_log, log_n,
+                                       num_primes, garner, full_prod, stream);
+}
+
+// The cluster kernel, classic, acc32 (GarnerTail32<P>): acc_in, acc_out
+// the u32 hi plane [B, R, N]; the rest as blind_rotate_wide_cluster's.
+extern "C" int blind_rotate_wide_cluster_acc32(
+        const void* acc_in, void* acc_out, const void* a_ms, const void* bsk,
+        const void* tables, int B, int n_steps, int R, int levels,
+        int base_log, int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, void* stream) {
+    return cluster_classic<GarnerTail32>(acc_in, acc_out, a_ms, bsk, tables,
+                                         B, n_steps, R, levels, base_log,
+                                         log_n, num_primes, garner, full_prod,
+                                         stream);
+}
+
+// The cluster kernel, multi-bit (K5b's function): the `count` group steps
+// of B ciphertexts against their bundles u32 [B, count, P, levels*R, R, N],
+// each step's Garner value replacing acc; mu: host u64[5], floor(2^64 /
+// p); the rest as blind_rotate_wide_cluster's.
+extern "C" int multi_bit_accumulate_wide_cluster(
+        const void* acc_in, void* acc_out, const void* bundles,
+        const void* tables, int B, int count, int R, int levels, int base_log,
+        int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, const unsigned long long* mu,
+        void* stream) {
+    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+        using T = decltype(t);
+        brk::fill_garner(t, garner, full_prod);
+        const long long key_step = (long long)T::P * levels * R * R << log_n;
+        return launch_cluster<T, true>(
+            (const uint64_t*)acc_in, (uint64_t*)acc_out, nullptr,
+            (const uint32_t*)bundles, count * key_step, key_step,
+            (const uint32_t*)tables, B, count, R, levels, base_log, log_n, t,
+            mu, (cudaStream_t)stream);
+    });
+}
+
+// Dynamic shared memory of one CTA of the cluster kernel at this shape
+// (acc bytes 8, 4 for the acc32 entry), 0 for a shape it does not take
+// (base_log 1: any decomposer the shape admits).
+extern "C" unsigned long long blind_rotate_wide_cluster_smem(
+        int P, int R, int levels, int log_n) {
+    return cluster_fits(R, levels, 1, log_n, P, 8)
+               ? cluster_smem(R, levels, log_n, P, 8) : 0;
+}
+extern "C" unsigned long long blind_rotate_wide_cluster_acc32_smem(
+        int P, int R, int levels, int log_n) {
+    return cluster_fits(R, levels, 1, log_n, P, 4)
+               ? cluster_smem(R, levels, log_n, P, 4) : 0;
+}
+extern "C" unsigned long long multi_bit_accumulate_wide_cluster_smem(
+        int P, int R, int levels, int log_n) {
+    return blind_rotate_wide_cluster_smem(P, R, levels, log_n);
+}
+
+// The classic u64 cluster kernel at this shape: out[0..5] = registers and
+// local (spill) bytes a thread, dynamic shared memory, cluster size,
+// resident CTAs per SM and clusters resident on the card
+// (cudaOccupancyMaxActiveClusters). Returns 0, a negative CUDA error, or
+// 1 for a shape it does not take.
+extern "C" int blind_rotate_wide_cluster_occupancy(int num_primes, int R,
+                                                   int levels, int log_n,
+                                                   int* out) {
+    if (!cluster_fits(R, levels, 1, log_n, num_primes, 8)) return 1;
+    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+        using T = decltype(t);
+        auto kernel = wide_cluster_kernel<T, false>;
+        const size_t smem = cluster_smem(R, levels, log_n, T::P, 8);
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return -(int)err;
+        out[0] = attr.numRegs;
+        out[1] = (int)attr.localSizeBytes;
+        out[2] = (int)smem;
+        out[3] = T::P * R;
+        err = allow_smem(kernel, smem);
+        if (err != cudaSuccess) return -(int)err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[4], kernel, kClusterThreads, smem);
+        if (err != cudaSuccess) return -(int)err;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((unsigned)(T::P * R * 64));
+        cfg.blockDim = dim3(kClusterThreads);
+        cfg.dynamicSmemBytes = smem;
+        cudaLaunchAttribute a;
+        a.id = cudaLaunchAttributeClusterDimension;
+        a.val.clusterDim.x = T::P * R;
+        a.val.clusterDim.y = 1;
+        a.val.clusterDim.z = 1;
+        cfg.attrs = &a;
+        cfg.numAttrs = 1;
+        err = cudaOccupancyMaxActiveClusters(&out[5], kernel, &cfg);
+        return err == cudaSuccess ? 0 : -(int)err;
     });
 }

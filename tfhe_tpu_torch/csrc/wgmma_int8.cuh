@@ -184,6 +184,24 @@ __device__ __forceinline__ void st_cluster(uint32_t a, uint32_t x,
                  :: "r"(a), "r"(x), "r"(y) : "memory");
 }
 
+// loads from shared::cluster address a (mapa's): a word, a u64, 16 bytes
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t a) {
+    uint32_t v;
+    asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ uint64_t ld_cluster_u64(uint32_t a) {
+    uint64_t v;
+    asm volatile("ld.shared::cluster.u64 %0, [%1];\n" : "=l"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t a) {
+    uint4 v;
+    asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+    return v;
+}
+
 // every thread of the cluster: writes before it (shared memory of any CTA
 // of the cluster) are seen after it by every thread and, with Async, by
 // the async proxy (wgmma) too

@@ -180,7 +180,8 @@ SASS_OPS = {
 #: the toolkit whose SASS :data:`SASS_OPS` was read from
 SASS_TOOLKIT = "Build cuda_12.9.r12.9/compiler.36037853_0"
 
-#: per :data:`SASS_OPS` kernel: its library, a part of its mangled name, and
+#: per :data:`SASS_OPS` kernel (and K7's cluster kernel, bounded by K3
+#: P=4's row): its library, a part of its mangled name, and
 #: (ALU, FMA) data instructions summed over every loop of that kernel, as
 #: ``sass_loops.loops`` counted them in the SASS that :data:`SASS_OPS` was
 #: read from (the step kernels' rows: in the build of their pass loops,
@@ -223,6 +224,12 @@ SASS_LOOP_TOTALS = {
                                  "keybundle_kernelILi4ELi4E", (91, 128)),
     "multi_bit_accumulate/4": ("blind_rotate_multi_bit",
                                "accumulate_kernelILi4E", (3353, 3599)),
+    # K7's cluster kernel, classic u64 at P = 4 (the 3_3 step; its bound
+    # stays the function's: K3 P=4's SASS_OPS row, chip_smoke.step_bound)
+    "blind_rotate_wide_cluster/4": ("blind_rotate_wide",
+                                    ("wide_cluster_kernel",
+                                     "10GarnerTailILi4EEELb0E"),
+                                    (1062, 1162)),
     "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
     "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1E", (9, 11)),
     "kb_mac": ("kernel_bench", "kb_mac_kernel", (35, 28)),

@@ -1,8 +1,8 @@
 """The blind-rotation kernels of the PBS paths: wrappers, plain PyTorch
 versions and launch counts.
 
-Fifteen wrappers, ten replacing a Pallas kernel of
-``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``, four the XLA
+Eighteen wrappers, twelve replacing a Pallas kernel of
+``tfhe_tpu/ops/pbs_kernel.py`` or ``pbs_kernel_g.py``, five the XLA
 multi-bit rotation of ``tfhe_tpu/ops/server.py`` and one the XLA rotation
 of ``tfhe_tpu/ops/ntt64_pbs.py``:
 
@@ -45,14 +45,20 @@ of ``tfhe_tpu/ops/ntt64_pbs.py``:
   mod the Goldilocks prime, in one launch (K4's loop with the rotation,
   the decomposer and the accumulate mod q).
 
-- K7 ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
-  ``multi_bit_accumulate_wide`` (``csrc/blind_rotate_wide.cu``) compute K3's,
-  K3-acc32's and K5b's functions with the accumulator and the digits in
-  global memory, three stage launches a step, at the shapes whose acc and
-  digits exceed one block's shared memory (N up to :data:`WIDE_MAX_N`):
+- K7 (``csrc/blind_rotate_wide.cu``) computes K3's, K3-acc32's and K5b's
+  functions at the shapes whose acc and digits exceed one block's shared
+  memory (N up to :data:`WIDE_MAX_N`), in two designs:
+  ``blind_rotate_wide_cluster``, ``blind_rotate_wide_cluster_acc32`` and
+  ``multi_bit_accumulate_wide_cluster``, the cluster kernel (one
+  thread-block cluster of P R CTAs a ciphertext, acc and digits in
+  distributed shared memory for all steps, one launch a call), wherever
+  its CTA fits a block (:func:`fits_cluster`: the 3_3 sets); and
+  ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
+  ``multi_bit_accumulate_wide``, K7 global (acc and digits in global
+  memory, three stage launches a step), for the rest.
   :func:`blind_rotate_crt`, :func:`blind_rotate_crt_acc32` and
-  :func:`multi_bit_accumulate` choose K3 / K5b or K7 from the shape alone
-  (:func:`needs_wide`).
+  :func:`multi_bit_accumulate` choose K3 / K5b, the cluster kernel or K7
+  global from the shape alone (:func:`wide_route`).
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -328,7 +334,10 @@ _STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
               "multi_bit_accumulate": "blind_rotate_multi_bit",
               "blind_rotate_multi_bit_r14": "blind_rotate_multi_bit",
               "kb_step_bnf2_acc32_r2": "kernel_bench",
-              "kb_step_crt_r2": "kernel_bench"}
+              "kb_step_crt_r2": "kernel_bench",
+              "blind_rotate_wide_cluster": "blind_rotate_wide",
+              "blind_rotate_wide_cluster_acc32": "blind_rotate_wide",
+              "multi_bit_accumulate_wide_cluster": "blind_rotate_wide"}
 
 
 def _step_lib(entry: str):
@@ -342,10 +351,13 @@ def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     ``entry`` (``blind_rotate_bnf2_acc32``, ``blind_rotate_crt``,
     ``blind_rotate_crt_acc32``, ``blind_rotate_bnf2_u64``,
     ``blind_rotate_goldilocks`` at P = 1, ``multi_bit_accumulate`` (K5b),
-    ``blind_rotate_multi_bit_r14``, or the kernel bench's references
-    ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``) at P
+    ``blind_rotate_multi_bit_r14``, the kernel bench's references
+    ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``, or a CTA of K7's cluster
+    kernel, ``blind_rotate_wide_cluster``, ``_acc32``,
+    ``multi_bit_accumulate_wide_cluster``) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
-    for a prime count the entry does not take. Needs the built library."""
+    for a prime count (or shape) the entry does not take. Needs the built
+    library."""
     fn = getattr(_step_lib(entry), f"{entry}_smem")
     _declare_smem(fn)
     return fn(P, R, levels, N.bit_length() - 1)
@@ -595,14 +607,14 @@ def launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
 
 
 def _wide_shape(acc: torch.Tensor, key: torch.Tensor, levels: int,
-                acc_bytes: int) -> bool:
-    """Whether an operand pair of K3 (key [n, 2, P, l R, R, N]) or K5b
-    (bundles [B, count, P, l R, R, N]) goes to K7: :func:`needs_wide` at
-    its shape (False for operands of another rank: K3's and K5b's own
-    checks raise on them)."""
+                acc_bytes: int):
+    """Where an operand pair of K3 (key [n, 2, P, l R, R, N]) or K5b
+    (bundles [B, count, P, l R, R, N]) goes: :func:`wide_route` at its
+    shape, None (K3 / K5b), "cluster" or "global" (None for operands of
+    another rank: K3's and K5b's own checks raise on them)."""
     if acc.ndim != 3 or key.ndim != 6:
-        return False
-    return needs_wide(key.shape[2], acc.shape[1], levels, acc.shape[2],
+        return None
+    return wide_route(key.shape[2], acc.shape[1], levels, acc.shape[2],
                       acc_bytes)
 
 
@@ -611,12 +623,16 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
                      levels: int) -> torch.Tensor:
     """K3 wrapper, Garner tail: see :func:`blind_rotate_crt_plain`. A
     shape whose acc and digits exceed a block's shared memory goes to K7
-    (:func:`blind_rotate_wide`), which counts its own launches."""
+    (:func:`wide_route`: :func:`blind_rotate_wide_cluster`, or
+    :func:`blind_rotate_wide`), which counts its own launches."""
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
-    if _wide_shape(acc, bsk_scan, levels, 8):
-        return blind_rotate_wide(acc, msed_mask, bsk_scan, base_log, levels)
+    route = _wide_shape(acc, bsk_scan, levels, 8)
+    if route:
+        fn = (blind_rotate_wide_cluster if route == "cluster"
+              else blind_rotate_wide)
+        return fn(acc, msed_mask, bsk_scan, base_log, levels)
     out = launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
                       levels)
     blind_rotate_crt.launches += 1
@@ -627,13 +643,16 @@ def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
                            bsk_scan: torch.Tensor, base_log: int,
                            levels: int) -> torch.Tensor:
     """K3-acc32 wrapper: see :func:`blind_rotate_crt_acc32_plain`. Beyond
-    a block's shared memory: K7 (:func:`blind_rotate_wide_acc32`)."""
+    a block's shared memory: K7 (:func:`blind_rotate_wide_cluster_acc32`
+    or :func:`blind_rotate_wide_acc32`, :func:`wide_route`)."""
     if acc_hi.device.type == "cpu":
         return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
                                             base_log, levels)
-    if _wide_shape(acc_hi, bsk_scan, levels, 4):
-        return blind_rotate_wide_acc32(acc_hi, msed_mask, bsk_scan, base_log,
-                                       levels)
+    route = _wide_shape(acc_hi, bsk_scan, levels, 4)
+    if route:
+        fn = (blind_rotate_wide_cluster_acc32 if route == "cluster"
+              else blind_rotate_wide_acc32)
+        return fn(acc_hi, msed_mask, bsk_scan, base_log, levels)
     out = launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
                       base_log, levels)
     blind_rotate_crt_acc32.launches += 1
@@ -1109,11 +1128,16 @@ def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
                          base_log: int, levels: int) -> torch.Tensor:
     """K5b wrapper: see :func:`multi_bit_accumulate_plain`. A shape whose
     acc and digits exceed a block's shared memory goes to K7
-    (:func:`multi_bit_accumulate_wide`), which counts its own launches."""
+    (:func:`multi_bit_accumulate_wide_cluster` or
+    :func:`multi_bit_accumulate_wide`, :func:`wide_route`), which counts
+    its own launches."""
     if acc.device.type == "cpu":
         return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
-    if _wide_shape(acc, bundles, levels, 8):
-        return multi_bit_accumulate_wide(acc, bundles, base_log, levels)
+    route = _wide_shape(acc, bundles, levels, 8)
+    if route:
+        fn = (multi_bit_accumulate_wide_cluster if route == "cluster"
+              else multi_bit_accumulate_wide)
+        return fn(acc, bundles, base_log, levels)
     B, R, N = _acc_shapes("multi_bit_accumulate", acc, MB_PRIMES, base_log,
                           levels, torch.int64)
     _check(bundles, "bundles", torch.int32, 6, acc.device)
@@ -1201,8 +1225,9 @@ blind_rotate_multi_bit_r14.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K7: K3's and K5b's functions with the accumulator and digits in global
-# memory
+# K7: K3's and K5b's functions beyond a block's shared memory: the cluster
+# kernel (acc and digits in a cluster's distributed shared memory) and K7
+# global (acc and digits in global memory)
 # ---------------------------------------------------------------------------
 
 #: K7's largest N: one u32 polynomial (128 KiB) in a block's shared memory
@@ -1226,6 +1251,51 @@ def needs_wide(P: int, R: int, levels: int, N: int,
     so that K7 runs it in place of K3 (``acc_bytes`` 8, or 4 for acc32) or
     K5b (8)."""
     return step_smem_formula(P, R, levels, N, acc_bytes) > _SMEM_LIMIT
+
+
+#: the cluster kernel's largest cluster (the portable maximum) and its N
+CLUSTER_MAX_CTAS = 8
+CLUSTER_MIN_N, CLUSTER_MAX_N = 256, 16384
+
+
+def cluster_log_slice(N: int, P: int) -> int:
+    """log2 of a cluster CTA's accumulator slice S = 2^ceil(log2(N / P))
+    (``cluster_log_slice`` in ``csrc/blind_rotate_wide.cu``)."""
+    return (N.bit_length() - 1) - (P.bit_length() - 1)
+
+
+def cluster_smem_formula(P: int, R: int, levels: int, N: int,
+                         acc_bytes: int) -> int:
+    """Bytes of one CTA of the cluster kernel: its digit area [max(l, R)][N]
+    u32, its accumulator slice [S] and the slice's digits [l][S] i32 (the
+    formula of the ``blind_rotate_wide_cluster*_smem`` exports, which
+    ``chip_smoke.py``'s build phase holds equal), without the library."""
+    S = 1 << cluster_log_slice(N, P)
+    return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
+
+
+def fits_cluster(P: int, R: int, levels: int, N: int,
+                 acc_bytes: int = 8) -> bool:
+    """Whether the cluster kernel takes this shape: P R CTAs, at most
+    :data:`CLUSTER_MAX_CTAS`, N in CLUSTER_MIN_N..CLUSTER_MAX_N, and a CTA
+    within a block's shared memory (``cluster_fits`` less its decomposer
+    bound, :func:`crt_refusal`'s)."""
+    return (2 <= P <= MAX_CRT_PRIMES and R >= 1 and levels >= 1
+            and P * R <= CLUSTER_MAX_CTAS
+            and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N
+            and cluster_smem_formula(P, R, levels, N, acc_bytes)
+            <= _SMEM_LIMIT)
+
+
+def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8):
+    """The kernel of a CRT step at this shape, from the shape alone: None
+    (K3, or K5b: acc and digits fit a block), "cluster" (K7's cluster
+    kernel: its CTA fits) or "global" (K7 global, the three-stage
+    design)."""
+    if not needs_wide(P, R, levels, N, acc_bytes):
+        return None
+    return "cluster" if fits_cluster(P, R, levels, N, acc_bytes) \
+        else "global"
 
 
 def crt_refusal(P: int, R: int, levels: int, base_log: int, N: int):
@@ -1354,10 +1424,10 @@ def _wide_classic(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
 def blind_rotate_wide(acc: torch.Tensor, msed_mask: torch.Tensor,
                       bsk_scan: torch.Tensor, base_log: int,
                       levels: int) -> torch.Tensor:
-    """K7 wrapper, K3's function on the u64 accumulator (see
-    :func:`blind_rotate_crt_plain`) at any shape of K7's envelope; one
-    launch counted an entry call (the 3 n stage launches of a chunk of
-    :func:`wide_chunk` ciphertexts)."""
+    """K7 global (the three-stage design), K3's function on the u64
+    accumulator (see :func:`blind_rotate_crt_plain`) at any shape of K7's
+    envelope; one launch counted an entry call (the 3 n stage launches of a
+    chunk of :func:`wide_chunk` ciphertexts)."""
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
@@ -1370,7 +1440,7 @@ def blind_rotate_wide(acc: torch.Tensor, msed_mask: torch.Tensor,
 def blind_rotate_wide_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
                             bsk_scan: torch.Tensor, base_log: int,
                             levels: int) -> torch.Tensor:
-    """K7 wrapper, K3-acc32's function on the u32 hi plane (see
+    """K7 global, K3-acc32's function on the u32 hi plane (see
     :func:`blind_rotate_crt_acc32_plain`); launches counted as
     :func:`blind_rotate_wide`'s."""
     if acc_hi.device.type == "cpu":
@@ -1393,7 +1463,7 @@ def _barrett_host(plan: ntt_mod.NegacyclicNtt):
 
 def multi_bit_accumulate_wide(acc: torch.Tensor, bundles: torch.Tensor,
                               base_log: int, levels: int) -> torch.Tensor:
-    """K7 wrapper, K5b's function (see :func:`multi_bit_accumulate_plain`)
+    """K7 global, K5b's function (see :func:`multi_bit_accumulate_plain`)
     at any shape of K7's envelope; launches counted as
     :func:`blind_rotate_wide`'s."""
     if acc.device.type == "cpu":
@@ -1420,10 +1490,149 @@ blind_rotate_wide_acc32.launches = 0
 multi_bit_accumulate_wide.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _k7c_lib():
+    lib = _k7_lib()
+    i, v, ull = ctypes.c_int, ctypes.c_void_p, ctypes.c_ulonglong
+    for entry in (lib.blind_rotate_wide_cluster,
+                  lib.blind_rotate_wide_cluster_acc32):
+        entry.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v]
+        entry.restype = ctypes.c_int
+    lib.multi_bit_accumulate_wide_cluster.argtypes = [
+        v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
+    lib.multi_bit_accumulate_wide_cluster.restype = ctypes.c_int
+    lib.blind_rotate_wide_cluster_occupancy.argtypes = [
+        i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.blind_rotate_wide_cluster_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def wide_cluster_occupancy(P: int, R: int, levels: int, N: int) -> dict:
+    """The classic cluster kernel at this shape: registers and local
+    (spill) bytes a thread, dynamic shared memory a CTA, cluster size,
+    resident CTAs per SM and clusters resident on the card
+    (``cudaOccupancyMaxActiveClusters``). Needs the built library and a
+    GPU."""
+    out = (ctypes.c_int * 6)()
+    rc = _k7c_lib().blind_rotate_wide_cluster_occupancy(
+        P, R, levels, N.bit_length() - 1, out)
+    if rc != 0:
+        raise RuntimeError(f"blind_rotate_wide_cluster_occupancy: {rc} at "
+                           f"{(P, R, levels, N)}")
+    keys = ("registers", "local_bytes", "smem_bytes", "cluster",
+            "blocks_per_sm", "clusters")
+    return dict(zip(keys, out))
+
+
+def _cluster_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
+                 levels: int, acc_dtype):
+    """Check the cluster kernel's accumulator and geometry; returns (B, R,
+    N)."""
+    B, R, N = _wide_acc(name, acc, P, base_log, levels, acc_dtype)
+    if not fits_cluster(P, R, levels, N, acc.element_size()):
+        raise ValueError(f"{name}: P={P}, R={R}, levels={levels}, N={N} "
+                         "outside the cluster kernel (fits_cluster)")
+    if B * P * R >= 2 ** 31:
+        raise ValueError(f"{name}: batch {B} outside the kernel grid")
+    return B, R, N
+
+
+def _cluster_classic(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
+                     bsk_scan: torch.Tensor, base_log: int, levels: int,
+                     acc_dtype) -> torch.Tensor:
+    P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
+    B, R, N = _cluster_acc(name, acc, P, base_log, levels, acc_dtype)
+    n = bsk_scan.shape[0]
+    _check(bsk_scan, "bsk", torch.int32, 6, acc.device)
+    if tuple(bsk_scan.shape[1:]) != (2, P, levels * R, R, N) or n < 1:
+        raise ValueError(f"bsk shape {tuple(bsk_scan.shape)} does not match "
+                         f"P={P}, R={R}, levels={levels}, N={N}")
+    if tuple(msed_mask.shape) != (B, n):
+        raise ValueError(f"msed_mask shape {tuple(msed_mask.shape)} != "
+                         f"{(B, n)}")
+    dev = acc.device
+    a32 = msed_mask.to(device=dev, dtype=torch.int32).contiguous()
+    plan = ntt_mod.get_plan(N, P)
+    tables = _plan_tables_dev(plan, str(dev))
+    out = torch.empty_like(acc)
+    _launch(name, getattr(_k7c_lib(), name), dev,
+            _ptr(acc), _ptr(out), _ptr(a32), _ptr(bsk_scan), _ptr(tables), B,
+            n, R, levels, base_log, N.bit_length() - 1, P,
+            _garner_host(plan), plan.full_prod_mod64)
+    return out
+
+
+def blind_rotate_wide_cluster(acc: torch.Tensor, msed_mask: torch.Tensor,
+                              bsk_scan: torch.Tensor, base_log: int,
+                              levels: int) -> torch.Tensor:
+    """K7's cluster kernel, K3's function on the u64 accumulator (see
+    :func:`blind_rotate_crt_plain`) at a shape of :func:`fits_cluster`: all
+    n steps of the batch in one launch, a cluster of P R CTAs a
+    ciphertext."""
+    if acc.device.type == "cpu":
+        return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
+                                      levels)
+    out = _cluster_classic("blind_rotate_wide_cluster", acc, msed_mask,
+                           bsk_scan, base_log, levels, torch.int64)
+    blind_rotate_wide_cluster.launches += 1
+    return out
+
+
+def blind_rotate_wide_cluster_acc32(acc_hi: torch.Tensor,
+                                    msed_mask: torch.Tensor,
+                                    bsk_scan: torch.Tensor, base_log: int,
+                                    levels: int) -> torch.Tensor:
+    """K7's cluster kernel, K3-acc32's function on the u32 hi plane (see
+    :func:`blind_rotate_crt_acc32_plain`); one launch a call."""
+    if acc_hi.device.type == "cpu":
+        return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
+                                            base_log, levels)
+    out = _cluster_classic("blind_rotate_wide_cluster_acc32", acc_hi,
+                           msed_mask, bsk_scan, base_log, levels, torch.int32)
+    blind_rotate_wide_cluster_acc32.launches += 1
+    return out
+
+
+def multi_bit_accumulate_wide_cluster(acc: torch.Tensor,
+                                      bundles: torch.Tensor, base_log: int,
+                                      levels: int) -> torch.Tensor:
+    """K7's cluster kernel, K5b's function (see
+    :func:`multi_bit_accumulate_plain`): the chunk's group steps of the
+    batch in one launch."""
+    if acc.device.type == "cpu":
+        return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
+    name = "multi_bit_accumulate_wide_cluster"
+    B, R, N = _cluster_acc(name, acc, MB_PRIMES, base_log, levels,
+                           torch.int64)
+    _check(bundles, "bundles", torch.int32, 6, acc.device)
+    count = bundles.shape[1]
+    if tuple(bundles.shape) != (B, count, MB_PRIMES, levels * R, R, N) \
+            or count < 1:
+        raise ValueError(f"bundles shape {tuple(bundles.shape)} != [{B}, "
+                         f"count, {MB_PRIMES}, {levels * R}, {R}, {N}]")
+    dev = acc.device
+    plan = ntt_mod.get_plan(N, MB_PRIMES)
+    tables = _plan_tables_dev(plan, str(dev))
+    out = torch.empty_like(acc)
+    _launch(name, _k7c_lib().multi_bit_accumulate_wide_cluster, dev,
+            _ptr(acc), _ptr(out), _ptr(bundles), _ptr(tables), B, count, R,
+            levels, base_log, N.bit_length() - 1, MB_PRIMES,
+            _garner_host(plan), plan.full_prod_mod64, _barrett_host(plan))
+    multi_bit_accumulate_wide_cluster.launches += 1
+    return out
+
+
+blind_rotate_wide_cluster.launches = 0
+blind_rotate_wide_cluster_acc32.launches = 0
+multi_bit_accumulate_wide_cluster.launches = 0
+
+
 #: every kernel wrapper of this module, each with its ``launches`` count
 KERNELS = (body_rotate_acc32, body_rotate_acc32_r1, body_rotate_u64,
            blind_rotate_bnf2_acc32, blind_rotate_crt, blind_rotate_crt_acc32,
            blind_rotate_bnf2_u64, blind_rotate_goldilocks,
            multi_bit_keybundle, multi_bit_accumulate,
            blind_rotate_multi_bit_r14, blind_rotate_ntt64, blind_rotate_wide,
-           blind_rotate_wide_acc32, multi_bit_accumulate_wide)
+           blind_rotate_wide_acc32, multi_bit_accumulate_wide,
+           blind_rotate_wide_cluster, blind_rotate_wide_cluster_acc32,
+           multi_bit_accumulate_wide_cluster)

@@ -1,8 +1,11 @@
 """The CPU mirror of the step kernels' pass schedule (``csrc/ntt_common.cuh``,
 ``brk::StepPasses``): one CMUX step of K1 and K3 pass by pass, with the
 kernels' own index formulas vectorised over the items their threads own;
-and K7's three stages (``csrc/blind_rotate_wide.cu``, the last section:
-one polynomial a block on the same passes, through global memory).
+and K7's two designs (``csrc/blind_rotate_wide.cu``, the last sections:
+K7 global's three stages, one polynomial a block on the same passes
+through global memory, and the cluster kernel, P R CTAs a ciphertext
+exchanging slices, digits, partials and residues over distributed shared
+memory).
 
 The step kernels run each CMUX step as a few shared-memory passes of up to
 three NTT stages each, in registers (see the header of ``ntt_common.cuh``):
@@ -624,3 +627,193 @@ def multi_bit_accumulate_wide(acc, bundles, base_log: int, levels: int):
                        bundle=True)
         acc = wide_garner(acc, res, tail, replace=True)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# K7's cluster kernel (csrc/blind_rotate_wide.cu, wide_cluster_kernel): a
+# cluster of P R CTAs a ciphertext, its state in distributed shared memory
+# ---------------------------------------------------------------------------
+
+def cluster_smem_bytes(P: int, R: int, levels: int, N: int,
+                       acc_bytes: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel
+    (``cluster_smem``): the digit area [max(l, R)][N] u32, the accumulator
+    slice [S] and its digits [l][S] i32, S = 2^ceil(log2(N / P))."""
+    S = 1 << cluster_log_slice(N, P)
+    return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
+
+
+def cluster_log_slice(N: int, P: int) -> int:
+    """log2 S (``cluster_log_slice``): log_n - floor(log2 P)."""
+    f = 0
+    while (2 << f) <= P:
+        f += 1
+    return N.bit_length() - 1 - f
+
+
+def cluster_plan(log_n: int) -> tuple:
+    """The cluster kernel's passes (``make_cluster_plan``): forward stages
+    [0, log_n - 2) in passes of <= 3 (the first lifts), then [log_n - 2,
+    log_n) with the MAC; inverse [log_n - 2, log_n) with the sum of the
+    partials, then stages log_n - 3 .. 0 in passes of <= 3 (the last
+    untwists); (fwd, inv) as (first stage, stage count) pairs."""
+    top = (log_n - 2, 2)
+    return (tuple(_split(0, log_n - 2, False)) + (top,),
+            (top,) + tuple(_split(0, log_n - 2, True)))
+
+
+def cluster_ranks(P: int, R: int) -> list:
+    """(pi, r) of each cluster rank: rank = r P + pi."""
+    return [(rank % P, rank // P) for rank in range(P * R)]
+
+
+def cluster_slice(N: int, P: int, pi: int) -> tuple:
+    """(base, len) of CTA pi's accumulator slice: [pi S, pi S + S) within
+    [0, N), empty past N."""
+    log_s = cluster_log_slice(N, P)
+    base = pi << log_s
+    return base, max(0, min(1 << log_s, N - base))
+
+
+def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
+                   a_of, key_of, bundle: bool):
+    """The cluster kernel's step loop on acc x int64 [B, R, N] (u64, or u32
+    values for the hi plane): ``count`` steps, step i rotating by
+    ``a_of(i)`` [B] (classic; None: multi-bit, the digits of acc itself)
+    against ``key_of(i)`` (the step's int64 [2, P, l R, R, N], or the
+    bundles [B, P, l R, R, N]). Each CTA's shared memory is its own tensor
+    and every read of another CTA's goes through the rank the kernel
+    computes."""
+    B, R, N = x.shape
+    P, primes = tail.plan.num_primes, tail.plan.primes
+    tables = tables_of(tail)
+    log_n = N.bit_length() - 1
+    log_s = cluster_log_slice(N, P)
+    S = 1 << log_s
+    D = max(levels, R)
+    fwd, inv = cluster_plan(log_n)
+    ranks = cluster_ranks(P, R)
+    acc = [torch.zeros(B, S, dtype=torch.int64) for _ in ranks]
+    dig = [torch.zeros(B, D * N, dtype=torch.int64) for _ in ranks]
+    dsl = [torch.zeros(B, levels * S, dtype=torch.int64) for _ in ranks]
+    for rank, (pi, r) in enumerate(ranks):
+        base, ln = cluster_slice(N, P, pi)
+        acc[rank][:, :ln] = x[:, r, base:base + ln]
+    pos4 = (torch.arange(N >> 2) << 2)[:, None] + torch.arange(4)
+    zero = torch.zeros(N >> 2, dtype=torch.int64)
+    for i in range(count):
+        # A. the digits of each slice
+        for rank, (pi, r) in enumerate(ranks):
+            base, ln = cluster_slice(N, P, pi)
+            u = torch.arange(ln)
+            v = acc[rank][:, u]
+            if a_of is not None:
+                s = base + u[None] - a_of(i).to(torch.int64)[:, None]
+                s = torch.where(s < 0, s + 2 * N, s)
+                neg = s >= N
+                s = torch.where(neg, s - N, s)
+                o = s >> log_s
+                owners = torch.stack([acc[r * P + q] for q in range(P)], 1)
+                y = owners[torch.arange(B)[:, None], o, s - (o << log_s)]
+                v = torch.where(neg, -y, y) - v
+            hi = v & M32 if tail.acc32 else srl(v, 32)
+            for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+                dsl[rank][:, (lev << log_s) + u] = d
+        # B. the lift with the first forward pass, the forward passes, the
+        # last two forward stages with the MAC
+        for rank, (pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            K = fwd[0][1]
+            pos, j, log_hl = pass_items(log_n, 0, K)
+            o = pos >> log_s
+            owners = torch.stack([dsl[r * P + q] for q in range(P)], 1)
+            for lev in range(levels):
+                d = owners[:, o, (lev << log_s) + pos - (o << log_s)]
+                m = torch.where(d < 0, d + p, d)
+                w = ntt_mod.shoup_mul(m, tb[T_TW][pos], tb[T_TW_SH][pos], p)
+                dig[rank][:, swz(lev * N + pos)] = fwd_regs(
+                    w, tb, N, 0, K, j, log_hl, p)
+            for s0, k in fwd[1:-1]:
+                dig[rank] = pass_(dig[rank], levels, 1, N, s0, k, False,
+                                  tb[None], [p])
+        for rank, (pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            key = key_of(i)
+            mac = [torch.zeros(B, N >> 2, 4, dtype=torch.int64)
+                   for _ in range(R)]
+            for lev in range(levels):
+                d = fwd_regs(dig[rank][:, swz(lev * N + pos4)], tb, N,
+                             log_n - 2, 2, zero, 0, p)
+                jrow = lev * R + r
+                for c in range(R):
+                    if bundle:
+                        prod = (d * key[:, pi, jrow, c][:, pos4]) % p
+                    else:
+                        prod = ntt_mod.shoup_mul(d, key[0, pi, jrow, c][pos4],
+                                                 key[1, pi, jrow, c][pos4], p)
+                    mac[c] = _add_mod(mac[c], prod, p)
+            for c in range(R):
+                dig[rank][:, swz(c * N + pos4)] = mac[c]
+        # C. the partials of row r summed across CTAs (pi, .), the inverse
+        # passes, the untwist
+        for rank, (pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            ph = swz(r * N + pos4)
+            v = dig[rank][:, ph]
+            for q in range(R):
+                if q != r:
+                    v = _add_mod(v, dig[q * P + pi][:, ph], p)
+            dig[rank][:, ph] = inv_regs(v, tb, N, log_n - 2, 2, zero, 0, p)
+        for rank, (pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            row = dig[rank][:, r * N:(r + 1) * N]
+            for s0, k in inv[1:-1]:
+                row = pass_(row, 1, 1, N, s0, k, True, tb[None], [p])
+            K = inv[-1][1]
+            pos, j, log_hl = pass_items(log_n, 0, K)
+            w = inv_regs(row[:, swz(pos)], tb, N, 0, K, j, log_hl, p)
+            row[:, swz(pos)] = ntt_mod.shoup_mul(w, tb[T_UTW][pos],
+                                                 tb[T_UTW_SH][pos], p)
+            dig[rank][:, r * N:(r + 1) * N] = row
+        # D. Garner on each slice, its residues gathered from CTAs (., r)
+        for rank, (pi, r) in enumerate(ranks):
+            base, ln = cluster_slice(N, P, pi)
+            ph = swz(r * N + base + torch.arange(ln))
+            inc = tail(torch.stack([dig[r * P + q][:, ph] for q in range(P)]))
+            new = inc if bundle else acc[rank][:, :ln] + inc
+            acc[rank][:, :ln] = new & M32 if tail.acc32 else new
+    out = x.clone()
+    for rank, (pi, r) in enumerate(ranks):
+        base, ln = cluster_slice(N, P, pi)
+        out[:, r, base:base + ln] = acc[rank][:, :ln]
+    return out
+
+
+def cmux_steps_cluster(entry: str, acc, msed_mask, bsk_scan, base_log: int,
+                       levels: int):
+    """All n steps of the cluster kernel's classic entries (``entry``:
+    ``blind_rotate_crt`` for the u64 accumulator,
+    ``blind_rotate_crt_acc32`` for the u32 hi plane), with the operands of
+    K3's wrapper: acc int64 or int32 [B, R, N], msed_mask [B, n], bsk_scan
+    int32 [n, 2, P, l R, R, N]. Returns the accumulator in the operand's
+    dtype."""
+    P, N = bsk_scan.shape[2], acc.shape[-1]
+    tail = tail_of(entry, P, N)
+    x = u32_to_i64(acc) if tail.acc32 else acc
+    key = u32_to_i64(bsk_scan)
+    x = _cluster_steps(x, bsk_scan.shape[0], levels, base_log, tail,
+                       lambda i: msed_mask[:, i], lambda i: key[i], False)
+    return i64_to_u32(x) if tail.acc32 else x
+
+
+def multi_bit_accumulate_cluster(acc, bundles, base_log: int, levels: int):
+    """The cluster kernel's multi-bit entry: the ``count`` steps of
+    ``bundles`` int32 [B, count, P, l R, R, N] on acc int64 [B, R, N] (the
+    digits of acc itself, a product mod p against the bundle, the Garner
+    value in acc's place). Returns int64 [B, R, N]."""
+    B, count, P = bundles.shape[:3]
+    N = acc.shape[-1]
+    tail = Tail("garner", ntt_mod.get_plan(N, P))
+    key = u32_to_i64(bundles)
+    return _cluster_steps(acc, count, levels, base_log, tail, None,
+                          lambda i: key[:, i], True)
