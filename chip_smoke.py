@@ -159,7 +159,8 @@ Phases (any failure raises and exits non-zero):
     alone elsewhere, K5a and K5b apart; at 2048 K2 u64, K5a (the
     first chunk, the whole batch), K5b (all steps, 64 ciphertexts) and the
     pair (64 ciphertexts, and random u64 accumulators over 32 steps)
-    against their plain versions; at batch 1 KS -> PBS (median of 5),
+    against their plain versions, at 1, 32 and 264 the same checks over
+    the first MB_CUT_STEPS = 16 group steps; at batch 1 KS -> PBS (median of 5),
     FheUint64 add, bitand and eq (ms, rounds) against their oracles beside
     phase 13's v6b rows, the README chain at FheUint32, the FheUint64
     OPRF; then ``PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS`` (N =
@@ -696,29 +697,41 @@ def step_kernel_report():
     # K7's cluster kernel, where the 3_3 steps run: a CTA's area (held to
     # the formula of the dispatch and of step_passes), its registers,
     # spills, CTAs per SM and the clusters resident on the card
-    for label, lv, n_ in (("3_3", levels, N), ("N = 16384, l = 2", 2, 16384)):
-        for entry, acc_bytes in (("blind_rotate_wide_cluster", 8),
-                                 ("blind_rotate_wide_cluster_acc32", 4),
-                                 ("multi_bit_accumulate_wide_cluster", 8)):
+    # and at split 2 where the 4_4 steps run (N = 32768 at l = 2 and 3, N
+    # = 16384 at l = 3): 16 CTAs a cluster, a non-portable size
+    for label, lv, n_, split in (("3_3", levels, N, 1),
+                                 ("N = 16384, l = 2", 2, 16384, 1),
+                                 ("N = 32768, l = 2", 2, 32768, 2),
+                                 ("N = 32768, l = 3", 3, 32768, 2),
+                                 ("N = 16384, l = 3", 3, 16384, 2)):
+        design = "cluster" if split == 1 else "split"
+        for entry, acc_bytes in ((f"blind_rotate_wide_{design}", 8),
+                                 (f"blind_rotate_wide_{design}_acc32", 4),
+                                 (f"multi_bit_accumulate_wide_{design}", 8)):
             smem = pk.step_smem_bytes(entry, P, R, lv, n_)
-            want = sp.cluster_smem_bytes(P, R, lv, n_, acc_bytes)
+            want = sp.cluster_smem_bytes(P, R, lv, n_, acc_bytes, split)
             if smem != want or smem != pk.cluster_smem_formula(
-                    P, R, lv, n_, acc_bytes):
+                    P, R, lv, n_, acc_bytes, split):
                 raise AssertionError(f"{entry}_smem {smem} != the "
                                      f"formula's {want} at {label}")
-        occ = pk.wide_cluster_occupancy(P, R, lv, n_)
-        print(f"  K7 cluster kernel at {label}: {occ['smem_bytes']} B "
-              f"dynamic shared memory a CTA, {occ['registers']} registers, "
-              f"{occ['local_bytes']} local bytes a thread, cluster of "
-              f"{occ['cluster']}, {occ['blocks_per_sm']} CTAs per SM, "
-              f"{occ['clusters']} clusters resident on the card")
+        occ = pk.wide_cluster_occupancy(P, R, lv, n_, split)
+        print(f"  K7 cluster kernel at split {split}, {label}: "
+              f"{occ['smem_bytes']} B dynamic shared memory a CTA, "
+              f"{occ['registers']} registers, {occ['local_bytes']} local "
+              f"bytes a thread, cluster of {occ['cluster']}, "
+              f"{occ['blocks_per_sm']} CTAs per SM, {occ['clusters']} "
+              "clusters resident on the card")
         if occ["local_bytes"]:
-            spilled[f"K7 cluster kernel at {label}"] = occ["local_bytes"]
+            spilled[f"K7 cluster kernel at split {split}, {label}"] = \
+                occ["local_bytes"]
+        if occ["clusters"] < 1:
+            raise AssertionError(f"K7 cluster kernel at split {split}, "
+                                 f"{label}: no cluster resident")
     if spilled:
         raise AssertionError(f"K1/K3/K6/K7 kernels spill: {spilled}")
     print("K1, K3, K6 and K7: no spills; K1, K3, K5b and r14: shared memory "
           "== acc + digits; K6: acc + digits + MAC; K7 global: one "
-          "polynomial; K7's cluster kernel: its CTA area")
+          "polynomial; K7's cluster kernel at split 1 and 2: its CTA area")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -759,11 +772,12 @@ def wgmma_kernel_report():
     print(f"wgmma kernels: no spills ({len(WGMMA_KERNELS)} instantiations)")
 
 
-def in_turns(new, ref, reps: int = 2) -> tuple:
+def in_turns(new, ref, reps: int = 2, warmup: bool = True) -> tuple:
     """CUDA-event ms of ``new()`` and ``ref()`` timed ref, new, new, ref
     (each turn the median of ``reps`` runs, a function warmed up before its
-    first turn only): (new ms, ref ms), each the mean of its two turns."""
-    r1, n1 = cuda_ms(ref, reps), cuda_ms(new, reps)
+    first turn only, unless ``warmup`` is false: both ran just before):
+    (new ms, ref ms), each the mean of its two turns."""
+    r1, n1 = cuda_ms(ref, reps, warmup), cuda_ms(new, reps, warmup)
     n2, r2 = cuda_ms(new, reps, False), cuda_ms(ref, reps, False)
     return (n1 + n2) / 2, (r1 + r2) / 2
 
@@ -1802,8 +1816,8 @@ def phase_integer(ck, sk, card, rows):
     blocks, for ``c``) at batch 1 and over INT_LANES random lanes, each
     step decrypted; the FheUint64 table of ``bench.py --integer`` (32
     blocks: add, mul, bitand, eq at batch 1 (median of 3 runs after a
-    checked warm-up) and at INT_LANES (ops/s, median of 2 runs), div at
-    batch 1, INT_DIV_BLOCKS blocks, one run after the checked one), each
+    checked warm-up) and at INT_LANES (ops/s, one run), div at batch 1,
+    INT_DIV_BLOCKS blocks, one run, timed and checked), each
     output against its numpy oracle, one JSON row each with the op's PBS
     rounds and bootstrapped ciphertexts; then the launch counts around one
     add (K1 and K2 acc32 exactly once a round, K3 and K4 never), and K2
@@ -1841,7 +1855,7 @@ def phase_integer(ck, sk, card, rows):
     ops = (("add", isk.add), ("mul", isk.mul), ("bitand", isk.bitand),
            ("eq", isk.eq))
     inputs = {}
-    for batch, kind, reps in ((1, "latency", 3), (INT_LANES, "throughput", 2)):
+    for batch, kind, reps in ((1, "latency", 3), (INT_LANES, "throughput", 1)):
         xs = rng.integers(0, 1 << bits64, batch, dtype=np.uint64)
         ys = rng.integers(1, 1 << bits64, batch, dtype=np.uint64)
         a, b = ick.encrypt_radix(xs, nb64), ick.encrypt_radix(ys, nb64)
@@ -1862,7 +1876,6 @@ def phase_integer(ck, sk, card, rows):
     ys = rng.integers(1, 1 << (div_bits // 2), 1, dtype=np.uint64)
     a, b = (ick.encrypt_radix(v, INT_DIV_BLOCKS) for v in (xs, ys))
     want = _int_oracle("div", xs, ys, div_bits)
-    expect(f"FheUint{div_bits} div", timed(key, isk.div, a, b)[0], want)
     out, ms, rounds, pbs = timed(key, isk.div, a, b)
     expect(f"FheUint{div_bits} div, timed", out, want)
     row("div", "latency", 1, [ms], rounds, pbs, div_bits)
@@ -2129,7 +2142,9 @@ LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "body_rotate_acc32_r1", "blind_rotate_wide",
                "blind_rotate_wide_acc32", "multi_bit_accumulate_wide",
                "blind_rotate_wide_cluster", "blind_rotate_wide_cluster_acc32",
-               "multi_bit_accumulate_wide_cluster")
+               "multi_bit_accumulate_wide_cluster", "blind_rotate_wide_split",
+               "blind_rotate_wide_split_acc32",
+               "multi_bit_accumulate_wide_split")
 
 
 def launches_exactly(label, fn, want: dict):
@@ -2703,7 +2718,7 @@ def phase_side_modules(ck22, sk22, batch22, card, rate, rows):
 #: the multi-bit sets of phase 18 by universe name: (label, name, batch,
 #: ciphertexts of the checks against the plain versions on the path's own
 #: inputs (at most: a smaller batch checks all of its own), the other
-#: batches timed in turns)
+#: batches timed in turns, each checked over MB_CUT_STEPS group steps)
 MB_SETS = (
     ("g4", "PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
      BATCH, PLAIN_BATCH, (1, 32, 264)),
@@ -2712,6 +2727,7 @@ MB_SETS = (
     ("g3", "V1_5_PARAM_GPU_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_"
      "TUNIFORM_2M128", SIDE_BATCH, 16, ()))
 MB_INT_OPS = ("add", "bitand", "eq")  # FheUint64 at batch 1 on group 4
+MB_CUT_STEPS = 16  # group steps of the plain checks at g4's other batches
 MB_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_multi_bit.cu"
 MB_REPLACES = "tfhe_tpu/ops/server.py:809"
 #: the kernel rows of phase 18 at each shape: the pair (the function K5
@@ -2775,14 +2791,15 @@ def median_in_turns(new, ref, reps: int = 5) -> tuple:
     return statistics.median(times[new]), statistics.median(times[ref])
 
 
-def _multi_bit_plain(label, sk, acc, mask, plain_b):
+def _multi_bit_plain(label, sk, acc, mask, plain_b, cut=None):
     """K5a, K5b and the pair against their plain versions on a shape's own
     inputs (``acc``, ``mask``: the switched, body-rotated batch), exact:
     K5a on the call's first chunk of steps for the whole batch, K5b over
     all n/g steps of the first ``plain_b`` ciphertexts (their bundles from
     K5a), the pair on those ciphertexts and on random u64 accumulators
-    over 32 steps. Returns the (max_abs_err, plain ms, plain shape) of K5a,
-    K5b and the pair."""
+    over 32 steps; with ``cut``, all of it over the first ``cut`` group
+    steps (a depth cut). Returns the (max_abs_err, plain ms, plain shape) of
+    K5a, K5b and the pair."""
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     p = sk.params
@@ -2792,6 +2809,11 @@ def _multi_bit_plain(label, sk, acc, mask, plain_b):
     ng, P = mbk.shape[0], mbk.shape[2]
     B = acc.shape[0]
     C = pk.multi_bit_chunk(B, ng, P, lv * R, R, N)
+    of = ""
+    if cut is not None and cut < ng:
+        of = f" (a cut: of {ng})"
+        ng, C = cut, min(C, cut)
+        mbk, mask = mbk[:ng].contiguous(), mask[:, :ng * g].contiguous()
     a = check_equal(f"multi_bit_keybundle {label}", pk.multi_bit_keybundle,
                     pk.multi_bit_keybundle_plain, (mask, mbk, 0, C, bl, lv))
     acc_b, mask_b = acc[:plain_b].contiguous(), mask[:plain_b].contiguous()
@@ -2809,21 +2831,22 @@ def _multi_bit_plain(label, sk, acc, mask, plain_b):
                 pk.blind_rotate_multi_bit, pk.blind_rotate_multi_bit_plain,
                 (racc, rmask, mbk[:steps].contiguous(), bl, lv))
     print(f"{label}: K5a == plain on steps 0..{C - 1} of B={B} (plain "
-          f"{a[1]:.1f} ms); K5b == plain over {ng} steps at B={plain_b} "
+          f"{a[1]:.1f} ms); K5b == plain over {ng} steps{of} at B={plain_b} "
           f"(plain {b[1]:.1f} ms); the pair == plain at B={plain_b} (plain "
           f"{f[1]:.1f} ms) and on random accumulators, {steps} steps")
     return ((*a, f"{label} B={B} steps 0..{C - 1}"),
-            (*b, f"{label} B={plain_b} n/g={ng}"),
-            (*f, f"{label} B={plain_b} n/g={ng}"))
+            (*b, f"{label} B={plain_b} n/g={ng}{of}"),
+            (*f, f"{label} B={plain_b} n/g={ng}{of}"))
 
 
-def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
+def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b, cut=None):
     """One multi-bit shape: ``batch`` ciphertexts covering all message +
     carry values through ``apply_lookup_table`` with the launch counts
     zeroed just before and read just after (``mb_launches``), decrypted;
     K5a, K5b and the pair against their plain versions on that batch's
-    inputs (``_multi_bit_plain``, ``plain_b`` ciphertexts, which give the
-    rows' plain columns); at g4 (B = 2048) alone the pair equal to r14,
+    inputs (``_multi_bit_plain``, ``plain_b`` ciphertexts, over the first
+    ``cut`` group steps where it is given, which give the rows' plain
+    columns); at g4 (B = 2048) alone the pair equal to r14,
     the reference no user path launches, on the whole batch and the two
     timed in turns (median of 5), elsewhere the pair alone (median of 5); K5a and K5b apart over the
     call's chunks (median of 3), KS -> PBS (median of 5); the shape's four
@@ -2855,7 +2878,7 @@ def _multi_bit_shape(label, ck, sk, batch, rate, rows, plain_b):
     check_equal(f"body_rotate_u64 {label}", pk.body_rotate_u64,
                 pk.body_rotate_u64_plain, (lut.acc, body))
     acc = pk.body_rotate_u64(lut.acc, body)
-    plain = _multi_bit_plain(label, sk, acc, mask, plain_b)
+    plain = _multi_bit_plain(label, sk, acc, mask, plain_b, cut)
     pair = lambda: pk.blind_rotate_multi_bit(acc, mask, mbk, bl, lv)
     r14 = lambda: pk.blind_rotate_multi_bit_r14(acc, mask, mbk, bl, lv)
     if label == "g4":
@@ -2952,8 +2975,8 @@ def phase_multi_bit(card, rate, rows, table13):
     a. the GPU default group-4 set (n = 920, N = 2048, 230 steps) at 2048
        (``_multi_bit_shape``, the plain checks on 64 ciphertexts), then at
        1, 32 and 264 (each through ``apply_lookup_table`` with its launch
-       counts, decrypted, the plain checks on min(batch, 64) ciphertexts,
-       the pair timed); at batch 1
+       counts, decrypted, the plain checks on min(batch, 64) ciphertexts
+       over the first MB_CUT_STEPS group steps, the pair timed); at batch 1
        KS -> PBS (median of 5), FheUint64 add, bitand and eq (ms, rounds)
        against their numpy oracles beside phase 13's v6b numbers, the
        README chain at FheUint32, and the FheUint64 OPRF (one batched PBS);
@@ -2974,7 +2997,8 @@ def phase_multi_bit(card, rate, rows, table13):
                                         plain_b))
         for b in more:
             summary.update(_multi_bit_shape(f"{label}_b{b}", ck, sk, b, rate,
-                                            rows, min(b, plain_b)))
+                                            rows, min(b, plain_b),
+                                            MB_CUT_STEPS))
         if label != "g4":
             del ck, sk
             torch.cuda.empty_cache()
@@ -4226,14 +4250,26 @@ def phase_mesh_c_api(ck22, sk22, batch22, card, summary, rows):
 WIDE_CLASSIC = "PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128"
 WIDE_MULTI_BIT = ("PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_CARRY_3_KS_PBS_"
                   "GAUSSIAN_2M128")
+WIDE_SPLIT_CLASSIC = "V1_5_PARAM_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_2M40"
 WIDE_BATCH = 512  # phase 24's classic 3_3 batch
 WIDE_MB_BATCH = 256  # phase 24's group-4 3_3 batch
-WIDE_PLAIN_CTS = 8  # ciphertexts of phase 24's plain checks
-WIDE_MB_PLAIN_GROUPS = 16  # group steps of the multi-bit plain checks
-#: random keys at the envelope's corners: (label, N, levels, base_log, g)
-WIDE_CORNERS = (("classic_n32768", 32768, 2, 15, 0),
-                ("classic_n16384", 16384, 2, 15, 0),
-                ("multi_bit_n32768", 32768, 3, 10, 4))
+WIDE_SPLIT_BATCH = 256  # phase 24's classic 4_4 batch: all 256 values
+WIDE_PLAIN_CTS = 8  # ciphertexts of phase 24's 3_3 plain checks
+WIDE_MB_PLAIN_GROUPS = 16  # group steps of the 3_3 multi-bit plain checks
+#: ciphertexts and steps of the classic 4_4 plain checks (of 256, 1096)
+WIDE_SPLIT_PLAIN_CTS, WIDE_SPLIT_PLAIN_STEPS = 4, 64
+#: the split kernel's multi-bit shapes on random group-4 keys and
+#: accumulators: (label, N, levels, base_log); their batch, group steps
+#: and the ciphertexts of their plain checks
+WIDE_SPLIT_MB = (("mb_n32768_l3", 32768, 3, 10),
+                 ("mb_n16384_l3", 16384, 3, 10))
+WIDE_SPLIT_MB_B, WIDE_SPLIT_MB_GROUPS, WIDE_SPLIT_MB_PLAIN = 128, 8, 8
+#: random keys at shapes that route to the other designs: (label, N,
+#: levels, base_log, g): the cluster kernel at N = 16384, K7 global at N =
+#: 32768, l = 1 (no set of the universe: the split takes l >= 2)
+WIDE_CORNERS = (("classic_n16384", 16384, 2, 15, 0),
+                ("classic_n32768_l1", 32768, 1, 22, 0),
+                ("multi_bit_n32768_l1", 32768, 1, 22, 4))
 WIDE_CORNER_B, WIDE_CORNER_STEPS = 4, 8
 WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",  # N 65536
                 "V1_5_PARAM_MESSAGE_1_CARRY_6_KS_PBS_GAUSSIAN_2M128")  # b l 33
@@ -4242,6 +4278,9 @@ WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
 WIDE_KERNELS = {"cluster": ("blind_rotate_wide_cluster",
                             "blind_rotate_wide_cluster_acc32",
                             "multi_bit_accumulate_wide_cluster"),
+                "split": ("blind_rotate_wide_split",
+                          "blind_rotate_wide_split_acc32",
+                          "multi_bit_accumulate_wide_split"),
                 "global": ("blind_rotate_wide", "blind_rotate_wide_acc32",
                            "multi_bit_accumulate_wide")}
 
@@ -4268,24 +4307,38 @@ def check_equal_all(name, kernels: dict, plain, args):
     return errs, start.elapsed_time(end)
 
 
+def _random_multi_bit_key(N, levels, steps, g, gen):
+    """A random K5 key of ``steps`` group steps at group ``g`` (residues of
+    each prime with their Shoup duals, ``pk.multi_bit_key_layout``)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt as ntt_mod
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    plan = ntt_mod.get_plan(N, 4)
+    res = torch.stack([torch.randint(
+        0, int(p), (steps, (1 << g) - 1, levels, 2, 2, N), generator=gen,
+        device=DEVICE, dtype=torch.int64) for p in plan.primes])
+    return pk.multi_bit_key_layout(ntt_mod.with_shoup_duals(res, plan))
+
+
 def _wide_corner(label, N, levels, base_log, g, rng):
     """K7 (and at g > 0 K5a and the pair) against the plain versions on
-    random keys, accumulators and masks at an envelope corner, no keygen:
+    random keys, accumulators and masks at a corner, no keygen:
     WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps, through the
-    dispatch; the design ``pk.wide_route`` names for the shape (the
-    cluster kernel, or K7 global) launched, the other and K3 / K5b never.
-    Returns the launch counts of those checks."""
+    dispatch; the design ``pk.wide_route`` names for the shape launched,
+    the other two and K3 / K5b never. Returns the launch counts of those
+    checks."""
     import torch
 
     from tfhe_tpu_torch._torus import from_u32, from_u64
     from tfhe_tpu_torch.core import algorithms as algo
     from tfhe_tpu_torch.core.entities import LweBootstrapKey
-    from tfhe_tpu_torch.ops import ntt as ntt_mod
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     R, P, B, steps = 2, 4, WIDE_CORNER_B, WIDE_CORNER_STEPS
     route = pk.wide_route(P, R, levels, N)
-    other = "global" if route == "cluster" else "cluster"
+    others = [d for d in WIDE_KERNELS if d != route]
     acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
                    DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g)
@@ -4311,14 +4364,10 @@ def _wide_corner(label, N, levels, base_log, g, rng):
                              "blind_rotate_crt_acc32")
         ran = counts[WIDE_KERNELS[route][0]] and counts[WIDE_KERNELS[route][1]]
         stray = (counts["blind_rotate_crt"] + counts["blind_rotate_crt_acc32"]
-                 + sum(counts[n] for n in WIDE_KERNELS[other][:2]))
+                 + sum(counts[n] for d in others
+                       for n in WIDE_KERNELS[d][:2]))
     else:
-        plan = ntt_mod.get_plan(N, P)
-        res = torch.stack([torch.randint(
-            0, int(p), (steps, (1 << g) - 1, levels, R, R, N), generator=gen,
-            device=DEVICE, dtype=torch.int64) for p in plan.primes])
-        mbk = pk.multi_bit_key_layout(ntt_mod.with_shoup_duals(res, plan))
-        del res
+        mbk = _random_multi_bit_key(N, levels, steps, g, gen)
         mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, steps * g))
                                 ).to(DEVICE)
         pk.reset_launches()
@@ -4336,13 +4385,8 @@ def _wide_corner(label, N, levels, base_log, g, rng):
         counts = launches_of("multi_bit_keybundle", "multi_bit_accumulate",
                              *names)
         ran = counts[WIDE_KERNELS[route][2]]
-        stray = counts["multi_bit_accumulate"] + counts[WIDE_KERNELS[other][2]]
-        mb = getattr(pk, WIDE_KERNELS[route][2])
-        k5a_ms = cuda_ms(lambda: pk.multi_bit_keybundle(
-            mask, mbk, 0, steps, base_log, levels), 3)
-        k7_ms = cuda_ms(lambda: mb(acc, bundles, base_log, levels), 3)
-        print(f"corner {label}: K5a {k5a_ms:.3f} ms, K7 ({route}) "
-              f"{k7_ms:.3f} ms at B={B}, {steps} group steps on {DEVICE}")
+        stray = counts["multi_bit_accumulate"] + sum(
+            counts[WIDE_KERNELS[d][2]] for d in others)
         del mbk, bundles
     print(f"corner {label} (N = {N}, l = {levels}, b = {base_log}, g = {g}): "
           f"K7's {route} design{' and K5a' if g else ''} == plain on {B} "
@@ -4355,37 +4399,294 @@ def _wide_corner(label, N, levels, base_log, g, rng):
     return counts
 
 
+def _wide_split_classic(card, rate, rows, summary):
+    """Phase 24's classic 4_4 set on the split cluster kernel, real keys
+    (see ``phase_wide``, d). Returns K7 global's rows at the set."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[WIDE_SPLIT_CLASSIC]
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    R, N, lv, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
+    key, n, P = sk.bsk_scan, p.lwe_dimension, sk.num_primes
+    key_gb = key.numel() * 4 / 1e9
+    if sk.variant != "crt" or pk.wide_route(P, R, lv, N) != "split" or \
+            pk.wide_route(P, R, lv, N, 4) != "split":
+        raise AssertionError(f"4_4: variant {sk.variant}, not on the split "
+                             "cluster kernel")
+    print(f"keygen 4_4 ({WIDE_SPLIT_CLASSIC}): {keygen_s:.1f} s, n = {n}, "
+          f"N = {N}, l = {lv}, b = {bl}, P = {P}, CRT key "
+          f"{tuple(key.shape)} ({key_gb:.2f} GB); a CTA of the cluster "
+          f"kernel {pk.cluster_smem_formula(P, R, lv, N, 8)} B > "
+          f"{pk._SMEM_LIMIT}, of the split "
+          f"{pk.cluster_smem_formula(P, R, lv, N, 8, 2)} B")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (5 * x + 3) % mod  # noqa: E731
+    vals = np.arange(WIDE_SPLIT_BATCH, dtype=np.uint64) % mod
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    out = launches_exactly("4_4 main path",
+                           lambda: sk.apply_lookup_table(ct, lut),
+                           {"body_rotate_u64": 1,
+                            "blind_rotate_wide_split": 1})
+    launches = launches_of("blind_rotate_wide_split")[
+        "blind_rotate_wide_split"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("4_4: the batch decrypts wrong")
+    with env(TFHE_V4_ACC="32"):
+        out32 = launches_exactly("4_4 main path, TFHE_V4_ACC=32",
+                                 lambda: sk.apply_lookup_table(ct, lut),
+                                 {"body_rotate_acc32": 1,
+                                  "blind_rotate_wide_split_acc32": 1})
+    launches32 = launches_of("blind_rotate_wide_split_acc32")[
+        "blind_rotate_wide_split_acc32"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out32), want):
+        raise AssertionError("4_4, TFHE_V4_ACC=32: the batch decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask = mask.contiguous()
+    acc = pk.body_rotate_u64(lut.acc, body)
+    hi = pk.body_rotate_acc32(lut.acc, body)
+    cts, steps = WIDE_SPLIT_PLAIN_CTS, min(WIDE_SPLIT_PLAIN_STEPS, n)
+    pre = (mask[:cts, :steps].contiguous(), key[:steps].contiguous(), bl, lv)
+    errs, plain_ms = check_equal_all(
+        "K7 4_4", {"split": pk.blind_rotate_wide_split,
+                   "global": pk.blind_rotate_wide},
+        pk.blind_rotate_crt_plain, (acc[:cts].contiguous(), *pre))
+    errs32, plain32_ms = check_equal_all(
+        "K7-acc32 4_4", {"split": pk.blind_rotate_wide_split_acc32,
+                         "global": pk.blind_rotate_wide_acc32},
+        pk.blind_rotate_crt_acc32_plain, (hi[:cts].contiguous(), *pre))
+    del pre
+    # the split and K7 global in turns on the batch's own inputs (both ran
+    # above: no warm-up run; acc32 one turn each), then at batch 1
+    args, args32 = (acc, mask, key, bl, lv), (hi, mask, key, bl, lv)
+    k7_ms, k7g_ms = in_turns(lambda: pk.blind_rotate_wide_split(*args),
+                             lambda: pk.blind_rotate_wide(*args), 1,
+                             warmup=False)
+    k7_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_split_acc32(*args32), 1,
+                       warmup=False)
+    k7g_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_acc32(*args32), 1,
+                        warmup=False)
+    one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
+    one32 = (hi[:1].contiguous(), *one[1:])
+    k7_b1, k7g_b1 = in_turns(lambda: pk.blind_rotate_wide_split(*one),
+                             lambda: pk.blind_rotate_wide(*one), 2)
+    k7_32_b1, k7g_32_b1 = in_turns(
+        lambda: pk.blind_rotate_wide_split_acc32(*one32),
+        lambda: pk.blind_rotate_wide_acc32(*one32), 2)
+    del args, args32, one, one32
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
+                      warmup=False)
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    B = WIDE_SPLIT_BATCH
+    bnd = step_bound("blind_rotate_crt", B, n, R, lv, N, P, 8, rate)
+    bnd32 = step_bound("blind_rotate_crt_acc32", B, n, R, lv, N, P, 4, rate)
+    bnd1 = step_bound("blind_rotate_crt", 1, n, R, lv, N, P, 8, rate)
+    occ = pk.wide_cluster_occupancy(P, R, lv, N, 2)
+    print(f"4_4 B={B}: KS->PBS {step_ms:.3f} ms = {B / step_ms * 1e3:.1f} "
+          f"PBS/s; the split cluster kernel {k7_ms:.3f} ms (bound "
+          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}), K7 global "
+          f"{k7g_ms:.3f} ms in turns ({bnd[0] / k7g_ms:.1%}, "
+          f"{k7g_ms / k7_ms:.2f}x); acc32: split {k7_32_ms:.3f}, global "
+          f"{k7g_32_ms:.3f} ms (one turn each); batch 1: split {k7_b1:.3f}, "
+          f"global {k7g_b1:.3f} ms (acc32 {k7_32_b1:.3f}, {k7g_32_b1:.3f}); "
+          f"both designs == plain in both modes on {cts} ciphertexts, the "
+          f"first {steps} of {n} steps (plain {plain_ms:.1f}, "
+          f"{plain32_ms:.1f} ms); batch 1 KS->PBS {b1_ms:.3f} ms (1 "
+          f"launch); the split {occ}; on {card}")
+    common = dict(source=WIDE_SOURCE,
+                  replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+                  shape=f"4_4 B={B} n={n} N={N} l={lv} P={P}",
+                  plain_shape=f"B={cts}, {steps} of {n} steps")
+    rows["blind_rotate_wide_split_4_4"] = dict(
+        common, launches=launches, max_abs_err=errs["split"], ms=k7_ms,
+        plain_ms=plain_ms, bound=bnd, ms_b1=k7_b1, bound_b1_ms=bnd1[0],
+        global_ms=k7g_ms, global_ms_b1=k7g_b1,
+        kernel="K7's cluster kernel at split 2 (16 CTAs a ciphertext, each "
+               "half of every transform; all steps in one launch), K3's "
+               "function, u64 acc")
+    rows["blind_rotate_wide_split_acc32_4_4"] = dict(
+        common, launches=launches32, max_abs_err=errs32["split"],
+        ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32, ms_b1=k7_32_b1,
+        global_ms=k7g_32_ms, global_ms_b1=k7g_32_b1,
+        kernel="the split cluster kernel, acc32 (GarnerTail32), "
+               "K3-acc32's function")
+    wide_global = {
+        "blind_rotate_wide_4_4": dict(
+            common, max_abs_err=errs["global"], ms=k7g_ms, plain_ms=plain_ms,
+            bound=bnd, ms_b1=k7g_b1,
+            kernel="K7 global (K7a, K7b, K7c a step), K3's function, the "
+                   "reference timed in turns with the split; launches: the "
+                   "N = 32768, l = 1 corner's, where the dispatch sends it"),
+        "blind_rotate_wide_acc32_4_4": dict(
+            common, max_abs_err=errs32["global"], ms=k7g_32_ms,
+            plain_ms=plain32_ms, bound=bnd32, ms_b1=k7g_32_b1,
+            kernel="K7 global acc32; launches: the N = 32768, l = 1 "
+                   "corner's")}
+    summary.update(wide_split_keygen_s=keygen_s, wide_split_key_gb=key_gb,
+                   wide_split_pbs_ms=step_ms,
+                   wide_split_pbs_per_s=B / step_ms * 1e3,
+                   wide_split_ms=k7_ms, wide_split_acc32_ms=k7_32_ms,
+                   wide_split_global_ms=k7g_ms,
+                   wide_split_global_acc32_ms=k7g_32_ms,
+                   wide_split_b1_ms=k7_b1, wide_split_global_b1_ms=k7g_b1,
+                   wide_split_bound_ms=bnd[0], wide_split_ks_pbs_b1_ms=b1_ms,
+                   wide_split_occupancy=occ)
+    del ck, sk, ct, out, out32, acc, hi, mask, body, key, ct1
+    torch.cuda.empty_cache()
+    return wide_global
+
+
+def _wide_split_multi_bit(label, N, levels, base_log, rate, rows, rng):
+    """Phase 24's multi-bit shapes on the split cluster kernel (see
+    ``phase_wide``, e). Returns K7 global's row at the shape."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+
+    R, P, g = 2, 4, 4
+    B, G, cts = WIDE_SPLIT_MB_B, WIDE_SPLIT_MB_GROUPS, WIDE_SPLIT_MB_PLAIN
+    if pk.wide_route(P, R, levels, N) != "split":
+        raise AssertionError(f"{label}: not on the split cluster kernel")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + levels)
+    mbk = _random_multi_bit_key(N, levels, G, g, gen)
+    acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
+                   DEVICE)
+    mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, G * g))).to(
+        DEVICE).contiguous()
+    C = pk.multi_bit_chunk(B, G, P, levels * R, R, N)
+    chunks = -(-G // C)
+    pk.reset_launches()
+    pk.blind_rotate_multi_bit(acc, mask, mbk, base_log, levels)
+    torch.cuda.synchronize()
+    got = launches_of("multi_bit_keybundle", "multi_bit_accumulate",
+                      *(n for d in WIDE_KERNELS.values() for n in d))
+    require_launched(f"{label} the K5a + split pair", {
+        k: got[k] for k in ("multi_bit_keybundle",
+                            "multi_bit_accumulate_wide_split")})
+    want = {"multi_bit_keybundle": chunks,
+            "multi_bit_accumulate_wide_split": chunks}
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    launches = got["multi_bit_accumulate_wide_split"]
+    check_equal(f"the pair {label}", pk.blind_rotate_multi_bit,
+                pk.blind_rotate_multi_bit_plain,
+                (acc[:cts].contiguous(), mask[:cts].contiguous(), mbk,
+                 base_log, levels))
+    bundles = pk.multi_bit_keybundle(mask, mbk, 0, G, base_log, levels)
+    del mbk
+    torch.cuda.empty_cache()
+    errs, plain_ms = check_equal_all(
+        f"K7 multi-bit {label}",
+        {"split": pk.multi_bit_accumulate_wide_split,
+         "global": pk.multi_bit_accumulate_wide},
+        pk.multi_bit_accumulate_plain,
+        (acc[:cts].contiguous(), bundles[:cts].contiguous(), base_log,
+         levels))
+    new_ms, ref_ms = in_turns(
+        lambda: pk.multi_bit_accumulate_wide_split(acc, bundles, base_log,
+                                                   levels),
+        lambda: pk.multi_bit_accumulate_wide(acc, bundles, base_log, levels),
+        1)
+    bnd = bound(kb.multi_bit_accumulate_pipe_instructions(B, G, R, levels, N,
+                                                          P),
+                accumulate_bytes(B, G, R, levels, N, P), rate)
+    occ = pk.wide_cluster_occupancy(P, R, levels, N, 2)
+    print(f"{label} (N = {N}, l = {levels}, b = {base_log}, g = {g}, random "
+          f"keys): B={B}, {G} group steps: the split {new_ms:.3f} ms (bound "
+          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / new_ms:.1%}), K7 global "
+          f"{ref_ms:.3f} ms in turns ({bnd[0] / ref_ms:.1%}, "
+          f"{ref_ms / new_ms:.2f}x); the pair ({chunks} chunks of {C}) "
+          f"launched K5a and the split {launches} times each; both designs "
+          f"and the pair == plain on {cts} ciphertexts (plain "
+          f"{plain_ms:.1f} ms); the classic split kernel here {occ}")
+    common = dict(source=WIDE_SOURCE, replaces=MB_REPLACES,
+                  shape=f"{label} B={B} g={g} {G} group steps N={N} "
+                  f"l={levels}", note="no pallas_call: XLA in tfhe_tpu",
+                  plain_shape=f"B={cts}, {G} group steps")
+    rows[f"multi_bit_accumulate_wide_split_{label}"] = dict(
+        common, launches=launches, max_abs_err=errs["split"], ms=new_ms,
+        plain_ms=plain_ms, bound=bnd, global_ms=ref_ms,
+        kernel="the split cluster kernel, K5b's function (Barrett MAC "
+               "against the bundles), one call of all group steps; launches: "
+               "the pair's (K5a + the split a chunk) on random keys")
+    del bundles, acc, mask
+    torch.cuda.empty_cache()
+    return {f"multi_bit_accumulate_wide_{label}": dict(
+        common, max_abs_err=errs["global"], ms=ref_ms, plain_ms=plain_ms,
+        bound=bnd,
+        kernel="K7 global, K5b's function, timed in turns with the split; "
+               "launches: the N = 32768, l = 1 corner's")}, {
+        f"wide_{label}_split_ms": new_ms, f"wide_{label}_global_ms": ref_ms,
+        f"wide_{label}_bound_ms": bnd[0]}
+
+
 def phase_wide(card, rate, rows):
-    """tfhe-rs's 3_3 sets on the card through K7 (csrc/blind_rotate_wide.cu)
-    at full width. The 3_3 steps run on K7's cluster kernel (a cluster of
-    P R = 8 CTAs a ciphertext, acc and digits in distributed shared memory
-    for all steps, one launch a call); K7 global (three stage launches a
-    step through global memory) is timed beside it in turns on the same
-    inputs and runs the N = 32768 corners:
+    """tfhe-rs's 3_3 and 4_4 sets on the card through K7
+    (csrc/blind_rotate_wide.cu) at full width. The 3_3 steps run on K7's
+    cluster kernel (a cluster of P R = 8 CTAs a ciphertext, acc and digits
+    in distributed shared memory for all steps, one launch a call); the 4_4
+    steps (N = 32768, and N = 16384 at l = 3) on the same kernel at split 2
+    (2 P R = 16 CTAs a ciphertext, each holding half of every transform,
+    the accumulator in global memory); K7 global (three stage launches a
+    step through global memory), the reference, is timed beside the split
+    in turns and runs the N = 32768, l = 1 corners:
     a. the classic default ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128``
        (n = 1006, k = 1, N = 8192, l = 2, b = 15; acc and digits 655,360 B
        a ciphertext, beyond a block): seeded keygen (s, MB); WIDE_BATCH
        ciphertexts covering all 64 values through ``apply_lookup_table``
-       (K2 u64 once, the cluster kernel once, K3 and K7 global never),
-       decrypted; the same under ``TFHE_V4_ACC=32`` (K2 acc32, the acc32
-       cluster kernel); the cluster kernel and K7 global equal to the
-       plain versions on the first WIDE_PLAIN_CTS ciphertexts' own inputs
-       over the first PLAIN_STEPS steps, both accumulator modes; the two
-       designs in turns at WIDE_BATCH and at batch 1, both modes; PBS/s at
-       WIDE_BATCH, the bound; KS -> PBS at batch 1 (median of 5);
+       (K2 u64 once, the cluster kernel once, K3, the split and K7 global
+       never), decrypted; the same under ``TFHE_V4_ACC=32`` (K2 acc32, the
+       acc32 cluster kernel); the cluster kernel equal to the plain
+       versions on the first WIDE_PLAIN_CTS ciphertexts' own inputs over
+       the first PLAIN_STEPS steps, both accumulator modes, and timed at
+       WIDE_BATCH and at batch 1, both modes; PBS/s at WIDE_BATCH, the
+       bound; KS -> PBS at batch 1 (median of 5);
     b. the GPU group-4 default ``PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_3_
        CARRY_3_KS_PBS_GAUSSIAN_2M128`` (n = 1004, 251 steps): keygen (s,
        GB); WIDE_MB_BATCH through ``apply_lookup_table`` (K2 u64, K5a and
-       the cluster kernel a chunk, K5b and K7 global never), decrypted;
-       K5a, the cluster kernel and K7 global equal to their plain versions
-       over the first WIDE_MB_PLAIN_GROUPS group steps; the two designs in
-       turns over every chunk at WIDE_MB_BATCH and at batch 1; PBS/s; KS
-       -> PBS at batch 1;
-    c. random keys at the envelope's corners (``WIDE_CORNERS``: N = 16384
-       on the cluster kernel, N = 32768 on K7 global);
-    d. ``check_supported`` refusing WIDE_REFUSED on the card."""
+       the cluster kernel a chunk, K5b never), decrypted; K5a and the
+       cluster kernel equal to their plain versions over the first
+       WIDE_MB_PLAIN_GROUPS group steps; both timed over every chunk at
+       WIDE_MB_BATCH, the cluster kernel at batch 1; PBS/s; KS -> PBS at
+       batch 1;
+    c. ``check_supported`` refusing WIDE_REFUSED on the card;
+    d. the classic 4_4 set ``V1_5_PARAM_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_
+       2M40`` (n = 1096, k = 1, N = 32768, l = 2, b = 15; a CTA of the
+       cluster kernel 393,216 B, of the split 147,456 B): keygen (s, GB);
+       WIDE_SPLIT_BATCH ciphertexts covering all 256 values through
+       ``apply_lookup_table`` (K2 u64 once, the split once, K3, the
+       cluster kernel and K7 global never), decrypted; the same under
+       ``TFHE_V4_ACC=32``; the split and K7 global equal to the plain
+       versions in both modes on WIDE_SPLIT_PLAIN_CTS ciphertexts over the
+       first WIDE_SPLIT_PLAIN_STEPS steps; the two in turns at
+       WIDE_SPLIT_BATCH (acc32: one turn each) and at batch 1, both modes;
+       PBS/s, KS -> PBS at batch 1 (median of 5), the bound;
+    e. the multi-bit split shapes WIDE_SPLIT_MB (N = 32768 and N = 16384,
+       l = 3, the GPU group-4 4_4 set's and the group-4 1_6 set's) on
+       random group-4 keys and accumulators, WIDE_SPLIT_MB_B ciphertexts
+       over WIDE_SPLIT_MB_GROUPS group steps (depth cut only): the pair
+       (K5a, the split a chunk; K5b, the cluster kernel and K7 global
+       never), the pair, the split and K7 global equal to the plain
+       versions on WIDE_SPLIT_MB_PLAIN ciphertexts; the split and K7
+       global in turns on all of them;
+    f. random keys at WIDE_CORNERS (N = 16384 on the cluster kernel, N =
+       32768 at l = 1 on K7 global)."""
     import torch
 
+    from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
     from tfhe_tpu_torch.shortint.client_key import ClientKey
     from tfhe_tpu_torch.shortint.server_key import ServerKey, check_supported
@@ -4393,7 +4694,7 @@ def phase_wide(card, rate, rows):
 
     t_phase = time.perf_counter()
     summary = {}
-    # d. the refusals, before any key
+    # c. the refusals, before any key
     for name in WIDE_REFUSED:
         try:
             check_supported(PARAMS_BY_NAME[name], "cuda")
@@ -4455,29 +4756,24 @@ def phase_wide(card, rate, rows):
     pre = (mask[:WIDE_PLAIN_CTS, :steps].contiguous(),
            key[:steps].contiguous(), bl, lv)
     errs, plain_ms = check_equal_all(
-        "K7 3_3", {"cluster": pk.blind_rotate_wide_cluster,
-                   "global": pk.blind_rotate_wide},
+        "K7 3_3", {"cluster": pk.blind_rotate_wide_cluster},
         pk.blind_rotate_crt_plain, (acc[:WIDE_PLAIN_CTS].contiguous(), *pre))
     errs32, plain32_ms = check_equal_all(
-        "K7-acc32 3_3", {"cluster": pk.blind_rotate_wide_cluster_acc32,
-                         "global": pk.blind_rotate_wide_acc32},
+        "K7-acc32 3_3", {"cluster": pk.blind_rotate_wide_cluster_acc32},
         pk.blind_rotate_crt_acc32_plain,
         (hi[:WIDE_PLAIN_CTS].contiguous(), *pre))
     del pre
-    # the two designs in turns on the batch's own inputs, then at batch 1
+    # the cluster kernel on the batch's own inputs (it ran on them above:
+    # no warm-up run), then at batch 1
     args, args32 = (acc, mask, key, bl, lv), (hi, mask, key, bl, lv)
-    k7_ms, k7g_ms = in_turns(lambda: pk.blind_rotate_wide_cluster(*args),
-                             lambda: pk.blind_rotate_wide(*args), 1)
-    k7_32_ms, k7g_32_ms = in_turns(
-        lambda: pk.blind_rotate_wide_cluster_acc32(*args32),
-        lambda: pk.blind_rotate_wide_acc32(*args32), 1)
+    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide_cluster(*args), 2,
+                    warmup=False)
+    k7_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_cluster_acc32(*args32),
+                       2, warmup=False)
     one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
     one32 = (hi[:1].contiguous(), *one[1:])
-    k7_b1, k7g_b1 = in_turns(lambda: pk.blind_rotate_wide_cluster(*one),
-                             lambda: pk.blind_rotate_wide(*one), 3)
-    k7_32_b1, k7g_32_b1 = in_turns(
-        lambda: pk.blind_rotate_wide_cluster_acc32(*one32),
-        lambda: pk.blind_rotate_wide_acc32(*one32), 3)
+    k7_b1 = cuda_ms(lambda: pk.blind_rotate_wide_cluster(*one), 3)
+    k7_32_b1 = cuda_ms(lambda: pk.blind_rotate_wide_cluster_acc32(*one32), 3)
     del args, args32, one, one32
     step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
                       warmup=False)
@@ -4491,47 +4787,29 @@ def phase_wide(card, rate, rows):
     print(f"3_3 B={WIDE_BATCH}: KS->PBS {step_ms:.3f} ms = "
           f"{WIDE_BATCH / step_ms * 1e3:.1f} PBS/s; K7 cluster kernel "
           f"{k7_ms:.3f} ms (bound {bnd[0]:.2f} ms, {bnd[1]}: "
-          f"{bnd[0] / k7_ms:.1%}), K7 global {k7g_ms:.3f} ms in turns "
-          f"({bnd[0] / k7g_ms:.1%}); acc32: cluster {k7_32_ms:.3f}, global "
-          f"{k7g_32_ms:.3f} ms; batch 1: cluster {k7_b1:.3f}, global "
-          f"{k7g_b1:.3f} ms (acc32 {k7_32_b1:.3f}, {k7g_32_b1:.3f}); both "
-          f"designs == plain in both modes on {WIDE_PLAIN_CTS} ciphertexts, "
-          f"the first {steps} of {n} steps (plain {plain_ms:.1f}, "
-          f"{plain32_ms:.1f} ms); batch 1 KS->PBS {b1_ms:.3f} ms (1 launch); "
-          f"the cluster kernel {occ}; on {card}")
+          f"{bnd[0] / k7_ms:.1%}); acc32 {k7_32_ms:.3f} ms; batch 1 "
+          f"{k7_b1:.3f} ms (acc32 {k7_32_b1:.3f}); == plain in both modes "
+          f"on {WIDE_PLAIN_CTS} ciphertexts, the first {steps} of {n} steps "
+          f"(plain {plain_ms:.1f}, {plain32_ms:.1f} ms); batch 1 KS->PBS "
+          f"{b1_ms:.3f} ms (1 launch); the cluster kernel {occ}; on {card}")
     common = dict(source=WIDE_SOURCE, replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
                   shape=f"3_3 B={WIDE_BATCH} n={n} N={N} l={lv} P={P}",
                   plain_shape=f"B={WIDE_PLAIN_CTS}, {steps} of {n} steps")
     rows["blind_rotate_wide_cluster_3_3"] = dict(
         common, launches=launches, max_abs_err=errs["cluster"], ms=k7_ms,
         plain_ms=plain_ms, bound=bnd, ms_b1=k7_b1, bound_b1_ms=bnd1[0],
-        global_ms=k7g_ms, global_ms_b1=k7g_b1,
         kernel="K7's cluster kernel (8 CTAs a ciphertext, all steps in one "
                "launch), K3's function, u64 acc")
     rows["blind_rotate_wide_cluster_acc32_3_3"] = dict(
         common, launches=launches32, max_abs_err=errs32["cluster"],
         ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32, ms_b1=k7_32_b1,
-        global_ms=k7g_32_ms, global_ms_b1=k7g_32_b1,
         kernel="K7's cluster kernel, acc32 (GarnerTail32), K3-acc32's "
                "function")
-    wide_global = {
-        "blind_rotate_wide_3_3": dict(
-            common, max_abs_err=errs["global"], ms=k7g_ms, plain_ms=plain_ms,
-            bound=bnd, ms_b1=k7g_b1,
-            kernel="K7 global (K7a, K7b, K7c a step), K3's function, timed "
-                   "in turns with the cluster kernel; launches: the N = "
-                   "32768 corner's, where the dispatch sends it"),
-        "blind_rotate_wide_acc32_3_3": dict(
-            common, max_abs_err=errs32["global"], ms=k7g_32_ms,
-            plain_ms=plain32_ms, bound=bnd32, ms_b1=k7g_32_b1,
-            kernel="K7 global acc32; launches: the N = 32768 corner's")}
     summary.update(wide_keygen_s=keygen_s, wide_key_mb=key_mb,
                    wide_pbs_ms=step_ms, wide_pbs_per_s=WIDE_BATCH / step_ms
                    * 1e3, wide_k7_ms=k7_ms, wide_k7_acc32_ms=k7_32_ms,
-                   wide_k7_global_ms=k7g_ms, wide_k7_global_acc32_ms=k7g_32_ms,
-                   wide_k7_b1_ms=k7_b1, wide_k7_global_b1_ms=k7g_b1,
-                   wide_k7_bound_ms=bnd[0], wide_ks_pbs_b1_ms=b1_ms,
-                   wide_k7_occupancy=occ)
+                   wide_k7_b1_ms=k7_b1, wide_k7_bound_ms=bnd[0],
+                   wide_ks_pbs_b1_ms=b1_ms, wide_k7_occupancy=occ)
     del ck, sk, ct, out, out32, acc, hi, mask, body, key, ct1
     torch.cuda.empty_cache()
 
@@ -4573,8 +4851,7 @@ def phase_wide(card, rate, rows):
     bundles8 = pk.multi_bit_keybundle(mask8, mbk, 0, G, bl, lv)
     b_errs, b_plain = check_equal_all(
         "K7 multi-bit g4 3_3",
-        {"cluster": pk.multi_bit_accumulate_wide_cluster,
-         "global": pk.multi_bit_accumulate_wide},
+        {"cluster": pk.multi_bit_accumulate_wide_cluster},
         pk.multi_bit_accumulate_plain, (acc8, bundles8, bl, lv))
     del bundles8
     chunks = [(t0, min(C, ng - t0)) for t0 in range(0, ng, C)]
@@ -4585,11 +4862,8 @@ def phase_wide(card, rate, rows):
     del scratch
     bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
                for c in {c for _, c in chunks}}
-    k7_mb_ms, k7g_mb_ms = in_turns(
-        lambda: [pk.multi_bit_accumulate_wide_cluster(acc, bundles[c], bl, lv)
-                 for _, c in chunks],
-        lambda: [pk.multi_bit_accumulate_wide(acc, bundles[c], bl, lv)
-                 for _, c in chunks], 1)
+    k7_mb_ms = cuda_ms(lambda: [pk.multi_bit_accumulate_wide_cluster(
+        acc, bundles[c], bl, lv) for _, c in chunks], 2)
     del bundles
     torch.cuda.empty_cache()
     # batch 1: its own chunks (all ng steps in one at this shape)
@@ -4598,17 +4872,13 @@ def phase_wide(card, rate, rows):
                                   min(C1, ng - t0), bl, lv)
            for t0 in range(0, ng, C1)]
     acc1 = acc[:1].contiguous()
-    k7_mb_b1, k7g_mb_b1 = in_turns(
-        lambda: [pk.multi_bit_accumulate_wide_cluster(acc1, b, bl, lv)
-                 for b in one],
-        lambda: [pk.multi_bit_accumulate_wide(acc1, b, bl, lv) for b in one],
-        3)
+    k7_mb_b1 = cuda_ms(lambda: [pk.multi_bit_accumulate_wide_cluster(
+        acc1, b, bl, lv) for b in one], 3)
     del one, acc1
     mb_step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
                          warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
     mb_b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
-    from tfhe_tpu_torch.ops import kernel_bench as kb
 
     a_bnd = bound(kb.multi_bit_keybundle_pipe_instructions(
         WIDE_MB_BATCH, ng, g, R, lv, N, P),
@@ -4622,11 +4892,10 @@ def phase_wide(card, rate, rows):
           f"{WIDE_MB_BATCH / mb_step_ms * 1e3:.1f} PBS/s; {len(chunks)} "
           f"chunks of {C} steps: K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
           f"{a_bnd[1]}), K7 cluster kernel {k7_mb_ms:.3f} ms (bound "
-          f"{b_bnd[0]:.2f}, {b_bnd[1]}: {b_bnd[0] / k7_mb_ms:.1%}), K7 global "
-          f"{k7g_mb_ms:.3f} ms in turns; batch 1 ({ng} steps): cluster "
-          f"{k7_mb_b1:.3f}, global {k7g_mb_b1:.3f} ms; K5a and both designs "
-          f"== plain on {WIDE_PLAIN_CTS} ciphertexts over {G} group steps "
-          f"(plain {a_plain:.1f}, {b_plain:.1f} ms); batch 1 KS->PBS "
+          f"{b_bnd[0]:.2f}, {b_bnd[1]}: {b_bnd[0] / k7_mb_ms:.1%}); batch 1 "
+          f"({ng} steps): cluster {k7_mb_b1:.3f} ms; K5a and the cluster "
+          f"kernel == plain on {WIDE_PLAIN_CTS} ciphertexts over {G} group "
+          f"steps (plain {a_plain:.1f}, {b_plain:.1f} ms); batch 1 KS->PBS "
           f"{mb_b1_ms:.3f} ms; launches {mb_launches}; on {card}")
     common = dict(source=WIDE_SOURCE, replaces=MB_REPLACES,
                   shape=f"g4 3_3 B={WIDE_MB_BATCH} n/g={ng} N={N} l={lv} "
@@ -4636,14 +4905,8 @@ def phase_wide(card, rate, rows):
         common, launches=mb_launches["multi_bit_accumulate_wide_cluster"],
         max_abs_err=b_errs["cluster"], ms=k7_mb_ms, plain_ms=b_plain,
         bound=b_bnd, ms_b1=k7_mb_b1, bound_b1_ms=b_bnd1[0],
-        global_ms=k7g_mb_ms, global_ms_b1=k7g_mb_b1,
         kernel="K7's cluster kernel, K5b's function (Barrett MAC against "
                "the bundles), all chunks of the call")
-    wide_global["multi_bit_accumulate_wide_g4_3_3"] = dict(
-        common, max_abs_err=b_errs["global"], ms=k7g_mb_ms, plain_ms=b_plain,
-        bound=b_bnd, ms_b1=k7g_mb_b1,
-        kernel="K7 global, K5b's function, timed in turns with the cluster "
-               "kernel; launches: the N = 32768, l = 3 corner's")
     rows["multi_bit_keybundle_g4_3_3"] = dict(
         common, source=MB_SOURCE,
         launches=mb_launches["multi_bit_keybundle"], max_abs_err=a_err,
@@ -4655,26 +4918,32 @@ def phase_wide(card, rate, rows):
                    wide_mb_pbs_ms=mb_step_ms,
                    wide_mb_pbs_per_s=WIDE_MB_BATCH / mb_step_ms * 1e3,
                    wide_mb_k5a_ms=k5a_ms, wide_mb_k7_ms=k7_mb_ms,
-                   wide_mb_k7_global_ms=k7g_mb_ms, wide_mb_k7_b1_ms=k7_mb_b1,
-                   wide_mb_k7_global_b1_ms=k7g_mb_b1,
-                   wide_mb_ks_pbs_b1_ms=mb_b1_ms)
+                   wide_mb_k7_b1_ms=k7_mb_b1, wide_mb_ks_pbs_b1_ms=mb_b1_ms)
     del ck, sk, ct, out, acc, mask, body, mbk, ct1, mask8, acc8
     torch.cuda.empty_cache()
 
-    # c. the corners; K7 global's launches are theirs
+    # d. classic 4_4 on the split; e. the multi-bit split shapes
+    t_split = time.perf_counter()
+    wide_global = _wide_split_classic(card, rate, rows, summary)
     rng = np.random.default_rng(SEED + 24)
+    for shape in WIDE_SPLIT_MB:
+        g_rows, s = _wide_split_multi_bit(*shape, rate, rows, rng)
+        wide_global.update(g_rows)
+        summary.update(s)
+    summary["wide_split_s"] = time.perf_counter() - t_split
+
+    # f. the corners; K7 global's launches are theirs
     corner = {c[0]: _wide_corner(*c, rng) for c in WIDE_CORNERS}
-    for name, label, wrapper in (
-            ("blind_rotate_wide_3_3", "classic_n32768", "blind_rotate_wide"),
-            ("blind_rotate_wide_acc32_3_3", "classic_n32768",
-             "blind_rotate_wide_acc32"),
-            ("multi_bit_accumulate_wide_g4_3_3", "multi_bit_n32768",
-             "multi_bit_accumulate_wide")):
-        rows[name] = dict(wide_global[name],
-                          launches=corner[label][wrapper],
+    for name, row in wide_global.items():
+        label = "multi_bit_n32768_l1" if name.startswith("multi_bit") \
+            else "classic_n32768_l1"
+        wrapper = max((w for w in WIDE_KERNELS["global"]
+                       if name.startswith(w + "_")), key=len)
+        rows[name] = dict(row, launches=corner[label][wrapper],
                           launches_on=f"corner {label}")
     summary["wide_s"] = time.perf_counter() - t_phase
-    print(f"phase 24: {summary['wide_s']:.1f} s")
+    print(f"phase 24: {summary['wide_s']:.1f} s (d and e, the split: "
+          f"{summary['wide_split_s']:.1f} s)")
     return summary
 
 
@@ -4740,10 +5009,12 @@ def main() -> int:
              "blind_rotate_crt_acc32", "blind_rotate_crt_acc32_p4",
              "blind_rotate_wide_cluster_3_3",
              "blind_rotate_wide_cluster_acc32_3_3",
-             "blind_rotate_wide_3_3", "blind_rotate_wide_acc32_3_3",
+             "blind_rotate_wide_split_4_4", "blind_rotate_wide_split_acc32_4_4",
+             "blind_rotate_wide_4_4", "blind_rotate_wide_acc32_4_4",
              "multi_bit_keybundle_g4_3_3",
              "multi_bit_accumulate_wide_cluster_g4_3_3",
-             "multi_bit_accumulate_wide_g4_3_3",
+             *(f"multi_bit_accumulate_wide{d}_{label}" for label, *_ in
+               WIDE_SPLIT_MB for d in ("_split", "")),
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in

@@ -181,7 +181,7 @@ def test_cpu_tensors_take_plain_versions():
     np.testing.assert_array_equal(ck.decrypt_message_and_carry(out),
                                   np.arange(16))
     assert out.ct.device.type == "cpu"
-    assert len(pk.KERNELS) == 18
+    assert len(pk.KERNELS) == 21
     for fn in pk.KERNELS:
         assert fn.launches == 0, fn.__name__
 

@@ -147,8 +147,8 @@ def test_every_set_is_supported():
 
 
 #: kind -> (the universe's classes of that kind, sets refused on "cuda",
-#: sets whose CRT steps run on K7 there: on its cluster kernel, on K7
-#: global)
+#: sets whose CRT steps run on K7 there: on its cluster kernel, on the
+#: cluster kernel at split 2)
 ENVELOPE = {"classic": (("ClassicPBSParameters", "KeySwitch32PBSParameters"),
                         32, 48, 5),
             "multi_bit": (("MultiBitPBSParameters",), 19, 76, 45)}
@@ -168,8 +168,9 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     ones. Of them K7's cluster kernel takes those whose CTA fits a block
     (``step_passes.cluster_smem_bytes``, ``pbs_kernel.wide_route``): 48
     classic (N <= 16384, l = 2) and 76 multi-bit (N <= 8192, and N =
-    16384 at l = 2), both 3_3 GPU defaults among them; K7 global the
-    other 5 and 45 (N = 32768, or N = 16384 at l = 3). One v6b set more
+    16384 at l = 2), both 3_3 GPU defaults among them; the cluster kernel
+    at split 2 (a CTA of half the transforms) the other 5 and 45 (N =
+    32768, or N = 16384 at l = 3), and K7 global none. One v6b set more
     runs its many-LUT and OPRF on K7. Every set passes on the CPU.
     ``ServerKey.generate`` refuses before it draws a key (its client key
     here holds no key material at all)."""
@@ -182,7 +183,7 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     from tfhe_tpu_torch.shortint.server_key import num_primes_for
 
     monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
-    classes, n_refused, n_cluster, n_global = ENVELOPE[kind]
+    classes, n_refused, n_cluster, n_split = ENVELOPE[kind]
     sets = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
             if k in classes]
     refused, wide, cluster = [], [], []
@@ -207,10 +208,12 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
                 assert levels == 2 and N <= 16384 or N <= 8192
                 cluster.append(p)
             else:
-                assert pk.wide_route(P, R, levels, N) == "global"
+                assert sp.cluster_smem_bytes(P, R, levels, N, 8, split=2) \
+                    <= pk._SMEM_LIMIT
+                assert pk.wide_route(P, R, levels, N) == "split"
                 assert N == 32768 or (N == 16384 and levels == 3)
     assert len(refused) == n_refused
-    assert (len(cluster), len(wide) - len(cluster)) == (n_cluster, n_global)
+    assert (len(cluster), len(wide) - len(cluster)) == (n_cluster, n_split)
     assert all(pk.needs_wide(num_primes_for(p), p.glwe_size, p.pbs_level,
                              p.polynomial_size) for p in wide)
     names = {p.name for p in cluster}

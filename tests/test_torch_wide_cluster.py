@@ -143,15 +143,16 @@ def test_dispatch_by_shape():
     """Which kernel each shape goes to, from the shape alone: K3 / K5b
     within a block (2_2), the cluster kernel at 3_3 (classic, both
     accumulator modes, and the group-4 shape), at N = 16384, l = 2 and at
-    N = 8192, l = 1; K7 global at N = 32768 and at N = 16384, l = 3;
-    never a cluster beyond 8 CTAs. On CPU tensors every wrapper runs the
-    plain version and counts nothing."""
+    N = 8192, l = 1; the cluster kernel at split 2 at N = 32768 and at N =
+    16384, l = 3; K7 global beyond 8 CTAs a half (P R > 8); never a
+    cluster of split 1 beyond 8 CTAs. On CPU tensors every wrapper runs
+    the plain version and counts nothing."""
     route = pk.wide_route
     assert route(4, 2, 1, 2048) is None
     assert route(4, 2, 2, 8192) == route(4, 2, 2, 8192, 4) == "cluster"
     assert route(4, 2, 2, 16384) == route(4, 2, 1, 8192) == "cluster"
-    assert route(4, 2, 2, 32768) == route(4, 2, 3, 16384) == "global"
-    assert route(4, 2, 3, 32768) == route(4, 2, 2, 32768, 4) == "global"
+    assert route(4, 2, 2, 32768) == route(4, 2, 3, 16384) == "split"
+    assert route(4, 2, 3, 32768) == route(4, 2, 2, 32768, 4) == "split"
     assert route(5, 2, 2, 8192) == route(4, 3, 2, 8192) == "global"
     assert not pk.fits_cluster(4, 3, 1, 4096)
     meta = dict(device="meta", dtype=torch.int64)
@@ -161,7 +162,7 @@ def test_dispatch_by_shape():
     assert pk._wide_shape(acc33, key33, 2, 8) == "cluster"
     assert pk._wide_shape(torch.empty(4, 2, 32768, **meta), torch.empty(
         1, 2, 4, 4, 2, 32768, dtype=torch.int32, device="meta"), 2, 8) == \
-        "global"
+        "split"
     assert pk._wide_shape(acc33, key33[0], 2, 8) is None
     rng = np.random.default_rng(5)
     key = _crt_key(rng, 2, 2, 2, N, 15)

@@ -18,8 +18,10 @@
 // Two designs, chosen by the wrapper from the shape alone
 // (ops/pbs_kernel.py::wide_route):
 //
-// The cluster kernel (wide_cluster_kernel; every shape whose CTA area below
-// fits a block, which holds the 3_3 sets): one thread-block cluster of
+// The cluster kernel (wide_cluster_kernel<Tail, Bundle, H>; at split H = 1
+// every shape whose CTA area below fits a block, which holds the 3_3 sets;
+// at H = 2, below, the shapes where only a CTA of half the transforms
+// fits, tfhe-rs's 4_4 sets): one thread-block cluster of
 // P R CTAs a ciphertext runs all n steps of the call in one launch, with
 // the accumulator and the digit transforms in the cluster's distributed
 // shared memory (DSMEM) throughout. CTA rank = r P + pi owns
@@ -53,9 +55,27 @@
 // Nothing of a step goes through device memory but the key (or bundle) and
 // the constant tables: no per-step launch and no HBM round trip.
 //
-// K7 global (the three-stage design, for the rest: N = 32768, or N =
-// 16384 at l = 3), one CMUX step on a chunk of Bc ciphertexts in three
-// launches:
+// The split (H = 2; N = 32768 at l = 2 and 3, N = 16384 at l = 3: a
+// CTA area of 393,216 B to 557,056 B at H = 1): 2 P R = 16 CTAs a
+// ciphertext, beyond the portable cluster size. CTA rank h P R + r P + pi
+// holds half h of every transform of row r mod p_pi, dig [max(l, R)][N/2]:
+// a DIF transform's stage 0 is its only stage that pairs the halves (t
+// with t + N/2), as is the DIT inverse's last. So the lift reads both
+// digits of each pair and keeps its half of stage 0 (then stages 1 .. 3
+// in registers); every other pass, the MAC and the sum of the partials
+// run on the half; and D gathers both halves of row r of every prime and
+// runs stage 0 and the untwist there before the tail. CTA o = h P + pi of
+// row r owns the pairs (t, t + N/2), t in [o S, o S + S), S =
+// 2^ceil(log2(N / 4P)): each output pair is computed once. The digits of
+// its 2 S positions are stored as int16 [l][2 S] (l >= 2, so b <= 15) and
+// its accumulator words stay in global memory (read in A, written in D;
+// the cluster barriers' release and acquire order them): 147,456 B at N =
+// 32768, l = 2, 221,184 B at l = 3, 110,592 B at N = 16384, l = 3. Still
+// 4 cluster barriers a step and one launch a call.
+//
+// K7 global (the three-stage design, for any shape beyond both: P R > 8,
+// or l = 1 at N = 32768; the reference the split is timed against), one
+// CMUX step on a chunk of Bc ciphertexts in three launches:
 //   K7a (wide_decompose_kernel), one block a (ciphertext, digit row
 //       j = lev R + r, prime): the balanced digit `lev` of the hi word of
 //       X^a acc[r] - acc[r] (classic) or of acc[r] itself (multi-bit, whose
@@ -358,22 +378,25 @@ int wide_classic(void* acc, const void* a_ms, const void* bsk,
 }
 
 // ---------------------------------------------------------------------------
-// The cluster kernel: one cluster of P R CTAs a ciphertext, all n steps
+// The cluster kernel: one cluster of H P R CTAs a ciphertext, all n steps
 // ---------------------------------------------------------------------------
 
 constexpr int kClusterThreads = 512;
 constexpr int kClusterMax = 8;       // the portable cluster size
-constexpr int kClusterMinLogN = 8;   // slices of >= 64 coefficients
+constexpr int kClusterMinLogN = 8;   // slices of >= 64 (H = 2: 16 pairs)
 constexpr int kClusterMaxLogN = 14;  // the plan's passes: <= 5 a side
+constexpr int kSplitMaxLogN = 15;    // H = 2: a half's passes, <= 5 a side
 constexpr int kClusterRowsMax = kClusterMax / 2;  // R <= 4 (P >= 2)
 constexpr size_t kSmemLimit = 232448;
 
-// log2 S, a CTA's accumulator slice: ceil(log2(N / P)) = log_n -
-// floor(log2 P)
-__host__ __device__ __forceinline__ int cluster_log_slice(int log_n, int P) {
+// log2 S. H = 1: a CTA's accumulator slice, ceil(log2(N / P)) = log_n -
+// floor(log2 P); H = 2: the pairs (t, t + N/2) a CTA owns, ceil(log2(N /
+// 4P)), two less
+__host__ __device__ __forceinline__ int cluster_log_slice(int log_n, int P,
+                                                          int H = 1) {
     int f = 0;
     while ((2 << f) <= P) ++f;
-    return log_n - f;
+    return log_n - f - 2 * (H - 1);
 }
 
 // rows of a CTA's digit area: its l digit transforms, its R MAC partials
@@ -381,24 +404,33 @@ __host__ __device__ __forceinline__ int cluster_rows(int R, int levels) {
     return levels > R ? levels : R;
 }
 
-// bytes of a CTA's dynamic shared memory: dig [max(l, R)][N] u32, the
-// acc slice [S] and the slice's digits [l][S] i32
-size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes) {
+// bytes of a CTA's dynamic shared memory. H = 1: dig [max(l, R)][N] u32,
+// the acc slice [S] and the slice's digits [l][S] i32; H = 2: dig [max(l,
+// R)][N/2] u32 and the digits of the CTA's 2 S positions [l][2 S] i16
+// (its acc positions stay in global memory)
+size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes,
+                    int H = 1) {
     const size_t N = size_t(1) << log_n;
-    const size_t S = size_t(1) << cluster_log_slice(log_n, P);
+    const size_t S = size_t(1) << cluster_log_slice(log_n, P, H);
+    if (H == 2)
+        return cluster_rows(R, levels) * (N / 2) * 4
+               + (size_t)levels * 2 * S * 2;
     return cluster_rows(R, levels) * N * 4 + S * acc_bytes
            + (size_t)levels * S * 4;
 }
 
-// Whether the cluster kernel takes this shape: a cluster of at most 8 CTAs,
-// its plan (passes of <= 3 stages, 5 a side), the hi-word decomposer and a
-// CTA area within a block's shared memory.
+// Whether the cluster kernel at split H takes this shape: P R <= 8 (H P R
+// CTAs a cluster; 16, beyond the portable size, at H = 2), its plan
+// (passes of <= 3 stages, 5 a side), the hi-word decomposer, a CTA area
+// within a block's shared memory; at H = 2 l >= 2, so that b l <= 31
+// keeps a balanced digit within 16 bits (|d| <= 2^(b-1), b <= 15).
 bool cluster_fits(int R, int levels, int base_log, int log_n, int P,
-                  int acc_bytes) {
+                  int acc_bytes, int H = 1) {
     return P >= 2 && P <= brk::kMaxPrimes && R >= 1 && P * R <= kClusterMax
-           && levels >= 1 && base_log >= 1 && base_log * levels <= 31
-           && log_n >= kClusterMinLogN && log_n <= kClusterMaxLogN
-           && cluster_smem(R, levels, log_n, P, acc_bytes) <= kSmemLimit;
+           && levels >= (H == 2 ? 2 : 1) && base_log >= 1
+           && base_log * levels <= 31 && log_n >= kClusterMinLogN
+           && log_n <= (H == 2 ? kSplitMaxLogN : kClusterMaxLogN)
+           && cluster_smem(R, levels, log_n, P, acc_bytes, H) <= kSmemLimit;
 }
 
 // The step's passes: forward stages [0, log_n - 2) in passes of <= 3 (the
@@ -414,6 +446,25 @@ WidePlan make_cluster_plan(int log_n) {
     pl.inv_k[0] = 2;
     pl.n_inv = 1;
     brk::split_stages(0, log_n - 2, true, &pl.n_inv, pl.inv_s0, pl.inv_k);
+    return pl;
+}
+
+// H = 2: the lift with stages 0 .. 3 (stage 0 the only one across the
+// halves), then [4, log_n - 2) in passes of <= 3 on the CTA's half, then
+// the MAC's two; inverse: the sum's two, then stages log_n - 3 .. 1 in
+// passes of <= 3 (stage 0 and the untwist are phase D's).
+WidePlan make_split_plan(int log_n) {
+    WidePlan pl{};
+    pl.fwd_s0[0] = 0;
+    pl.fwd_k[0] = 4;
+    pl.n_fwd = 1;
+    brk::split_stages(4, log_n - 2, false, &pl.n_fwd, pl.fwd_s0, pl.fwd_k);
+    pl.fwd_s0[pl.n_fwd] = log_n - 2;
+    pl.fwd_k[pl.n_fwd++] = 2;
+    pl.inv_s0[0] = log_n - 2;
+    pl.inv_k[0] = 2;
+    pl.n_inv = 1;
+    brk::split_stages(1, log_n - 2, true, &pl.n_inv, pl.inv_s0, pl.inv_k);
     return pl;
 }
 
@@ -463,23 +514,126 @@ __device__ void cluster_lift(uint32_t* dig, uint32_t dsl_sa, int r, int P,
     __syncthreads();
 }
 
+// H = 2, B: the lift fused with stages 0 .. 3 on half h (hl = N >> 4,
+// item (lev, g) at positions g + m hl, m < 8, and their partners g + m hl
+// + N/2): both digits of each pair (t, t + N/2) read from its owner, CTA
+// o / P, r, o % P (o = t >> log_s), at the pair's two slots there, lifted
+// mod p and twisted; stage 0 (twiddle index t) kept for half h only: the
+// sums (h = 0) or the twiddled differences (h = 1); then stages 1 .. 3,
+// written to the half at g + m hl.
+__device__ void split_lift(uint32_t* dig, uint32_t dsl_sa, int h, int r,
+                           int P, int R, int levels, int log_n, int log_s,
+                           const uint32_t* __restrict__ tb, uint32_t p) {
+    constexpr int K = 4, E = 8;
+    const int N = 1 << log_n;
+    const int M = N >> 1;
+    const int log_hl = log_n - K;
+    #pragma unroll 1
+    for (int u = threadIdx.x; u < levels << log_hl; u += blockDim.x) {
+        const int lev = u >> log_hl;
+        const int g = u & ((1 << log_hl) - 1);
+        uint32_t v[E];
+        #pragma unroll
+        for (int m = 0; m < E; ++m) {
+            const int t = g + (m << log_hl);
+            const int o = t >> log_s;
+            const uint32_t at = wg::mapa(
+                dsl_sa + 2u * (uint32_t)((lev << (log_s + 1)) + t
+                                         - (o << log_s)),
+                (uint32_t)((o / P) * P * R + r * P + o % P));
+            uint32_t x[2];
+            #pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                const int32_t d = wg::ld_cluster_s16(at + 2u * (k << log_s));
+                const uint32_t m_res =
+                    d < 0 ? (uint32_t)(d + (int32_t)p) : (uint32_t)d;
+                const int tk = t + k * M;
+                x[k] = brk::shoup_mul(m_res, __ldg(tb + brk::T_TW * N + tk),
+                                      __ldg(tb + brk::T_TW_SH * N + tk), p);
+            }
+            v[m] = h == 0
+                ? brk::add_mod(x[0], x[1], p)
+                : brk::shoup_mul(x[0] - x[1] + p,
+                                 __ldg(tb + brk::T_FWD * N + t),
+                                 __ldg(tb + brk::T_FWD_SH * N + t), p);
+        }
+        brk::fwd_regs<3>(v, tb, N, 1, g, log_hl, p);
+        const int base = (lev << (log_n - 1)) + g;
+        #pragma unroll
+        for (int m = 0; m < E; ++m)
+            dig[brk::swz(base + (m << log_hl))] = v[m];
+    }
+    __syncthreads();
+}
+
+// H = 2: forward or inverse stages s0 .. s0+K-1 (s0 >= 1) of rows row0 ..
+// row0 + rows - 1 of a CTA's half [.][N/2] (swizzled as one area: a row
+// of N/2 words need not start a swizzle block). From stage 1 on a half is closed
+// under the stages, and a position's twiddle index, its offset mod the
+// stride, is the same in the half as in the polynomial: the items are
+// StepPasses::pass's on N/2 positions, the twiddles the N-long tables'.
+template <int K, bool Inverse>
+__device__ void half_pass(uint32_t* x, int row0, int rows, int log_n,
+                          int s0, const uint32_t* __restrict__ tb,
+                          uint32_t p) {
+    const int N = 1 << log_n;
+    const int log_m = log_n - 1;
+    const int log_g = log_m - K;
+    const int log_hl = log_n - s0 - K;
+    #pragma unroll 1
+    for (int u = threadIdx.x; u < rows << log_g; u += blockDim.x) {
+        const int row = u >> log_g;
+        const int g = u & ((1 << log_g) - 1);
+        int j;
+        const int base =
+            ((row0 + row) << log_m) + brk::item_origin<K>(g, log_hl, &j);
+        uint32_t v[1 << K];
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m)
+            v[m] = x[brk::swz(base + (m << log_hl))];
+        if (Inverse)
+            brk::inv_regs<K>(v, tb, N, s0, j, log_hl, p);
+        else
+            brk::fwd_regs<K>(v, tb, N, s0, j, log_hl, p);
+        #pragma unroll
+        for (int m = 0; m < (1 << K); ++m)
+            x[brk::swz(base + (m << log_hl))] = v[m];
+    }
+    __syncthreads();
+}
+
+template <bool Inverse>
+__device__ void half_pass_k(int k, uint32_t* x, int row0, int rows,
+                            int log_n, int s0,
+                            const uint32_t* __restrict__ tb, uint32_t p) {
+    if (k == 1)
+        half_pass<1, Inverse>(x, row0, rows, log_n, s0, tb, p);
+    else if (k == 2)
+        half_pass<2, Inverse>(x, row0, rows, log_n, s0, tb, p);
+    else
+        half_pass<3, Inverse>(x, row0, rows, log_n, s0, tb, p);
+}
+
 // B, the last two forward stages fused with the MAC: item g holds
-// positions 4g .. 4g + 3; per digit level the two stages, then for every
-// output row c, mac[c] += dig[lev] key[lev R + r][c] mod p; mac[c]
-// written over dig row c. key: the step's residues [P][l R][R][N] (the
-// duals P l R R N words on: classic) or the ciphertext's bundle (Bundle).
-template <bool Bundle>
+// positions 4g .. 4g + 3 of the CTA's share of a polynomial (N >> (H - 1)
+// words a row); per digit level the two stages, then for every output row
+// c, mac[c] += dig[lev] key[lev R + r][c] mod p; mac[c] written over dig
+// row c. key: the step's residues [P][l R][R][N] (the duals P l R R N words
+// on: classic) or the ciphertext's bundle (Bundle), from the CTA's first
+// position on.
+template <bool Bundle, int H>
 __device__ void cluster_mac(uint32_t* dig, const uint32_t* __restrict__ key,
                             int pi, int r, int R, int levels, int P,
                             int log_n, const uint32_t* __restrict__ tb,
                             uint32_t p, uint64_t mu) {
     constexpr int F = 2, E = 4;
     const int N = 1 << log_n;
+    const int M = N >> (H - 1);
     const int lR = levels * R;
     const int s0 = log_n - F;
     const long long duals = (long long)P * lR * R * N;
     #pragma unroll 1
-    for (int g = threadIdx.x; g < N >> F; g += blockDim.x) {
+    for (int g = threadIdx.x; g < M >> F; g += blockDim.x) {
         const int t0 = g << F;
         uint32_t mac[kClusterRowsMax][E];
         #pragma unroll
@@ -489,7 +643,7 @@ __device__ void cluster_mac(uint32_t* dig, const uint32_t* __restrict__ key,
         #pragma unroll 1
         for (int lev = 0; lev < levels; ++lev) {
             uint32_t d[E];
-            brk::lds_run<E>(dig, lev * N + t0, d);
+            brk::lds_run<E>(dig, lev * M + t0, d);
             brk::fwd_regs<F>(d, tb, N, s0, 0, 0, p);
             const uint32_t* kr =
                 key + ((long long)(pi * lR + lev * R + r) * R) * N + t0;
@@ -517,37 +671,40 @@ __device__ void cluster_mac(uint32_t* dig, const uint32_t* __restrict__ key,
         #pragma unroll
         for (int c = 0; c < kClusterRowsMax; ++c) {
             if (c >= R) break;
-            brk::sts_run<E>(dig, c * N + t0, mac[c]);
+            brk::sts_run<E>(dig, c * M + t0, mac[c]);
         }
     }
 }
 
 // C, the first inverse pass (stages log_n - 1, log_n - 2, item g at 4g ..
-// 4g + 3) on row r: dig row r plus row r of every CTA (pi, q), q != r,
+// 4g + 3) on row r: dig row r plus row r of every CTA (h, pi, q), q != r,
 // the R partials of output row r, then the two stages
-__device__ void cluster_sum(uint32_t* dig, uint32_t dig_sa, int pi, int r,
-                            int R, int P, int log_n,
+template <int H>
+__device__ void cluster_sum(uint32_t* dig, uint32_t dig_sa, int h, int pi,
+                            int r, int R, int P, int log_n,
                             const uint32_t* __restrict__ tb, uint32_t p) {
     constexpr int F = 2, E = 4;
     const int N = 1 << log_n;
+    const int M = N >> (H - 1);
     const int s0 = log_n - F;
     #pragma unroll 1
-    for (int g = threadIdx.x; g < N >> F; g += blockDim.x) {
+    for (int g = threadIdx.x; g < M >> F; g += blockDim.x) {
         const int t0 = g << F;
         uint32_t v[E];
-        brk::lds_run<E>(dig, r * N + t0, v);
-        const uint32_t at = dig_sa + 4u * (uint32_t)brk::swz(r * N + t0);
+        brk::lds_run<E>(dig, r * M + t0, v);
+        const uint32_t at = dig_sa + 4u * (uint32_t)brk::swz(r * M + t0);
         #pragma unroll 1
         for (int q = 0; q < R; ++q) {
             if (q == r) continue;
-            const uint4 w = wg::ld_cluster_v4(wg::mapa(at, (uint32_t)(q * P + pi)));
+            const uint4 w = wg::ld_cluster_v4(wg::mapa(
+                at, (uint32_t)((H == 1 ? 0 : h * P * R) + q * P + pi)));
             v[0] = brk::add_mod(v[0], w.x, p);
             v[1] = brk::add_mod(v[1], w.y, p);
             v[2] = brk::add_mod(v[2], w.z, p);
             v[3] = brk::add_mod(v[3], w.w, p);
         }
         brk::inv_regs<F>(v, tb, N, s0, 0, 0, p);
-        brk::sts_run<E>(dig, r * N + t0, v);
+        brk::sts_run<E>(dig, r * M + t0, v);
     }
     __syncthreads();
 }
@@ -576,14 +733,84 @@ __device__ void cluster_untwist(uint32_t* x, int log_n,
     }
 }
 
-// The cluster kernel. Grid: B P R CTAs in clusters of P R, ciphertext b =
-// blockIdx.x / (P R), rank r P + pi. acc_in, acc_out: Acc [B, R, N];
-// classic: a_ms i32 [B, n_steps] in [0, 2N), key u32 [n_steps, 2, P, l R,
-// R, N] (step i at i key_step); Bundle: key the bundles u32 [B, n_steps,
-// P, l R, R, N] (ciphertext b at b key_b, step tt at tt key_step). The
-// prime, its Barrett constant and the decomposer are read or built where
-// used, which keeps the step loop's live registers within 64.
+// H = 2, D: Garner on the CTA's pairs (t, t + N/2), t in [base, base +
+// len), two consecutive t a thread: for each prime q, row r's pre-final
+// values at t from CTAs (0, q, r) and (1, q, r), the last inverse stage
+// (stage 0: t + N/2 with twiddle index t) and the untwist of both
+// positions mod p_q; then the tail of each position's P residues, added
+// to acc in global memory (classic) or in its place (Bundle).
 template <class Tail, bool Bundle>
+__device__ void split_garner(typename Tail::Acc* acc, uint32_t dig_sa,
+                             int r, int R, int base, int len, int log_n,
+                             const uint32_t* __restrict__ tables,
+                             const WidePrimes& pr, const Tail& tail) {
+    using Acc = typename Tail::Acc;
+    constexpr int P = Tail::P;
+    const int N = 1 << log_n;
+    const int M = N >> 1;
+    #pragma unroll 1
+    for (int i = 2 * threadIdx.x; i < len; i += 2 * blockDim.x) {
+        const int t = base + i;
+        const uint32_t at = dig_sa + 4u * (uint32_t)brk::swz(r * M + t);
+        uint32_t y[2][P][2];  // [position t, t + N/2][prime][t, t + 1]
+        #pragma unroll
+        for (int q = 0; q < P; ++q) {
+            const uint32_t p = pr.p[q];
+            const uint32_t* tb = tables + (long long)q * brk::T_COUNT * N;
+            const uint64_t x0 = wg::ld_cluster_u64(
+                wg::mapa(at, (uint32_t)(r * P + q)));
+            const uint64_t x1 = wg::ld_cluster_u64(
+                wg::mapa(at, (uint32_t)(P * R + r * P + q)));
+            #pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int te = t + e;
+                const uint32_t u = (uint32_t)(x0 >> (32 * e));
+                const uint32_t bw = brk::shoup_mul(
+                    (uint32_t)(x1 >> (32 * e)),
+                    __ldg(tb + brk::T_INV * N + te),
+                    __ldg(tb + brk::T_INV_SH * N + te), p);
+                y[0][q][e] = brk::shoup_mul(
+                    brk::add_mod(u, bw, p), __ldg(tb + brk::T_UTW * N + te),
+                    __ldg(tb + brk::T_UTW_SH * N + te), p);
+                y[1][q][e] = brk::shoup_mul(
+                    brk::add_mod(u, p - bw, p),
+                    __ldg(tb + brk::T_UTW * N + M + te),
+                    __ldg(tb + brk::T_UTW_SH * N + M + te), p);
+            }
+        }
+        #pragma unroll
+        for (int k = 0; k < 2; ++k)
+            #pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                uint32_t m[P];
+                #pragma unroll
+                for (int q = 0; q < P; ++q) m[q] = y[k][q][e];
+                const Acc inc = tail(m);
+                Acc* a = acc + k * M + t + e;
+                *a = Bundle ? inc : Acc(*a + inc);
+            }
+    }
+}
+
+// The cluster kernel. Grid: B H P R CTAs in clusters of H P R, ciphertext
+// b = blockIdx.x / (H P R), rank h P R + r P + pi. acc_in, acc_out: Acc [B,
+// R, N]; classic: a_ms i32 [B, n_steps] in [0, 2N), key u32 [n_steps, 2,
+// P, l R, R, N] (step i at i key_step); Bundle: key the bundles u32 [B,
+// n_steps, P, l R, R, N] (ciphertext b at b key_b, step tt at tt
+// key_step). The prime, its Barrett constant and the decomposer are read
+// or built where used, which keeps the step loop's live registers within
+// 64.
+//
+// H = 2 (the split): CTA (h, pi, r) holds half h, coefficients [h N/2,
+// (h+1) N/2), of each transform of row r mod p_pi: a DIF transform's stage
+// 0 is the only forward stage, and a DIT inverse's stage 0 the only
+// inverse one, that pairs the halves. The lift reads both digits of a
+// pair and keeps its half of stage 0; phase D gathers both halves of the
+// pre-final values and runs stage 0 and the untwist there. CTA o = h P +
+// pi of row r owns the pairs (t, t + N/2), t in [o S, o S + S): their acc
+// words stay in global memory (acc_out: read in A, written in D; the
+// cluster barriers order them), their digits in dsl [l][2 S] i16.
+template <class Tail, bool Bundle, int H>
 __global__ void __launch_bounds__(kClusterThreads, brk::min_blocks(Tail::P))
 wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                     typename Tail::Acc* __restrict__ acc_out,
@@ -601,23 +828,36 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
     __shared__ uint32_t s_p[1];
     __shared__ uint64_t s_mu[1];
     const int N = 1 << log_n;
-    const int log_s = cluster_log_slice(log_n, P);
+    const int M = N >> (H - 1);  // a CTA's share of a polynomial
+    const int log_s = cluster_log_slice(log_n, P, H);
     const int S = 1 << log_s;
     uint32_t* dig = reinterpret_cast<uint32_t*>(smem_raw);
-    Acc* acc = reinterpret_cast<Acc*>(dig + cluster_rows(R, levels) * N);
+    Acc* acc = reinterpret_cast<Acc*>(dig + cluster_rows(R, levels) * M);
     int32_t* dsl = reinterpret_cast<int32_t*>(acc + S);
+    int16_t* dsl16 = reinterpret_cast<int16_t*>(dig + cluster_rows(R, levels) * M);
     const int rank = (int)wg::cluster_rank();
-    const int pi = rank % P, r = rank / P;
-    const long long b = blockIdx.x / (P * R);
+    const int pi = rank % P;
+    const int r = H == 1 ? rank / P : (rank / P) % R;
+    const int h = H == 1 ? 0 : rank / (P * R);
+    const long long b = blockIdx.x / (H * P * R);
     if (threadIdx.x == 0) {
         s_p[0] = pr.p[pi];
         s_mu[0] = pr.mu[pi];
     }
     const uint32_t* tb = tables + (long long)pi * brk::T_COUNT * N;
-    const int base = pi << log_s;  // my slice: [base, base + len)
-    const int len = N - base < S ? (N - base > 0 ? N - base : 0) : S;
+    const int base = (h * P + pi) << log_s;  // my slice: [base, base + len)
+    const int len = M - base < S ? (M - base > 0 ? M - base : 0) : S;
     const long long row = (b * R + r) * N + base;
-    for (int u = threadIdx.x; u < len; u += blockDim.x) acc[u] = acc_in[row + u];
+    Acc* accg = acc_out + (b * R + r) * N;  // H = 2: row r in global memory
+    if constexpr (H == 1) {
+        for (int u = threadIdx.x; u < len; u += blockDim.x)
+            acc[u] = acc_in[row + u];
+    } else {
+        for (int u = threadIdx.x; u < len; u += blockDim.x) {
+            accg[base + u] = acc_in[row + u];
+            accg[M + base + u] = acc_in[row + M + u];
+        }
+    }
     const uint32_t acc_sa = wg::smem_u32(acc), dsl_sa = wg::smem_u32(dsl),
                    dig_sa = wg::smem_u32(dig);
     // every CTA of the cluster runs before any DSMEM access
@@ -625,29 +865,46 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
 
     #pragma unroll 1
     for (int step = 0; step < n_steps; ++step) {
-        // A. the digits of my slice
+        // A. the digits of my slice (H = 2: of my pairs' 2 S positions,
+        // position k N/2 + base + i at slot k S + i)
         {
             const int a = Bundle ? 0 : a_ms[b * n_steps + step];
             const brk::HiDecomposer dec(base_log, levels);
+            const int lim = H == 1 ? len : 2 << log_s;
             #pragma unroll 1
-            for (int u = threadIdx.x; u < len; u += blockDim.x) {
-                Acc v = acc[u];
+            for (int u = threadIdx.x; u < lim; u += blockDim.x) {
+                const int i = H == 1 ? u : u & (S - 1);
+                if (H == 2 && i >= len) continue;
+                const int t = H == 1 ? base + u
+                                     : ((u >> log_s) * M) + base + i;
+                Acc v = H == 1 ? acc[u] : accg[t];
                 if (!Bundle) {
-                    int s = base + u - a;
+                    int s = t - a;
                     if (s < 0) s += 2 * N;
                     const bool neg = s >= N;
                     if (neg) s -= N;
-                    const int o = s >> log_s;
-                    Acc y = ld_cluster<Acc>(wg::mapa(
-                        acc_sa + (uint32_t)(sizeof(Acc) * (s - (o << log_s))),
-                        (uint32_t)(r * P + o)));
+                    Acc y;
+                    if constexpr (H == 1) {
+                        const int o = s >> log_s;
+                        y = ld_cluster<Acc>(wg::mapa(
+                            acc_sa
+                                + (uint32_t)(sizeof(Acc) * (s - (o << log_s))),
+                            (uint32_t)(r * P + o)));
+                    } else {
+                        y = accg[s];
+                    }
                     if (neg) y = Acc(0) - y;
                     v = Acc(y - v);
                 }
                 int32_t state = dec.init(brk::hi_word(v));
                 #pragma unroll 1
-                for (int lev = 0; lev < levels; ++lev)
-                    dsl[(lev << log_s) + u] = dec.next(state);
+                for (int lev = 0; lev < levels; ++lev) {
+                    if constexpr (H == 1)
+                        dsl[(lev << log_s) + u] = dec.next(state);
+                    else
+                        dsl16[(lev << (log_s + 1)) + u] =
+                            (int16_t)dec.next(state);
+                }
             }
         }
         wg::cluster_sync<false>();
@@ -655,61 +912,90 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
         // B. lift, forward passes, MAC (the first of the passes over the
         // 6..12 stages below the MAC's holds 3 stages at every log_n of the
         // envelope; the last inverse pass 2 or 3)
-        cluster_lift<3>(dig, dsl_sa, r, P, levels, log_n, log_s, tb, s_p[0]);
-        #pragma unroll
-        for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
-            if (i + 1 < pl.n_fwd)
-                Passes1::pass_k<false>(pl.fwd_k[i], dig, levels, log_n,
-                                       pl.fwd_s0[i], tb, s_p);
-        cluster_mac<Bundle>(dig, key + b * key_b + step * key_step, pi, r, R,
-                            levels, P, log_n, tb, s_p[0], s_mu[0]);
+        if constexpr (H == 1) {
+            cluster_lift<3>(dig, dsl_sa, r, P, levels, log_n, log_s, tb,
+                            s_p[0]);
+            #pragma unroll
+            for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+                if (i + 1 < pl.n_fwd)
+                    Passes1::pass_k<false>(pl.fwd_k[i], dig, levels, log_n,
+                                           pl.fwd_s0[i], tb, s_p);
+        } else {
+            split_lift(dig, wg::smem_u32(dsl16), h, r, P, R, levels, log_n,
+                       log_s, tb, s_p[0]);
+            #pragma unroll
+            for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+                if (i + 1 < pl.n_fwd)
+                    half_pass_k<false>(pl.fwd_k[i], dig, 0, levels, log_n,
+                                       pl.fwd_s0[i], tb, s_p[0]);
+        }
+        cluster_mac<Bundle, H>(dig, key + b * key_b + step * key_step + h * M,
+                               pi, r, R, levels, P, log_n, tb, s_p[0],
+                               s_mu[0]);
         wg::cluster_sync<false>();
 
-        // C. the partials summed, the inverse passes, the untwist
-        cluster_sum(dig, dig_sa, pi, r, R, P, log_n, tb, s_p[0]);
-        uint32_t* x = dig + r * N;
-        #pragma unroll
-        for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
-            if (i + 1 < pl.n_inv)
-                Passes1::pass_k<true>(pl.inv_k[i], x, 1, log_n, pl.inv_s0[i],
-                                      tb, s_p);
-        if (pl.inv_k[pl.n_inv - 1] == 2)
-            cluster_untwist<2>(x, log_n, tb, s_p[0]);
-        else
-            cluster_untwist<3>(x, log_n, tb, s_p[0]);
+        // C. the partials summed, the inverse passes, the untwist (H = 2:
+        // down to stage 1)
+        cluster_sum<H>(dig, dig_sa, h, pi, r, R, P, log_n, tb, s_p[0]);
+        if constexpr (H == 1) {
+            uint32_t* x = dig + r * N;
+            #pragma unroll
+            for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+                if (i + 1 < pl.n_inv)
+                    Passes1::pass_k<true>(pl.inv_k[i], x, 1, log_n,
+                                          pl.inv_s0[i], tb, s_p);
+            if (pl.inv_k[pl.n_inv - 1] == 2)
+                cluster_untwist<2>(x, log_n, tb, s_p[0]);
+            else
+                cluster_untwist<3>(x, log_n, tb, s_p[0]);
+        } else {
+            #pragma unroll
+            for (int i = 1; i < brk::kMaxPasses; ++i)
+                if (i < pl.n_inv)
+                    half_pass_k<true>(pl.inv_k[i], dig, r, 1, log_n,
+                                      pl.inv_s0[i], tb, s_p[0]);
+        }
         wg::cluster_sync<false>();
 
         // D. Garner: my slice's residues from CTAs (., r), 4 coefficients a
-        // thread
-        #pragma unroll 1
-        for (int u = 4 * threadIdx.x; u < len; u += 4 * blockDim.x) {
-            const uint32_t at =
-                dig_sa + 4u * (uint32_t)brk::swz(r * N + base + u);
-            uint32_t m4[P][4];
-            #pragma unroll
-            for (int q = 0; q < P; ++q) {
-                const uint4 w =
-                    wg::ld_cluster_v4(wg::mapa(at, (uint32_t)(r * P + q)));
-                m4[q][0] = w.x; m4[q][1] = w.y; m4[q][2] = w.z; m4[q][3] = w.w;
-            }
-            #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                uint32_t m[P];
+        // thread (H = 2: split_garner)
+        if constexpr (H == 1) {
+            #pragma unroll 1
+            for (int u = 4 * threadIdx.x; u < len; u += 4 * blockDim.x) {
+                const uint32_t at =
+                    dig_sa + 4u * (uint32_t)brk::swz(r * N + base + u);
+                uint32_t m4[P][4];
                 #pragma unroll
-                for (int q = 0; q < P; ++q) m[q] = m4[q][e];
-                const Acc inc = tail(m);
-                acc[u + e] = Bundle ? inc : Acc(acc[u + e] + inc);
+                for (int q = 0; q < P; ++q) {
+                    const uint4 w =
+                        wg::ld_cluster_v4(wg::mapa(at, (uint32_t)(r * P + q)));
+                    m4[q][0] = w.x; m4[q][1] = w.y; m4[q][2] = w.z; m4[q][3] = w.w;
+                }
+                #pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    uint32_t m[P];
+                    #pragma unroll
+                    for (int q = 0; q < P; ++q) m[q] = m4[q][e];
+                    const Acc inc = tail(m);
+                    acc[u + e] = Bundle ? inc : Acc(acc[u + e] + inc);
+                }
             }
+        } else {
+            split_garner<Tail, Bundle>(accg, dig_sa, r, R, base, len, log_n,
+                                       tables, pr, tail);
         }
         wg::cluster_sync<false>();
     }
-    for (int u = threadIdx.x; u < len; u += blockDim.x) acc_out[row + u] = acc[u];
+    if constexpr (H == 1)
+        for (int u = threadIdx.x; u < len; u += blockDim.x)
+            acc_out[row + u] = acc[u];
 }
 
-// Launch the cluster kernel on B ciphertexts: grid B P R, clusters of P R.
-// Returns the launch's error (0 = launched), or cudaErrorInvalidValue for a
-// shape it does not take.
-template <class Tail, bool Bundle>
+// Launch the cluster kernel at split H on B ciphertexts: grid B H P R,
+// clusters of H P R (16 at H = 2 at the universe's shapes: beyond the
+// portable 8, allowed on the kernel first). Returns the launch's error (0
+// = launched), or cudaErrorInvalidValue for a shape it does not take.
+template <class Tail, bool Bundle, int H>
 int launch_cluster(const typename Tail::Acc* acc_in,
                    typename Tail::Acc* acc_out, const int32_t* a_ms,
                    const uint32_t* key, long long key_b, long long key_step,
@@ -718,12 +1004,16 @@ int launch_cluster(const typename Tail::Acc* acc_in,
                    const unsigned long long* mu, cudaStream_t stream) {
     using Acc = typename Tail::Acc;
     constexpr int P = Tail::P;
-    if (!cluster_fits(R, levels, base_log, log_n, P, (int)sizeof(Acc))
-        || B < 1 || (long long)B * P * R > 0x7fffffffLL || n_steps < 1)
+    if (!cluster_fits(R, levels, base_log, log_n, P, (int)sizeof(Acc), H)
+        || B < 1 || (long long)B * H * P * R > 0x7fffffffLL || n_steps < 1)
         return (int)cudaErrorInvalidValue;
-    auto kernel = wide_cluster_kernel<Tail, Bundle>;
-    const size_t smem = cluster_smem(R, levels, log_n, P, (int)sizeof(Acc));
+    auto kernel = wide_cluster_kernel<Tail, Bundle, H>;
+    const size_t smem =
+        cluster_smem(R, levels, log_n, P, (int)sizeof(Acc), H);
     cudaError_t err = allow_smem(kernel, smem);
+    if (err == cudaSuccess && H * P * R > kClusterMax)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     WidePrimes pr{};
     for (int i = 0; i < P; ++i) {
@@ -731,25 +1021,28 @@ int launch_cluster(const typename Tail::Acc* acc_in,
         pr.mu[i] = mu ? mu[i] : 0ull;
     }
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(B * P * R));
+    cfg.gridDim = dim3((unsigned)(B * H * P * R));
     cfg.blockDim = dim3(kClusterThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = P * R;
+    attr.val.clusterDim.x = H * P * R;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, acc_in, acc_out, a_ms, key, key_b,
                              key_step, n_steps, tables, R, levels, base_log,
-                             log_n, make_cluster_plan(log_n), pr, tail);
+                             log_n,
+                             H == 1 ? make_cluster_plan(log_n)
+                                    : make_split_plan(log_n),
+                             pr, tail);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
-template <template <int> class Tail>
+template <template <int> class Tail, int H>
 int cluster_classic(const void* acc_in, void* acc_out, const void* a_ms,
                     const void* bsk, const void* tables, int B, int n_steps,
                     int R, int levels, int base_log, int log_n,
@@ -760,11 +1053,74 @@ int cluster_classic(const void* acc_in, void* acc_out, const void* a_ms,
         using Acc = typename T::Acc;
         brk::fill_garner(t, garner, full_prod);
         const long long key_step = 2LL * T::P * levels * R * R << log_n;
-        return launch_cluster<T, false>(
+        return launch_cluster<T, false, H>(
             (const Acc*)acc_in, (Acc*)acc_out, (const int32_t*)a_ms,
             (const uint32_t*)bsk, 0, key_step, (const uint32_t*)tables, B,
             n_steps, R, levels, base_log, log_n, t, nullptr,
             (cudaStream_t)stream);
+    });
+}
+
+template <int H>
+int cluster_multi_bit(const void* acc_in, void* acc_out, const void* bundles,
+                      const void* tables, int B, int count, int R, int levels,
+                      int base_log, int log_n, int num_primes,
+                      const unsigned* garner, unsigned long long full_prod,
+                      const unsigned long long* mu, void* stream) {
+    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+        using T = decltype(t);
+        brk::fill_garner(t, garner, full_prod);
+        const long long key_step = (long long)T::P * levels * R * R << log_n;
+        return launch_cluster<T, true, H>(
+            (const uint64_t*)acc_in, (uint64_t*)acc_out, nullptr,
+            (const uint32_t*)bundles, count * key_step, key_step,
+            (const uint32_t*)tables, B, count, R, levels, base_log, log_n, t,
+            mu, (cudaStream_t)stream);
+    });
+}
+
+// The classic u64 cluster kernel at split H and this shape: out[0..5] =
+// registers and local (spill) bytes a thread, dynamic shared memory,
+// cluster size, resident CTAs per SM and clusters resident on the card
+// (cudaOccupancyMaxActiveClusters). Returns 0, a negative CUDA error, or 1
+// for a shape it does not take.
+template <int H>
+int cluster_occupancy(int num_primes, int R, int levels, int log_n,
+                      int* out) {
+    if (!cluster_fits(R, levels, 1, log_n, num_primes, 8, H)) return 1;
+    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+        using T = decltype(t);
+        auto kernel = wide_cluster_kernel<T, false, H>;
+        const size_t smem = cluster_smem(R, levels, log_n, T::P, 8, H);
+        const int ctas = H * T::P * R;
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return -(int)err;
+        out[0] = attr.numRegs;
+        out[1] = (int)attr.localSizeBytes;
+        out[2] = (int)smem;
+        out[3] = ctas;
+        err = allow_smem(kernel, smem);
+        if (err == cudaSuccess && ctas > kClusterMax)
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return -(int)err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[4], kernel, kClusterThreads, smem);
+        if (err != cudaSuccess) return -(int)err;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((unsigned)(ctas * 64));
+        cfg.blockDim = dim3(kClusterThreads);
+        cfg.dynamicSmemBytes = smem;
+        cudaLaunchAttribute a;
+        a.id = cudaLaunchAttributeClusterDimension;
+        a.val.clusterDim.x = ctas;
+        a.val.clusterDim.y = 1;
+        a.val.clusterDim.z = 1;
+        cfg.attrs = &a;
+        cfg.numAttrs = 1;
+        err = cudaOccupancyMaxActiveClusters(&out[5], kernel, &cfg);
+        return err == cudaSuccess ? 0 : -(int)err;
     });
 }
 
@@ -869,9 +1225,9 @@ extern "C" int blind_rotate_wide_cluster(
         const void* tables, int B, int n_steps, int R, int levels,
         int base_log, int log_n, int num_primes, const unsigned* garner,
         unsigned long long full_prod, void* stream) {
-    return cluster_classic<GarnerTail>(acc_in, acc_out, a_ms, bsk, tables, B,
-                                       n_steps, R, levels, base_log, log_n,
-                                       num_primes, garner, full_prod, stream);
+    return cluster_classic<GarnerTail, 1>(
+        acc_in, acc_out, a_ms, bsk, tables, B, n_steps, R, levels, base_log,
+        log_n, num_primes, garner, full_prod, stream);
 }
 
 // The cluster kernel, classic, acc32 (GarnerTail32<P>): acc_in, acc_out
@@ -881,10 +1237,9 @@ extern "C" int blind_rotate_wide_cluster_acc32(
         const void* tables, int B, int n_steps, int R, int levels,
         int base_log, int log_n, int num_primes, const unsigned* garner,
         unsigned long long full_prod, void* stream) {
-    return cluster_classic<GarnerTail32>(acc_in, acc_out, a_ms, bsk, tables,
-                                         B, n_steps, R, levels, base_log,
-                                         log_n, num_primes, garner, full_prod,
-                                         stream);
+    return cluster_classic<GarnerTail32, 1>(
+        acc_in, acc_out, a_ms, bsk, tables, B, n_steps, R, levels, base_log,
+        log_n, num_primes, garner, full_prod, stream);
 }
 
 // The cluster kernel, multi-bit (K5b's function): the `count` group steps
@@ -897,21 +1252,51 @@ extern "C" int multi_bit_accumulate_wide_cluster(
         int log_n, int num_primes, const unsigned* garner,
         unsigned long long full_prod, const unsigned long long* mu,
         void* stream) {
-    return for_primes<GarnerTail>(num_primes, [&](auto t) {
-        using T = decltype(t);
-        brk::fill_garner(t, garner, full_prod);
-        const long long key_step = (long long)T::P * levels * R * R << log_n;
-        return launch_cluster<T, true>(
-            (const uint64_t*)acc_in, (uint64_t*)acc_out, nullptr,
-            (const uint32_t*)bundles, count * key_step, key_step,
-            (const uint32_t*)tables, B, count, R, levels, base_log, log_n, t,
-            mu, (cudaStream_t)stream);
-    });
+    return cluster_multi_bit<1>(acc_in, acc_out, bundles, tables, B, count,
+                                R, levels, base_log, log_n, num_primes,
+                                garner, full_prod, mu, stream);
 }
 
-// Dynamic shared memory of one CTA of the cluster kernel at this shape
-// (acc bytes 8, 4 for the acc32 entry), 0 for a shape it does not take
-// (base_log 1: any decomposer the shape admits).
+// The split cluster kernel (wide_cluster_kernel at H = 2): a cluster of
+// 2 P R CTAs a ciphertext, each holding half of every transform, for the
+// shapes one CTA of the cluster kernel cannot hold (N = 32768; N = 16384
+// at l = 3). Arguments as blind_rotate_wide_cluster's, its _acc32 and
+// multi_bit_accumulate_wide_cluster's; acc_out must not alias acc_in (it
+// holds the accumulator between steps).
+extern "C" int blind_rotate_wide_split(
+        const void* acc_in, void* acc_out, const void* a_ms, const void* bsk,
+        const void* tables, int B, int n_steps, int R, int levels,
+        int base_log, int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, void* stream) {
+    return cluster_classic<GarnerTail, 2>(
+        acc_in, acc_out, a_ms, bsk, tables, B, n_steps, R, levels, base_log,
+        log_n, num_primes, garner, full_prod, stream);
+}
+
+extern "C" int blind_rotate_wide_split_acc32(
+        const void* acc_in, void* acc_out, const void* a_ms, const void* bsk,
+        const void* tables, int B, int n_steps, int R, int levels,
+        int base_log, int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, void* stream) {
+    return cluster_classic<GarnerTail32, 2>(
+        acc_in, acc_out, a_ms, bsk, tables, B, n_steps, R, levels, base_log,
+        log_n, num_primes, garner, full_prod, stream);
+}
+
+extern "C" int multi_bit_accumulate_wide_split(
+        const void* acc_in, void* acc_out, const void* bundles,
+        const void* tables, int B, int count, int R, int levels, int base_log,
+        int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, const unsigned long long* mu,
+        void* stream) {
+    return cluster_multi_bit<2>(acc_in, acc_out, bundles, tables, B, count,
+                                R, levels, base_log, log_n, num_primes,
+                                garner, full_prod, mu, stream);
+}
+
+// Dynamic shared memory of one CTA of the cluster kernel (split 1 or 2)
+// at this shape (acc bytes 8, 4 for the acc32 entries), 0 for a shape it
+// does not take (base_log 1: any decomposer the shape admits).
 extern "C" unsigned long long blind_rotate_wide_cluster_smem(
         int P, int R, int levels, int log_n) {
     return cluster_fits(R, levels, 1, log_n, P, 8)
@@ -926,44 +1311,33 @@ extern "C" unsigned long long multi_bit_accumulate_wide_cluster_smem(
         int P, int R, int levels, int log_n) {
     return blind_rotate_wide_cluster_smem(P, R, levels, log_n);
 }
+extern "C" unsigned long long blind_rotate_wide_split_smem(
+        int P, int R, int levels, int log_n) {
+    return cluster_fits(R, levels, 1, log_n, P, 8, 2)
+               ? cluster_smem(R, levels, log_n, P, 8, 2) : 0;
+}
+extern "C" unsigned long long blind_rotate_wide_split_acc32_smem(
+        int P, int R, int levels, int log_n) {
+    return cluster_fits(R, levels, 1, log_n, P, 4, 2)
+               ? cluster_smem(R, levels, log_n, P, 4, 2) : 0;
+}
+extern "C" unsigned long long multi_bit_accumulate_wide_split_smem(
+        int P, int R, int levels, int log_n) {
+    return blind_rotate_wide_split_smem(P, R, levels, log_n);
+}
 
-// The classic u64 cluster kernel at this shape: out[0..5] = registers and
-// local (spill) bytes a thread, dynamic shared memory, cluster size,
-// resident CTAs per SM and clusters resident on the card
-// (cudaOccupancyMaxActiveClusters). Returns 0, a negative CUDA error, or
-// 1 for a shape it does not take.
+// The classic u64 cluster kernel at this shape (split 1, or 2 for the
+// _split_ entry): out[0..5] = registers and local (spill) bytes a thread,
+// dynamic shared memory, cluster size, resident CTAs per SM and clusters
+// resident on the card (cudaOccupancyMaxActiveClusters). Returns 0, a
+// negative CUDA error, or 1 for a shape it does not take.
 extern "C" int blind_rotate_wide_cluster_occupancy(int num_primes, int R,
                                                    int levels, int log_n,
                                                    int* out) {
-    if (!cluster_fits(R, levels, 1, log_n, num_primes, 8)) return 1;
-    return for_primes<GarnerTail>(num_primes, [&](auto t) {
-        using T = decltype(t);
-        auto kernel = wide_cluster_kernel<T, false>;
-        const size_t smem = cluster_smem(R, levels, log_n, T::P, 8);
-        cudaFuncAttributes attr;
-        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-        if (err != cudaSuccess) return -(int)err;
-        out[0] = attr.numRegs;
-        out[1] = (int)attr.localSizeBytes;
-        out[2] = (int)smem;
-        out[3] = T::P * R;
-        err = allow_smem(kernel, smem);
-        if (err != cudaSuccess) return -(int)err;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &out[4], kernel, kClusterThreads, smem);
-        if (err != cudaSuccess) return -(int)err;
-        cudaLaunchConfig_t cfg = {};
-        cfg.gridDim = dim3((unsigned)(T::P * R * 64));
-        cfg.blockDim = dim3(kClusterThreads);
-        cfg.dynamicSmemBytes = smem;
-        cudaLaunchAttribute a;
-        a.id = cudaLaunchAttributeClusterDimension;
-        a.val.clusterDim.x = T::P * R;
-        a.val.clusterDim.y = 1;
-        a.val.clusterDim.z = 1;
-        cfg.attrs = &a;
-        cfg.numAttrs = 1;
-        err = cudaOccupancyMaxActiveClusters(&out[5], kernel, &cfg);
-        return err == cudaSuccess ? 0 : -(int)err;
-    });
+    return cluster_occupancy<1>(num_primes, R, levels, log_n, out);
+}
+extern "C" int blind_rotate_wide_split_occupancy(int num_primes, int R,
+                                                 int levels, int log_n,
+                                                 int* out) {
+    return cluster_occupancy<2>(num_primes, R, levels, log_n, out);
 }

@@ -184,10 +184,16 @@ __device__ __forceinline__ void st_cluster(uint32_t a, uint32_t x,
                  :: "r"(a), "r"(x), "r"(y) : "memory");
 }
 
-// loads from shared::cluster address a (mapa's): a word, a u64, 16 bytes
+// loads from shared::cluster address a (mapa's): a word, a u64, 16 bytes,
+// and a signed half-word, sign-extended
 __device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t a) {
     uint32_t v;
     asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ int32_t ld_cluster_s16(uint32_t a) {
+    int32_t v;
+    asm volatile("ld.shared::cluster.s16 %0, [%1];\n" : "=r"(v) : "r"(a));
     return v;
 }
 __device__ __forceinline__ uint64_t ld_cluster_u64(uint32_t a) {

@@ -228,8 +228,14 @@ SASS_LOOP_TOTALS = {
     # stays the function's: K3 P=4's SASS_OPS row, chip_smoke.step_bound)
     "blind_rotate_wide_cluster/4": ("blind_rotate_wide",
                                     ("wide_cluster_kernel",
-                                     "10GarnerTailILi4EEELb0E"),
+                                     "10GarnerTailILi4EEELb0ELi1E"),
                                     (1062, 1162)),
+    # the same kernel at split 2 (the 4_4 step: N = 32768, N = 16384 at
+    # l = 3), classic u64 at P = 4
+    "blind_rotate_wide_split/4": ("blind_rotate_wide",
+                                  ("wide_cluster_kernel",
+                                   "10GarnerTailILi4EEELb0ELi2E"),
+                                  (1255, 1340)),
     "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
     "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1E", (9, 11)),
     "kb_mac": ("kernel_bench", "kb_mac_kernel", (35, 28)),

@@ -52,13 +52,18 @@ of ``tfhe_tpu/ops/ntt64_pbs.py``:
   ``multi_bit_accumulate_wide_cluster``, the cluster kernel (one
   thread-block cluster of P R CTAs a ciphertext, acc and digits in
   distributed shared memory for all steps, one launch a call), wherever
-  its CTA fits a block (:func:`fits_cluster`: the 3_3 sets); and
-  ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
+  its CTA fits a block (:func:`fits_cluster`: the 3_3 sets), and at split
+  2 (``blind_rotate_wide_split``, ``_split_acc32``,
+  ``multi_bit_accumulate_wide_split``: 2 P R = 16 CTAs a ciphertext, each
+  holding half of every transform) where a CTA of split 1 does not fit
+  but one of split 2 does (N = 32768, and N = 16384 at l = 3: tfhe-rs's
+  4_4 sets); and ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
   ``multi_bit_accumulate_wide``, K7 global (acc and digits in global
-  memory, three stage launches a step), for the rest.
+  memory, three stage launches a step), for the rest (no set of the
+  universe), kept as the reference the cluster kernel is timed against.
   :func:`blind_rotate_crt`, :func:`blind_rotate_crt_acc32` and
-  :func:`multi_bit_accumulate` choose K3 / K5b, the cluster kernel or K7
-  global from the shape alone (:func:`wide_route`).
+  :func:`multi_bit_accumulate` choose K3 / K5b, the cluster kernel at
+  split 1 or 2, or K7 global from the shape alone (:func:`wide_route`).
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -337,7 +342,10 @@ _STEP_LIBS = {"blind_rotate_bnf2_acc32": "blind_rotate_bnf2",
               "kb_step_crt_r2": "kernel_bench",
               "blind_rotate_wide_cluster": "blind_rotate_wide",
               "blind_rotate_wide_cluster_acc32": "blind_rotate_wide",
-              "multi_bit_accumulate_wide_cluster": "blind_rotate_wide"}
+              "multi_bit_accumulate_wide_cluster": "blind_rotate_wide",
+              "blind_rotate_wide_split": "blind_rotate_wide",
+              "blind_rotate_wide_split_acc32": "blind_rotate_wide",
+              "multi_bit_accumulate_wide_split": "blind_rotate_wide"}
 
 
 def _step_lib(entry: str):
@@ -354,7 +362,8 @@ def step_smem_bytes(entry: str, P: int, R: int, levels: int, N: int) -> int:
     ``blind_rotate_multi_bit_r14``, the kernel bench's references
     ``kb_step_bnf2_acc32_r2``, ``kb_step_crt_r2``, or a CTA of K7's cluster
     kernel, ``blind_rotate_wide_cluster``, ``_acc32``,
-    ``multi_bit_accumulate_wide_cluster``) at P
+    ``multi_bit_accumulate_wide_cluster``, or at split 2 their ``_split``
+    namesakes) at P
     primes, as its CUDA source lays it out (its ``<entry>_smem`` export); 0
     for a prime count (or shape) the entry does not take. Needs the built
     library."""
@@ -610,8 +619,8 @@ def _wide_shape(acc: torch.Tensor, key: torch.Tensor, levels: int,
                 acc_bytes: int):
     """Where an operand pair of K3 (key [n, 2, P, l R, R, N]) or K5b
     (bundles [B, count, P, l R, R, N]) goes: :func:`wide_route` at its
-    shape, None (K3 / K5b), "cluster" or "global" (None for operands of
-    another rank: K3's and K5b's own checks raise on them)."""
+    shape, None (K3 / K5b), "cluster", "split" or "global" (None for
+    operands of another rank: K3's and K5b's own checks raise on them)."""
     if acc.ndim != 3 or key.ndim != 6:
         return None
     return wide_route(key.shape[2], acc.shape[1], levels, acc.shape[2],
@@ -623,16 +632,16 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
                      levels: int) -> torch.Tensor:
     """K3 wrapper, Garner tail: see :func:`blind_rotate_crt_plain`. A
     shape whose acc and digits exceed a block's shared memory goes to K7
-    (:func:`wide_route`: :func:`blind_rotate_wide_cluster`, or
-    :func:`blind_rotate_wide`), which counts its own launches."""
+    (:func:`wide_route`: :func:`blind_rotate_wide_cluster`,
+    :func:`blind_rotate_wide_split` or :func:`blind_rotate_wide`), which
+    counts its own launches."""
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
     route = _wide_shape(acc, bsk_scan, levels, 8)
     if route:
-        fn = (blind_rotate_wide_cluster if route == "cluster"
-              else blind_rotate_wide)
-        return fn(acc, msed_mask, bsk_scan, base_log, levels)
+        return WIDE_ROUTES[route][0](acc, msed_mask, bsk_scan, base_log,
+                                     levels)
     out = launch_crt("blind_rotate_crt", acc, msed_mask, bsk_scan, base_log,
                       levels)
     blind_rotate_crt.launches += 1
@@ -643,16 +652,16 @@ def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
                            bsk_scan: torch.Tensor, base_log: int,
                            levels: int) -> torch.Tensor:
     """K3-acc32 wrapper: see :func:`blind_rotate_crt_acc32_plain`. Beyond
-    a block's shared memory: K7 (:func:`blind_rotate_wide_cluster_acc32`
-    or :func:`blind_rotate_wide_acc32`, :func:`wide_route`)."""
+    a block's shared memory: K7 (:func:`blind_rotate_wide_cluster_acc32`,
+    :func:`blind_rotate_wide_split_acc32` or
+    :func:`blind_rotate_wide_acc32`, :func:`wide_route`)."""
     if acc_hi.device.type == "cpu":
         return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
                                             base_log, levels)
     route = _wide_shape(acc_hi, bsk_scan, levels, 4)
     if route:
-        fn = (blind_rotate_wide_cluster_acc32 if route == "cluster"
-              else blind_rotate_wide_acc32)
-        return fn(acc_hi, msed_mask, bsk_scan, base_log, levels)
+        return WIDE_ROUTES[route][1](acc_hi, msed_mask, bsk_scan, base_log,
+                                     levels)
     out = launch_crt("blind_rotate_crt_acc32", acc_hi, msed_mask, bsk_scan,
                       base_log, levels)
     blind_rotate_crt_acc32.launches += 1
@@ -1128,16 +1137,15 @@ def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
                          base_log: int, levels: int) -> torch.Tensor:
     """K5b wrapper: see :func:`multi_bit_accumulate_plain`. A shape whose
     acc and digits exceed a block's shared memory goes to K7
-    (:func:`multi_bit_accumulate_wide_cluster` or
+    (:func:`multi_bit_accumulate_wide_cluster`,
+    :func:`multi_bit_accumulate_wide_split` or
     :func:`multi_bit_accumulate_wide`, :func:`wide_route`), which counts
     its own launches."""
     if acc.device.type == "cpu":
         return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
     route = _wide_shape(acc, bundles, levels, 8)
     if route:
-        fn = (multi_bit_accumulate_wide_cluster if route == "cluster"
-              else multi_bit_accumulate_wide)
-        return fn(acc, bundles, base_log, levels)
+        return WIDE_ROUTES[route][2](acc, bundles, base_log, levels)
     B, R, N = _acc_shapes("multi_bit_accumulate", acc, MB_PRIMES, base_log,
                           levels, torch.int64)
     _check(bundles, "bundles", torch.int32, 6, acc.device)
@@ -1253,49 +1261,63 @@ def needs_wide(P: int, R: int, levels: int, N: int,
     return step_smem_formula(P, R, levels, N, acc_bytes) > _SMEM_LIMIT
 
 
-#: the cluster kernel's largest cluster (the portable maximum) and its N
+#: the cluster kernel's largest P R (its cluster at split 1: the portable
+#: maximum; 2 P R = 16 CTAs at split 2) and its N at each split
 CLUSTER_MAX_CTAS = 8
-CLUSTER_MIN_N, CLUSTER_MAX_N = 256, 16384
+CLUSTER_MIN_N = 256
+CLUSTER_MAX_N = {1: 16384, 2: 32768}
 
 
-def cluster_log_slice(N: int, P: int) -> int:
-    """log2 of a cluster CTA's accumulator slice S = 2^ceil(log2(N / P))
-    (``cluster_log_slice`` in ``csrc/blind_rotate_wide.cu``)."""
-    return (N.bit_length() - 1) - (P.bit_length() - 1)
+def cluster_log_slice(N: int, P: int, split: int = 1) -> int:
+    """log2 S (``cluster_log_slice`` in ``csrc/blind_rotate_wide.cu``):
+    split 1, a cluster CTA's accumulator slice S = 2^ceil(log2(N / P));
+    split 2, the pairs (t, t + N/2) a CTA owns, S = 2^ceil(log2(N / 4P))."""
+    return (N.bit_length() - 1) - (P.bit_length() - 1) - 2 * (split - 1)
 
 
 def cluster_smem_formula(P: int, R: int, levels: int, N: int,
-                         acc_bytes: int) -> int:
-    """Bytes of one CTA of the cluster kernel: its digit area [max(l, R)][N]
-    u32, its accumulator slice [S] and the slice's digits [l][S] i32 (the
-    formula of the ``blind_rotate_wide_cluster*_smem`` exports, which
-    ``chip_smoke.py``'s build phase holds equal), without the library."""
-    S = 1 << cluster_log_slice(N, P)
+                         acc_bytes: int, split: int = 1) -> int:
+    """Bytes of one CTA of the cluster kernel. Split 1: its digit area
+    [max(l, R)][N] u32, its accumulator slice [S] and the slice's digits
+    [l][S] i32; split 2: its half of the digit area [max(l, R)][N/2] u32
+    and the digits of its 2 S positions [l][2 S] i16 (their accumulator
+    words stay in global memory). The formula of the
+    ``blind_rotate_wide_{cluster,split}*_smem`` exports, which
+    ``chip_smoke.py``'s build phase holds equal, without the library."""
+    S = 1 << cluster_log_slice(N, P, split)
+    if split == 2:
+        return max(levels, R) * (N // 2) * 4 + levels * 2 * S * 2
     return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
 
 
 def fits_cluster(P: int, R: int, levels: int, N: int,
-                 acc_bytes: int = 8) -> bool:
-    """Whether the cluster kernel takes this shape: P R CTAs, at most
-    :data:`CLUSTER_MAX_CTAS`, N in CLUSTER_MIN_N..CLUSTER_MAX_N, and a CTA
-    within a block's shared memory (``cluster_fits`` less its decomposer
-    bound, :func:`crt_refusal`'s)."""
-    return (2 <= P <= MAX_CRT_PRIMES and R >= 1 and levels >= 1
+                 acc_bytes: int = 8, split: int = 1) -> bool:
+    """Whether the cluster kernel at ``split`` 1 or 2 takes this shape:
+    P R at most :data:`CLUSTER_MAX_CTAS` (split P R CTAs a cluster), N in
+    CLUSTER_MIN_N..CLUSTER_MAX_N[split], a CTA within a block's shared
+    memory, and at split 2 l >= 2 (a digit in 16 bits: b <= 15 under
+    :func:`crt_refusal`'s b l <= 31). ``cluster_fits`` less its decomposer
+    bound, :func:`crt_refusal`'s."""
+    return (2 <= P <= MAX_CRT_PRIMES and R >= 1
+            and levels >= (2 if split == 2 else 1)
             and P * R <= CLUSTER_MAX_CTAS
-            and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N
-            and cluster_smem_formula(P, R, levels, N, acc_bytes)
+            and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N[split]
+            and cluster_smem_formula(P, R, levels, N, acc_bytes, split)
             <= _SMEM_LIMIT)
 
 
 def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8):
     """The kernel of a CRT step at this shape, from the shape alone: None
     (K3, or K5b: acc and digits fit a block), "cluster" (K7's cluster
-    kernel: its CTA fits) or "global" (K7 global, the three-stage
+    kernel: its CTA fits), "split" (the cluster kernel at split 2: a CTA
+    of half the transforms fits) or "global" (K7 global, the three-stage
     design)."""
     if not needs_wide(P, R, levels, N, acc_bytes):
         return None
-    return "cluster" if fits_cluster(P, R, levels, N, acc_bytes) \
-        else "global"
+    for route, split in (("cluster", 1), ("split", 2)):
+        if fits_cluster(P, R, levels, N, acc_bytes, split):
+            return route
+    return "global"
 
 
 def crt_refusal(P: int, R: int, levels: int, base_log: int, N: int):
@@ -1494,54 +1516,75 @@ multi_bit_accumulate_wide.launches = 0
 def _k7c_lib():
     lib = _k7_lib()
     i, v, ull = ctypes.c_int, ctypes.c_void_p, ctypes.c_ulonglong
-    for entry in (lib.blind_rotate_wide_cluster,
-                  lib.blind_rotate_wide_cluster_acc32):
-        entry.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v]
+    for split in ("cluster", "split"):
+        for entry in (getattr(lib, f"blind_rotate_wide_{split}"),
+                      getattr(lib, f"blind_rotate_wide_{split}_acc32")):
+            entry.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v, ull, v]
+            entry.restype = ctypes.c_int
+        entry = getattr(lib, f"multi_bit_accumulate_wide_{split}")
+        entry.argtypes = [v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
         entry.restype = ctypes.c_int
-    lib.multi_bit_accumulate_wide_cluster.argtypes = [
-        v, v, v, v, i, i, i, i, i, i, i, v, ull, v, v]
-    lib.multi_bit_accumulate_wide_cluster.restype = ctypes.c_int
-    lib.blind_rotate_wide_cluster_occupancy.argtypes = [
-        i, i, i, i, ctypes.POINTER(ctypes.c_int)]
-    lib.blind_rotate_wide_cluster_occupancy.restype = ctypes.c_int
+        entry = getattr(lib, f"blind_rotate_wide_{split}_occupancy")
+        entry.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        entry.restype = ctypes.c_int
     return lib
 
 
-def wide_cluster_occupancy(P: int, R: int, levels: int, N: int) -> dict:
-    """The classic cluster kernel at this shape: registers and local
-    (spill) bytes a thread, dynamic shared memory a CTA, cluster size,
-    resident CTAs per SM and clusters resident on the card
-    (``cudaOccupancyMaxActiveClusters``). Needs the built library and a
-    GPU."""
+def wide_cluster_occupancy(P: int, R: int, levels: int, N: int,
+                           split: int = 1) -> dict:
+    """The classic cluster kernel at ``split`` 1 or 2 and this shape:
+    registers and local (spill) bytes a thread, dynamic shared memory a
+    CTA, cluster size, resident CTAs per SM and clusters resident on the
+    card (``cudaOccupancyMaxActiveClusters``). Needs the built library and
+    a GPU."""
+    name = ("blind_rotate_wide_cluster_occupancy" if split == 1
+            else "blind_rotate_wide_split_occupancy")
     out = (ctypes.c_int * 6)()
-    rc = _k7c_lib().blind_rotate_wide_cluster_occupancy(
-        P, R, levels, N.bit_length() - 1, out)
+    rc = getattr(_k7c_lib(), name)(P, R, levels, N.bit_length() - 1, out)
     if rc != 0:
-        raise RuntimeError(f"blind_rotate_wide_cluster_occupancy: {rc} at "
-                           f"{(P, R, levels, N)}")
+        raise RuntimeError(f"{name}: {rc} at {(P, R, levels, N)}")
     keys = ("registers", "local_bytes", "smem_bytes", "cluster",
             "blocks_per_sm", "clusters")
     return dict(zip(keys, out))
 
 
+@functools.lru_cache(maxsize=None)
+def split_clusters(P: int, R: int, levels: int, N: int) -> int:
+    """The clusters of 2 P R CTAs the card keeps resident at this shape
+    (:func:`wide_cluster_occupancy` at split 2); raises when it is 0: the
+    card cannot place one (a cluster of 16 needs 16 SMs of one GPC at one
+    CTA a SM), and no other kernel is run in its place."""
+    n = wide_cluster_occupancy(P, R, levels, N, 2)["clusters"]
+    if n < 1:
+        raise RuntimeError(
+            f"the split cluster kernel at P={P}, R={R}, levels={levels}, "
+            f"N={N}: no cluster of {2 * P * R} CTAs can be resident on "
+            "this card (cudaOccupancyMaxActiveClusters = 0)")
+    return n
+
+
 def _cluster_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
-                 levels: int, acc_dtype):
-    """Check the cluster kernel's accumulator and geometry; returns (B, R,
-    N)."""
+                 levels: int, acc_dtype, split: int = 1):
+    """Check the cluster kernel's accumulator and geometry at ``split``
+    (at 2, that the card can hold a cluster: :func:`split_clusters`);
+    returns (B, R, N)."""
     B, R, N = _wide_acc(name, acc, P, base_log, levels, acc_dtype)
-    if not fits_cluster(P, R, levels, N, acc.element_size()):
+    if not fits_cluster(P, R, levels, N, acc.element_size(), split):
         raise ValueError(f"{name}: P={P}, R={R}, levels={levels}, N={N} "
-                         "outside the cluster kernel (fits_cluster)")
-    if B * P * R >= 2 ** 31:
+                         f"outside the cluster kernel at split {split} "
+                         "(fits_cluster)")
+    if B * split * P * R >= 2 ** 31:
         raise ValueError(f"{name}: batch {B} outside the kernel grid")
+    if split == 2:
+        split_clusters(P, R, levels, N)
     return B, R, N
 
 
 def _cluster_classic(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
                      bsk_scan: torch.Tensor, base_log: int, levels: int,
-                     acc_dtype) -> torch.Tensor:
+                     acc_dtype, split: int = 1) -> torch.Tensor:
     P = bsk_scan.shape[2] if bsk_scan.ndim == 6 else 0
-    B, R, N = _cluster_acc(name, acc, P, base_log, levels, acc_dtype)
+    B, R, N = _cluster_acc(name, acc, P, base_log, levels, acc_dtype, split)
     n = bsk_scan.shape[0]
     _check(bsk_scan, "bsk", torch.int32, 6, acc.device)
     if tuple(bsk_scan.shape[1:]) != (2, P, levels * R, R, N) or n < 1:
@@ -1601,9 +1644,17 @@ def multi_bit_accumulate_wide_cluster(acc: torch.Tensor,
     batch in one launch."""
     if acc.device.type == "cpu":
         return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
-    name = "multi_bit_accumulate_wide_cluster"
+    out = _cluster_multi_bit("multi_bit_accumulate_wide_cluster", acc,
+                             bundles, base_log, levels)
+    multi_bit_accumulate_wide_cluster.launches += 1
+    return out
+
+
+def _cluster_multi_bit(name: str, acc: torch.Tensor, bundles: torch.Tensor,
+                       base_log: int, levels: int,
+                       split: int = 1) -> torch.Tensor:
     B, R, N = _cluster_acc(name, acc, MB_PRIMES, base_log, levels,
-                           torch.int64)
+                           torch.int64, split)
     _check(bundles, "bundles", torch.int32, 6, acc.device)
     count = bundles.shape[1]
     if tuple(bundles.shape) != (B, count, MB_PRIMES, levels * R, R, N) \
@@ -1614,17 +1665,77 @@ def multi_bit_accumulate_wide_cluster(acc: torch.Tensor,
     plan = ntt_mod.get_plan(N, MB_PRIMES)
     tables = _plan_tables_dev(plan, str(dev))
     out = torch.empty_like(acc)
-    _launch(name, _k7c_lib().multi_bit_accumulate_wide_cluster, dev,
+    _launch(name, getattr(_k7c_lib(), name), dev,
             _ptr(acc), _ptr(out), _ptr(bundles), _ptr(tables), B, count, R,
             levels, base_log, N.bit_length() - 1, MB_PRIMES,
             _garner_host(plan), plan.full_prod_mod64, _barrett_host(plan))
-    multi_bit_accumulate_wide_cluster.launches += 1
+    return out
+
+
+def blind_rotate_wide_split(acc: torch.Tensor, msed_mask: torch.Tensor,
+                            bsk_scan: torch.Tensor, base_log: int,
+                            levels: int) -> torch.Tensor:
+    """K7's cluster kernel at split 2, K3's function on the u64
+    accumulator (see :func:`blind_rotate_crt_plain`) at a shape of
+    ``fits_cluster(..., split=2)``: all n steps of the batch in one launch,
+    a cluster of 2 P R CTAs a ciphertext, each holding half of every
+    transform. Raises when the card cannot hold such a cluster
+    (:func:`split_clusters`)."""
+    if acc.device.type == "cpu":
+        return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
+                                      levels)
+    out = _cluster_classic("blind_rotate_wide_split", acc, msed_mask,
+                           bsk_scan, base_log, levels, torch.int64, 2)
+    blind_rotate_wide_split.launches += 1
+    return out
+
+
+def blind_rotate_wide_split_acc32(acc_hi: torch.Tensor,
+                                  msed_mask: torch.Tensor,
+                                  bsk_scan: torch.Tensor, base_log: int,
+                                  levels: int) -> torch.Tensor:
+    """The cluster kernel at split 2, K3-acc32's function on the u32 hi
+    plane (see :func:`blind_rotate_crt_acc32_plain`); one launch a call."""
+    if acc_hi.device.type == "cpu":
+        return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
+                                            base_log, levels)
+    out = _cluster_classic("blind_rotate_wide_split_acc32", acc_hi,
+                           msed_mask, bsk_scan, base_log, levels, torch.int32,
+                           2)
+    blind_rotate_wide_split_acc32.launches += 1
+    return out
+
+
+def multi_bit_accumulate_wide_split(acc: torch.Tensor, bundles: torch.Tensor,
+                                    base_log: int,
+                                    levels: int) -> torch.Tensor:
+    """The cluster kernel at split 2, K5b's function (see
+    :func:`multi_bit_accumulate_plain`): the chunk's group steps of the
+    batch in one launch."""
+    if acc.device.type == "cpu":
+        return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
+    out = _cluster_multi_bit("multi_bit_accumulate_wide_split", acc, bundles,
+                             base_log, levels, 2)
+    multi_bit_accumulate_wide_split.launches += 1
     return out
 
 
 blind_rotate_wide_cluster.launches = 0
 blind_rotate_wide_cluster_acc32.launches = 0
 multi_bit_accumulate_wide_cluster.launches = 0
+blind_rotate_wide_split.launches = 0
+blind_rotate_wide_split_acc32.launches = 0
+multi_bit_accumulate_wide_split.launches = 0
+
+#: K7's wrappers by route (:func:`wide_route`): (classic u64, classic
+#: acc32, multi-bit)
+WIDE_ROUTES = {
+    "cluster": (blind_rotate_wide_cluster, blind_rotate_wide_cluster_acc32,
+                multi_bit_accumulate_wide_cluster),
+    "split": (blind_rotate_wide_split, blind_rotate_wide_split_acc32,
+              multi_bit_accumulate_wide_split),
+    "global": (blind_rotate_wide, blind_rotate_wide_acc32,
+               multi_bit_accumulate_wide)}
 
 
 #: every kernel wrapper of this module, each with its ``launches`` count
@@ -1635,4 +1746,5 @@ KERNELS = (body_rotate_acc32, body_rotate_acc32_r1, body_rotate_u64,
            blind_rotate_multi_bit_r14, blind_rotate_ntt64, blind_rotate_wide,
            blind_rotate_wide_acc32, multi_bit_accumulate_wide,
            blind_rotate_wide_cluster, blind_rotate_wide_cluster_acc32,
-           multi_bit_accumulate_wide_cluster)
+           multi_bit_accumulate_wide_cluster, blind_rotate_wide_split,
+           blind_rotate_wide_split_acc32, multi_bit_accumulate_wide_split)

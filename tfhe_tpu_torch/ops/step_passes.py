@@ -5,7 +5,7 @@ and K7's two designs (``csrc/blind_rotate_wide.cu``, the last sections:
 K7 global's three stages, one polynomial a block on the same passes
 through global memory, and the cluster kernel, P R CTAs a ciphertext
 exchanging slices, digits, partials and residues over distributed shared
-memory).
+memory, or at split 2, 2 P R CTAs each holding half of every transform).
 
 The step kernels run each CMUX step as a few shared-memory passes of up to
 three NTT stages each, in registers (see the header of ``ntt_common.cuh``):
@@ -631,48 +631,67 @@ def multi_bit_accumulate_wide(acc, bundles, base_log: int, levels: int):
 
 # ---------------------------------------------------------------------------
 # K7's cluster kernel (csrc/blind_rotate_wide.cu, wide_cluster_kernel): a
-# cluster of P R CTAs a ciphertext, its state in distributed shared memory
+# cluster of H P R CTAs a ciphertext, its state in distributed shared
+# memory (H = 2, the split: each CTA holds half of every transform, the
+# accumulator stays in global memory)
 # ---------------------------------------------------------------------------
 
 def cluster_smem_bytes(P: int, R: int, levels: int, N: int,
-                       acc_bytes: int) -> int:
+                       acc_bytes: int, split: int = 1) -> int:
     """Dynamic shared memory of one CTA of the cluster kernel
-    (``cluster_smem``): the digit area [max(l, R)][N] u32, the accumulator
-    slice [S] and its digits [l][S] i32, S = 2^ceil(log2(N / P))."""
-    S = 1 << cluster_log_slice(N, P)
+    (``cluster_smem``). Split 1: the digit area [max(l, R)][N] u32, the
+    accumulator slice [S] and its digits [l][S] i32, S = 2^ceil(log2(N /
+    P)); split 2: the digit area [max(l, R)][N/2] u32 and the digits of
+    the CTA's 2 S positions [l][2 S] i16, S = 2^ceil(log2(N / 4P))."""
+    S = 1 << cluster_log_slice(N, P, split)
+    if split == 2:
+        return max(levels, R) * (N // 2) * 4 + levels * 2 * S * 2
     return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
 
 
-def cluster_log_slice(N: int, P: int) -> int:
-    """log2 S (``cluster_log_slice``): log_n - floor(log2 P)."""
+def cluster_log_slice(N: int, P: int, split: int = 1) -> int:
+    """log2 S (``cluster_log_slice``): log_n - floor(log2 P), two less at
+    split 2 (S pairs (t, t + N/2) a CTA)."""
     f = 0
     while (2 << f) <= P:
         f += 1
-    return N.bit_length() - 1 - f
+    return N.bit_length() - 1 - f - 2 * (split - 1)
 
 
-def cluster_plan(log_n: int) -> tuple:
+def cluster_plan(log_n: int, split: int = 1) -> tuple:
     """The cluster kernel's passes (``make_cluster_plan``): forward stages
     [0, log_n - 2) in passes of <= 3 (the first lifts), then [log_n - 2,
     log_n) with the MAC; inverse [log_n - 2, log_n) with the sum of the
     partials, then stages log_n - 3 .. 0 in passes of <= 3 (the last
-    untwists); (fwd, inv) as (first stage, stage count) pairs."""
+    untwists); (fwd, inv) as (first stage, stage count) pairs. Split 2
+    (``make_split_plan``): the lift runs stages 0 .. 3, the half's passes
+    [4, log_n - 2), and the inverse passes end at stage 1 (stage 0 and the
+    untwist are phase D's)."""
     top = (log_n - 2, 2)
+    if split == 2:
+        return (((0, 4),) + tuple(_split(4, log_n - 2, False)) + (top,),
+                (top,) + tuple(_split(1, log_n - 2, True)))
     return (tuple(_split(0, log_n - 2, False)) + (top,),
             (top,) + tuple(_split(0, log_n - 2, True)))
 
 
 def cluster_ranks(P: int, R: int) -> list:
-    """(pi, r) of each cluster rank: rank = r P + pi."""
+    """(pi, r) of each rank of a half of the cluster: rank = r P + pi."""
     return [(rank % P, rank // P) for rank in range(P * R)]
 
 
-def cluster_slice(N: int, P: int, pi: int) -> tuple:
-    """(base, len) of CTA pi's accumulator slice: [pi S, pi S + S) within
-    [0, N), empty past N."""
-    log_s = cluster_log_slice(N, P)
+def cluster_rank(h: int, pi: int, r: int, P: int, R: int) -> int:
+    """The kernel's rank of CTA (h, pi, r): h P R + r P + pi."""
+    return h * P * R + r * P + pi
+
+
+def cluster_slice(N: int, P: int, pi: int, split: int = 1) -> tuple:
+    """(base, len) of slice ``pi`` (split 2: o = h P + pi): positions [pi
+    S, pi S + S) within [0, N), empty past N; split 2: the pairs (t, t +
+    N/2), t in [o S, o S + S) within [0, N/2)."""
+    log_s = cluster_log_slice(N, P, split)
     base = pi << log_s
-    return base, max(0, min(1 << log_s, N - base))
+    return base, max(0, min(1 << log_s, N // split - base))
 
 
 def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
@@ -699,8 +718,6 @@ def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
     for rank, (pi, r) in enumerate(ranks):
         base, ln = cluster_slice(N, P, pi)
         acc[rank][:, :ln] = x[:, r, base:base + ln]
-    pos4 = (torch.arange(N >> 2) << 2)[:, None] + torch.arange(4)
-    zero = torch.zeros(N >> 2, dtype=torch.int64)
     for i in range(count):
         # A. the digits of each slice
         for rank, (pi, r) in enumerate(ranks):
@@ -736,34 +753,11 @@ def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
             for s0, k in fwd[1:-1]:
                 dig[rank] = pass_(dig[rank], levels, 1, N, s0, k, False,
                                   tb[None], [p])
-        for rank, (pi, r) in enumerate(ranks):
-            p, tb = primes[pi], tables[pi]
-            key = key_of(i)
-            mac = [torch.zeros(B, N >> 2, 4, dtype=torch.int64)
-                   for _ in range(R)]
-            for lev in range(levels):
-                d = fwd_regs(dig[rank][:, swz(lev * N + pos4)], tb, N,
-                             log_n - 2, 2, zero, 0, p)
-                jrow = lev * R + r
-                for c in range(R):
-                    if bundle:
-                        prod = (d * key[:, pi, jrow, c][:, pos4]) % p
-                    else:
-                        prod = ntt_mod.shoup_mul(d, key[0, pi, jrow, c][pos4],
-                                                 key[1, pi, jrow, c][pos4], p)
-                    mac[c] = _add_mod(mac[c], prod, p)
-            for c in range(R):
-                dig[rank][:, swz(c * N + pos4)] = mac[c]
+        _cluster_mac(dig, key_of(i), ranks, 0, levels, R, N, N, tables,
+                     primes, bundle)
         # C. the partials of row r summed across CTAs (pi, .), the inverse
         # passes, the untwist
-        for rank, (pi, r) in enumerate(ranks):
-            p, tb = primes[pi], tables[pi]
-            ph = swz(r * N + pos4)
-            v = dig[rank][:, ph]
-            for q in range(R):
-                if q != r:
-                    v = _add_mod(v, dig[q * P + pi][:, ph], p)
-            dig[rank][:, ph] = inv_regs(v, tb, N, log_n - 2, 2, zero, 0, p)
+        _cluster_sum(dig, ranks, 0, R, P, N, N, tables, primes)
         for rank, (pi, r) in enumerate(ranks):
             p, tb = primes[pi], tables[pi]
             row = dig[rank][:, r * N:(r + 1) * N]
@@ -789,31 +783,209 @@ def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
     return out
 
 
+def _cluster_mac(dig, key, ranks, h: int, levels: int, R: int, N: int,
+                 M: int, tables, primes, bundle: bool):
+    """B's last two forward stages and the MAC (``cluster_mac``) on each
+    CTA (h, pi, r) of ``ranks`` (its digit area [.][M], M = N or, split,
+    N/2 from position h M on): per item of 4 positions and digit level, the
+    two stages, the products against the key row lev R + r, the R partials
+    written over the CTA's rows c."""
+    pos4 = (torch.arange(M >> 2) << 2)[:, None] + torch.arange(4)
+    zero = torch.zeros(M >> 2, dtype=torch.int64)
+    log_n = N.bit_length() - 1
+    for rank, (pi, r) in enumerate(ranks):
+        p, tb = primes[pi], tables[pi]
+        d_ = dig[rank]
+        kpos = h * M + pos4
+        mac = [torch.zeros(d_.shape[0], M >> 2, 4, dtype=torch.int64)
+               for _ in range(R)]
+        for lev in range(levels):
+            d = fwd_regs(d_[:, swz(lev * M + pos4)], tb, N, log_n - 2, 2,
+                         zero, 0, p)
+            jrow = lev * R + r
+            for c in range(R):
+                if bundle:
+                    prod = (d * key[:, pi, jrow, c][:, kpos]) % p
+                else:
+                    prod = ntt_mod.shoup_mul(d, key[0, pi, jrow, c][kpos],
+                                             key[1, pi, jrow, c][kpos], p)
+                mac[c] = _add_mod(mac[c], prod, p)
+        for c in range(R):
+            d_[:, swz(c * M + pos4)] = mac[c]
+
+
+def _cluster_sum(dig, ranks, h: int, R: int, P: int, N: int, M: int,
+                 tables, primes):
+    """C's first inverse pass (``cluster_sum``) on each CTA (h, pi, r) of
+    ``ranks``: its row r plus row r of CTAs (h, pi, q), q != r, read through
+    the kernel's rank, then the first two inverse stages."""
+    pos4 = (torch.arange(M >> 2) << 2)[:, None] + torch.arange(4)
+    zero = torch.zeros(M >> 2, dtype=torch.int64)
+    log_n = N.bit_length() - 1
+    base = cluster_rank(h, 0, 0, P, R)
+    for rank, (pi, r) in enumerate(ranks):
+        p, tb = primes[pi], tables[pi]
+        ph = swz(r * M + pos4)
+        v = dig[base + rank][:, ph]
+        for q in range(R):
+            if q != r:
+                v = _add_mod(v, dig[cluster_rank(h, pi, q, P, R)][:, ph], p)
+        dig[base + rank][:, ph] = inv_regs(v, tb, N, log_n - 2, 2, zero, 0, p)
+
+
+def _half_pass(x, rows, N: int, s0: int, K: int, inverse: bool, tb,
+               p: int):
+    """Split 2: stages s0 .. s0+K-1 (s0 >= 1) of ``rows`` of a CTA's half
+    [.][N/2], swizzled as one area (``half_pass``): the items of a pass
+    over N/2 positions, the N-long tables' twiddles. Returns the new
+    area."""
+    log_n = N.bit_length() - 1
+    pos, j, log_hl = pass_items(log_n - 1, s0 - 1, K)
+    run = inv_regs if inverse else fwd_regs
+    x = x.clone()
+    ph = _phys(list(rows), N // 2, pos)
+    x[:, ph] = run(x[:, ph], tb, N, s0, K, j, log_hl, p)
+    return x
+
+
+def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
+                 a_of, key_of, bundle: bool):
+    """The split cluster kernel's step loop (H = 2), as
+    :func:`_cluster_steps`: CTA (h, pi, r) holds half h of every transform
+    of row r mod p_pi; the accumulator stays in global memory (``accg``,
+    read in A and written in D by the owner of each position); the digits
+    of CTA o = h P + pi of row r are those of its pairs (t, t + N/2), t in
+    [o S, o S + S), slot k S + i for position k N/2 + o S + i, stored as
+    int16."""
+    B, R, N = x.shape
+    P, primes = tail.plan.num_primes, tail.plan.primes
+    tables = tables_of(tail)
+    log_n = N.bit_length() - 1
+    M = N // 2
+    log_s = cluster_log_slice(N, P, 2)
+    S = 1 << log_s
+    D = max(levels, R)
+    fwd, inv = cluster_plan(log_n, 2)
+    ranks = [(h, pi, r) for h in range(2) for pi, r in cluster_ranks(P, R)]
+    assert all(cluster_rank(*c, P, R) == k for k, c in enumerate(ranks))
+    accg = x.clone()
+    dig = [torch.zeros(B, D * M, dtype=torch.int64) for _ in ranks]
+    dsl = [torch.zeros(B, levels * 2 * S, dtype=torch.int64) for _ in ranks]
+    bi = torch.arange(B)[:, None]
+    for i in range(count):
+        # A. the digits of each CTA's positions, acc read in global memory
+        for rank, (h, pi, r) in enumerate(ranks):
+            base, ln = cluster_slice(N, P, h * P + pi, 2)
+            u = torch.cat([torch.arange(ln), S + torch.arange(ln)])
+            t = torch.cat([base + torch.arange(ln), M + base + torch.arange(ln)])
+            v = accg[:, r, t]
+            if a_of is not None:
+                s = t[None] - a_of(i).to(torch.int64)[:, None]
+                s = torch.where(s < 0, s + 2 * N, s)
+                neg = s >= N
+                s = torch.where(neg, s - N, s)
+                y = accg[:, r][bi, s]
+                v = torch.where(neg, -y, y) - v
+            hi = v & M32 if tail.acc32 else srl(v, 32)
+            for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+                # the kernel's int16 store
+                dsl[rank][:, lev * 2 * S + u] = ((d + (1 << 15)) & 0xFFFF) \
+                    - (1 << 15)
+        # B. the lift with stages 0 .. 3 (stage 0 across the halves, half h
+        # kept), the half's passes, the last two stages with the MAC
+        hl_log = log_n - 4
+        g = torch.arange(1 << hl_log)
+        t = g[:, None] + (torch.arange(8) << hl_log)  # [G, 8], in [0, N/2)
+        o = t >> log_s
+        for rank, (h, pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            owners = torch.stack([dsl[cluster_rank(q // P, q % P, r, P, R)]
+                                  for q in range(2 * P)], 1)
+            for lev in range(levels):
+                lifted = []
+                for k in range(2):
+                    d = owners[:, o, lev * 2 * S + k * S + t - (o << log_s)]
+                    m = torch.where(d < 0, d + p, d)
+                    tk = t + k * M
+                    lifted.append(ntt_mod.shoup_mul(m, tb[T_TW][tk],
+                                                    tb[T_TW_SH][tk], p))
+                if h == 0:
+                    w = _add_mod(lifted[0], lifted[1], p)
+                else:
+                    w = ntt_mod.shoup_mul(lifted[0] - lifted[1] + p,
+                                          tb[T_FWD][t], tb[T_FWD_SH][t], p)
+                dig[rank][:, swz(lev * M + t)] = fwd_regs(w, tb, N, 1, 3, g,
+                                                          hl_log, p)
+            for s0, k in fwd[1:-1]:
+                dig[rank] = _half_pass(dig[rank], range(levels), N, s0, k,
+                                       False, tb, p)
+        key = key_of(i)
+        for h in range(2):
+            half = [dig[cluster_rank(h, pi, r, P, R)]
+                    for pi, r in cluster_ranks(P, R)]
+            _cluster_mac(half, key, cluster_ranks(P, R), h, levels, R, N, M,
+                         tables, primes, bundle)
+        # C. the partials summed across CTAs (h, pi, .), the half's inverse
+        # passes down to stage 1
+        for h in range(2):
+            _cluster_sum(dig, cluster_ranks(P, R), h, R, P, N, M, tables,
+                         primes)
+        for rank, (h, pi, r) in enumerate(ranks):
+            p, tb = primes[pi], tables[pi]
+            for s0, k in inv[1:]:
+                dig[rank] = _half_pass(dig[rank], [r], N, s0, k, True, tb, p)
+        # D. each CTA's pairs: both halves' values from CTAs (0, q, r) and
+        # (1, q, r), stage 0 and the untwist mod each p_q, the tail
+        for rank, (h, pi, r) in enumerate(ranks):
+            base, ln = cluster_slice(N, P, h * P + pi, 2)
+            t = base + torch.arange(ln)
+            ph = swz(r * M + t)
+            ys = [[], []]
+            for q, pq in enumerate(primes):
+                tb = tables[q]
+                x0 = dig[cluster_rank(0, q, r, P, R)][:, ph]
+                x1 = dig[cluster_rank(1, q, r, P, R)][:, ph]
+                bw = ntt_mod.shoup_mul(x1, tb[T_INV][t], tb[T_INV_SH][t], pq)
+                for k, y in enumerate((_add_mod(x0, bw, pq),
+                                       _add_mod(x0, pq - bw, pq))):
+                    ys[k].append(ntt_mod.shoup_mul(
+                        y, tb[T_UTW][t + k * M], tb[T_UTW_SH][t + k * M], pq))
+            for k in range(2):
+                inc = tail(torch.stack(ys[k]))
+                tk = t + k * M
+                new = inc if bundle else accg[:, r, tk] + inc
+                accg[:, r, tk] = new & M32 if tail.acc32 else new
+    return accg
+
+
 def cmux_steps_cluster(entry: str, acc, msed_mask, bsk_scan, base_log: int,
-                       levels: int):
+                       levels: int, split: int = 1):
     """All n steps of the cluster kernel's classic entries (``entry``:
     ``blind_rotate_crt`` for the u64 accumulator,
-    ``blind_rotate_crt_acc32`` for the u32 hi plane), with the operands of
-    K3's wrapper: acc int64 or int32 [B, R, N], msed_mask [B, n], bsk_scan
-    int32 [n, 2, P, l R, R, N]. Returns the accumulator in the operand's
-    dtype."""
+    ``blind_rotate_crt_acc32`` for the u32 hi plane) at ``split`` 1 or 2,
+    with the operands of K3's wrapper: acc int64 or int32 [B, R, N],
+    msed_mask [B, n], bsk_scan int32 [n, 2, P, l R, R, N]. Returns the
+    accumulator in the operand's dtype."""
     P, N = bsk_scan.shape[2], acc.shape[-1]
     tail = tail_of(entry, P, N)
     x = u32_to_i64(acc) if tail.acc32 else acc
     key = u32_to_i64(bsk_scan)
-    x = _cluster_steps(x, bsk_scan.shape[0], levels, base_log, tail,
-                       lambda i: msed_mask[:, i], lambda i: key[i], False)
+    steps = _split_steps if split == 2 else _cluster_steps
+    x = steps(x, bsk_scan.shape[0], levels, base_log, tail,
+              lambda i: msed_mask[:, i], lambda i: key[i], False)
     return i64_to_u32(x) if tail.acc32 else x
 
 
-def multi_bit_accumulate_cluster(acc, bundles, base_log: int, levels: int):
-    """The cluster kernel's multi-bit entry: the ``count`` steps of
-    ``bundles`` int32 [B, count, P, l R, R, N] on acc int64 [B, R, N] (the
-    digits of acc itself, a product mod p against the bundle, the Garner
-    value in acc's place). Returns int64 [B, R, N]."""
+def multi_bit_accumulate_cluster(acc, bundles, base_log: int, levels: int,
+                                 split: int = 1):
+    """The cluster kernel's multi-bit entry at ``split`` 1 or 2: the
+    ``count`` steps of ``bundles`` int32 [B, count, P, l R, R, N] on acc
+    int64 [B, R, N] (the digits of acc itself, a product mod p against the
+    bundle, the Garner value in acc's place). Returns int64 [B, R, N]."""
     B, count, P = bundles.shape[:3]
     N = acc.shape[-1]
     tail = Tail("garner", ntt_mod.get_plan(N, P))
     key = u32_to_i64(bundles)
-    return _cluster_steps(acc, count, levels, base_log, tail, None,
-                          lambda i: key[:, i], True)
+    steps = _split_steps if split == 2 else _cluster_steps
+    return steps(acc, count, levels, base_log, tail, None,
+                 lambda i: key[:, i], True)
