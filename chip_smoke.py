@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero):
 3. boolean gates at ``BOOLEAN_DEFAULT_PARAMETERS`` (exact CRT, P = 3):
    seeded keygen, 4096 random pairs, every gate (``not_`` and ``mux``
    included) against its truth table; K2 u64 and K3 against their plain
-   versions at the path's shapes (K3's on 64 ciphertexts, all 805 steps);
+   versions at the path's shapes (K3's on 64 ciphertexts over the first
+   PLAIN_STEPS of the 805 steps);
    launch counts around one gate call; gates/s for ``and_`` and ``mux``;
 4. FHE Trivium at ``BOOLEAN_DEFAULT_PARAMETERS``: encrypted key, the full
    1152-round FHE warm-up, 256 keystream bits against the clear cipher, 64
@@ -55,7 +56,8 @@ Phases (any failure raises and exits non-zero):
    rounded to 2^32): every gate on the 4096 pairs against its truth table,
    the launch counts around one ``and_`` (K2 acc32 and K3-acc32 once, K2
    u64 and K3 never), K2 acc32 against its plain version on the whole
-   batch and K3-acc32 on the gate's first 64 inputs over all 805 steps;
+   batch and K3-acc32 on the gate's first 64 inputs over the first
+   PLAIN_STEPS of the 805 steps;
    ``and_`` gates/s and K3-acc32 at B = 4096 beside the exact ``and_``;
 9. 2_2 under ``TFHE_NTT_VARIANT=v4 TFHE_V4_ACC=32`` with phase 5's 4-prime
    key: a batch of 512 through ``apply_lookup_table`` (K2 acc32,
@@ -91,8 +93,9 @@ Phases (any failure raises and exits non-zero):
     encrypted b, cast to FheUint8, ``min`` with c, ``& 1``) at batch 1
     (1344, 5, 7 -> 6720, 210, 210, 7, 1) and over 32 random lanes, every
     step decrypted against numpy, ms a step; the FheUint64 table of
-    ``bench.py --integer``: add, mul, bitand, eq at batch 1 (ms) and 32
-    (ops/s), div at batch 1, each output against its numpy oracle, one JSON
+    ``bench.py --integer``: add, mul, bitand, eq at batch 1 (ms), add,
+    bitand, eq at 32 (ops/s), div at batch 1, each output against its
+    numpy oracle, one JSON
     row each with its PBS rounds and bootstrapped ciphertexts (counted by
     wrapping the shortint key's ``apply_lookup_table`` here); the launch
     counts around one add (K1 and K2 acc32 once a round, K3 and K4 never)
@@ -122,7 +125,7 @@ Phases (any failure raises and exits non-zero):
     512 under ``TFHE_V4_ACC=32``, K2 acc32 and K3-acc32, and on phase 7's
     v5 key, K2 u64 and K4), each output decrypted, each kernel against its
     plain version on the call's own inputs (a step kernel over its first
-    PLAIN_STEPS steps), outputs/s; the shortint OPRF
+    MANY_LUT_PLAIN_STEPS steps), outputs/s; the shortint OPRF
     (1-4 bits) and the FheUint64 OPRF (one batched PBS, ms at batch 1, a
     chi-square of 64 seeds' 2,048 blocks); the reference's v1.5 2_2 KS32,
     KS32 + drift (v1_3) and PBS -> KS sets at full width: keygen s, a
@@ -238,8 +241,17 @@ Phases (any failure raises and exits non-zero):
     designs in turns at 256 and at 1; PBS/s, batch 1); random keys at the
     envelope's corners (classic N = 16384 on the cluster kernel, classic
     N = 32768 and multi-bit N = 32768 at l = 3, g = 4 on K7 global, and
-    K5a at N = 32768, equal to their plain versions); the refusal of an
-    N = 65536 set and of a b l = 33 set;
+    K5a at N = 32768, equal to their plain versions); the refusal of two
+    N = 65536 sets, and the acceptance of the 23 sets with base_log *
+    levels >= 32 at N <= 32768, which run on the kernels' 64-bit
+    decomposer: the classic 4_4 set at 2M64 on the split (real keys; 256
+    values decrypted; the split equal to its plain version on 4
+    ciphertexts over 64 steps, timed at 256 and 1, PBS/s), the GPU group-4
+    4_4 set at 2M128 on K5a and K7 global multi-bit (random keys at its
+    shape over 16 group steps: its key exceeds the card; the pair, K5a and
+    K7 global equal to their plain versions), and random keys at the split,
+    K7 global, the cluster kernel, K3 and K5b at b l >= 32 (each equal to
+    its plain version, the acc32 entries refusing);
 25. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -282,7 +294,7 @@ BATCH = 2048  # shortint 2_2 main path
 BOOL_BATCH = 4096  # boolean gates
 SIDE_BATCH = 512  # shortint crt and two-plane phases
 PLAIN_BATCH = 64  # plain-version comparisons of the long step kernels
-PLAIN_STEPS = 256  # steps of phases 7, 16 and 23's plain checks (of 833-978)
+PLAIN_STEPS = 256  # phases 3, 7, 8, 16, 23's plain checks (of 805-978 steps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
 K2_BUFFERS = 4  # outputs a K2 timing writes in turn: 4 x 33.55 MB > the L2
@@ -727,11 +739,20 @@ def step_kernel_report():
         if occ["clusters"] < 1:
             raise AssertionError(f"K7 cluster kernel at split {split}, "
                                  f"{label}: no cluster resident")
+    # the 64-bit decomposer's instantiations of K5b and K7 (K3's are
+    # blind_rotate_kernel's, above): ptxas' spills
+    deep = {name: b for lib in ("blind_rotate_multi_bit", "blind_rotate_wide")
+            for name, b in _ptxas_spills(lib).items()
+            if "GarnerTailDeep" in name or "Decomposer64" in name}
+    print(f"  the 64-bit decomposer's K5b and K7 instantiations: {len(deep)}, "
+          f"spill bytes {sorted(set(deep.values()))}")
+    spilled.update({name: b for name, b in deep.items() if b})
     if spilled:
         raise AssertionError(f"K1/K3/K6/K7 kernels spill: {spilled}")
-    print("K1, K3, K6 and K7: no spills; K1, K3, K5b and r14: shared memory "
-          "== acc + digits; K6: acc + digits + MAC; K7 global: one "
-          "polynomial; K7's cluster kernel at split 1 and 2: its CTA area")
+    print("K1, K3, K5b's and K7's 64-bit decomposer, K6 and K7: no spills; "
+          "K1, K3, K5b and r14: shared memory == acc + digits; K6: acc + "
+          "digits + MAC; K7 global: one polynomial; K7's cluster kernel at "
+          "split 1 and 2: its CTA area")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -1037,12 +1058,15 @@ def phase_boolean(card, rate, rows):
     k2_err, k2_plain = check_equal("body_rotate_u64", pk.body_rotate_u64,
                                    pk.body_rotate_u64_plain, (lut, ms_body))
     acc = pk.body_rotate_u64(lut, ms_body)
+    S = min(PLAIN_STEPS, n)
     k3_err, k3_plain = check_equal(
         "blind_rotate_crt", pk.blind_rotate_crt, pk.blind_rotate_crt_plain,
-        (acc[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH], sk.bsk_scan,
+        (acc[:PLAIN_BATCH].contiguous(),
+         ms_mask[:PLAIN_BATCH, :S].contiguous(), sk.bsk_scan[:S],
          p.pbs_base_log, p.pbs_level))
     print(f"K2 u64 == plain at B={BOOL_BATCH}; K3 (Garner, P=3) == plain at "
-          f"B={PLAIN_BATCH}, n={n}, N={N}, R={R}, l={p.pbs_level}")
+          f"B={PLAIN_BATCH}, the first {S} of n={n} steps, N={N}, R={R}, "
+          f"l={p.pbs_level}")
 
     # one gate call through the entry point, launch counts around it
     pk.reset_launches()
@@ -1107,7 +1131,8 @@ def phase_boolean(card, rate, rows):
                          N, 3, 8, rate),
         small_ms=k3_small_ms,
         shape=f"boolean B={BOOL_BATCH} n={n} P=3",
-        plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
+        plain_shape=f"boolean B={PLAIN_BATCH}, the first {S} of n={n} "
+                    "steps, P=3")
     return ck, sk, {"bool_keygen_s": keygen_s, "and_ms": gate_ms,
                     "gates_per_s": BOOL_BATCH / gate_ms * 1e3,
                     "mux_ms": mux_ms, "mux_per_s": BOOL_BATCH / mux_ms * 1e3,
@@ -1433,13 +1458,16 @@ def phase_boolean_acc32(ck, sk, card, rate, rows, exact_and_ms):
             "body_rotate_acc32 boolean", pk.body_rotate_acc32,
             pk.body_rotate_acc32_plain, (lut, ms_body))
         hi = pk.body_rotate_acc32(lut, ms_body)
+        S = min(PLAIN_STEPS, n)
         err, plain_ms = check_equal(
             "blind_rotate_crt_acc32 boolean", pk.blind_rotate_crt_acc32,
             pk.blind_rotate_crt_acc32_plain,
-            (hi[:PLAIN_BATCH].contiguous(), ms_mask[:PLAIN_BATCH],
-             sk.bsk_scan, p.pbs_base_log, p.pbs_level))
+            (hi[:PLAIN_BATCH].contiguous(),
+             ms_mask[:PLAIN_BATCH, :S].contiguous(), sk.bsk_scan[:S],
+             p.pbs_base_log, p.pbs_level))
         print(f"K2 acc32 == plain at B={BOOL_BATCH}; K3-acc32 == plain at "
-              f"B={PLAIN_BATCH}, n={n} (plain {plain_ms:.3f} ms)")
+              f"B={PLAIN_BATCH}, the first {S} of n={n} steps (plain "
+              f"{plain_ms:.3f} ms)")
 
         # timing
         ms = cuda_ms(lambda: pk.blind_rotate_crt_acc32(
@@ -1456,7 +1484,8 @@ def phase_boolean_acc32(ck, sk, card, rate, rows, exact_and_ms):
         bound=step_bound("blind_rotate_crt_acc32", BOOL_BATCH, n, R,
                          p.pbs_level, N, 3, 4, rate),
         shape=f"boolean B={BOOL_BATCH} n={n} P=3",
-        plain_shape=f"boolean B={PLAIN_BATCH} n={n} P=3")
+        plain_shape=f"boolean B={PLAIN_BATCH}, the first {S} of n={n} "
+                    "steps, P=3")
     return {"acc32_and_ms": gate_ms,
             "acc32_gates_per_s": BOOL_BATCH / gate_ms * 1e3,
             "acc32_k3_ms": ms, "acc32_k2_plain_ms": k2_plain}
@@ -1816,7 +1845,8 @@ def phase_integer(ck, sk, card, rows):
     blocks, for ``c``) at batch 1 and over INT_LANES random lanes, each
     step decrypted; the FheUint64 table of ``bench.py --integer`` (32
     blocks: add, mul, bitand, eq at batch 1 (median of 3 runs after a
-    checked warm-up) and at INT_LANES (ops/s, one run), div at batch 1,
+    checked warm-up), add, bitand, eq at INT_LANES (ops/s, one run; mul's
+    run there, 24.7 s, is cut for the script's time), div at batch 1,
     INT_DIV_BLOCKS blocks, one run, timed and checked), each
     output against its numpy oracle, one JSON row each with the op's PBS
     rounds and bootstrapped ciphertexts; then the launch counts around one
@@ -1861,6 +1891,8 @@ def phase_integer(ck, sk, card, rows):
         a, b = ick.encrypt_radix(xs, nb64), ick.encrypt_radix(ys, nb64)
         inputs[kind] = a, b
         for name, fn in ops:
+            if (name, kind) == ("mul", "throughput"):  # cut for time
+                continue
             want = _int_oracle(name, xs, ys, bits64)
             if kind == "latency":  # a checked warm-up run
                 expect(f"FheUint{bits64} {name}", timed(key, fn, a, b)[0],
@@ -2131,6 +2163,9 @@ MANY_LUT_FUNCS = {  # k -> the functions of one many-LUT (2_2: mod_sup 16)
         lambda x: 15 - x),
 }
 OPRF_SEEDS = 64  # the FheUint64 OPRF's chi-square sample: 64 x 32 blocks
+#: steps of the many-LUT step kernels' plain checks (phases 5, 7 and 9
+#: check the same kernels at the same shapes too)
+MANY_LUT_PLAIN_STEPS = 64
 PATTERN_SETS = ("V1_5_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
                 "V1_3_PARAM_MESSAGE_2_CARRY_2_KS32_PBS_TUNIFORM_2M128",
                 "V1_5_PARAM_MESSAGE_2_CARRY_2_PBS_KS_GAUSSIAN_2M128")
@@ -2201,8 +2236,8 @@ def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
     (``want``), every output decrypted against its function, the step
     kernel of the path (K3 P = 4, K3-acc32 P = 4 or K4) and its K2 against
     their plain versions on the call's own inputs (the step kernel on the
-    first ``plain_b`` ciphertexts over the first PLAIN_STEPS steps),
-    outputs/s (median of 5)."""
+    first ``plain_b`` ciphertexts over the first MANY_LUT_PLAIN_STEPS
+    steps), outputs/s (median of 5)."""
     import dataclasses
 
     from tfhe_tpu_torch.ops import pbs_kernel as pk
@@ -2224,7 +2259,7 @@ def _many_lut(label, ck, sk, k, batch, want, rows, plain_b):
                                  f"decrypts wrong")
     mask, body = switched(sk, ct)
     mask, body = mask.reshape(-1, p.lwe_dimension), body.reshape(-1)
-    bl, lv, S = p.pbs_base_log, p.pbs_level, PLAIN_STEPS
+    bl, lv, S = p.pbs_base_log, p.pbs_level, MANY_LUT_PLAIN_STEPS
     if sk.variant == "v5":
         name, step_plain, key = ("blind_rotate_goldilocks",
                                  pk.blind_rotate_goldilocks_plain,
@@ -4271,9 +4306,43 @@ WIDE_CORNERS = (("classic_n16384", 16384, 2, 15, 0),
                 ("classic_n32768_l1", 32768, 1, 22, 0),
                 ("multi_bit_n32768_l1", 32768, 1, 22, 4))
 WIDE_CORNER_B, WIDE_CORNER_STEPS = 4, 8
-WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",  # N 65536
-                "V1_5_PARAM_MESSAGE_1_CARRY_6_KS_PBS_GAUSSIAN_2M128")  # b l 33
+#: the sets of the universe at N = 65536, refused on the card (ROADMAP R10)
+WIDE_REFUSED = ("V1_5_PARAM_MESSAGE_5_CARRY_3_KS_PBS_GAUSSIAN_2M128",
+                "V1_5_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_4_CARRY_4_KS_PBS_"
+                "GAUSSIAN_2M128")
+#: base_log * levels >= 32 (the kernels' 64-bit decomposer): the classic
+#: 4_4 set at 2M64 (n = 1110, N = 32768, b = 11, l = 3) on the split, real
+#: keys, its batch (all 256 values), the ciphertexts and steps of its plain
+#: checks
+WIDE_DEEP_CLASSIC = "V1_5_PARAM_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_2M64"
+WIDE_DEEP_BATCH = 256
+WIDE_DEEP_PLAIN_CTS, WIDE_DEEP_PLAIN_STEPS = 4, 64
+#: tfhe-rs's GPU group-4 4_4 set at 2M128 (n = 1132, N = 32768, b = 8, l =
+#: 4) on K5a and K7 global multi-bit: its K5 key (283 group steps, 71.2 GB
+#: with its duals) and the u64 key it is transformed from exceed the card,
+#: so random group-4 keys at its shape, cut in depth to WIDE_DEEP_MB_GROUPS
+#: group steps; the batch (its bundles fit MB_SCRATCH_BYTES in chunks of 4
+#: steps) and the ciphertexts of the plain checks
+WIDE_DEEP_MB = ("V1_5_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_4_CARRY_4_KS_PBS_"
+                "GAUSSIAN_2M128")
+WIDE_DEEP_MB_B, WIDE_DEEP_MB_GROUPS, WIDE_DEEP_MB_PLAIN = 64, 16, 4
+#: random keys at the other shapes of the 64-bit decomposer: (label, N,
+#: levels, base_log, g): the split at N = 16384, l = 3 (5 classic sets of
+#: the universe), K7 global at N = 32768, b = 9, l = 4 (2 classic sets),
+#: the cluster kernel at N = 8192, l = 4, K3 and K5b where acc and digits
+#: fit a block (no set of the universe: their lifts' only checks on the
+#: card), and the multi-bit split and cluster kernel
+WIDE_DEEP_CORNERS = (("deep_classic_n16384_l3", 16384, 3, 11, 0),
+                     ("deep_classic_n32768_l4", 32768, 4, 9, 0),
+                     ("deep_classic_n8192_l4", 8192, 4, 8, 0),
+                     ("deep_classic_n2048_l3", 2048, 3, 11, 0),
+                     ("deep_multi_bit_n16384_l3", 16384, 3, 11, 4),
+                     ("deep_multi_bit_n8192_l4", 8192, 4, 8, 4),
+                     ("deep_multi_bit_n1024_l4", 1024, 4, 8, 4))
 WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
+#: the universe's classes of PBS parameter sets
+WIDE_PBS_KINDS = ("ClassicPBSParameters", "KeySwitch32PBSParameters",
+                  "MultiBitPBSParameters")
 #: K7's wrappers a design: (classic u64, classic acc32, multi-bit)
 WIDE_KERNELS = {"cluster": ("blind_rotate_wide_cluster",
                             "blind_rotate_wide_cluster_acc32",
@@ -4322,27 +4391,38 @@ def _random_multi_bit_key(N, levels, steps, g, gen):
     return pk.multi_bit_key_layout(ntt_mod.with_shoup_duals(res, plan))
 
 
-def _wide_corner(label, N, levels, base_log, g, rng):
-    """K7 (and at g > 0 K5a and the pair) against the plain versions on
-    random keys, accumulators and masks at a corner, no keygen:
-    WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps, through the
-    dispatch; the design ``pk.wide_route`` names for the shape launched,
-    the other two and K3 / K5b never. Returns the launch counts of those
-    checks."""
+#: the kernels of a shape that K3 or K5b hold (``pk.wide_route`` None)
+BLOCK_KERNELS = ("blind_rotate_crt", "blind_rotate_crt_acc32",
+                 "multi_bit_accumulate")
+
+
+def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
+    """K7, K3 or K5b (and at g > 0 K5a and the pair) against the plain
+    versions on random keys, accumulators and masks at a corner, no
+    keygen: WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps,
+    through the dispatch; the design ``pk.wide_route`` names for the shape
+    launched, the others never. At base_log * levels >= 32 (the 64-bit
+    decomposer) the acc32 entry must refuse the shape, and with ``rows``
+    the launched kernel is timed on the same inputs (one run) and gets a
+    row. Returns the launch counts of those checks."""
     import torch
 
     from tfhe_tpu_torch._torus import from_u32, from_u64
     from tfhe_tpu_torch.core import algorithms as algo
     from tfhe_tpu_torch.core.entities import LweBootstrapKey
+    from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     R, P, B, steps = 2, 4, WIDE_CORNER_B, WIDE_CORNER_STEPS
-    route = pk.wide_route(P, R, levels, N)
-    others = [d for d in WIDE_KERNELS if d != route]
+    route = pk.wide_route(P, R, levels, N, 8, base_log)
+    deep = base_log * levels > pk.HI_WORD_MAX_BL
+    designs = {**WIDE_KERNELS, None: BLOCK_KERNELS}
+    others = [d for d in designs if d != route]
+    own = designs[route]
     acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
                    DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g)
-    names = [n for d in WIDE_KERNELS.values() for n in d]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g + levels)
+    names = [n for d in designs.values() for n in d]
     if not g:
         std = torch.randint(-(1 << 63), (1 << 63) - 1,
                             (steps, levels, R, R, N), generator=gen,
@@ -4353,19 +4433,29 @@ def _wide_corner(label, N, levels, base_log, g, rng):
             DEVICE)
         hi = from_u32(rng.integers(0, 1 << 32, size=(B, R, N),
                                    dtype=np.uint32), DEVICE)
+        args = (acc, mask, key, base_log, levels)
         pk.reset_launches()
-        check_equal(f"K7 {label}", pk.blind_rotate_crt,
-                    pk.blind_rotate_crt_plain,
-                    (acc, mask, key, base_log, levels))
-        check_equal(f"K7-acc32 {label}", pk.blind_rotate_crt_acc32,
-                    pk.blind_rotate_crt_acc32_plain,
-                    (hi, mask, key, base_log, levels))
-        counts = launches_of(*names, "blind_rotate_crt",
-                             "blind_rotate_crt_acc32")
-        ran = counts[WIDE_KERNELS[route][0]] and counts[WIDE_KERNELS[route][1]]
-        stray = (counts["blind_rotate_crt"] + counts["blind_rotate_crt_acc32"]
-                 + sum(counts[n] for d in others
-                       for n in WIDE_KERNELS[d][:2]))
+        err, plain_ms = check_equal(f"{own[0]} {label}", pk.blind_rotate_crt,
+                                    pk.blind_rotate_crt_plain, args)
+        if deep:
+            try:
+                pk.blind_rotate_crt_acc32(hi, mask, key, base_log, levels)
+            except ValueError as e:
+                print(f"corner {label}: acc32 refused: {e}")
+            else:
+                raise AssertionError(f"corner {label}: acc32 ran at b l = "
+                                     f"{base_log * levels}")
+        else:
+            check_equal(f"{own[1]} {label}", pk.blind_rotate_crt_acc32,
+                        pk.blind_rotate_crt_acc32_plain,
+                        (hi, mask, key, base_log, levels))
+        counts = launches_of(*names)
+        ran = counts[own[0]] and (deep or counts[own[1]])
+        stray = sum(counts[n] for d in others for n in designs[d][:2])
+        if rows is not None:
+            ms = cuda_ms(lambda: getattr(pk, own[0])(*args), 1, warmup=False)
+            bnd = step_bound("blind_rotate_crt", B, steps, R, levels, N, P,
+                             8, rate)
     else:
         mbk = _random_multi_bit_key(N, levels, steps, g, gen)
         mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, steps * g))
@@ -4376,25 +4466,47 @@ def _wide_corner(label, N, levels, base_log, g, rng):
                     (mask, mbk, 0, steps, base_log, levels))
         bundles = pk.multi_bit_keybundle_plain(mask, mbk, 0, steps, base_log,
                                                levels)
-        check_equal(f"K7 multi-bit {label}", pk.multi_bit_accumulate,
-                    pk.multi_bit_accumulate_plain,
-                    (acc, bundles, base_log, levels))
+        args = (acc, bundles, base_log, levels)
+        err, plain_ms = check_equal(f"{own[2]} {label}",
+                                    pk.multi_bit_accumulate,
+                                    pk.multi_bit_accumulate_plain, args)
         check_equal(f"the pair {label}", pk.blind_rotate_multi_bit,
                     pk.blind_rotate_multi_bit_plain,
                     (acc, mask, mbk, base_log, levels))
-        counts = launches_of("multi_bit_keybundle", "multi_bit_accumulate",
-                             *names)
-        ran = counts[WIDE_KERNELS[route][2]]
-        stray = counts["multi_bit_accumulate"] + sum(
-            counts[WIDE_KERNELS[d][2]] for d in others)
+        counts = launches_of("multi_bit_keybundle", *names)
+        ran = counts[own[2]]
+        stray = sum(counts[designs[d][2]] for d in others)
+        if rows is not None:
+            ms = cuda_ms(lambda: getattr(pk, own[2])(*args), 1, warmup=False)
+            bnd = bound(kb.multi_bit_accumulate_pipe_instructions(
+                B, steps, R, levels, N, P),
+                accumulate_bytes(B, steps, R, levels, N, P), rate)
         del mbk, bundles
+    design = f"K7's {route} design" if route else "K5b" if g else "K3"
     print(f"corner {label} (N = {N}, l = {levels}, b = {base_log}, g = {g}): "
-          f"K7's {route} design{' and K5a' if g else ''} == plain on {B} "
-          f"random ciphertexts over {steps} steps; launches "
+          f"{design}{' and K5a' if g else ''} == plain on {B} random "
+          f"ciphertexts over {steps} steps; launches "
           f"{ {k: v for k, v in counts.items() if v} }")
     if not ran or stray:
-        raise AssertionError(f"corner {label}: K7's {route} design did not "
-                             f"run, or another kernel did: {counts}")
+        raise AssertionError(f"corner {label}: {design} did not run, or "
+                             f"another kernel did: {counts}")
+    if rows is not None:
+        name = own[2 if g else 0]
+        print(f"corner {label}: {name} {ms:.3f} ms (bound {bnd[0]:.3f} ms, "
+              f"{bnd[1]}: {bnd[0] / ms:.1%}; plain {plain_ms:.1f} ms)")
+        rows[f"{name}_{label}"] = dict(
+            source=MB_SOURCE if name == "multi_bit_accumulate" else
+            "tfhe_tpu_torch/csrc/blind_rotate_crt.cu"
+            if name == "blind_rotate_crt" else WIDE_SOURCE,
+            replaces=MB_REPLACES if g else "tfhe_tpu/ops/pbs_kernel.py:1867",
+            launches=counts[name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound=bnd,
+            shape=f"{label} B={B} {steps} {'group ' if g else ''}steps "
+                  f"N={N} l={levels} b={base_log} P={P}, random keys",
+            plain_shape=f"B={B}, {steps} steps",
+            kernel=f"{design}'s 64-bit decomposer (GarnerTailDeep), "
+                   f"{'K5b' if g else 'K3'}'s function; launches: the "
+                   "corner's dispatch")
     torch.cuda.empty_cache()
     return counts
 
@@ -4633,6 +4745,205 @@ def _wide_split_multi_bit(label, N, levels, base_log, rate, rows, rng):
         f"wide_{label}_bound_ms": bnd[0]}
 
 
+def _wide_deep_classic(card, rate, rows, summary):
+    """Phase 24's classic 4_4 set at 2M64 (base_log * levels = 33) on the
+    split cluster kernel's 64-bit decomposer, real keys (see
+    ``phase_wide``, g)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[WIDE_DEEP_CLASSIC]
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    R, N, lv, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
+    key, n, P = sk.bsk_scan, p.lwe_dimension, sk.num_primes
+    key_gb = key.numel() * 4 / 1e9
+    if sk.variant != "crt" or bl * lv <= pk.HI_WORD_MAX_BL or \
+            pk.wide_route(P, R, lv, N, 8, bl) != "split":
+        raise AssertionError(f"4_4 2M64: variant {sk.variant}, b l = "
+                             f"{bl * lv}, not on the split's 64-bit "
+                             "decomposer")
+    print(f"keygen 4_4 2M64 ({WIDE_DEEP_CLASSIC}): {keygen_s:.1f} s, n = {n}, "
+          f"N = {N}, l = {lv}, b = {bl} (b l = {bl * lv}), P = {P}, CRT key "
+          f"{tuple(key.shape)} ({key_gb:.2f} GB)")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (5 * x + 3) % mod  # noqa: E731
+    vals = np.arange(WIDE_DEEP_BATCH, dtype=np.uint64) % mod
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    out = launches_exactly("4_4 2M64 main path",
+                           lambda: sk.apply_lookup_table(ct, lut),
+                           {"body_rotate_u64": 1,
+                            "blind_rotate_wide_split": 1})
+    launches = launches_of("blind_rotate_wide_split")[
+        "blind_rotate_wide_split"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("4_4 2M64: the batch decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask = mask.contiguous()
+    acc = pk.body_rotate_u64(lut.acc, body)
+    cts, steps = WIDE_DEEP_PLAIN_CTS, min(WIDE_DEEP_PLAIN_STEPS, n)
+    errs, plain_ms = check_equal_all(
+        "K7 4_4 2M64", {"split": pk.blind_rotate_wide_split},
+        pk.blind_rotate_crt_plain,
+        (acc[:cts].contiguous(), mask[:cts, :steps].contiguous(),
+         key[:steps].contiguous(), bl, lv))
+    args = (acc, mask, key, bl, lv)
+    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide_split(*args), 1,
+                    warmup=False)
+    one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
+    k7_b1 = cuda_ms(lambda: pk.blind_rotate_wide_split(*one), 2)
+    del args, one
+    B = WIDE_DEEP_BATCH
+    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 1,
+                      warmup=False)
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    bnd = step_bound("blind_rotate_crt", B, n, R, lv, N, P, 8, rate)
+    bnd1 = step_bound("blind_rotate_crt", 1, n, R, lv, N, P, 8, rate)
+    print(f"4_4 2M64 B={B}: KS->PBS {step_ms:.3f} ms = "
+          f"{B / step_ms * 1e3:.1f} PBS/s; the split's 64-bit decomposer "
+          f"{k7_ms:.3f} ms (bound {bnd[0]:.2f} ms, {bnd[1]}: "
+          f"{bnd[0] / k7_ms:.1%}); batch 1 {k7_b1:.3f} ms (bound "
+          f"{bnd1[0]:.3f}); == plain on {cts} ciphertexts, the first {steps} "
+          f"of {n} steps (plain {plain_ms:.1f} ms); batch 1 KS->PBS "
+          f"{b1_ms:.3f} ms (median of 5); on {card}")
+    rows["blind_rotate_wide_split_4_4_2m64"] = dict(
+        source=WIDE_SOURCE, replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+        shape=f"4_4 2M64 B={B} n={n} N={N} l={lv} b={bl} P={P}",
+        plain_shape=f"B={cts}, {steps} of {n} steps", launches=launches,
+        max_abs_err=errs["split"], ms=k7_ms, plain_ms=plain_ms, bound=bnd,
+        ms_b1=k7_b1, bound_b1_ms=bnd1[0],
+        kernel="the split cluster kernel's 64-bit decomposer "
+               "(GarnerTailDeep<4>), K3's function, u64 acc")
+    summary.update(wide_deep_keygen_s=keygen_s, wide_deep_key_gb=key_gb,
+                   wide_deep_pbs_ms=step_ms,
+                   wide_deep_pbs_per_s=B / step_ms * 1e3,
+                   wide_deep_split_ms=k7_ms, wide_deep_split_b1_ms=k7_b1,
+                   wide_deep_bound_ms=bnd[0], wide_deep_ks_pbs_b1_ms=b1_ms)
+    del ck, sk, ct, out, acc, mask, body, key, ct1
+    torch.cuda.empty_cache()
+
+
+def _wide_deep_multi_bit(card, rate, rows, summary, rng):
+    """Phase 24's GPU group-4 4_4 set at 2M128 (b = 8, l = 4) on K5a and
+    K7 global multi-bit's 64-bit decomposer, random keys at its shape cut
+    to WIDE_DEEP_MB_GROUPS group steps (see ``phase_wide``, h)."""
+    import torch
+
+    from tfhe_tpu_torch._torus import from_u64
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.server_key import check_supported
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[WIDE_DEEP_MB]
+    check_supported(p, DEVICE)
+    g, R, N, lv, bl = (p.grouping_factor, p.glwe_size, p.polynomial_size,
+                       p.pbs_level, p.pbs_base_log)
+    P, ng = 4, p.lwe_dimension // g
+    B, G, cts = WIDE_DEEP_MB_B, WIDE_DEEP_MB_GROUPS, WIDE_DEEP_MB_PLAIN
+    key_gb = ng * 2 * P * ((1 << g) - 1) * lv * R * R * N * 4 / 1e9
+    if pk.wide_route(P, R, lv, N, 8, bl) != "global":
+        raise AssertionError("g4 4_4 2M128: not on K7 global")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
+    mbk = _random_multi_bit_key(N, lv, G, g, gen)
+    acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
+                   DEVICE)
+    mask = torch.from_numpy(rng.integers(0, 2 * N, size=(B, G * g))).to(
+        DEVICE).contiguous()
+    C = pk.multi_bit_chunk(B, G, P, lv * R, R, N)
+    chunks = -(-G // C)
+    pk.reset_launches()
+    out = pk.blind_rotate_multi_bit(acc, mask, mbk, bl, lv)
+    torch.cuda.synchronize()
+    got = launches_of(*LUT_KERNELS)
+    want = {"multi_bit_keybundle": chunks,
+            "multi_bit_accumulate_wide": chunks}
+    require_launched("g4 4_4 2M128 the K5a + K7 global pair", {
+        k: got[k] for k in want})
+    if got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"g4 4_4 2M128: launches {got}, want {want}")
+    launches = got["multi_bit_accumulate_wide"]
+    k5a_launches = got["multi_bit_keybundle"]
+    m4, a4 = mask[:cts].contiguous(), acc[:cts].contiguous()
+    check_equal("the pair g4 4_4 2M128", pk.blind_rotate_multi_bit,
+                pk.blind_rotate_multi_bit_plain, (a4, m4, mbk, bl, lv))
+    a_err, a_plain = check_equal("multi_bit_keybundle g4 4_4 2M128",
+                                 pk.multi_bit_keybundle,
+                                 pk.multi_bit_keybundle_plain,
+                                 (m4, mbk, 0, G, bl, lv))
+    b4 = pk.multi_bit_keybundle(m4, mbk, 0, G, bl, lv)
+    b_err, b_plain = check_equal("K7 global multi-bit g4 4_4 2M128",
+                                 pk.multi_bit_accumulate_wide,
+                                 pk.multi_bit_accumulate_plain,
+                                 (a4, b4, bl, lv))
+    del b4, out
+    scratch = torch.empty(B * C * P * lv * R * R * N, dtype=torch.int32,
+                          device=DEVICE)
+    k5a_ms = cuda_ms(lambda: [pk.multi_bit_keybundle(
+        mask, mbk, t0, min(C, G - t0), bl, lv, out=scratch)
+        for t0 in range(0, G, C)], 1)
+    del scratch
+    sizes = [min(C, G - t0) for t0 in range(0, G, C)]
+    bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
+               for c in set(sizes)}
+    k7_ms = cuda_ms(lambda: [pk.multi_bit_accumulate_wide(
+        acc, bundles[c], bl, lv) for c in sizes], 1)
+    del bundles
+    one = pk.multi_bit_keybundle(mask[:1].contiguous(), mbk, 0, G, bl, lv)
+    acc1 = acc[:1].contiguous()
+    k7_b1 = cuda_ms(lambda: pk.multi_bit_accumulate_wide(acc1, one, bl, lv),
+                    2)
+    pair_ms = cuda_ms(lambda: pk.blind_rotate_multi_bit(acc, mask, mbk, bl,
+                                                        lv), 1)
+    del one, acc1, mbk
+    a_bnd = bound(kb.multi_bit_keybundle_pipe_instructions(
+        B, G, g, R, lv, N, P), keybundle_bytes(B, G, g, R, lv, N, P), rate)
+    b_bnd = bound(kb.multi_bit_accumulate_pipe_instructions(
+        B, G, R, lv, N, P), accumulate_bytes(B, G, R, lv, N, P), rate)
+    b_bnd1 = bound(kb.multi_bit_accumulate_pipe_instructions(
+        1, G, R, lv, N, P), accumulate_bytes(1, G, R, lv, N, P), rate)
+    print(f"g4 4_4 2M128 (n/g = {ng}, N = {N}, l = {lv}, b = {bl}; its K5 "
+          f"key {key_gb:.1f} GB with its duals: random keys, {G} of {ng} "
+          f"group steps): B={B}, {chunks} chunks of {C}: the pair "
+          f"{pair_ms:.3f} ms; K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
+          f"{a_bnd[1]}: {a_bnd[0] / k5a_ms:.1%}), K7 global multi-bit "
+          f"{k7_ms:.3f} ms (bound {b_bnd[0]:.2f}, {b_bnd[1]}: "
+          f"{b_bnd[0] / k7_ms:.1%}); batch 1, {G} steps in one chunk: "
+          f"{k7_b1:.3f} ms (bound {b_bnd1[0]:.3f}); the pair, K5a and K7 "
+          f"global == plain on {cts} ciphertexts over {G} group steps "
+          f"(plain {a_plain:.1f}, {b_plain:.1f} ms); on {card}")
+    common = dict(replaces=MB_REPLACES, note="no pallas_call: XLA in tfhe_tpu",
+                  shape=f"g4 4_4 2M128 B={B} {G} of {ng} group steps N={N} "
+                  f"l={lv} b={bl} C={C}, random keys",
+                  plain_shape=f"B={cts}, {G} group steps")
+    rows["multi_bit_accumulate_wide_g4_4_4_2m128"] = dict(
+        common, source=WIDE_SOURCE, launches=launches, max_abs_err=b_err,
+        ms=k7_ms, plain_ms=b_plain, bound=b_bnd, ms_b1=k7_b1,
+        bound_b1_ms=b_bnd1[0],
+        kernel="K7 global multi-bit's 64-bit decomposer (GarnerTailDeep<4>), "
+               "K5b's function, all chunks of the call; launches: the pair's "
+               "on random keys")
+    rows["multi_bit_keybundle_g4_4_4_2m128"] = dict(
+        common, source=MB_SOURCE, launches=k5a_launches, max_abs_err=a_err,
+        ms=k5a_ms, plain_ms=a_plain, bound=a_bnd,
+        kernel="K5a at N = 32768, l = 4, all chunks of the call")
+    summary.update(wide_deep_mb_key_gb=key_gb, wide_deep_mb_pair_ms=pair_ms,
+                   wide_deep_mb_k5a_ms=k5a_ms, wide_deep_mb_k7_ms=k7_ms,
+                   wide_deep_mb_k7_b1_ms=k7_b1)
+    del acc, mask
+    torch.cuda.empty_cache()
+
+
 def phase_wide(card, rate, rows):
     """tfhe-rs's 3_3 and 4_4 sets on the card through K7
     (csrc/blind_rotate_wide.cu) at full width. The 3_3 steps run on K7's
@@ -4683,27 +4994,62 @@ def phase_wide(card, rate, rows):
        versions on WIDE_SPLIT_MB_PLAIN ciphertexts; the split and K7
        global in turns on all of them;
     f. random keys at WIDE_CORNERS (N = 16384 on the cluster kernel, N =
-       32768 at l = 1 on K7 global)."""
+       32768 at l = 1 on K7 global);
+    g. base_log * levels >= 32, the kernels' 64-bit decomposer: the classic
+       4_4 set at 2M64 ``V1_5_PARAM_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_2M64``
+       (n = 1110, N = 32768, b = 11, l = 3): keygen (s, GB); WIDE_DEEP_BATCH
+       ciphertexts covering all 256 values through ``apply_lookup_table``
+       (K2 u64 once, the split once, nothing else), decrypted; the split
+       equal to the plain version on WIDE_DEEP_PLAIN_CTS ciphertexts over
+       the first WIDE_DEEP_PLAIN_STEPS steps; timed at WIDE_DEEP_BATCH and
+       1; PBS/s, KS -> PBS at batch 1 (median of 5), the bound;
+    h. tfhe-rs's GPU group-4 4_4 set at 2M128 (n = 1132, N = 32768, b = 8,
+       l = 4) on K5a and K7 global multi-bit: its K5 key (71.2 GB) exceeds
+       the card, so random group-4 keys at its shape over
+       WIDE_DEEP_MB_GROUPS group steps, WIDE_DEEP_MB_B ciphertexts through
+       the pair (chunks of MB_SCRATCH_BYTES), the pair, K5a and K7 global
+       equal to the plain versions on WIDE_DEEP_MB_PLAIN ciphertexts over
+       all those steps; K5a, K7 global and the pair timed, K7 global at
+       batch 1;
+    i. random keys at WIDE_DEEP_CORNERS (the split at N = 16384, l = 3; K7
+       global at N = 32768, l = 4; the cluster kernel at N = 8192, l = 4;
+       K3 at N = 2048, l = 3 and K5b at N = 1024, l = 4; the multi-bit split
+       and cluster kernel), each equal to its plain version and timed, the
+       acc32 entries refusing each classic one.
+    Phase c also holds ``check_supported`` accepting, on the card, every
+    set of the universe with base_log * levels >= 32 at N <= 32768."""
     import torch
 
     from tfhe_tpu_torch.ops import kernel_bench as kb
     from tfhe_tpu_torch.ops import pbs_kernel as pk
     from tfhe_tpu_torch.shortint.client_key import ClientKey
     from tfhe_tpu_torch.shortint.server_key import ServerKey, check_supported
+    from tfhe_tpu_torch.utils import params_registry as reg
     from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
 
     t_phase = time.perf_counter()
     summary = {}
-    # c. the refusals, before any key
+    # c. the refusals, before any key; the 64-bit decomposer's sets pass
     for name in WIDE_REFUSED:
         try:
             check_supported(PARAMS_BY_NAME[name], "cuda")
         except ValueError as e:
-            if "R10" not in str(e):
+            if "R10" not in str(e) or "N = 65536" not in str(e):
                 raise
             print(f"refused on the card: {e}")
         else:
             raise AssertionError(f"{name}: check_supported accepted it")
+    deep = [PARAMS_BY_NAME[name] for name, (kind, _) in reg.RAW_PARAMS.items()
+            if kind in WIDE_PBS_KINDS]
+    deep = [p for p in deep if p.polynomial_size <= pk.WIDE_MAX_N
+            and p.pbs_base_log * p.pbs_level > pk.HI_WORD_MAX_BL]
+    for p in deep:
+        check_supported(p, "cuda")
+    if len(deep) != 23:
+        raise AssertionError(f"{len(deep)} sets with base_log * levels >= "
+                             "32 at N <= 32768, not the universe's 23")
+    print(f"accepted on the card: the {len(deep)} sets with base_log * "
+          "levels >= 32 at N <= 32768 (the 64-bit decomposer)")
 
     # a. classic 3_3
     p = PARAMS_BY_NAME[WIDE_CLASSIC]
@@ -4932,6 +5278,14 @@ def phase_wide(card, rate, rows):
         summary.update(s)
     summary["wide_split_s"] = time.perf_counter() - t_split
 
+    # g, h, i. the 64-bit decomposer
+    t_deep = time.perf_counter()
+    _wide_deep_classic(card, rate, rows, summary)
+    _wide_deep_multi_bit(card, rate, rows, summary, rng)
+    for c in WIDE_DEEP_CORNERS:
+        _wide_corner(*c, rng, rate, rows)
+    summary["wide_deep_s"] = time.perf_counter() - t_deep
+
     # f. the corners; K7 global's launches are theirs
     corner = {c[0]: _wide_corner(*c, rng) for c in WIDE_CORNERS}
     for name, row in wide_global.items():
@@ -4943,7 +5297,8 @@ def phase_wide(card, rate, rows):
                           launches_on=f"corner {label}")
     summary["wide_s"] = time.perf_counter() - t_phase
     print(f"phase 24: {summary['wide_s']:.1f} s (d and e, the split: "
-          f"{summary['wide_split_s']:.1f} s)")
+          f"{summary['wide_split_s']:.1f} s; g, h and i, the 64-bit "
+          f"decomposer: {summary['wide_deep_s']:.1f} s)")
     return summary
 
 
@@ -5015,6 +5370,11 @@ def main() -> int:
              "multi_bit_accumulate_wide_cluster_g4_3_3",
              *(f"multi_bit_accumulate_wide{d}_{label}" for label, *_ in
                WIDE_SPLIT_MB for d in ("_split", "")),
+             "blind_rotate_wide_split_4_4_2m64",
+             "multi_bit_keybundle_g4_4_4_2m128",
+             "multi_bit_accumulate_wide_g4_4_4_2m128",
+             *(name for name in rows if name.endswith(tuple(
+                 c[0] for c in WIDE_DEEP_CORNERS))),
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in

@@ -148,32 +148,35 @@ def test_every_set_is_supported():
 
 #: kind -> (the universe's classes of that kind, sets refused on "cuda",
 #: sets whose CRT steps run on K7 there: on its cluster kernel, on the
-#: cluster kernel at split 2)
+#: cluster kernel at split 2, on K7 global)
 ENVELOPE = {"classic": (("ClassicPBSParameters", "KeySwitch32PBSParameters"),
-                        32, 48, 5),
-            "multi_bit": (("MultiBitPBSParameters",), 19, 76, 45)}
+                        20, 48, 15, 2),
+            "multi_bit": (("MultiBitPBSParameters",), 8, 76, 45, 11)}
 
 
 @pytest.mark.parametrize("kind", list(ENVELOPE))
 def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
-    """On a CUDA device ``check_supported`` refuses, naming ROADMAP R10,
-    the sets whose exact CRT steps no kernel holds: N = 65536 (one u32
-    polynomial beyond a block's shared memory, acc and digits beyond it
-    too) or base_log * levels >= 32 (the kernels decompose the hi word):
-    32 classic and 19 multi-bit sets. The sets whose acc and digits exceed
-    a Hopper block's shared memory (the formula of K3's and K5b's
-    ``_smem`` exports, ``step_passes.step_smem_bytes`` at 8-byte acc) but
-    not those bounds pass and run on K7: 53 classic sets on the crt
-    variant (every 3_3 set, the 4_4 sets at N = 32768) and 121 multi-bit
-    ones. Of them K7's cluster kernel takes those whose CTA fits a block
-    (``step_passes.cluster_smem_bytes``, ``pbs_kernel.wide_route``): 48
-    classic (N <= 16384, l = 2) and 76 multi-bit (N <= 8192, and N =
-    16384 at l = 2), both 3_3 GPU defaults among them; the cluster kernel
-    at split 2 (a CTA of half the transforms) the other 5 and 45 (N =
-    32768, or N = 16384 at l = 3), and K7 global none. One v6b set more
-    runs its many-LUT and OPRF on K7. Every set passes on the CPU.
-    ``ServerKey.generate`` refuses before it draws a key (its client key
-    here holds no key material at all)."""
+    """On a CUDA device ``check_supported`` refuses, naming ROADMAP R10
+    and N = 65536 alone, the sets whose exact CRT steps no kernel holds:
+    N = 65536 (one u32 polynomial beyond a block's shared memory, acc and
+    digits beyond it too), 20 classic and 8 multi-bit sets. The sets with
+    base_log * levels >= 32 at N <= 32768 (12 classic, 11 multi-bit) pass:
+    the kernels' 64-bit decomposer takes them. The sets whose acc and
+    digits exceed a Hopper block's shared memory (the formula of K3's and
+    K5b's ``_smem`` exports, ``step_passes.step_smem_bytes`` at 8-byte
+    acc) but not N = 65536 run on K7: 65 classic sets on the crt variant
+    (every 3_3 set, the 4_4 sets at N = 32768, the deep sets at N = 16384)
+    and 132 multi-bit ones. Of them K7's cluster kernel takes those whose
+    CTA fits a block (``step_passes.cluster_smem_bytes``,
+    ``pbs_kernel.wide_route``): 48 classic (N <= 16384, l = 2) and 76
+    multi-bit (N <= 8192, and N = 16384 at l = 2), both 3_3 GPU defaults
+    among them; the cluster kernel at split 2 (a CTA of half the
+    transforms, b <= 15) 15 classic and 45 multi-bit (N = 32768 at l <= 3,
+    or N = 16384 at l = 3); K7 global the l >= 4 sets at N = 32768, 2
+    classic and 11 multi-bit (a split CTA of 294,912 B and more). One v6b
+    set more runs its many-LUT and OPRF on K7. Every set passes on the
+    CPU. ``ServerKey.generate`` refuses before it draws a key (its client
+    key here holds no key material at all)."""
     import types
 
     import torch
@@ -183,37 +186,45 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     from tfhe_tpu_torch.shortint.server_key import num_primes_for
 
     monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
-    classes, n_refused, n_cluster, n_split = ENVELOPE[kind]
+    classes, n_refused, n_cluster, n_split, n_global = ENVELOPE[kind]
     sets = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
             if k in classes]
-    refused, wide, cluster = [], [], []
+    refused, wide, cluster, split = [], [], [], []
     for p in sets:
         check_supported(p, "cpu")
-        N, levels = p.polynomial_size, p.pbs_level
+        N, levels, base_log = p.polynomial_size, p.pbs_level, p.pbs_base_log
         smem = sp.step_smem_bytes(num_primes_for(p), p.glwe_size, levels,
                                   N, 8)
-        if N == 65536 or p.pbs_base_log * levels >= 32:
-            with pytest.raises(ValueError, match="R10"):
+        if N == 65536:
+            with pytest.raises(ValueError, match="R10") as e:
                 check_supported(p, "cuda")
+            assert "N = 65536" in str(e.value)
+            assert "base_log" not in str(e.value)
             refused.append(p)
             continue
         check_supported(p, "cuda")
-        variant = resolve_variant(N, p.pbs_base_log, levels, params=p)
+        variant = resolve_variant(N, base_log, levels, params=p)
         if smem > pk._SMEM_LIMIT and variant == "crt":
             assert N <= pk.WIDE_MAX_N
             wide.append(p)
             P, R = num_primes_for(p), p.glwe_size
+            route = pk.wide_route(P, R, levels, N, 8, base_log)
             if sp.cluster_smem_bytes(P, R, levels, N, 8) <= pk._SMEM_LIMIT:
-                assert pk.wide_route(P, R, levels, N) == "cluster"
+                assert route == "cluster"
                 assert levels == 2 and N <= 16384 or N <= 8192
                 cluster.append(p)
-            else:
-                assert sp.cluster_smem_bytes(P, R, levels, N, 8, split=2) \
-                    <= pk._SMEM_LIMIT
-                assert pk.wide_route(P, R, levels, N) == "split"
+            elif sp.cluster_smem_bytes(P, R, levels, N, 8, split=2) \
+                    <= pk._SMEM_LIMIT:
+                assert route == "split" and base_log <= 15
                 assert N == 32768 or (N == 16384 and levels == 3)
+                split.append(p)
+            else:
+                assert route == "global"
+                assert N == 32768 and levels >= 4
+                assert base_log * levels >= 32 and P == pk.DEEP_PRIMES
     assert len(refused) == n_refused
-    assert (len(cluster), len(wide) - len(cluster)) == (n_cluster, n_split)
+    assert (len(cluster), len(split), len(wide) - len(cluster) - len(split)
+            ) == (n_cluster, n_split, n_global)
     assert all(pk.needs_wide(num_primes_for(p), p.glwe_size, p.pbs_level,
                              p.polynomial_size) for p in wide)
     names = {p.name for p in cluster}

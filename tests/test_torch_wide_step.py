@@ -109,8 +109,9 @@ def test_wide_plan_runs_every_stage_once():
 def test_dispatch_by_shape_and_the_envelope():
     """K3 / K5b below a block's shared memory, K7 beyond it, from the shape
     alone (3_3: 655,360 B; 2_2: 98,304 B); K7's envelope ends at N = 32768
-    and base_log * levels = 31; a chunk's scratch is bounded; on CPU
-    tensors every wrapper runs the plain version and counts nothing."""
+    and base_log * levels = 63 (from 32 on the 64-bit decomposer); a
+    chunk's scratch is bounded; on CPU tensors every wrapper runs the
+    plain version and counts nothing."""
     meta = dict(device="meta", dtype=torch.int64)
     acc33 = torch.empty(4, 2, 8192, **meta)
     key33 = torch.empty(1, 2, P, 4, 2, 8192, dtype=torch.int32,
@@ -125,7 +126,8 @@ def test_dispatch_by_shape_and_the_envelope():
     assert not pk._wide_shape(acc22, key22, 1, 8)
     assert pk.crt_refusal(P, 2, 2, 15, 32768) is None
     assert "N = 65536" in pk.crt_refusal(P, 2, 2, 15, 65536)
-    assert ">= 32" in pk.crt_refusal(P, 2, 3, 11, 8192)
+    assert pk.crt_refusal(P, 2, 3, 11, 8192) is None
+    assert "<= 63" in pk.crt_refusal(P, 2, 4, 16, 8192)
     assert pk.multi_bit_refusal(P, 4, 2, 3, 10, 32768) is None
     assert pk.wide_chunk(512, 2, 2, P, 8192) == 512
     assert pk.wide_chunk(10 ** 6, 2, 3, P, 32768) * (6 + 2) * P * 32768 * 4 \

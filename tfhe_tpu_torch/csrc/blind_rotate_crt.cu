@@ -21,7 +21,11 @@
 // The step loop is ntt_common.cuh's blind_rotate_kernel. With Acc = u64 the
 // decomposer reads the hi word of the full 64-bit rot - acc, so the borrow
 // out of the lo word reaches it; with Acc = u32 (acc32) the accumulator is
-// the hi plane of a multiple of 2^32 and there is no lo word.
+// the hi plane of a multiple of 2^32 and there is no lo word. At base_log *
+// levels >= 32 (tfhe-rs's sets with 4 to 6 levels, or 11 x 3, all at P =
+// 4) the u64 entry runs the kernel on GarnerTailDeep<4>, whose lift
+// decomposes all 64 bits (Decomposer64); the acc32 and BNF2 entries take
+// b l <= 31 only.
 //
 // Bound: int32 operations. Per step and ciphertext: P (l*R) forward and
 // P R inverse transforms of N/2 * log2(N) butterflies, P R l*R Shoup MACs
@@ -39,6 +43,7 @@
 using brk::Bnf2Tail;
 using brk::GarnerTail;
 using brk::GarnerTail32;
+using brk::GarnerTailDeep;
 
 namespace {
 
@@ -103,26 +108,39 @@ int crt_occupancy(int num_primes, int R, int levels, int log_n, int* regs,
 // acc_in/acc_out: u64 [B, R, N]; a_ms: i32 [B, n] in [0, 2N);
 // bsk: u32 [n, 2, P, levels*R, R, N] over the first P PRIMES32;
 // tables: u32 [P, 8, N]; garner: host u32[65] (see launch_crt).
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a prime count outside 2..5.
+// base_log * levels >= 32 (up to 63, at brk::kDeepPrimes = 4 primes) runs
+// the 64-bit decomposer's instantiation (GarnerTailDeep). Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a prime count outside 2..5 or a decomposition
+// outside both.
 extern "C" int blind_rotate_crt(
         const void* acc_in, const void* a_ms, const void* bsk,
         const void* tables, void* acc_out, int B, int n_steps, int R,
         int levels, int base_log, int log_n, int num_primes,
         const unsigned* garner, unsigned long long full_prod, void* stream) {
-    return launch_crt_primes<GarnerTail>(acc_in, a_ms, bsk, tables, acc_out,
-                                         B, n_steps, R, levels, base_log,
-                                         log_n, num_primes, garner, full_prod,
-                                         stream);
+    if (brk::hi_word_decomposition(base_log, levels))
+        return launch_crt_primes<GarnerTail>(acc_in, a_ms, bsk, tables,
+                                             acc_out, B, n_steps, R, levels,
+                                             base_log, log_n, num_primes,
+                                             garner, full_prod, stream);
+    if (base_log < 1 || levels < 1 || base_log * levels > 63
+        || num_primes != brk::kDeepPrimes)
+        return (int)cudaErrorInvalidValue;
+    return launch_crt<GarnerTailDeep<brk::kDeepPrimes>>(
+        acc_in, a_ms, bsk, tables, acc_out, B, n_steps, R, levels, base_log,
+        log_n, garner, full_prod, stream);
 }
 
 // K3-acc32. acc_in/acc_out: u32 [B, R, N], the hi plane (torus value =
-// acc * 2^32); the other arguments as blind_rotate_crt's.
+// acc * 2^32); the other arguments as blind_rotate_crt's, base_log *
+// levels <= 31.
 extern "C" int blind_rotate_crt_acc32(
         const void* acc_in, const void* a_ms, const void* bsk,
         const void* tables, void* acc_out, int B, int n_steps, int R,
         int levels, int base_log, int log_n, int num_primes,
         const unsigned* garner, unsigned long long full_prod, void* stream) {
+    if (!brk::hi_word_decomposition(base_log, levels))
+        return (int)cudaErrorInvalidValue;
     return launch_crt_primes<GarnerTail32>(acc_in, a_ms, bsk, tables,
                                            acc_out, B, n_steps, R, levels,
                                            base_log, log_n, num_primes,
@@ -131,13 +149,16 @@ extern "C" int blind_rotate_crt_acc32(
 
 // acc_in/acc_out: u64 [B, R, N]; a_ms: i32 [B, n] in [0, 2N);
 // bsk: u32 [n, 2, 2, levels*R, R, N] (bnf2.bootstrap_key_to_bnf2);
-// tables: u32 [2, 8, N]. Returns cudaGetLastError() after the launch.
+// tables: u32 [2, 8, N]; base_log * levels <= 31. Returns
+// cudaGetLastError() after the launch.
 extern "C" int blind_rotate_bnf2_u64(
         const void* acc_in, const void* a_ms, const void* bsk,
         const void* tables, void* acc_out, int B, int n_steps, int R,
         int levels, int base_log, int log_n, unsigned p0, unsigned p1,
         unsigned inv01, unsigned inv01_sh, unsigned g0, unsigned g1, int s1,
         int s2, void* stream) {
+    if (!brk::hi_word_decomposition(base_log, levels))
+        return (int)cudaErrorInvalidValue;
     Bnf2Tail tail;
     tail.p[0] = p0;
     tail.p[1] = p1;

@@ -78,6 +78,7 @@
 #include "tails.cuh"
 
 using brk::GarnerTail;
+using brk::GarnerTailDeep;
 
 namespace {
 
@@ -129,14 +130,15 @@ __device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
 
 // The first forward pass, K stages from 0 (hl = N >> K), fused with the
 // lift: for digit row j = lev R + r and prime pi, digit `lev` of acc[r]
-// (HiDecomposer), lifted mod p and twisted, at each position of the item.
-// StepPasses::lift_pass with acc in place of the rotated difference.
-template <int P, int K>
+// (Dec: HiDecomposer, or Decomposer64 at base_log * levels >= 32), lifted
+// mod p and twisted, at each position of the item. StepPasses::lift_pass
+// with acc in place of the rotated difference.
+template <int P, int K, class Dec = brk::HiDecomposer>
 __device__ void mb_lift_pass(const uint64_t* acc, uint32_t* dig, int R,
                              int levels, int base_log, int log_n,
                              const uint32_t* __restrict__ tables,
                              const uint32_t* s_p) {
-    const brk::HiDecomposer dec(base_log, levels);
+    const Dec dec(base_log, levels);
     const int lR = levels * R;
     const int N = 1 << log_n;
     const int log_g = log_n - K;
@@ -156,7 +158,7 @@ __device__ void mb_lift_pass(const uint64_t* acc, uint32_t* dig, int R,
         #pragma unroll
         for (int m = 0; m < (1 << K); ++m) {
             const int t = i0 + (m << log_hl);
-            int32_t state = dec.init(brk::hi_word(acc[r * N + t]));
+            typename Dec::State state = dec.init_word(acc[r * N + t]);
             int32_t digit = dec.next(state);
             #pragma unroll 1
             for (int lv = 0; lv < lev; ++lv) digit = dec.next(state);
@@ -174,16 +176,19 @@ __device__ void mb_lift_pass(const uint64_t* acc, uint32_t* dig, int R,
     __syncthreads();
 }
 
-template <int P>
+template <int P, class Dec = brk::HiDecomposer>
 __device__ void mb_lift_pass_k(int k, const uint64_t* acc, uint32_t* dig,
                                int R, int levels, int base_log, int log_n,
                                const uint32_t* tables, const uint32_t* s_p) {
     if (k == 1)
-        mb_lift_pass<P, 1>(acc, dig, R, levels, base_log, log_n, tables, s_p);
+        mb_lift_pass<P, 1, Dec>(acc, dig, R, levels, base_log, log_n, tables,
+                                s_p);
     else if (k == 2)
-        mb_lift_pass<P, 2>(acc, dig, R, levels, base_log, log_n, tables, s_p);
+        mb_lift_pass<P, 2, Dec>(acc, dig, R, levels, base_log, log_n, tables,
+                                s_p);
     else
-        mb_lift_pass<P, 3>(acc, dig, R, levels, base_log, log_n, tables, s_p);
+        mb_lift_pass<P, 3, Dec>(acc, dig, R, levels, base_log, log_n, tables,
+                                s_p);
 }
 
 // The MAC pass on the forward-transformed digits: item (pi, t), one point
@@ -594,20 +599,21 @@ __device__ void mb_fused_pass(uint32_t* dig,
     __syncthreads();
 }
 
-// The count steps of a chunk for one ciphertext per block. acc_in/acc_out:
-// u64 [B, R, N]; bundles: u32 [B, count, P, l R, R, N]; tables: u32
-// [P, 8, N]; pl: make_pass_plan(log_n, R).
-template <int P>
-__global__ void __launch_bounds__(brk::kThreads, brk::min_blocks(P))
-multi_bit_accumulate_kernel(const uint64_t* __restrict__ acc_in,
-                            const uint32_t* __restrict__ bundles,
-                            const uint32_t* __restrict__ tables,
-                            uint64_t* __restrict__ acc_out, int count, int R,
-                            int levels, int base_log, int log_n,
-                            const __grid_constant__ brk::PassPlan pl,
-                            const __grid_constant__ GarnerTail<P> tail,
-                            const __grid_constant__ KeyBundleConsts kc) {
-    using Passes = brk::StepPasses<GarnerTail<P>>;
+// The count steps of a chunk for one ciphertext per block, on Tail's
+// decomposer (GarnerTail<P>: the hi word's; GarnerTailDeep<P>: the whole
+// u64 word's). acc_in/acc_out: u64 [B, R, N]; bundles: u32 [B, count, P,
+// l R, R, N]; tables: u32 [P, 8, N]; pl: make_pass_plan(log_n, R).
+template <class Tail>
+__device__ __forceinline__ void accumulate_chunk(
+        const uint64_t* __restrict__ acc_in,
+        const uint32_t* __restrict__ bundles,
+        const uint32_t* __restrict__ tables, uint64_t* __restrict__ acc_out,
+        int count, int R, int levels, int base_log, int log_n,
+        const brk::PassPlan& pl, const Tail& tail,
+        const KeyBundleConsts& kc) {
+    constexpr int P = Tail::P;
+    using Passes = brk::StepPasses<Tail>;
+    using Dec = typename brk::DecomposerOf<Tail>::type;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int N = 1 << log_n;
     const int lR = levels * R;
@@ -632,8 +638,8 @@ multi_bit_accumulate_kernel(const uint64_t* __restrict__ acc_in,
     for (int step = 0; step < count; ++step) {
         const uint32_t* bundle =
             bundles + ((long long)brk::block_index() * count + step) * bstep;
-        mb_lift_pass_k<P>(pl.fwd_k[0], acc, dig, R, levels, base_log, log_n,
-                          tables, s_p);
+        mb_lift_pass_k<P, Dec>(pl.fwd_k[0], acc, dig, R, levels, base_log,
+                               log_n, tables, s_p);
         // the digits hold all of acc now; the tail adds the new value
         for (int i = tid; i < R * N; i += nt) acc[i] = 0;
         #pragma unroll
@@ -660,6 +666,37 @@ multi_bit_accumulate_kernel(const uint64_t* __restrict__ acc_in,
 
     uint64_t* dst = acc_out + (long long)brk::block_index() * R * N;
     for (int i = tid; i < R * N; i += nt) dst[i] = acc[i];
+}
+
+// K5b: accumulate_chunk on the hi-word decomposer (base_log * levels <= 31)
+template <int P>
+__global__ void __launch_bounds__(brk::kThreads, brk::min_blocks(P))
+multi_bit_accumulate_kernel(const uint64_t* __restrict__ acc_in,
+                            const uint32_t* __restrict__ bundles,
+                            const uint32_t* __restrict__ tables,
+                            uint64_t* __restrict__ acc_out, int count, int R,
+                            int levels, int base_log, int log_n,
+                            const __grid_constant__ brk::PassPlan pl,
+                            const __grid_constant__ GarnerTail<P> tail,
+                            const __grid_constant__ KeyBundleConsts kc) {
+    accumulate_chunk(acc_in, bundles, tables, acc_out, count, R, levels,
+                     base_log, log_n, pl, tail, kc);
+}
+
+// K5b at base_log * levels >= 32: accumulate_chunk on the 64-bit decomposer
+template <int P>
+__global__ void __launch_bounds__(brk::kThreads, brk::min_blocks(P))
+multi_bit_accumulate_deep_kernel(const uint64_t* __restrict__ acc_in,
+                                 const uint32_t* __restrict__ bundles,
+                                 const uint32_t* __restrict__ tables,
+                                 uint64_t* __restrict__ acc_out, int count,
+                                 int R, int levels, int base_log, int log_n,
+                                 const __grid_constant__ brk::PassPlan pl,
+                                 const __grid_constant__
+                                     GarnerTailDeep<P> tail,
+                                 const __grid_constant__ KeyBundleConsts kc) {
+    accumulate_chunk(acc_in, bundles, tables, acc_out, count, R, levels,
+                     base_log, log_n, pl, tail, kc);
 }
 
 // The kernel is instantiated at kPrimes primes, the count of every
@@ -893,26 +930,19 @@ extern "C" int multi_bit_keybundle_occupancy(int num_primes, int R,
     });
 }
 
-// K5b: count group steps against their bundles, one block a ciphertext.
-// acc_in/acc_out: u64 [B, R, N]; bundles: u32 [B, count, P, levels*R, R,
-// N]; tables: u32 [P, 8, N]; garner: host u32[65]; mu: host u64[5].
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int multi_bit_accumulate(
-        const void* acc_in, const void* bundles, const void* tables,
-        void* acc_out, int B, int count, int R, int levels, int base_log,
-        int log_n, int num_primes, const unsigned* garner,
-        unsigned long long full_prod, const unsigned long long* mu,
-        void* stream) {
-    if (num_primes != kPrimes || !mb_plan_fits(R, levels, log_n)
-        || !brk::pass_plan_fits(R, levels, log_n) || B < 1 || count < 1)
-        return (int)cudaErrorInvalidValue;
+// Launch K5b's kernel `kernel` on its tail (GarnerTail or GarnerTailDeep
+// at kPrimes).
+template <class Tail, class Kernel>
+int launch_accumulate(Kernel kernel, const void* acc_in, const void* bundles,
+                      const void* tables, void* acc_out, int B, int count,
+                      int R, int levels, int base_log, int log_n,
+                      const unsigned* garner, unsigned long long full_prod,
+                      const unsigned long long* mu, void* stream) {
     KeyBundleConsts kc{};  // K5b reads the Barrett constants only
     for (int pi = 0; pi < brk::kMaxPrimes; ++pi) kc.mu[pi] = mu[pi];
-    GarnerTail<kPrimes> tail{};
+    Tail tail{};
     brk::fill_garner(tail, garner, full_prod);
-    const size_t smem = mb_smem(num_primes, R, levels, log_n);
-    auto kernel = multi_bit_accumulate_kernel<kPrimes>;
+    const size_t smem = mb_smem(Tail::P, R, levels, log_n);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -921,6 +951,33 @@ extern "C" int multi_bit_accumulate(
         (const uint32_t*)tables, (uint64_t*)acc_out, count, R, levels,
         base_log, log_n, brk::make_pass_plan(log_n, R), tail, kc);
     return (int)cudaGetLastError();
+}
+
+// K5b: count group steps against their bundles, one block a ciphertext.
+// acc_in/acc_out: u64 [B, R, N]; bundles: u32 [B, count, P, levels*R, R,
+// N]; tables: u32 [P, 8, N]; garner: host u32[65]; mu: host u64[5].
+// base_log * levels >= 32 (up to 63) runs multi_bit_accumulate_deep_kernel
+// (the 64-bit decomposer). Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int multi_bit_accumulate(
+        const void* acc_in, const void* bundles, const void* tables,
+        void* acc_out, int B, int count, int R, int levels, int base_log,
+        int log_n, int num_primes, const unsigned* garner,
+        unsigned long long full_prod, const unsigned long long* mu,
+        void* stream) {
+    if (num_primes != kPrimes || !mb_plan_fits(R, levels, log_n)
+        || !brk::pass_plan_fits(R, levels, log_n) || B < 1 || count < 1
+        || base_log < 1 || base_log * levels > 63)
+        return (int)cudaErrorInvalidValue;
+    if (brk::hi_word_decomposition(base_log, levels))
+        return launch_accumulate<GarnerTail<kPrimes>>(
+            multi_bit_accumulate_kernel<kPrimes>, acc_in, bundles, tables,
+            acc_out, B, count, R, levels, base_log, log_n, garner, full_prod,
+            mu, stream);
+    return launch_accumulate<GarnerTailDeep<kPrimes>>(
+        multi_bit_accumulate_deep_kernel<kPrimes>, acc_in, bundles, tables,
+        acc_out, B, count, R, levels, base_log, log_n, garner, full_prod, mu,
+        stream);
 }
 
 // Bytes of dynamic shared memory a K5b block needs (acc and digits, as K3);

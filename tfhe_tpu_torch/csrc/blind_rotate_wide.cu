@@ -38,7 +38,8 @@
 //      DSMEM) or of acc[r] itself (multi-bit), l digits into dsl. Once a
 //      coefficient, not once a (digit, prime) as K7 global's K7a: P times
 //      less chain work, and l N words of DSMEM a CTA instead of 2 N acc
-//      words;
+//      words. The decomposer is the hi word's, or at base_log * levels >=
+//      32 (u64 accumulator, P = 4: GarnerTailDeep) all 64 bits';
 //   B. lift: the digits of row r read from their owners, mod p_pi, twisted,
 //      fused with the first forward pass; the forward passes
 //      (StepPasses<OnePrime>, as K7 global's: no key layout moves); the
@@ -74,12 +75,14 @@
 // 4 cluster barriers a step and one launch a call.
 //
 // K7 global (the three-stage design, for any shape beyond both: P R > 8,
-// or l = 1 at N = 32768; the reference the split is timed against), one
-// CMUX step on a chunk of Bc ciphertexts in three launches:
+// l = 1 at N = 32768, or a split CTA beyond a block, as at N = 32768, l >=
+// 4: tfhe-rs's sets with 4 to 6 levels; the reference the split is timed
+// against), one CMUX step on a chunk of Bc ciphertexts in three launches:
 //   K7a (wide_decompose_kernel), one block a (ciphertext, digit row
-//       j = lev R + r, prime): the balanced digit `lev` of the hi word of
-//       X^a acc[r] - acc[r] (classic) or of acc[r] itself (multi-bit, whose
-//       bundle carries G1's term), lifted mod p and twisted, then the
+//       j = lev R + r, prime): the balanced digit `lev` of the hi word (at
+//       base_log * levels >= 32: of all 64 bits) of X^a acc[r] - acc[r]
+//       (classic) or of acc[r] itself (multi-bit, whose bundle carries G1's
+//       term), lifted mod p and twisted, then the
 //       forward transform of that one polynomial in shared memory on
 //       ntt_common.cuh's passes (DIF order out: the key's), written to
 //       digits u32 [Bc, l R, P, N];
@@ -110,6 +113,7 @@
 
 using brk::GarnerTail;
 using brk::GarnerTail32;
+using brk::GarnerTailDeep;
 
 namespace {
 
@@ -141,11 +145,11 @@ WidePlan make_wide_plan(int log_n) {
 }
 
 // Whether K7 takes this shape: the plan's passes (5 of 3 stages at log_n
-// = 15), a polynomial within a block's shared memory, the hi-word
-// decomposer (base_log * levels <= 31) and the grid's y and z.
+// = 15), a polynomial within a block's shared memory, a decomposer
+// (base_log * levels <= 63; for_tail picks it) and the grid's y and z.
 bool wide_fits(int R, int levels, int base_log, int log_n, int P) {
     return log_n >= 3 && log_n <= kWideMaxLogN && R >= 1 && levels >= 1
-           && base_log >= 1 && base_log * levels <= 31
+           && base_log >= 1 && base_log * levels <= 63
            && levels * R < 65536 && P >= 2 && P <= brk::kMaxPrimes;
 }
 
@@ -164,8 +168,9 @@ __device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
 }
 
 // K7a. acc: Acc [Bc, R, N]; a_ms: i32 [Bc, n_ms] (read at column `step`
-// when Rotate); digits: u32 [Bc, l R, P, N]. Grid (Bc, l R, P).
-template <class Acc, bool Rotate>
+// when Rotate); digits: u32 [Bc, l R, P, N]. Grid (Bc, l R, P). Dec: the
+// hi word's decomposer, or Decomposer64 at base_log * levels >= 32.
+template <class Acc, bool Rotate, class Dec = brk::HiDecomposer>
 __global__ void __launch_bounds__(kWideThreads)
 wide_decompose_kernel(const Acc* __restrict__ acc,
                       const int32_t* __restrict__ a_ms, int n_ms, int step,
@@ -185,7 +190,7 @@ wide_decompose_kernel(const Acc* __restrict__ acc,
     const uint32_t* tb = tables + (long long)pi * brk::T_COUNT * N;
     const Acc* row = acc + ((long long)b * R + r) * N;
     const int a = Rotate ? a_ms[(long long)b * n_ms + step] : 0;
-    const brk::HiDecomposer dec(base_log, levels);
+    const Dec dec(base_log, levels);
     for (int t = threadIdx.x; t < N; t += blockDim.x) {
         Acc v = row[t];
         if (Rotate) {
@@ -197,7 +202,7 @@ wide_decompose_kernel(const Acc* __restrict__ acc,
             if (neg) y = Acc(0) - y;
             v = Acc(y - v);
         }
-        int32_t state = dec.init(brk::hi_word(v));
+        typename Dec::State state = dec.init_word(v);
         int32_t digit = dec.next(state);
         #pragma unroll 1
         for (int lv = 0; lv < lev; ++lv) digit = dec.next(state);
@@ -314,7 +319,8 @@ int run_wide(typename Tail::Acc* acc, const int32_t* a_ms, int n_ms,
     constexpr int P = Tail::P;
     const int lR = levels * R;
     const size_t smem = wide_smem(log_n);
-    auto k7a = wide_decompose_kernel<Acc, !Bundle>;
+    auto k7a = wide_decompose_kernel<Acc, !Bundle,
+                                     typename brk::DecomposerOf<Tail>::type>;
     auto k7b = wide_mac_kernel<Bundle>;
     auto k7c = wide_garner_kernel<Tail, Bundle>;
     cudaError_t err = allow_smem(k7a, smem);
@@ -357,6 +363,22 @@ int for_primes(int num_primes, F f) {
     }
 }
 
+// f(tail) at a run-time prime count and decomposition: Tail<P> at base_log
+// * levels <= 31 (the hi word's decomposer); beyond, on the u64
+// accumulator at brk::kDeepPrimes primes, GarnerTailDeep (the 64-bit
+// decomposer); cudaErrorInvalidValue for any other shape (the acc32 tails
+// take b l <= 31 only).
+template <template <int> class Tail, class F>
+int for_tail(int num_primes, int base_log, int levels, F f) {
+    constexpr int P = brk::kDeepPrimes;
+    if (brk::hi_word_decomposition(base_log, levels))
+        return for_primes<Tail>(num_primes, f);
+    if constexpr (sizeof(typename Tail<P>::Acc) == 8) {
+        if (num_primes == P) return f(GarnerTailDeep<P>{});
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
 template <template <int> class Tail>
 int wide_classic(void* acc, const void* a_ms, const void* bsk,
                  const void* tables, void* digits, void* res, int Bc,
@@ -366,7 +388,7 @@ int wide_classic(void* acc, const void* a_ms, const void* bsk,
     if (!wide_fits(R, levels, base_log, log_n, num_primes) || Bc < 1
         || Bc > 0x7fffffff || n_steps < 1)
         return (int)cudaErrorInvalidValue;
-    return for_primes<Tail>(num_primes, [&](auto t) {
+    return for_tail<Tail>(num_primes, base_log, levels, [&](auto t) {
         using T = decltype(t);
         brk::fill_garner(t, garner, full_prod);
         return run_wide<T, false>(
@@ -421,14 +443,16 @@ size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes,
 
 // Whether the cluster kernel at split H takes this shape: P R <= 8 (H P R
 // CTAs a cluster; 16, beyond the portable size, at H = 2), its plan
-// (passes of <= 3 stages, 5 a side), the hi-word decomposer, a CTA area
-// within a block's shared memory; at H = 2 l >= 2, so that b l <= 31
-// keeps a balanced digit within 16 bits (|d| <= 2^(b-1), b <= 15).
+// (passes of <= 3 stages, 5 a side), a decomposer (base_log * levels <=
+// 63; for_tail picks it), a CTA area within a block's shared memory; at H
+// = 2 l >= 2 and b <= 15, so that a balanced digit fits its int16 store
+// (|d| <= 2^(b-1)).
 bool cluster_fits(int R, int levels, int base_log, int log_n, int P,
                   int acc_bytes, int H = 1) {
     return P >= 2 && P <= brk::kMaxPrimes && R >= 1 && P * R <= kClusterMax
            && levels >= (H == 2 ? 2 : 1) && base_log >= 1
-           && base_log * levels <= 31 && log_n >= kClusterMinLogN
+           && base_log <= (H == 2 ? 15 : 63)
+           && base_log * levels <= 63 && log_n >= kClusterMinLogN
            && log_n <= (H == 2 ? kSplitMaxLogN : kClusterMaxLogN)
            && cluster_smem(R, levels, log_n, P, acc_bytes, H) <= kSmemLimit;
 }
@@ -869,7 +893,8 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
         // position k N/2 + base + i at slot k S + i)
         {
             const int a = Bundle ? 0 : a_ms[b * n_steps + step];
-            const brk::HiDecomposer dec(base_log, levels);
+            const typename brk::DecomposerOf<Tail>::type dec(base_log,
+                                                             levels);
             const int lim = H == 1 ? len : 2 << log_s;
             #pragma unroll 1
             for (int u = threadIdx.x; u < lim; u += blockDim.x) {
@@ -896,7 +921,7 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                     if (neg) y = Acc(0) - y;
                     v = Acc(y - v);
                 }
-                int32_t state = dec.init(brk::hi_word(v));
+                auto state = dec.init_word(v);
                 #pragma unroll 1
                 for (int lev = 0; lev < levels; ++lev) {
                     if constexpr (H == 1)
@@ -1048,7 +1073,7 @@ int cluster_classic(const void* acc_in, void* acc_out, const void* a_ms,
                     int R, int levels, int base_log, int log_n,
                     int num_primes, const unsigned* garner,
                     unsigned long long full_prod, void* stream) {
-    return for_primes<Tail>(num_primes, [&](auto t) {
+    return for_tail<Tail>(num_primes, base_log, levels, [&](auto t) {
         using T = decltype(t);
         using Acc = typename T::Acc;
         brk::fill_garner(t, garner, full_prod);
@@ -1067,7 +1092,7 @@ int cluster_multi_bit(const void* acc_in, void* acc_out, const void* bundles,
                       int base_log, int log_n, int num_primes,
                       const unsigned* garner, unsigned long long full_prod,
                       const unsigned long long* mu, void* stream) {
-    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+    return for_tail<GarnerTail>(num_primes, base_log, levels, [&](auto t) {
         using T = decltype(t);
         brk::fill_garner(t, garner, full_prod);
         const long long key_step = (long long)T::P * levels * R * R << log_n;
@@ -1173,7 +1198,7 @@ extern "C" int multi_bit_accumulate_wide(
     if (!wide_fits(R, levels, base_log, log_n, num_primes) || Bc < 1
         || count < 1)
         return (int)cudaErrorInvalidValue;
-    return for_primes<GarnerTail>(num_primes, [&](auto t) {
+    return for_tail<GarnerTail>(num_primes, base_log, levels, [&](auto t) {
         using T = decltype(t);
         brk::fill_garner(t, garner, full_prod);
         return run_wide<T, true>(

@@ -1,14 +1,17 @@
 // Shared pieces of the blind-rotation kernels K1 (blind_rotate_bnf2.cu) and
-// K3 (blind_rotate_crt.cu): the Shoup multiply, the hi-word balanced gadget
-// decomposition, the plan's negacyclic NTT stages, and the whole n-step
-// blind rotation as one kernel template on its recombination tail.
+// K3 (blind_rotate_crt.cu): the Shoup multiply, the balanced gadget
+// decompositions (of the hi word, and of the whole u64 word), the plan's
+// negacyclic NTT stages, and the whole n-step blind rotation as one kernel
+// template on its recombination tail.
 //
 // One CMUX step, per ciphertext, on the accumulator acc[R][N] (u32 hi plane
 // for K1, exact u64 for K3):
 //   1. diff = acc * X^{a_i} - acc, balanced gadget decomposition from the
 //      hi 32 bits of diff (_decompose_u32, tfhe_tpu/ops/pbs_kernel.py:708:
 //      base_log * levels <= 31, so the state never needs the lo word; for
-//      the u64 accumulator the borrow of the lo word is part of diff), each
+//      the u64 accumulator the borrow of the lo word is part of diff), or,
+//      on the u64 accumulator at base_log * levels >= 32, from all 64 bits
+//      of diff (Decomposer64, tfhe_tpu/ops/decomp.py:46, :74), each
 //      signed digit lifted mod each prime (d < 0 ? d + p : d) and twisted
 //      by psi^t;
 //   2. forward negacyclic NTT: Gentleman-Sande stages on natural-order
@@ -75,6 +78,7 @@ __device__ __forceinline__ uint32_t hi_word(uint64_t x) {
 // level `levels` first (bit-identical to tfhe_tpu/ops/decomp.py::decompose
 // for base_log * levels <= 31).
 struct HiDecomposer {
+    using State = int32_t;
     int base_log, rep, sh;
     uint32_t rep_mask;
     int32_t mod_b;
@@ -96,6 +100,11 @@ struct HiDecomposer {
         return (int32_t)(res - (need_bal << rep));
     }
 
+    // the initial state of an accumulator word: its hi 32 bits (the u32
+    // hi plane is its own hi word)
+    template <class A>
+    __device__ int32_t init_word(A x) const { return init(hi_word(x)); }
+
     // the next digit, in [-2^(base_log-1), 2^(base_log-1)]
     __device__ int32_t next(int32_t& state) const {
         const int32_t d = state & mod_b;
@@ -104,6 +113,59 @@ struct HiDecomposer {
         state += carry;
         return d - (carry << base_log);
     }
+};
+
+// The same decomposition from the whole u64 word, for base_log * levels >=
+// 32, where the rounding bit (63 - b l) and the low bits of the state lie in
+// the lo word: tfhe_tpu/ops/decomp.py's init_decomposer_state and decompose
+// formula for formula, the state in 64 bits (any b l < 64; b l + 1 <= 37
+// bits at tfhe-rs's sets).
+struct Decomposer64 {
+    using State = int64_t;
+    int base_log, rep;
+    uint64_t rep_mask;
+    int64_t mod_b;
+
+    __device__ Decomposer64(int base_log_, int levels)
+        : base_log(base_log_), rep(base_log_ * levels),
+          rep_mask((1ull << (base_log_ * levels)) - 1ull),
+          mod_b((1ll << base_log_) - 1) {}
+
+    // the rounded, balanced initial state of the u64 word x
+    __device__ int64_t init_word(uint64_t x) const {
+        uint64_t res = x >> (63 - rep);
+        const uint64_t rounding = res & 1ull;
+        res = (res + 1ull) >> 1;
+        res &= rep_mask;
+        const uint64_t shifted_r = rounding << (rep - 1);
+        const uint64_t need_bal =
+            (((res - 1ull) | shifted_r) & res) >> (rep - 1);
+        return (int64_t)(res - (need_bal << rep));
+    }
+
+    // the next digit, in [-2^(base_log-1), 2^(base_log-1)]
+    __device__ int32_t next(int64_t& state) const {
+        const int64_t d = state & mod_b;
+        state >>= base_log;  // arithmetic
+        const int64_t carry = (((d - 1) | state) & d) >> (base_log - 1);
+        state += carry;
+        return (int32_t)(d - (carry << base_log));
+    }
+};
+
+// Whether the hi word's decomposer takes this decomposition; the 64-bit
+// one takes base_log * levels up to 63.
+inline bool hi_word_decomposition(int base_log, int levels) {
+    return base_log >= 1 && levels >= 1 && base_log * levels <= 31;
+}
+
+// The decomposer the lifts of a tail's kernels run: the hi word's, unless
+// the tail is one of a shape with base_log * levels >= 32
+// (tails.cuh's GarnerTailDeep), which takes Decomposer64. The choice is a
+// type, so the b l <= 31 instantiations keep their code.
+template <class Tail>
+struct DecomposerOf {
+    using type = HiDecomposer;
 };
 
 // Forward DIF stages over n_polys polynomials of N coefficients, laid out
@@ -391,15 +453,17 @@ struct StepPasses {
     // 1. the first forward pass, K stages from 0 (hl = N >> K), fused with
     //    the lift: for digit row j = lev R + r and prime pi, the rotated
     //    difference acc[r] * X^a - acc[r], its balanced digit `lev`
-    //    (HiDecomposer, as the radix-2 loop computes it), lifted mod p (d < 0 ?
-    //    d + p : d) and twisted, at each position of the item
+    //    (the tail's decomposer: HiDecomposer, as the radix-2 loop computes
+    //    it, or Decomposer64), lifted mod p (d < 0 ? d + p : d) and
+    //    twisted, at each position of the item
     template <int K>
     __device__ static void lift_pass(const Acc* acc, uint32_t* dig, int a,
                                      int R, int levels, int base_log,
                                      int log_n,
                                      const uint32_t* __restrict__ tables,
                                      const uint32_t* s_p) {
-        const HiDecomposer dec(base_log, levels);
+        using Dec = typename DecomposerOf<Tail>::type;
+        const Dec dec(base_log, levels);
         const int lR = levels * R;
         const int N = 1 << log_n;
         const int log_g = log_n - K;
@@ -425,7 +489,8 @@ struct StepPasses {
                 if (neg) s -= N;
                 Acc x = acc[r * N + s];
                 if (neg) x = Acc(0) - x;
-                int32_t state = dec.init(hi_word(Acc(x - acc[r * N + t])));
+                typename Dec::State state =
+                    dec.init_word(Acc(x - acc[r * N + t]));
                 int32_t digit = dec.next(state);
                 #pragma unroll 1
                 for (int lv = 0; lv < lev; ++lv) digit = dec.next(state);

@@ -1,8 +1,9 @@
 // The recombination tails of the blind-rotation kernels: each turns the P
 // canonical residues of a coefficient (the untwisted inverse transforms)
 // into the accumulator's increment. K3 (blind_rotate_crt.cu) runs
-// GarnerTail<P>, GarnerTail32<P> and Bnf2Tail; K1 (blind_rotate_bnf2.cu)
-// runs Bnf2Tail32; the step probes (v4_probe.cu) time each one alone.
+// GarnerTail<P> (GarnerTailDeep<P> at b l >= 32), GarnerTail32<P> and
+// Bnf2Tail; K1 (blind_rotate_bnf2.cu) runs Bnf2Tail32; the step probes
+// (v4_probe.cu) time each one alone.
 // Replaces the garner_c, bnf2_c and bnf2_c32 closures of
 // tfhe_tpu/ops/pbs_kernel.py::_make_step_kernel_v4 (:1441, :1484, :1515).
 
@@ -55,6 +56,23 @@ struct GarnerTail : GarnerDigits<NP> {
     __device__ uint64_t operator()(const uint32_t* m) const {
         return this->value(m);
     }
+};
+
+// GarnerTail at a shape with base_log * levels >= 32: the same tail, whose
+// kernels' lifts decompose the whole u64 difference (Decomposer64). A type
+// of its own, so that the b l <= 31 instantiations keep their code and
+// their mangled names.
+template <int NP>
+struct GarnerTailDeep : GarnerTail<NP> {};
+
+// the prime count of its instantiations: that of every set of tfhe-rs's
+// universe with base_log * levels >= 32 (and of every multi-bit set), one
+// instantiation a kernel to keep the build short
+constexpr int kDeepPrimes = 4;
+
+template <int NP>
+struct DecomposerOf<GarnerTailDeep<NP>> {
+    using type = Decomposer64;
 };
 
 // The acc32 tail (pbs_kernel.py:1635-1640): the Garner value rounded to the

@@ -59,11 +59,18 @@ of ``tfhe_tpu/ops/ntt64_pbs.py``:
   but one of split 2 does (N = 32768, and N = 16384 at l = 3: tfhe-rs's
   4_4 sets); and ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
   ``multi_bit_accumulate_wide``, K7 global (acc and digits in global
-  memory, three stage launches a step), for the rest (no set of the
-  universe), kept as the reference the cluster kernel is timed against.
+  memory, three stage launches a step), for the rest (at N = 32768 the
+  sets with 4 to 6 levels, whose split CTA exceeds a block), also the
+  reference the cluster kernel is timed against.
   :func:`blind_rotate_crt`, :func:`blind_rotate_crt_acc32` and
   :func:`multi_bit_accumulate` choose K3 / K5b, the cluster kernel at
   split 1 or 2, or K7 global from the shape alone (:func:`wide_route`).
+
+Every kernel decomposes the hi 32 bits of the u64 difference while
+base_log * levels <= 31; K3's Garner entry, K5b and K7's u64 designs take
+32..63 at 4 primes on a second instantiation whose lifts decompose all 64
+bits (``GarnerTailDeep``, ``Decomposer64`` in ``csrc/ntt_common.cuh``), chosen
+by the entry from base_log * levels (:func:`decomposer_refusal`).
 
 A wrapper given CPU tensors runs the kernel's plain version (the same
 function, written with torch ops); given CUDA tensors it launches the kernel
@@ -92,6 +99,15 @@ from .polynomial import monomial_div
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 MAX_CRT_PRIMES = 5  # GarnerTail<P> is instantiated for P = 2..5
+#: the largest base_log * levels of the hi-word decomposer (``HiDecomposer``)
+HI_WORD_MAX_BL = 31
+#: the prime count of the 64-bit decomposer's instantiations
+#: (``GarnerTailDeep<4>``, ``Decomposer64``: base_log * levels 32..63), that
+#: of every set of the universe with base_log * levels >= 32
+DEEP_PRIMES = 4
+#: the u64 entries whose kernels carry the 64-bit decomposer (K3's Garner
+#: entry, K5b; K7's designs behind both)
+DEEP_ENTRIES = ("blind_rotate_crt", "multi_bit_accumulate")
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device):
@@ -410,6 +426,28 @@ def _step_shapes(name: str, acc: torch.Tensor, msed_mask: torch.Tensor,
     return shapes, a32
 
 
+def decomposer_refusal(name: str, P: int, base_log: int, levels: int):
+    """Why entry ``name``'s kernels cannot decompose at this base log and
+    level count, or None: every kernel takes base_log * levels <=
+    :data:`HI_WORD_MAX_BL` (the hi word's decomposer); the u64 entries of
+    :data:`DEEP_ENTRIES` take 32..63 at :data:`DEEP_PRIMES` primes (the
+    64-bit decomposer)."""
+    bl = base_log * levels
+    if base_log < 1 or levels < 1:
+        return f"base_log = {base_log}, levels = {levels}"
+    if bl <= HI_WORD_MAX_BL:
+        return None
+    if name not in DEEP_ENTRIES:
+        return (f"base_log * levels = {bl}: its kernel decomposes the hi "
+                f"word (<= {HI_WORD_MAX_BL})")
+    if bl > 63:
+        return f"base_log * levels = {bl}: a decomposer takes <= 63"
+    if P != DEEP_PRIMES:
+        return (f"base_log * levels = {bl} >= 32: the 64-bit decomposer is "
+                f"instantiated at P = {DEEP_PRIMES}, not {P}")
+    return None
+
+
 def _acc_shapes(name: str, acc: torch.Tensor, P: int, base_log: int,
                 levels: int, acc_dtype):
     """Check a blind-rotation kernel's accumulator and geometry (P: the
@@ -421,10 +459,9 @@ def _acc_shapes(name: str, acc: torch.Tensor, P: int, base_log: int,
     B, R, N = acc.shape
     if N & (N - 1) or N < 2:
         raise ValueError(f"N={N} is not a power of two")
-    if not (base_log >= 1 and levels >= 1 and base_log * levels <= 31):
-        raise ValueError(f"base_log={base_log}, levels={levels}: the "
-                         "kernels decompose the hi word (base_log*levels "
-                         "<= 31)")
+    why = decomposer_refusal(name, P, base_log, levels)
+    if why:
+        raise ValueError(f"{name}: {why}")
     if not 0 < B < 2 ** 31:
         raise ValueError(f"batch {B} outside the kernel grid")
     smem = step_smem_bytes(name, P, R, levels, N)
@@ -616,7 +653,7 @@ def launch_crt(entry: str, acc: torch.Tensor, msed_mask: torch.Tensor,
 
 
 def _wide_shape(acc: torch.Tensor, key: torch.Tensor, levels: int,
-                acc_bytes: int):
+                acc_bytes: int, base_log: int = 1):
     """Where an operand pair of K3 (key [n, 2, P, l R, R, N]) or K5b
     (bundles [B, count, P, l R, R, N]) goes: :func:`wide_route` at its
     shape, None (K3 / K5b), "cluster", "split" or "global" (None for
@@ -624,7 +661,7 @@ def _wide_shape(acc: torch.Tensor, key: torch.Tensor, levels: int,
     if acc.ndim != 3 or key.ndim != 6:
         return None
     return wide_route(key.shape[2], acc.shape[1], levels, acc.shape[2],
-                      acc_bytes)
+                      acc_bytes, base_log)
 
 
 def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
@@ -638,7 +675,7 @@ def blind_rotate_crt(acc: torch.Tensor, msed_mask: torch.Tensor,
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)
-    route = _wide_shape(acc, bsk_scan, levels, 8)
+    route = _wide_shape(acc, bsk_scan, levels, 8, base_log)
     if route:
         return WIDE_ROUTES[route][0](acc, msed_mask, bsk_scan, base_log,
                                      levels)
@@ -658,7 +695,7 @@ def blind_rotate_crt_acc32(acc_hi: torch.Tensor, msed_mask: torch.Tensor,
     if acc_hi.device.type == "cpu":
         return blind_rotate_crt_acc32_plain(acc_hi, msed_mask, bsk_scan,
                                             base_log, levels)
-    route = _wide_shape(acc_hi, bsk_scan, levels, 4)
+    route = _wide_shape(acc_hi, bsk_scan, levels, 4, base_log)
     if route:
         return WIDE_ROUTES[route][1](acc_hi, msed_mask, bsk_scan, base_log,
                                      levels)
@@ -1143,7 +1180,7 @@ def multi_bit_accumulate(acc: torch.Tensor, bundles: torch.Tensor,
     its own launches."""
     if acc.device.type == "cpu":
         return multi_bit_accumulate_plain(acc, bundles, base_log, levels)
-    route = _wide_shape(acc, bundles, levels, 8)
+    route = _wide_shape(acc, bundles, levels, 8, base_log)
     if route:
         return WIDE_ROUTES[route][2](acc, bundles, base_log, levels)
     B, R, N = _acc_shapes("multi_bit_accumulate", acc, MB_PRIMES, base_log,
@@ -1291,47 +1328,51 @@ def cluster_smem_formula(P: int, R: int, levels: int, N: int,
 
 
 def fits_cluster(P: int, R: int, levels: int, N: int,
-                 acc_bytes: int = 8, split: int = 1) -> bool:
+                 acc_bytes: int = 8, split: int = 1,
+                 base_log: int = 1) -> bool:
     """Whether the cluster kernel at ``split`` 1 or 2 takes this shape:
     P R at most :data:`CLUSTER_MAX_CTAS` (split P R CTAs a cluster), N in
     CLUSTER_MIN_N..CLUSTER_MAX_N[split], a CTA within a block's shared
-    memory, and at split 2 l >= 2 (a digit in 16 bits: b <= 15 under
-    :func:`crt_refusal`'s b l <= 31). ``cluster_fits`` less its decomposer
-    bound, :func:`crt_refusal`'s."""
+    memory, and at split 2 l >= 2 and ``base_log`` <= 15 (a balanced digit
+    in its int16 store; 1, the default, asks about P, R, l and N alone).
+    ``cluster_fits`` less its decomposer bound, :func:`crt_refusal`'s."""
     return (2 <= P <= MAX_CRT_PRIMES and R >= 1
             and levels >= (2 if split == 2 else 1)
+            and (split == 1 or base_log <= 15)
             and P * R <= CLUSTER_MAX_CTAS
             and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N[split]
             and cluster_smem_formula(P, R, levels, N, acc_bytes, split)
             <= _SMEM_LIMIT)
 
 
-def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8):
+def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8,
+               base_log: int = 1):
     """The kernel of a CRT step at this shape, from the shape alone: None
     (K3, or K5b: acc and digits fit a block), "cluster" (K7's cluster
     kernel: its CTA fits), "split" (the cluster kernel at split 2: a CTA
-    of half the transforms fits) or "global" (K7 global, the three-stage
-    design)."""
+    of half the transforms fits, and ``base_log`` <= 15) or "global" (K7
+    global, the three-stage design: at N = 32768 the sets with l >= 4,
+    whose split CTA exceeds a block)."""
     if not needs_wide(P, R, levels, N, acc_bytes):
         return None
     for route, split in (("cluster", 1), ("split", 2)):
-        if fits_cluster(P, R, levels, N, acc_bytes, split):
+        if fits_cluster(P, R, levels, N, acc_bytes, split, base_log):
             return route
     return "global"
 
 
 def crt_refusal(P: int, R: int, levels: int, base_log: int, N: int):
-    """Why neither K3 (K5b) nor K7 can run an exact CRT step at this shape,
-    or None: 2..MAX_CRT_PRIMES primes, the decomposition of the hi word
-    (base_log * levels <= 31; beyond, a 64-bit decomposer), and beyond a
+    """Why neither K3 (K5b) nor K7 can run an exact CRT step at this shape
+    on the u64 accumulator, or None: 2..MAX_CRT_PRIMES primes, a decomposer
+    (:func:`decomposer_refusal`: the hi word's at base_log * levels <= 31,
+    the 64-bit one at 32..63 and :data:`DEEP_PRIMES` primes), and beyond a
     block's shared memory N <= :data:`WIDE_MAX_N` (one polynomial in a
     block). Needs no built library."""
     if not 2 <= P <= MAX_CRT_PRIMES:
         return f"the CRT kernels take 2..{MAX_CRT_PRIMES} primes, not {P}"
-    if base_log * levels > 31:
-        return (f"base_log * levels = {base_log} x {levels} = "
-                f"{base_log * levels} >= 32: the kernels decompose the hi "
-                "word (a 64-bit decomposer is to come)")
+    why = decomposer_refusal("blind_rotate_crt", P, base_log, levels)
+    if why:
+        return why
     if needs_wide(P, R, levels, N) and N > WIDE_MAX_N:
         return (f"N = {N}: one u32 polynomial is {4 * N // 1024} KiB, and "
                 f"acc and digits {step_smem_formula(P, R, levels, N, 8)} B, "
@@ -1386,6 +1427,8 @@ def _wide_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
         raise ValueError(f"{name}: N={N} is not a power of two in 8.."
                          f"{WIDE_MAX_N}")
     why = crt_refusal(P, R, levels, base_log, N)
+    if acc_dtype == torch.int32 and not why:
+        why = decomposer_refusal(name, P, base_log, levels)
     if why:
         raise ValueError(f"{name}: {why}")
     if not 0 < B < 2 ** 31 or levels * R >= 65536:
@@ -1569,7 +1612,8 @@ def _cluster_acc(name: str, acc: torch.Tensor, P: int, base_log: int,
     (at 2, that the card can hold a cluster: :func:`split_clusters`);
     returns (B, R, N)."""
     B, R, N = _wide_acc(name, acc, P, base_log, levels, acc_dtype)
-    if not fits_cluster(P, R, levels, N, acc.element_size(), split):
+    if not fits_cluster(P, R, levels, N, acc.element_size(), split,
+                        base_log):
         raise ValueError(f"{name}: P={P}, R={R}, levels={levels}, N={N} "
                          f"outside the cluster kernel at split {split} "
                          "(fits_cluster)")

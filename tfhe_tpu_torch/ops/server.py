@@ -69,14 +69,25 @@ def u64_to_i8_limbs(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(limbs, dim=-1)
 
 
-def ksk_to_i8_limbs(ksk: np.ndarray, base_log: int) -> np.ndarray:
-    """The KSK in the limb form of :func:`u64_to_i8_limbs`:
-    u64[n_in, l, n_out+1] -> int8[n_in * l, (n_out+1) * 8] (numpy, host;
-    ``tfhe_tpu``'s contract, which keeps the compute keys' base_log <= 7)."""
+def ksk_limbs(ksk: torch.Tensor, base_log: int,
+              u32: bool = False) -> torch.Tensor:
+    """The KSK in the limb form of :func:`u64_to_i8_limbs` on its device:
+    int64-held u64 [n_in, l, n_out+1] -> int8[n_in * l, (n_out+1) * 8]
+    (``tfhe_tpu``'s contract, which keeps the compute keys' base_log <= 7);
+    ``u32``: a KS32 key's u32 entries, in their low 4 limbs (the carry out
+    of them is 0 mod 2^32), int8[n_in * l, (n_out+1) * 4]."""
     assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
     n_in, l, o = ksk.shape
+    if u32:
+        return u64_to_i8_limbs(ksk & _MASK32)[..., :4].reshape(n_in * l,
+                                                               o * 4)
+    return u64_to_i8_limbs(ksk).reshape(n_in * l, o * 8)
+
+
+def ksk_to_i8_limbs(ksk: np.ndarray, base_log: int) -> np.ndarray:
+    """:func:`ksk_limbs` of a numpy u64 KSK, on the host."""
     x = torch.from_numpy(np.asarray(ksk, dtype=np.uint64).view(np.int64))
-    return u64_to_i8_limbs(x).reshape(n_in * l, o * 8).numpy()
+    return ksk_limbs(x, base_log).numpy()
 
 
 def _int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
@@ -149,14 +160,10 @@ _MASK32 = 0xFFFFFFFF
 
 
 def ksk32_to_i8_limbs(ksk32: np.ndarray, base_log: int) -> np.ndarray:
-    """A KSK of u32 entries in its low 4 limbs (:func:`u64_to_i8_limbs`;
-    the carry out of them is 0 mod 2^32): u64[n_in, l, n_out+1] (values
-    < 2^32) -> int8[n_in*l, (n_out+1)*4] (numpy, host)."""
-    assert base_log <= 7, "balanced digits must fit int8 for the keyswitch"
-    n_in, l, o = ksk32.shape
+    """:func:`ksk_limbs` of a numpy KS32 KSK (u64 values < 2^32), on the
+    host: int8[n_in*l, (n_out+1)*4]."""
     x = torch.from_numpy(np.asarray(ksk32, dtype=np.uint64).view(np.int64))
-    return u64_to_i8_limbs(x & _MASK32)[..., :4].reshape(n_in * l,
-                                                          o * 4).numpy()
+    return ksk_limbs(x, base_log, u32=True).numpy()
 
 
 def keyswitch_mxu32(ct: torch.Tensor, ksk_i8: torch.Tensor, base_log: int,

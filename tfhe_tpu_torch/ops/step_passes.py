@@ -181,6 +181,19 @@ def _phys(polys, N: int, pos):
     return swz(torch.as_tensor(polys)[:, None, None] * N + pos)
 
 
+def _next_digits(state, base_log: int, levels: int) -> list:
+    """The ``levels`` balanced digits of a decomposer's initial state
+    (``next``: the arithmetic shift of the signed state), level 0 first."""
+    out = []
+    for _ in range(levels):
+        d = state & ((1 << base_log) - 1)
+        state = state >> base_log
+        carry = (((d - 1) | state) & d) >> (base_log - 1)
+        state = state + carry
+        out.append(d - (carry << base_log))
+    return out
+
+
 def hi_digits(hi, base_log: int, levels: int) -> list:
     """The balanced digits of the hi words ``hi`` (int64 in [0, 2^32)),
     level 0 first, formula for formula as ``brk::HiDecomposer``'s ``init``
@@ -190,15 +203,35 @@ def hi_digits(hi, base_log: int, levels: int) -> list:
     rounding = res & 1
     res = ((res + 1) >> 1) & ((1 << rep) - 1)
     need_bal = (((res - 1) | (rounding << (rep - 1))) & res) >> (rep - 1)
-    state = res - (need_bal << rep)
-    out = []
-    for _ in range(levels):
-        d = state & ((1 << base_log) - 1)
-        state = state >> base_log
-        carry = (((d - 1) | state) & d) >> (base_log - 1)
-        state = state + carry
-        out.append(d - (carry << base_log))
-    return out
+    return _next_digits(res - (need_bal << rep), base_log, levels)
+
+
+def deep_digits(x, base_log: int, levels: int) -> list:
+    """The balanced digits of the whole u64 words ``x`` (int64 bits),
+    level 0 first, formula for formula as ``brk::Decomposer64``'s
+    ``init_word`` and ``next`` compute them in 64 bits (base_log * levels
+    < 64; the kernels run it at 32 and above): the logical shifts of the
+    u64 state are ``srl``, the state's shifts arithmetic."""
+    rep = base_log * levels
+    res = srl(x, 63 - rep)
+    rounding = res & 1
+    res = srl(res + 1, 1) & ((1 << rep) - 1)
+    need_bal = srl(((res - 1) | (rounding << (rep - 1))) & res, rep - 1)
+    return _next_digits(res - (need_bal << rep), base_log, levels)
+
+
+def lift_digits(v, base_log: int, levels: int, acc32: bool) -> list:
+    """The digits a lift takes of the accumulator words ``v`` (a rotated
+    difference, or acc itself; u32 values of the hi plane when ``acc32``):
+    :func:`hi_digits` of the hi word at base_log * levels <= 31, else
+    :func:`deep_digits` of the whole u64 word (the u64 accumulator's
+    ``GarnerTailDeep`` instantiations; the hi plane has no such kernel)."""
+    if base_log * levels <= pk.HI_WORD_MAX_BL:
+        return hi_digits(v & M32 if acc32 else srl(v, 32), base_log, levels)
+    if acc32:
+        raise ValueError(f"base_log * levels = {base_log * levels}: the hi "
+                         "plane's kernels decompose the hi word (<= 31)")
+    return deep_digits(v, base_log, levels)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +305,8 @@ def lift_pass(acc, dig, a, K: int, R: int, levels: int, base_log: int,
         x = torch.gather(row, 1, s.reshape(B, -1)).reshape(s.shape)
         x = torch.where(neg, -x, x)
         diff = x - row[:, pos]
-        hi = diff & M32 if tail.acc32 else srl(diff, 32)
-        for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+        for lev, d in enumerate(lift_digits(diff, base_log, levels,
+                                            tail.acc32)):
             for pi, p in enumerate(tail.plan.primes):
                 tb = tables[pi]
                 m = torch.where(d < 0, d + p, d)
@@ -536,8 +569,8 @@ def wide_decompose(acc, a, base_log: int, levels: int, tail: Tail, tables,
             s = torch.where(neg, s - N, s)
             y = torch.gather(row, 1, s)
             v = torch.where(neg, -y, y) - row
-        hi = v & M32 if tail.acc32 else srl(v, 32)
-        for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+        for lev, d in enumerate(lift_digits(v, base_log, levels,
+                                            tail.acc32)):
             for pi, p in enumerate(tail.plan.primes):
                 tb = tables[pi]
                 m = torch.where(d < 0, d + p, d)
@@ -733,8 +766,8 @@ def _cluster_steps(x, count: int, levels: int, base_log: int, tail: Tail,
                 owners = torch.stack([acc[r * P + q] for q in range(P)], 1)
                 y = owners[torch.arange(B)[:, None], o, s - (o << log_s)]
                 v = torch.where(neg, -y, y) - v
-            hi = v & M32 if tail.acc32 else srl(v, 32)
-            for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+            for lev, d in enumerate(lift_digits(v, base_log, levels,
+                                                tail.acc32)):
                 dsl[rank][:, (lev << log_s) + u] = d
         # B. the lift with the first forward pass, the forward passes, the
         # last two forward stages with the MAC
@@ -886,8 +919,8 @@ def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
                 s = torch.where(neg, s - N, s)
                 y = accg[:, r][bi, s]
                 v = torch.where(neg, -y, y) - v
-            hi = v & M32 if tail.acc32 else srl(v, 32)
-            for lev, d in enumerate(hi_digits(hi, base_log, levels)):
+            for lev, d in enumerate(lift_digits(v, base_log, levels,
+                                                tail.acc32)):
                 # the kernel's int16 store
                 dsl[rank][:, lev * 2 * S + u] = ((d + (1 << 15)) & 0xFFFF) \
                     - (1 << 15)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._torus import from_u32, from_u64, to_u64, u64_const
+from .._torus import from_u32, from_u64, u64_const
 from ..core import algorithms as algo
 from ..core import noise_formulas as nf
 from ..core.entities import LweBootstrapKey
@@ -110,9 +110,10 @@ def check_supported(p, device=None) -> None:
     no kernel holds: a multi-bit set outside ``pbs_kernel.
     multi_bit_refusal`` (K5a with K5b or K7), a classic one outside
     ``pbs_kernel.crt_refusal`` (K3 or K7: the CRT key is the crt variant's
-    and, under v6/v6b/v5, many-LUT's and the OPRF's). The universe's 32
-    classic and 19 multi-bit sets at N = 65536 or with base_log * levels >=
-    32 are refused (ROADMAP R10); they run on the CPU only."""
+    and, under v6/v6b/v5, many-LUT's and the OPRF's). The universe's 20
+    classic and 8 multi-bit sets at N = 65536 are refused (ROADMAP R10);
+    they run on the CPU only. Its 23 sets with base_log * levels >= 32 at
+    N <= 32768 run on the kernels' 64-bit decomposer."""
     g = grouping_of(p)
     if g and p.lwe_dimension % g:
         raise ValueError(f"{p.name}: lwe_dimension {p.lwe_dimension} is not "
@@ -168,10 +169,9 @@ def num_primes_for(p) -> int:
 
 
 def _ksk_i8(p, ksk: torch.Tensor) -> torch.Tensor:
-    """The KSK's int8 limbs on its device (4 a value under KS32)."""
-    limbs = (server_ops.ksk32_to_i8_limbs if is_ks32(p)
-             else server_ops.ksk_to_i8_limbs)
-    return torch.from_numpy(limbs(to_u64(ksk), p.ks_base_log)).to(ksk.device)
+    """The KSK's int8 limbs, computed on its device (4 a value under
+    KS32)."""
+    return server_ops.ksk_limbs(ksk, p.ks_base_log, u32=is_ks32(p))
 
 
 def prepare_crt_key(bsk_std: torch.Tensor, p) -> torch.Tensor:
