@@ -247,11 +247,17 @@ Phases (any failure raises and exits non-zero):
     decomposer: the classic 4_4 set at 2M64 on the split (real keys; 256
     values decrypted; the split equal to its plain version on 4
     ciphertexts over 64 steps, timed at 256 and 1, PBS/s), the GPU group-4
-    4_4 set at 2M128 on K5a and K7 global multi-bit (random keys at its
-    shape over 16 group steps: its key exceeds the card; the pair, K5a and
-    K7 global equal to their plain versions), and random keys at the split,
-    K7 global, the cluster kernel, K3 and K5b at b l >= 32 (each equal to
-    its plain version, the acc32 entries refusing);
+    4_4 set at 2M128 on K5a and the split with its levels streamed
+    (random keys at its shape over 16 group steps: its key exceeds the
+    card; the pair, K5a, the stream and K7 global equal to their plain
+    versions, the stream and K7 global in turns), random keys at the
+    split, the stream, the cluster kernel, K3 and K5b at b l >= 32 (each
+    equal to its plain version, the acc32 entries refusing) and at the
+    stream's int8 (l = 5, 6) and hi-word (l = 4, b = 7) shapes; and the
+    2_6 compact-PK set at 2M64 (N = 32768, b = 9, l = 4) on the stream,
+    real keys: 256 values decrypted, the stream equal to its plain version
+    on 4 ciphertexts over 64 steps, timed at 256 and 1 and in turns with
+    K7 global at 8, PBS/s; each part's seconds;
 25. the card's name and power limit, a ``{"kernels": [...]}`` line, and
     last the ``{"ok": true, "device": {...}}`` line.
 
@@ -552,7 +558,9 @@ def phase_build():
 
     secs = _build.build_cuda()
     print(f"build: {secs:.1f} s for {list(_build.CUDA_SOURCES)}, "
-          f"{_build.nvcc_version()}")
+          f"{_build.nvcc_version()}; each library's nvcc done at (s): "
+          + ", ".join(f"{n} {t:.1f}"
+                      for n, t in _build.BUILD_SECONDS.items()))
     for name in _build.CUDA_SOURCES:
         with open(_build.ptxas_report_path(name)) as f:
             for line in f:
@@ -710,19 +718,30 @@ def step_kernel_report():
     # the formula of the dispatch and of step_passes), its registers,
     # spills, CTAs per SM and the clusters resident on the card
     # and at split 2 where the 4_4 steps run (N = 32768 at l = 2 and 3, N
-    # = 16384 at l = 3): 16 CTAs a cluster, a non-portable size
+    # = 16384 at l = 3): 16 CTAs a cluster, a non-portable size; and the
+    # split with its levels streamed (N = 32768 at l = 4 to 6; no acc32
+    # entry: its _smem export says 0)
     for label, lv, n_, split in (("3_3", levels, N, 1),
                                  ("N = 16384, l = 2", 2, 16384, 1),
                                  ("N = 32768, l = 2", 2, 32768, 2),
                                  ("N = 32768, l = 3", 3, 32768, 2),
-                                 ("N = 16384, l = 3", 3, 16384, 2)):
+                                 ("N = 16384, l = 3", 3, 16384, 2),
+                                 ("N = 32768, l = 4, streamed", 4, 32768, 2),
+                                 ("N = 32768, l = 5, streamed", 5, 32768, 2),
+                                 ("N = 32768, l = 6, streamed", 6, 32768,
+                                  2)):
         design = "cluster" if split == 1 else "split"
+        streams = split == 2 and pk.split_streams(P, R, lv, n_)
+        if streams != label.endswith("streamed"):
+            raise AssertionError(f"the split at {label}: split_streams "
+                                 f"{streams}")
         for entry, acc_bytes in ((f"blind_rotate_wide_{design}", 8),
                                  (f"blind_rotate_wide_{design}_acc32", 4),
                                  (f"multi_bit_accumulate_wide_{design}", 8)):
             smem = pk.step_smem_bytes(entry, P, R, lv, n_)
-            want = sp.cluster_smem_bytes(P, R, lv, n_, acc_bytes, split)
-            if smem != want or smem != pk.cluster_smem_formula(
+            want = 0 if streams and acc_bytes == 4 else \
+                sp.cluster_smem_bytes(P, R, lv, n_, acc_bytes, split)
+            if smem != want or want and smem != pk.cluster_smem_formula(
                     P, R, lv, n_, acc_bytes, split):
                 raise AssertionError(f"{entry}_smem {smem} != the "
                                      f"formula's {want} at {label}")
@@ -740,19 +759,29 @@ def step_kernel_report():
             raise AssertionError(f"K7 cluster kernel at split {split}, "
                                  f"{label}: no cluster resident")
     # the 64-bit decomposer's instantiations of K5b and K7 (K3's are
-    # blind_rotate_kernel's, above): ptxas' spills
+    # blind_rotate_kernel's, above), and every instantiation of the
+    # streamed split (wide_cluster_kernel<..., 3>): ptxas' spills
     deep = {name: b for lib in ("blind_rotate_multi_bit", "blind_rotate_wide")
             for name, b in _ptxas_spills(lib).items()
             if "GarnerTailDeep" in name or "Decomposer64" in name}
     print(f"  the 64-bit decomposer's K5b and K7 instantiations: {len(deep)}, "
           f"spill bytes {sorted(set(deep.values()))}")
     spilled.update({name: b for name, b in deep.items() if b})
+    stream = {name: b for name, b in _ptxas_spills("blind_rotate_wide").items()
+              if "wide_cluster_kernel" in name and "ELi3EEEv" in name}
+    print(f"  the streamed split's instantiations: {len(stream)}, spill "
+          f"bytes {sorted(set(stream.values()))}")
+    if not stream:
+        raise AssertionError("no instantiation of the streamed split in "
+                             "ptxas' report")
+    spilled.update({name: b for name, b in stream.items() if b})
     if spilled:
         raise AssertionError(f"K1/K3/K6/K7 kernels spill: {spilled}")
-    print("K1, K3, K5b's and K7's 64-bit decomposer, K6 and K7: no spills; "
-          "K1, K3, K5b and r14: shared memory == acc + digits; K6: acc + "
-          "digits + MAC; K7 global: one polynomial; K7's cluster kernel at "
-          "split 1 and 2: its CTA area")
+    print("K1, K3, K5b's and K7's 64-bit decomposer, K6 and K7 (the streamed "
+          "split too): no spills; K1, K3, K5b and r14: shared memory == acc "
+          "+ digits; K6: acc + digits + MAC; K7 global: one polynomial; K7's "
+          "cluster kernel at split 1 and 2 (levels held or streamed): its "
+          "CTA area")
 
 
 #: the wgmma kernels' instantiations: (library, op, copies)
@@ -2182,22 +2211,28 @@ LUT_KERNELS = ("body_rotate_acc32", "body_rotate_u64",
                "multi_bit_accumulate_wide_split")
 
 
-def launches_exactly(label, fn, want: dict):
+def launches_exactly(label, fn, want: dict, timed: bool = False):
     """Run ``fn`` with every launch count zeroed just before and read just
     after: the kernels of ``want`` launched exactly that often, every other
-    kernel never. Returns ``fn``'s output."""
+    kernel never. Returns ``fn``'s output, and with ``timed`` its CUDA-event
+    ms too (a path whose tables and keys are built already: its first call
+    is a timed run)."""
     import torch
 
     from tfhe_tpu_torch.ops import pbs_kernel as pk
 
     pk.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     out = fn()
+    end.record()
     torch.cuda.synchronize()
     got = launches_of(*LUT_KERNELS)
     require_launched(label, {k: got[k] for k in want})
     if got != {k: want.get(k, 0) for k in LUT_KERNELS}:
         raise AssertionError(f"{label}: launches {got}, want {want}")
-    return out
+    return (out, start.elapsed_time(end)) if timed else out
 
 
 def chi2_sf_3(x: float) -> float:
@@ -4328,22 +4363,39 @@ WIDE_DEEP_MB = ("V1_5_PARAM_GPU_MULTI_BIT_GROUP_4_MESSAGE_4_CARRY_4_KS_PBS_"
 WIDE_DEEP_MB_B, WIDE_DEEP_MB_GROUPS, WIDE_DEEP_MB_PLAIN = 64, 16, 4
 #: random keys at the other shapes of the 64-bit decomposer: (label, N,
 #: levels, base_log, g): the split at N = 16384, l = 3 (5 classic sets of
-#: the universe), K7 global at N = 32768, b = 9, l = 4 (2 classic sets),
-#: the cluster kernel at N = 8192, l = 4, K3 and K5b where acc and digits
-#: fit a block (no set of the universe: their lifts' only checks on the
-#: card), and the multi-bit split and cluster kernel
+#: the universe), the streamed split at N = 32768, b = 9, l = 4 (2 classic
+#: sets), the cluster kernel at N = 8192, l = 4, K3 and K5b where acc and
+#: digits fit a block (no set of the universe: their lifts' only checks on
+#: the card), and the multi-bit split and cluster kernel; then the
+#: streamed split's other stores and decomposer: int8 digits at the
+#: multi-bit l = 5 (b = 7) and l = 6 (b = 6) shapes, and the hi word's
+#: decomposer at a classic l = 4, b = 7 shape (b l = 28; its acc32 entry
+#: stays on K7 global)
 WIDE_DEEP_CORNERS = (("deep_classic_n16384_l3", 16384, 3, 11, 0),
                      ("deep_classic_n32768_l4", 32768, 4, 9, 0),
                      ("deep_classic_n8192_l4", 8192, 4, 8, 0),
                      ("deep_classic_n2048_l3", 2048, 3, 11, 0),
                      ("deep_multi_bit_n16384_l3", 16384, 3, 11, 4),
                      ("deep_multi_bit_n8192_l4", 8192, 4, 8, 4),
-                     ("deep_multi_bit_n1024_l4", 1024, 4, 8, 4))
+                     ("deep_multi_bit_n1024_l4", 1024, 4, 8, 4),
+                     ("stream_multi_bit_n32768_l5", 32768, 5, 7, 4),
+                     ("stream_multi_bit_n32768_l6", 32768, 6, 6, 4),
+                     ("stream_classic_n32768_l4_b7", 32768, 4, 7, 0))
+#: the streamed split on real keys: the 2_6 compact-PK set at 2M64 (n =
+#: 1111, k = 1, N = 32768, b = 9, l = 4: the 2 classic sets at N = 32768
+#: with 4 levels), its batch (all 256 values), the ciphertexts and steps
+#: of its plain checks, and the batch of K7 global's turns beside it
+WIDE_STREAM_CLASSIC = ("V1_5_PARAM_MESSAGE_2_CARRY_6_COMPACT_PK_KS_PBS_"
+                       "GAUSSIAN_2M64")
+WIDE_STREAM_BATCH = 256
+WIDE_STREAM_PLAIN_CTS, WIDE_STREAM_PLAIN_STEPS = 4, 64
+WIDE_STREAM_GLOBAL_B = 8
 WIDE_SOURCE = "tfhe_tpu_torch/csrc/blind_rotate_wide.cu"
 #: the universe's classes of PBS parameter sets
 WIDE_PBS_KINDS = ("ClassicPBSParameters", "KeySwitch32PBSParameters",
                   "MultiBitPBSParameters")
-#: K7's wrappers a design: (classic u64, classic acc32, multi-bit)
+#: K7's wrappers a design: (classic u64, classic acc32, multi-bit); the
+#: split's entries pick the streamed split by shape (pk.split_streams)
 WIDE_KERNELS = {"cluster": ("blind_rotate_wide_cluster",
                             "blind_rotate_wide_cluster_acc32",
                             "multi_bit_accumulate_wide_cluster"),
@@ -4401,10 +4453,12 @@ def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
     versions on random keys, accumulators and masks at a corner, no
     keygen: WIDE_CORNER_B ciphertexts, WIDE_CORNER_STEPS (group) steps,
     through the dispatch; the design ``pk.wide_route`` names for the shape
-    launched, the others never. At base_log * levels >= 32 (the 64-bit
-    decomposer) the acc32 entry must refuse the shape, and with ``rows``
-    the launched kernel is timed on the same inputs (one run) and gets a
-    row. Returns the launch counts of those checks."""
+    launched, the others never (the acc32 entry goes where
+    ``pk.wide_route`` sends it at 4-byte acc: K7 global where the split
+    streams). At base_log * levels >= 32 (the 64-bit decomposer) the acc32
+    entry must refuse the shape, and with ``rows`` the launched kernel is
+    timed on the same inputs (one run) and gets a row. Returns the launch
+    counts of those checks."""
     import torch
 
     from tfhe_tpu_torch._torus import from_u32, from_u64
@@ -4415,10 +4469,13 @@ def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
 
     R, P, B, steps = 2, 4, WIDE_CORNER_B, WIDE_CORNER_STEPS
     route = pk.wide_route(P, R, levels, N, 8, base_log)
+    streams = route == "split" and pk.split_streams(P, R, levels, N)
+    if label.startswith("stream") and not streams:
+        raise AssertionError(f"corner {label}: the split does not stream")
     deep = base_log * levels > pk.HI_WORD_MAX_BL
     designs = {**WIDE_KERNELS, None: BLOCK_KERNELS}
-    others = [d for d in designs if d != route]
     own = designs[route]
+    own32 = designs[pk.wide_route(P, R, levels, N, 4, base_log)][1]
     acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
                    DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + N + g + levels)
@@ -4446,12 +4503,13 @@ def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
                 raise AssertionError(f"corner {label}: acc32 ran at b l = "
                                      f"{base_log * levels}")
         else:
-            check_equal(f"{own[1]} {label}", pk.blind_rotate_crt_acc32,
+            check_equal(f"{own32} {label}", pk.blind_rotate_crt_acc32,
                         pk.blind_rotate_crt_acc32_plain,
                         (hi, mask, key, base_log, levels))
         counts = launches_of(*names)
-        ran = counts[own[0]] and (deep or counts[own[1]])
-        stray = sum(counts[n] for d in others for n in designs[d][:2])
+        ran = counts[own[0]] and (deep or counts[own32])
+        stray = sum(counts[n] for n in {n for d in designs.values()
+                                        for n in d[:2]} - {own[0], own32})
         if rows is not None:
             ms = cuda_ms(lambda: getattr(pk, own[0])(*args), 1, warmup=False)
             bnd = step_bound("blind_rotate_crt", B, steps, R, levels, N, P,
@@ -4475,14 +4533,17 @@ def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
                     (acc, mask, mbk, base_log, levels))
         counts = launches_of("multi_bit_keybundle", *names)
         ran = counts[own[2]]
-        stray = sum(counts[designs[d][2]] for d in others)
+        stray = sum(counts[n] for n in {d[2] for d in designs.values()}
+                    - {own[2]})
         if rows is not None:
             ms = cuda_ms(lambda: getattr(pk, own[2])(*args), 1, warmup=False)
             bnd = bound(kb.multi_bit_accumulate_pipe_instructions(
                 B, steps, R, levels, N, P),
                 accumulate_bytes(B, steps, R, levels, N, P), rate)
         del mbk, bundles
-    design = f"K7's {route} design" if route else "K5b" if g else "K3"
+    design = (f"K7's {route} design"
+              + (", levels streamed" if streams else "")) if route else \
+        "K5b" if g else "K3"
     print(f"corner {label} (N = {N}, l = {levels}, b = {base_log}, g = {g}): "
           f"{design}{' and K5a' if g else ''} == plain on {B} random "
           f"ciphertexts over {steps} steps; launches "
@@ -4504,8 +4565,10 @@ def _wide_corner(label, N, levels, base_log, g, rng, rate=None, rows=None):
             shape=f"{label} B={B} {steps} {'group ' if g else ''}steps "
                   f"N={N} l={levels} b={base_log} P={P}, random keys",
             plain_shape=f"B={B}, {steps} steps",
-            kernel=f"{design}'s 64-bit decomposer (GarnerTailDeep), "
-                   f"{'K5b' if g else 'K3'}'s function; launches: the "
+            kernel=f"{design}'s "
+                   + ("64-bit decomposer (GarnerTailDeep)" if deep
+                      else "hi word's decomposer")
+                   + f", {'K5b' if g else 'K3'}'s function; launches: the "
                    "corner's dispatch")
     torch.cuda.empty_cache()
     return counts
@@ -4546,10 +4609,11 @@ def _wide_split_classic(card, rate, rows, summary):
     want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
     ct = ck.encrypt(vals)
     lut = sk.generate_lookup_table(f)
-    out = launches_exactly("4_4 main path",
-                           lambda: sk.apply_lookup_table(ct, lut),
-                           {"body_rotate_u64": 1,
-                            "blind_rotate_wide_split": 1})
+    out, step_ms = launches_exactly("4_4 main path",
+                                    lambda: sk.apply_lookup_table(ct, lut),
+                                    {"body_rotate_u64": 1,
+                                     "blind_rotate_wide_split": 1},
+                                    timed=True)
     launches = launches_of("blind_rotate_wide_split")[
         "blind_rotate_wide_split"]
     if not np.array_equal(ck.decrypt_message_and_carry(out), want):
@@ -4578,16 +4642,14 @@ def _wide_split_classic(card, rate, rows, summary):
                          "global": pk.blind_rotate_wide_acc32},
         pk.blind_rotate_crt_acc32_plain, (hi[:cts].contiguous(), *pre))
     del pre
-    # the split and K7 global in turns on the batch's own inputs (both ran
-    # above: no warm-up run; acc32 one turn each), then at batch 1
+    # the split on the batch's own inputs (it ran above: no warm-up run),
+    # then the split and K7 global in turns at batch 1 (K7 global's turns
+    # at a wide batch are part j's, at l = 4)
     args, args32 = (acc, mask, key, bl, lv), (hi, mask, key, bl, lv)
-    k7_ms, k7g_ms = in_turns(lambda: pk.blind_rotate_wide_split(*args),
-                             lambda: pk.blind_rotate_wide(*args), 1,
-                             warmup=False)
+    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide_split(*args), 1,
+                    warmup=False)
     k7_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_split_acc32(*args32), 1,
                        warmup=False)
-    k7g_32_ms = cuda_ms(lambda: pk.blind_rotate_wide_acc32(*args32), 1,
-                        warmup=False)
     one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
     one32 = (hi[:1].contiguous(), *one[1:])
     k7_b1, k7g_b1 = in_turns(lambda: pk.blind_rotate_wide_split(*one),
@@ -4596,22 +4658,21 @@ def _wide_split_classic(card, rate, rows, summary):
         lambda: pk.blind_rotate_wide_split_acc32(*one32),
         lambda: pk.blind_rotate_wide_acc32(*one32), 2)
     del args, args32, one, one32
-    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 2,
-                      warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
     b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
     B = WIDE_SPLIT_BATCH
     bnd = step_bound("blind_rotate_crt", B, n, R, lv, N, P, 8, rate)
     bnd32 = step_bound("blind_rotate_crt_acc32", B, n, R, lv, N, P, 4, rate)
     bnd1 = step_bound("blind_rotate_crt", 1, n, R, lv, N, P, 8, rate)
+    bnd1_32 = step_bound("blind_rotate_crt_acc32", 1, n, R, lv, N, P, 4,
+                         rate)
     occ = pk.wide_cluster_occupancy(P, R, lv, N, 2)
     print(f"4_4 B={B}: KS->PBS {step_ms:.3f} ms = {B / step_ms * 1e3:.1f} "
           f"PBS/s; the split cluster kernel {k7_ms:.3f} ms (bound "
-          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}), K7 global "
-          f"{k7g_ms:.3f} ms in turns ({bnd[0] / k7g_ms:.1%}, "
-          f"{k7g_ms / k7_ms:.2f}x); acc32: split {k7_32_ms:.3f}, global "
-          f"{k7g_32_ms:.3f} ms (one turn each); batch 1: split {k7_b1:.3f}, "
-          f"global {k7g_b1:.3f} ms (acc32 {k7_32_b1:.3f}, {k7g_32_b1:.3f}); "
+          f"{bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}); acc32 "
+          f"{k7_32_ms:.3f} ms; batch 1 in turns: split {k7_b1:.3f}, K7 "
+          f"global {k7g_b1:.3f} ms ({k7g_b1 / k7_b1:.2f}x; acc32 "
+          f"{k7_32_b1:.3f}, {k7g_32_b1:.3f}); "
           f"both designs == plain in both modes on {cts} ciphertexts, the "
           f"first {steps} of {n} steps (plain {plain_ms:.1f}, "
           f"{plain32_ms:.1f} ms); batch 1 KS->PBS {b1_ms:.3f} ms (1 "
@@ -4623,34 +4684,36 @@ def _wide_split_classic(card, rate, rows, summary):
     rows["blind_rotate_wide_split_4_4"] = dict(
         common, launches=launches, max_abs_err=errs["split"], ms=k7_ms,
         plain_ms=plain_ms, bound=bnd, ms_b1=k7_b1, bound_b1_ms=bnd1[0],
-        global_ms=k7g_ms, global_ms_b1=k7g_b1,
+        global_ms_b1=k7g_b1,
         kernel="K7's cluster kernel at split 2 (16 CTAs a ciphertext, each "
                "half of every transform; all steps in one launch), K3's "
                "function, u64 acc")
     rows["blind_rotate_wide_split_acc32_4_4"] = dict(
         common, launches=launches32, max_abs_err=errs32["split"],
         ms=k7_32_ms, plain_ms=plain32_ms, bound=bnd32, ms_b1=k7_32_b1,
-        global_ms=k7g_32_ms, global_ms_b1=k7g_32_b1,
+        global_ms_b1=k7g_32_b1,
         kernel="the split cluster kernel, acc32 (GarnerTail32), "
                "K3-acc32's function")
+    one_shape = f"4_4 B=1 n={n} N={N} l={lv} P={P}"
     wide_global = {
         "blind_rotate_wide_4_4": dict(
-            common, max_abs_err=errs["global"], ms=k7g_ms, plain_ms=plain_ms,
-            bound=bnd, ms_b1=k7g_b1,
+            common, shape=one_shape, max_abs_err=errs["global"], ms=k7g_b1,
+            plain_ms=plain_ms, bound=bnd1, split_ms=k7_b1,
             kernel="K7 global (K7a, K7b, K7c a step), K3's function, the "
-                   "reference timed in turns with the split; launches: the "
-                   "N = 32768, l = 1 corner's, where the dispatch sends it"),
+                   "reference timed in turns with the split at batch 1 (at "
+                   "a wide batch: part j); launches: the N = 32768, l = 1 "
+                   "corner's, where the dispatch sends it"),
         "blind_rotate_wide_acc32_4_4": dict(
-            common, max_abs_err=errs32["global"], ms=k7g_32_ms,
-            plain_ms=plain32_ms, bound=bnd32, ms_b1=k7g_32_b1,
-            kernel="K7 global acc32; launches: the N = 32768, l = 1 "
-                   "corner's")}
+            common, shape=one_shape, max_abs_err=errs32["global"],
+            ms=k7g_32_b1, plain_ms=plain32_ms, bound=bnd1_32,
+            split_ms=k7_32_b1,
+            kernel="K7 global acc32, in turns with the split at batch 1; "
+                   "launches: the N = 32768, l = 1 corner's")}
     summary.update(wide_split_keygen_s=keygen_s, wide_split_key_gb=key_gb,
                    wide_split_pbs_ms=step_ms,
                    wide_split_pbs_per_s=B / step_ms * 1e3,
                    wide_split_ms=k7_ms, wide_split_acc32_ms=k7_32_ms,
-                   wide_split_global_ms=k7g_ms,
-                   wide_split_global_acc32_ms=k7g_32_ms,
+                   wide_split_global_acc32_b1_ms=k7g_32_b1,
                    wide_split_b1_ms=k7_b1, wide_split_global_b1_ms=k7g_b1,
                    wide_split_bound_ms=bnd[0], wide_split_ks_pbs_b1_ms=b1_ms,
                    wide_split_occupancy=occ)
@@ -4779,10 +4842,11 @@ def _wide_deep_classic(card, rate, rows, summary):
     want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
     ct = ck.encrypt(vals)
     lut = sk.generate_lookup_table(f)
-    out = launches_exactly("4_4 2M64 main path",
-                           lambda: sk.apply_lookup_table(ct, lut),
-                           {"body_rotate_u64": 1,
-                            "blind_rotate_wide_split": 1})
+    out, step_ms = launches_exactly("4_4 2M64 main path",
+                                    lambda: sk.apply_lookup_table(ct, lut),
+                                    {"body_rotate_u64": 1,
+                                     "blind_rotate_wide_split": 1},
+                                    timed=True)
     launches = launches_of("blind_rotate_wide_split")[
         "blind_rotate_wide_split"]
     if not np.array_equal(ck.decrypt_message_and_carry(out), want):
@@ -4803,8 +4867,6 @@ def _wide_deep_classic(card, rate, rows, summary):
     k7_b1 = cuda_ms(lambda: pk.blind_rotate_wide_split(*one), 2)
     del args, one
     B = WIDE_DEEP_BATCH
-    step_ms = cuda_ms(lambda: sk.apply_lookup_table(ct, lut), 1,
-                      warmup=False)
     ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
     b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
     bnd = step_bound("blind_rotate_crt", B, n, R, lv, N, P, 8, rate)
@@ -4835,8 +4897,9 @@ def _wide_deep_classic(card, rate, rows, summary):
 
 def _wide_deep_multi_bit(card, rate, rows, summary, rng):
     """Phase 24's GPU group-4 4_4 set at 2M128 (b = 8, l = 4) on K5a and
-    K7 global multi-bit's 64-bit decomposer, random keys at its shape cut
-    to WIDE_DEEP_MB_GROUPS group steps (see ``phase_wide``, h)."""
+    the streamed split's 64-bit decomposer, random keys at its shape cut
+    to WIDE_DEEP_MB_GROUPS group steps, K7 global in turns (see
+    ``phase_wide``, h). Returns K7 global's row at the shape."""
     import torch
 
     from tfhe_tpu_torch._torus import from_u64
@@ -4852,8 +4915,9 @@ def _wide_deep_multi_bit(card, rate, rows, summary, rng):
     P, ng = 4, p.lwe_dimension // g
     B, G, cts = WIDE_DEEP_MB_B, WIDE_DEEP_MB_GROUPS, WIDE_DEEP_MB_PLAIN
     key_gb = ng * 2 * P * ((1 << g) - 1) * lv * R * R * N * 4 / 1e9
-    if pk.wide_route(P, R, lv, N, 8, bl) != "global":
-        raise AssertionError("g4 4_4 2M128: not on K7 global")
+    if pk.wide_route(P, R, lv, N, 8, bl) != "split" or \
+            not pk.split_streams(P, R, lv, N):
+        raise AssertionError("g4 4_4 2M128: not on the streamed split")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
     mbk = _random_multi_bit_key(N, lv, G, g, gen)
     acc = from_u64(rng.integers(0, 1 << 64, size=(B, R, N), dtype=np.uint64),
@@ -4867,12 +4931,12 @@ def _wide_deep_multi_bit(card, rate, rows, summary, rng):
     torch.cuda.synchronize()
     got = launches_of(*LUT_KERNELS)
     want = {"multi_bit_keybundle": chunks,
-            "multi_bit_accumulate_wide": chunks}
-    require_launched("g4 4_4 2M128 the K5a + K7 global pair", {
+            "multi_bit_accumulate_wide_split": chunks}
+    require_launched("g4 4_4 2M128 the K5a + streamed split pair", {
         k: got[k] for k in want})
     if got != {k: want.get(k, 0) for k in got}:
         raise AssertionError(f"g4 4_4 2M128: launches {got}, want {want}")
-    launches = got["multi_bit_accumulate_wide"]
+    launches = got["multi_bit_accumulate_wide_split"]
     k5a_launches = got["multi_bit_keybundle"]
     m4, a4 = mask[:cts].contiguous(), acc[:cts].contiguous()
     check_equal("the pair g4 4_4 2M128", pk.blind_rotate_multi_bit,
@@ -4882,10 +4946,11 @@ def _wide_deep_multi_bit(card, rate, rows, summary, rng):
                                  pk.multi_bit_keybundle_plain,
                                  (m4, mbk, 0, G, bl, lv))
     b4 = pk.multi_bit_keybundle(m4, mbk, 0, G, bl, lv)
-    b_err, b_plain = check_equal("K7 global multi-bit g4 4_4 2M128",
-                                 pk.multi_bit_accumulate_wide,
-                                 pk.multi_bit_accumulate_plain,
-                                 (a4, b4, bl, lv))
+    errs, b_plain = check_equal_all(
+        "K7 multi-bit g4 4_4 2M128",
+        {"stream": pk.multi_bit_accumulate_wide_split,
+         "global": pk.multi_bit_accumulate_wide},
+        pk.multi_bit_accumulate_plain, (a4, b4, bl, lv))
     del b4, out
     scratch = torch.empty(B * C * P * lv * R * R * N, dtype=torch.int32,
                           device=DEVICE)
@@ -4896,13 +4961,16 @@ def _wide_deep_multi_bit(card, rate, rows, summary, rng):
     sizes = [min(C, G - t0) for t0 in range(0, G, C)]
     bundles = {c: pk.multi_bit_keybundle(mask, mbk, 0, c, bl, lv)
                for c in set(sizes)}
-    k7_ms = cuda_ms(lambda: [pk.multi_bit_accumulate_wide(
-        acc, bundles[c], bl, lv) for c in sizes], 1)
+    k7_ms, k7g_ms = in_turns(
+        lambda: [pk.multi_bit_accumulate_wide_split(acc, bundles[c], bl, lv)
+                 for c in sizes],
+        lambda: [pk.multi_bit_accumulate_wide(acc, bundles[c], bl, lv)
+                 for c in sizes], 1)
     del bundles
     one = pk.multi_bit_keybundle(mask[:1].contiguous(), mbk, 0, G, bl, lv)
     acc1 = acc[:1].contiguous()
-    k7_b1 = cuda_ms(lambda: pk.multi_bit_accumulate_wide(acc1, one, bl, lv),
-                    2)
+    k7_b1 = cuda_ms(lambda: pk.multi_bit_accumulate_wide_split(
+        acc1, one, bl, lv), 2)
     pair_ms = cuda_ms(lambda: pk.blind_rotate_multi_bit(acc, mask, mbk, bl,
                                                         lv), 1)
     del one, acc1, mbk
@@ -4916,32 +4984,156 @@ def _wide_deep_multi_bit(card, rate, rows, summary, rng):
           f"key {key_gb:.1f} GB with its duals: random keys, {G} of {ng} "
           f"group steps): B={B}, {chunks} chunks of {C}: the pair "
           f"{pair_ms:.3f} ms; K5a {k5a_ms:.3f} ms (bound {a_bnd[0]:.2f}, "
-          f"{a_bnd[1]}: {a_bnd[0] / k5a_ms:.1%}), K7 global multi-bit "
+          f"{a_bnd[1]}: {a_bnd[0] / k5a_ms:.1%}), the streamed split "
           f"{k7_ms:.3f} ms (bound {b_bnd[0]:.2f}, {b_bnd[1]}: "
-          f"{b_bnd[0] / k7_ms:.1%}); batch 1, {G} steps in one chunk: "
-          f"{k7_b1:.3f} ms (bound {b_bnd1[0]:.3f}); the pair, K5a and K7 "
-          f"global == plain on {cts} ciphertexts over {G} group steps "
-          f"(plain {a_plain:.1f}, {b_plain:.1f} ms); on {card}")
+          f"{b_bnd[0] / k7_ms:.1%}), K7 global {k7g_ms:.3f} ms in turns "
+          f"({b_bnd[0] / k7g_ms:.1%}, {k7g_ms / k7_ms:.2f}x); batch 1, {G} "
+          f"steps in one chunk: the stream {k7_b1:.3f} ms (bound "
+          f"{b_bnd1[0]:.3f}); the pair, K5a, the stream and K7 global == "
+          f"plain on {cts} ciphertexts over {G} group steps (plain "
+          f"{a_plain:.1f}, {b_plain:.1f} ms); on {card}")
     common = dict(replaces=MB_REPLACES, note="no pallas_call: XLA in tfhe_tpu",
                   shape=f"g4 4_4 2M128 B={B} {G} of {ng} group steps N={N} "
                   f"l={lv} b={bl} C={C}, random keys",
                   plain_shape=f"B={cts}, {G} group steps")
-    rows["multi_bit_accumulate_wide_g4_4_4_2m128"] = dict(
-        common, source=WIDE_SOURCE, launches=launches, max_abs_err=b_err,
-        ms=k7_ms, plain_ms=b_plain, bound=b_bnd, ms_b1=k7_b1,
-        bound_b1_ms=b_bnd1[0],
-        kernel="K7 global multi-bit's 64-bit decomposer (GarnerTailDeep<4>), "
-               "K5b's function, all chunks of the call; launches: the pair's "
-               "on random keys")
+    rows["multi_bit_accumulate_wide_split_g4_4_4_2m128"] = dict(
+        common, source=WIDE_SOURCE, launches=launches,
+        max_abs_err=errs["stream"], ms=k7_ms, plain_ms=b_plain, bound=b_bnd,
+        ms_b1=k7_b1, bound_b1_ms=b_bnd1[0], global_ms=k7g_ms,
+        kernel="the split with its levels streamed, 64-bit decomposer "
+               "(GarnerTailDeep<4>), K5b's function, all chunks of the "
+               "call; launches: the pair's on random keys")
     rows["multi_bit_keybundle_g4_4_4_2m128"] = dict(
         common, source=MB_SOURCE, launches=k5a_launches, max_abs_err=a_err,
         ms=k5a_ms, plain_ms=a_plain, bound=a_bnd,
         kernel="K5a at N = 32768, l = 4, all chunks of the call")
     summary.update(wide_deep_mb_key_gb=key_gb, wide_deep_mb_pair_ms=pair_ms,
-                   wide_deep_mb_k5a_ms=k5a_ms, wide_deep_mb_k7_ms=k7_ms,
-                   wide_deep_mb_k7_b1_ms=k7_b1)
+                   wide_deep_mb_k5a_ms=k5a_ms, wide_deep_mb_stream_ms=k7_ms,
+                   wide_deep_mb_global_ms=k7g_ms,
+                   wide_deep_mb_stream_b1_ms=k7_b1)
     del acc, mask
     torch.cuda.empty_cache()
+    return {"multi_bit_accumulate_wide_g4_4_4_2m128": dict(
+        common, source=WIDE_SOURCE, max_abs_err=errs["global"], ms=k7g_ms,
+        plain_ms=b_plain, bound=b_bnd, stream_ms=k7_ms,
+        kernel="K7 global multi-bit (64-bit decomposer), K5b's function, "
+               "timed in turns with the streamed split; launches: the N = "
+               "32768, l = 1 corner's")}
+
+
+def _wide_stream_classic(card, rate, rows, summary):
+    """Phase 24's 2_6 compact-PK set at 2M64 on the split with its levels
+    streamed, real keys (see ``phase_wide``, j). Returns K7 global's row
+    at the set."""
+    import torch
+
+    from tfhe_tpu_torch.ops import pbs_kernel as pk
+    from tfhe_tpu_torch.shortint.client_key import ClientKey
+    from tfhe_tpu_torch.shortint.server_key import ServerKey
+    from tfhe_tpu_torch.utils.params import PARAMS_BY_NAME
+
+    p = PARAMS_BY_NAME[WIDE_STREAM_CLASSIC]
+    t0 = time.perf_counter()
+    ck = ClientKey.generate(p, seed=SEED)
+    sk = ServerKey.generate(ck)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    R, N, lv, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
+    key, n, P = sk.bsk_scan, p.lwe_dimension, sk.num_primes
+    key_gb = key.numel() * 4 / 1e9
+    if sk.variant != "crt" or pk.wide_route(P, R, lv, N, 8, bl) != "split" \
+            or not pk.split_streams(P, R, lv, N):
+        raise AssertionError(f"2_6 CPK 2M64: variant {sk.variant}, not on the "
+                             "streamed split")
+    print(f"keygen 2_6 CPK 2M64 ({WIDE_STREAM_CLASSIC}): {keygen_s:.1f} s, n "
+          f"= {n}, N = {N}, l = {lv}, b = {bl} (b l = {bl * lv}), P = {P}, "
+          f"CRT key {tuple(key.shape)} ({key_gb:.2f} GB); a split CTA "
+          f"holding all l transforms {pk.split_area(P, R, lv, N)} B > "
+          f"{pk._SMEM_LIMIT}, streamed "
+          f"{pk.cluster_smem_formula(P, R, lv, N, 8, 2)} B (digits "
+          f"{pk.split_digit_bytes(P, R, lv, N)} B each)")
+    mod = p.message_modulus * p.carry_modulus
+    f = lambda x: (5 * x + 3) % mod  # noqa: E731
+    vals = np.arange(WIDE_STREAM_BATCH, dtype=np.uint64) % mod
+    want = np.array([f(int(v)) for v in vals], dtype=np.uint64)
+    ct = ck.encrypt(vals)
+    lut = sk.generate_lookup_table(f)
+    out, step_ms = launches_exactly("2_6 CPK 2M64 main path",
+                                    lambda: sk.apply_lookup_table(ct, lut),
+                                    {"body_rotate_u64": 1,
+                                     "blind_rotate_wide_split": 1},
+                                    timed=True)
+    launches = launches_of("blind_rotate_wide_split")[
+        "blind_rotate_wide_split"]
+    if not np.array_equal(ck.decrypt_message_and_carry(out), want):
+        raise AssertionError("2_6 CPK 2M64: the batch decrypts wrong")
+    mask, body = switched(sk, ct)
+    mask = mask.contiguous()
+    acc = pk.body_rotate_u64(lut.acc, body)
+    cts, steps = WIDE_STREAM_PLAIN_CTS, min(WIDE_STREAM_PLAIN_STEPS, n)
+    errs, plain_ms = check_equal_all(
+        "K7 2_6 CPK 2M64", {"stream": pk.blind_rotate_wide_split,
+                            "global": pk.blind_rotate_wide},
+        pk.blind_rotate_crt_plain,
+        (acc[:cts].contiguous(), mask[:cts, :steps].contiguous(),
+         key[:steps].contiguous(), bl, lv))
+    args = (acc, mask, key, bl, lv)
+    k7_ms = cuda_ms(lambda: pk.blind_rotate_wide_split(*args), 1,
+                    warmup=False)
+    Bg = WIDE_STREAM_GLOBAL_B
+    few = (acc[:Bg].contiguous(), mask[:Bg].contiguous(), key, bl, lv)
+    k7_few, k7g_few = in_turns(lambda: pk.blind_rotate_wide_split(*few),
+                               lambda: pk.blind_rotate_wide(*few), 1,
+                               warmup=False)
+    one = (acc[:1].contiguous(), mask[:1].contiguous(), key, bl, lv)
+    k7_b1 = cuda_ms(lambda: pk.blind_rotate_wide_split(*one), 2)
+    del args, few, one
+    B = WIDE_STREAM_BATCH
+    ct1 = ck.encrypt(np.array([7], dtype=np.uint64))
+    b1_ms = cuda_ms(lambda: sk.apply_lookup_table(ct1, lut), 5)
+    bnd = step_bound("blind_rotate_crt", B, n, R, lv, N, P, 8, rate)
+    bnd_few = step_bound("blind_rotate_crt", Bg, n, R, lv, N, P, 8, rate)
+    bnd1 = step_bound("blind_rotate_crt", 1, n, R, lv, N, P, 8, rate)
+    occ = pk.wide_cluster_occupancy(P, R, lv, N, 2)
+    print(f"2_6 CPK 2M64 B={B}: KS->PBS {step_ms:.3f} ms = "
+          f"{B / step_ms * 1e3:.1f} PBS/s; the streamed split {k7_ms:.3f} ms "
+          f"(bound {bnd[0]:.2f} ms, {bnd[1]}: {bnd[0] / k7_ms:.1%}); B={Bg} "
+          f"in turns: the stream {k7_few:.3f} ms "
+          f"({bnd_few[0] / k7_few:.1%}), K7 global {k7g_few:.3f} ms "
+          f"({bnd_few[0] / k7g_few:.1%}, {k7g_few / k7_few:.2f}x); batch 1 "
+          f"{k7_b1:.3f} ms (bound {bnd1[0]:.3f}); both == plain on {cts} "
+          f"ciphertexts, the first {steps} of {n} steps (plain "
+          f"{plain_ms:.1f} ms); batch 1 KS->PBS {b1_ms:.3f} ms (median of "
+          f"5); the stream {occ}; on {card}")
+    common = dict(source=WIDE_SOURCE,
+                  replaces="tfhe_tpu/ops/pbs_kernel.py:1867",
+                  plain_shape=f"B={cts}, {steps} of {n} steps")
+    rows["blind_rotate_wide_split_2_6_cpk"] = dict(
+        common, shape=f"2_6 CPK 2M64 B={B} n={n} N={N} l={lv} b={bl} P={P}",
+        launches=launches, max_abs_err=errs["stream"], ms=k7_ms,
+        plain_ms=plain_ms, bound=bnd, ms_b1=k7_b1, bound_b1_ms=bnd1[0],
+        ms_few=k7_few, global_ms_few=k7g_few,
+        kernel="the split with its levels streamed (16 CTAs a ciphertext, "
+               "one transform buffer and the R partials a CTA, int16 "
+               "digits), 64-bit decomposer (GarnerTailDeep<4>), K3's "
+               "function, u64 acc")
+    summary.update(wide_stream_keygen_s=keygen_s, wide_stream_key_gb=key_gb,
+                   wide_stream_pbs_ms=step_ms,
+                   wide_stream_pbs_per_s=B / step_ms * 1e3,
+                   wide_stream_ms=k7_ms, wide_stream_b1_ms=k7_b1,
+                   wide_stream_few_ms=k7_few,
+                   wide_stream_global_few_ms=k7g_few,
+                   wide_stream_bound_ms=bnd[0], wide_stream_ks_pbs_b1_ms=b1_ms,
+                   wide_stream_occupancy=occ)
+    del ck, sk, ct, out, acc, mask, body, key, ct1
+    torch.cuda.empty_cache()
+    return {"blind_rotate_wide_2_6_cpk": dict(
+        common, shape=f"2_6 CPK 2M64 B={Bg} n={n} N={N} l={lv} b={bl} P={P}",
+        max_abs_err=errs["global"], ms=k7g_few, plain_ms=plain_ms,
+        bound=bnd_few, stream_ms=k7_few,
+        kernel="K7 global (K7a, K7b, K7c a step), 64-bit decomposer, K3's "
+               "function, timed in turns with the streamed split; "
+               "launches: the N = 32768, l = 1 corner's")}
 
 
 def phase_wide(card, rate, rows):
@@ -4951,7 +5143,9 @@ def phase_wide(card, rate, rows):
     in distributed shared memory for all steps, one launch a call); the 4_4
     steps (N = 32768, and N = 16384 at l = 3) on the same kernel at split 2
     (2 P R = 16 CTAs a ciphertext, each holding half of every transform,
-    the accumulator in global memory); K7 global (three stage launches a
+    the accumulator in global memory), with the levels streamed through
+    one transform buffer where a CTA holding all l transforms exceeds a
+    block (N = 32768 at l = 4 to 6); K7 global (three stage launches a
     step through global memory), the reference, is timed beside the split
     in turns and runs the N = 32768, l = 1 corners:
     a. the classic default ``PARAM_MESSAGE_3_CARRY_3_KS_PBS_GAUSSIAN_2M128``
@@ -4982,9 +5176,10 @@ def phase_wide(card, rate, rows):
        cluster kernel and K7 global never), decrypted; the same under
        ``TFHE_V4_ACC=32``; the split and K7 global equal to the plain
        versions in both modes on WIDE_SPLIT_PLAIN_CTS ciphertexts over the
-       first WIDE_SPLIT_PLAIN_STEPS steps; the two in turns at
-       WIDE_SPLIT_BATCH (acc32: one turn each) and at batch 1, both modes;
-       PBS/s, KS -> PBS at batch 1 (median of 5), the bound;
+       first WIDE_SPLIT_PLAIN_STEPS steps; the split timed at
+       WIDE_SPLIT_BATCH in both modes, the two in turns at batch 1, both
+       modes; PBS/s (the main path's own run, timed), KS -> PBS at batch 1
+       (median of 5), the bound;
     e. the multi-bit split shapes WIDE_SPLIT_MB (N = 32768 and N = 16384,
        l = 3, the GPU group-4 4_4 set's and the group-4 1_6 set's) on
        random group-4 keys and accumulators, WIDE_SPLIT_MB_B ciphertexts
@@ -5002,22 +5197,38 @@ def phase_wide(card, rate, rows):
        (K2 u64 once, the split once, nothing else), decrypted; the split
        equal to the plain version on WIDE_DEEP_PLAIN_CTS ciphertexts over
        the first WIDE_DEEP_PLAIN_STEPS steps; timed at WIDE_DEEP_BATCH and
-       1; PBS/s, KS -> PBS at batch 1 (median of 5), the bound;
+       1; PBS/s (the main path's own run, timed), KS -> PBS at batch 1
+       (median of 5), the bound;
     h. tfhe-rs's GPU group-4 4_4 set at 2M128 (n = 1132, N = 32768, b = 8,
-       l = 4) on K5a and K7 global multi-bit: its K5 key (71.2 GB) exceeds
-       the card, so random group-4 keys at its shape over
+       l = 4) on K5a and the streamed split multi-bit: its K5 key (71.2
+       GB) exceeds the card, so random group-4 keys at its shape over
        WIDE_DEEP_MB_GROUPS group steps, WIDE_DEEP_MB_B ciphertexts through
-       the pair (chunks of MB_SCRATCH_BYTES), the pair, K5a and K7 global
-       equal to the plain versions on WIDE_DEEP_MB_PLAIN ciphertexts over
-       all those steps; K5a, K7 global and the pair timed, K7 global at
-       batch 1;
-    i. random keys at WIDE_DEEP_CORNERS (the split at N = 16384, l = 3; K7
-       global at N = 32768, l = 4; the cluster kernel at N = 8192, l = 4;
-       K3 at N = 2048, l = 3 and K5b at N = 1024, l = 4; the multi-bit split
-       and cluster kernel), each equal to its plain version and timed, the
-       acc32 entries refusing each classic one.
+       the pair (chunks of MB_SCRATCH_BYTES), the pair, K5a, the stream
+       and K7 global equal to the plain versions on WIDE_DEEP_MB_PLAIN
+       ciphertexts over all those steps; K5a and the pair timed, the
+       stream and K7 global in turns, the stream at batch 1;
+    i. random keys at WIDE_DEEP_CORNERS (the split at N = 16384, l = 3; the
+       streamed split at N = 32768, l = 4; the cluster kernel at N = 8192,
+       l = 4; K3 at N = 2048, l = 3 and K5b at N = 1024, l = 4; the
+       multi-bit split and cluster kernel; the streamed split's int8
+       digits at the multi-bit l = 5 and 6 shapes and its hi word's
+       decomposer at a classic l = 4, b = 7 shape), each equal to its plain
+       version and timed, the acc32 entries refusing each deep classic one
+       (and at b = 7 running on K7 global);
+    j. the streamed split on real keys: the 2_6 compact-PK set at 2M64
+       ``V1_5_PARAM_MESSAGE_2_CARRY_6_COMPACT_PK_KS_PBS_GAUSSIAN_2M64`` (n
+       = 1111, N = 32768, b = 9, l = 4): keygen (s, GB); WIDE_STREAM_BATCH
+       ciphertexts covering all 256 values through ``apply_lookup_table``
+       (K2 u64 once, the split's entry once, which streams; nothing else),
+       decrypted; the stream and K7 global equal to the plain version on
+       WIDE_STREAM_PLAIN_CTS ciphertexts over the first
+       WIDE_STREAM_PLAIN_STEPS steps; the stream timed at WIDE_STREAM_BATCH
+       and 1, and in turns with K7 global at WIDE_STREAM_GLOBAL_B; PBS/s
+       (the main path's own run, timed), KS -> PBS at batch 1 (median of
+       5), the bound.
     Phase c also holds ``check_supported`` accepting, on the card, every
-    set of the universe with base_log * levels >= 32 at N <= 32768."""
+    set of the universe with base_log * levels >= 32 at N <= 32768. Each
+    part's seconds are printed."""
     import torch
 
     from tfhe_tpu_torch.ops import kernel_bench as kb
@@ -5029,6 +5240,12 @@ def phase_wide(card, rate, rows):
 
     t_phase = time.perf_counter()
     summary = {}
+    parts = {}
+
+    def part_done(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
     # c. the refusals, before any key; the 64-bit decomposer's sets pass
     for name in WIDE_REFUSED:
         try:
@@ -5050,6 +5267,7 @@ def phase_wide(card, rate, rows):
                              "32 at N <= 32768, not the universe's 23")
     print(f"accepted on the card: the {len(deep)} sets with base_log * "
           "levels >= 32 at N <= 32768 (the 64-bit decomposer)")
+    t_part = part_done("c", t_phase)
 
     # a. classic 3_3
     p = PARAMS_BY_NAME[WIDE_CLASSIC]
@@ -5158,6 +5376,7 @@ def phase_wide(card, rate, rows):
                    wide_ks_pbs_b1_ms=b1_ms, wide_k7_occupancy=occ)
     del ck, sk, ct, out, out32, acc, hi, mask, body, key, ct1
     torch.cuda.empty_cache()
+    t_part = part_done("a", t_part)
 
     # b. group-4 3_3
     ck, sk, mb_keygen_s = _multi_bit_keys("g4_3_3", WIDE_MULTI_BIT)
@@ -5267,24 +5486,28 @@ def phase_wide(card, rate, rows):
                    wide_mb_k7_b1_ms=k7_mb_b1, wide_mb_ks_pbs_b1_ms=mb_b1_ms)
     del ck, sk, ct, out, acc, mask, body, mbk, ct1, mask8, acc8
     torch.cuda.empty_cache()
+    t_part = part_done("b", t_part)
 
     # d. classic 4_4 on the split; e. the multi-bit split shapes
-    t_split = time.perf_counter()
     wide_global = _wide_split_classic(card, rate, rows, summary)
+    t_part = part_done("d", t_part)
     rng = np.random.default_rng(SEED + 24)
     for shape in WIDE_SPLIT_MB:
         g_rows, s = _wide_split_multi_bit(*shape, rate, rows, rng)
         wide_global.update(g_rows)
         summary.update(s)
-    summary["wide_split_s"] = time.perf_counter() - t_split
+    t_part = part_done("e", t_part)
 
-    # g, h, i. the 64-bit decomposer
-    t_deep = time.perf_counter()
+    # g, h, i. the 64-bit decomposer; j. the streamed split on real keys
     _wide_deep_classic(card, rate, rows, summary)
-    _wide_deep_multi_bit(card, rate, rows, summary, rng)
+    t_part = part_done("g", t_part)
+    wide_global.update(_wide_deep_multi_bit(card, rate, rows, summary, rng))
+    t_part = part_done("h", t_part)
     for c in WIDE_DEEP_CORNERS:
         _wide_corner(*c, rng, rate, rows)
-    summary["wide_deep_s"] = time.perf_counter() - t_deep
+    t_part = part_done("i", t_part)
+    wide_global.update(_wide_stream_classic(card, rate, rows, summary))
+    t_part = part_done("j", t_part)
 
     # f. the corners; K7 global's launches are theirs
     corner = {c[0]: _wide_corner(*c, rng) for c in WIDE_CORNERS}
@@ -5295,10 +5518,12 @@ def phase_wide(card, rate, rows):
                        if name.startswith(w + "_")), key=len)
         rows[name] = dict(row, launches=corner[label][wrapper],
                           launches_on=f"corner {label}")
+    part_done("f", t_part)
     summary["wide_s"] = time.perf_counter() - t_phase
-    print(f"phase 24: {summary['wide_s']:.1f} s (d and e, the split: "
-          f"{summary['wide_split_s']:.1f} s; g, h and i, the 64-bit "
-          f"decomposer: {summary['wide_deep_s']:.1f} s)")
+    summary["wide_part_s"] = parts
+    print(f"phase 24: {summary['wide_s']:.1f} s (parts, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(parts.items()))
+          + ")")
     return summary
 
 
@@ -5372,9 +5597,11 @@ def main() -> int:
                WIDE_SPLIT_MB for d in ("_split", "")),
              "blind_rotate_wide_split_4_4_2m64",
              "multi_bit_keybundle_g4_4_4_2m128",
+             "multi_bit_accumulate_wide_split_g4_4_4_2m128",
              "multi_bit_accumulate_wide_g4_4_4_2m128",
              *(name for name in rows if name.endswith(tuple(
                  c[0] for c in WIDE_DEEP_CORNERS))),
+             "blind_rotate_wide_split_2_6_cpk", "blind_rotate_wide_2_6_cpk",
              "kb_ntt_fwd", "kb_ntt_inv", "kb_mac", "kb_rotate", "kb_decompose",
              "kb_step_bnf2_acc32_r2", "kb_step_crt_r2")
     order += tuple(f"{short}.{c.name}" for short, mod in

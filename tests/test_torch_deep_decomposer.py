@@ -140,7 +140,9 @@ def test_envelope_and_routes():
     take b l 32..63 at 4 primes; K3-acc32, K3-bnf2, K1 and r14 keep b l <=
     31. The split holds b <= 15 (its int16 digits): the 5 classic sets at
     N = 16384 and 5 at N = 32768 with b = 11, l = 3 route there, the l >= 4
-    sets at N = 32768 to K7 global (a split CTA of 294,912 B and more).
+    sets at N = 32768 to the split with its levels streamed (a split CTA
+    holding all l transforms needs 294,912 B and more; streamed, 229,376 B
+    at l = 4 and, with int8 digits, 221,184 B at l = 6).
     ``crt_refusal`` keeps only N > 32768 beyond a block and b l >= 64."""
     assert pk.decomposer_refusal("blind_rotate_crt", P, 11, 3) is None
     assert pk.decomposer_refusal("multi_bit_accumulate", P, 6, 6) is None
@@ -162,9 +164,12 @@ def test_envelope_and_routes():
     assert route(P, 2, 3, 16384, 8, 11) == route(P, 2, 3, 32768, 8, 11) \
         == "split"
     assert route(P, 2, 4, 32768, 8, 9) == route(P, 2, 5, 32768, 8, 7) \
-        == route(P, 2, 6, 32768, 8, 6) == "global"
-    assert sp.cluster_smem_bytes(P, 2, 4, 32768, 8, split=2) == 294912
-    assert sp.cluster_smem_bytes(P, 2, 6, 32768, 8, split=2) == 442368
+        == route(P, 2, 6, 32768, 8, 6) == "split"
+    assert all(pk.split_streams(P, 2, lv, 32768) for lv in (4, 5, 6))
+    assert pk.split_area(P, 2, 4, 32768) == 294912
+    assert pk.split_area(P, 2, 6, 32768) == 442368
+    assert sp.cluster_smem_bytes(P, 2, 4, 32768, 8, split=2) == 229376
+    assert sp.cluster_smem_bytes(P, 2, 6, 32768, 8, split=2) == 221184
     assert route(P, 2, 2, 32768, 8, 15) == "split"
     assert route(P, 2, 2, 32768, 8, 16) == "global"
     assert not pk.fits_cluster(P, 2, 2, 32768, 8, 2, 16)

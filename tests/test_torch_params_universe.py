@@ -148,10 +148,11 @@ def test_every_set_is_supported():
 
 #: kind -> (the universe's classes of that kind, sets refused on "cuda",
 #: sets whose CRT steps run on K7 there: on its cluster kernel, on the
-#: cluster kernel at split 2, on K7 global)
+#: cluster kernel at split 2, on the split with its levels streamed, on K7
+#: global)
 ENVELOPE = {"classic": (("ClassicPBSParameters", "KeySwitch32PBSParameters"),
-                        20, 48, 15, 2),
-            "multi_bit": (("MultiBitPBSParameters",), 8, 76, 45, 11)}
+                        20, 48, 15, 2, 0),
+            "multi_bit": (("MultiBitPBSParameters",), 8, 76, 45, 11, 0)}
 
 
 @pytest.mark.parametrize("kind", list(ENVELOPE))
@@ -159,7 +160,10 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     """On a CUDA device ``check_supported`` refuses, naming ROADMAP R10
     and N = 65536 alone, the sets whose exact CRT steps no kernel holds:
     N = 65536 (one u32 polynomial beyond a block's shared memory, acc and
-    digits beyond it too), 20 classic and 8 multi-bit sets. The sets with
+    digits beyond it too; nor has the CRT primes' transform a root of
+    order 2N there, so no key can be drawn for them in either package:
+    :func:`test_no_key_at_n_65536`), 20 classic and 8 multi-bit sets. The
+    sets with
     base_log * levels >= 32 at N <= 32768 (12 classic, 11 multi-bit) pass:
     the kernels' 64-bit decomposer takes them. The sets whose acc and
     digits exceed a Hopper block's shared memory (the formula of K3's and
@@ -172,11 +176,14 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     multi-bit (N <= 8192, and N = 16384 at l = 2), both 3_3 GPU defaults
     among them; the cluster kernel at split 2 (a CTA of half the
     transforms, b <= 15) 15 classic and 45 multi-bit (N = 32768 at l <= 3,
-    or N = 16384 at l = 3); K7 global the l >= 4 sets at N = 32768, 2
-    classic and 11 multi-bit (a split CTA of 294,912 B and more). One v6b
-    set more runs its many-LUT and OPRF on K7. Every set passes on the
-    CPU. ``ServerKey.generate`` refuses before it draws a key (its client
-    key here holds no key material at all)."""
+    or N = 16384 at l = 3); the split with its levels streamed the l >= 4
+    sets at N = 32768, 2 classic and 11 multi-bit (a split CTA holding all
+    l transforms needs 294,912 B and more; streamed, at most 229,376 B);
+    K7 global none. One v6b set more runs its many-LUT and OPRF on K7.
+    Every set passes ``check_supported`` on the CPU (as in ``tfhe_tpu``,
+    whose keygen raises at N = 65536 too). ``ServerKey.generate`` refuses
+    before it draws a key (its client key here holds no key material at
+    all)."""
     import types
 
     import torch
@@ -186,10 +193,11 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
     from tfhe_tpu_torch.shortint.server_key import num_primes_for
 
     monkeypatch.delenv("TFHE_NTT_VARIANT", raising=False)
-    classes, n_refused, n_cluster, n_split, n_global = ENVELOPE[kind]
+    classes, n_refused, n_cluster, n_split, n_stream, n_global = \
+        ENVELOPE[kind]
     sets = [params.PARAMS_BY_NAME[n] for n, (k, _) in reg.RAW_PARAMS.items()
             if k in classes]
-    refused, wide, cluster, split = [], [], [], []
+    refused, wide, cluster, split, stream = [], [], [], [], []
     for p in sets:
         check_supported(p, "cpu")
         N, levels, base_log = p.polynomial_size, p.pbs_level, p.pbs_base_log
@@ -213,18 +221,23 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
                 assert route == "cluster"
                 assert levels == 2 and N <= 16384 or N <= 8192
                 cluster.append(p)
-            elif sp.cluster_smem_bytes(P, R, levels, N, 8, split=2) \
-                    <= pk._SMEM_LIMIT:
+            elif not pk.split_streams(P, R, levels, N):
                 assert route == "split" and base_log <= 15
                 assert N == 32768 or (N == 16384 and levels == 3)
                 split.append(p)
-            else:
-                assert route == "global"
+            elif sp.cluster_smem_bytes(P, R, levels, N, 8, split=2) \
+                    <= pk._SMEM_LIMIT:
+                assert route == "split"
                 assert N == 32768 and levels >= 4
                 assert base_log * levels >= 32 and P == pk.DEEP_PRIMES
+                assert base_log <= (15 if levels == 4 else 7)
+                stream.append(p)
+            else:
+                assert route == "global"
     assert len(refused) == n_refused
-    assert (len(cluster), len(split), len(wide) - len(cluster) - len(split)
-            ) == (n_cluster, n_split, n_global)
+    assert (len(cluster), len(split), len(stream),
+            len(wide) - len(cluster) - len(split) - len(stream)
+            ) == (n_cluster, n_split, n_stream, n_global)
     assert all(pk.needs_wide(num_primes_for(p), p.glwe_size, p.pbs_level,
                              p.polynomial_size) for p in wide)
     names = {p.name for p in cluster}
@@ -237,6 +250,34 @@ def test_sets_beyond_the_kernels_refused_on_the_gpu(kind, monkeypatch):
                                  device=torch.device("cuda"))
     with pytest.raises(ValueError, match="cannot run on the GPU"):
         ServerKey.generate(fake)
+
+
+@pytest.mark.parametrize("name", [
+    "V1_5_PARAM_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_2M128",
+    "V1_5_PARAM_GPU_MULTI_BIT_GROUP_2_MESSAGE_4_CARRY_4_KS_PBS_GAUSSIAN_"
+    "2M128"])
+def test_no_key_at_n_65536(name):
+    """Neither ``tfhe_tpu`` nor the port can draw a server key at N = 65536:
+    the second CRT prime 0x3F5D0001 = 16221 * 2^16 + 1 has 2-adicity 16,
+    so it has no root of order 2N = 2^17, and the negacyclic plan asserts
+    while the key is drawn (``lwe_dimension`` cut to 4; one classic and
+    one multi-bit set). On the CPU the port behaves as ``tfhe_tpu``:
+    ``check_supported`` passes and keygen raises the same assertion."""
+    from tfhe_tpu.shortint.client_key import ClientKey as JClientKey
+    from tfhe_tpu.shortint.server_key import ServerKey as JServerKey
+
+    from tfhe_tpu_torch.ops import ntt
+
+    assert ntt.PRIMES32[1] == 0x3F5D0001 == 16221 * 2 ** 16 + 1
+    jp = dataclasses.replace(jparams.PARAMS_BY_NAME[name], lwe_dimension=4)
+    p = dataclasses.replace(params.PARAMS_BY_NAME[name], lwe_dimension=4)
+    assert p.polynomial_size == jp.polynomial_size == 65536
+    check_supported(p, "cpu")
+    with pytest.raises(AssertionError) as je:
+        JServerKey.generate(JClientKey.generate(jp, seed=5))
+    with pytest.raises(AssertionError) as te:
+        ServerKey.generate(ClientKey.generate(p, seed=5, device="cpu"))
+    assert str(je.value) == str(te.value) == str((0x3F5D0001, 2 * 65536))
 
 
 def test_universe_name_carried_into_client_key():

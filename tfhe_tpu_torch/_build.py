@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import sysconfig
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -179,11 +180,18 @@ def _dump_sass(nvcc: str, name: str) -> None:
             f.write(out.stdout)
 
 
+#: wall seconds from the start of the last :func:`build_cuda` to the end
+#: of each library's nvcc (only the libraries that call built)
+BUILD_SECONDS: dict = {}
+
+
 def build_cuda(names=CUDA_SOURCES) -> float:
     """Compile every stale ``csrc/<name>.cu`` at once (one nvcc process per
-    source, all started together). Returns the wall seconds; raises with
-    nvcc's output when a build fails."""
+    source, all started together, each library's SASS dumped as soon as it
+    is built; each one's seconds in :data:`BUILD_SECONDS`). Returns the
+    wall seconds; raises with nvcc's output when a build fails."""
     t0 = time.perf_counter()
+    BUILD_SECONDS.clear()
     headers = _cuda_headers()
     todo = [n for n in names
             if _stale(_so_path(n), os.path.join(CSRC, f"{n}.cu"), *headers)]
@@ -198,18 +206,30 @@ def build_cuda(names=CUDA_SOURCES) -> float:
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    outs = {}
+
+    def wait(n, tmp, proc):
+        outs[n] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, _so_path(n))
+            _dump_sass(nvcc, n)
+        BUILD_SECONDS[n] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(n, tmp, proc))
+               for n, tmp, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for n, tmp, proc in procs:
-        out, _ = proc.communicate()
+        out = outs[n]
         with open(ptxas_report_path(n), "w") as f:
             f.write(out)
         if proc.returncode != 0:
             failed.append(f"--- nvcc {n}.cu (rc {proc.returncode}) ---\n{out}")
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        else:
-            os.replace(tmp, _so_path(n))
-            _dump_sass(nvcc, n)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0

@@ -108,7 +108,10 @@ def _binary_polymul_batch(s_bits: torch.Tensor,
     ``s_bits``: int64[k, N] binary; ``masks``: int64[..., k, N] ->
     int64[..., N]. The CRT-NTT plan has enough primes for the
     1 + 64 + log2(N) + log2(k) bit bound, so the result is the exact
-    product mod 2^64 (the same primes as the JAX package)."""
+    product mod 2^64 (the same primes as the JAX package). The masks go
+    through in slices of at most ``NTT_KEY_CHUNK_ENTRIES`` entries: a
+    bootstrap key's are many GB at N = 32768, and each transform's
+    temporaries P times that."""
     # ops/ is imported at use: the thin client (client.py) encrypts with
     # this module where the server stack is absent
     from ..ops import ntt as ntt_mod
@@ -121,10 +124,16 @@ def _binary_polymul_batch(s_bits: torch.Tensor,
     batch = masks.shape[:-2]
     p = plan.tables(masks.device)["p"].reshape(P, 1, 1, 1)
     s_hat = plan.fwd_digits(s_bits)  # [P, k, N]
-    a_hat = plan.fwd(masks.reshape(-1, k, n))  # [P, M, k, N]
-    prod = torch.remainder(a_hat * s_hat[:, None], p)
-    acc = torch.remainder(prod.sum(dim=2), p[..., 0])  # [P, M, N]
-    return plan.reconstruct_u64(plan.inv(acc)).reshape(batch + (n,))
+    flat = masks.reshape(-1, k, n)
+    out = torch.empty(flat.shape[0], n, dtype=torch.int64,
+                      device=masks.device)
+    step = max(1, NTT_KEY_CHUNK_ENTRIES // (k * n))
+    for i in range(0, flat.shape[0], step):
+        a_hat = plan.fwd(flat[i:i + step])  # [P, M, k, N]
+        prod = torch.remainder(a_hat * s_hat[:, None], p)
+        acc = torch.remainder(prod.sum(dim=2), p[..., 0])  # [P, M, N]
+        out[i:i + step] = plan.reconstruct_u64(plan.inv(acc))
+    return out.reshape(batch + (n,))
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +303,10 @@ def gen_multi_bit_bootstrap_key(in_sk: LweSecretKey, glwe_sk: GlweSecretKey,
         levels)
 
 
-#: standard-domain entries :func:`bootstrap_key_to_ntt` transforms at once:
-#: its int64 temporaries are a few times P such slices, not P keys (a
-#: multi-bit 3_3 key's 7.9 GB would need more than an 80 GB card at once)
+#: standard-domain entries :func:`bootstrap_key_to_ntt` (and the key
+#: product of :func:`_binary_polymul_batch`) transforms at once: its int64
+#: temporaries are a few times P such slices, not P keys (a multi-bit 3_3
+#: key's 7.9 GB would need more than an 80 GB card at once)
 NTT_KEY_CHUNK_ENTRIES = 1 << 24
 
 

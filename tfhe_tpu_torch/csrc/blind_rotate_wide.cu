@@ -74,9 +74,25 @@
 // 32768, l = 2, 221,184 B at l = 3, 110,592 B at N = 16384, l = 3. Still
 // 4 cluster barriers a step and one launch a call.
 //
-// K7 global (the three-stage design, for any shape beyond both: P R > 8,
-// l = 1 at N = 32768, or a split CTA beyond a block, as at N = 32768, l >=
-// 4: tfhe-rs's sets with 4 to 6 levels; the reference the split is timed
+// The split with its levels streamed (the same entries, chosen inside them
+// from the shape: where a split CTA holding all l digit transforms exceeds
+// a block, N = 32768 at l = 4 to 6, tfhe-rs's sets with 4 to 6 levels;
+// u64 accumulator only): the MAC is a sum over levels, so phase B runs
+// level by level within the CTA, after A's barrier: lift digit lev (the
+// pair reads of stage 0), forward-transform it in one half-polynomial
+// buffer, fuse its last two stages with the products against key row lev
+// R + r, and add them into R partial buffers that stay in shared memory.
+// dig is [R + 1][N/2] (rows 0 .. R-1 the partials, as C and D read them;
+// row R the transform), whatever l is: 196,608 B at N = 32768, R = 2. The
+// digits stay int16 where they fit beside it (229,376 B at l = 4, b <=
+// 15), else int8 (b <= 7: a balanced digit lies in [-2^(b-1), 2^(b-1)];
+// 217,088 B at l = 5, 221,184 B at l = 6). Phases A, C and D, the 16 CTAs
+// and the 4 cluster barriers a step are the split's; the R partials are
+// read and written once a level instead of once a step.
+//
+// K7 global (the three-stage design, for any shape beyond all three: P R
+// > 8, l = 1 at N = 32768, the acc32 entries where the split would
+// stream; no set of the universe; the reference the split is timed
 // against), one CMUX step on a chunk of Bc ciphertexts in three launches:
 //   K7a (wide_decompose_kernel), one block a (ciphertext, digit row
 //       j = lev R + r, prime): the balanced digit `lev` of the hi word (at
@@ -426,17 +442,47 @@ __host__ __device__ __forceinline__ int cluster_rows(int R, int levels) {
     return levels > R ? levels : R;
 }
 
+// H = 2: bytes of a split CTA's dynamic shared memory, dig [max(l,
+// R)][N/2] u32 holding all l digit transforms, or (stream) [R + 1][N/2]:
+// the R partials and one transform; and the digits of its 2 S positions
+// [l][2 S], db bytes each (its acc positions stay in global memory)
+__host__ __device__ __forceinline__ size_t split_area(int R, int levels,
+                                                      int log_n, int P,
+                                                      bool stream, int db) {
+    const size_t M = size_t(1) << (log_n - 1);
+    const size_t S = size_t(1) << cluster_log_slice(log_n, P, 2);
+    return (stream ? R + 1 : cluster_rows(R, levels)) * M * 4
+           + (size_t)levels * 2 * S * db;
+}
+
+// Whether the split streams its levels at this shape: a CTA holding all l
+// digit transforms with int16 digits exceeds a block (N = 32768 at l >= 4)
+__host__ __device__ __forceinline__ bool split_streams(int R, int levels,
+                                                       int log_n, int P) {
+    return split_area(R, levels, log_n, P, false, 2) > kSmemLimit;
+}
+
+// Bytes a digit of the split's store: 2 (int16), or 1 (int8) where the
+// split streams and int16 digits do not fit beside its buffers (N = 32768
+// at l >= 5)
+__host__ __device__ __forceinline__ int split_digit_bytes(int R, int levels,
+                                                          int log_n, int P) {
+    return split_streams(R, levels, log_n, P)
+                   && split_area(R, levels, log_n, P, true, 2) > kSmemLimit
+               ? 1 : 2;
+}
+
 // bytes of a CTA's dynamic shared memory. H = 1: dig [max(l, R)][N] u32,
-// the acc slice [S] and the slice's digits [l][S] i32; H = 2: dig [max(l,
-// R)][N/2] u32 and the digits of the CTA's 2 S positions [l][2 S] i16
-// (its acc positions stay in global memory)
+// the acc slice [S] and the slice's digits [l][S] i32; H = 2: split_area
+// of the instantiation the shape takes
 size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes,
                     int H = 1) {
     const size_t N = size_t(1) << log_n;
     const size_t S = size_t(1) << cluster_log_slice(log_n, P, H);
     if (H == 2)
-        return cluster_rows(R, levels) * (N / 2) * 4
-               + (size_t)levels * 2 * S * 2;
+        return split_area(R, levels, log_n, P,
+                          split_streams(R, levels, log_n, P),
+                          split_digit_bytes(R, levels, log_n, P));
     return cluster_rows(R, levels) * N * 4 + S * acc_bytes
            + (size_t)levels * S * 4;
 }
@@ -445,15 +491,20 @@ size_t cluster_smem(int R, int levels, int log_n, int P, int acc_bytes,
 // CTAs a cluster; 16, beyond the portable size, at H = 2), its plan
 // (passes of <= 3 stages, 5 a side), a decomposer (base_log * levels <=
 // 63; for_tail picks it), a CTA area within a block's shared memory; at H
-// = 2 l >= 2 and b <= 15, so that a balanced digit fits its int16 store
-// (|d| <= 2^(b-1)).
+// = 2 l >= 2 and a balanced digit (|d| <= 2^(b-1)) within its store: b <=
+// 15 in int16, b <= 7 in int8; the streamed split on the u64 accumulator
+// at P >= 3 only (has_stream).
 bool cluster_fits(int R, int levels, int base_log, int log_n, int P,
                   int acc_bytes, int H = 1) {
     return P >= 2 && P <= brk::kMaxPrimes && R >= 1 && P * R <= kClusterMax
            && levels >= (H == 2 ? 2 : 1) && base_log >= 1
-           && base_log <= (H == 2 ? 15 : 63)
            && base_log * levels <= 63 && log_n >= kClusterMinLogN
            && log_n <= (H == 2 ? kSplitMaxLogN : kClusterMaxLogN)
+           && base_log <= (H == 2 ? 8 * split_digit_bytes(R, levels, log_n,
+                                                          P) - 1
+                                  : 63)
+           && (H == 1 || (acc_bytes == 8 && P >= 3)
+               || !split_streams(R, levels, log_n, P))
            && cluster_smem(R, levels, log_n, P, acc_bytes, H) <= kSmemLimit;
 }
 
@@ -590,6 +641,55 @@ __device__ void split_lift(uint32_t* dig, uint32_t dsl_sa, int h, int r,
     __syncthreads();
 }
 
+// The streamed split, B: split_lift of digit level `lev` alone, its
+// digits (int16, or int8 where dw = 1) read from their owners, into the
+// transform buffer, dig row R.
+__device__ void stream_lift(uint32_t* dig, uint32_t dsl_sa, int h, int r,
+                            int P, int R, int lev, int dw, int log_n,
+                            int log_s, const uint32_t* __restrict__ tb,
+                            uint32_t p) {
+    constexpr int K = 4, E = 8;
+    const int N = 1 << log_n;
+    const int M = N >> 1;
+    const int log_hl = log_n - K;
+    #pragma unroll 1
+    for (int g = threadIdx.x; g < 1 << log_hl; g += blockDim.x) {
+        uint32_t v[E];
+        #pragma unroll
+        for (int m = 0; m < E; ++m) {
+            const int t = g + (m << log_hl);
+            const int o = t >> log_s;
+            const uint32_t at = wg::mapa(
+                dsl_sa + (uint32_t)(dw * ((lev << (log_s + 1)) + t
+                                          - (o << log_s))),
+                (uint32_t)((o / P) * P * R + r * P + o % P));
+            uint32_t x[2];
+            #pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                const uint32_t a = at + (uint32_t)(dw * (k << log_s));
+                const int32_t d =
+                    dw == 1 ? wg::ld_cluster_s8(a) : wg::ld_cluster_s16(a);
+                const uint32_t m_res =
+                    d < 0 ? (uint32_t)(d + (int32_t)p) : (uint32_t)d;
+                const int tk = t + k * M;
+                x[k] = brk::shoup_mul(m_res, __ldg(tb + brk::T_TW * N + tk),
+                                      __ldg(tb + brk::T_TW_SH * N + tk), p);
+            }
+            v[m] = h == 0
+                ? brk::add_mod(x[0], x[1], p)
+                : brk::shoup_mul(x[0] - x[1] + p,
+                                 __ldg(tb + brk::T_FWD * N + t),
+                                 __ldg(tb + brk::T_FWD_SH * N + t), p);
+        }
+        brk::fwd_regs<3>(v, tb, N, 1, g, log_hl, p);
+        const int base = (R << (log_n - 1)) + g;
+        #pragma unroll
+        for (int m = 0; m < E; ++m)
+            dig[brk::swz(base + (m << log_hl))] = v[m];
+    }
+    __syncthreads();
+}
+
 // H = 2: forward or inverse stages s0 .. s0+K-1 (s0 >= 1) of rows row0 ..
 // row0 + rows - 1 of a CTA's half [.][N/2] (swizzled as one area: a row
 // of N/2 words need not start a swizzle block). From stage 1 on a half is closed
@@ -696,6 +796,56 @@ __device__ void cluster_mac(uint32_t* dig, const uint32_t* __restrict__ key,
         for (int c = 0; c < kClusterRowsMax; ++c) {
             if (c >= R) break;
             brk::sts_run<E>(dig, c * M + t0, mac[c]);
+        }
+    }
+}
+
+// The streamed split, B: cluster_mac of digit level `lev` alone, its
+// transform in dig row R: per item the two stages, then for every output
+// row c its products against key row lev R + r written (lev = 0) or added
+// (mod p) into the partial, dig row c. An item's positions are the same
+// thread's at every level, so the partials need no barrier between
+// levels; the transform buffer does (the caller's, before the next lift).
+template <bool Bundle>
+__device__ void stream_mac(uint32_t* dig, const uint32_t* __restrict__ key,
+                           int pi, int r, int R, int levels, int lev, int P,
+                           int log_n, const uint32_t* __restrict__ tb,
+                           uint32_t p, uint64_t mu) {
+    constexpr int F = 2, E = 4;
+    const int N = 1 << log_n;
+    const int M = N >> 1;
+    const int lR = levels * R;
+    const int s0 = log_n - F;
+    const long long duals = (long long)P * lR * R * N;
+    const uint32_t* kr = key + ((long long)(pi * lR + lev * R + r) * R) * N;
+    #pragma unroll 1
+    for (int g = threadIdx.x; g < M >> F; g += blockDim.x) {
+        const int t0 = g << F;
+        uint32_t d[E];
+        brk::lds_run<E>(dig, R * M + t0, d);
+        brk::fwd_regs<F>(d, tb, N, s0, 0, 0, p);
+        #pragma unroll
+        for (int c = 0; c < kClusterRowsMax; ++c) {
+            if (c >= R) break;
+            uint32_t w[E], s[E];
+            brk::ldg_run<E>(kr + (long long)c * N + t0, w);
+            if constexpr (Bundle) {
+                #pragma unroll
+                for (int m = 0; m < E; ++m) s[m] = mul_mod(d[m], w[m], p, mu);
+            } else {
+                uint32_t ws[E];
+                brk::ldg_run<E>(kr + duals + (long long)c * N + t0, ws);
+                #pragma unroll
+                for (int m = 0; m < E; ++m)
+                    s[m] = brk::shoup_mul(d[m], w[m], ws[m], p);
+            }
+            if (lev > 0) {
+                uint32_t a[E];
+                brk::lds_run<E>(dig, c * M + t0, a);
+                #pragma unroll
+                for (int m = 0; m < E; ++m) s[m] = brk::add_mod(a[m], s[m], p);
+            }
+            brk::sts_run<E>(dig, c * M + t0, s);
         }
     }
 }
@@ -834,8 +984,16 @@ __device__ void split_garner(typename Tail::Acc* acc, uint32_t dig_sa,
 // pi of row r owns the pairs (t, t + N/2), t in [o S, o S + S): their acc
 // words stay in global memory (acc_out: read in A, written in D; the
 // cluster barriers order them), their digits in dsl [l][2 S] i16.
-template <class Tail, bool Bundle, int H>
-__global__ void __launch_bounds__(kClusterThreads, brk::min_blocks(Tail::P))
+//
+// Design: 1, the cluster kernel (H = 1); 2, the split (H = 2); 3, the
+// split with its levels streamed (H = 2; dig [R + 1][N/2], the digits
+// int16 or, where split_digit_bytes says, int8, read by one lift of a
+// run-time width: a lift instantiated for each width spilled). Its CTA
+// takes more than half an SM's shared memory, so it runs one CTA an SM
+// and takes that SM's registers (128 a thread): at 64 it spills.
+template <class Tail, bool Bundle, int Design>
+__global__ void __launch_bounds__(kClusterThreads,
+                                  Design == 3 ? 1 : brk::min_blocks(Tail::P))
 wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                     typename Tail::Acc* __restrict__ acc_out,
                     const int32_t* __restrict__ a_ms,
@@ -848,6 +1006,8 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                     const __grid_constant__ Tail tail) {
     using Acc = typename Tail::Acc;
     constexpr int P = Tail::P;
+    constexpr int H = Design == 1 ? 1 : 2;
+    constexpr bool Stream = Design == 3;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ uint32_t s_p[1];
     __shared__ uint64_t s_mu[1];
@@ -855,10 +1015,14 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
     const int M = N >> (H - 1);  // a CTA's share of a polynomial
     const int log_s = cluster_log_slice(log_n, P, H);
     const int S = 1 << log_s;
+    const int rows = Stream ? R + 1 : cluster_rows(R, levels);
     uint32_t* dig = reinterpret_cast<uint32_t*>(smem_raw);
-    Acc* acc = reinterpret_cast<Acc*>(dig + cluster_rows(R, levels) * M);
+    Acc* acc = reinterpret_cast<Acc*>(dig + rows * M);
     int32_t* dsl = reinterpret_cast<int32_t*>(acc + S);
-    int16_t* dsl16 = reinterpret_cast<int16_t*>(dig + cluster_rows(R, levels) * M);
+    int16_t* dsl16 = reinterpret_cast<int16_t*>(dig + rows * M);
+    int8_t* dsl8 = reinterpret_cast<int8_t*>(dsl16);
+    const bool d8 =
+        Stream && split_digit_bytes(R, levels, log_n, P) == 1;
     const int rank = (int)wg::cluster_rank();
     const int pi = rank % P;
     const int r = H == 1 ? rank / P : (rank / P) % R;
@@ -924,11 +1088,18 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                 auto state = dec.init_word(v);
                 #pragma unroll 1
                 for (int lev = 0; lev < levels; ++lev) {
-                    if constexpr (H == 1)
+                    if constexpr (H == 1) {
                         dsl[(lev << log_s) + u] = dec.next(state);
-                    else
+                    } else if constexpr (Stream) {
+                        const int32_t d = dec.next(state);
+                        if (d8)
+                            dsl8[(lev << (log_s + 1)) + u] = (int8_t)d;
+                        else
+                            dsl16[(lev << (log_s + 1)) + u] = (int16_t)d;
+                    } else {
                         dsl16[(lev << (log_s + 1)) + u] =
                             (int16_t)dec.next(state);
+                    }
                 }
             }
         }
@@ -945,6 +1116,23 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                 if (i + 1 < pl.n_fwd)
                     Passes1::pass_k<false>(pl.fwd_k[i], dig, levels, log_n,
                                            pl.fwd_s0[i], tb, s_p);
+        } else if constexpr (Stream) {
+            // a level at a time through the transform buffer, dig row R,
+            // into the R partials, dig rows 0 .. R-1
+            const uint32_t* kb = key + b * key_b + step * key_step + h * M;
+            #pragma unroll 1
+            for (int lev = 0; lev < levels; ++lev) {
+                stream_lift(dig, wg::smem_u32(dsl16), h, r, P, R, lev,
+                            d8 ? 1 : 2, log_n, log_s, tb, s_p[0]);
+                #pragma unroll
+                for (int i = 1; i + 1 < brk::kMaxPasses; ++i)
+                    if (i + 1 < pl.n_fwd)
+                        half_pass_k<false>(pl.fwd_k[i], dig, R, 1, log_n,
+                                           pl.fwd_s0[i], tb, s_p[0]);
+                stream_mac<Bundle>(dig, kb, pi, r, R, levels, lev, P, log_n,
+                                   tb, s_p[0], s_mu[0]);
+                __syncthreads();
+            }
         } else {
             split_lift(dig, wg::smem_u32(dsl16), h, r, P, R, levels, log_n,
                        log_s, tb, s_p[0]);
@@ -954,9 +1142,11 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
                     half_pass_k<false>(pl.fwd_k[i], dig, 0, levels, log_n,
                                        pl.fwd_s0[i], tb, s_p[0]);
         }
-        cluster_mac<Bundle, H>(dig, key + b * key_b + step * key_step + h * M,
-                               pi, r, R, levels, P, log_n, tb, s_p[0],
-                               s_mu[0]);
+        if constexpr (!Stream)
+            cluster_mac<Bundle, H>(dig,
+                                   key + b * key_b + step * key_step + h * M,
+                                   pi, r, R, levels, P, log_n, tb, s_p[0],
+                                   s_mu[0]);
         wg::cluster_sync<false>();
 
         // C. the partials summed, the inverse passes, the untwist (H = 2:
@@ -1016,6 +1206,29 @@ wide_cluster_kernel(const typename Tail::Acc* __restrict__ acc_in,
             acc_out[row + u] = acc[u];
 }
 
+// Whether the streamed split is instantiated for this tail and entry: on
+// the u64 accumulator at 3 or more primes (cluster_fits refuses the acc32
+// entries and 2 primes where the split streams: 2 primes cannot hold an
+// N = 32768 product), and for the multi-bit entry at its 4 primes only
+// (the wrapper's MB_PRIMES)
+template <class Tail, bool Bundle>
+constexpr bool has_stream() {
+    return sizeof(typename Tail::Acc) == 8 && Tail::P >= 3
+           && (!Bundle || Tail::P == brk::kDeepPrimes);
+}
+
+// The cluster kernel's instantiation at split H and this shape: H = 1;
+// at H = 2 the split, or, where a CTA holding all l digit transforms
+// exceeds a block (split_streams), the split with its levels streamed.
+template <class Tail, bool Bundle, int H>
+auto cluster_kernel_for(int R, int levels, int log_n) {
+    if constexpr (H == 2 && has_stream<Tail, Bundle>()) {
+        if (split_streams(R, levels, log_n, Tail::P))
+            return wide_cluster_kernel<Tail, Bundle, 3>;
+    }
+    return wide_cluster_kernel<Tail, Bundle, H>;
+}
+
 // Launch the cluster kernel at split H on B ciphertexts: grid B H P R,
 // clusters of H P R (16 at H = 2 at the universe's shapes: beyond the
 // portable 8, allowed on the kernel first). Returns the launch's error (0
@@ -1030,9 +1243,11 @@ int launch_cluster(const typename Tail::Acc* acc_in,
     using Acc = typename Tail::Acc;
     constexpr int P = Tail::P;
     if (!cluster_fits(R, levels, base_log, log_n, P, (int)sizeof(Acc), H)
+        || (H == 2 && !has_stream<Tail, Bundle>()
+            && split_streams(R, levels, log_n, P))
         || B < 1 || (long long)B * H * P * R > 0x7fffffffLL || n_steps < 1)
         return (int)cudaErrorInvalidValue;
-    auto kernel = wide_cluster_kernel<Tail, Bundle, H>;
+    auto kernel = cluster_kernel_for<Tail, Bundle, H>(R, levels, log_n);
     const size_t smem =
         cluster_smem(R, levels, log_n, P, (int)sizeof(Acc), H);
     cudaError_t err = allow_smem(kernel, smem);
@@ -1104,7 +1319,8 @@ int cluster_multi_bit(const void* acc_in, void* acc_out, const void* bundles,
     });
 }
 
-// The classic u64 cluster kernel at split H and this shape: out[0..5] =
+// The classic u64 cluster kernel at split H and this shape (at H = 2 the
+// instantiation the shape takes, cluster_kernel_for): out[0..5] =
 // registers and local (spill) bytes a thread, dynamic shared memory,
 // cluster size, resident CTAs per SM and clusters resident on the card
 // (cudaOccupancyMaxActiveClusters). Returns 0, a negative CUDA error, or 1
@@ -1115,7 +1331,7 @@ int cluster_occupancy(int num_primes, int R, int levels, int log_n,
     if (!cluster_fits(R, levels, 1, log_n, num_primes, 8, H)) return 1;
     return for_primes<GarnerTail>(num_primes, [&](auto t) {
         using T = decltype(t);
-        auto kernel = wide_cluster_kernel<T, false, H>;
+        auto kernel = cluster_kernel_for<T, false, H>(R, levels, log_n);
         const size_t smem = cluster_smem(R, levels, log_n, T::P, 8, H);
         const int ctas = H * T::P * R;
         cudaFuncAttributes attr;
@@ -1285,7 +1501,9 @@ extern "C" int multi_bit_accumulate_wide_cluster(
 // The split cluster kernel (wide_cluster_kernel at H = 2): a cluster of
 // 2 P R CTAs a ciphertext, each holding half of every transform, for the
 // shapes one CTA of the cluster kernel cannot hold (N = 32768; N = 16384
-// at l = 3). Arguments as blind_rotate_wide_cluster's, its _acc32 and
+// at l = 3), its levels streamed where a CTA holding all l digit
+// transforms exceeds a block (N = 32768 at l >= 4; not the _acc32 entry).
+// Arguments as blind_rotate_wide_cluster's, its _acc32 and
 // multi_bit_accumulate_wide_cluster's; acc_out must not alias acc_in (it
 // holds the accumulator between steps).
 extern "C" int blind_rotate_wide_split(
@@ -1319,9 +1537,10 @@ extern "C" int multi_bit_accumulate_wide_split(
                                 garner, full_prod, mu, stream);
 }
 
-// Dynamic shared memory of one CTA of the cluster kernel (split 1 or 2)
-// at this shape (acc bytes 8, 4 for the acc32 entries), 0 for a shape it
-// does not take (base_log 1: any decomposer the shape admits).
+// Dynamic shared memory of one CTA of the cluster kernel (split 1 or 2;
+// at 2, of the instantiation the shape takes) at this shape (acc bytes 8,
+// 4 for the acc32 entries), 0 for a shape it does not take (base_log 1:
+// any decomposer the shape admits).
 extern "C" unsigned long long blind_rotate_wide_cluster_smem(
         int P, int R, int levels, int log_n) {
     return cluster_fits(R, levels, 1, log_n, P, 8)

@@ -185,7 +185,7 @@ __device__ __forceinline__ void st_cluster(uint32_t a, uint32_t x,
 }
 
 // loads from shared::cluster address a (mapa's): a word, a u64, 16 bytes,
-// and a signed half-word, sign-extended
+// and a signed half-word or byte, sign-extended
 __device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t a) {
     uint32_t v;
     asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
@@ -194,6 +194,11 @@ __device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t a) {
 __device__ __forceinline__ int32_t ld_cluster_s16(uint32_t a) {
     int32_t v;
     asm volatile("ld.shared::cluster.s16 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ int32_t ld_cluster_s8(uint32_t a) {
+    int32_t v;
+    asm volatile("ld.shared::cluster.s8 %0, [%1];\n" : "=r"(v) : "r"(a));
     return v;
 }
 __device__ __forceinline__ uint64_t ld_cluster_u64(uint32_t a) {

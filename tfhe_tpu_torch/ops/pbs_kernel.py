@@ -57,11 +57,15 @@ of ``tfhe_tpu/ops/ntt64_pbs.py``:
   ``multi_bit_accumulate_wide_split``: 2 P R = 16 CTAs a ciphertext, each
   holding half of every transform) where a CTA of split 1 does not fit
   but one of split 2 does (N = 32768, and N = 16384 at l = 3: tfhe-rs's
-  4_4 sets); and ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
+  4_4 sets), its levels streamed through one transform buffer where a
+  split CTA holding all l digit transforms exceeds a block (the entries
+  choose the instantiation from the shape, :func:`split_streams`: N =
+  32768 at l = 4 to 6, tfhe-rs's sets with 4 to 6 levels); and
+  ``blind_rotate_wide``, ``blind_rotate_wide_acc32`` and
   ``multi_bit_accumulate_wide``, K7 global (acc and digits in global
-  memory, three stage launches a step), for the rest (at N = 32768 the
-  sets with 4 to 6 levels, whose split CTA exceeds a block), also the
-  reference the cluster kernel is timed against.
+  memory, three stage launches a step), for the rest (P R > 8, l = 1 at N
+  = 32768, the acc32 entry where the split would stream: no set of the
+  universe), also the reference the cluster kernel is timed against.
   :func:`blind_rotate_crt`, :func:`blind_rotate_crt_acc32` and
   :func:`multi_bit_accumulate` choose K3 / K5b, the cluster kernel at
   split 1 or 2, or K7 global from the shape alone (:func:`wide_route`).
@@ -1312,18 +1316,48 @@ def cluster_log_slice(N: int, P: int, split: int = 1) -> int:
     return (N.bit_length() - 1) - (P.bit_length() - 1) - 2 * (split - 1)
 
 
+def split_area(P: int, R: int, levels: int, N: int, stream: bool = False,
+               digit_bytes: int = 2) -> int:
+    """Bytes of one CTA of the split (``split_area``): its half of the
+    digit area, [max(l, R)][N/2] u32 holding all l digit transforms, or
+    (``stream``) [R + 1][N/2], the R partials and one transform; and the
+    digits of its 2 S positions [l][2 S], ``digit_bytes`` each (their
+    accumulator words stay in global memory)."""
+    S = 1 << cluster_log_slice(N, P, 2)
+    rows = R + 1 if stream else max(levels, R)
+    return rows * (N // 2) * 4 + levels * 2 * S * digit_bytes
+
+
+def split_streams(P: int, R: int, levels: int, N: int) -> bool:
+    """Whether the split's entries stream the levels at this shape: a CTA
+    holding all l digit transforms exceeds a block's shared memory (N =
+    32768 at l >= 4; ``split_streams`` in the kernel)."""
+    return split_area(P, R, levels, N) > _SMEM_LIMIT
+
+
+def split_digit_bytes(P: int, R: int, levels: int, N: int) -> int:
+    """Bytes a digit of the split's store at this shape: 2 (int16), or 1
+    (int8, so b <= 7) where the split streams and int16 digits do not fit
+    a block beside its buffers (N = 32768 at l >= 5)."""
+    if split_streams(P, R, levels, N) and \
+            split_area(P, R, levels, N, True, 2) > _SMEM_LIMIT:
+        return 1
+    return 2
+
+
 def cluster_smem_formula(P: int, R: int, levels: int, N: int,
                          acc_bytes: int, split: int = 1) -> int:
     """Bytes of one CTA of the cluster kernel. Split 1: its digit area
     [max(l, R)][N] u32, its accumulator slice [S] and the slice's digits
-    [l][S] i32; split 2: its half of the digit area [max(l, R)][N/2] u32
-    and the digits of its 2 S positions [l][2 S] i16 (their accumulator
-    words stay in global memory). The formula of the
-    ``blind_rotate_wide_{cluster,split}*_smem`` exports, which
-    ``chip_smoke.py``'s build phase holds equal, without the library."""
-    S = 1 << cluster_log_slice(N, P, split)
+    [l][S] i32; split 2: :func:`split_area` of the instantiation the
+    shape takes (levels held or streamed, :func:`split_digit_bytes`). The
+    formula of the ``blind_rotate_wide_{cluster,split}*_smem`` exports,
+    which ``chip_smoke.py``'s build phase holds equal, without the
+    library."""
     if split == 2:
-        return max(levels, R) * (N // 2) * 4 + levels * 2 * S * 2
+        return split_area(P, R, levels, N, split_streams(P, R, levels, N),
+                          split_digit_bytes(P, R, levels, N))
+    S = 1 << cluster_log_slice(N, P, split)
     return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
 
 
@@ -1333,16 +1367,23 @@ def fits_cluster(P: int, R: int, levels: int, N: int,
     """Whether the cluster kernel at ``split`` 1 or 2 takes this shape:
     P R at most :data:`CLUSTER_MAX_CTAS` (split P R CTAs a cluster), N in
     CLUSTER_MIN_N..CLUSTER_MAX_N[split], a CTA within a block's shared
-    memory, and at split 2 l >= 2 and ``base_log`` <= 15 (a balanced digit
-    in its int16 store; 1, the default, asks about P, R, l and N alone).
-    ``cluster_fits`` less its decomposer bound, :func:`crt_refusal`'s."""
-    return (2 <= P <= MAX_CRT_PRIMES and R >= 1
+    memory, and at split 2 l >= 2, ``base_log`` <= 15 (a balanced digit
+    in its int16 store) or <= 7 (int8, :func:`split_digit_bytes`), and the
+    u64 accumulator at P >= 3 where the split streams (2 primes cannot
+    hold an N = 32768 product). 1, the default ``base_log``, asks about P,
+    R, l and N alone. ``cluster_fits`` less its decomposer bound,
+    :func:`crt_refusal`'s."""
+    if not (2 <= P <= MAX_CRT_PRIMES and R >= 1
             and levels >= (2 if split == 2 else 1)
-            and (split == 1 or base_log <= 15)
             and P * R <= CLUSTER_MAX_CTAS
-            and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N[split]
-            and cluster_smem_formula(P, R, levels, N, acc_bytes, split)
-            <= _SMEM_LIMIT)
+            and CLUSTER_MIN_N <= N <= CLUSTER_MAX_N[split]):
+        return False
+    if split == 2 and (
+            base_log > 8 * split_digit_bytes(P, R, levels, N) - 1
+            or (acc_bytes != 8 or P < 3) and split_streams(P, R, levels, N)):
+        return False
+    return cluster_smem_formula(P, R, levels, N, acc_bytes, split) \
+        <= _SMEM_LIMIT
 
 
 def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8,
@@ -1350,9 +1391,11 @@ def wide_route(P: int, R: int, levels: int, N: int, acc_bytes: int = 8,
     """The kernel of a CRT step at this shape, from the shape alone: None
     (K3, or K5b: acc and digits fit a block), "cluster" (K7's cluster
     kernel: its CTA fits), "split" (the cluster kernel at split 2: a CTA
-    of half the transforms fits, and ``base_log`` <= 15) or "global" (K7
-    global, the three-stage design: at N = 32768 the sets with l >= 4,
-    whose split CTA exceeds a block)."""
+    of half the transforms fits, or streamed a level at a time where
+    :func:`split_streams`: N = 32768 at l = 4 to 6, tfhe-rs's sets with 4
+    to 6 levels, ``base_log`` <= 15 at l = 4, <= 7 beyond, u64
+    accumulator) or "global" (K7 global, the three-stage design: P R > 8,
+    l = 1 at N = 32768, the acc32 entry where the split would stream)."""
     if not needs_wide(P, R, levels, N, acc_bytes):
         return None
     for route, split in (("cluster", 1), ("split", 2)):
@@ -1575,7 +1618,8 @@ def _k7c_lib():
 
 def wide_cluster_occupancy(P: int, R: int, levels: int, N: int,
                            split: int = 1) -> dict:
-    """The classic cluster kernel at ``split`` 1 or 2 and this shape:
+    """The classic cluster kernel at ``split`` 1 or 2 (at 2, the
+    instantiation the shape takes: levels held or streamed) and this shape:
     registers and local (spill) bytes a thread, dynamic shared memory a
     CTA, cluster size, resident CTAs per SM and clusters resident on the
     card (``cudaOccupancyMaxActiveClusters``). Needs the built library and
@@ -1723,8 +1767,9 @@ def blind_rotate_wide_split(acc: torch.Tensor, msed_mask: torch.Tensor,
     accumulator (see :func:`blind_rotate_crt_plain`) at a shape of
     ``fits_cluster(..., split=2)``: all n steps of the batch in one launch,
     a cluster of 2 P R CTAs a ciphertext, each holding half of every
-    transform. Raises when the card cannot hold such a cluster
-    (:func:`split_clusters`)."""
+    transform, its levels streamed through one transform buffer where
+    :func:`split_streams` (the entry chooses the instantiation). Raises
+    when the card cannot hold such a cluster (:func:`split_clusters`)."""
     if acc.device.type == "cpu":
         return blind_rotate_crt_plain(acc, msed_mask, bsk_scan, base_log,
                                       levels)

@@ -5,7 +5,9 @@ and K7's two designs (``csrc/blind_rotate_wide.cu``, the last sections:
 K7 global's three stages, one polynomial a block on the same passes
 through global memory, and the cluster kernel, P R CTAs a ciphertext
 exchanging slices, digits, partials and residues over distributed shared
-memory, or at split 2, 2 P R CTAs each holding half of every transform).
+memory, or at split 2, 2 P R CTAs each holding half of every transform,
+their levels streamed through one transform buffer where a CTA cannot hold
+them all).
 
 The step kernels run each CMUX step as a few shared-memory passes of up to
 three NTT stages each, in registers (see the header of ``ntt_common.cuh``):
@@ -674,11 +676,13 @@ def cluster_smem_bytes(P: int, R: int, levels: int, N: int,
     """Dynamic shared memory of one CTA of the cluster kernel
     (``cluster_smem``). Split 1: the digit area [max(l, R)][N] u32, the
     accumulator slice [S] and its digits [l][S] i32, S = 2^ceil(log2(N /
-    P)); split 2: the digit area [max(l, R)][N/2] u32 and the digits of
-    the CTA's 2 S positions [l][2 S] i16, S = 2^ceil(log2(N / 4P))."""
-    S = 1 << cluster_log_slice(N, P, split)
+    P)); split 2: ``pk.split_area`` of the instantiation the shape takes
+    (``pk.split_streams``, ``pk.split_digit_bytes``)."""
     if split == 2:
-        return max(levels, R) * (N // 2) * 4 + levels * 2 * S * 2
+        return pk.split_area(P, R, levels, N,
+                             pk.split_streams(P, R, levels, N),
+                             pk.split_digit_bytes(P, R, levels, N))
+    S = 1 << cluster_log_slice(N, P, split)
     return max(levels, R) * N * 4 + S * acc_bytes + levels * S * 4
 
 
@@ -881,6 +885,30 @@ def _half_pass(x, rows, N: int, s0: int, K: int, inverse: bool, tb,
     return x
 
 
+def _stream_mac(d_, key, pi: int, r: int, h: int, lev: int, levels: int,
+                R: int, N: int, tb, p: int, bundle: bool):
+    """The streamed split's B for digit level ``lev`` (``stream_mac``) on
+    one CTA's area ``d_`` [B, (R + 1) M]: per item of 4 positions the last
+    two forward stages of the transform in row R, the products against key
+    row lev R + r, written (lev = 0) or added mod p into the partial, row
+    c."""
+    M = N // 2
+    log_n = N.bit_length() - 1
+    pos4 = (torch.arange(M >> 2) << 2)[:, None] + torch.arange(4)
+    zero = torch.zeros(M >> 2, dtype=torch.int64)
+    d = fwd_regs(d_[:, swz(R * M + pos4)], tb, N, log_n - 2, 2, zero, 0, p)
+    kpos = h * M + pos4
+    jrow = lev * R + r
+    for c in range(R):
+        if bundle:
+            prod = (d * key[:, pi, jrow, c][:, kpos]) % p
+        else:
+            prod = ntt_mod.shoup_mul(d, key[0, pi, jrow, c][kpos],
+                                     key[1, pi, jrow, c][kpos], p)
+        ph = swz(c * M + pos4)
+        d_[:, ph] = prod if lev == 0 else _add_mod(d_[:, ph], prod, p)
+
+
 def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
                  a_of, key_of, bundle: bool):
     """The split cluster kernel's step loop (H = 2), as
@@ -889,7 +917,10 @@ def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
     read in A and written in D by the owner of each position); the digits
     of CTA o = h P + pi of row r are those of its pairs (t, t + N/2), t in
     [o S, o S + S), slot k S + i for position k N/2 + o S + i, stored as
-    int16."""
+    int16. Where the shape streams (``pk.split_streams``, as the kernel's
+    entries choose), B runs a level at a time through one transform buffer
+    (row R) into the R partials (rows 0 .. R-1), and the digits are stored
+    in ``pk.split_digit_bytes`` (int16 or int8)."""
     B, R, N = x.shape
     P, primes = tail.plan.num_primes, tail.plan.primes
     tables = tables_of(tail)
@@ -897,7 +928,10 @@ def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
     M = N // 2
     log_s = cluster_log_slice(N, P, 2)
     S = 1 << log_s
-    D = max(levels, R)
+    stream = pk.split_streams(P, R, levels, N)
+    digit_bytes = pk.split_digit_bytes(P, R, levels, N)
+    half_w = 1 << (8 * digit_bytes - 1)
+    D = R + 1 if stream else max(levels, R)
     fwd, inv = cluster_plan(log_n, 2)
     ranks = [(h, pi, r) for h in range(2) for pi, r in cluster_ranks(P, R)]
     assert all(cluster_rank(*c, P, R) == k for k, c in enumerate(ranks))
@@ -921,20 +955,22 @@ def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
                 v = torch.where(neg, -y, y) - v
             for lev, d in enumerate(lift_digits(v, base_log, levels,
                                                 tail.acc32)):
-                # the kernel's int16 store
-                dsl[rank][:, lev * 2 * S + u] = ((d + (1 << 15)) & 0xFFFF) \
-                    - (1 << 15)
+                # the kernel's int16 (or int8) store
+                dsl[rank][:, lev * 2 * S + u] = \
+                    ((d + half_w) & (2 * half_w - 1)) - half_w
         # B. the lift with stages 0 .. 3 (stage 0 across the halves, half h
         # kept), the half's passes, the last two stages with the MAC
         hl_log = log_n - 4
         g = torch.arange(1 << hl_log)
         t = g[:, None] + (torch.arange(8) << hl_log)  # [G, 8], in [0, N/2)
         o = t >> log_s
+        key = key_of(i)
         for rank, (h, pi, r) in enumerate(ranks):
             p, tb = primes[pi], tables[pi]
             owners = torch.stack([dsl[cluster_rank(q // P, q % P, r, P, R)]
                                   for q in range(2 * P)], 1)
             for lev in range(levels):
+                row = R if stream else lev
                 lifted = []
                 for k in range(2):
                     d = owners[:, o, lev * 2 * S + k * S + t - (o << log_s)]
@@ -947,13 +983,21 @@ def _split_steps(x, count: int, levels: int, base_log: int, tail: Tail,
                 else:
                     w = ntt_mod.shoup_mul(lifted[0] - lifted[1] + p,
                                           tb[T_FWD][t], tb[T_FWD_SH][t], p)
-                dig[rank][:, swz(lev * M + t)] = fwd_regs(w, tb, N, 1, 3, g,
+                dig[rank][:, swz(row * M + t)] = fwd_regs(w, tb, N, 1, 3, g,
                                                           hl_log, p)
+                if not stream:
+                    continue
+                for s0, k in fwd[1:-1]:
+                    dig[rank] = _half_pass(dig[rank], [R], N, s0, k, False,
+                                           tb, p)
+                _stream_mac(dig[rank], key, pi, r, h, lev, levels, R, N, tb,
+                            p, bundle)
+            if stream:
+                continue
             for s0, k in fwd[1:-1]:
                 dig[rank] = _half_pass(dig[rank], range(levels), N, s0, k,
                                        False, tb, p)
-        key = key_of(i)
-        for h in range(2):
+        for h in range(0 if stream else 2):
             half = [dig[cluster_rank(h, pi, r, P, R)]
                     for pi, r in cluster_ranks(P, R)]
             _cluster_mac(half, key, cluster_ranks(P, R), h, levels, R, N, M,

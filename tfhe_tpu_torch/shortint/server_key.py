@@ -111,9 +111,13 @@ def check_supported(p, device=None) -> None:
     multi_bit_refusal`` (K5a with K5b or K7), a classic one outside
     ``pbs_kernel.crt_refusal`` (K3 or K7: the CRT key is the crt variant's
     and, under v6/v6b/v5, many-LUT's and the OPRF's). The universe's 20
-    classic and 8 multi-bit sets at N = 65536 are refused (ROADMAP R10);
-    they run on the CPU only. Its 23 sets with base_log * levels >= 32 at
-    N <= 32768 run on the kernels' 64-bit decomposer."""
+    classic and 8 multi-bit sets at N = 65536 are refused (ROADMAP R10).
+    No key can be drawn for them on the CPU either, here or in
+    ``tfhe_tpu``: the CRT primes have no negacyclic transform at N =
+    65536 (0x3F5D0001 has 2-adicity 16), and keygen raises as
+    ``tfhe_tpu``'s does. Its 23 sets with base_log * levels >= 32 at N <=
+    32768 run on the kernels' 64-bit decomposer; the 13 of them at N =
+    32768 with 4 to 6 levels on K7's split with its levels streamed."""
     g = grouping_of(p)
     if g and p.lwe_dimension % g:
         raise ValueError(f"{p.name}: lwe_dimension {p.lwe_dimension} is not "
@@ -128,8 +132,12 @@ def check_supported(p, device=None) -> None:
         why = pk.crt_refusal(num_primes_for(p), p.glwe_size, p.pbs_level,
                              p.pbs_base_log, p.polynomial_size)
     if why:
+        if p.polynomial_size == 65536:
+            why += ("; nor can a key be drawn on the CPU, here or in "
+                    "tfhe_tpu: the CRT primes have no negacyclic transform "
+                    "at N = 65536 (0x3F5D0001 has 2-adicity 16)")
         raise ValueError(f"{p.name} cannot run on the GPU: {why} (ROADMAP "
-                         "R10); it runs on the CPU only")
+                         "R10)")
 
 
 def is_ks32(p) -> bool:
