@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
    probes' tables too), require each probe's loops to hold the op its
    case names (``IGMMA`` for the wgmma cases) and issue every MAC it
    counts, and print each wgmma kernel's registers, spills, shared
-   memory, cluster size and blocks per SM (a spill fails);
+   memory, cluster size and blocks per SM, and each micro-kernel's
+   threads, registers, spills and blocks per SM (a spill fails);
 2. shortint ``PARAM_MESSAGE_2_CARRY_2_KS_PBS`` (v6b, acc32): seeded keygen,
    a batch of 2048 covering all 16 message+carry values; K2 acc32 and K1
    against their plain versions (exact) on the path's own inputs (K2 on
@@ -69,10 +70,14 @@ Phases (any failure raises and exits non-zero):
     in the port; its parity with K1 is a CPU test): phase 2's batch takes
     the same kernels with it set and gives phase 2's ciphertext bit for
     bit;
-11. the kernel bench: each micro-kernel of ``csrc/kernel_bench.cu`` held
-    exactly against its plain version and timed at a small trip count,
-    then ``kernel_bench.run_all(quick=True)`` with the launch counts
-    around it, one JSON row per micro-benchmark;
+11. the kernel bench: each micro-kernel of ``csrc/kernel_bench.cu``
+    ``torch.equal`` to its plain version on the bench's rows at
+    ``kernel_bench.KB_CHECK_LOOPS`` and at an odd trip count, timed there
+    on the device alone; ``kb_ntt`` and ``kb_rotate`` ``torch.equal`` at
+    every N from 2 to 4096 (``micro_widths_equal``); then
+    ``kernel_bench.run_all(quick=True)`` with the launch counts around it,
+    one JSON row per micro-benchmark (its per-trip share of the INT32
+    bound by two trip counts), and the phase's seconds;
 12. the TPU design probes (``tfhe_tpu_torch/tools``: ``vpu_primitives``,
     ``ntt_variants``, ``v4_probe``, and on the int8 tensor cores
     ``mxu_probe``, ``kernel_experiments``, ``ntt_v3c_experiments`` and the
@@ -262,7 +267,8 @@ Phases (any failure raises and exits non-zero):
     last the ``{"ok": true, "device": {...}}`` line.
 
 Times are CUDA events: a kernel's ``ms`` is the median of a few runs; K2's
-(acc32, r1 and u64) is its kernel's mean device duration over 200
+(acc32, r1 and u64) and the micro-kernels' (``wrapper_ms`` beside them)
+are the kernel's mean device duration over 200
 launches from ``torch.profiler``'s device events, each launch writing
 another of 4 output buffers so that the writes reach HBM
 (``k2_device_ms``; the wrapper-inclusive mean of 200 back-to-back calls
@@ -304,7 +310,9 @@ PLAIN_STEPS = 256  # phases 3, 7, 8, 16, 23's plain checks (of 805-978 steps)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 K2_LAUNCHES = 200  # back-to-back launches per K2 timing
 K2_BUFFERS = 4  # outputs a K2 timing writes in turn: 4 x 33.55 MB > the L2
-KB_CHECK_LOOPS = 16  # micro-kernel passes of the exactness check
+KB_ODD_LOOPS = 3  # micro-kernel passes of the second exactness check: odd,
+# so that kb_rotate's double buffer ends swapped
+KB_WIDTH_ROWS = 5  # rows of the micro-kernels' check at every N
 TRIVIUM_KEY = [(i * 7 + 3) % 2 for i in range(80)]
 TRIVIUM_IV = [(i * 5 + 1) % 2 for i in range(80)]
 README_BLOCKS = 16  # FheUint32 at 2_2
@@ -597,6 +605,7 @@ def phase_build():
               "holds its op; every int8 case's mma loops issue its MACs")
     step_kernel_report()
     wgmma_kernel_report()
+    micro_kernel_report()
     return secs
 
 
@@ -820,6 +829,30 @@ def wgmma_kernel_report():
     if spilled:
         raise AssertionError(f"wgmma kernels spill: {spilled}")
     print(f"wgmma kernels: no spills ({len(WGMMA_KERNELS)} instantiations)")
+
+
+def micro_kernel_report():
+    """Per micro-kernel of the kernel bench at N = 2048 (kb_mac at its 2
+    rows): threads a block, registers, ptxas' spill bytes, local bytes a
+    thread and resident blocks per SM; fails on a spill in any of their
+    instantiations."""
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    spilled = {name: b for name, b in _ptxas_spills("kernel_bench").items()
+               if b and any(f"{k}_kernel" in name for k in (
+                   "kb_ntt", "kb_mac", "kb_rotate", "kb_decompose"))}
+    for fn in kb.MICRO_KERNELS:
+        occ = kb.micro_occupancy(fn.__name__)
+        print(f"  {fn.__name__} (N = {kb.N_BENCH}): {occ['threads']} "
+              f"threads a block, {occ['registers']} registers, "
+              f"{occ['local_bytes']} local bytes a thread, "
+              f"{occ['blocks_per_sm']} blocks per SM")
+        if occ["local_bytes"]:
+            spilled[fn.__name__] = occ["local_bytes"]
+    if spilled:
+        raise AssertionError(f"micro-kernels spill: {spilled}")
+    print("micro-kernels: no spills (every instantiation of kb_ntt, kb_mac, "
+          "kb_rotate, kb_decompose)")
 
 
 def in_turns(new, ref, reps: int = 2, warmup: bool = True) -> tuple:
@@ -1605,8 +1638,13 @@ def phase_stacked_env(sk, ct, lut, want):
 
 def phase_kernel_bench(rate, rows):
     """The micro-kernels held exactly against their plain versions at
-    KB_CHECK_LOOPS passes over the bench's own rows and timed there, then
+    kernel_bench.KB_CHECK_LOOPS and KB_ODD_LOOPS passes over the bench's
+    own rows, and timed at KB_CHECK_LOOPS on the device alone
+    (``k2_device_ms``: the wrapper's host time would hide µs kernels), the
+    templates on N held at every N (:func:`micro_widths_equal`), then
     kernel_bench.run_all(quick=True) with the launch counts around it."""
+    import torch
+
     from tfhe_tpu_torch.ops import kernel_bench as kb
 
     t0 = time.perf_counter()
@@ -1614,23 +1652,34 @@ def phase_kernel_bench(rate, rows):
     checked = {}
     for fn in kb.MICRO_KERNELS:
         name = fn.__name__
-        args = inputs[name] + (KB_CHECK_LOOPS,)
-        err, plain_ms = check_equal(name, fn, getattr(kb, f"{name}_plain"),
-                                    args)
-        ms = cuda_ms(lambda: fn(*args), 5)
+        plain = getattr(kb, f"{name}_plain")
+        args = inputs[name] + (kb.KB_CHECK_LOOPS,)
+        err, plain_ms = check_equal(name, fn, plain, args)
+        odd = inputs[name] + (KB_ODD_LOOPS,)
+        if not torch.equal(fn(*odd), plain(*odd)):
+            raise AssertionError(f"{name} != plain at {KB_ODD_LOOPS} passes")
+        family = name.replace("_fwd", "").replace("_inv", "")
+        dev = k2_device_ms(lambda: fn(*args), kernel=f"{family}_kernel")
         rows_n, N = args[0].shape
         nbytes = 2 * args[0].numel() * args[0].element_size()
         checked[name] = dict(
             source="tfhe_tpu_torch/csrc/kernel_bench.cu",
             replaces="tfhe_tpu/ops/kernel_bench.py:91", max_abs_err=err,
-            ms=ms, plain_ms=plain_ms,
+            ms=dev["device_ms"], wrapper_ms=dev["wrapper_ms"],
+            plain_ms=plain_ms,
             bound=bound(kb.micro_pipe_instructions(name, rows_n, N,
-                                                   KB_CHECK_LOOPS),
+                                                   kb.KB_CHECK_LOOPS),
                         nbytes, rate),
-            shape=f"{rows_n} rows x N={N}, {KB_CHECK_LOOPS} passes",
-            plain_shape=f"{rows_n} rows x N={N}, {KB_CHECK_LOOPS} passes")
-        print(f"{name} == plain at {rows_n} rows, {KB_CHECK_LOOPS} passes: "
-              f"{ms:.4f} ms (plain {plain_ms:.3f} ms)")
+            shape=f"{rows_n} rows x N={N}, {kb.KB_CHECK_LOOPS} passes",
+            plain_shape=f"{rows_n} rows x N={N}, {kb.KB_CHECK_LOOPS} passes")
+        print(f"{name} == plain at {rows_n} rows, {kb.KB_CHECK_LOOPS} and "
+              f"{KB_ODD_LOOPS} passes: {dev['device_ms']:.4f} ms on the "
+              f"device ({dev['wrapper_ms']:.4f} ms a wrapper call; plain "
+              f"{plain_ms:.3f} ms)")
+    widths = micro_widths_equal()
+    print(f"kb_ntt_fwd, kb_ntt_inv, kb_rotate == plain at every N in "
+          f"{widths[0]}..{widths[-1]} ({KB_WIDTH_ROWS} rows, {KB_ODD_LOOPS} "
+          "passes)")
     checked.update(step_references(rate))
     kb.reset_launches()
     bench_rows = kb.run_all(quick=True)
@@ -1645,6 +1694,31 @@ def phase_kernel_bench(rate, rows):
     print(f"kernel bench phase: {secs:.1f} s")
     return {"kernel_bench_s": secs,
             "kernel_bench": {r["metric"]: r["value"] for r in bench_rows}}
+
+
+def micro_widths_equal() -> list:
+    """kb_ntt (both directions) and kb_rotate, templates on log2 N, held
+    ``torch.equal`` to their plain versions at every N they take (2 ..
+    4096: a plan, strides and swizzled addresses of their own each) on
+    KB_WIDTH_ROWS rows at KB_ODD_LOOPS passes, the rotations by 0, N and
+    2N - 1 beside random ones. Returns the widths."""
+    import torch
+
+    from tfhe_tpu_torch.ops import kernel_bench as kb
+
+    widths = [1 << log_n for log_n in range(1, 13)]
+    for N in widths:
+        x = kb.micro_inputs(DEVICE, rows=KB_WIDTH_ROWS, N=N, seed=N)
+        a = x["kb_rotate"][1].clone()
+        a[:3] = torch.tensor([0, N, 2 * N - 1])
+        for fn, args in ((kb.kb_ntt_fwd, x["kb_ntt_fwd"]),
+                         (kb.kb_ntt_inv, x["kb_ntt_inv"]),
+                         (kb.kb_rotate, (x["kb_rotate"][0], a))):
+            plain = getattr(kb, f"{fn.__name__}_plain")
+            if not torch.equal(fn(*args, KB_ODD_LOOPS),
+                               plain(*args, KB_ODD_LOOPS)):
+                raise AssertionError(f"{fn.__name__} != plain at N={N}")
+    return widths
 
 
 def step_references(rate) -> dict:

@@ -36,8 +36,9 @@
 // the tail fused into the last inverse pass; one __syncthreads a pass,
 // eight a step at 2_2 and seven at the boolean set (the radix-2 reference
 // loop: one stage a pass, 25 and 21). forward_stages / inverse_stages below are that earlier loop's
-// stages, kept for the micro-kernels, the probes and the kernel bench's
-// reference (blind_rotate_kernel<Tail, true>).
+// stages, kept for the probes and the kernel bench's reference
+// (blind_rotate_kernel<Tail, true>); the kernel bench's transforms run the
+// step's stages (fwd_regs_with / inv_regs_with) on twiddles of their own.
 
 #pragma once
 
@@ -297,10 +298,12 @@ struct PassPlan {
     int n_inv, inv_s0[kMaxPasses], inv_k[kMaxPasses];
 };
 
-// Split stages [lo, hi) into ceil((hi - lo) / 4) passes of near-equal size,
-// appended in increasing (forward) or decreasing (inverse) stage order.
-__host__ __device__ inline void split_stages(int lo, int hi, bool down,
-                                             int* n, int* s0, int* k) {
+// Split stages [lo, hi) into ceil((hi - lo) / 3) passes of near-equal size,
+// appended in increasing (forward) or decreasing (inverse) stage order;
+// constexpr, so that a kernel templated on N can plan its passes at compile
+// time (the kernel bench's transforms).
+__host__ __device__ constexpr void split_stages(int lo, int hi, bool down,
+                                                int* n, int* s0, int* k) {
     const int len = hi - lo;
     if (len <= 0) return;
     const int cnt = (len + kMaxK - 1) / kMaxK;
@@ -344,12 +347,29 @@ __device__ __forceinline__ int item_origin(int g, int log_hl, int* j) {
     return ((g >> log_hl) << (log_hl + K)) + *j;
 }
 
-// forward stages s0 .. s0+K-1 on the 2^K registers of one item
-template <int K>
-__device__ __forceinline__ void fwd_regs(uint32_t* v,
-                                         const uint32_t* __restrict__ tb,
-                                         int N, int s0, int j, int log_hl,
-                                         uint32_t p) {
+// The twiddle sources of fwd_regs_with / inv_regs_with: Src, the type of
+// the table they read; w(src, N, jj) and w_sh(src, N, jj), stage twiddle jj
+// and its Shoup dual. The step's: rows Row (T_FWD or T_INV) and Row + 1 of
+// the prime's [8][N] table, with __ldg.
+template <int Row>
+struct GlobalTwiddles {
+    using Src = uint32_t;
+    static __device__ __forceinline__ uint32_t w(const uint32_t* tb, int N,
+                                                 int jj) {
+        return __ldg(tb + Row * N + jj);
+    }
+    static __device__ __forceinline__ uint32_t w_sh(const uint32_t* tb,
+                                                    int N, int jj) {
+        return __ldg(tb + (Row + 1) * N + jj);
+    }
+};
+
+// forward stages s0 .. s0+K-1 on the 2^K registers of one item, the
+// twiddles from src through Tw
+template <int K, class Tw>
+__device__ __forceinline__ void fwd_regs_with(
+        uint32_t* v, const typename Tw::Src* __restrict__ src, int N, int s0,
+        int j, int log_hl, uint32_t p) {
     #pragma unroll
     for (int t = 0; t < K; ++t) {
         const int half = 1 << (K - 1 - t);
@@ -360,18 +380,17 @@ __device__ __forceinline__ void fwd_regs(uint32_t* v,
             const int jj = off + ((m & (half - 1)) << log_hl);
             const uint32_t u0 = v[m], u1 = v[m + half];
             v[m] = add_mod(u0, u1, p);
-            v[m + half] = shoup_mul(u0 - u1 + p, __ldg(tb + T_FWD * N + jj),
-                                    __ldg(tb + T_FWD_SH * N + jj), p);
+            v[m + half] = shoup_mul(u0 - u1 + p, Tw::w(src, N, jj),
+                                    Tw::w_sh(src, N, jj), p);
         }
     }
 }
 
 // inverse stages s0+K-1 .. s0 on the 2^K registers of one item
-template <int K>
-__device__ __forceinline__ void inv_regs(uint32_t* v,
-                                         const uint32_t* __restrict__ tb,
-                                         int N, int s0, int j, int log_hl,
-                                         uint32_t p) {
+template <int K, class Tw>
+__device__ __forceinline__ void inv_regs_with(
+        uint32_t* v, const typename Tw::Src* __restrict__ src, int N, int s0,
+        int j, int log_hl, uint32_t p) {
     #pragma unroll
     for (int t = K - 1; t >= 0; --t) {
         const int half = 1 << (K - 1 - t);
@@ -381,13 +400,29 @@ __device__ __forceinline__ void inv_regs(uint32_t* v,
             if (m & half) continue;
             const int jj = off + ((m & (half - 1)) << log_hl);
             const uint32_t u = v[m];
-            const uint32_t bw = shoup_mul(v[m + half],
-                                          __ldg(tb + T_INV * N + jj),
-                                          __ldg(tb + T_INV_SH * N + jj), p);
+            const uint32_t bw = shoup_mul(v[m + half], Tw::w(src, N, jj),
+                                          Tw::w_sh(src, N, jj), p);
             v[m] = add_mod(u, bw, p);
             v[m + half] = add_mod(u, p - bw, p);
         }
     }
+}
+
+// the same stages on the step's twiddles
+template <int K>
+__device__ __forceinline__ void fwd_regs(uint32_t* v,
+                                         const uint32_t* __restrict__ tb,
+                                         int N, int s0, int j, int log_hl,
+                                         uint32_t p) {
+    fwd_regs_with<K, GlobalTwiddles<T_FWD>>(v, tb, N, s0, j, log_hl, p);
+}
+
+template <int K>
+__device__ __forceinline__ void inv_regs(uint32_t* v,
+                                         const uint32_t* __restrict__ tb,
+                                         int N, int s0, int j, int log_hl,
+                                         uint32_t p) {
+    inv_regs_with<K, GlobalTwiddles<T_INV>>(v, tb, N, s0, j, log_hl, p);
 }
 
 // E consecutive words from flat index `base` (a multiple of E) of the

@@ -9,15 +9,27 @@ prints one JSON row per micro-benchmark (and appends it to ``out.jsonl``
 when given). Nothing is caught: a row that fails fails the run.
 
 Five looped micro-kernels (``csrc/kernel_bench.cu``) replace the bodies of
-``_looped_pallas`` (``tfhe_tpu/ops/kernel_bench.py:91``): ``kb_ntt_fwd`` /
-``kb_ntt_inv`` (one-prime negacyclic transform), ``kb_mac`` (Shoup MAC
-against two rows of a GGSW row, true duals), ``kb_rotate`` (negacyclic
-rotation of u64 rows) and ``kb_decompose`` (balanced digits of the hi
-word). Each runs a run-time trip count of its primitive on rows resident in
-shared memory, one block per row, built from the device functions that K1
-and K3 run (``csrc/ntt_common.cuh``). Each has a plain PyTorch version,
-``*_plain``; a wrapper given CPU tensors runs it, given CUDA tensors it
-launches the kernel or raises, and counts its launches in ``launches``.
+``_looped_pallas`` (``tfhe_tpu/ops/kernel_bench.py:91``), each the card's
+ceiling for one primitive of the step, over a run-time trip count: only
+``kb_ntt_fwd`` / ``kb_ntt_inv`` (one-prime negacyclic transform) run the
+step's own pieces, the passes of K1 and K3 (``csrc/ntt_common.cuh``'s
+``split_stages`` plan, ``item_origin``, the swizzled row, and the stages
+``fwd_regs_with`` / ``inv_regs_with`` that the step's ``fwd_regs`` /
+``inv_regs`` call: up to 3 stages a pass in registers, the twist fused into
+the first forward pass, the untwist into the last inverse one), on one row
+a block resident in shared memory beside the direction's twiddles, staged
+there once a block as (value, dual) pairs where the step reads them with
+``__ldg``. ``kb_mac`` (Shoup MAC against two rows of a GGSW row, true
+duals, summed as the step's fused pass sums), ``kb_decompose`` (balanced
+digits of the hi word, ``HiDecomposer``) and ``kb_rotate`` (negacyclic
+rotation of u64 rows) run their primitive alone, where the step fuses it
+into a pass: the first two elementwise in registers for all trips, the
+rotation through a double-buffered row in shared memory. The bound of each
+is the INT32 pipes at the radix-2 loop's work floor (:data:`SASS_OPS`).
+Each has a plain PyTorch version, ``*_plain``, and a CPU mirror of its
+kernel's index formulas, ``*_mirror``; a wrapper given CPU tensors runs
+the plain version, given CUDA tensors it launches the kernel or raises,
+and counts its launches in ``launches``.
 
 The step rows time the step kernels themselves: ``bench_step`` K3 (the
 exact 4-prime CRT step at 2_2, the counterpart of the legacy step of
@@ -64,12 +76,14 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 64 lanes on each INT32 pipe
 #: 1,979 dense INT8 TOPS at 1,830 MHz over 132 SMs (1979e12 / 2 / 132 /
 #: 1.83e9 = 4,096)
 INT8_MACS_PER_SM_CLOCK = 4096
-ROWS_PER_SM = 4  # micro-kernel rows: 4 blocks of 512 threads fill an SM
+ROWS_PER_SM = 4  # micro-kernel rows a SM
 N_BENCH = 2048
 PRIME = ntt_mod.PRIMES32[0]
 MAC_TERMS = 2
+MAC_MAX_TERMS = 4  # the rows g kb_mac's kernel takes
 DECOMP_BASE_LOG, DECOMP_LEVELS = 23, 1
 LOOPS = (256, 4096)  # low and high trip counts of the two-point method
+KB_CHECK_LOOPS = 16  # passes of a micro-kernel's exactness check
 
 #: data instructions per unit of work as sm_90a runs them, (ALU pipe, FMA
 #: pipe, flex), per kernel (a step kernel's Garner tail at P primes as
@@ -81,11 +95,11 @@ LOOPS = (256, 4096)  # low and high trip counts of the two-point method
 #: toolkit :data:`SASS_TOOLKIT`).
 #: An unrolled body is divided by its copies; a step kernel's element loop
 #: holds the remainder copies of the level loop (K1, K3: one; K4: three;
-#: kb_decompose: three of the digit loop, one of which runs), which are
-#: taken out. IMAD in all its forms runs on the FMA pipe; IADD3, ISETP,
-#: SEL, LOP3, SHF, LEA, VIADD and the rest on the ALU pipe. The FMA column
-#: counts issue slots (``fma_slots``): IMAD.HI and IMAD.WIDE count 1.5
-#: (``sass_loops.DOUBLE_SLOTS``, a floor chosen to fit the
+#: kb_decompose's first design: three of the digit loop, one of which
+#: runs), which are taken out. IMAD in all its forms runs on the FMA pipe;
+#: IADD3, ISETP, SEL, LOP3, SHF, LEA, VIADD and the rest on the ALU pipe.
+#: The FMA column counts issue slots (``fma_slots``): IMAD.HI and IMAD.WIDE
+#: count 1.5 (``sass_loops.DOUBLE_SLOTS``, a floor chosen to fit the
 #: ``tools.vpu_primitives`` rows on an H100, not a measured slot cost).
 #: ``flex``: the VIADDs among the ALU column, which may issue on either
 #: pipe (:func:`busier_pipe`); one rule bounds the step kernels, the
@@ -169,7 +183,9 @@ SASS_OPS = {
         "fwd_butterfly": (5, 6.5, 0), "mac": (5, 4.5, 0),
         "inv_butterfly": (7, 7.5, 0), "untwist_tail": (32, 50.5, 1),
         "combine": (7, 10, 1), "coef": (7, 10, 1)},
-    # the micro-kernels, per unit of their loop
+    # the micro-kernels, per unit of their first design's loops (the
+    # radix-2 transform stage by stage, each primitive in shared memory
+    # with a barrier a trip): the work floor that bounds their redesign
     "kb_ntt_fwd": {"twist": (2, 4.5, 0), "fwd_butterfly": (5, 6.5, 0)},
     "kb_ntt_inv": {"inv_butterfly": (7, 7.5, 0), "twist": (2, 4.5, 0)},
     "kb_mac": {"mac": (5, 4.5, 0)},  # per element and term
@@ -236,11 +252,14 @@ SASS_LOOP_TOTALS = {
                                   ("wide_cluster_kernel",
                                    "10GarnerTailILi4EEELb0ELi2E"),
                                   (1255, 1340)),
-    "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0E", (7, 10)),
-    "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1E", (9, 11)),
-    "kb_mac": ("kernel_bench", "kb_mac_kernel", (35, 28)),
-    "kb_rotate": ("kernel_bench", "kb_rotate_kernel", (7, 5)),
-    "kb_decompose": ("kernel_bench", "kb_decompose_kernel", (66, 8)),
+    # the micro-kernels as redesigned (their SASS_OPS units stay the
+    # radix-2 loop's work floor): the transform and the rotation at N =
+    # 2048, kb_mac at 2 rows
+    "kb_ntt_fwd": ("kernel_bench", "kb_ntt_kernelILb0ELi11E", (216, 272)),
+    "kb_ntt_inv": ("kernel_bench", "kb_ntt_kernelILb1ELi11E", (288, 296)),
+    "kb_mac": ("kernel_bench", "kb_mac_kernelILi2E", (72, 72)),
+    "kb_rotate": ("kernel_bench", "kb_rotate_kernelILi11E", (35, 9)),
+    "kb_decompose": ("kernel_bench", "kb_decompose_kernel", (344, 48)),
 }
 
 
@@ -481,6 +500,184 @@ def kb_decompose_plain(x: torch.Tensor, base_log: int, levels: int,
     return x
 
 
+# ---------------------------------------------------------------------------
+# the CPU mirror of the micro-kernels (csrc/kernel_bench.cu)
+# ---------------------------------------------------------------------------
+#
+# Each kernel's index formulas, run on the CPU: the transform's pass plan,
+# its items by lane and round, their positions, the swizzled row and the
+# runs read as 16-byte words; the elementwise kernels' thread-to-element
+# map and 16-byte words; the rotation's words a thread, its source indices
+# and negations, and the double buffer. The arithmetic is the plain
+# versions' (step_passes' registers), so a wrong index shows against them
+# on the CPU.
+
+NTT_THREADS = 256  # kb_ntt's threads, a row a block
+EW = 8  # kb_mac's and kb_decompose's elements a thread
+ROT_THREADS = 512  # kb_rotate's threads, a row a block
+
+
+def ntt_pass_plan(log_n: int, inverse: bool) -> tuple:
+    """kb_ntt's passes of one transform at N = 2^log_n, in the order they
+    run: (first stage, stages, fused twist) each; stages [0, log_n) split as
+    the step splits them (``brk::split_stages``, ``step_passes._split``),
+    the first forward pass twisting, the last inverse pass untwisting."""
+    from . import step_passes as sp
+
+    plan = sp._split(0, log_n, inverse)
+    twisting = len(plan) - 1 if inverse else 0
+    return tuple((s0, k, i == twisting) for i, (s0, k) in enumerate(plan))
+
+
+def _lane_rounds(items: int, threads: int):
+    """The items of a pass in the order lanes take them: item r * threads +
+    lane of round r, the last round cut at ``items``."""
+    g = (torch.arange(-(-items // threads))[:, None] * threads
+         + torch.arange(threads)).reshape(-1)
+    return g[g < items]
+
+
+def kb_ntt_mirror(x: torch.Tensor, loops: int, inverse: bool) -> torch.Tensor:
+    """kb_ntt's index formulas on the CPU: the direction's stage twiddles
+    and twist staged as (value, dual) pairs from the flat [8, N] table as
+    the kernel stages them (``tw2``, ``tt2``), each row copied in 16-byte
+    chunks into its swizzled image, then per trip every pass of
+    :func:`ntt_pass_plan`, its items by lane and round at positions i0 + m
+    hl (``item_origin``), read as 16-byte chunks where hl = 1, the twist
+    from ``tt2`` before the first forward pass's stages, the untwist after
+    the last inverse pass's, the stages those of ``fwd_regs_with`` /
+    ``inv_regs_with`` on twiddle pairs ``tw2[jj]``. ``x``: int32 [rows, N];
+    the result as :func:`kb_ntt_fwd_plain` (or ``_inv``) gives it."""
+    from . import step_passes as sp
+
+    N = x.shape[-1]
+    log_n = N.bit_length() - 1
+    tables = u32_to_i64(torch.from_numpy(pk.plan_tables(_plan1(N)).view(
+        "int32")))[0].reshape(-1)
+    every = torch.arange(N)
+    st, tt = (sp.T_INV, sp.T_UTW) if inverse else (sp.T_FWD, sp.T_TW)
+    tw2 = torch.stack([tables[st * N + every], tables[(st + 1) * N + every]],
+                      dim=-1)
+    tt2 = torch.stack([tables[tt * N + every], tables[(tt + 1) * N + every]],
+                      dim=-1)
+
+    def staged(jj):
+        return tw2[jj, 0], tw2[jj, 1]
+
+    regs = sp.inv_regs_with if inverse else sp.fwd_regs_with
+    img = torch.zeros(x.shape, dtype=torch.int64)
+    img[:, sp.swz(every)] = u32_to_i64(x)
+    for _ in range(loops):
+        for s0, k, twist in ntt_pass_plan(log_n, inverse):
+            log_hl = log_n - s0 - k
+            g = _lane_rounds(N >> k, NTT_THREADS)
+            j = g & ((1 << log_hl) - 1)
+            pos = ((((g >> log_hl) << (log_hl + k)) + j)[:, None]
+                   + (torch.arange(1 << k) << log_hl))
+            phys = sp.swz(pos)
+            if not torch.equal(phys.reshape(-1).sort().values, every):
+                raise AssertionError(f"pass ({s0}, {k}) misses positions")
+            q = min(4, 1 << k)  # words a vector access of lds_run reads
+            run = phys.reshape(-1, q)
+            if log_hl == 0 and not (
+                    torch.equal(run, run[:, :1] + torch.arange(q))
+                    and bool((run[:, 0] % q == 0).all())):
+                raise AssertionError("a vector access of a run is not whole")
+            v = img[:, phys]
+            if twist and not inverse:
+                v = ntt_mod.shoup_mul(v, tt2[pos, 0], tt2[pos, 1], PRIME)
+            v = regs(v, staged, N, s0, k, j, log_hl, PRIME)
+            if twist and inverse:
+                v = ntt_mod.shoup_mul(v, tt2[pos, 0], tt2[pos, 1], PRIME)
+            img[:, phys] = v
+    return i64_to_u32(img[:, sp.swz(every)])
+
+
+def _thread_elements(total: int, N: int):
+    """The elementwise kernels' map: thread i owns elements 8i .. 8i + 7
+    ([threads, 8], with a mask of those < total); where N >= 8 they are 8
+    consecutive positions of one row from a multiple of 8 (the 16-byte
+    words)."""
+    e = torch.arange(-(-total // EW))[:, None] * EW + torch.arange(EW)
+    t = e & (N - 1)
+    if N >= EW and not (torch.equal(t, t[:, :1] + torch.arange(EW))
+                        and bool((t[:, 0] % EW == 0).all())):
+        raise AssertionError("a thread's 8 elements are not one run")
+    return e, e < total, t
+
+
+def kb_mac_mirror(x: torch.Tensor, g2: torch.Tensor,
+                  loops: int) -> torch.Tensor:
+    """kb_mac's thread-to-element map on the CPU: each thread's 8 elements
+    and their positions' rows of g and duals, held over all trips, each trip
+    a sum from 0 of the Shoup products with add_mod. As
+    :func:`kb_mac_plain`."""
+    from . import step_passes as sp
+
+    rows, N = x.shape
+    total = rows * N
+    e, valid, t = _thread_elements(total, N)
+    flat = u32_to_i64(x).reshape(-1)
+    v = torch.where(valid, flat[e.clamp(max=total - 1)], 0)
+    g = u32_to_i64(g2)
+    w, ws = g[0][:, t], g[1][:, t]
+    for _ in range(loops):
+        acc = torch.zeros_like(v)
+        for j in range(g.shape[1]):
+            acc = sp._add_mod(acc, ntt_mod.shoup_mul(v, w[j], ws[j], PRIME),
+                              PRIME)
+        v = acc
+    out = flat.clone()
+    out[e[valid]] = v[valid]
+    return i64_to_u32(out.reshape(rows, N))
+
+
+def kb_decompose_mirror(x: torch.Tensor, base_log: int, levels: int,
+                        loops: int) -> torch.Tensor:
+    """kb_decompose's map on the CPU: thread i's four 16-byte words, the u32
+    words 16i .. 16i + 15 of the rows (lo, hi, lo, hi, ...), the hi words
+    held over all trips, each trip the digits of all 8 states a level at a
+    time. As :func:`kb_decompose_plain`."""
+    from . import step_passes as sp
+
+    rows, N = x.shape
+    total = rows * N
+    e, valid, _ = _thread_elements(total, N)
+    words = torch.stack([x & M32, srl(x, 32)], dim=-1).reshape(-1)
+    w = 2 * e[..., None] + torch.arange(2)  # the thread's (lo, hi) words
+    lo = words[w[..., 0].clamp(max=2 * total - 2)]
+    hi = words[w[..., 1].clamp(max=2 * total - 1)]
+    for _ in range(loops):
+        hi = (hi + sum(sp.hi_digits(hi, base_log, levels))) & M32
+    out = x.reshape(-1).clone()
+    out[e[valid]] = (hi[valid] << 32) | lo[valid]
+    return out.reshape(rows, N)
+
+
+def kb_rotate_mirror(x: torch.Tensor, a: torch.Tensor,
+                     loops: int) -> torch.Tensor:
+    """kb_rotate's formulas on the CPU: each row copied in as 16-byte pairs
+    into one of two buffers, then per trip thread i's words t = i + j *
+    ROT_THREADS, each from source t - a_row, + 2N when negative, less N and
+    negated when >= N; the result in the buffer the trip count's parity
+    leaves it. As :func:`kb_rotate_plain`."""
+    rows, N = x.shape
+    t = _lane_rounds(N, ROT_THREADS)
+    if not torch.equal(t.sort().values, torch.arange(N)):
+        raise AssertionError("the threads miss words of the row")
+    buf = [x.clone(), torch.zeros_like(x)]
+    cur = 0
+    for _ in range(loops):
+        s = t[None, :] - a.to(torch.int64)[:, None]
+        s = s + torch.where(s < 0, 2 * N, 0)
+        neg = s >= N
+        s = s - torch.where(neg, N, 0)
+        v = torch.gather(buf[cur], 1, s)
+        buf[cur ^ 1][:, t] = torch.where(neg, -v, v)
+        cur ^= 1
+    return buf[cur]
+
+
 @functools.lru_cache(maxsize=None)
 def _kb_lib():
     from .._build import cuda_lib
@@ -496,8 +693,11 @@ def _kb_lib():
         v, v, v, v, v, i, i, i, i, i, i, u, u, u, u, u, i, u, v]
     lib.kb_step_crt_r2.argtypes = [v, v, v, v, v, i, i, i, i, i, i, i, v,
                                    ctypes.c_ulonglong, v]
+    p = ctypes.POINTER(i)
+    lib.kb_occupancy.argtypes = [i, i, p, p, p]
     for entry in (lib.kb_ntt, lib.kb_mac, lib.kb_rotate, lib.kb_decompose,
-                  lib.kb_step_bnf2_acc32_r2, lib.kb_step_crt_r2):
+                  lib.kb_step_bnf2_acc32_r2, lib.kb_step_crt_r2,
+                  lib.kb_occupancy):
         entry.restype = ctypes.c_int
     return lib
 
@@ -512,6 +712,8 @@ def _rows_of(name: str, x: torch.Tensor, dtype, loops: int):
         raise ValueError(f"{name}: N={N} is not a power of two in 2..4096")
     if not 0 < rows <= 65535 or loops < 0:
         raise ValueError(f"{name}: rows={rows}, loops={loops}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x is not 16-byte aligned")
     return rows, N.bit_length() - 1
 
 
@@ -552,6 +754,9 @@ def kb_mac(x: torch.Tensor, g2: torch.Tensor, loops: int) -> torch.Tensor:
     if g2.shape[0] != 2 or g2.shape[2] != x.shape[1]:
         raise ValueError(f"g2 shape {tuple(g2.shape)} != [2, terms, "
                          f"{x.shape[1]}]")
+    if not 1 <= g2.shape[1] <= MAC_MAX_TERMS or g2.data_ptr() % 16:
+        raise ValueError(f"kb_mac: {g2.shape[1]} rows g (the kernel takes "
+                         f"1..{MAC_MAX_TERMS}, 16-byte aligned)")
     out = torch.empty_like(x)
     rc = _kb_lib().kb_mac(pk._ptr(x), pk._ptr(out), pk._ptr(g2), rows,
                           g2.shape[1], log_n, PRIME, loops,
@@ -592,6 +797,25 @@ def kb_decompose(x: torch.Tensor, base_log: int, levels: int,
     pk._raise_on(rc, "kb_decompose")
     kb_decompose.launches += 1
     return out
+
+
+#: ``kb_occupancy``'s index of each micro-kernel
+_OCCUPANCY_INDEX = {"kb_ntt_fwd": 0, "kb_ntt_inv": 1, "kb_mac": 2,
+                    "kb_rotate": 3, "kb_decompose": 4}
+
+
+def micro_occupancy(name: str, N: int = N_BENCH) -> dict:
+    """Threads a block, resident blocks per SM, registers and local (spill)
+    bytes a thread of micro-kernel ``name`` at N (kb_mac at 2 terms).
+    Needs the built library and a GPU."""
+    t, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    blocks = _kb_lib().kb_occupancy(_OCCUPANCY_INDEX[name],
+                                    N.bit_length() - 1, ctypes.byref(t),
+                                    ctypes.byref(regs), ctypes.byref(local))
+    if blocks <= 0:
+        raise RuntimeError(f"kb_occupancy {name}: {blocks} at N={N}")
+    return {"threads": t.value, "blocks_per_sm": blocks,
+            "registers": regs.value, "local_bytes": local.value}
 
 
 def kb_step_bnf2_acc32_r2(acc_hi: torch.Tensor, msed_mask: torch.Tensor,

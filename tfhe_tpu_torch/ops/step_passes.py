@@ -148,33 +148,45 @@ def _pairs(K: int, t: int):
     return lower, lower + half, lower & (half - 1)
 
 
-def fwd_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+def fwd_regs_with(v, tw, N: int, s0: int, K: int, j, log_hl: int, p: int):
     """Forward stages s0 .. s0+K-1 on the registers v [..., G, 2^K] of the
-    items (``brk::fwd_regs``); tb: the prime's int64 [8, N] table, j: [G]."""
+    items (``brk::fwd_regs_with``); tw(jj): twiddles jj and their Shoup
+    duals, j: [G]."""
     v = v.clone()
     for t in range(K):
         lower, upper, k = _pairs(K, t)
-        jj = (N - (N >> (s0 + t))) + j[:, None] + (k << log_hl)
+        w, w_sh = tw((N - (N >> (s0 + t))) + j[:, None] + (k << log_hl))
         u0, u1 = v[..., lower], v[..., upper]
         v[..., lower] = _add_mod(u0, u1, p)
-        v[..., upper] = ntt_mod.shoup_mul(u0 - u1 + p, tb[T_FWD][jj],
-                                          tb[T_FWD_SH][jj], p)
+        v[..., upper] = ntt_mod.shoup_mul(u0 - u1 + p, w, w_sh, p)
     return v
 
 
-def inv_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+def inv_regs_with(v, tw, N: int, s0: int, K: int, j, log_hl: int, p: int):
     """Inverse stages s0+K-1 .. s0 on the registers of the items
-    (``brk::inv_regs``)."""
+    (``brk::inv_regs_with``)."""
     v = v.clone()
     for t in reversed(range(K)):
         lower, upper, k = _pairs(K, t)
-        jj = (N - (N >> (s0 + t))) + j[:, None] + (k << log_hl)
+        w, w_sh = tw((N - (N >> (s0 + t))) + j[:, None] + (k << log_hl))
         u = v[..., lower]
-        bw = ntt_mod.shoup_mul(v[..., upper], tb[T_INV][jj], tb[T_INV_SH][jj],
-                               p)
+        bw = ntt_mod.shoup_mul(v[..., upper], w, w_sh, p)
         v[..., lower] = _add_mod(u, bw, p)
         v[..., upper] = _add_mod(u, p - bw, p)
     return v
+
+
+def fwd_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+    """:func:`fwd_regs_with` on the step's twiddles (``brk::fwd_regs``); tb:
+    the prime's int64 [8, N] table."""
+    return fwd_regs_with(v, lambda jj: (tb[T_FWD][jj], tb[T_FWD_SH][jj]), N,
+                         s0, K, j, log_hl, p)
+
+
+def inv_regs(v, tb, N: int, s0: int, K: int, j, log_hl: int, p: int):
+    """:func:`inv_regs_with` on the step's twiddles (``brk::inv_regs``)."""
+    return inv_regs_with(v, lambda jj: (tb[T_INV][jj], tb[T_INV_SH][jj]), N,
+                         s0, K, j, log_hl, p)
 
 
 def _phys(polys, N: int, pos):
